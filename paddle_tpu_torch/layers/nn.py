@@ -1,0 +1,192 @@
+"""Neural-network layers used by the BERT encoder and its eval head
+(mirrors ``paddle_tpu/layers/nn.py``: ``fc`` :87, ``embedding`` :124,
+``layer_norm`` :342, ``dropout`` :408, ``softmax`` :427, ``matmul`` :594,
+``elementwise_add`` :637, ``reshape`` :665, ``transpose`` :678,
+``fused_dropout_add_ln`` :1084, ``fused_multihead_attention`` :1113).
+Each layer appends the same op types, slots and attrs as the reference,
+so the two packages build the same program."""
+
+import numpy as np
+
+from ..initializer import ConstantInitializer
+from ..layer_helper import LayerHelper
+
+__all__ = ["fc", "embedding", "layer_norm", "dropout", "softmax", "matmul",
+           "elementwise_add", "reshape", "transpose", "fused_dropout_add_ln",
+           "fused_multihead_attention"]
+
+
+def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
+       act=None, is_test=False, name=None):
+    """mul per input (+ sum) + bias + activation."""
+    helper = LayerHelper("fc", **locals())
+    dtype = helper.input_dtype()
+    mul_results = []
+    for input_var, p_attr in helper.iter_inputs_and_params():
+        param_shape = [int(np.prod([abs(d) for d in
+                                    input_var.shape[num_flatten_dims:]]))
+                       ] + [size]
+        w = helper.create_parameter(attr=p_attr, shape=param_shape,
+                                    dtype=dtype, is_bias=False)
+        tmp = helper.create_variable_for_type_inference(dtype)
+        helper.append_op(
+            type="mul", inputs={"X": [input_var], "Y": [w]},
+            outputs={"Out": [tmp]},
+            attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1})
+        mul_results.append(tmp)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_variable_for_type_inference(dtype)
+        helper.append_op(type="sum", inputs={"X": mul_results},
+                         outputs={"Out": [pre_bias]})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
+    return helper.append_activation(pre_act)
+
+
+def embedding(input, size, is_sparse=False, is_distributed=False,
+              padding_idx=None, param_attr=None, dtype="float32"):
+    """Embedding lookup → ``lookup_table``; a negative ``padding_idx``
+    counts from the end of the table."""
+    helper = LayerHelper("embedding", **locals())
+    w = helper.create_parameter(attr=helper.param_attr, shape=size,
+                                dtype=dtype, is_bias=False)
+    tmp = helper.create_variable_for_type_inference(dtype)
+    padding_idx = (-1 if padding_idx is None
+                   else padding_idx if padding_idx >= 0
+                   else size[0] + padding_idx)
+    helper.append_op(
+        type="lookup_table", inputs={"W": [w], "Ids": [input]},
+        outputs={"Out": [tmp]},
+        attrs={"is_sparse": is_sparse, "is_distributed": is_distributed,
+               "padding_idx": padding_idx})
+    return tmp
+
+
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
+               epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
+               name=None):
+    helper = LayerHelper("layer_norm", **locals())
+    dtype = input.dtype
+    param_shape = [int(np.prod([abs(d) for d in
+                                input.shape[begin_norm_axis:]]))]
+    inputs = {"X": [input]}
+    if scale:
+        inputs["Scale"] = [helper.create_parameter(
+            attr=helper.param_attr, shape=param_shape, dtype="float32",
+            default_initializer=ConstantInitializer(1.0))]
+    if shift:
+        inputs["Bias"] = [helper.create_parameter(
+            attr=helper.bias_attr, shape=param_shape, dtype="float32",
+            is_bias=True)]
+    out = helper.create_variable_for_type_inference(dtype)
+    mean = helper.create_variable_for_type_inference("float32", True)
+    var = helper.create_variable_for_type_inference("float32", True)
+    helper.append_op(
+        type="layer_norm", inputs=inputs,
+        outputs={"Y": [out], "Mean": [mean], "Variance": [var]},
+        attrs={"begin_norm_axis": begin_norm_axis, "epsilon": epsilon})
+    return helper.append_activation(out)
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    helper = LayerHelper("dropout", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    mask = helper.create_variable_for_type_inference("uint8", True)
+    helper.append_op(
+        type="dropout", inputs={"X": [x]},
+        outputs={"Out": [out], "Mask": [mask]},
+        attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+               "seed": seed if seed is not None else 0,
+               "dropout_implementation": dropout_implementation})
+    return out
+
+
+def softmax(input, use_cudnn=False, name=None, axis=-1):
+    helper = LayerHelper("softmax", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="softmax", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    helper = LayerHelper("matmul", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="matmul", inputs={"X": [x], "Y": [y]}, outputs={"Out": [out]},
+        attrs={"transpose_X": transpose_x, "transpose_Y": transpose_y,
+               "alpha": float(alpha)})
+    return out
+
+
+def elementwise_add(x, y, axis=-1, act=None, name=None):
+    helper = LayerHelper("elementwise_add", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="elementwise_add", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return helper.append_activation(out)
+
+
+def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
+    helper = LayerHelper("reshape2", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype, True)
+    helper.append_op(type="reshape2", inputs={"X": [x]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs={"shape": [int(s) for s in shape]})
+    return helper.append_activation(out)
+
+
+def transpose(x, perm, name=None):
+    helper = LayerHelper("transpose2", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype, True)
+    helper.append_op(type="transpose2", inputs={"X": [x]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs={"axis": list(perm)})
+    return out
+
+
+def fused_dropout_add_ln(x, residual, dropout_prob=0.0, epsilon=1e-5,
+                         param_attr=None, bias_attr=None, name=None):
+    """``layer_norm(residual + dropout(x))`` over the last axis as one op
+    (the fused LN kernel on the GPU); its [D] scale/bias parameters match
+    ``layer_norm(begin_norm_axis=ndim-1)``'s."""
+    helper = LayerHelper("fused_dropout_add_ln", **locals())
+    d = x.shape[-1]
+    scale = helper.create_parameter(
+        attr=helper.param_attr, shape=[d], dtype="float32",
+        default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(attr=helper.bias_attr, shape=[d],
+                                   dtype="float32", is_bias=True)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="fused_dropout_add_ln",
+        inputs={"X": [x], "Residual": [residual], "Scale": [scale],
+                "Bias": [bias]},
+        outputs={"Out": [out]},
+        attrs={"dropout_prob": float(dropout_prob),
+               "epsilon": float(epsilon)})
+    return out
+
+
+def fused_multihead_attention(q, k, v, bias=None, causal=False, scale=None,
+                              dropout_rate=0.0, name=None):
+    """Multi-head attention over [B, H, T, Dh] tensors as one op (the
+    flash-attention kernel on the GPU); ``bias`` is an additive key bias
+    [B, Tk] or [B,1,1,Tk]."""
+    helper = LayerHelper("fused_multihead_attention", **locals())
+    out = helper.create_variable_for_type_inference(q.dtype)
+    inputs = {"Q": [q], "K": [k], "V": [v]}
+    if bias is not None:
+        inputs["BiasQK"] = [bias]
+    attrs = {"causal": bool(causal)}
+    if dropout_rate:
+        attrs["dropout_rate"] = float(dropout_rate)
+    if scale is not None:
+        attrs["scale"] = float(scale)
+    helper.append_op(type="fused_multihead_attention", inputs=inputs,
+                     outputs={"Out": [out]}, attrs=attrs)
+    return out

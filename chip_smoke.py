@@ -9,26 +9,43 @@ and the CUDA toolkit.  Phases, each printing one JSON line:
 1. environment: the card's name and power limit (``nvidia-smi``), torch
    and CUDA versions;
 2. build: ``nvcc`` builds the kernel library from ``paddle_tpu_torch/csrc``;
-3. kernels: each hand-written kernel against its plain PyTorch version on
-   the card, in float32 and bfloat16, at the serving path's shapes and at
-   edge cases, with the error beside its tolerance; then the kernel, the
-   plain version and one PyTorch library call for the same function are
-   timed with L2 flushed before every call (the library call is a
-   yardstick only; the port never calls it);
-4. main path: BERT-base (vocab 30522, hidden 768, 12 layers, 12 heads,
-   ffn 3072) at sequence length 512 with random weights from a seed is
-   built with the port's layers, exported with ``save_inference_model``,
-   loaded by ``AnalysisPredictor`` on the GPU and served through
-   ``PredictorServer``; every result must be finite, match a direct
-   ``predictor.run`` and (for one request) a CPU predictor on the plain
-   versions; the launch counters must rise by 12 / 25 / 3 per dispatched
-   batch; latency and tokens/s are taken after the 8-row bucket is warm;
+3. kernels: each hand-written kernel (flash attention forward, its dK/dV
+   and dQ backward kernels, fused add+LN forward and backward, embedding
+   gather) against its plain PyTorch version on the card, in float32 and
+   bfloat16, at dropout 0 and 0.1, at the main paths' shapes and at edge
+   cases (ragged T, head dims 96 and 128, causal, fully masked rows),
+   with the error beside its tolerance, and the kernels' dropout keep
+   fractions against 1 - rate; then the kernel, the plain version and
+   one PyTorch library call for the same function are timed with L2
+   flushed before every call (the library call is a yardstick only; the
+   port never calls it);
+4. main path, serving: BERT-base (vocab 30522, hidden 768, 12 layers, 12
+   heads, ffn 3072) at sequence length 512 with random weights from a
+   seed is built with the port's layers, exported with
+   ``save_inference_model``, loaded by ``AnalysisPredictor`` on the GPU
+   and served through ``PredictorServer``; every result must be finite,
+   match a direct ``predictor.run`` and (for one request) a CPU
+   predictor on the plain versions; the launch counters must rise by
+   12 / 25 / 3 per dispatched batch; latency and tokens/s are taken
+   after the 8-row bucket is warm;
 5. profile: on the same predictor, latency and host dispatch time per
    bucket, and for bucket 8 the device time by kernel group
-   (``torch.profiler``) and the device's idle share.
+   (``torch.profiler``) and the device's idle share;
+6. main path, training: ``models/bert.build_pretrain`` (MLM head, Adam,
+   dropout 0.1) for BERT-base at T=512 runs ``TRAIN_WARMUP`` + ``TRAIN_STEPS``
+   steps of batch 8 on one repeated batch through ``Executor``; the loss
+   must be finite and fall, and every step must launch exactly 12 flash
+   forward, 12 dK/dV, 12 dQ, 25 LN forward, 25 LN backward and 3 gather
+   kernels; step time, tokens/s, peak memory, the host's time to enqueue
+   a step, and the device time by kernel group with the idle share (and
+   the busiest host ops) over two profiled steps;
+7. train parity: one dropout-0.1 step of a 2-layer BERT at BERT-base
+   width (batch 2, T=512) on the card and on the CPU with the plain
+   versions, from the same seeded start and with the same masks; the
+   loss and three gradients must agree within the stated tolerances.
 
-Then one JSON line lists every ported kernel with its launches on the
-main path and its times, a line gives ``nvidia-smi``'s name and power
+Then one JSON line lists every ported kernel with its launches in the
+training run and its times, a line gives ``nvidia-smi``'s name and power
 limit, and the last line is ``{"ok": true, "device": {...}}``.  Any failed
 phase exits non-zero before that line.  Without a CUDA device, or without
 the repository beside it, the script exits 2 and prints no result.
@@ -54,6 +71,17 @@ REQUEST_ROWS = (1, 2, 3, 1, 2, 3, 1, 2)
 BUCKETS = (1, 2, 4, 8)
 SERVE_ATOL = 1e-4     # served rows vs a direct run of the same rows (f32)
 CPU_ATOL = 2e-3       # GPU kernels vs CPU plain versions, 12 layers (f32)
+DROPOUT = 0.1         # BERT's hidden and attention dropout
+DROP_SEED = 1234      # the kernels' dropout seed in the kernel checks
+TRAIN_BATCH = 8
+TRAIN_WARMUP = 2
+TRAIN_STEPS = 5
+TRAIN_LR = 1e-4
+# one training step, GPU kernels vs CPU plain versions, float32 with TF32
+# off: sums in another order through 2 layers, the vocab head and the
+# atomics of the embedding scatter-add
+PARITY_LOSS_RTOL = 1e-4
+PARITY_GRAD_RTOL = 1e-3   # max |GPU - CPU| over max |CPU| per gradient
 
 
 def emit(obj):
@@ -177,139 +205,228 @@ def _flash_inputs(torch, b, h, t, dh, dtype, gen, masked_tail=True):
     return q, k, v, bias
 
 
+def _tol(ref, units=2):
+    """float32: 1e-4 relative to the largest |ref| (sums in another
+    order); bfloat16: ``units`` units in the last place at the largest
+    |ref| (the kernel and the plain version round at the same points,
+    and a value on a rounding boundary can land one unit apart)."""
+    import torch
+
+    big = float(ref.float().abs().max())
+    if ref.dtype == torch.float32:
+        return 1e-4 * max(1.0, big)
+    return units * BF16_UNIT * big
+
+
+def _dname(dtype):
+    return str(dtype).split(".")[-1]
+
+
+def _keep_fraction_check(checks, kernel, kept, rate):
+    """The share of kept cells within 4 sigma of 1 - rate."""
+    n = kept.numel()
+    frac = float(kept.float().mean())
+    sigma = (rate * (1 - rate) / n) ** 0.5
+    checks.check(kernel, "keep fraction %.6f of %d cells at rate %g"
+                 % (frac, n, rate), abs(frac - (1 - rate)), 4 * sigma)
+
+
 def kernel_flash(checks, torch, gen):
-    import torch.nn.functional as F
-
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
-
-    def tol(ref):
-        # bf16: two units in the last place at the largest output (the
-        # kernel and the plain version round p and o each once)
-        if ref.dtype == torch.float32:
-            return 5e-5
-        return 2 * BF16_UNIT * float(ref.float().abs().max())
 
     b, h, t, dh = 8, 12, SEQ, 64
     main_err = None
     for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).split(".")[-1]
+        name = _dname(dtype)
         q, k, v, bias = _flash_inputs(torch, b, h, t, dh, dtype, gen)
-        o, m, l = fa.flash_attention_fwd(q, k, v, bias)
-        po, pm, pl = fa.flash_attention_fwd_plain(q, k, v, bias,
-                                                  sm_scale=dh ** -0.5)
-        torch.cuda.synchronize()
-        err = checks.check("flash_attention_fwd",
-                           "B8 H12 T512 Dh64 padded keys %s" % name,
-                           max_err(o, po), tol(po))
-        checks.check("flash_attention_fwd", "m, same %s" % name,
-                     max_err(m, pm), 1e-3)
-        checks.check("flash_attention_fwd", "l relative, same %s" % name,
-                     max_err(l / pl, torch.ones_like(pl)), 1e-4)
-        if dtype == torch.float32:
-            main_err = err
-        else:
-            # a typical |o| is far below the largest, so the mean error
-            # must also stay under one unit of the mean |o|: a dropped or
-            # extra key moves a whole row and shows here
-            mean_ref = float(po.float().abs().mean())
-            checks.check("flash_attention_fwd",
-                         "mean error vs one unit of mean |o| %s" % name,
-                         float((o.float() - po.float()).abs().mean()),
-                         BF16_UNIT * mean_ref)
-    # edge cases: ragged T, causal, fully masked rows, ragged Dh
+        for rate in (0.0, DROPOUT):
+            seed = DROP_SEED if rate else None
+            o, m, l = fa.flash_attention_fwd(q, k, v, bias, dropout_rate=rate,
+                                             dropout_seed=seed)
+            po, pm, pl = fa.flash_attention_fwd_plain(
+                q, k, v, bias, sm_scale=dh ** -0.5, dropout_rate=rate,
+                dropout_seed=seed)
+            torch.cuda.synchronize()
+            case = "B8 H12 T512 Dh64 padded keys rate %g %s" % (rate, name)
+            err = checks.check("flash_attention_fwd", case, max_err(o, po),
+                               _tol(po))
+            checks.check("flash_attention_fwd", "m, " + case,
+                         max_err(m, pm), 1e-3)
+            checks.check("flash_attention_fwd", "l relative, " + case,
+                         max_err(l / pl, torch.ones_like(pl)), 1e-4)
+            if dtype == torch.float32 and rate:
+                main_err = err
+            if dtype == torch.bfloat16:
+                # a typical |o| is far below the largest, so the mean
+                # error must also stay under one unit of the mean |o|: a
+                # dropped or extra key moves a whole row and shows here
+                checks.check(
+                    "flash_attention_fwd", "mean error vs one unit of mean "
+                    "|o|, " + case,
+                    float((o.float() - po.float()).abs().mean()),
+                    BF16_UNIT * float(po.float().abs().mean()))
+    # the kernel's own mask: with V the identity, o = dropped p / l, so
+    # the zeros of o are the dropped cells
+    q, k, _, _ = _flash_inputs(torch, b, h, 128, 128, torch.float32, gen,
+                               masked_tail=False)
+    q = q.repeat(1, 4, 1).contiguous()  # 512 query rows against 128 keys
+    eye = torch.eye(128, device="cuda").expand(b * h, 128, 128).contiguous()
+    o, _, _ = fa.flash_attention_fwd(q, k, eye, None, dropout_rate=DROPOUT,
+                                     dropout_seed=DROP_SEED)
+    torch.cuda.synchronize()
+    _keep_fraction_check(checks, "flash_attention_fwd", o != 0, DROPOUT)
+    # edge cases: ragged T, causal, fully masked rows, ragged and 128 Dh
     for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).split(".")[-1]
+        name = _dname(dtype)
         q, k, v, bias = _flash_inputs(torch, 2, 3, 200, 64, dtype, gen)
         bias[0, 0] = float("-inf")   # causal row 0 of batch 0 sees nothing
         bias[1, :] = float("-inf")   # batch 1: every row fully masked
-        o, m, l = fa.flash_attention_fwd(q, k, v, bias, causal=True)
+        o, m, l = fa.flash_attention_fwd(q, k, v, bias, causal=True,
+                                         dropout_rate=DROPOUT,
+                                         dropout_seed=DROP_SEED)
         po, pm, pl = fa.flash_attention_fwd_plain(q, k, v, bias, True,
-                                                  64 ** -0.5)
+                                                  64 ** -0.5, DROPOUT,
+                                                  DROP_SEED)
         torch.cuda.synchronize()
         checks.check("flash_attention_fwd",
-                     "B2 H3 T200 causal, fully masked rows %s" % name,
-                     max_err(o, po), tol(po))
+                     "B2 H3 T200 causal, fully masked rows, rate %g %s"
+                     % (DROPOUT, name), max_err(o, po), _tol(po))
         checks.check("flash_attention_fwd", "masked rows are 0 %s" % name,
                      float(o[3:].float().abs().max()) + float(
                          o[:3, 0].float().abs().max()), 0.0)
-        q, k, v, bias = _flash_inputs(torch, 2, 2, 200, 96, dtype, gen)
-        o, _, _ = fa.flash_attention_fwd(q, k, v, bias)
-        po, _, _ = fa.flash_attention_fwd_plain(q, k, v, bias,
-                                                sm_scale=96 ** -0.5)
-        torch.cuda.synchronize()
-        checks.check("flash_attention_fwd", "B2 H2 T200 Dh96 %s" % name,
-                     max_err(o, po), tol(po))
+        for t_, dh_ in ((200, 96), (256, 128)):
+            q, k, v, bias = _flash_inputs(torch, 2, 2, t_, dh_, dtype, gen)
+            o, _, _ = fa.flash_attention_fwd(q, k, v, bias)
+            po, _, _ = fa.flash_attention_fwd_plain(q, k, v, bias,
+                                                    sm_scale=dh_ ** -0.5)
+            torch.cuda.synchronize()
+            checks.check("flash_attention_fwd", "B2 H2 T%d Dh%d %s"
+                         % (t_, dh_, name), max_err(o, po), _tol(po))
+    return main_err
 
-    q, k, v, bias = _flash_inputs(torch, b, h, t, dh, torch.float32, gen)
-    ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, bias))
-    plain_ms = time_ms(lambda: fa.flash_attention_fwd_plain(
-        q, k, v, bias, sm_scale=dh ** -0.5))
-    q4, k4, v4 = (x.view(b, h, t, dh) for x in (q, k, v))
-    mask4 = bias.view(b, 1, 1, t)
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, attn_mask=mask4))
-    nbytes = 4 * (4 * b * h * t * dh + b * t + 2 * b * h * t)
-    flops = 4 * b * h * t * t * dh
-    bms, by = bound_ms(nbytes, flops, "float32")
-    return {"name": "flash_attention_fwd", "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/flash_attention.cu",
-            "replaces": "paddle_tpu/ops/pallas/flash_attention.py:266",
-            "max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
-            "shape": "q,k,v [96,512,64] f32, bias [8,512]"}
+
+def _flash_bwd_case(checks, torch, fa, case, q, k, v, bias, causal, rate,
+                    gen):
+    """Both backward kernels against the plain backward; returns each
+    kernel's largest error and the gradients."""
+    dh = q.shape[2]
+    seed = DROP_SEED if rate else None
+    o, m, l = fa.flash_attention_fwd(q, k, v, bias, causal,
+                                     dropout_rate=rate, dropout_seed=seed)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    args = (causal, None, rate, seed)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, bias, do, m, l, delta,
+                                        *args)
+    dq = fa.flash_attention_bwd_dq(q, k, v, bias, do, m, l, delta, *args)
+    pq, pk, pv = fa.flash_attention_bwd_plain(q, k, v, bias, o, m, l, do,
+                                              causal, dh ** -0.5, rate, seed)
+    torch.cuda.synchronize()
+    errs = {}
+    for kernel, name, got, ref in (
+            ("flash_attention_bwd_dkv", "dk", dk, pk),
+            ("flash_attention_bwd_dkv", "dv", dv, pv),
+            ("flash_attention_bwd_dq", "dq", dq, pq)):
+        err = checks.check(kernel, "%s, %s" % (name, case),
+                           max_err(got, ref), _tol(ref))
+        errs[kernel] = max(errs.get(kernel, 0.0), err)
+        if got.dtype == torch.bfloat16:
+            checks.check(kernel, "%s mean error vs one unit of mean |ref|, "
+                         "%s" % (name, case),
+                         float((got.float() - ref.float()).abs().mean()),
+                         BF16_UNIT * float(ref.float().abs().mean()))
+    return errs, (dq, dk, dv)
+
+
+def kernel_flash_bwd(checks, torch, gen):
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    b, h, t, dh = 8, 12, SEQ, 64
+    main_err = None
+    for dtype in (torch.float32, torch.bfloat16):
+        name = _dname(dtype)
+        q, k, v, bias = _flash_inputs(torch, b, h, t, dh, dtype, gen)
+        for rate in (0.0, DROPOUT):
+            err, _ = _flash_bwd_case(
+                checks, torch, fa, "B8 H12 T512 Dh64 padded keys rate %g %s"
+                % (rate, name), q, k, v, bias, False, rate, gen)
+            if dtype == torch.float32 and rate:
+                main_err = err
+        q, k, v, bias = _flash_inputs(torch, 2, 3, 200, 64, dtype, gen)
+        bias[0, 0] = float("-inf")
+        bias[1, :] = float("-inf")
+        _, (dq, dk, dv) = _flash_bwd_case(
+            checks, torch, fa, "B2 H3 T200 causal, fully masked rows, rate "
+            "%g %s" % (DROPOUT, name), q, k, v, bias, True, DROPOUT, gen)
+        checks.check("flash_attention_bwd_dq",
+                     "masked rows get zero gradients %s" % name,
+                     float(dq[3:].float().abs().max())
+                     + float(dq[:3, 0].float().abs().max())
+                     + float(dk[3:].float().abs().max())
+                     + float(dv[3:].float().abs().max()), 0.0)
+        for t_, dh_, rate in ((200, 96, 0.0), (256, 128, DROPOUT)):
+            q, k, v, bias = _flash_inputs(torch, 2, 2, t_, dh_, dtype, gen)
+            _flash_bwd_case(checks, torch, fa, "B2 H2 T%d Dh%d rate %g %s"
+                            % (t_, dh_, rate, name), q, k, v, bias, False,
+                            rate, gen)
+    return main_err
 
 
 def kernel_ln(checks, torch, gen):
-    import torch.nn.functional as F
-
     from paddle_tpu_torch.ops.cuda import fused_ln as fl
 
-    main_err = None
+    fwd_err = bwd_err = None
     for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).split(".")[-1]
+        name = _dname(dtype)
         for n, d in ((4096, 768), (37, 640), (8, 4096)):
-            x, res = (torch.randn((n, d), generator=gen, device="cuda")
-                      .to(dtype) for _ in range(2))
+            x, res, dout = (torch.randn((n, d), generator=gen, device="cuda")
+                            .to(dtype) for _ in range(3))
             g = torch.randn((d,), generator=gen, device="cuda")
             bt = torch.randn((d,), generator=gen, device="cuda")
-            out = fl.fused_dropout_add_ln_fwd(x, res, g, bt, eps=1e-5)
-            ref = fl.fused_dropout_add_ln_fwd_plain(x, res, g, bt, 1e-5)
-            torch.cuda.synchronize()
-            # bf16: one unit in the last place at the largest output
-            tol = 1e-4 if dtype == torch.float32 else \
-                float(ref.float().abs().max()) * BF16_UNIT
-            err = checks.check("fused_dropout_add_ln_fwd",
-                               "N%d D%d %s" % (n, d, name),
-                               max_err(out, ref), tol)
-            if dtype == torch.float32 and (n, d) == (4096, 768):
-                main_err = err
-    n, d = 4096, 768
-    x, res = (torch.randn((n, d), generator=gen, device="cuda")
-              for _ in range(2))
-    g = torch.randn((d,), generator=gen, device="cuda")
-    bt = torch.randn((d,), generator=gen, device="cuda")
-    ms = time_ms(lambda: fl.fused_dropout_add_ln_fwd(x, res, g, bt), 50)
-    plain_ms = time_ms(
-        lambda: fl.fused_dropout_add_ln_fwd_plain(x, res, g, bt), 50)
-    library_ms = time_ms(
-        lambda: F.layer_norm(x + res, (d,), g, bt, 1e-5), 50)
-    bms, by = bound_ms(4 * (3 * n * d + 2 * d), 8 * n * d, "float32")
-    return {"name": "fused_dropout_add_ln_fwd", "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/fused_ln.cu",
-            "replaces": "paddle_tpu/ops/pallas/fused_ln.py:190",
-            "max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
-            "shape": "x,res [4096,768] f32"}
+            for rate in (0.0, DROPOUT):
+                seed = DROP_SEED if rate else None
+                case = "N%d D%d rate %g %s" % (n, d, rate, name)
+                got = fl.fused_dropout_add_ln_fwd(x, res, g, bt, 1e-5, rate,
+                                                  seed, save_stats=True)
+                ref = fl.fused_dropout_add_ln_fwd_plain(x, res, g, bt, 1e-5,
+                                                        rate, seed)
+                serve = fl.fused_dropout_add_ln_fwd(x, res, g, bt, 1e-5,
+                                                    rate, seed)
+                torch.cuda.synchronize()
+                # bf16: one unit in the last place at the largest output
+                err = checks.check("fused_dropout_add_ln_fwd", case,
+                                   max(max_err(got[0], ref[0]),
+                                       max_err(serve, ref[0])),
+                                   _tol(ref[0], units=1))
+                for what, a, r in zip(("y", "mean", "rstd"), got[1:],
+                                      ref[1:]):
+                    checks.check("fused_dropout_add_ln_fwd",
+                                 "%s, %s" % (what, case), max_err(a, r),
+                                 _tol(r, units=1))
+                grads = fl.fused_dropout_add_ln_bwd(dout, got[1], g, got[2],
+                                                    got[3], rate, seed)
+                refs = fl.fused_dropout_add_ln_bwd_plain(
+                    dout, got[1], g, got[2], got[3], rate, seed)
+                torch.cuda.synchronize()
+                errs = [checks.check("fused_dropout_add_ln_bwd",
+                                     "%s, %s" % (what, case),
+                                     max_err(a, r), _tol(r))
+                        for what, a, r in zip(("dx", "dres", "dgamma",
+                                               "dbeta"), grads, refs)]
+                if dtype == torch.float32 and (n, d) == (4096, 768) and rate:
+                    fwd_err, bwd_err = err, max(errs)
+                    kept = (got[1] != res) | (x == 0)
+                    _keep_fraction_check(checks, "fused_dropout_add_ln_fwd",
+                                         kept, rate)
+    return fwd_err, bwd_err
 
 
 def kernel_gather(checks, torch, gen):
-    import torch.nn.functional as F
-
     from paddle_tpu_torch.ops.cuda import embedding as emb
 
     main_err = None
     for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).split(".")[-1]
+        name = _dname(dtype)
         table = torch.randn((30522, 768), generator=gen,
                             device="cuda").to(dtype)
         ids = torch.randint(0, 30522, (4096,), generator=gen,
@@ -332,19 +449,156 @@ def kernel_gather(checks, torch, gen):
             checks.check("embedding_gather_fwd",
                          "V%d D%d int32 negative, >=V, padding_idx %s"
                          % (v, d, name), max_err(got, ref), 0.0)
+    return main_err
+
+
+def _row(name, source, replaces, err, ms, plain_ms, bound, library_ms,
+         shape):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": library_ms, "shape": shape}
+
+
+def time_kernels(torch, gen, errs):
+    """Cold-L2 times of every kernel at the training path's shapes and
+    rate (K1, K2 at dropout 0.1; the forwards also at rate 0, as serving
+    runs them), beside the plain version and one PyTorch library call."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.cuda import embedding as emb
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import fused_ln as fl
+
+    fa_src, fa_ref = ("paddle_tpu_torch/csrc/flash_attention.cu",
+                      "paddle_tpu/ops/pallas/flash_attention.py:")
+    ln_src, ln_ref = ("paddle_tpu_torch/csrc/fused_ln.cu",
+                      "paddle_tpu/ops/pallas/fused_ln.py:")
+    rows, extra = [], []
+    b, h, t, dh = 8, 12, SEQ, 64
+    bh = b * h
+    q, k, v, bias = _flash_inputs(torch, b, h, t, dh, torch.float32, gen)
+    sc = dh ** -0.5
+    drop = (DROPOUT, DROP_SEED)
+    fwd_bound = bound_ms(4 * (4 * bh * t * dh + b * t + 2 * bh * t),
+                         4 * bh * t * t * dh, "float32")
+    q4, k4, v4 = (x.view(b, h, t, dh) for x in (q, k, v))
+    mask4 = bias.view(b, 1, 1, t)
+    for rate in (DROPOUT, 0.0):
+        seed = DROP_SEED if rate else None
+        ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, bias,
+                                                    dropout_rate=rate,
+                                                    dropout_seed=seed))
+        plain = time_ms(lambda: fa.flash_attention_fwd_plain(
+            q, k, v, bias, sm_scale=sc, dropout_rate=rate,
+            dropout_seed=seed))
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask4, dropout_p=rate))
+        r = _row("flash_attention_fwd", fa_src, fa_ref + "266",
+                 errs["flash_attention_fwd"], ms, plain, fwd_bound, lib,
+                 "q,k,v [96,512,64] f32, bias [8,512], dropout %g" % rate)
+        (rows if rate else extra).append(r)
+
+    o, m, l = fa.flash_attention_fwd(q, k, v, bias, dropout_rate=DROPOUT,
+                                     dropout_seed=DROP_SEED)
+    do = torch.randn(q.shape, generator=gen, device="cuda")
+    delta = (do * o).sum(dim=-1)
+    plain = time_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, bias, o, m, l, do, False, sc, *drop))
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q4, k4, v4))
+    lo = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask4,
+                                        dropout_p=DROPOUT)
+    do4 = do.view(b, h, t, dh)
+    lib = time_ms(lambda: torch.autograd.grad(lo, (qg, kg, vg), do4,
+                                              retain_graph=True))
+    io = 4 * (4 * bh * t * dh + 3 * bh * t + b * t)
+    rows.append(_row(
+        "flash_attention_bwd_dkv", fa_src, fa_ref + "473",
+        errs["flash_attention_bwd_dkv"],
+        time_ms(lambda: fa.flash_attention_bwd_dkv(
+            q, k, v, bias, do, m, l, delta, False, None, *drop)),
+        plain, bound_ms(io + 4 * 2 * bh * t * dh, 8 * bh * t * t * dh,
+                        "float32"), lib,
+        "q,k,v,dO [96,512,64] f32, dropout 0.1; plain and library ms are "
+        "of the whole backward (dQ, dK, dV)"))
+    rows.append(_row(
+        "flash_attention_bwd_dq", fa_src, fa_ref + "521",
+        errs["flash_attention_bwd_dq"],
+        time_ms(lambda: fa.flash_attention_bwd_dq(
+            q, k, v, bias, do, m, l, delta, False, None, *drop)),
+        plain, bound_ms(io + 4 * bh * t * dh, 6 * bh * t * t * dh,
+                        "float32"), lib,
+        "q,k,v,dO [96,512,64] f32, dropout 0.1; plain and library ms are "
+        "of the whole backward (dQ, dK, dV)"))
+    del q, k, v, o, do, qg, kg, vg, lo
+
+    n, d = 4096, 768
+    x, res, dout = (torch.randn((n, d), generator=gen, device="cuda")
+                    for _ in range(3))
+    g = torch.randn((d,), generator=gen, device="cuda")
+    bt = torch.randn((d,), generator=gen, device="cuda")
+    lib = time_ms(lambda: F.layer_norm(x + res, (d,), g, bt, 1e-5), 50)
+    rows.append(_row(
+        "fused_dropout_add_ln_fwd", ln_src, ln_ref + "190",
+        errs["fused_dropout_add_ln_fwd"],
+        time_ms(lambda: fl.fused_dropout_add_ln_fwd(
+            x, res, g, bt, 1e-5, *drop, save_stats=True), 50),
+        time_ms(lambda: fl.fused_dropout_add_ln_fwd_plain(
+            x, res, g, bt, 1e-5, *drop), 50),
+        bound_ms(4 * (4 * n * d + 2 * d + 2 * n), 10 * n * d, "float32"),
+        lib, "x,res [4096,768] f32, dropout 0.1, y/mean/rstd saved"))
+    extra.append(_row(
+        "fused_dropout_add_ln_fwd", ln_src, ln_ref + "190",
+        errs["fused_dropout_add_ln_fwd"],
+        time_ms(lambda: fl.fused_dropout_add_ln_fwd(x, res, g, bt), 50),
+        time_ms(lambda: fl.fused_dropout_add_ln_fwd_plain(x, res, g, bt),
+                50),
+        bound_ms(4 * (3 * n * d + 2 * d), 8 * n * d, "float32"), lib,
+        "x,res [4096,768] f32, dropout 0, out only (serving)"))
+    _, y, mean, rstd = fl.fused_dropout_add_ln_fwd(x, res, g, bt, 1e-5,
+                                                   *drop, save_stats=True)
+    xr, rr, gr, br = (a.detach().clone().requires_grad_()
+                      for a in (x, res, g, bt))
+    lo = F.layer_norm(xr + rr, (d,), gr, br, 1e-5)
+    rows.append(_row(
+        "fused_dropout_add_ln_bwd", ln_src, ln_ref + "224",
+        errs["fused_dropout_add_ln_bwd"],
+        time_ms(lambda: fl.fused_dropout_add_ln_bwd(dout, y, g, mean, rstd,
+                                                    *drop), 50),
+        time_ms(lambda: fl.fused_dropout_add_ln_bwd_plain(
+            dout, y, g, mean, rstd, *drop), 50),
+        bound_ms(4 * (4 * n * d + 3 * d + 2 * n), 12 * n * d, "float32"),
+        time_ms(lambda: torch.autograd.grad(lo, (xr, rr, gr, br), dout,
+                                            retain_graph=True), 50),
+        "dout,y [4096,768] f32, dropout 0.1"))
+    del x, res, dout, y, xr, rr, lo
+
     table = torch.randn((30522, 768), generator=gen, device="cuda")
     ids = torch.randint(0, 30522, (4096,), generator=gen, device="cuda")
-    ms = time_ms(lambda: emb.embedding_gather_fwd(table, ids), 50)
-    plain_ms = time_ms(lambda: emb.embedding_gather_fwd_plain(table, ids),
-                       50)
-    library_ms = time_ms(lambda: F.embedding(ids, table), 50)
-    bms, by = bound_ms(4096 * 768 * 4 * 2 + 4096 * 8, 0, "float32")
-    return {"name": "embedding_gather_fwd", "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/embedding.cu",
-            "replaces": "paddle_tpu/ops/pallas/embedding.py:74",
-            "max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
-            "shape": "table [30522,768] f32, ids [4096] int64"}
+    rows.append(_row(
+        "embedding_gather_fwd", "paddle_tpu_torch/csrc/embedding.cu",
+        "paddle_tpu/ops/pallas/embedding.py:74",
+        errs["embedding_gather_fwd"],
+        time_ms(lambda: emb.embedding_gather_fwd(table, ids), 50),
+        time_ms(lambda: emb.embedding_gather_fwd_plain(table, ids), 50),
+        bound_ms(4096 * 768 * 4 * 2 + 4096 * 8, 0, "float32"),
+        time_ms(lambda: F.embedding(ids, table), 50),
+        "table [30522,768] f32, ids [4096] int64"))
+    # the gather's backward: a PyTorch scatter-add (index_add_), as the
+    # reference leaves it to XLA; timed for the table, not a kernel here
+    gout = torch.randn((4096, 768), generator=gen, device="cuda")
+    scatter = {
+        "phase": "kernels", "timing": True,
+        "library_op": "embedding_gather_bwd (index_add_ scatter-add)",
+        "replaces": "paddle_tpu/ops/pallas/embedding.py:96 (XLA scatter-add)",
+        "ms": time_ms(lambda: emb.embedding_gather_bwd(gout, ids, 30522),
+                      50),
+        "library_ms": time_ms(lambda: torch.zeros(
+            (30522, 768), device="cuda").index_add_(0, ids, gout), 50),
+        "shape": "dout [4096,768] f32 → table grad [30522,768]"}
+    scatter["bound_ms"], scatter["bound_by"] = bound_ms(
+        4 * (30522 * 768 + 4096 * 768) + 8 * 4096, 4096 * 768, "float32")
+    return rows, extra, scatter
 
 
 def phase_kernels():
@@ -353,13 +607,19 @@ def phase_kernels():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     checks = Checks()
-    rows = [kernel_flash(checks, torch, gen), kernel_ln(checks, torch, gen),
-            kernel_gather(checks, torch, gen)]
-    for r in rows:
-        emit(dict({"phase": "kernels", "timing": True}, **r))
+    errs = {"flash_attention_fwd": kernel_flash(checks, torch, gen)}
+    errs.update(kernel_flash_bwd(checks, torch, gen))
+    errs["fused_dropout_add_ln_fwd"], errs["fused_dropout_add_ln_bwd"] = \
+        kernel_ln(checks, torch, gen)
+    errs["embedding_gather_fwd"] = kernel_gather(checks, torch, gen)
     if checks.failed:
         raise AssertionError("kernel checks failed: %s"
                              % "; ".join(checks.failed))
+    rows, extra, scatter = time_kernels(torch, gen, errs)
+    for r in rows + extra:
+        emit(dict({"phase": "kernels", "timing": True}, **r))
+    emit(scatter)
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -458,7 +718,9 @@ def phase_main_path(env):
         server.close()
     batches = len(server.dispatch_log)
     want = {"flash_attention_fwd": 12 * batches,
+            "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
             "fused_dropout_add_ln_fwd": 25 * batches,
+            "fused_dropout_add_ln_bwd": 0,
             "embedding_gather_fwd": 3 * batches}
     emit({"phase": "main_path", "step": "serve", "batches": batches,
           "dispatch_log": server.dispatch_log, "launches": counts,
@@ -513,15 +775,42 @@ def _median_ms(fn, reps=5, warmup=2):
 
 
 def _kernel_group(name):
-    for group, needle in (("flash_attention_fwd", "flash_fwd_kernel"),
-                          ("fused_dropout_add_ln_fwd", "add_ln_fwd_kernel"),
-                          ("embedding_gather_fwd", "gather_kernel")):
-        if needle in name:
+    """The profile's group of a device kernel, by its name."""
+    for group, needles in (
+            ("K1 fwd", ("flash_fwd_kernel",)),
+            ("K1 bwd", ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")),
+            ("K2 fwd", ("add_ln_fwd_kernel",)),
+            ("K2 bwd", ("add_ln_bwd_kernel", "ln_bwd_reduce_kernel")),
+            ("gather", ("::gather_kernel<",)),
+            ("scatter", ("indexFunc", "index_add", "scatter_add",
+                         "index_put"))):
+        if any(n in name for n in needles):
             return group
     low = name.lower()
     if "gemm" in low or "cutlass" in low or "xmma" in low:
-        return "gemm"
+        return "GEMM"
+    if "elementwise" in low or "reduce" in low:
+        return "Adam and elementwise"
     return "other"
+
+
+def _device_breakdown(prof, runs):
+    """Device ms per run by kernel group, and the busiest kernels."""
+    groups, top = {}, []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        # kernel rows only: a CPU op's row repeats its kernels' time
+        if not dev_us or not str(getattr(ev, "device_type", "")).endswith(
+                "CUDA"):
+            continue
+        ms = dev_us / 1e3 / runs
+        g = _kernel_group(ev.key)
+        groups[g] = groups.get(g, 0.0) + ms
+        top.append((ms, ev.count // runs, ev.key[:90]))
+    top.sort(reverse=True)
+    return groups, top
 
 
 def phase_profile(env, pred, cfg, runs=3):
@@ -554,20 +843,7 @@ def phase_profile(env, pred, cfg, runs=3):
             pred.run(feed)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / runs
-    groups, top = {}, []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0)
-        # kernel rows only: a CPU op's row repeats its kernels' time
-        if not dev_us or not str(getattr(ev, "device_type", "")).endswith(
-                "CUDA"):
-            continue
-        ms = dev_us / 1e3 / runs
-        g = _kernel_group(ev.key)
-        groups[g] = groups.get(g, 0.0) + ms
-        top.append((ms, ev.count // runs, ev.key[:90]))
-    top.sort(reverse=True)
+    groups, top = _device_breakdown(prof, runs)
     busy = sum(groups.values())
     emit({"phase": "profile", "bucket": BUCKETS[-1],
           "wall_ms_per_batch": wall_ms,
@@ -578,6 +854,169 @@ def phase_profile(env, pred, cfg, runs=3):
           "top_kernels": [{"ms": t, "launches": n, "name": k}
                           for t, n, k in top[:12]],
           "card": card_label(env)})
+
+
+def _train_program(fluid, bert, cfg, seq):
+    main, startup, _feeds, loss = bert.build_pretrain(cfg, seq_len=seq,
+                                                      lr=TRAIN_LR)
+    main.random_seed = startup.random_seed = SEED
+    return main, startup, loss
+
+
+def _grad_names(main):
+    """param name → its gradient var, read off the adam ops."""
+    return {op.inputs["Param"][0]: op.inputs["Grad"][0]
+            for op in main.global_block().ops if op.type == "adam"}
+
+
+def phase_train(env):
+    """BERT-base MLM pretraining at T=512, B=8, dropout 0.1, Adam, on the
+    card: warm-up steps, then timed steps on one repeated batch with the
+    launch counts read around them, peak memory, and a profiled window."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.static_analysis import fusion
+
+    cfg = bert.BERT_BASE  # dropout 0.1, attention dropout 0.1
+    t0 = time.time()
+    main, startup, loss = _train_program(fluid, bert, cfg, SEQ)
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup)
+        torch.cuda.synchronize()
+        prog, report = fusion.resolve_fused_program(main,
+                                                    targets=[loss.name])
+        op_types = {}
+        for op in prog.global_block().ops:
+            op_types[op.type] = op_types.get(op.type, 0) + 1
+        emit({"phase": "train", "step": "build+startup",
+              "seconds": time.time() - t0, "ops_per_step": sum(
+                  op_types.values()), "fused": report.counts(),
+              "op_types": op_types})
+        batch = bert.make_fake_batch(TRAIN_BATCH, SEQ, cfg,
+                                     np.random.RandomState(SEED))
+        losses = []
+        for _ in range(TRAIN_WARMUP):
+            losses.append(float(exe.run(main, feed=batch,
+                                        fetch_list=[loss])[0][0]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        step_ms = []
+        for _ in range(TRAIN_STEPS):
+            s0 = time.perf_counter()
+            losses.append(float(exe.run(main, feed=batch,
+                                        fetch_list=[loss])[0][0]))
+            step_ms.append((time.perf_counter() - s0) * 1e3)
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        per_step = {k: c / TRAIN_STEPS for k, c in counts.items()}
+        want = {"flash_attention_fwd": 12, "flash_attention_bwd_dkv": 12,
+                "flash_attention_bwd_dq": 12, "fused_dropout_add_ln_fwd": 25,
+                "fused_dropout_add_ln_bwd": 25, "embedding_gather_fwd": 3}
+        med = statistics.median(step_ms)
+        emit({"phase": "train", "step": "steps", "card": card_label(env),
+              "losses": losses, "step_ms": step_ms, "median_step_ms": med,
+              "tokens_per_s": TRAIN_BATCH * SEQ / (med / 1e3),
+              "launches_per_step": per_step, "expected": want,
+              "peak_memory_bytes": peak})
+        if per_step != want:
+            raise AssertionError("launches per step %s != %s"
+                                 % (per_step, want))
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError("loss not finite and falling: %s" % losses)
+
+        # the host's share: enqueue a step without waiting for it
+        dispatch_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            exe.run(main, feed=batch, fetch_list=[loss], return_numpy=False)
+            dispatch_ms.append((time.perf_counter() - s0) * 1e3)
+        torch.cuda.synchronize()
+
+        runs = 2
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            s0 = time.perf_counter()
+            for _ in range(runs):
+                exe.run(main, feed=batch, fetch_list=[loss])
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - s0) * 1e3 / runs
+        groups, top = _device_breakdown(prof, runs)
+        host = sorted((ev for ev in prof.key_averages()
+                       if ev.self_cpu_time_total > 0),
+                      key=lambda ev: -ev.self_cpu_time_total)
+        busy = sum(groups.values())
+        emit({"phase": "train", "step": "profile", "card": card_label(env),
+              "dispatch_ms": dispatch_ms,
+              "median_dispatch_ms": statistics.median(dispatch_ms),
+              "host_top_ops_under_profiler": [
+                  {"ms": ev.self_cpu_time_total / 1e3 / runs,
+                   "calls": ev.count // runs, "name": ev.key[:60]}
+                  for ev in host[:12]],
+              "wall_ms_per_step": wall_ms,
+              "device_ms_per_step": busy if busy else "not measured",
+              "device_idle_share": (1.0 - busy / wall_ms) if busy
+              else "not measured",
+              "device_ms_by_group": groups,
+              "top_kernels": [{"ms": t, "launches": n, "name": k}
+                              for t, n, k in top[:15]]})
+    del scope, exe
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_train_parity():
+    """One dropout-0.1 step of a 2-layer BERT at BERT-base width (B=2,
+    T=512) on the card and on the CPU with the plain versions: the seeded
+    start is the same on both, and so is every dropout mask (the card
+    generator has a plain twin)."""
+    import copy
+
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert
+
+    cfg = copy.copy(bert.BERT_BASE)
+    cfg.layers = 2
+    main, startup, loss = _train_program(fluid, bert, cfg, SEQ)
+    grads = _grad_names(main)
+    names = ["bert.word_emb", "bert.layer0.attn.q.w", "bert.layer0.ln1.scale"]
+    fetch = [loss.name] + [grads[n] for n in names]
+    batch = bert.make_fake_batch(2, SEQ, cfg, np.random.RandomState(SEED + 3))
+    out = {}
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        scope = fluid.Scope()
+        with fluid.scope_guard(scope):
+            exe = fluid.Executor(place)
+            exe.run(startup)
+            out[place._kind] = exe.run(main, feed=batch, fetch_list=fetch)
+        del scope, exe
+    gpu, cpu = out["cuda"], out["cpu"]
+    result = {"phase": "train_parity", "step": "GPU kernels vs CPU plain "
+              "versions, one step, dropout 0.1",
+              "loss": [float(gpu[0][0]), float(cpu[0][0])],
+              "loss_rel_err": abs(float(gpu[0][0] - cpu[0][0]))
+              / abs(float(cpu[0][0])), "loss_tol": PARITY_LOSS_RTOL}
+    ok = result["loss_rel_err"] <= PARITY_LOSS_RTOL
+    for name, g, c in zip(names, gpu[1:], cpu[1:]):
+        err = float(np.abs(g - c).max()) / max(float(np.abs(c).max()), 1e-30)
+        result[name + "@GRAD rel_err"] = err
+        ok = ok and np.isfinite(g).all() and err <= PARITY_GRAD_RTOL
+    result["grad_tol"] = PARITY_GRAD_RTOL
+    emit(result)
+    if not ok:
+        raise AssertionError("train parity failed: %s" % result)
 
 
 def main():
@@ -600,10 +1039,15 @@ def main():
     env = phase_environment()
     phase_build()
     rows = phase_kernels()
-    counts, pred, cfg = phase_main_path(env)
+    serve_counts, pred, cfg = phase_main_path(env)
     phase_profile(env, pred, cfg)
+    del pred
+    train_counts = phase_train(env)
+    phase_train_parity()
     for r in rows:
-        r["launches"] = counts[r["name"]]
+        r["launches"] = train_counts[r["name"]]
+    emit({"phase": "launches", "serve": serve_counts,
+          "train": train_counts})
     emit({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}

@@ -1,9 +1,10 @@
 """paddle_tpu_torch — the PyTorch/CUDA port of ``paddle_tpu``.
 
 The same Fluid-style static-graph API (``Program`` built by the layers
-DSL, ``Executor``, ``io.save_inference_model``, ``inference.
-AnalysisPredictor``, ``serving.PredictorServer``), run by PyTorch on an
-NVIDIA GPU.  The reference package's Pallas TPU kernels become kernels
+DSL, ``Executor``, ``backward.append_backward``, ``optimizer.Adam`` /
+``SGD``, ``io.save_inference_model``, ``inference.AnalysisPredictor``,
+``serving.PredictorServer``), run by PyTorch on an NVIDIA GPU.  The
+reference package's Pallas TPU kernels become kernels
 written by hand for Hopper under ``csrc/`` (built with ``nvcc`` at first
 use, bound with ``ctypes``: :mod:`paddle_tpu_torch.ops.cuda`).  Entry
 points run on the GPU (``CUDAPlace(0)``) unless the caller asks for the
@@ -27,6 +28,11 @@ from .param_attr import ParamAttr, WeightNormParamAttr
 from . import initializer
 from . import ops
 from . import layers
+from . import backward
+from . import clip
+from . import regularizer
+from . import optimizer
+from .backward import append_backward, gradients
 from .executor import Executor, Scope, global_scope, scope_guard
 from . import pipeline
 from . import io
@@ -46,5 +52,6 @@ __all__ = [
     "WeightNormParamAttr", "Executor", "Scope", "global_scope",
     "scope_guard", "core", "unique_name", "initializer", "ops", "layers",
     "pipeline", "io", "analysis", "inference", "static_analysis",
-    "serving", "models", "convert",
+    "serving", "models", "convert", "backward", "clip", "regularizer",
+    "optimizer", "append_backward", "gradients",
 ]

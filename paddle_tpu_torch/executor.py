@@ -5,7 +5,10 @@ Mirrors ``paddle_tpu/executor.py`` (``Scope``, ``scope_guard``,
 The reference lowers the whole block into one jitted jax function; here
 the block is interpreted eagerly, op by op, into an environment of
 tensors on the place's device (compare the reference's
-``_run_ops_into_env`` :999).  PyTorch launches CUDA kernels
+``_run_ops_into_env`` :999).  A training program's grad ops
+differentiate the autograd graphs their forward ops recorded in the
+same run (``ops/registry.py``); the graphs are dropped when ``run``
+returns.  PyTorch launches CUDA kernels
 asynchronously, so ``run`` returns once the step is enqueued and the
 fetches decide when to wait: numpy arrays after one batched sync
 (``return_numpy=True``) or lazy :class:`FetchHandle`\\ s.
@@ -134,9 +137,31 @@ def _check_feed_shapes(program, feed_vals):
                        ("\n" + hint) if hint else ""))
 
 
+def _grad_twins(block):
+    """``{forward op id: {input slot: {index}}}``: the forward ops that a
+    grad op of ``block`` differentiates, with the input positions it
+    writes gradients for."""
+    wanted = {}
+    for op in block.ops:
+        fwd_id = op.attrs.get("__fwd_op_id__")
+        if fwd_id is None:
+            continue
+        slots = wanted.setdefault(fwd_id, {})
+        for slot, names in op.outputs.items():
+            if slot.endswith("@GRAD"):
+                slots.setdefault(slot[:-len("@GRAD")], set()).update(
+                    i for i, n in enumerate(names)
+                    if n and n != EMPTY_VAR_NAME)
+    return wanted
+
+
 def _run_ops_into_env(block, env, ctx):
     """Run every op of ``block`` on the tensors in ``env`` (name →
-    tensor), adding each op's outputs."""
+    tensor), adding each op's outputs.  Call it under ``torch.no_grad()``:
+    a forward op that a grad op of the block differentiates records its
+    autograd graph on ``ctx.tape`` (``registry.call_op_taped``), every
+    other op (grad, optimizer, ops without a twin) runs without one."""
+    twins = _grad_twins(block)
     for op in block.ops:
         if op.type in ("feed", "fetch"):
             continue
@@ -155,7 +180,12 @@ def _run_ops_into_env(block, env, ctx):
                 vals.append(env[n])
             ins[slot] = vals
         op_id = op.attrs.get("__fwd_op_id__", op.attrs.get("__op_id__", 0))
-        outs = op_registry.call_op(opdef, ctx, ins, op.attrs, op_id=op_id)
+        if "__fwd_op_id__" not in op.attrs and op_id in twins:
+            outs = op_registry.call_op_taped(opdef, ctx, ins, op.attrs,
+                                             op_id, twins[op_id])
+        else:
+            outs = op_registry.call_op(opdef, ctx, ins, op.attrs,
+                                       op_id=op_id)
         for slot, names in op.outputs.items():
             for n, v in zip(names, outs.get(slot, ())):
                 if n and n != EMPTY_VAR_NAME and v is not None:
@@ -228,6 +258,7 @@ class Executor:
         self._step += 1
         with torch.no_grad():
             _run_ops_into_env(block, env, ctx)
+        ctx.tape.clear()  # graphs of forwards whose grads were not run
         for v in block.vars.values():
             if v.persistable and not v.is_data and v.name in env:
                 scope.set(v.name, env[v.name])

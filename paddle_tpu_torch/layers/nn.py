@@ -1,7 +1,9 @@
 """Neural-network layers used by the BERT encoder and its eval head
 (mirrors ``paddle_tpu/layers/nn.py``: ``fc`` :87, ``embedding`` :124,
-``layer_norm`` :342, ``dropout`` :408, ``softmax`` :427, ``matmul`` :594,
-``elementwise_add`` :637, ``reshape`` :665, ``transpose`` :678,
+``layer_norm`` :342, ``dropout`` :408, ``softmax`` :427,
+``softmax_with_cross_entropy`` :459, ``reduce_sum`` :574, ``matmul``
+:594, ``elementwise_add/sub/mul/div`` :637-650, ``reshape`` :665,
+``transpose`` :678, ``squeeze``/``unsqueeze`` :724-748, ``gather`` :806,
 ``fused_dropout_add_ln`` :1084, ``fused_multihead_attention`` :1113).
 Each layer appends the same op types, slots and attrs as the reference,
 so the two packages build the same program."""
@@ -11,9 +13,11 @@ import numpy as np
 from ..initializer import ConstantInitializer
 from ..layer_helper import LayerHelper
 
-__all__ = ["fc", "embedding", "layer_norm", "dropout", "softmax", "matmul",
-           "elementwise_add", "reshape", "transpose", "fused_dropout_add_ln",
-           "fused_multihead_attention"]
+__all__ = ["fc", "embedding", "layer_norm", "dropout", "softmax",
+           "softmax_with_cross_entropy", "reduce_sum", "matmul",
+           "elementwise_add", "elementwise_sub", "elementwise_mul",
+           "elementwise_div", "reshape", "transpose", "squeeze", "unsqueeze",
+           "gather", "fused_dropout_add_ln", "fused_multihead_attention"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -121,12 +125,57 @@ def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
     return out
 
 
-def elementwise_add(x, y, axis=-1, act=None, name=None):
-    helper = LayerHelper("elementwise_add", **locals())
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False, axis=-1):
+    helper = LayerHelper("softmax_with_cross_entropy", **locals())
+    softmax_out = helper.create_variable_for_type_inference(logits.dtype)
+    loss = helper.create_variable_for_type_inference(logits.dtype)
+    helper.append_op(
+        type="softmax_with_cross_entropy",
+        inputs={"Logits": [logits], "Label": [label]},
+        outputs={"Softmax": [softmax_out], "Loss": [loss]},
+        attrs={"soft_label": soft_label, "ignore_index": ignore_index,
+               "axis": axis})
+    if return_softmax:
+        return loss, softmax_out
+    return loss
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    helper = LayerHelper("reduce_sum", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if dim is not None and not isinstance(dim, (list, tuple)):
+        dim = [dim]
+    helper.append_op(
+        type="reduce_sum", inputs={"X": [input]}, outputs={"Out": [out]},
+        attrs={"dim": dim if dim is not None else [0], "keep_dim": keep_dim,
+               "reduce_all": dim is None})
+    return out
+
+
+def _elementwise(op_type, x, y, axis=-1, act=None, name=None):
+    helper = LayerHelper(op_type, **locals())
     out = helper.create_variable_for_type_inference(x.dtype)
-    helper.append_op(type="elementwise_add", inputs={"X": [x], "Y": [y]},
+    helper.append_op(type=op_type, inputs={"X": [x], "Y": [y]},
                      outputs={"Out": [out]}, attrs={"axis": axis})
     return helper.append_activation(out)
+
+
+def elementwise_add(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_add", x, y, axis, act, name)
+
+
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_sub", x, y, axis, act, name)
+
+
+def elementwise_mul(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_mul", x, y, axis, act, name)
+
+
+def elementwise_div(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_div", x, y, axis, act, name)
 
 
 def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
@@ -146,6 +195,32 @@ def transpose(x, perm, name=None):
     helper.append_op(type="transpose2", inputs={"X": [x]},
                      outputs={"Out": [out], "XShape": [xshape]},
                      attrs={"axis": list(perm)})
+    return out
+
+
+def _shape_op(op_type, input, axes):
+    helper = LayerHelper(op_type, input=input)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    xshape = helper.create_variable_for_type_inference(input.dtype, True)
+    helper.append_op(type=op_type, inputs={"X": [input]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs={"axes": list(axes)})
+    return out
+
+
+def squeeze(input, axes, name=None):
+    return _shape_op("squeeze2", input, axes)
+
+
+def unsqueeze(input, axes, name=None):
+    return _shape_op("unsqueeze2", input, axes)
+
+
+def gather(input, index, overwrite=True):
+    helper = LayerHelper("gather", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="gather", inputs={"X": [input], "Index": [index]},
+                     outputs={"Out": [out]})
     return out
 
 

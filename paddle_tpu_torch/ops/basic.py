@@ -1,5 +1,6 @@
-"""Creation ops and feed/fetch markers (mirrors ``paddle_tpu/ops/basic.py``
-lines 17-237).
+"""Creation ops, ``sum`` and feed/fetch markers (mirrors
+``paddle_tpu/ops/basic.py`` lines 17-237: ``fill_constant_batch_size_like``
+:24, ``sum`` :130).
 
 Random draws come from the per-draw ``torch.Generator`` of
 :meth:`LoweringContext.rng`, drawn on the CPU and moved to the run's
@@ -37,6 +38,25 @@ def fill_constant(ctx, attrs):
     dtype = resolve_dtype(attrs.get("dtype", "float32"))
     return torch.full(_shape(attrs), attrs.get("value", 0.0), dtype=dtype,
                       device=ctx.device)
+
+
+@register_op("fill_constant_batch_size_like", inputs=["Input"],
+             outputs=["Out"], no_grad=True)
+def fill_constant_batch_size_like(ctx, attrs, Input):
+    dtype = resolve_dtype(attrs.get("dtype", "float32"))
+    shape = [int(s) for s in attrs.get("shape", [])]
+    shape[int(attrs.get("output_dim_idx", 0))] = \
+        Input.shape[int(attrs.get("input_dim_idx", 0))]
+    return torch.full(tuple(shape), attrs.get("value", 0.0), dtype=dtype,
+                      device=Input.device)
+
+
+@register_op("sum", inputs=["X*"], outputs=["Out"])
+def sum_op(ctx, attrs, X):
+    out = X[0]
+    for x in X[1:]:
+        out = out + x
+    return out
 
 
 @register_op("gaussian_random", inputs=[], outputs=["Out"], no_grad=True)

@@ -29,8 +29,9 @@ BUILD_ROOT = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-lineinfo")
 
-KERNELS = ("flash_attention_fwd", "fused_dropout_add_ln_fwd",
-           "embedding_gather_fwd")
+KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv",
+           "flash_attention_bwd_dq", "fused_dropout_add_ln_fwd",
+           "fused_dropout_add_ln_bwd", "embedding_gather_fwd")
 _LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 _lock = threading.Lock()
@@ -38,14 +39,32 @@ _lib = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+# the dropout arguments of every kernel that drops: mode, seed,
+# threshold, keep scale (csrc/dropout.cuh)
+_DROP = (_I, _U, _U, _F)
 _SIGNATURES = {
-    # q, k, v, bias, o, m, l, BH, H, Tq, Tk, Dh, scale, causal, dtype, stream
-    "pt_flash_attention_fwd": (_P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _F, _I, _I, _P),
-    # x, res, gamma, beta, out, N, D, eps, dtype, stream
-    "pt_fused_add_ln_fwd": (_P, _P, _P, _P, _P, _L, _I, _F, _I, _P),
+    # q, k, v, bias, o, m, l, BH, H, Tq, Tk, Dh, scale, causal, dropout,
+    # dtype, stream
+    "pt_flash_attention_fwd": (_P,) * 7 + (_I,) * 5 + (_F, _I) + _DROP
+    + (_I, _P),
+    # q, k, v, bias, dout, m, l, delta, dk, dv, BH, H, Tq, Tk, Dh, scale,
+    # causal, dropout, dtype, stream
+    "pt_flash_attention_bwd_dkv": (_P,) * 10 + (_I,) * 5 + (_F, _I) + _DROP
+    + (_I, _P),
+    # q, k, v, bias, dout, m, l, delta, dq, then as dK/dV
+    "pt_flash_attention_bwd_dq": (_P,) * 9 + (_I,) * 5 + (_F, _I) + _DROP
+    + (_I, _P),
+    # x, res, gamma, beta, out, y, mean, rstd, N, D, eps, dropout, dtype,
+    # stream
+    "pt_fused_add_ln_fwd": (_P,) * 8 + (_L, _I, _F) + _DROP + (_I, _P),
+    # dout, y, gamma, mean, rstd, dx, dres, part_g, part_b, dgamma, dbeta,
+    # N, D, dropout, dtype, stream
+    "pt_fused_add_ln_bwd": (_P,) * 11 + (_L, _I) + _DROP + (_I, _P),
+    # N → rows of the backward's partials
+    "pt_fused_add_ln_bwd_blocks": (_L,),
     # table, ids, out, n, V, D, padding_idx, ids_are_int64, dtype, stream
     "pt_embedding_gather_fwd": (_P, _P, _P, _L, _L, _I, _L, _I, _I, _P),
 }

@@ -11,7 +11,12 @@ fills explicitly), and ``padding_idx`` rows come back zero.
 
 :func:`embedding_gather_fwd` launches the kernel for CUDA tensors (or
 raises) and runs :func:`embedding_gather_fwd_plain` for CPU and meta
-tensors.  The scatter-add backward comes with the training slice.
+tensors.  :func:`embedding_gather` is a ``torch.autograd.Function`` over
+it whose backward is the reference's scatter-add (``_gather_core_bwd``
+:96-101): duplicate ids accumulate, negative ids feed row 0, and ids >= V
+and ``padding_idx`` rows send no gradient.  The reference leaves the
+scatter to XLA; here it is ``index_add_``, whose CUDA atomics sum
+duplicate ids in an order that varies from run to run.
 """
 
 import torch
@@ -64,3 +69,40 @@ def embedding_gather_fwd(table, ids, padding_idx=-1):
     _lib.check(err, KERNEL)
     _lib.count_launch(KERNEL)
     return out
+
+
+def embedding_gather_bwd(dout, ids, rows, padding_idx=-1):
+    """The gather's table gradient [rows, D] (float32 sums, then dout's
+    dtype): the scatter-add of ``dout`` [n, D] at the clamped ids, with
+    the rows of ids >= V and of ``padding_idx`` zeroed first."""
+    ids = ids.long()
+    drop = ids >= rows
+    if padding_idx is not None and padding_idx != -1:
+        drop = drop | (ids == padding_idx)
+    g = dout.float().masked_fill(drop[:, None], 0.0)
+    table = torch.zeros((rows, dout.shape[1]), dtype=torch.float32,
+                        device=dout.device)
+    table.index_add_(0, ids.clamp(0, rows - 1), g)
+    return table.to(dout.dtype)
+
+
+class _EmbeddingGather(torch.autograd.Function):
+    """``_gather_core`` with its custom vjp (:82-104)."""
+
+    @staticmethod
+    def forward(ctx, table, ids, padding_idx):
+        ctx.save_for_backward(ids)
+        ctx.rows, ctx.padding_idx = table.shape[0], padding_idx
+        return embedding_gather_fwd(table, ids, padding_idx)
+
+    @staticmethod
+    def backward(ctx, dout):
+        (ids,) = ctx.saved_tensors
+        return (embedding_gather_bwd(dout, ids, ctx.rows, ctx.padding_idx),
+                None, None)
+
+
+def embedding_gather(table, ids, padding_idx=-1):
+    """``table[ids]`` with the ``lookup_table`` semantics and the
+    scatter-add gradient; table [V, D], ids [n] → [n, D]."""
+    return _EmbeddingGather.apply(table, ids, padding_idx)

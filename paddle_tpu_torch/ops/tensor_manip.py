@@ -1,5 +1,6 @@
-"""Shape ops (mirrors ``paddle_tpu/ops/tensor_manip.py``: ``reshape2`` at
-:79, ``transpose2`` at :91).  ``XShape`` is a zero-size placeholder kept
+"""Shape and indexing ops (mirrors ``paddle_tpu/ops/tensor_manip.py``:
+``reshape2`` at :79, ``transpose2`` at :91, ``squeeze2`` :146,
+``unsqueeze2`` :160, ``gather`` :203).  ``XShape`` is a zero-size placeholder kept
 for program-structure parity with serialized reference models."""
 
 import torch
@@ -61,3 +62,45 @@ def reshape2(ctx, attrs, X, Shape):
              stateful_outputs=("XShape",))
 def transpose2(ctx, attrs, X):
     return {"Out": X.permute(*attrs.get("axis")), "XShape": _xshape(X)}
+
+
+def _squeeze(X, axes):
+    axes = [a % X.dim() for a in axes]
+    if not axes:
+        return torch.squeeze(X)
+    keep = [a for a in axes if X.shape[a] == 1]
+    return torch.squeeze(X, dim=tuple(keep)) if keep else X
+
+
+@register_op("squeeze2", inputs=["X"], outputs=["Out", "XShape"],
+             stateful_outputs=("XShape",))
+def squeeze2(ctx, attrs, X):
+    return {"Out": _squeeze(X, list(attrs.get("axes", []))),
+            "XShape": _xshape(X)}
+
+
+@register_op("unsqueeze2", inputs=["X"], outputs=["Out", "XShape"],
+             stateful_outputs=("XShape",))
+def unsqueeze2(ctx, attrs, X):
+    out = X
+    for a in sorted(attrs.get("axes", [])):
+        out = torch.unsqueeze(out, a)
+    return {"Out": out, "XShape": _xshape(X)}
+
+
+@register_op("gather", inputs=["X", "Index"], outputs=["Out"])
+def gather(ctx, attrs, X, Index):
+    """Rows of X at Index along axis 0, with ``jnp.take``'s semantics: a
+    negative index counts from the end, and one outside [-n, n) reads NaN
+    in a floating X."""
+    idx = Index.long()
+    if idx.dim() > 1 and idx.shape[-1] == 1:
+        idx = idx[..., 0]
+    n = X.shape[0]
+    idx = torch.where(idx < 0, idx + n, idx)
+    out = X[idx.clamp(0, n - 1)]
+    if out.is_floating_point():
+        bad = ((idx < 0) | (idx >= n)).reshape(
+            tuple(idx.shape) + (1,) * (X.dim() - 1))
+        out = torch.where(bad, torch.full_like(out, float("nan")), out)
+    return out

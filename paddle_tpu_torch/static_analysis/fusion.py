@@ -1,14 +1,16 @@
-"""Program-IR fusion pipeline, forward families of the serving path.
+"""Program-IR fusion pipeline, the families of BERT serving and training.
 
 Mirrors ``paddle_tpu/static_analysis/fusion.py``: ``resolve_fused_program``
-(:2014) with the two families that fire on BERT inference,
+(:2014) with the three families that fire on BERT,
 
 ========================  ==================================================
 family                    rewrite
 ========================  ==================================================
 ``dropout_add_ln`` (:843)  (dropout) → elementwise_add → layer_norm over
                           the last axis ⇒ one ``fused_dropout_add_ln`` (the
-                          fused LN kernel)
+                          fused LN kernels)
+``bias_act`` (:1007)      elementwise_add(·, 1-D persistable bias) →
+                          activation ⇒ ``fused_bias_act`` (the same math)
 ``embedding_gather``      ``lookup_table``/``embedding`` on a persistable
 (:1427)                   2-D table ⇒ ``fused_embedding_gather`` (the
                           gather kernel), gated on ``D % 128 == 0`` and the
@@ -17,15 +19,20 @@ family                    rewrite
 ========================  ==================================================
 
 with the reference's gates and its uncalibrated cost factor 1.0
-(:182-195; the autotune cache is not ported).  The executor runs a
-rewritten CLONE, cached on the original program by (config signature,
-program version, fetch set); the user's program is never mutated.  Kill
-switch: ``PADDLE_TPU_FUSION=0``.
+(:182-195; the autotune cache is not ported).  Training programs are
+rewritten with their grad twins, as in the reference: every grad op
+carries ``__fwd_op_id__``, so a matched forward pattern's grad ops are
+found exactly (``_GlobalView.twin``, :472-489, :526) and replaced by the
+fused op's one ``<type>_grad`` (:972, :1062, :1495), whose lowering
+differentiates the fused op's recorded graph (``ops/registry.py``).  A
+pattern whose twins are not all there, or not the expected ones, is left
+alone.  The executor runs a rewritten CLONE, cached on the original
+program by (config signature, program version, fetch set); the user's
+program is never mutated.  Kill switch: ``PADDLE_TPU_FUSION=0``.
 
-Not ported yet (ROADMAP.md): the attention, bias_act, softmax_xent,
-conv_bn_act, optimizer and allreduce families, the grad-twin rewrite
-(a pattern whose ops have grad twins is skipped, never half-rewritten),
-and the verifier bracket around each family.
+Not ported yet (ROADMAP.md): the attention, softmax_xent, conv_bn_act,
+optimizer and allreduce families, and the verifier bracket around each
+family.
 """
 
 import os
@@ -164,7 +171,7 @@ class _GlobalView:
         self.consumers = {}
         self.producers = {}
         self.closure_reads = set()
-        self.grad_twin_ids = set()
+        self.grad_twins = {}  # forward __op_id__ → [(idx, grad op)]
         self.op_index = {}
         for idx, op in enumerate(self.block.ops):
             self.op_index[id(op)] = idx
@@ -181,7 +188,7 @@ class _GlobalView:
                     sub_block_reads_recursive(self.program, sub))
             fwd_id = op.attrs.get("__fwd_op_id__")
             if fwd_id is not None and _is_grad_op(op):
-                self.grad_twin_ids.add(fwd_id)
+                self.grad_twins.setdefault(fwd_id, []).append((idx, op))
 
     def idx_of(self, op):
         return self.op_index[id(op)]
@@ -193,8 +200,34 @@ class _GlobalView:
         v = self.var(name)
         return None if v is None else v.shape
 
-    def has_grad_twin(self, op):
-        return op.attrs.get("__op_id__") in self.grad_twin_ids
+    def twin(self, op, expect_type):
+        """The unique grad twin ``(idx, op)`` of ``op`` with the expected
+        type; None when it has none, False when the twins are not what
+        the rewrite expects (the match is then refused)."""
+        twins = [t for t in self.grad_twins.get(op.attrs.get("__op_id__"),
+                                                ())
+                 if t[1].type == expect_type]
+        if not twins:
+            return None
+        return twins[0] if len(twins) == 1 else False
+
+    def group_twins(self, group):
+        """``[(op, (idx, grad op))]`` for a pattern's ops: all of them
+        twinned or none; None when that does not hold."""
+        twins = []
+        for o in group:
+            t = self.twin(o, o.type + "_grad")
+            if t is False:
+                return None
+            if t is not None:
+                twins.append((o, t))
+        if twins and len(twins) != len(group):
+            return None
+        return twins
+
+    def twin_ops(self, group):
+        return [t for o in group
+                for _, t in self.grad_twins.get(o.attrs.get("__op_id__"), ())]
 
     def sole_fwd_consumer(self, name):
         if name in self.targets or name in self.closure_reads:
@@ -225,6 +258,29 @@ def _new_op(block, type, inputs, outputs, attrs):
     from ..framework import Operator
 
     return Operator(block, type, inputs, outputs, attrs)
+
+
+def _grad_attrs(fwd_op):
+    """Attrs of a fused op's grad twin: the forward's, tied to it by
+    ``__fwd_op_id__``."""
+    attrs = dict(fwd_op.attrs)
+    attrs.pop("__op_id__", None)
+    attrs["__fwd_op_id__"] = fwd_op.attrs.get("__op_id__", 0)
+    attrs["op_role"] = "backward"
+    return attrs
+
+
+def _grad_out(grad_op, slot):
+    names = grad_op.outputs.get(slot, [])
+    return names[0] if names else EMPTY_VAR_NAME
+
+
+def _replace_twins(twins, gfused, replacements, removals):
+    """Put the fused grad op where the pattern's first grad op was and
+    drop the others."""
+    first = min(t[0] for _, t in twins)
+    replacements[first] = gfused
+    removals |= {t[0] for _, t in twins} - set(replacements)
 
 
 def _numel(shape, batch=1):
@@ -287,23 +343,35 @@ def _find_dropout_add_ln(view, report):
                 x_name, res_name = dp.inputs["X"][0], other
                 break
         group = ([drop_op] if drop_op else []) + [add_op, op]
-        if any(view.has_grad_twin(o) for o in group):
-            report.skip("dropout_add_ln", view.idx_of(op), op.type,
-                        "the pattern has grad ops; the grad-twin rewrite "
-                        "comes with the training slice",
-                        key=op.attrs.get("__op_id__"))
-            continue
         rate = 0.0
         if drop_op is not None:
             rate = float(drop_op.attrs.get("dropout_prob", 0.0) or 0.0)
             mask = drop_op.outputs.get("Mask", [None])[0]
-            if mask and not view.unconsumed(mask, group):
+            if mask and not view.unconsumed(mask,
+                                            group + view.twin_ops(group)):
                 continue
+        twins = view.group_twins(group)
+        if twins is None:
+            continue
+        all_ops = group + [t[1] for _, t in twins]
         removed = [x_in] + ([drop_op.outputs["Out"][0]] if drop_op else [])
         removed += [n for s in ("Mean", "Variance")
                     for n in op.outputs.get(s, []) if n]
-        if not all(view.unconsumed(n, group) for n in removed):
+        if not all(view.unconsumed(n, all_ops) for n in removed):
             continue
+        ln_twin = next((t[1] for o, t in twins if o is op), None)
+        add_twin = next((t[1] for o, t in twins if o is add_op), None)
+        drop_twin = next((t[1] for o, t in twins if o is drop_op), None)
+        if twins:
+            # the grads between the pattern's ops must stay inside it
+            internal = [_grad_out(ln_twin, "X@GRAD")]
+            if drop_op is not None:
+                internal.append(_grad_out(
+                    add_twin, "Y@GRAD" if add_op.inputs["Y"][0]
+                    == drop_op.outputs["Out"][0] else "X@GRAD"))
+            if any(n != EMPTY_VAR_NAME and not view.unconsumed(n, all_ops)
+                   for n in internal):
+                continue
         n_rows = _numel(xs[:-1])
         predicted = {"hbm_bytes_saved": 2 * (len(group) - 1)
                      * (n_rows or 1) * int(d) * 4,
@@ -312,18 +380,40 @@ def _find_dropout_add_ln(view, report):
                   "epsilon": float(op.attrs.get("epsilon", 1e-5))}
         if drop_op is not None and "is_test" in drop_op.attrs:
             fattrs["is_test"] = drop_op.attrs["is_test"]
-        fused = _new_op(block, "fused_dropout_add_ln",
-                        {"X": [x_name], "Residual": [res_name],
-                         "Scale": [scale[0]], "Bias": [bias[0]]},
+        ins = {"X": [x_name], "Residual": [res_name], "Scale": [scale[0]],
+               "Bias": [bias[0]]}
+        fused = _new_op(block, "fused_dropout_add_ln", ins,
                         {"Out": [op.outputs["Y"][0]]}, fattrs)
         replacements = {view.idx_of(op): fused}
         removals = {view.idx_of(o) for o in group} - set(replacements)
+        if twins:
+            if drop_op is not None:
+                x_grad = _grad_out(drop_twin, "X@GRAD")
+                res_grad = _grad_out(add_twin, "X@GRAD" if add_op.inputs[
+                    "X"][0] == res_name else "Y@GRAD")
+            else:
+                x_slot = "Y@GRAD" if add_op.inputs["Y"][0] == x_name \
+                    else "X@GRAD"
+                x_grad = _grad_out(add_twin, x_slot)
+                res_grad = _grad_out(add_twin, "X@GRAD" if x_slot == "Y@GRAD"
+                                     else "Y@GRAD")
+            g_ins = dict(ins, Out=[op.outputs["Y"][0]],
+                         **{"Out@GRAD": list(ln_twin.inputs.get(
+                             "Y@GRAD", [EMPTY_VAR_NAME]))})
+            g_outs = {"X@GRAD": [x_grad], "Residual@GRAD": [res_grad],
+                      "Scale@GRAD": [_grad_out(ln_twin, "Scale@GRAD")],
+                      "Bias@GRAD": [_grad_out(ln_twin, "Bias@GRAD")]}
+            gfused = _new_op(block, "fused_dropout_add_ln_grad", g_ins, g_outs,
+                             _grad_attrs(fused))
+            _replace_twins(twins, gfused, replacements, removals)
         return {"replacements": replacements, "removals": removals,
                 "rewrite": FusionRewrite(
                     "dropout_add_ln", "fused_dropout_add_ln",
-                    sorted(view.idx_of(o) for o in group),
+                    sorted({view.idx_of(o) for o in group}
+                           | {t[0] for _, t in twins}),
                     vars=(x_name, res_name), predicted=predicted,
-                    note="dropout rate %.3g" % rate if rate
+                    note="dropout rate %.3g (the mask stream differs from "
+                    "the unfused dropout op's)" % rate if rate
                     else "rate 0: the same math as the unfused ops")}
     return None
 
@@ -346,10 +436,8 @@ def _find_embedding_gather(view, report):
         if not all(isinstance(d, int) and d > 0 for d in (rows, dim)):
             continue
         key = op.attrs.get("__op_id__")
-        if view.has_grad_twin(op):
-            report.skip("embedding_gather", i, op.type,
-                        "the lookup has a grad op; the scatter-add backward "
-                        "comes with the training slice", key=key)
+        twin = view.twin(op, op.type + "_grad")
+        if twin is False:
             continue
         if dim % 128:
             report.skip("embedding_gather", i, op.type,
@@ -373,17 +461,93 @@ def _find_embedding_gather(view, report):
                         {"W": list(op.inputs["W"]),
                          "Ids": list(op.inputs["Ids"])},
                         {"Out": [out]}, fattrs)
-        return {"replacements": {i: fused}, "removals": set(),
+        replacements = {i: fused}
+        if twin is not None:
+            g_ins = {"W": list(op.inputs["W"]), "Ids": list(op.inputs["Ids"]),
+                     "Out": [out],
+                     "Out@GRAD": list(twin[1].inputs.get(
+                         "Out@GRAD", [EMPTY_VAR_NAME]))}
+            replacements[twin[0]] = _new_op(
+                block, "fused_embedding_gather_grad", g_ins,
+                {"W@GRAD": [_grad_out(twin[1], "W@GRAD")]},
+                _grad_attrs(fused))
+        return {"replacements": replacements, "removals": set(),
                 "rewrite": FusionRewrite(
-                    "embedding_gather", "fused_embedding_gather", [i],
-                    vars=(w,), predicted={"device_gather_bytes": slab_bytes,
-                                          "calibration": factor},
+                    "embedding_gather", "fused_embedding_gather",
+                    sorted(replacements), vars=(w,),
+                    predicted={"device_gather_bytes": slab_bytes,
+                               "calibration": factor},
                     note="V=%d, D=%d" % (rows, dim))}
+    return None
+
+
+_ACT_TYPES = ("relu", "gelu", "tanh", "sigmoid", "relu6", "leaky_relu",
+              "elu", "softplus", "swish")
+
+
+def _find_bias_act(view, report):
+    block = view.block
+    for op in block.ops:
+        if op.type != "elementwise_add" or _is_grad_op(op):
+            continue
+        b = op.inputs.get("Y", [None])[0]
+        bv = view.var(b) if b else None
+        if bv is None or not bv.persistable or bv.shape is None \
+                or len(bv.shape) != 1:
+            continue
+        out = op.outputs["Out"][0]
+        nxt = view.sole_fwd_consumer(out)
+        if nxt is None or nxt[1].type not in _ACT_TYPES:
+            continue
+        act_op = nxt[1]
+        group = [op, act_op]
+        twins = view.group_twins(group)
+        if twins is None:
+            continue
+        all_ops = group + [t[1] for _, t in twins]
+        if not view.unconsumed(out, all_ops):
+            continue
+        add_twin = next((t[1] for o, t in twins if o is op), None)
+        act_twin = next((t[1] for o, t in twins if o is act_op), None)
+        if twins:
+            inter = _grad_out(act_twin, "X@GRAD")
+            if inter != EMPTY_VAR_NAME and not view.unconsumed(inter,
+                                                               all_ops):
+                continue
+        fattrs = {k: v for k, v in act_op.attrs.items()
+                  if not k.startswith("__") and k != "op_namescope"}
+        fattrs["act_type"] = act_op.type
+        fattrs["axis"] = int(op.attrs.get("axis", -1))
+        fused = _new_op(block, "fused_bias_act",
+                        {"X": [op.inputs["X"][0]], "Bias": [b]},
+                        {"Out": [act_op.outputs["Out"][0]]}, fattrs)
+        replacements = {view.idx_of(act_op): fused}
+        removals = {view.idx_of(op)}
+        if twins:
+            g_ins = {"X": [op.inputs["X"][0]], "Bias": [b],
+                     "Out": [act_op.outputs["Out"][0]],
+                     "Out@GRAD": list(act_twin.inputs.get(
+                         "Out@GRAD", [EMPTY_VAR_NAME]))}
+            g_outs = {"X@GRAD": [_grad_out(add_twin, "X@GRAD")],
+                      "Bias@GRAD": [_grad_out(add_twin, "Y@GRAD")]}
+            gfused = _new_op(block, "fused_bias_act_grad", g_ins, g_outs,
+                             _grad_attrs(fused))
+            _replace_twins(twins, gfused, replacements, removals)
+        return {"replacements": replacements, "removals": removals,
+                "rewrite": FusionRewrite(
+                    "bias_act", "fused_bias_act",
+                    sorted({view.idx_of(o) for o in group}
+                           | {t[0] for _, t in twins}),
+                    vars=(op.inputs["X"][0], b),
+                    predicted={"ops_removed": 1,
+                               "hbm_bytes_saved": 2 * _var_bytes(view, out)},
+                    note="the same math (%s)" % act_op.type)}
     return None
 
 
 _FAMILIES = (
     ("dropout_add_ln", "fuse_elewise", _find_dropout_add_ln),
+    ("bias_act", "fuse_elewise", _find_bias_act),
     ("embedding_gather", "fuse_embedding_gather", _find_embedding_gather),
 )
 

@@ -38,13 +38,18 @@ main, startup = fluid.Program(), fluid.Program()
 with fluid.program_guard(main, startup):
     x = fluid.layers.data("x", shape=[4], dtype="float32")
     y = fluid.layers.fc(x, size=3, act="gelu")
+    loss = fluid.layers.reduce_sum(y)
+    fluid.optimizer.Adam(learning_rate=0.01).minimize(loss)
 scope = fluid.Scope()
 with fluid.scope_guard(scope):
     exe = fluid.Executor(fluid.CPUPlace())
     exe.run(startup)
-    out = exe.run(main, feed={"x": np.ones((2, 4), "float32")},
-                  fetch_list=[y])[0]
+    out, l0 = exe.run(main, feed={"x": np.ones((2, 4), "float32")},
+                      fetch_list=[y, loss])
+    l1 = exe.run(main, feed={"x": np.ones((2, 4), "float32")},
+                 fetch_list=[loss])[0]
 assert out.shape == (2, 3), out.shape
+assert l1[0] < l0[0], (l0, l1)
 assert not any(m.split(".")[0] in ("jax", "paddle_tpu")
                for m in sys.modules), sorted(sys.modules)
 print("ISOLATED-OK")
@@ -134,3 +139,21 @@ def test_unported_gates_raise(tmp_path):
         fluid.Executor(fluid.CPUPlace()).run(pred.program, verify=True)
     with pytest.raises(NotImplementedError, match="AMP"):
         cfg.enable_bf16()
+
+
+def test_unported_training_options_raise():
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data("x", shape=[4], dtype="float32")
+        loss = fluid.layers.reduce_sum(fluid.layers.fc(x, size=3))
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            fluid.optimizer.Adam(0.01, regularization=object()).minimize(loss)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data("x", shape=[4], dtype="float32")
+        loss = fluid.layers.reduce_sum(fluid.layers.fc(x, size=3))
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            fluid.optimizer.SGD(0.01).minimize(loss, grad_clip=object())
+    from paddle_tpu_torch.models import bert
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        bert.build_pretrain(bert.BERT_TINY, seq_len=16, amp=True)

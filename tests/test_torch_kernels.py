@@ -10,6 +10,7 @@ the GPU by ``chip_smoke.py``.
 
 import importlib
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -20,6 +21,7 @@ FA = importlib.import_module("paddle_tpu.ops.pallas.flash_attention")
 FLN = importlib.import_module("paddle_tpu.ops.pallas.fused_ln")
 EMB = importlib.import_module("paddle_tpu.ops.pallas.embedding")
 
+from paddle_tpu_torch.ops.cuda import dropout as t_drop  # noqa: E402
 from paddle_tpu_torch.ops.cuda import embedding as t_emb  # noqa: E402
 from paddle_tpu_torch.ops.cuda import flash_attention as t_fa  # noqa: E402
 from paddle_tpu_torch.ops.cuda import fused_ln as t_fln  # noqa: E402
@@ -28,6 +30,17 @@ from paddle_tpu_torch.ops.cuda import fused_ln as t_fln  # noqa: E402
 # on the reference side, one matmul on ours)
 FLASH_TOL = 2e-5
 LN_TOL = 1e-5
+# gradients: float32 both sides, the reference's blocked sums against one
+# matmul per product here, through a softmax Jacobian
+FLASH_GRAD_TOL = 1e-4
+LN_GRAD_TOL = 2e-5
+DROP_SEED = 1234
+
+
+@pytest.fixture
+def debug_dropout(monkeypatch):
+    """The reference's debug hash for in-kernel dropout, on both sides."""
+    monkeypatch.setenv("PADDLE_TPU_FLASH_DROPOUT_DEBUG", "iota")
 
 
 @pytest.fixture
@@ -68,8 +81,8 @@ def test_flash_attention_matches_pallas_kernel(interpret, t, causal,
 
 
 def test_flash_attention_saves_m_and_l_like_the_kernel(interpret):
-    """The training slice's backward reads m and l: they match the
-    reference kernel's saved statistics, bias given as [B,1,1,T]."""
+    """The backward reads the saved m and l: they match the reference
+    kernel's saved statistics, bias given as [B,1,1,T]."""
     b, h, t, d = 2, 2, 128, 64
     q, k, v, bias = _flash_inputs(3, b, h, t, d, True)
     scale = 1.0 / np.sqrt(d)
@@ -100,9 +113,21 @@ def test_flash_attention_fully_masked_row_is_zero():
 
 
 def test_flash_attention_wrapper_rejects_dropout():
-    q = torch.zeros(2, 4, 8)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        t_fa.flash_attention_fwd(q, q, q, dropout_rate=0.1)
+    """The reference's argument checks (flash_attention.py:720-726): rate
+    1 would upscale by 1/0, and a rate > 0 needs a seed."""
+    q = torch.zeros(1, 2, 4, 8)
+    jq = jnp.asarray(q.numpy())
+    for rate, seed, match in ((1.0, 3, "must be in"),
+                              (0.1, None, "requires dropout_seed")):
+        with pytest.raises(ValueError, match=match):
+            FA.flash_attention(jq, jq, jq, dropout_rate=rate,
+                               dropout_seed=seed)
+        with pytest.raises(ValueError, match=match):
+            t_fa.flash_attention(q, q, q, dropout_rate=rate,
+                                 dropout_seed=seed)
+        with pytest.raises(ValueError, match=match):
+            t_fa.flash_attention_fwd(q[0], q[0], q[0], dropout_rate=rate,
+                                     dropout_seed=seed)
 
 
 def test_fused_ln_matches_pallas_kernel(interpret):
@@ -154,3 +179,163 @@ def test_kernel_wrappers_check_dtypes():
     with pytest.raises(ValueError):
         t_fln.fused_dropout_add_ln_fwd(torch.zeros(4, 8), torch.zeros(4, 9),
                                        torch.ones(8), torch.zeros(8))
+
+
+def _np_card_bits(seed, b, r, c):
+    """The card generator in numpy uint32 arithmetic (wrapping)."""
+    def fmix(h):
+        h = h ^ (h >> np.uint32(16))
+        h = h * np.uint32(0x85EBCA6B)
+        h = h ^ (h >> np.uint32(13))
+        h = h * np.uint32(0xC2B2AE35)
+        return h ^ (h >> np.uint32(16))
+
+    with np.errstate(over="ignore"):
+        u = lambda x: np.asarray(x, np.uint64).astype(np.uint32)  # noqa
+        key = fmix(u(seed) ^ (u(b) * np.uint32(0x9E3779B9)))
+        key = fmix(key + u(r) * np.uint32(0x7FEB352D))
+        return fmix(key ^ (u(c) * np.uint32(0x846CA68B)))
+
+
+def test_dropout_generators_match_uint32_arithmetic():
+    """The plain twins' int64 arithmetic masked to 32 bits gives the
+    uint32 wrap-around results of the kernels' generators: the card
+    generator against numpy, the debug hash against the reference's own
+    ``debug_keep_mask``."""
+    b = np.arange(3)[:, None, None]
+    r = np.arange(70)[None, :, None]
+    c = np.arange(90)[None, None, :]
+    want = _np_card_bits(0xDEADBEEF, b, r, c)
+    got = t_drop.card_bits(0xDEADBEEF, torch.from_numpy(b),
+                           torch.from_numpy(r), torch.from_numpy(c))
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+    want_keep = np.asarray(FA.debug_keep_mask(3, 70, 90, 0.1, 77))
+    got_keep = t_drop.keep_mask(77, 0.1, torch.from_numpy(b),
+                                torch.from_numpy(r), torch.from_numpy(c),
+                                debug=True)
+    np.testing.assert_array_equal(got_keep.numpy(), want_keep)
+    keep = t_drop.attention_keep_mask(5, 0.1, 4, 128, 128, "cpu")
+    # 65536 Bernoulli(0.9) draws: the keep fraction within 4 sigma
+    assert abs(float(keep.float().mean()) - 0.9) < 4 * (0.09 / keep.numel()) ** 0.5
+
+
+def _jvjp(fn, args, cot):
+    out, vjp = jax.vjp(fn, *args)
+    return np.asarray(out), [np.asarray(g) for g in vjp(jnp.asarray(cot))]
+
+
+def _tgrads(fn, args, cot):
+    ts = [torch.from_numpy(a).requires_grad_() for a in args]
+    out = fn(*ts)
+    grads = torch.autograd.grad(out, ts, torch.from_numpy(cot))
+    return out.detach().numpy(), [g.numpy() for g in grads]
+
+
+@pytest.mark.parametrize("causal, with_bias, rate", [
+    (False, True, 0.0), (True, False, 0.0), (False, False, 0.0),
+    (True, True, 0.1), (False, True, 0.1)])
+def test_flash_attention_bwd_matches_pallas_kernel(interpret, debug_dropout,
+                                                   causal, with_bias, rate):
+    """dQ, dK, dV of the plain backward (through the autograd function)
+    against ``jax.vjp`` of the reference's kernels; at rate 0.1 both draw
+    the debug hash mask from one shared seed."""
+    q, k, v, bias = _flash_inputs(11 + causal, 2, 2, 128, 64, with_bias)
+    cot = np.random.RandomState(7).randn(*q.shape).astype("float32")
+    seed = DROP_SEED if rate else None
+    jb = None if bias is None else jnp.asarray(bias)
+    tb = None if bias is None else torch.from_numpy(bias)
+    want_o, want = _jvjp(
+        lambda a, b_, c: FA.flash_attention(
+            a, b_, c, bias=jb, causal=causal, dropout_rate=rate,
+            dropout_seed=seed), (q, k, v), cot)
+    got_o, got = _tgrads(
+        lambda a, b_, c: t_fa.flash_attention(
+            a, b_, c, bias=tb, causal=causal, dropout_rate=rate,
+            dropout_seed=seed), (q, k, v), cot)
+    np.testing.assert_allclose(got_o, want_o, atol=FLASH_TOL, rtol=FLASH_TOL)
+    for name, g, w in zip("qkv", got, want):
+        np.testing.assert_allclose(g, w, atol=FLASH_GRAD_TOL,
+                                   rtol=FLASH_GRAD_TOL, err_msg="d" + name)
+
+
+def test_flash_attention_bwd_plain_matches_kernel_wrapper_and_masked_rows():
+    """The wrapper's backward is the plain version on the CPU, and a row
+    that sees no key gets zero gradients."""
+    q, k, v, _ = _flash_inputs(4, 2, 2, 16, 8, False)
+    bias = np.zeros((2, 16), "float32")
+    bias[1, :] = -np.inf
+    qt, kt, vt = (torch.from_numpy(x.reshape(4, 16, 8)) for x in (q, k, v))
+    bt = torch.from_numpy(bias)
+    o, m, l = t_fa.flash_attention_fwd(qt, kt, vt, bt)
+    do = torch.randn(4, 16, 8, generator=torch.Generator().manual_seed(0))
+    dq, dk, dv = t_fa.flash_attention_bwd(qt, kt, vt, bt, o, m, l, do)
+    pq, pk, pv = t_fa.flash_attention_bwd_plain(qt, kt, vt, bt, o, m, l, do,
+                                                sm_scale=8 ** -0.5)
+    for a, b in ((dq, pq), (dk, pk), (dv, pv)):
+        assert torch.equal(a, b)
+    assert torch.all(dq[2:] == 0) and torch.all(dk[2:] == 0) \
+        and torch.all(dv[2:] == 0)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_fused_ln_bwd_matches_pallas_kernel(interpret, debug_dropout, rate):
+    """dx, dres, dgamma, dbeta against ``jax.vjp`` of the reference's
+    fused op (its Pallas kernels; the debug hash mask at rate 0.1)."""
+    rng = np.random.RandomState(8)
+    n, d = 64, 128
+    x, res = (rng.randn(n, d).astype("float32") for _ in range(2))
+    g = (1.0 + 0.1 * rng.randn(d)).astype("float32")
+    b = (0.1 * rng.randn(d)).astype("float32")
+    cot = rng.randn(n, d).astype("float32")
+    seed = DROP_SEED if rate else None
+    jseed = None if seed is None else jnp.asarray([seed], jnp.int32)
+    want_o, want = _jvjp(
+        lambda *a: FLN.fused_dropout_add_ln(*a, dropout_rate=rate,
+                                            seed=jseed),
+        (x, res, g, b), cot)
+    got_o, got = _tgrads(
+        lambda *a: t_fln.fused_dropout_add_ln(*a, dropout_rate=rate,
+                                              seed=seed),
+        (x, res, g, b), cot)
+    np.testing.assert_allclose(got_o, want_o, atol=LN_TOL, rtol=LN_TOL)
+    for name, gg, w in zip(("dx", "dres", "dgamma", "dbeta"), got, want):
+        # dgamma/dbeta sum 64 rows: the tolerance scales with that sum
+        tol = LN_GRAD_TOL * (n if name in ("dgamma", "dbeta") else 1)
+        np.testing.assert_allclose(gg, w, atol=tol, rtol=LN_GRAD_TOL,
+                                   err_msg=name)
+
+
+def test_fused_ln_saves_stats_and_drops_like_its_plain_twin():
+    """The saved y/mean/rstd reproduce out, and the dropped x is the
+    card generator's mask times 1 / (1 - rate)."""
+    x = torch.randn(6, 32, generator=torch.Generator().manual_seed(1))
+    zeros = torch.zeros_like(x)
+    out, y, mean, rstd = t_fln.fused_dropout_add_ln_fwd(
+        x, zeros, torch.ones(32), torch.zeros(32), 1e-5, 0.25, 9,
+        save_stats=True)
+    keep = t_drop.row_keep_mask(9, 0.25, (6, 32), "cpu")
+    torch.testing.assert_close(y, torch.where(keep, x / 0.75, zeros))
+    torch.testing.assert_close(out, (y - mean[:, None]) * rstd[:, None])
+
+
+def test_embedding_gather_bwd_matches_reference_scatter_add(interpret):
+    """Duplicate ids accumulate; a negative id feeds row 0; ids >= V and
+    padding_idx rows send no gradient (exact in float32: each table row
+    sums at most a few float32 rows of small integers' order)."""
+    rng = np.random.RandomState(9)
+    v, d = 20, 128
+    table = rng.randn(v, d).astype("float32")
+    ids = rng.randint(0, v, (40,)).astype("int32")
+    ids[:6] = [-2, v, v + 3, 5, 5, 5]
+    cot = rng.randn(40, d).astype("float32")
+    _, (want,) = _jvjp(
+        lambda t: EMB.embedding_gather(t, jnp.asarray(ids), 5), (table,),
+        cot)
+    got = t_emb.embedding_gather_bwd(torch.from_numpy(cot),
+                                     torch.from_numpy(ids), v, 5).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-6)
+    assert (got[5] == 0).all()
+    tab = torch.from_numpy(table).requires_grad_()
+    out = t_emb.embedding_gather(tab, torch.from_numpy(ids), 5)
+    (g,) = torch.autograd.grad(out, tab, torch.from_numpy(cot))
+    np.testing.assert_allclose(g.numpy(), want, atol=1e-6, rtol=1e-6)

@@ -11,9 +11,12 @@ and the CUDA toolkit.  Phases, each printing one JSON line:
 2. build: ``nvcc`` builds the kernel library from ``paddle_tpu_torch/csrc``;
 3. kernels: each hand-written kernel (flash attention forward, its dK/dV
    and dQ backward kernels, fused add+LN forward and backward, embedding
-   gather) against its plain PyTorch version on the card, in float32 and
-   bfloat16, at dropout 0 and 0.1, at the main paths' shapes and at edge
-   cases (ragged T, head dims 96 and 128, causal, fully masked rows),
+   gather, flash decode and paged flash decode) against its plain
+   PyTorch version on the card, in float32 and bfloat16, at dropout 0
+   and 0.1, at the main paths' shapes and at edge cases (ragged T, head
+   dims 96 and 128, causal, fully masked rows; for the decode kernels
+   lengths 0 to 1024 in one launch, head dim 128, shuffled block
+   tables with -1 tails over a larger pool, block lengths 16 and 32),
    with the error beside its tolerance, and the kernels' dropout keep
    fractions against 1 - rate; then the kernel, the plain version and
    one PyTorch library call for the same function are timed with L2
@@ -42,11 +45,28 @@ and the CUDA toolkit.  Phases, each printing one JSON line:
 7. train parity: one dropout-0.1 step of a 2-layer BERT at BERT-base
    width (batch 2, T=512) on the card and on the CPU with the plain
    versions, from the same seeded start and with the same masks; the
-   loss and three gradients must agree within the stated tolerances.
+   loss and three gradients must agree within the stated tolerances;
+8. main path, decode: a GPT decoder at GPT-2-small widths (vocab 50257,
+   hidden 768, 12 layers, 12 heads, ffn 3072, cache depth 1024; random
+   weights from a seed) served as a ``DecodeEngine`` tenant of
+   ``PredictorServer``, ring then paged: 8 slots, prompt buckets 128 and
+   512, greedy, 64 new tokens for each of 16 requests of seeded prompt
+   lengths 32-500, so admission happens mid-stream.  Every request must
+   complete with tokens in the vocabulary, ring and paged must give the
+   same tokens, and the counters must rise by 12 K5 (ring) or K6
+   (paged), 24 K2 and 2 K3 per step and 12 K1, 24 K2 and 2 K3 per
+   prefill; tokens/s, TTFT, latency, step time, peak memory, the host's
+   time to enqueue a step and the device time per step by kernel group
+   with the idle share;
+9. decode parity: a 2-layer decoder at GPT-2-small width, prefill and 8
+   greedy steps, ring and paged, on the card and on the CPU with the
+   plain versions from one parameter dict; logits and greedy tokens must
+   agree within the stated tolerance and margin.
 
-Then one JSON line lists every ported kernel with its launches in the
-training run and its times, a line gives ``nvidia-smi``'s name and power
-limit, and the last line is ``{"ok": true, "device": {...}}``.  Any failed
+Then one JSON line lists every ported kernel with its launches on the
+decode path (or, for the backward kernels, the training run) and its
+times, a line gives ``nvidia-smi``'s name and power limit, and the last
+line is ``{"ok": true, "device": {...}}``.  Any failed
 phase exits non-zero before that line.  Without a CUDA device, or without
 the repository beside it, the script exits 2 and prints no result.
 """
@@ -82,6 +102,22 @@ TRAIN_LR = 1e-4
 # atomics of the embedding scatter-add
 PARITY_LOSS_RTOL = 1e-4
 PARITY_GRAD_RTOL = 1e-3   # max |GPU - CPU| over max |CPU| per gradient
+DECODE_TMAX = 1024        # GPT-2 small's n_ctx: the decode caches' depth
+# one K5/K6 launch's lengths at the main shapes (8 sequences): empty,
+# one row, ragged, and the full cache
+DECODE_KERNEL_LENGTHS = (0, 1, 17, 500, 1024, 333, 64, 1000)
+DECODE_SLOTS = 8
+DECODE_BUCKETS = (128, 512)   # prompt buckets: K1 runs at both lengths
+DECODE_NEW_TOKENS = 64
+DECODE_REQUESTS = 16
+DECODE_PROMPT_LENS = (32, 500)  # seeded prompt lengths, inclusive
+DECODE_PROFILE_STEPS = 5
+DECODE_PARITY_PROMPTS = (37, 200, 480)
+DECODE_PARITY_STEPS = 8
+# GPU kernels vs CPU plain versions through 2 layers and the 50257-wide
+# head, float32 with TF32 off: sums in another order
+DECODE_PARITY_RTOL = 1e-4
+GREEDY_MARGIN = 1e-4   # tokens are compared where the top-2 gap exceeds it
 
 
 def emit(obj):
@@ -452,6 +488,167 @@ def kernel_gather(checks, torch, gen):
     return main_err
 
 
+def _decode_tol(ref):
+    """The decode kernels: float32 within 1e-5 of the largest |ref| (the
+    reference's documented tolerance for its decode oracle); bfloat16
+    within 2 units in the last place there."""
+    import torch
+
+    big = float(ref.float().abs().max())
+    if ref.dtype == torch.float32:
+        return 1e-5 * max(1.0, big)
+    return 2 * BF16_UNIT * big
+
+
+def _decode_ring_inputs(torch, gen, b, h, t, dh, dtype, lengths):
+    q = torch.randn((b, h, dh), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((b, h, t, dh), generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
+    return q, k, v, torch.tensor(lengths, dtype=torch.int32, device="cuda")
+
+
+def _paged_tables(torch, gen, lengths, block_len, max_blocks, pool_blocks):
+    """Block tables over a shuffled pool: each sequence owns the blocks
+    its length needs, at non-contiguous shuffled ids, and -1 after them."""
+    import numpy as np
+
+    order = torch.randperm(pool_blocks, generator=gen,
+                           device="cuda").cpu().numpy()
+    table = np.full((len(lengths), max_blocks), -1, "int32")
+    nxt = 0
+    for s, n in enumerate(lengths):
+        need = -(-int(n) // block_len)
+        table[s, :need] = order[nxt:nxt + need]
+        nxt += need
+    assert nxt <= pool_blocks
+    return torch.from_numpy(table).cuda()
+
+
+def kernel_decode(checks, torch, gen):
+    """K5 and K6 against their plain versions: the main path's shapes (8
+    sequences x 12 heads, Tmax 1024, Dh 64) with lengths 0, 1, 17, 500
+    and 1024 mixed in one launch, Dh 128, and for K6 shuffled block ids,
+    -1 tails, a pool larger than the tables, block_len 16 and 32."""
+    from paddle_tpu_torch.ops.cuda import flash_decode as fd
+    from paddle_tpu_torch.ops.cuda import paged_flash_decode as pfd
+
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = _dname(dtype)
+        for b, h, t, dh, lens in (
+                (8, 12, DECODE_TMAX, 64, DECODE_KERNEL_LENGTHS),
+                (3, 4, 256, 128, (0, 17, 256)),
+                (2, 2, 96, 64, (1, 95))):
+            q, k, v, ln = _decode_ring_inputs(torch, gen, b, h, t, dh, dtype,
+                                              lens)
+            got = fd.flash_decode(q, k, v, ln)
+            ref = fd.flash_decode_plain(q, k, v, ln)
+            torch.cuda.synchronize()
+            case = "B%d H%d Tmax%d Dh%d lengths %s %s" % (b, h, t, dh,
+                                                          list(lens), name)
+            err = checks.check("flash_decode_fwd", case, max_err(got, ref),
+                               _decode_tol(ref))
+            if 0 in lens:
+                checks.check("flash_decode_fwd", "length-0 rows are 0, "
+                             + case, float(got[[i for i, n in enumerate(lens)
+                                                if n == 0]].float().abs()
+                                           .max()), 0.0)
+            if dtype == torch.float32 and t == DECODE_TMAX:
+                errs["flash_decode_fwd"] = err
+            for bl in (16, 32):
+                if t % bl:
+                    continue
+                mb = t // bl
+                pool = b * mb + 37
+                table = _paged_tables(torch, gen, lens, bl, mb, pool)
+                kp, vp = (torch.randn((pool, h, bl, dh), generator=gen,
+                                      device="cuda").to(dtype)
+                          for _ in range(2))
+                got = pfd.paged_flash_decode(q, kp, vp, ln, table)
+                ref = pfd.paged_flash_decode_plain(q, kp, vp, ln, table)
+                torch.cuda.synchronize()
+                case = ("S%d H%d BL%d MB%d pool %d shuffled, -1 tails, "
+                        "Dh%d lengths %s %s" % (b, h, bl, mb, pool, dh,
+                                                list(lens), name))
+                err = checks.check("paged_flash_decode_fwd", case,
+                                   max_err(got, ref), _decode_tol(ref))
+                if dtype == torch.float32 and t == DECODE_TMAX and bl == 16:
+                    errs["paged_flash_decode_fwd"] = err
+                # the same cache rows through the ring kernel agree too
+                ring = fd.flash_decode(
+                    q, pfd.gather_paged_cache(kp, table).contiguous(),
+                    pfd.gather_paged_cache(vp, table).contiguous(), ln)
+                torch.cuda.synchronize()
+                checks.check("paged_flash_decode_fwd", "vs the ring kernel "
+                             "on the gathered rows, " + case,
+                             max_err(got, ring), _decode_tol(ring))
+    return errs
+
+
+def _decode_bound(lengths, heads, dh, esize, rows, table_bytes=0):
+    """Live bytes of one decode launch: the K and V rows below each
+    length, q, o and the lengths (and the table), read or written once;
+    4 flops per live key element (q.k and p.v)."""
+    live = sum(int(n) for n in lengths) * heads * dh
+    nbytes = 2 * live * esize + 2 * rows * dh * esize + 4 * rows \
+        + table_bytes
+    return bound_ms(nbytes, 4 * live, "float32")
+
+
+def time_decode_kernels(torch, gen, errs):
+    """Cold-L2 times of K5 and K6 at the decode path's shapes (8
+    sequences x 12 heads, Dh 64, Tmax 1024, float32) with the mixed
+    lengths of the checks, and with every row full; the bound counts the
+    live rows only.  K5's yardstick is one masked
+    ``scaled_dot_product_attention``; K6 has no single library call, so
+    the gather + SDPA pair is timed beside it."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.cuda import flash_decode as fd
+    from paddle_tpu_torch.ops.cuda import paged_flash_decode as pfd
+
+    src = "paddle_tpu_torch/csrc/flash_decode.cu"
+    b, h, t, dh, bl = 8, 12, DECODE_TMAX, 64, 16
+    mb = t // bl
+    rows, extra = [], []
+    for lens in (DECODE_KERNEL_LENGTHS, (t,) * b):
+        q, k, v, ln = _decode_ring_inputs(torch, gen, b, h, t, dh,
+                                          torch.float32, lens)
+        mask = (torch.arange(t, device="cuda")[None, :] < ln[:, None]
+                )[:, None, None, :]
+        q4 = q[:, :, None, :]
+        sdpa = time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k, v, attn_mask=mask), 50)
+        shape = "q [8,12,64], k/v [8,12,1024,64] f32, lengths %s" % (
+            list(lens),)
+        r = _row("flash_decode_fwd", src,
+                 "paddle_tpu/ops/pallas/flash_decode.py:178",
+                 errs["flash_decode_fwd"],
+                 time_ms(lambda: fd.flash_decode(q, k, v, ln), 50),
+                 time_ms(lambda: fd.flash_decode_plain(q, k, v, ln), 50),
+                 _decode_bound(lens, h, dh, 4, b * h), sdpa, shape)
+        (rows if lens == DECODE_KERNEL_LENGTHS else extra).append(r)
+        table = _paged_tables(torch, gen, lens, bl, mb, b * mb)
+        kp, vp = (torch.randn((b * mb, h, bl, dh), generator=gen,
+                              device="cuda") for _ in range(2))
+        r = _row("paged_flash_decode_fwd", src,
+                 "paddle_tpu/ops/pallas/paged_flash_decode.py:185",
+                 errs["paged_flash_decode_fwd"],
+                 time_ms(lambda: pfd.paged_flash_decode(q, kp, vp, ln,
+                                                        table), 50),
+                 time_ms(lambda: pfd.paged_flash_decode_plain(
+                     q, kp, vp, ln, table), 50),
+                 _decode_bound(lens, h, dh, 4, b * h,
+                               4 * int((table >= 0).sum())),
+                 None, "q [8,12,64], pools [512,12,16,64] f32, shuffled "
+                 "tables [8,64], lengths %s" % (list(lens),))
+        r["gather_sdpa_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            q4, pfd.gather_paged_cache(kp, table),
+            pfd.gather_paged_cache(vp, table), attn_mask=mask), 50)
+        (rows if lens == DECODE_KERNEL_LENGTHS else extra).append(r)
+    return rows, extra
+
+
 def _row(name, source, replaces, err, ms, plain_ms, bound, library_ms,
          shape):
     return {"name": name, "route": "cuda", "source": source,
@@ -612,11 +809,14 @@ def phase_kernels():
     errs["fused_dropout_add_ln_fwd"], errs["fused_dropout_add_ln_bwd"] = \
         kernel_ln(checks, torch, gen)
     errs["embedding_gather_fwd"] = kernel_gather(checks, torch, gen)
+    errs.update(kernel_decode(checks, torch, gen))
     if checks.failed:
         raise AssertionError("kernel checks failed: %s"
                              % "; ".join(checks.failed))
     rows, extra, scatter = time_kernels(torch, gen, errs)
-    for r in rows + extra:
+    decode_rows, decode_extra = time_decode_kernels(torch, gen, errs)
+    rows += decode_rows
+    for r in rows + extra + decode_extra:
         emit(dict({"phase": "kernels", "timing": True}, **r))
     emit(scatter)
     torch.cuda.empty_cache()
@@ -664,7 +864,8 @@ def phase_main_path(env):
     from paddle_tpu_torch import serving
     from paddle_tpu_torch.executor import Scope, scope_guard
     from paddle_tpu_torch.models import bert
-    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.ops.cuda import (KERNELS, launch_counts,
+                                           reset_launch_counts)
 
     cfg = bert.BERT_BASE
     feeds = ["input_ids", "token_type_ids", "attn_mask_bias", "pos_ids"]
@@ -717,11 +918,10 @@ def phase_main_path(env):
     finally:
         server.close()
     batches = len(server.dispatch_log)
-    want = {"flash_attention_fwd": 12 * batches,
-            "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
-            "fused_dropout_add_ln_fwd": 25 * batches,
-            "fused_dropout_add_ln_bwd": 0,
-            "embedding_gather_fwd": 3 * batches}
+    want = dict.fromkeys(KERNELS, 0)
+    want.update({"flash_attention_fwd": 12 * batches,
+                 "fused_dropout_add_ln_fwd": 25 * batches,
+                 "embedding_gather_fwd": 3 * batches})
     emit({"phase": "main_path", "step": "serve", "batches": batches,
           "dispatch_log": server.dispatch_log, "launches": counts,
           "expected_launches": want})
@@ -782,6 +982,8 @@ def _kernel_group(name):
             ("K2 fwd", ("add_ln_fwd_kernel",)),
             ("K2 bwd", ("add_ln_bwd_kernel", "ln_bwd_reduce_kernel")),
             ("gather", ("::gather_kernel<",)),
+            ("K6 paged decode", ("paged_decode_kernel<",)),
+            ("K5 decode", ("decode_kernel<",)),
             ("scatter", ("indexFunc", "index_add", "scatter_add",
                          "index_put"))):
         if any(n in name for n in needles):
@@ -881,7 +1083,8 @@ def phase_train(env):
 
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models import bert
-    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.ops.cuda import (KERNELS, launch_counts,
+                                           reset_launch_counts)
     from paddle_tpu_torch.static_analysis import fusion
 
     cfg = bert.BERT_BASE  # dropout 0.1, attention dropout 0.1
@@ -919,9 +1122,12 @@ def phase_train(env):
         counts = launch_counts()
         peak = torch.cuda.max_memory_allocated()
         per_step = {k: c / TRAIN_STEPS for k, c in counts.items()}
-        want = {"flash_attention_fwd": 12, "flash_attention_bwd_dkv": 12,
-                "flash_attention_bwd_dq": 12, "fused_dropout_add_ln_fwd": 25,
-                "fused_dropout_add_ln_bwd": 25, "embedding_gather_fwd": 3}
+        want = dict.fromkeys(KERNELS, 0.0)
+        want.update({"flash_attention_fwd": 12, "flash_attention_bwd_dkv": 12,
+                     "flash_attention_bwd_dq": 12,
+                     "fused_dropout_add_ln_fwd": 25,
+                     "fused_dropout_add_ln_bwd": 25,
+                     "embedding_gather_fwd": 3})
         med = statistics.median(step_ms)
         emit({"phase": "train", "step": "steps", "card": card_label(env),
               "losses": losses, "step_ms": step_ms, "median_step_ms": med,
@@ -1019,6 +1225,328 @@ def phase_train_parity():
         raise AssertionError("train parity failed: %s" % result)
 
 
+def _decode_engine(cfg, paged, place, params=None, name="gpt2"):
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.models import gpt
+
+    return serving.DecodeEngine(
+        gpt.DecodeAdapter(cfg, seed=SEED, params=params),
+        slots=DECODE_SLOTS, prompt_buckets=DECODE_BUCKETS,
+        config=serving.GenerationConfig(max_new_tokens=DECODE_NEW_TOKENS),
+        place=place, name=name, paged=paged, auto_start=False)
+
+
+def _logits_var(program):
+    return next(op.input("X")[0] for op in program.global_block().ops
+                if op.type == "top_k_sampling")
+
+
+def _decode_drive(eng, prompts, steps, forced=None):
+    """Run an engine's programs directly, as its scheduler does: prefill
+    ``prompts`` into slots 0, 1, ... (paged: each slot owns its own
+    blocks in reverse order), then ``steps`` greedy steps of every slot
+    (the other slots inactive: token 0, cursor 0, table -1).  Returns the
+    logits and tokens of every stage; ``forced`` (another drive's tokens)
+    feeds those tokens instead of this drive's own."""
+    import numpy as np
+
+    mb = eng.max_blocks
+    tables = np.full((eng.slots, max(mb, 1)), -1, "int32")
+    cur = np.zeros(eng.slots, "int32")
+    cursors = np.zeros(eng.slots, "int32")
+    stages, toks = [], []
+
+    def record(logits, tok):
+        stages.append(np.asarray(logits))
+        toks.append(np.asarray(tok).reshape(-1))
+        return toks[-1] if forced is None else forced[len(toks) - 1]
+
+    for slot, p in enumerate(prompts):
+        length = eng.buckets.bucket_for_seq(p.size)
+        main, fetch = eng._prefill[length]
+        padded = np.zeros((1, length), "int32")
+        padded[0, :p.size] = p
+        feed = {"prompt_ids": padded,
+                "prompt_len": np.asarray([p.size], "int32")}
+        if eng.paged:
+            tables[slot] = np.arange((slot + 1) * mb - 1, slot * mb - 1, -1)
+            feed["block_table"] = tables[slot:slot + 1]
+        else:
+            feed["slot"] = np.asarray([slot], "int32")
+        cur[slot] = record(*eng._exe.run(
+            main, feed=feed, fetch_list=[_logits_var(main), fetch],
+            scope=eng.scope))[0]
+        cursors[slot] = p.size
+    live = len(prompts)
+    for i in range(steps):
+        feed = {"cur_ids": cur.copy(), "cursors": cursors.copy(),
+                "step": np.asarray([i + 1], "int32")}
+        if eng.paged:
+            feed["block_tables"] = tables
+        nxt = record(*eng._exe.run(
+            eng._step_prog, feed=feed,
+            fetch_list=[_logits_var(eng._step_prog), eng._step_fetch],
+            scope=eng.scope))
+        cur[:live] = nxt[:live]
+        cursors[:live] += 1
+    return stages, toks
+
+
+def _decode_launches(cfg, paged, steps, prefills):
+    """Launches of ``steps`` decode steps and ``prefills`` prefills: per
+    step one K5 (ring) or K6 (paged) per layer, one K2 per residual add
+    + LN (two per layer; ``lnf`` has no add) and K3 for wte and wpe; per
+    prefill one causal K1 per layer, the same K2 and K3."""
+    from paddle_tpu_torch.ops.cuda import KERNELS
+
+    want = dict.fromkeys(KERNELS, 0)
+    want["paged_flash_decode_fwd" if paged else "flash_decode_fwd"] = \
+        cfg.layers * steps
+    want["flash_attention_fwd"] = cfg.layers * prefills
+    want["fused_dropout_add_ln_fwd"] = 2 * cfg.layers * (steps + prefills)
+    want["embedding_gather_fwd"] = 2 * (steps + prefills)
+    return want
+
+
+def _decode_step_feed(eng, rng, vocab):
+    """A step of all slots active, at cursors from a tenth to 45% of the
+    cache depth (paged: each slot owns a full-depth table)."""
+    import numpy as np
+
+    feed = {"cur_ids": rng.randint(1, vocab - 1, eng.slots).astype("int32"),
+            "cursors": np.linspace(eng.max_len // 10, eng.max_len * 45 // 100,
+                                   eng.slots).astype("int32"),
+            "step": np.asarray([1], "int32")}
+    if eng.paged:
+        mb = eng.max_blocks
+        feed["block_tables"] = np.arange(eng.slots * mb, dtype="int32"
+                                         ).reshape(eng.slots, mb)
+    return feed
+
+
+def _decode_profile(env, eng, mode, rng, vocab, runs=DECODE_PROFILE_STEPS):
+    """The host's time to enqueue one all-slots step, and the device time
+    by kernel group and the idle share over ``runs`` profiled steps."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    feed = _decode_step_feed(eng, rng, vocab)
+    run = lambda **kw: eng._exe.run(  # noqa: E731
+        eng._step_prog, feed=feed, fetch_list=[eng._step_fetch],
+        scope=eng.scope, **kw)
+    run()
+    enqueue_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        run(return_numpy=False)
+        enqueue_ms.append((time.perf_counter() - s0) * 1e3)
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        s0 = time.perf_counter()
+        for _ in range(runs):
+            run()
+        wall_ms = (time.perf_counter() - s0) * 1e3 / runs
+    groups, top = _device_breakdown(prof, runs)
+    busy = sum(groups.values())
+    emit({"phase": "decode", "mode": mode, "step": "profile",
+          "card": card_label(env), "slots_active": eng.slots,
+          "enqueue_ms": enqueue_ms,
+          "median_enqueue_ms": statistics.median(enqueue_ms),
+          "wall_ms_per_step": wall_ms,
+          "device_ms_per_step": busy if busy else "not measured",
+          "device_idle_share": (1.0 - busy / wall_ms) if busy
+          else "not measured",
+          "device_ms_by_group": groups,
+          "top_kernels": [{"ms": t, "launches": n, "name": k}
+                          for t, n, k in top[:12]]})
+
+
+def phase_decode(env):
+    """GPT-2-small widths served by a PredictorServer decode tenant, ring
+    then paged: 16 requests of seeded prompt lengths 32-500 on 8 slots,
+    greedy, 64 new tokens each, after one warm-up request per prompt
+    bucket.  Every request must complete with tokens in the vocabulary,
+    ring and paged must give the same tokens, and the launch counters
+    must rise by the per-step and per-prefill counts.  Then per mode the
+    enqueue time and device breakdown of a step, and whether the two
+    modes' logits agree bit for bit on a direct drive."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.static_analysis import fusion
+
+    cfg = gpt.GPT2_SMALL_WIDTHS
+    rng = np.random.RandomState(SEED + 4)
+    lens = rng.randint(DECODE_PROMPT_LENS[0], DECODE_PROMPT_LENS[1] + 1,
+                       DECODE_REQUESTS)
+    prompts = [rng.randint(1, cfg.vocab - 1, size=n).astype("int32")
+               for n in lens]
+    tokens, counts, engines = {}, {}, {}
+    for paged in (False, True):
+        mode = "paged" if paged else "ring"
+        t0 = time.time()
+        eng = _decode_engine(cfg, paged, fluid.CUDAPlace(0))
+        torch.cuda.synchronize()
+        fused = {}
+        for label, prog, fetch in (
+                [("step", eng._step_prog, eng._step_fetch)]
+                + [("prefill%d" % n, p, f)
+                   for n, (p, f) in sorted(eng._prefill.items())]):
+            prog, report = fusion.resolve_fused_program(prog,
+                                                        targets=[fetch])
+            fused[label] = {"ops": len(prog.global_block().ops),
+                            "fused": report.counts()}
+        emit({"phase": "decode", "mode": mode, "step": "build",
+              "seconds": time.time() - t0, "programs": fused,
+              "kv_cache_bytes": eng.cache_bytes})
+        server = serving.PredictorServer({"gpt2": eng}, verify=False)
+        try:
+            warm = [server.submit("gpt2", p) for p in (
+                rng.randint(1, cfg.vocab - 1, b // 2 + 1).astype("int32")
+                for b in DECODE_BUCKETS)]
+            for f in warm:
+                f.result(timeout=600)
+            torch.cuda.synchronize()
+            st0 = eng.stats()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t_start = time.time()
+            futs = [server.submit("gpt2", p, request_id=i)
+                    for i, p in enumerate(prompts)]
+            outs = [f.result(timeout=900) for f in futs]
+            torch.cuda.synchronize()
+            wall_s = time.time() - t_start
+            counts[mode] = launch_counts()
+            st1 = eng.stats()
+        finally:
+            server.close()
+        steps = st1["decode_steps"] - st0["decode_steps"]
+        prefills = st1["prefills"] - st0["prefills"]
+        want = _decode_launches(cfg, paged, steps, prefills)
+        step_ms = (st1["step_ms_mean"] * st1["decode_steps"]
+                   - st0["step_ms_mean"] * st0["decode_steps"]) / steps
+        prefill_ms = (st1["prefill_ms_mean"] * st1["prefills"]
+                      - st0["prefill_ms_mean"] * st0["prefills"]) / prefills
+        tokens[mode] = [list(t) for t, _ in outs]
+        ttft = [info["ttft_ms"] for _, info in outs]
+        lat = [info["latency_ms"] for _, info in outs]
+        n_tok = sum(len(t) for t in tokens[mode])
+        emit({"phase": "decode", "mode": mode, "step": "serve",
+              "card": card_label(env), "requests": len(outs),
+              "prompt_lens": [int(n) for n in lens],
+              "tokens": n_tok, "wall_s": wall_s,
+              "tokens_per_s": n_tok / wall_s,
+              "ttft_ms_median": statistics.median(ttft),
+              "ttft_ms_max": max(ttft),
+              "latency_ms_median": statistics.median(lat),
+              "latency_ms_max": max(lat),
+              "decode_steps": steps, "prefills": prefills,
+              "step_ms_mean": step_ms, "prefill_ms_mean": prefill_ms,
+              "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+              "kv_cache_bytes": st1["kv_cache_bytes"],
+              "launches": counts[mode], "expected_launches": want})
+        if counts[mode] != want:
+            raise AssertionError("%s: launches %s != %s for %d steps, %d "
+                                 "prefills" % (mode, counts[mode], want,
+                                               steps, prefills))
+        bad = [i for i, t in enumerate(tokens[mode])
+               if len(t) != DECODE_NEW_TOKENS
+               or not all(0 <= x < cfg.vocab for x in t)]
+        if len(outs) != DECODE_REQUESTS or bad:
+            raise AssertionError("%s: requests %s incomplete or out of the "
+                                 "vocabulary" % (mode, bad))
+        _decode_profile(env, eng, mode, rng, cfg.vocab)
+        engines[mode] = eng
+    ring_logits, _ = _decode_drive(engines["ring"], prompts[:3], 4)
+    paged_logits, _ = _decode_drive(engines["paged"], prompts[:3], 4)
+    same_logits = all(np.array_equal(a, b)
+                      for a, b in zip(ring_logits, paged_logits))
+    emit({"phase": "decode", "step": "ring vs paged",
+          "tokens_equal": tokens["ring"] == tokens["paged"],
+          "logits_bit_identical": same_logits,
+          "logits_max_abs_diff": max(float(np.abs(a - b).max())
+                                     for a, b in zip(ring_logits,
+                                                     paged_logits))})
+    if tokens["ring"] != tokens["paged"]:
+        raise AssertionError("ring and paged generated different tokens")
+    del engines
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _greedy_mismatches(got, ref):
+    """Rows whose argmax differs where the reference's top-2 margin is
+    above GREEDY_MARGIN, and the rows with a smaller margin."""
+    import numpy as np
+
+    top2 = np.sort(ref, axis=-1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > GREEDY_MARGIN
+    differ = np.argmax(got, -1) != np.argmax(ref, -1)
+    return int((differ & clear).sum()), int((~clear).sum())
+
+
+def phase_decode_parity():
+    """A 2-layer decoder at GPT-2-small width on the card and on the CPU
+    (plain versions) from one seeded parameter dict: 3 prompts prefilled,
+    then 8 greedy steps of all 8 slots, ring and paged, the CPU fed the
+    card's tokens.  Logits agree within DECODE_PARITY_RTOL of the largest
+    and the greedy tokens agree wherever the margin allows."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import gpt
+
+    cfg = copy.copy(gpt.GPT2_SMALL_WIDTHS)
+    cfg.layers = 2
+    rng = np.random.RandomState(SEED + 5)
+    prompts = [rng.randint(1, cfg.vocab - 1, size=n).astype("int32")
+               for n in DECODE_PARITY_PROMPTS]
+    first = _decode_engine(cfg, False, fluid.CUDAPlace(0))
+    params = {p.name: first.scope.get(p.name).cpu().numpy()
+              for p in first._step_prog.all_parameters()}
+    ok = True
+    for paged in (False, True):
+        gpu = first if not paged else _decode_engine(
+            cfg, True, fluid.CUDAPlace(0), params)
+        cpu = _decode_engine(cfg, paged, fluid.CPUPlace(), params)
+        g_logits, g_toks = _decode_drive(gpu, prompts, DECODE_PARITY_STEPS)
+        c_logits, _ = _decode_drive(cpu, prompts, DECODE_PARITY_STEPS,
+                                    forced=g_toks)
+        rel = max(float(np.abs(g - c).max()) / float(np.abs(c).max())
+                  for g, c in zip(g_logits, c_logits))
+        miss = [_greedy_mismatches(g, c) for g, c in zip(g_logits, c_logits)]
+        result = {"phase": "decode_parity",
+                  "mode": "paged" if paged else "ring",
+                  "step": "GPU kernels vs CPU plain versions, prefill of %s "
+                  "+ %d steps, 2 layers at GPT-2-small width"
+                  % (list(DECODE_PARITY_PROMPTS), DECODE_PARITY_STEPS),
+                  "logits_rel_err": rel, "tol": DECODE_PARITY_RTOL,
+                  "token_mismatches": sum(m for m, _ in miss),
+                  "rows_below_margin": sum(n for _, n in miss),
+                  "margin": GREEDY_MARGIN}
+        emit(result)
+        ok = ok and rel <= DECODE_PARITY_RTOL \
+            and result["token_mismatches"] == 0
+        del gpu, cpu
+    del first
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("decode parity failed")
+
+
 def main():
     try:
         import torch
@@ -1044,14 +1572,23 @@ def main():
     del pred
     train_counts = phase_train(env)
     phase_train_parity()
+    decode_counts = phase_decode(env)
+    phase_decode_parity()
+    paths = {"serve": serve_counts, "train": train_counts,
+             "decode_ring": decode_counts["ring"],
+             "decode_paged": decode_counts["paged"]}
     for r in rows:
-        r["launches"] = train_counts[r["name"]]
-    emit({"phase": "launches", "serve": serve_counts,
-          "train": train_counts})
+        # the decode path's launches (ring + paged runs) where it runs the
+        # kernel, else the training path's (the backward kernels)
+        name = r["name"]
+        decode = paths["decode_ring"][name] + paths["decode_paged"][name]
+        r["launches"] = decode or train_counts[name]
+        r["launches_path"] = "decode" if decode else "train"
+    emit(dict({"phase": "launches"}, **paths))
     emit({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-        for r in rows]})
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "launches_path")} for r in rows]})
     print(env["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

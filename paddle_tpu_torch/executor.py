@@ -14,7 +14,13 @@ fetches decide when to wait: numpy arrays after one batched sync
 (``return_numpy=True``) or lazy :class:`FetchHandle`\\ s.
 
 Persistable outputs are written back to the scope; a scope value is
-never updated in place.  There is no jit cache, scan or sharding; a CUDA
+never updated in place, with one declared exception: an op registered
+with ``in_place={out_slot: in_slot}`` (the four KV-cache writes of
+``ops/decode.py``) writes into its input's tensor, so a decode step
+updates the resident cache rows it touches instead of copying the cache.
+Where the program sends such an op's result to a var other than the
+input's, the op gets a copy of the input and the resident tensor stays
+as it was.  There is no jit cache, scan or sharding; a CUDA
 graph of the step comes in a later slice (ROADMAP.md).  On a CUDA place
 the executor turns TF32 off for float32 products
 (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -179,6 +185,10 @@ def _run_ops_into_env(block, env, ctx):
                         "an earlier op, nor in the scope" % (op.type, n))
                 vals.append(env[n])
             ins[slot] = vals
+        for out_slot, in_slot in opdef.in_place.items():
+            if op.outputs.get(out_slot) != op.inputs.get(in_slot):
+                ins[in_slot] = [None if v is None else v.clone()
+                                for v in ins[in_slot]]
         op_id = op.attrs.get("__fwd_op_id__", op.attrs.get("__op_id__", 0))
         if "__fwd_op_id__" not in op.attrs and op_id in twins:
             outs = op_registry.call_op_taped(opdef, ctx, ins, op.attrs,
@@ -254,7 +264,8 @@ class Executor:
         env.update(feed_vals)
         ctx = op_registry.LoweringContext(
             seed=(program.random_seed or 0) * 1000003 + self._step,
-            mode="train", device=self.device)
+            mode="train", device=self.device,
+            program_seed=program.random_seed or 0)
         self._step += 1
         with torch.no_grad():
             _run_ops_into_env(block, env, ctx)

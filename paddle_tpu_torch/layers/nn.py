@@ -4,7 +4,8 @@
 ``softmax_with_cross_entropy`` :459, ``reduce_sum`` :574, ``matmul``
 :594, ``elementwise_add/sub/mul/div`` :637-650, ``reshape`` :665,
 ``transpose`` :678, ``squeeze``/``unsqueeze`` :724-748, ``gather`` :806,
-``fused_dropout_add_ln`` :1084, ``fused_multihead_attention`` :1113).
+``one_hot`` :838, ``fused_dropout_add_ln`` :1084,
+``fused_multihead_attention`` :1113).
 Each layer appends the same op types, slots and attrs as the reference,
 so the two packages build the same program."""
 
@@ -17,7 +18,8 @@ __all__ = ["fc", "embedding", "layer_norm", "dropout", "softmax",
            "softmax_with_cross_entropy", "reduce_sum", "matmul",
            "elementwise_add", "elementwise_sub", "elementwise_mul",
            "elementwise_div", "reshape", "transpose", "squeeze", "unsqueeze",
-           "gather", "fused_dropout_add_ln", "fused_multihead_attention"]
+           "gather", "one_hot", "fused_dropout_add_ln",
+           "fused_multihead_attention"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -221,6 +223,14 @@ def gather(input, index, overwrite=True):
     out = helper.create_variable_for_type_inference(input.dtype)
     helper.append_op(type="gather", inputs={"X": [input], "Index": [index]},
                      outputs={"Out": [out]})
+    return out
+
+
+def one_hot(input, depth, allow_out_of_range=False):
+    helper = LayerHelper("one_hot", **locals())
+    out = helper.create_variable_for_type_inference("float32")
+    helper.append_op(type="one_hot", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"depth": depth})
     return out
 
 

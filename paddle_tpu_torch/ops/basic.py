@@ -1,6 +1,7 @@
-"""Creation ops, ``sum`` and feed/fetch markers (mirrors
+"""Creation ops, ``sum``, small tensor ops and feed/fetch markers (mirrors
 ``paddle_tpu/ops/basic.py`` lines 17-237: ``fill_constant_batch_size_like``
-:24, ``sum`` :130).
+:24, ``assign`` :95, ``cast`` :116, ``sum`` :130, ``increment`` :143,
+``range`` :202).
 
 Random draws come from the per-draw ``torch.Generator`` of
 :meth:`LoweringContext.rng`, drawn on the CPU and moved to the run's
@@ -57,6 +58,50 @@ def sum_op(ctx, attrs, X):
     for x in X[1:]:
         out = out + x
     return out
+
+
+@register_op("assign", inputs=["X"], outputs=["Out"])
+def assign(ctx, attrs, X):
+    return X
+
+
+@register_op("cast", inputs=["X"], outputs=["Out"])
+def cast(ctx, attrs, X):
+    return X.to(resolve_dtype(attrs.get("out_dtype", "float32")))
+
+
+@register_op("increment", inputs=["X"], outputs=["Out"], no_grad=True)
+def increment(ctx, attrs, X):
+    return X + torch.tensor(attrs.get("step", 1.0), dtype=X.dtype,
+                            device=X.device)
+
+
+def _infer_range_shape(op, block):
+    """The reference's static length (:189-199): known when the bounds
+    are attrs, left alone otherwise."""
+    out = block._find_var_recursive(op.outputs["Out"][0])
+    a = op.attrs
+    if out is not None and all(k in a for k in ("start", "end", "step")) \
+            and a["step"]:
+        out.shape = (max(0, math.ceil((a["end"] - a["start"]) / a["step"])),)
+
+
+@register_op("range", inputs=["Start", "End", "Step"], outputs=["Out"],
+             no_grad=True, infer_shape=_infer_range_shape)
+def range_op(ctx, attrs, Start=None, End=None, Step=None):
+    """``arange`` with bounds from attrs (python scalars at build time)
+    or from one-element input tensors."""
+    def bound(t, attr, default=None):
+        if attr in attrs:
+            return float(attrs[attr])
+        if t is None:
+            return default
+        return float(t.reshape(()).item())
+
+    dtype = resolve_dtype(attrs.get("dtype", "float32"))
+    return torch.arange(bound(Start, "start", 0.0), bound(End, "end"),
+                        bound(Step, "step", 1.0), device=ctx.device
+                        ).to(dtype)
 
 
 @register_op("gaussian_random", inputs=[], outputs=["Out"], no_grad=True)

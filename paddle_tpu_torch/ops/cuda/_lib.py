@@ -31,7 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv",
            "flash_attention_bwd_dq", "fused_dropout_add_ln_fwd",
-           "fused_dropout_add_ln_bwd", "embedding_gather_fwd")
+           "fused_dropout_add_ln_bwd", "embedding_gather_fwd",
+           "flash_decode_fwd", "paged_flash_decode_fwd")
 _LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 _lock = threading.Lock()
@@ -67,6 +68,11 @@ _SIGNATURES = {
     "pt_fused_add_ln_bwd_blocks": (_L,),
     # table, ids, out, n, V, D, padding_idx, ids_are_int64, dtype, stream
     "pt_embedding_gather_fwd": (_P, _P, _P, _L, _L, _I, _L, _I, _I, _P),
+    # q, k, v, lengths, o, rows, Tmax, Dh, scale, dtype, stream
+    "pt_flash_decode_fwd": (_P,) * 5 + (_I,) * 3 + (_F, _I, _P),
+    # q, k, v, lengths, table, o, rows, H, N, BL, MB, Dh, scale, dtype,
+    # stream
+    "pt_paged_flash_decode_fwd": (_P,) * 6 + (_I,) * 6 + (_F, _I, _P),
 }
 
 def sources():

@@ -1,6 +1,6 @@
 """Neural-network ops of BERT serving and pretraining (mirrors
 ``paddle_tpu/ops/nn.py``: softmax_with_cross_entropy :62, softmax,
-dropout, lookup_table/embedding :138-152, layer_norm :182,
+dropout, lookup_table/embedding :138-152, one_hot :167, layer_norm :182,
 fused_multihead_attention :523, fused_dropout_add_ln :555,
 fused_bias_act :582, fused_embedding_gather :674).
 
@@ -109,6 +109,17 @@ def lookup_table(ctx, attrs, W, Ids):
 @register_op("embedding", inputs=["W", "Ids"], outputs=["Out"])
 def embedding(ctx, attrs, W, Ids):
     return _lookup(W, Ids, attrs.get("padding_idx", -1))
+
+
+@register_op("one_hot", inputs=["X"], outputs=["Out"], no_grad=True)
+def one_hot(ctx, attrs, X):
+    """float32 one-hot over ``depth``; a trailing dim of 1 is the id
+    column.  Ids outside [0, depth) give a row of zeros, as
+    ``jax.nn.one_hot``."""
+    depth = int(attrs["depth"])
+    ids = _flat_ids(X).long()
+    cols = torch.arange(depth, device=ids.device)
+    return (ids[..., None] == cols).to(torch.float32)
 
 
 @register_op("layer_norm", inputs=["X", "Scale", "Bias"],

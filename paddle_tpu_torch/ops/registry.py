@@ -21,6 +21,13 @@ graph in ``ctx.tape`` under the op's id; the generic ``<type>_grad``
 ``torch.autograd.grad`` on it with the output gradients.  Kernel launches
 stay inside ``torch.autograd.Function``\\ s on plain tensors.  A grad op
 whose forward left no tape entry raises.
+
+In-place ops.  An op is a function of its inputs and never writes one,
+with one declared exception: ``register_op(..., in_place={out_slot:
+in_slot})`` says the op writes its ``out_slot`` result into the tensor
+of ``in_slot`` and returns that tensor (the KV-cache writes of
+``ops/decode.py``).  The executor honours the declaration
+(``executor.py``); no other op may write an input.
 """
 
 import numpy as np
@@ -69,7 +76,7 @@ def _kwarg_name(slot):
 
 class OpDef:
     def __init__(self, type, fn, inputs, outputs, no_grad=False,
-                 infer_shape=None, stateful_outputs=()):
+                 infer_shape=None, stateful_outputs=(), in_place=None):
         self.type = type
         self.fn = fn
         self.inputs = _parse_slots(inputs)
@@ -77,6 +84,7 @@ class OpDef:
         self.no_grad = no_grad
         self.custom_infer_shape = infer_shape
         self.stateful_outputs = set(stateful_outputs)
+        self.in_place = dict(in_place or {})
 
     @property
     def input_slot_names(self):
@@ -88,16 +96,22 @@ class OpDef:
 
 
 def register_op(type, inputs, outputs, no_grad=False, infer_shape=None,
-                stateful_outputs=()):
+                stateful_outputs=(), in_place=None):
     """Decorator: register ``fn(ctx, attrs, **slots)`` as the lowering of
     ``type``.  Slot kwargs are tensors (lists for duplicable slots, None
     for absent optional slots).  Return a single tensor (one output
-    slot), a tuple in declared output order, or a dict slot→tensor."""
+    slot), a tuple in declared output order, or a dict slot→tensor.
+    ``in_place`` (``{out_slot: in_slot}``) declares a grad-free op that
+    writes its result into that input's tensor."""
+
+    if in_place and not no_grad:
+        raise ValueError("op %r: an in-place op must be no_grad" % type)
 
     def deco(fn):
         _OP_REGISTRY[type] = OpDef(type, fn, inputs, outputs, no_grad=no_grad,
                                    infer_shape=infer_shape,
-                                   stateful_outputs=stateful_outputs)
+                                   stateful_outputs=stateful_outputs,
+                                   in_place=in_place)
         return fn
 
     return deco
@@ -130,10 +144,13 @@ class LoweringContext:
     index), so a draw does not depend on op order and a fixed
     ``random_seed`` reproduces across builds, as in the reference.
     ``tape`` maps a forward op's id to its autograd graph until its grad
-    op consumes it (:func:`call_op_taped`)."""
+    op consumes it (:func:`call_op_taped`).  ``program_seed`` is the
+    program's ``random_seed`` alone, for draws that must replay across
+    runs (the decode sampling ops)."""
 
-    def __init__(self, seed=0, mode="train", device=None):
+    def __init__(self, seed=0, mode="train", device=None, program_seed=0):
         self.seed = int(seed or 0)
+        self.program_seed = int(program_seed or 0)
         self.mode = mode
         self.device = torch.device("cpu") if device is None else device
         self.tape = {}

@@ -1,4 +1,4 @@
-"""Continuous-batching predictor server for batch tenants.
+"""Continuous-batching predictor server for batch and decode tenants.
 
 Mirrors ``paddle_tpu/serving/server.py`` (``PredictorServer`` :191)::
 
@@ -19,10 +19,16 @@ deadline``), a bounded queue that rejects with :class:`QueueFullError`.
 A batch that fails fails only its requests; if the dispatcher thread
 dies, every pending request fails with :class:`DispatcherCrashedError`.
 
+A :class:`~paddle_tpu_torch.serving.decode.DecodeEngine` tenant runs its
+own slot scheduler instead of the padded-batch dispatcher (reference
+:215-224): ``submit`` hands its prompt to the engine and returns the
+engine's ``DecodeRequest``; ``start``/``close`` start and close the
+engines too, and ``stats()`` adds theirs under ``"decode"`` (:753).
+
 Not ported yet (ROADMAP.md, Queue A item 3): the construction gates
-(the scope-overlap proof and zero-sync certificate, reference :257-333),
-telemetry and tracing spans, and decode tenants.  ``verify=True`` asks
-for those gates and raises ``NotImplementedError``; pass ``verify=False``.
+(the scope-overlap proof and zero-sync certificate, reference :257-333)
+and telemetry and tracing spans.  ``verify=True`` asks for those gates
+and raises ``NotImplementedError``; pass ``verify=False``.
 """
 
 import itertools
@@ -34,6 +40,7 @@ import numpy as np
 from .. import pipeline as pl
 from ..executor import _check_feed_shapes
 from .buckets import ShapeBuckets
+from .decode import DecodeEngine
 
 __all__ = [
     "DeadlineExceededError", "DispatcherCrashedError", "PredictorServer",
@@ -140,9 +147,10 @@ class _InFlight:
 
 class PredictorServer:
     """Continuous-batching server over one or more
-    :class:`~paddle_tpu_torch.inference.AnalysisPredictor`\\ s:
-    ``tenants`` is ``{name: predictor}`` or one predictor (tenant
-    ``"default"``)."""
+    :class:`~paddle_tpu_torch.inference.AnalysisPredictor`\\ s and
+    :class:`~paddle_tpu_torch.serving.decode.DecodeEngine`\\ s:
+    ``tenants`` is ``{name: predictor or engine}`` or one predictor
+    (tenant ``"default"``)."""
 
     #: EMA smoothing for the per-tenant batch-service-time estimate
     EST_ALPHA = 0.3
@@ -163,8 +171,11 @@ class PredictorServer:
         if max_in_flight < 1:
             raise ValueError("max_in_flight must be >= 1, got %d"
                              % max_in_flight)
+        self._engines = {name: t for name, t in tenants.items()
+                         if isinstance(t, DecodeEngine)}
         self._tenants = {name: _Tenant(name, pred)
-                         for name, pred in tenants.items()}
+                         for name, pred in tenants.items()
+                         if not isinstance(pred, DecodeEngine)}
         self._order = list(self._tenants)
         self._rr = 0
         self._max_in_flight = int(max_in_flight)
@@ -240,11 +251,20 @@ class PredictorServer:
         return rows, sig
 
     def submit(self, tenant, inputs, request_id=None, sla_ms=None):
-        """Enqueue one request; returns its :class:`Request` future."""
+        """Enqueue one request; returns its :class:`Request` future (a
+        ``DecodeRequest`` for a decode tenant, whose ``inputs`` is the
+        prompt)."""
+        engine = self._engines.get(tenant)
+        if engine is not None:
+            with self._cond:
+                if self._closed:
+                    raise ServerClosedError("server is closed")
+            return engine.submit(inputs, request_id=request_id)
         t = self._tenants.get(tenant)
         if t is None:
             raise KeyError("unknown tenant %r (have %s)"
-                           % (tenant, list(self._tenants)))
+                           % (tenant, list(self._tenants)
+                              + list(self._engines)))
         seq = next(self._seq)
         rid = request_id if request_id is not None else seq
         feed = self._as_feed(t, inputs)
@@ -284,6 +304,8 @@ class PredictorServer:
             if self._running:
                 return self
             self._running = True
+        for engine in self._engines.values():
+            engine.start()
         self._thread = threading.Thread(
             target=self._loop, daemon=True, name="paddle_tpu_torch-serving")
         self._thread.start()
@@ -299,6 +321,8 @@ class PredictorServer:
         if self._thread is not None:
             self._thread.join(timeout)
             self._thread = None
+        for engine in self._engines.values():
+            engine.close(timeout)
 
     def __enter__(self):
         return self
@@ -478,4 +502,7 @@ class PredictorServer:
             qps=self._qps(),
             shed_rate=(counts["shed"] / counts["submitted"]
                        if counts["submitted"] else 0.0))
+        if self._engines:
+            counts["decode"] = {n: e.stats()
+                                for n, e in self._engines.items()}
         return counts

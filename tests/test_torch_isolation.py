@@ -32,6 +32,7 @@ sys.meta_path.insert(0, _Block())
 import numpy as np
 import paddle_tpu_torch as fluid
 from paddle_tpu_torch.models import bert  # noqa: F401
+from paddle_tpu_torch.models import gpt  # noqa: F401
 import paddle_tpu_torch.serving  # noqa: F401
 
 main, startup = fluid.Program(), fluid.Program()
@@ -96,6 +97,19 @@ def test_executor_defaults_to_cuda_and_raises_without_it(no_cuda):
     with pytest.raises(RuntimeError, match="CUDAPlace"):
         fluid.Executor(fluid.TPUPlace())
     assert fluid.Executor(fluid.CPUPlace()).device.type == "cpu"
+
+
+def test_decode_engine_defaults_to_cuda_and_raises_without_it(no_cuda):
+    from paddle_tpu_torch.models import gpt
+
+    cfg = gpt.GPTConfig(vocab=16, hidden=8, layers=1, heads=2, max_len=8)
+    with pytest.raises(RuntimeError, match="CUDAPlace"):
+        fluid.serving.DecodeEngine(gpt.DecodeAdapter(cfg), prompt_buckets=(4,),
+                                   auto_start=False)
+    eng = fluid.serving.DecodeEngine(gpt.DecodeAdapter(cfg),
+                                     prompt_buckets=(4,),
+                                     place=fluid.CPUPlace(), auto_start=False)
+    assert eng.place == fluid.CPUPlace() and eng.paged
 
 
 def _export_tiny(tmp_path):

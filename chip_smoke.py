@@ -61,11 +61,28 @@ and the CUDA toolkit.  Phases, each printing one JSON line:
 9. decode parity: a 2-layer decoder at GPT-2-small width, prefill and 8
    greedy steps, ring and paged, on the card and on the CPU with the
    plain versions from one parameter dict; logits and greedy tokens must
-   agree within the stated tolerance and margin.
+   agree within the stated tolerance and margin;
+10. main path, ResNet training: ``models/resnet.build(dataset="imagenet",
+   depth=50, data_format="NHWC")`` (Momentum, lr 0.1, Nesterov) at batch
+   64, 224x224, float32, ``RESNET_WARMUP`` + ``RESNET_STEPS`` steps on
+   one repeated batch, then one eval batch through the for-test clone;
+   every loss must be finite, every training step must launch exactly
+   65 K4 forward and 65 K4 backward kernels (one per conv -> batch_norm
+   site) and the eval batch 65 forward; step time, images/s, peak
+   memory, the host's time to enqueue a step, and the device time by
+   kernel group (conv fwd/bwd, K4 fwd/bwd, BN statistics, Momentum and
+   elementwise, pooling, layout copies) with the idle share;
+11. ResNet parity: full-depth ResNet-50 NHWC at 64x64, batch 4, one
+   step on the card and on the CPU with the plain versions from one
+   parameter dict: the loss, three gradients and the moving statistics
+   within the stated tolerances.
 
-Then one JSON line lists every ported kernel with its launches on the
-decode path (or, for the backward kernels, the training run) and its
-times, a line gives ``nvidia-smi``'s name and power limit, and the last
+The kernels phase also checks K4 forward and backward (float32 and
+bfloat16, identity and relu) at the ResNet-50 sites' shapes and a
+ragged one, and times them at every site shape of batch 64.  Then one
+JSON line lists every ported kernel with its launches on the decode
+path (or, for the backward kernels, the BERT training run; for K4 the
+ResNet training run) and its times, a line gives ``nvidia-smi``'s name and power limit, and the last
 line is ``{"ok": true, "device": {...}}``.  Any failed
 phase exits non-zero before that line.  Without a CUDA device, or without
 the repository beside it, the script exits 2 and prints no result.
@@ -118,6 +135,46 @@ DECODE_PARITY_STEPS = 8
 # head, float32 with TF32 off: sums in another order
 DECODE_PARITY_RTOL = 1e-4
 GREEDY_MARGIN = 1e-4   # tokens are compared where the top-2 gap exceeds it
+# K4's checks: the stage-1 and stage-4 sites and the stem of ResNet-50 at
+# batch 64 ([R = 64*H*W, C]), and a ragged shape
+K4_SHAPES = ((64 * 56 * 56, 256), (64 * 7 * 7, 2048), (64 * 112 * 112, 64),
+             (1000, 72))
+K4_TIME_SHAPE = (64 * 56 * 56, 256)   # the kernels line's row
+RESNET_BATCH = 64
+RESNET_HW = 224
+RESNET_WARMUP = 2
+RESNET_STEPS = 7
+# models/resnet.build's ResNet-50: 65 conv -> batch_norm sites (a
+# projection shortcut in every bottleneck), each one fused op
+RESNET_SITES = 65
+# the distinct [R, C] of those sites at batch 64 (stem, stages 1-4)
+RESNET_SITE_SHAPES = ((802816, 64), (200704, 64), (200704, 256),
+                      (50176, 128), (50176, 512), (12544, 256),
+                      (12544, 1024), (3136, 512), (3136, 2048))
+RESNET_PARITY_HW = 64
+RESNET_PARITY_BATCH = 4
+# one Momentum step of ResNet-50 at 64x64: the card's K4 path against the
+# same step with fusion off (the unfused batch_norm and relu ops, the
+# same cuDNN convolutions): the forward is the same float sequence, so
+# only the backward's sums differ
+PARITY_RESNET_RTOL = 1e-4
+# the card against the CPU: cuDNN's convolutions (implicit GEMM and FFT
+# kernels) and oneDNN's round differently; through 50 layers the loss
+# agrees to ~1e-6 but quantities of the deep forward (the fc weight's
+# gradient, the moving statistics) to a few 1e-4 (max |diff| over max
+# |CPU|)
+PARITY_RESNET_CPU_RTOL = 1e-4        # the loss
+PARITY_RESNET_CPU_FWD_RTOL = 1e-3    # fc gradient, moving statistics
+# gradients below the relus: a relu input within rounding of 0 takes the
+# gradient on one device and not on the other, and moves the gradients
+# of the layers below it by a few percent (the same effect is found on
+# the CPU against the reference, tests/test_torch_resnet.py); held as
+# ||GPU - CPU|| / ||CPU||
+PARITY_RESNET_CPU_DEEP_RTOL = 0.1
+# one conv -> batch_norm site (identity act, so no relu decision) at the
+# stage-1 shape [4, 56, 56, 64], the card against the CPU: the output and
+# the input, filter, scale and bias gradients (max |diff| over max |CPU|)
+PARITY_RESNET_SITE_RTOL = 1e-4
 
 
 def emit(obj):
@@ -798,6 +855,135 @@ def time_kernels(torch, gen, errs):
     return rows, extra, scatter
 
 
+def _bn_act_inputs(torch, gen, r, c, dtype):
+    """A conv output y [r, c] with its batch statistics (the fused op's
+    mean and rstd), gamma, beta and an output gradient."""
+    y = (torch.randn((r, c), generator=gen, device="cuda") * 1.5
+         + 0.3).to(dtype)
+    y32 = y.float()
+    mean = y32.mean(dim=0)
+    var = torch.clamp((y32 * y32).mean(dim=0) - mean * mean, min=0.0)
+    rstd = torch.rsqrt(var + 1e-5)
+    g = 1.0 + 0.1 * torch.randn((c,), generator=gen, device="cuda")
+    b = 0.1 * torch.randn((c,), generator=gen, device="cuda")
+    dout = torch.randn((r, c), generator=gen, device="cuda").to(dtype)
+    return y, g, b, mean, rstd, dout
+
+
+def kernel_bn_act(checks, torch, gen):
+    """K4 forward and backward against their plain versions at the
+    ResNet-50 sites' shapes and a ragged one, float32 and bfloat16,
+    identity and relu.  The forward and dy use the plain version's
+    separate roundings (float32: expected bit-identical); the four sums
+    run in another order over up to 802816 rows."""
+    from paddle_tpu_torch.ops.cuda import conv_bn_act as cba
+
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = _dname(dtype)
+        for r, c in K4_SHAPES:
+            y, g, b, mean, rstd, dout = _bn_act_inputs(torch, gen, r, c,
+                                                       dtype)
+            for act in ("relu", "identity"):
+                case = "[%d, %d] %s %s" % (r, c, act, name)
+                got = cba.bn_act_epilogue_fwd(y, g, b, mean, rstd, act)
+                ref = cba.bn_act_epilogue_fwd_plain(y, g, b, mean, rstd, act)
+                torch.cuda.synchronize()
+                ferr = checks.check("bn_act_epilogue_fwd", case,
+                                    max_err(got, ref), _tol(ref, units=1))
+                grads = cba.bn_act_epilogue_bwd(dout, y, g, b, mean, rstd,
+                                                act)
+                refs = cba.bn_act_epilogue_bwd_plain(dout, y, g, b, mean,
+                                                     rstd, act)
+                torch.cuda.synchronize()
+                berr = max(checks.check(
+                    "bn_act_epilogue_bwd", "%s, %s" % (what, case),
+                    max_err(a, rf), _tol(rf))
+                    for what, a, rf in zip(("dy", "dgamma", "dbeta",
+                                            "dmean", "drstd"), grads, refs))
+                if dtype == torch.float32 and (r, c) == K4_TIME_SHAPE \
+                        and act == "relu":
+                    errs["bn_act_epilogue_fwd"] = ferr
+                    errs["bn_act_epilogue_bwd"] = berr
+            del y, dout, got, ref, grads, refs
+    torch.cuda.empty_cache()
+    return errs
+
+
+def _bn_act_library_bwd(torch, y4, dout4, g, mean, rstd):
+    """ATen's batch-norm backward on the channels-last views: the
+    per-channel reduce, then the elementwise pass.  It also carries the
+    gradient through the batch statistics, which K4 leaves to autograd,
+    and has no relu mask: the nearest single library computation."""
+    sums = torch.ops.aten.batch_norm_backward_reduce(
+        dout4, y4, mean, rstd, g, True, True, True)
+    count = torch.full((1,), y4.numel() // y4.shape[1], dtype=torch.int32,
+                       device="cuda")
+    return torch.ops.aten.batch_norm_backward_elemt(
+        dout4, y4, mean, rstd, g, sums[0], sums[1], count)
+
+
+def time_bn_act(torch, gen, errs):
+    """Cold-L2 times of K4 forward and backward (float32, relu) at every
+    ResNet-50 site shape of batch 64, beside the plain version and the
+    nearest library calls: ``F.batch_norm(training=False)`` + relu on the
+    channels_last view (forward); ATen's batch-norm backward reduce +
+    elementwise pass (backward).  The kernels line takes the stage-1
+    [200704, 256] row; the others are printed as extra timing lines."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.cuda import conv_bn_act as cba
+
+    src = "paddle_tpu_torch/csrc/conv_bn_act.cu"
+    ref = "paddle_tpu/ops/pallas/conv_bn_act.py:"
+    rows, extra = [], []
+    for r, c in sorted(set(RESNET_SITE_SHAPES) | {K4_TIME_SHAPE}):
+        y, g, b, mean, rstd, dout = _bn_act_inputs(torch, gen, r, c,
+                                                   torch.float32)
+        hw = r // RESNET_BATCH
+        side = int(round(hw ** 0.5))
+        y4 = y.view(RESNET_BATCH, side, side, c).permute(0, 3, 1, 2)
+        d4 = dout.view(RESNET_BATCH, side, side, c).permute(0, 3, 1, 2)
+        var = 1.0 / (rstd * rstd) - 1e-5
+        shape = "y [%d, %d] f32 relu (%dx%d x %d channels at batch %d)" % (
+            r, c, side, side, c, RESNET_BATCH)
+        n_el = r * c
+        fwd = _row(
+            "bn_act_epilogue_fwd", src, ref + "153",
+            errs["bn_act_epilogue_fwd"],
+            time_ms(lambda: cba.bn_act_epilogue_fwd(y, g, b, mean, rstd,
+                                                    "relu"), 20),
+            time_ms(lambda: cba.bn_act_epilogue_fwd_plain(
+                y, g, b, mean, rstd, "relu"), 20),
+            bound_ms(4 * (2 * n_el + 4 * c), 5 * n_el, "float32"),
+            time_ms(lambda: F.relu(F.batch_norm(y4, mean, var, g, b, False,
+                                                0.0, 1e-5)), 20),
+            shape)
+        try:
+            lib_bwd = time_ms(lambda: _bn_act_library_bwd(
+                torch, y4, d4, g, mean, rstd), 20)
+        except (RuntimeError, TypeError) as e:  # a yardstick only
+            lib_bwd = None
+            emit({"phase": "kernels", "library_bwd_unavailable": str(e)})
+        bwd = _row(
+            "bn_act_epilogue_bwd", src, ref + "175",
+            errs["bn_act_epilogue_bwd"],
+            time_ms(lambda: cba.bn_act_epilogue_bwd(dout, y, g, b, mean,
+                                                    rstd, "relu"), 20),
+            time_ms(lambda: cba.bn_act_epilogue_bwd_plain(
+                dout, y, g, b, mean, rstd, "relu"), 20),
+            bound_ms(4 * (3 * n_el + 4 * c + 4 * c), 12 * n_el, "float32"),
+            lib_bwd, shape + "; library: ATen batch_norm_backward_reduce "
+            "+ _elemt (also the statistics' chain, no relu)")
+        if (r, c) == K4_TIME_SHAPE:
+            rows += [fwd, bwd]
+        else:
+            extra += [fwd, bwd]
+        del y, dout, y4, d4
+    torch.cuda.empty_cache()
+    return rows, extra
+
+
 def phase_kernels():
     import torch
 
@@ -810,13 +996,15 @@ def phase_kernels():
         kernel_ln(checks, torch, gen)
     errs["embedding_gather_fwd"] = kernel_gather(checks, torch, gen)
     errs.update(kernel_decode(checks, torch, gen))
+    errs.update(kernel_bn_act(checks, torch, gen))
     if checks.failed:
         raise AssertionError("kernel checks failed: %s"
                              % "; ".join(checks.failed))
     rows, extra, scatter = time_kernels(torch, gen, errs)
     decode_rows, decode_extra = time_decode_kernels(torch, gen, errs)
-    rows += decode_rows
-    for r in rows + extra + decode_extra:
+    bn_rows, bn_extra = time_bn_act(torch, gen, errs)
+    rows += decode_rows + bn_rows
+    for r in rows + extra + decode_extra + bn_extra:
         emit(dict({"phase": "kernels", "timing": True}, **r))
     emit(scatter)
     torch.cuda.empty_cache()
@@ -996,8 +1184,10 @@ def _kernel_group(name):
     return "other"
 
 
-def _device_breakdown(prof, runs):
-    """Device ms per run by kernel group, and the busiest kernels."""
+def _device_breakdown(prof, runs, group=None):
+    """Device ms per run by kernel group (``group(name)``, by default
+    ``_kernel_group``), and the busiest kernels."""
+    group = group or _kernel_group
     groups, top = {}, []
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total", None)
@@ -1008,11 +1198,56 @@ def _device_breakdown(prof, runs):
                 "CUDA"):
             continue
         ms = dev_us / 1e3 / runs
-        g = _kernel_group(ev.key)
+        g = group(ev.key)
         groups[g] = groups.get(g, 0.0) + ms
         top.append((ms, ev.count // runs, ev.key[:90]))
     top.sort(reverse=True)
     return groups, top
+
+
+def _step_profile(exe, main, batch, loss, group=None, runs=2, top_n=15):
+    """The host's time to enqueue a training step (three times, nothing
+    waited for), then ``runs`` steps under ``torch.profiler``: device ms
+    per step by kernel group (``_device_breakdown``), the idle share of
+    the profiled wall time, the busiest kernels and host ops."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    dispatch_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        exe.run(main, feed=batch, fetch_list=[loss], return_numpy=False)
+        dispatch_ms.append((time.perf_counter() - s0) * 1e3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        s0 = time.perf_counter()
+        for _ in range(runs):
+            exe.run(main, feed=batch, fetch_list=[loss])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - s0) * 1e3 / runs
+    group = group or _kernel_group
+    groups, top = _device_breakdown(prof, runs, group)
+    host = sorted((ev for ev in prof.key_averages()
+                   if ev.self_cpu_time_total > 0),
+                  key=lambda ev: -ev.self_cpu_time_total)
+    busy = sum(groups.values())
+    return {"dispatch_ms": dispatch_ms,
+            "median_dispatch_ms": statistics.median(dispatch_ms),
+            "host_top_ops_under_profiler": [
+                {"ms": ev.self_cpu_time_total / 1e3 / runs,
+                 "calls": ev.count // runs, "name": ev.key[:60]}
+                for ev in host[:top_n]],
+            "wall_ms_per_step": wall_ms,
+            "device_ms_per_step": busy if busy else "not measured",
+            "device_idle_share": (1.0 - busy / wall_ms) if busy
+            else "not measured",
+            "device_ms_by_group": groups,
+            "top_kernels": [{"ms": t, "launches": n, "group": group(k),
+                             "name": k} for t, n, k in top[:top_n]]}
 
 
 def phase_profile(env, pred, cfg, runs=3):
@@ -1079,7 +1314,6 @@ def phase_train(env):
 
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models import bert
@@ -1140,42 +1374,9 @@ def phase_train(env):
         if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
             raise AssertionError("loss not finite and falling: %s" % losses)
 
-        # the host's share: enqueue a step without waiting for it
-        dispatch_ms = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            s0 = time.perf_counter()
-            exe.run(main, feed=batch, fetch_list=[loss], return_numpy=False)
-            dispatch_ms.append((time.perf_counter() - s0) * 1e3)
-        torch.cuda.synchronize()
-
-        runs = 2
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            s0 = time.perf_counter()
-            for _ in range(runs):
-                exe.run(main, feed=batch, fetch_list=[loss])
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - s0) * 1e3 / runs
-        groups, top = _device_breakdown(prof, runs)
-        host = sorted((ev for ev in prof.key_averages()
-                       if ev.self_cpu_time_total > 0),
-                      key=lambda ev: -ev.self_cpu_time_total)
-        busy = sum(groups.values())
-        emit({"phase": "train", "step": "profile", "card": card_label(env),
-              "dispatch_ms": dispatch_ms,
-              "median_dispatch_ms": statistics.median(dispatch_ms),
-              "host_top_ops_under_profiler": [
-                  {"ms": ev.self_cpu_time_total / 1e3 / runs,
-                   "calls": ev.count // runs, "name": ev.key[:60]}
-                  for ev in host[:12]],
-              "wall_ms_per_step": wall_ms,
-              "device_ms_per_step": busy if busy else "not measured",
-              "device_idle_share": (1.0 - busy / wall_ms) if busy
-              else "not measured",
-              "device_ms_by_group": groups,
-              "top_kernels": [{"ms": t, "launches": n, "name": k}
-                              for t, n, k in top[:15]]})
+        emit(dict({"phase": "train", "step": "profile",
+                   "card": card_label(env)},
+                  **_step_profile(exe, main, batch, loss)))
     del scope, exe
     torch.cuda.empty_cache()
     return counts
@@ -1547,6 +1748,357 @@ def phase_decode_parity():
         raise AssertionError("decode parity failed")
 
 
+def _resnet_group(name):
+    """The ResNet profile's group of a device kernel, by its name."""
+    low = name.lower()
+    for group, needles in (
+            ("K4 fwd", ("bn_act_fwd_kernel",)),
+            ("K4 bwd", ("bn_act_bwd_kernel", "bn_act_bwd_reduce_kernel")),
+            ("conv bwd", ("dgrad", "wgrad", "convolve_dgrad",
+                          "convolve_wgrad", "backward_data",
+                          "backward_filter")),
+            ("conv FFT and cuDNN helpers (fwd or bwd)", (
+                "fft", "cf32", "scalepackedtensor")),
+            ("conv fwd", ("fprop", "convolve_sgemm", "conv2d_", "winograd",
+                          "implicit_gemm", "implicit_convolve")),
+            ("layout copies", ("nchwtonhwc", "nhwctonchw", "direct_copy",
+                               "copy_kernel", "transpose")),
+            ("pooling", ("pool",)),
+            ("BN statistics and reductions", ("reduce_kernel", "reduce")),
+            ("GEMM (fc)", ("gemm", "cutlass", "xmma"))):
+        if any(n.lower() in low for n in needles):
+            return group
+    if "elementwise" in low or "vectorized" in low:
+        return "Momentum and elementwise"
+    return "other"
+
+
+def _aten_calls_per_op(exe, program, feed, fetch):
+    """ATen calls per program op in one step, by op type: a
+    ``TorchDispatchMode`` counts what each op's lowering dispatches (the
+    grad ops' autograd backward included; a kernel launch through ctypes
+    is not an ATen call)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from paddle_tpu_torch.ops import registry
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    per = {}
+    orig = registry.call_op
+
+    def counted(opdef, *args, **kwargs):
+        with Count() as c:
+            out = orig(opdef, *args, **kwargs)
+        tot = per.setdefault(opdef.type, [0, 0])
+        tot[0] += 1
+        tot[1] += c.n
+        return out
+
+    registry.call_op = counted
+    try:
+        exe.run(program, feed=feed, fetch_list=fetch)
+    finally:
+        registry.call_op = orig
+    return {t: {"ops": n, "aten_calls_per_op": a / n}
+            for t, (n, a) in sorted(per.items(), key=lambda kv: -kv[1][1])}
+
+
+def _resnet_program(fluid, resnet, hw):
+    """``resnet.build(dataset="imagenet", depth=50, data_format="NHWC")``
+    at an hw x hw input (``build`` declares 224 x 224): the training
+    program with Momentum as ``build`` sets it, and the eval clone."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        img = fluid.layers.data("img", shape=[hw, hw, 3], dtype="float32")
+        label = fluid.layers.data("label", shape=[1], dtype="int64")
+        logits = resnet.resnet_imagenet(img, 1000, 50, False, "NHWC")
+        loss = fluid.layers.mean(
+            fluid.layers.softmax_with_cross_entropy(logits, label))
+        acc = fluid.layers.accuracy(fluid.layers.softmax(logits), label)
+        fluid.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                 use_nesterov=True).minimize(loss)
+    return main, startup, main.clone(for_test=True), loss, acc
+
+
+def _resnet_batch(np, rng, batch, hw):
+    """Seeded images and labels in [0, 10), as the reference's ResNet
+    bench draws them."""
+    return {"img": rng.randn(batch, hw, hw, 3).astype("float32"),
+            "label": rng.randint(0, 10, (batch, 1)).astype("int64")}
+
+
+def phase_resnet(env):
+    """ResNet-50 NHWC (``models/resnet.build``) trained at batch 64,
+    224x224, float32 with TF32 off, Momentum (lr 0.1, 0.9, Nesterov) on
+    the card: warm-up steps, then timed steps on one repeated batch with
+    the launch counts read around them, one eval batch through the
+    for-test clone, the host's enqueue time and a profiled window."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.ops.cuda import (KERNELS, launch_counts,
+                                           reset_launch_counts)
+    from paddle_tpu_torch.static_analysis import fusion
+
+    t0 = time.time()
+    main, startup, _feeds, loss, acc = resnet.build(
+        dataset="imagenet", depth=50, data_format="NHWC")
+    main.random_seed = startup.random_seed = SEED
+    test = main.clone(for_test=True)
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup)
+        torch.cuda.synchronize()
+        prog, report = fusion.resolve_fused_program(
+            main, targets=[loss.name, acc.name])
+        op_types = {}
+        for op in prog.global_block().ops:
+            op_types[op.type] = op_types.get(op.type, 0) + 1
+        emit({"phase": "resnet", "step": "build+startup",
+              "seconds": time.time() - t0, "ops_per_step": sum(
+                  op_types.values()), "fused": report.counts(),
+              "op_types": op_types, "parameters": sum(
+                  p.numel() for p in (scope.get(v.name)
+                                      for v in main.all_parameters()
+                                      if v.trainable))})
+        if report.counts() != {"conv_bn_act": RESNET_SITES}:
+            raise AssertionError("fused %s, expected %d conv_bn_act sites"
+                                 % (report.counts(), RESNET_SITES))
+        # the batch lies on the card, as an input pipeline leaves it
+        batch = {k: torch.from_numpy(v).cuda() for k, v in _resnet_batch(
+            np, np.random.RandomState(SEED), RESNET_BATCH,
+            RESNET_HW).items()}
+        losses = []
+        for _ in range(RESNET_WARMUP):
+            losses.append(float(exe.run(main, feed=batch,
+                                        fetch_list=[loss])[0][0]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        step_ms = []
+        for _ in range(RESNET_STEPS):
+            s0 = time.perf_counter()
+            out = exe.run(main, feed=batch, fetch_list=[loss, acc])
+            step_ms.append((time.perf_counter() - s0) * 1e3)
+            losses.append(float(out[0][0]))
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        per_step = {k: c / RESNET_STEPS for k, c in counts.items()}
+        want = dict.fromkeys(KERNELS, 0.0)
+        want.update({"bn_act_epilogue_fwd": RESNET_SITES,
+                     "bn_act_epilogue_bwd": RESNET_SITES})
+        med = statistics.median(step_ms)
+        emit({"phase": "resnet", "step": "steps", "card": card_label(env),
+              "batch": RESNET_BATCH, "image": RESNET_HW, "losses": losses,
+              "step_ms": step_ms, "median_step_ms": med,
+              "images_per_s": RESNET_BATCH / (med / 1e3),
+              "launches_per_step": per_step, "expected": want,
+              "peak_memory_bytes": peak})
+        if per_step != want:
+            raise AssertionError("launches per step %s != %s"
+                                 % (per_step, want))
+        if not all(np.isfinite(losses)):
+            raise AssertionError("loss not finite: %s" % losses)
+
+        reset_launch_counts()
+        s0 = time.perf_counter()
+        ev_loss, ev_acc = exe.run(test, feed=batch, fetch_list=[loss, acc])
+        ev_ms = (time.perf_counter() - s0) * 1e3
+        ev_counts = launch_counts()
+        want_ev = dict.fromkeys(KERNELS, 0)
+        want_ev["bn_act_epilogue_fwd"] = RESNET_SITES
+        emit({"phase": "resnet", "step": "eval", "loss": float(ev_loss[0]),
+              "acc": float(ev_acc[0]), "ms": ev_ms, "launches": ev_counts,
+              "expected": want_ev})
+        if ev_counts != want_ev or not np.isfinite(ev_loss).all():
+            raise AssertionError("eval batch: launches %s (want %s), loss "
+                                 "%s" % (ev_counts, want_ev, ev_loss))
+
+        prof = _step_profile(exe, main, batch, loss, _resnet_group,
+                             top_n=25)
+        busy = prof["device_ms_per_step"]
+        aten = _aten_calls_per_op(exe, main, batch, [loss])
+        emit(dict({
+            "phase": "resnet", "step": "profile", "card": card_label(env),
+            # the profiler slows the host: against the unprofiled step
+            "device_idle_share_of_median_step": (1.0 - busy / med)
+            if busy != "not measured" else busy,
+            "aten_calls_per_step": sum(v["ops"] * v["aten_calls_per_op"]
+                                       for v in aten.values()),
+            "aten_calls_by_op_type": aten}, **prof))
+    del scope, exe, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _resnet_parity_run(fluid, convert, main, startup, fetch, batch, place,
+                       start, fuse):
+    """One training step → (fetches, persistables before it, after it);
+    ``start`` (a persistables dict) is loaded over the startup's values
+    when given.  ``fuse`` False runs it with the fusion pipeline off."""
+    prev = os.environ.get("PADDLE_TPU_FUSION")
+    os.environ["PADDLE_TPU_FUSION"] = "1" if fuse else "0"
+    try:
+        scope = fluid.Scope()
+        with fluid.scope_guard(scope):
+            exe = fluid.Executor(place)
+            exe.run(startup)
+            if start is not None:
+                convert.load_params_into_scope(start, scope, place,
+                                               program=main)
+            before = convert.scope_persistables(main, scope)
+            out = exe.run(main, feed=batch, fetch_list=fetch)
+            return out, before, convert.scope_persistables(main, scope)
+    finally:
+        if prev is None:
+            os.environ.pop("PADDLE_TPU_FUSION", None)
+        else:
+            os.environ["PADDLE_TPU_FUSION"] = prev
+
+
+def _fused_site_parity(fluid, convert, np):
+    """One fused conv -> batch_norm site, card against CPU → max
+    relative errors of Out and the four gradients."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data("x", shape=[56, 56, 64], dtype="float32")
+        x.stop_gradient = False
+        conv = fluid.layers.conv2d(x, 64, 3, padding=1, bias_attr=False,
+                                   data_format="NHWC")
+        out = fluid.layers.batch_norm(conv, data_layout="NHWC")
+        w = fluid.layers.data("w", shape=[56, 56, 64], dtype="float32")
+        loss = fluid.layers.reduce_sum(fluid.layers.elementwise_mul(out, w))
+        wrt = [x] + [p for p in main.all_parameters() if p.trainable]
+        fetch = [out] + fluid.gradients([loss], wrt)
+    rng = np.random.RandomState(SEED + 6)
+    feed = {"x": rng.randn(4, 56, 56, 64).astype("float32"),
+            "w": rng.randn(4, 56, 56, 64).astype("float32")}
+    got = {}
+    start = None
+    for kind, place in (("cpu", fluid.CPUPlace()),
+                        ("cuda", fluid.CUDAPlace(0))):
+        scope = fluid.Scope()
+        with fluid.scope_guard(scope):
+            exe = fluid.Executor(place)
+            exe.run(startup)
+            if start is None:
+                start = convert.scope_persistables(main, scope)
+            else:
+                convert.load_params_into_scope(start, scope, place,
+                                               program=main)
+            got[kind] = exe.run(main, feed=feed, fetch_list=fetch)
+    return {name: float(np.abs(g - c).max()) / max(float(np.abs(c).max()),
+                                                   1e-30)
+            for name, g, c in zip(("Out", "Input@GRAD", "Filter@GRAD",
+                                   "Scale@GRAD", "Bias@GRAD"),
+                                  got["cuda"], got["cpu"])}
+
+
+def phase_resnet_parity():
+    """Full-depth ResNet-50 NHWC at 64x64, batch 4, one Momentum step
+    from one parameter dict (the CPU startup's, carried with
+    ``convert``): on the card through the K4 kernels, on the card with
+    fusion off (the unfused ops, no K4), and on the CPU with the plain
+    versions.  Compared: the loss, the stem filter's, a stage-3
+    batch_norm scale's and the fc weight's gradients, and the 130 moving
+    statistics after the step; and one fused site alone, card against
+    CPU."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.models import resnet
+
+    main, startup, _test, loss, _acc = _resnet_program(
+        fluid, resnet, RESNET_PARITY_HW)
+    grads = {op.inputs["Param"][0]: op.inputs["Grad"][0]
+             for op in main.global_block().ops if op.type == "momentum"}
+    deep = ["conv2d_0.w_0", "batch_norm_40.w_0"]
+    names = deep + ["fc_0.w_0"]
+    moving = sorted(p.name for p in main.all_parameters()
+                    if not p.trainable)
+    fetch = [loss.name] + [grads[n] for n in names]
+    batch = _resnet_batch(np, np.random.RandomState(SEED + 5),
+                          RESNET_PARITY_BATCH, RESNET_PARITY_HW)
+    cpu, start, cpu_after = _resnet_parity_run(
+        fluid, convert, main, startup, fetch, batch, fluid.CPUPlace(), None,
+        True)
+    runs = {"cpu": (cpu, cpu_after)}
+    for kind, fuse in (("cuda_k4", True), ("cuda_unfused", False)):
+        out, _, after = _resnet_parity_run(
+            fluid, convert, main, startup, fetch, batch, fluid.CUDAPlace(0),
+            start, fuse)
+        runs[kind] = (out, after)
+
+    def max_rel(a, b):
+        return float(np.abs(a - b).max()) / max(float(np.abs(b).max()),
+                                                1e-30)
+
+    def compare(a, b):
+        (fa, sa), (fb, sb) = runs[a], runs[b]
+        res = {"loss": [float(fa[0][0]), float(fb[0][0])],
+               "loss_rel_err": abs(float(fa[0][0] - fb[0][0]))
+               / abs(float(fb[0][0]))}
+        for name, g, c in zip(names, fa[1:], fb[1:]):
+            res[name + "@GRAD max_rel_err"] = max_rel(g, c)
+            res[name + "@GRAD l2_rel_err"] = float(
+                np.linalg.norm(g - c) / max(np.linalg.norm(c), 1e-30))
+            res[name + "@GRAD finite"] = bool(np.isfinite(g).all())
+        res["moving_stats_max_rel_err"] = max(max_rel(sa[k], sb[k])
+                                              for k in moving)
+        res["moving_stats_moved"] = sum(
+            not np.array_equal(sa[k], start[k]) for k in moving)
+        return res
+
+    card = compare("cuda_k4", "cuda_unfused")
+    ok = all(card[n + "@GRAD finite"] for n in names) \
+        and card["loss_rel_err"] <= PARITY_RESNET_RTOL \
+        and card["moving_stats_max_rel_err"] <= PARITY_RESNET_RTOL \
+        and all(card[n + "@GRAD max_rel_err"] <= PARITY_RESNET_RTOL
+                for n in names)
+    emit(dict({"phase": "resnet_parity", "step": "card: K4 path vs fusion "
+               "off (unfused ops, same cuDNN convolutions), one Momentum "
+               "step, ResNet-50 NHWC %dx%d batch %d" % (
+                   RESNET_PARITY_HW, RESNET_PARITY_HW, RESNET_PARITY_BATCH),
+               "tol": PARITY_RESNET_RTOL, "ok": ok}, **card))
+    site = _fused_site_parity(fluid, convert, np)
+    ok_site = all(e <= PARITY_RESNET_SITE_RTOL for e in site.values())
+    emit({"phase": "resnet_parity", "step": "card vs CPU, one fused conv "
+          "-> batch_norm site [4, 56, 56, 64] NHWC (identity act)",
+          "max_rel_err": site, "tol": PARITY_RESNET_SITE_RTOL,
+          "ok": ok_site})
+    vs_cpu = compare("cuda_k4", "cpu")
+    ok_cpu = all(vs_cpu[n + "@GRAD finite"] for n in names) \
+        and vs_cpu["loss_rel_err"] <= PARITY_RESNET_CPU_RTOL \
+        and vs_cpu["fc_0.w_0@GRAD max_rel_err"] \
+        <= PARITY_RESNET_CPU_FWD_RTOL \
+        and vs_cpu["moving_stats_max_rel_err"] \
+        <= PARITY_RESNET_CPU_FWD_RTOL \
+        and vs_cpu["moving_stats_moved"] == len(moving) \
+        and all(vs_cpu[n + "@GRAD l2_rel_err"] <= PARITY_RESNET_CPU_DEEP_RTOL
+                for n in deep)
+    emit(dict({"phase": "resnet_parity", "step": "card (K4) vs CPU plain "
+               "versions, the same step", "loss_tol": PARITY_RESNET_CPU_RTOL,
+               "fwd_tol": PARITY_RESNET_CPU_FWD_RTOL,
+               "deep_grad_l2_tol": PARITY_RESNET_CPU_DEEP_RTOL,
+               "moving_stats": len(moving), "ok": ok_cpu}, **vs_cpu))
+    if not (ok and ok_site and ok_cpu):
+        raise AssertionError("resnet parity failed")
+
+
 def main():
     try:
         import torch
@@ -1574,16 +2126,21 @@ def main():
     phase_train_parity()
     decode_counts = phase_decode(env)
     phase_decode_parity()
+    resnet_counts = phase_resnet(env)
+    phase_resnet_parity()
     paths = {"serve": serve_counts, "train": train_counts,
              "decode_ring": decode_counts["ring"],
-             "decode_paged": decode_counts["paged"]}
+             "decode_paged": decode_counts["paged"],
+             "resnet": resnet_counts}
     for r in rows:
         # the decode path's launches (ring + paged runs) where it runs the
-        # kernel, else the training path's (the backward kernels)
+        # kernel, else the BERT training path's (the backward kernels),
+        # else the ResNet training path's (K4)
         name = r["name"]
         decode = paths["decode_ring"][name] + paths["decode_paged"][name]
-        r["launches"] = decode or train_counts[name]
-        r["launches_path"] = "decode" if decode else "train"
+        r["launches"] = decode or train_counts[name] or resnet_counts[name]
+        r["launches_path"] = "decode" if decode else (
+            "train" if train_counts[name] else "resnet")
     emit(dict({"phase": "launches"}, **paths))
     emit({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",

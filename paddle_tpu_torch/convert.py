@@ -4,8 +4,10 @@ The reference keeps parameters as jax arrays in its ``Scope`` and
 exports them as one ``<name>.npy`` per persistable beside ``__model__``
 (``paddle_tpu/io.py``); both use the same names as the port, since the
 model builders are the same.  :func:`read_exported_params` reads an
-exported directory into a ``{name: np.ndarray}`` dict (a caller holding
-a reference ``Scope`` builds the same dict with ``np.asarray``);
+exported directory into a ``{name: np.ndarray}`` dict, and
+:func:`scope_persistables` reads every persistable var of a program out
+of a scope of either package (parameters, and the state a step carries:
+batch_norm's moving means and variances, optimizer accumulators);
 :func:`convert_params` turns such a dict into the port's CPU tensors and
 :func:`load_params_into_scope` places them in a port ``Scope`` on a
 device.  The port's random initialisation draws other numbers than the
@@ -16,12 +18,13 @@ import json
 import os
 
 import numpy as np
+import torch
 
 from . import core
 from . import proto
 from .ops.registry import np_to_torch
 
-__all__ = ["read_exported_params", "convert_params",
+__all__ = ["read_exported_params", "scope_persistables", "convert_params",
            "load_params_into_scope"]
 
 
@@ -39,6 +42,24 @@ def read_exported_params(dirname, model_filename="__model__"):
     if not out:
         raise ValueError("no parameter files found under %r (meta: %s)"
                          % (dirname, json.dumps(os.listdir(dirname))))
+    return out
+
+
+def scope_persistables(program, scope):
+    """``{name: np.ndarray}`` of every persistable, non-data var of
+    ``program`` that ``scope`` holds.  ``scope`` is a ``Scope`` of this
+    package or of the reference (anything with ``get(name)``); values
+    are copied to host numpy arrays."""
+    out = {}
+    for v in program.list_vars():
+        if not v.persistable or v.is_data:
+            continue
+        val = scope.get(v.name)
+        if val is None:
+            continue
+        if isinstance(val, torch.Tensor):
+            val = val.detach().cpu().numpy()
+        out[v.name] = np.array(val)
     return out
 
 

@@ -424,7 +424,7 @@ class Program:
                 if for_test and ("is_test" in no.attrs or op.type in (
                         "dropout", "batch_norm", "layer_norm",
                         "fused_multihead_attention",
-                        "fused_dropout_add_ln")):
+                        "fused_dropout_add_ln", "fused_conv_bn_act")):
                     no.attrs["is_test"] = True
                 nb.ops.append(no)
         p.current_block_idx = 0

@@ -5,21 +5,26 @@
 :594, ``elementwise_add/sub/mul/div`` :637-650, ``reshape`` :665,
 ``transpose`` :678, ``squeeze``/``unsqueeze`` :724-748, ``gather`` :806,
 ``one_hot`` :838, ``fused_dropout_add_ln`` :1084,
-``fused_multihead_attention`` :1113).
+``fused_multihead_attention`` :1113; for ResNet ``conv2d`` :169,
+``pool2d`` :260, ``batch_norm`` :284, ``mean`` :549, ``topk`` :848,
+``relu`` :936, ``pad`` :973, and ``space_to_depth`` from
+``layers/nn_extra.py:260``).
 Each layer appends the same op types, slots and attrs as the reference,
 so the two packages build the same program."""
 
 import numpy as np
 
-from ..initializer import ConstantInitializer
+from ..initializer import ConstantInitializer, NormalInitializer
 from ..layer_helper import LayerHelper
+from ..param_attr import ParamAttr
 
 __all__ = ["fc", "embedding", "layer_norm", "dropout", "softmax",
            "softmax_with_cross_entropy", "reduce_sum", "matmul",
            "elementwise_add", "elementwise_sub", "elementwise_mul",
            "elementwise_div", "reshape", "transpose", "squeeze", "unsqueeze",
            "gather", "one_hot", "fused_dropout_add_ln",
-           "fused_multihead_attention"]
+           "fused_multihead_attention", "conv2d", "pool2d", "batch_norm",
+           "mean", "topk", "relu", "pad", "space_to_depth"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -274,4 +279,144 @@ def fused_multihead_attention(q, k, v, bias=None, causal=False, scale=None,
         attrs["scale"] = float(scale)
     helper.append_op(type="fused_multihead_attention", inputs=inputs,
                      outputs={"Out": [out]}, attrs=attrs)
+    return out
+
+
+def _pair(v, n=2):
+    if isinstance(v, (list, tuple)):
+        return [int(x) for x in v]
+    return [int(v)] * n
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None, data_format="NCHW"):
+    """``conv2d`` (``depthwise_conv2d`` when every channel is its own
+    group); the filter is OIHW in either layout, initialised from
+    Normal(0, sqrt(2 / fan_in)); the bias is per output channel."""
+    helper = LayerHelper("conv2d", **locals())
+    dtype = input.dtype
+    groups = groups or 1
+    num_channels = input.shape[1] if data_format == "NCHW" \
+        else input.shape[-1]
+    filter_size = _pair(filter_size)
+    filter_shape = [num_filters, num_channels // groups] + filter_size
+    fan_in = (num_channels // groups) * filter_size[0] * filter_size[1]
+    w = helper.create_parameter(
+        attr=helper.param_attr, shape=filter_shape, dtype=dtype,
+        default_initializer=NormalInitializer(0.0, (2.0 / fan_in) ** 0.5))
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    op_type = ("depthwise_conv2d"
+               if groups == num_channels and num_filters % num_channels == 0
+               else "conv2d")
+    helper.append_op(
+        type=op_type, inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [pre_bias]},
+        attrs={"strides": _pair(stride), "paddings": _pair(padding),
+               "dilations": _pair(dilation), "groups": groups,
+               "data_format": data_format})
+    if data_format == "NCHW":
+        pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    else:
+        nd = len(input.shape)
+        pre_act = helper.append_bias_op(pre_bias, dim_start=nd - 1,
+                                        dim_end=nd)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, name=None, exclusive=True, data_format="NCHW"):
+    helper = LayerHelper("pool2d", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="pool2d", inputs={"X": [input]}, outputs={"Out": [out]},
+        attrs={"pooling_type": pool_type, "ksize": _pair(pool_size),
+               "strides": _pair(pool_stride),
+               "paddings": _pair(pool_padding),
+               "global_pooling": global_pooling, "ceil_mode": ceil_mode,
+               "exclusive": exclusive, "data_format": data_format})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               in_place=False, name=None, moving_mean_name=None,
+               moving_variance_name=None,
+               do_model_average_for_mean_and_var=False,
+               use_global_stats=False):
+    """Scale and Bias parameters, and the persistable, untrained moving
+    Mean and Variance, which the op's MeanOut and VarianceOut write
+    back."""
+    helper = LayerHelper("batch_norm", **locals())
+    dtype = input.dtype
+    c = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    scale = helper.create_parameter(
+        attr=helper.param_attr, shape=[c], dtype="float32",
+        default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(attr=helper.bias_attr, shape=[c],
+                                   dtype="float32", is_bias=True)
+    mean = helper.create_parameter(
+        attr=ParamAttr(name=moving_mean_name, trainable=False), shape=[c],
+        dtype="float32", default_initializer=ConstantInitializer(0.0))
+    variance = helper.create_parameter(
+        attr=ParamAttr(name=moving_variance_name, trainable=False),
+        shape=[c], dtype="float32",
+        default_initializer=ConstantInitializer(1.0))
+    mean.stop_gradient = True
+    variance.stop_gradient = True
+    out = helper.create_variable_for_type_inference(dtype)
+    saved_mean = helper.create_variable_for_type_inference("float32", True)
+    saved_var = helper.create_variable_for_type_inference("float32", True)
+    helper.append_op(
+        type="batch_norm",
+        inputs={"X": [input], "Scale": [scale], "Bias": [bias],
+                "Mean": [mean], "Variance": [variance]},
+        outputs={"Y": [out], "MeanOut": [mean], "VarianceOut": [variance],
+                 "SavedMean": [saved_mean], "SavedVariance": [saved_var]},
+        attrs={"momentum": momentum, "epsilon": epsilon,
+               "is_test": is_test, "data_layout": data_layout,
+               "use_global_stats": use_global_stats})
+    return helper.append_activation(out)
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="mean", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", **locals())
+    values = helper.create_variable_for_type_inference(input.dtype)
+    indices = helper.create_variable_for_type_inference("int64")
+    helper.append_op(type="top_k", inputs={"X": [input]},
+                     outputs={"Out": [values], "Indices": [indices]},
+                     attrs={"k": int(k)})
+    return values, indices
+
+
+def relu(x, name=None):
+    helper = LayerHelper("relu", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="relu", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    helper = LayerHelper("pad", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="pad", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"paddings": list(paddings),
+                            "pad_value": float(pad_value)})
+    return out
+
+
+def space_to_depth(x, blocksize, name=None):
+    helper = LayerHelper("space_to_depth")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="space_to_depth", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"blocksize": int(blocksize)})
     return out

@@ -32,7 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv",
            "flash_attention_bwd_dq", "fused_dropout_add_ln_fwd",
            "fused_dropout_add_ln_bwd", "embedding_gather_fwd",
-           "flash_decode_fwd", "paged_flash_decode_fwd")
+           "flash_decode_fwd", "paged_flash_decode_fwd",
+           "bn_act_epilogue_fwd", "bn_act_epilogue_bwd")
 _LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 _lock = threading.Lock()
@@ -73,6 +74,13 @@ _SIGNATURES = {
     # q, k, v, lengths, table, o, rows, H, N, BL, MB, Dh, scale, dtype,
     # stream
     "pt_paged_flash_decode_fwd": (_P,) * 6 + (_I,) * 6 + (_F, _I, _P),
+    # y, gamma, beta, mean, rstd, out, rows, C, act, dtype, stream
+    "pt_bn_act_fwd": (_P,) * 6 + (_L, _I, _I, _I, _P),
+    # rows, C, dtype → row tiles of the backward's partials
+    "pt_bn_act_bwd_tiles": (_L, _I, _I),
+    # dout, y, gamma, beta, mean, rstd, dy, part, dgamma, dbeta, dmean,
+    # drstd, rows, C, act, dtype, stream
+    "pt_bn_act_bwd": (_P,) * 12 + (_L, _I, _I, _I, _P),
 }
 
 def sources():

@@ -1,6 +1,6 @@
 """Matmul / elementwise / reduction ops (mirrors ``paddle_tpu/ops/math.py``:
 ``mul`` at :23, ``matmul``, ``elementwise_add/sub/mul/div`` :66-68,
-``reduce_sum`` :98, ``cumsum`` :145).  The products stay
+``reduce_sum`` :98, ``mean`` :107, ``top_k`` :117, ``cumsum`` :145).  The products stay
 ``torch.matmul`` (cuBLAS), as the reference left them to XLA; with TF32
 off (set by the Executor on a CUDA place) f32 products run in full f32.
 """
@@ -73,6 +73,19 @@ def reduce_sum(ctx, attrs, X):
                     keepdim=bool(attrs.get("keep_dim", False)))
     # the reference reduces to shape [1], not []
     return out.reshape(1) if out.dim() == 0 else out
+
+
+@register_op("mean", inputs=["X"], outputs=["Out"])
+def mean(ctx, attrs, X):
+    return X.mean().reshape(1)
+
+
+@register_op("top_k", inputs=["X"], outputs=["Out", "Indices"])
+def top_k(ctx, attrs, X):
+    """The k largest along the last axis, largest first, and their int64
+    indices (the reference's are int32, jax without x64)."""
+    vals, idx = torch.topk(X, int(attrs.get("k", 1)), dim=-1)
+    return {"Out": vals, "Indices": idx}
 
 
 @register_op("cumsum", inputs=["X"], outputs=["Out"])

@@ -1,5 +1,5 @@
 """Optimizer update ops (mirrors ``paddle_tpu/ops/optimizer_ops.py``:
-``sgd`` :22, ``adam`` :46-77).  Plain PyTorch; each op returns new
+``sgd`` :22, ``momentum`` :28-43, ``adam`` :46-77).  Plain PyTorch; each op returns new
 tensors that the executor binds to the parameter's and accumulators'
 names, since it never updates a scope value in place.  The reference's
 multi-tensor ``fused_adam`` rewrite is rejected at BERT scale by its own
@@ -18,6 +18,22 @@ def _lr(LearningRate, dtype):
              outputs=["ParamOut"], no_grad=True)
 def sgd(ctx, attrs, Param, Grad, LearningRate):
     return Param - _lr(LearningRate, Param.dtype) * Grad.to(Param.dtype)
+
+
+@register_op("momentum", inputs=["Param", "Grad", "Velocity", "LearningRate"],
+             outputs=["ParamOut", "VelocityOut"], no_grad=True)
+def momentum(ctx, attrs, Param, Grad, Velocity, LearningRate):
+    """``v = mu * v + g``; Nesterov ``p -= (g + mu * v) * lr``, else
+    ``p -= lr * v``."""
+    mu = float(attrs.get("mu", 0.9))
+    lr = _lr(LearningRate, Param.dtype)
+    g = Grad.to(Param.dtype)
+    v = mu * Velocity + g
+    if attrs.get("use_nesterov", False):
+        p = Param - (g + mu * v) * lr
+    else:
+        p = Param - lr * v
+    return {"ParamOut": p, "VelocityOut": v}
 
 
 @register_op("adam",

@@ -1,6 +1,6 @@
 """Shape and indexing ops (mirrors ``paddle_tpu/ops/tensor_manip.py``:
 ``reshape2`` at :79, ``transpose2`` at :91, ``squeeze2`` :146,
-``unsqueeze2`` :160, ``gather`` :203).  ``XShape`` is a zero-size placeholder kept
+``unsqueeze2`` :160, ``gather`` :203, ``pad`` :246).  ``XShape`` is a zero-size placeholder kept
 for program-structure parity with serialized reference models."""
 
 import torch
@@ -104,3 +104,13 @@ def gather(ctx, attrs, X, Index):
             tuple(idx.shape) + (1,) * (X.dim() - 1))
         out = torch.where(bad, torch.full_like(out, float("nan")), out)
     return out
+
+
+@register_op("pad", inputs=["X"], outputs=["Out"])
+def pad(ctx, attrs, X):
+    """Constant padding; ``paddings`` holds (before, after) per dim."""
+    p = [int(v) for v in attrs.get("paddings", [])]
+    pairs = [(p[2 * i], p[2 * i + 1]) for i in range(X.dim())]
+    return torch.nn.functional.pad(
+        X, [v for pair in reversed(pairs) for v in pair],
+        value=float(attrs.get("pad_value", 0.0)))

@@ -2,7 +2,7 @@
 the ``Optimizer`` base with ``_create_global_learning_rate`` :94,
 ``_add_accumulator`` :141, ``_create_optimization_pass`` :196,
 ``apply_gradients`` :216, ``minimize`` :233; ``SGDOptimizer`` :368-393;
-``AdamOptimizer`` :549-631).  ``minimize`` = ``append_backward`` + one
+``MomentumOptimizer`` :395-443; ``AdamOptimizer`` :549-631).  ``minimize`` = ``append_backward`` + one
 optimizer op per parameter, whose lowering (``ops/optimizer_ops.py``)
 writes new tensors that the executor binds to the same names.  The
 dygraph paths and the other optimizers are not ported yet (ROADMAP.md)."""
@@ -18,7 +18,8 @@ from .initializer import ConstantInitializer
 from .layer_helper import LayerHelper
 from .regularizer import append_regularization_ops
 
-__all__ = ["Optimizer", "SGD", "SGDOptimizer", "Adam", "AdamOptimizer"]
+__all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum",
+           "MomentumOptimizer", "Adam", "AdamOptimizer"]
 
 
 class Optimizer:
@@ -155,6 +156,35 @@ class SGDOptimizer(Optimizer):
             outputs={"ParamOut": [param]}, attrs={"op_role": "optimize"})
 
 
+class MomentumOptimizer(Optimizer):
+    """One zero-initialised velocity per parameter; the ``momentum`` op
+    with ``mu`` and ``use_nesterov``."""
+
+    _velocity_acc_str = "velocity"
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False,
+                 regularization=None, name=None):
+        self.type = "momentum"
+        super().__init__(learning_rate, regularization, name)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._velocity_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        velocity = self._get_accumulator(self._velocity_acc_str, param)
+        return block.append_op(
+            type="momentum",
+            inputs={"Param": [param], "Grad": [grad], "Velocity": [velocity],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [param], "VelocityOut": [velocity]},
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov,
+                   "op_role": "optimize"})
+
+
 class AdamOptimizer(Optimizer):
     _moment1_acc_str = "moment1"
     _moment2_acc_str = "moment2"
@@ -200,4 +230,5 @@ class AdamOptimizer(Optimizer):
 
 
 SGD = SGDOptimizer
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer

@@ -1,11 +1,18 @@
-"""Program-IR fusion pipeline, the families of BERT serving and training.
+"""Program-IR fusion pipeline, the families of BERT serving and training
+and of ResNet training.
 
 Mirrors ``paddle_tpu/static_analysis/fusion.py``: ``resolve_fused_program``
-(:2014) with the three families that fire on BERT,
+(:2014) with the four families that fire on BERT and ResNet,
 
 ========================  ==================================================
 family                    rewrite
 ========================  ==================================================
+``conv_bn_act`` (:1201)   conv2d → batch_norm (→ activation) ⇒ one
+                          ``fused_conv_bn_act`` (the K4 epilogue kernels
+                          on a channels-last output), gated on the conv
+                          output reaching ``PADDLE_TPU_CONV_BN_MIN_BYTES``
+                          (default 4096); the reference's AMP cast-pair
+                          match waits with AMP
 ``dropout_add_ln`` (:843)  (dropout) → elementwise_add → layer_norm over
                           the last axis ⇒ one ``fused_dropout_add_ln`` (the
                           fused LN kernels)
@@ -30,9 +37,8 @@ alone.  The executor runs a rewritten CLONE, cached on the original
 program by (config signature, program version, fetch set); the user's
 program is never mutated.  Kill switch: ``PADDLE_TPU_FUSION=0``.
 
-Not ported yet (ROADMAP.md): the attention, softmax_xent, conv_bn_act,
-optimizer and allreduce families, and the verifier bracket around each
-family.
+Not ported yet (ROADMAP.md): the attention, softmax_xent, optimizer and
+allreduce families, and the verifier bracket around each family.
 """
 
 import os
@@ -41,7 +47,7 @@ from ..ops.registry import EMPTY_VAR_NAME
 from ._defuse import resolve_sub_block, sub_block_reads_recursive
 
 __all__ = ["FusionConfig", "FusionRewrite", "FusionSkip", "FusionReport",
-           "fusion_enabled", "embed_fuse_min_bytes",
+           "fusion_enabled", "conv_bn_min_bytes", "embed_fuse_min_bytes",
            "apply_fusion_passes", "resolve_fused_program"]
 
 _DTYPE_BYTES = {"float64": 8, "int64": 8, "float32": 4, "int32": 4,
@@ -54,6 +60,16 @@ _MAX_REWRITES = 10000
 def fusion_enabled():
     """Global kill switch: ``PADDLE_TPU_FUSION=0`` disables every pass."""
     return os.environ.get("PADDLE_TPU_FUSION", "1") != "0"
+
+
+def conv_bn_min_bytes():
+    """Minimum conv-output bytes for the conv + BN + act rewrite
+    (``PADDLE_TPU_CONV_BN_MIN_BYTES``, default 4096)."""
+    try:
+        return int(os.environ.get(
+            "PADDLE_TPU_CONV_BN_MIN_BYTES", "4096") or 4096)
+    except ValueError:
+        return 4096
 
 
 def embed_fuse_min_bytes():
@@ -69,12 +85,14 @@ def embed_fuse_min_bytes():
 class FusionConfig:
     """Which families run; ``enabled`` follows the kill switch."""
 
-    __slots__ = ("enabled", "fuse_elewise", "fuse_embedding_gather")
+    __slots__ = ("enabled", "fuse_elewise", "fuse_conv_bn_act",
+                 "fuse_embedding_gather")
 
     def __init__(self, enabled=None, fuse_elewise=True,
-                 fuse_embedding_gather=True):
+                 fuse_conv_bn_act=True, fuse_embedding_gather=True):
         self.enabled = fusion_enabled() if enabled is None else bool(enabled)
         self.fuse_elewise = bool(fuse_elewise)
+        self.fuse_conv_bn_act = bool(fuse_conv_bn_act)
         self.fuse_embedding_gather = bool(fuse_embedding_gather)
 
     @classmethod
@@ -82,7 +100,8 @@ class FusionConfig:
         return cls()
 
     def signature(self):
-        return (self.enabled, self.fuse_elewise, self.fuse_embedding_gather,
+        return (self.enabled, self.fuse_elewise, self.fuse_conv_bn_act,
+                self.fuse_embedding_gather, conv_bn_min_bytes(),
                 embed_fuse_min_bytes())
 
     def __repr__(self):
@@ -418,6 +437,123 @@ def _find_dropout_add_ln(view, report):
     return None
 
 
+_ACT_TYPES = ("relu", "gelu", "tanh", "sigmoid", "relu6", "leaky_relu",
+              "elu", "softplus", "swish")
+
+
+def _find_conv_bn_act(view, report):
+    """conv2d → batch_norm (→ activation) ⇒ ``fused_conv_bn_act``, with
+    its grad twins all or none, gated on the conv output's bytes.  The
+    reference also absorbs the AMP rewrite's cast pair around the
+    batch_norm; that waits with AMP here, so a cast between the conv and
+    the batch_norm leaves the site unfused (as half a cast pair does in
+    the reference)."""
+    block = view.block
+    for i, op in enumerate(block.ops):
+        if op.type != "conv2d" or _is_grad_op(op):
+            continue
+        conv_out = op.outputs["Output"][0]
+        nxt = view.sole_fwd_consumer(conv_out)
+        if nxt is None or nxt[1].type != "batch_norm":
+            continue
+        bn = nxt[1]
+        if bn.inputs.get("X", [None])[0] != conv_out:
+            continue
+        conv_fmt = op.attrs.get("data_format", "NCHW")
+        if conv_fmt == "AnyLayout":
+            conv_fmt = "NCHW"
+        if conv_fmt != bn.attrs.get("data_layout", "NCHW"):
+            continue
+        scale, bias, mean, var = (bn.inputs.get(s, [None])[0] for s in (
+            "Scale", "Bias", "Mean", "Variance"))
+        if None in (scale, bias, mean, var):
+            continue
+        y = bn.outputs["Y"][0]
+        act_op = None
+        nxt2 = view.sole_fwd_consumer(y)
+        if nxt2 is not None and nxt2[1].type in _ACT_TYPES \
+                and not _is_grad_op(nxt2[1]):
+            act_op = nxt2[1]
+        group = [op, bn] + ([act_op] if act_op is not None else [])
+        out_final = act_op.outputs["Out"][0] if act_op is not None else y
+        twins = view.group_twins(group)
+        if twins is None:
+            continue
+        all_ops = group + [t[1] for _, t in twins]
+        # removed intermediates: the conv output, bn's Y when the act
+        # follows it, and the saved batch statistics
+        removed = [conv_out] + ([y] if act_op is not None else [])
+        removed += [n for s in ("SavedMean", "SavedVariance")
+                    for n in bn.outputs.get(s, []) if n]
+        if not all(view.unconsumed(n, all_ops) for n in removed):
+            continue
+        twin_of = {id(o): t[1] for o, t in twins}
+        if twins:
+            internal = [_grad_out(twin_of[id(o)], "X@GRAD")
+                        for o in (bn, act_op) if o is not None]
+            if not all(n == EMPTY_VAR_NAME or view.unconsumed(n, all_ops)
+                       for n in internal):
+                continue
+        out_bytes = _var_bytes(view, conv_out)
+        factor = 1.0  # uncalibrated: the autotune cache is not ported
+        threshold = conv_bn_min_bytes()
+        act_name = act_op.type if act_op is not None else "identity"
+        if out_bytes * factor < threshold:
+            report.skip("conv_bn_act", i, op.type,
+                        "conv output is ~%d B, below the %d B gate"
+                        % (int(out_bytes * factor), threshold),
+                        key=op.attrs.get("__op_id__"))
+            continue
+        ins = {"Input": list(op.inputs["Input"]),
+               "Filter": list(op.inputs["Filter"]),
+               "Scale": [scale], "Bias": [bias], "Mean": [mean],
+               "Variance": [var]}
+        fattrs = {k: v for k, v in op.attrs.items()
+                  if not k.startswith("__") and k != "op_namescope"}
+        for k in ("epsilon", "momentum", "is_test", "use_global_stats",
+                  "data_layout"):
+            if k in bn.attrs:
+                fattrs[k] = bn.attrs[k]
+        if act_op is not None:
+            fattrs.update({k: v for k, v in act_op.attrs.items()
+                           if not k.startswith("__")
+                           and k != "op_namescope"})
+        fattrs["act_type"] = act_op.type if act_op is not None else ""
+        fused = _new_op(block, "fused_conv_bn_act", ins,
+                        {"Out": [out_final],
+                         "MeanOut": list(bn.outputs.get("MeanOut", [])),
+                         "VarianceOut": list(bn.outputs.get("VarianceOut",
+                                                            []))},
+                        fattrs)
+        replacements = {view.idx_of(group[-1]): fused}
+        removals = {view.idx_of(o) for o in group} - set(replacements)
+        if twins:
+            last = twin_of[id(group[-1])]
+            g_ins = dict(ins, Out=[out_final], **{"Out@GRAD": list(
+                last.inputs.get("Out@GRAD" if act_op is not None
+                                else "Y@GRAD", [EMPTY_VAR_NAME]))})
+            conv_twin, bn_twin = twin_of[id(op)], twin_of[id(bn)]
+            g_outs = {"Input@GRAD": [_grad_out(conv_twin, "Input@GRAD")],
+                      "Filter@GRAD": [_grad_out(conv_twin, "Filter@GRAD")],
+                      "Scale@GRAD": [_grad_out(bn_twin, "Scale@GRAD")],
+                      "Bias@GRAD": [_grad_out(bn_twin, "Bias@GRAD")]}
+            gfused = _new_op(block, "fused_conv_bn_act_grad", g_ins, g_outs,
+                             _grad_attrs(fused))
+            _replace_twins(twins, gfused, replacements, removals)
+        return {"replacements": replacements, "removals": removals,
+                "rewrite": FusionRewrite(
+                    "conv_bn_act", "fused_conv_bn_act",
+                    sorted({view.idx_of(o) for o in group}
+                           | {t[0] for _, t in twins}),
+                    vars=(op.inputs["Input"][0], op.inputs["Filter"][0],
+                          scale, bias),
+                    predicted={"hbm_bytes_saved": 2 * (len(group) - 1)
+                               * out_bytes, "ops_removed": len(group) - 1,
+                               "calibration": factor},
+                    note="%s epilogue" % act_name)}
+    return None
+
+
 _LOOKUP_OP_TYPES = ("lookup_table", "lookup_table_v2", "embedding",
                     "lookup_sparse_table")
 
@@ -481,10 +617,6 @@ def _find_embedding_gather(view, report):
     return None
 
 
-_ACT_TYPES = ("relu", "gelu", "tanh", "sigmoid", "relu6", "leaky_relu",
-              "elu", "softplus", "swish")
-
-
 def _find_bias_act(view, report):
     block = view.block
     for op in block.ops:
@@ -546,6 +678,7 @@ def _find_bias_act(view, report):
 
 
 _FAMILIES = (
+    ("conv_bn_act", "fuse_conv_bn_act", _find_conv_bn_act),
     ("dropout_add_ln", "fuse_elewise", _find_dropout_add_ln),
     ("bias_act", "fuse_elewise", _find_bias_act),
     ("embedding_gather", "fuse_embedding_gather", _find_embedding_gather),

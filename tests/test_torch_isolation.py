@@ -33,6 +33,7 @@ import numpy as np
 import paddle_tpu_torch as fluid
 from paddle_tpu_torch.models import bert  # noqa: F401
 from paddle_tpu_torch.models import gpt  # noqa: F401
+from paddle_tpu_torch.models import resnet
 import paddle_tpu_torch.serving  # noqa: F401
 
 main, startup = fluid.Program(), fluid.Program()
@@ -51,6 +52,14 @@ with fluid.scope_guard(scope):
                  fetch_list=[loss])[0]
 assert out.shape == (2, 3), out.shape
 assert l1[0] < l0[0], (l0, l1)
+rmain, rstart, _, rloss, racc = resnet.build(depth=8, data_format="NHWC")
+with fluid.scope_guard(fluid.Scope()):
+    exe = fluid.Executor(fluid.CPUPlace())
+    exe.run(rstart)
+    rl, ra = exe.run(rmain, feed={
+        "img": np.ones((2, 32, 32, 3), "float32"),
+        "label": np.zeros((2, 1), "int64")}, fetch_list=[rloss, racc])
+assert np.isfinite(rl).all() and ra.shape == (1,), (rl, ra)
 assert not any(m.split(".")[0] in ("jax", "paddle_tpu")
                for m in sys.modules), sorted(sys.modules)
 print("ISOLATED-OK")
@@ -171,3 +180,15 @@ def test_unported_training_options_raise():
     from paddle_tpu_torch.models import bert
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         bert.build_pretrain(bert.BERT_TINY, seq_len=16, amp=True)
+
+
+def test_resnet_unported_options_raise_and_cuda_is_the_default(no_cuda):
+    from paddle_tpu_torch.models import resnet
+
+    with pytest.raises(NotImplementedError, match="amp"):
+        resnet.build(amp=True)
+    main, startup, _, _, _ = resnet.build(depth=8, data_format="NHWC")
+    with pytest.raises(RuntimeError, match="CUDAPlace"):
+        fluid.Executor().run(startup)
+    with pytest.raises(RuntimeError, match="CUDAPlace"):
+        fluid.Executor(fluid.CUDAPlace(0)).run(main)

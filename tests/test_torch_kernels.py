@@ -20,7 +20,9 @@ import jax.numpy as jnp
 FA = importlib.import_module("paddle_tpu.ops.pallas.flash_attention")
 FLN = importlib.import_module("paddle_tpu.ops.pallas.fused_ln")
 EMB = importlib.import_module("paddle_tpu.ops.pallas.embedding")
+CBA = importlib.import_module("paddle_tpu.ops.pallas.conv_bn_act")
 
+from paddle_tpu_torch.ops.cuda import conv_bn_act as t_cba  # noqa: E402
 from paddle_tpu_torch.ops.cuda import dropout as t_drop  # noqa: E402
 from paddle_tpu_torch.ops.cuda import embedding as t_emb  # noqa: E402
 from paddle_tpu_torch.ops.cuda import flash_attention as t_fa  # noqa: E402
@@ -339,3 +341,92 @@ def test_embedding_gather_bwd_matches_reference_scatter_add(interpret):
     out = t_emb.embedding_gather(tab, torch.from_numpy(ids), 5)
     (g,) = torch.autograd.grad(out, tab, torch.from_numpy(cot))
     np.testing.assert_allclose(g.numpy(), want, atol=1e-6, rtol=1e-6)
+
+
+def _bn_act_inputs(seed, r, c):
+    rng = np.random.RandomState(seed)
+    y = rng.randn(r, c).astype("float32")
+    params = [(1 + 0.1 * rng.randn(c)).astype("float32"),
+              (0.1 * rng.randn(c)).astype("float32"),
+              (0.1 * rng.randn(c)).astype("float32"),
+              (1 + 0.1 * rng.rand(c)).astype("float32")]
+    return y, params, rng.randn(r, c).astype("float32")
+
+
+@pytest.mark.parametrize("act", ["identity", "relu"])
+def test_bn_act_epilogue_matches_pallas_kernel_in_bfloat16(interpret, act):
+    """bfloat16 y: the output and dy in bfloat16, the four sums in
+    float32, against the reference's K4 in interpret mode.  Both compute
+    in float32 and round once at the end; the reference's contracted
+    multiply-add can land one bfloat16 unit apart on a rounding boundary,
+    so outputs are held to one unit (2**-7 relative) at the largest."""
+    y, params, cot = _bn_act_inputs(10, 64, 256)
+    yb = jnp.asarray(y).astype(jnp.bfloat16)
+    want, vjp = jax.vjp(lambda a: CBA.bn_act_epilogue(a, *params, act=act),
+                        yb)
+    (want_dy,) = vjp(jnp.asarray(cot).astype(jnp.bfloat16))
+    yt = torch.from_numpy(y).to(torch.bfloat16)
+    pt = [torch.from_numpy(p) for p in params]
+    got = t_cba.bn_act_epilogue_fwd(yt, *pt, act=act)
+    grads = t_cba.bn_act_epilogue_bwd(
+        torch.from_numpy(cot).to(torch.bfloat16), yt, *pt, act=act)
+    assert got.dtype == grads[0].dtype == torch.bfloat16
+    for g, w in ((got, want), (grads[0], want_dy)):
+        w = np.asarray(w.astype(jnp.float32))
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=0,
+                                   atol=2.0 ** -7 * np.abs(w).max())
+    # the sums against jax.vjp through the parameters, in float32
+    _, pvjp = jax.vjp(lambda *p: CBA.bn_act_epilogue(yb, *p, act=act),
+                      *params)
+    want_sums = pvjp(jnp.asarray(cot).astype(jnp.bfloat16))
+    for g, w in zip(grads[1:], want_sums):
+        w = np.asarray(w, np.float32)
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=1e-5 * np.abs(w).max())
+
+
+@pytest.mark.parametrize("act", ["identity", "relu"])
+def test_bn_act_epilogue_bwd_formulas_match_autograd(act):
+    """The plain backward's explicit formulas (those the CUDA kernel
+    computes) against autograd through the plain forward, float32."""
+    y, params, cot = _bn_act_inputs(11, 96, 72)
+    ts = [torch.from_numpy(a).requires_grad_() for a in [y] + params]
+    out = t_cba.bn_act_epilogue_fwd_plain(*ts, act=act)
+    want = torch.autograd.grad(out, ts, torch.from_numpy(cot))
+    got = t_cba.bn_act_epilogue_bwd_plain(torch.from_numpy(cot),
+                                          *[t.detach() for t in ts],
+                                          act=act)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+def test_bn_act_epilogue_runs_plain_on_cpu_without_counting():
+    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    y, params, cot = _bn_act_inputs(12, 8, 64)
+    pt = [torch.from_numpy(p) for p in params]
+    yt = torch.from_numpy(y)
+    out = t_cba.bn_act_epilogue_fwd(yt, *pt, act="relu")
+    torch.testing.assert_close(
+        out, t_cba.bn_act_epilogue_fwd_plain(yt, *pt, act="relu"),
+        rtol=0, atol=0)
+    t_cba.bn_act_epilogue_bwd(torch.from_numpy(cot), yt, *pt, act="relu")
+    assert launch_counts()["bn_act_epilogue_fwd"] == 0
+    assert launch_counts()["bn_act_epilogue_bwd"] == 0
+
+
+def test_bn_act_epilogue_wrappers_check_inputs():
+    y = torch.zeros(4, 8)
+    ok = [torch.ones(8)] * 4
+    with pytest.raises(ValueError, match="act"):
+        t_cba.bn_act_epilogue_fwd(y, *ok, act="gelu")
+    with pytest.raises(ValueError, match=r"\[R, C\]"):
+        t_cba.bn_act_epilogue_fwd(torch.zeros(2, 4, 8), *ok)
+    with pytest.raises(ValueError, match="float32"):
+        t_cba.bn_act_epilogue_fwd(y, torch.ones(8, dtype=torch.float64),
+                                  *ok[1:])
+    with pytest.raises(ValueError, match="float32"):
+        t_cba.bn_act_epilogue_fwd(y, torch.ones(7), *ok[1:])
+    with pytest.raises(ValueError, match="like y"):
+        t_cba.bn_act_epilogue_bwd(torch.zeros(4, 9), y, *ok)

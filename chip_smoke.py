@@ -74,15 +74,36 @@ and the CUDA toolkit.  Phases, each printing one JSON line:
    elementwise, pooling, layout copies) with the idle share;
 11. ResNet parity: full-depth ResNet-50 NHWC at 64x64, batch 4, one
    step on the card and on the CPU with the plain versions from one
-   parameter dict: the loss, three gradients and the moving statistics
-   within the stated tolerances.
+   parameter dict: the loss, every gradient and the moving statistics
+   within the stated tolerances, with the relu-mask flips counted at
+   every relu site and the gradients above the first flipped site held
+   tight;
+12. quant: ``quantized_allreduce`` over a world-1 NCCL group on the card
+   against its plain composite, bit for bit, with 2 quantize and 2
+   dequantize launches per call;
+13. main path, data parallel: BERT-base MLM pretraining (T=512, dropout
+   0.1, Adam) in two rank processes on the one card, each with the
+   ``GradAllReduce``-transpiled program and 4 rows of the training
+   path's batch of 8, over a gloo group (NCCL refuses two ranks on one
+   device, so payloads cross through pinned host memory); a dense twin
+   (``c_fused_allreduce_sum`` buckets) and a quant twin
+   (``c_allreduce_quant`` on every bucket) from the same seeds and
+   feeds.  Fails unless every step launches 2 + 2 K7 kernels per bucket,
+   the parameters are identical across the ranks after every step, the
+   twins' worst loss delta is at most 1e-3, every bucket's measured RMS
+   error is at most 3x the model, and a dropout-0 2-rank step matches
+   one process on the 8 rows.
 
 The kernels phase also checks K4 forward and backward (float32 and
 bfloat16, identity and relu) at the ResNet-50 sites' shapes and a
-ragged one, and times them at every site shape of batch 64.  Then one
-JSON line lists every ported kernel with its launches on the decode
-path (or, for the backward kernels, the BERT training run; for K4 the
-ResNet training run) and its times, a line gives ``nvidia-smi``'s name and power limit, and the last
+ragged one, and times them at every site shape of batch 64; and K7
+quantize and dequantize (to float32 and bfloat16), bit for bit, at the
+32 MB bucket, odd B, an unaligned pointer, an odd tail and zero,
+subnormal, NaN, inf and tie blocks, timed at the bucket and at
+BERT-base's whole gradient.  Then one JSON line lists every ported
+kernel with its launches on the decode path (or, for the backward
+kernels, the BERT training run; for K4 the ResNet training run; for K7
+the data-parallel run's quant twin, rank 0) and its times, a line gives ``nvidia-smi``'s name and power limit, and the last
 line is ``{"ok": true, "device": {...}}``.  Any failed
 phase exits non-zero before that line.  Without a CUDA device, or without
 the repository beside it, the script exits 2 and prints no result.
@@ -169,12 +190,33 @@ PARITY_RESNET_CPU_FWD_RTOL = 1e-3    # fc gradient, moving statistics
 # gradient on one device and not on the other, and moves the gradients
 # of the layers below it by a few percent (the same effect is found on
 # the CPU against the reference, tests/test_torch_resnet.py); held as
-# ||GPU - CPU|| / ||CPU||
+# ||GPU - CPU|| / ||CPU||.  That explanation is checked: the relu masks
+# of the two runs are compared at every relu site (each fused site's and
+# each residual add's), every flipped unit must sit within
+# PARITY_RESNET_FLIP_ATOL of 0 (over its site's largest output), and
+# every gradient above the first flipped site (nearer the head, so no
+# flipped relu on its backward path) is held to
+# PARITY_RESNET_CPU_FWD_RTOL (max |diff| over max |CPU|), as the fc
+# gradient always was; only those at or below it keep the L2 bound
 PARITY_RESNET_CPU_DEEP_RTOL = 0.1
+PARITY_RESNET_FLIP_ATOL = 1e-3
 # one conv -> batch_norm site (identity act, so no relu decision) at the
 # stage-1 shape [4, 56, 56, 64], the card against the CPU: the output and
 # the input, filter, scale and bias gradients (max |diff| over max |CPU|)
 PARITY_RESNET_SITE_RTOL = 1e-4
+# K7: the 32 MB gradient bucket (8M float32 at B = 256) and BERT-base's
+# whole gradient (~110M float32), at the default block
+K7_BLOCK = 256
+K7_BUCKET = (32768, K7_BLOCK)
+K7_WHOLE = (429688, K7_BLOCK)
+# data-parallel BERT-base pretraining: 2 ranks on the one card over a
+# gloo group (NCCL refuses two ranks on one device), 4 rows each of the
+# training path's batch of 8
+DP_RANKS = 2
+DP_STEPS = 3
+DP_TIMEOUT = 600            # seconds for both ranks
+DP_LOSS_GATE = 1e-3         # the reference's gate (bench.py:1950-1954)
+DP_ERR_MODEL_GATE = 3.0     # measured over modelled RMS (chaos.py:1007)
 
 
 def emit(obj):
@@ -984,6 +1026,133 @@ def time_bn_act(torch, gen, errs):
     return rows, extra
 
 
+def _bit_mismatches(a, b):
+    """Elements whose bits differ, NaN counting equal to any NaN (a
+    NaN's sign and payload are the backend's)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return float("inf")
+    if not a.is_floating_point():
+        return int((a != b).sum())
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    same = (a.view(ints[a.dtype]) == b.view(ints[b.dtype])) | (nan_a & nan_b)
+    return int((~same).sum())
+
+
+def _k7_special(torch, block):
+    """Blocks whose bits are easy to get wrong: zero, subnormal (and a
+    normal block whose scale is subnormal), NaN, inf, NaN with inf, exact
+    .5 ties, a wide dynamic range, and a negative absmax."""
+    nan, inf = float("nan"), float("inf")
+    rows = [[0.0], [1e-41] * block, [2e-38] * block, [1, nan, -2, 0.5],
+            [1, inf, -2, 0.5], [1, inf, nan, -inf],
+            [63.5, 2.5, -0.5, 127, 1.5, -2.5, 0.5, -126.5], [-3.25, 1e-3]]
+    out = torch.zeros((len(rows) + 1, block), dtype=torch.float32)
+    for i, r in enumerate(rows):
+        out[i, :min(len(r), block)] = torch.tensor(r[:block])
+    g = torch.Generator().manual_seed(SEED)
+    out[-1] = torch.randn(block, generator=g) * 10.0 ** (
+        torch.rand(block, generator=g) * 40 - 20)
+    return out.cuda()
+
+
+def kernel_quant(checks, torch, gen):
+    """K7 quantize and dequantize (to float32 and bfloat16) against their
+    plain versions: bit-identical, at the 32 MB bucket, an odd B (the
+    vector and the scalar path), an unaligned pointer, an odd tail
+    through ``block_quantize``, and the special blocks."""
+    from paddle_tpu_torch.ops.cuda import quant as k7
+    from paddle_tpu_torch.quant import block_dequantize, block_quantize
+
+    cases = [("bucket [32768, 256]", torch.randn(
+        K7_BUCKET, generator=gen, device="cuda"))]
+    for b in (100, 7, K7_BLOCK):
+        cases.append(("special blocks B=%d" % b, _k7_special(torch, b)))
+    cases.append(("B=100 [1000, 100]", torch.randn(
+        (1000, 100), generator=gen, device="cuda") * 3.0))
+    flat = torch.randn(1 + 4000 * 64, generator=gen, device="cuda")
+    cases.append(("unaligned pointer [4000, 64]", flat[1:].view(4000, 64)))
+    errs = {"block_quantize": 0.0, "block_dequantize": 0.0}
+    for case, x in cases:
+        q, s = k7.block_quantize_blocks(x)
+        pq, ps = k7.block_quantize_blocks_plain(x)
+        torch.cuda.synchronize()
+        checks.check("block_quantize", case + ": q, scales bits differing",
+                     _bit_mismatches(q, pq) + _bit_mismatches(s, ps), 0)
+        if case.startswith("bucket"):
+            errs["block_quantize"] = max_err(s, ps)
+        for dtype in (torch.float32, torch.bfloat16):
+            got = k7.block_dequantize_blocks(q, s, dtype)
+            ref = k7.block_dequantize_blocks_plain(q, s, dtype)
+            torch.cuda.synchronize()
+            checks.check("block_dequantize", "%s -> %s: bits differing"
+                         % (case, _dname(dtype)),
+                         _bit_mismatches(got, ref), 0)
+            if case.startswith("bucket") and dtype == torch.float32:
+                errs["block_dequantize"] = max_err(got, ref)
+    x = torch.randn(1000003, generator=gen, device="cuda").to(torch.bfloat16)
+    q, s = block_quantize(x)
+    pq, ps = block_quantize(x, kernel=False)
+    back = block_dequantize(q, s, size=x.numel(), dtype=torch.bfloat16)
+    pback = block_dequantize(pq, ps, size=x.numel(), dtype=torch.bfloat16,
+                             kernel=False)
+    torch.cuda.synchronize()
+    checks.check("block_quantize", "odd tail 1000003 bf16 through "
+                 "block_quantize: bits differing",
+                 _bit_mismatches(q, pq) + _bit_mismatches(s, ps), 0)
+    checks.check("block_dequantize", "odd tail 1000003 -> bf16, trimmed: "
+                 "bits differing", _bit_mismatches(back, pback), 0)
+    return errs
+
+
+def time_quant(torch, gen, errs):
+    """Cold-L2 times of K7 at the 32 MB bucket (the kernels line's rows)
+    and at BERT-base's whole gradient, beside the plain versions; no
+    single PyTorch call computes either function."""
+    from paddle_tpu_torch.ops.cuda import quant as k7
+
+    src = "paddle_tpu_torch/csrc/quant.cu"
+    ref = "paddle_tpu/quant/blockwise.py:"
+    rows, extra = [], []
+    for shape in (K7_BUCKET, K7_WHOLE):
+        x = torch.randn(shape, generator=gen, device="cuda")
+        n, b = x.numel(), shape[1]
+        q, s = k7.block_quantize_blocks(x)
+        label = "[%d, %d] f32 (%s)" % (shape[0], b, "one 32 MB bucket"
+                                        if shape == K7_BUCKET
+                                        else "BERT-base's whole gradient")
+        quant = _row(
+            "block_quantize", src, ref + "142", errs["block_quantize"],
+            time_ms(lambda: k7.block_quantize_blocks(x)),
+            time_ms(lambda: k7.block_quantize_blocks_plain(x)),
+            bound_ms(4 * n + n + 4 * n // b, 5 * n, "float32"), None,
+            label + " -> int8 + scales")
+        dequant = _row(
+            "block_dequantize", src, ref + "164", errs["block_dequantize"],
+            time_ms(lambda: k7.block_dequantize_blocks(q, s)),
+            time_ms(lambda: k7.block_dequantize_blocks_plain(q, s)),
+            bound_ms(n + 4 * n // b + 4 * n, n, "float32"), None,
+            label + " int8 + scales -> f32")
+        dequant16 = _row(
+            "block_dequantize", src, ref + "164", errs["block_dequantize"],
+            time_ms(lambda: k7.block_dequantize_blocks(q, s,
+                                                       torch.bfloat16)),
+            time_ms(lambda: k7.block_dequantize_blocks_plain(
+                q, s, torch.bfloat16)),
+            bound_ms(n + 4 * n // b + 2 * n, n, "float32"), None,
+            label + " int8 + scales -> bf16")
+        if shape == K7_BUCKET:
+            rows += [quant, dequant]
+            extra.append(dequant16)
+        else:
+            extra += [quant, dequant, dequant16]
+        del x, q, s
+    torch.cuda.empty_cache()
+    return rows, extra
+
+
 def phase_kernels():
     import torch
 
@@ -997,14 +1166,16 @@ def phase_kernels():
     errs["embedding_gather_fwd"] = kernel_gather(checks, torch, gen)
     errs.update(kernel_decode(checks, torch, gen))
     errs.update(kernel_bn_act(checks, torch, gen))
+    errs.update(kernel_quant(checks, torch, gen))
     if checks.failed:
         raise AssertionError("kernel checks failed: %s"
                              % "; ".join(checks.failed))
     rows, extra, scatter = time_kernels(torch, gen, errs)
     decode_rows, decode_extra = time_decode_kernels(torch, gen, errs)
     bn_rows, bn_extra = time_bn_act(torch, gen, errs)
-    rows += decode_rows + bn_rows
-    for r in rows + extra + decode_extra + bn_extra:
+    quant_rows, quant_extra = time_quant(torch, gen, errs)
+    rows += decode_rows + bn_rows + quant_rows
+    for r in rows + extra + decode_extra + bn_extra + quant_extra:
         emit(dict({"phase": "kernels", "timing": True}, **r))
     emit(scatter)
     torch.cuda.empty_cache()
@@ -2030,7 +2201,18 @@ def phase_resnet_parity():
     names = deep + ["fc_0.w_0"]
     moving = sorted(p.name for p in main.all_parameters()
                     if not p.trainable)
-    fetch = [loss.name] + [grads[n] for n in names]
+    trainable = sorted(p.name for p in main.all_parameters() if p.trainable)
+    ops = main.global_block().ops
+    sites = [(i, op.outputs["Out"][0]) for i, op in enumerate(ops)
+             if op.type == "relu"]
+    reader = {}
+    for i, op in enumerate(ops):
+        if op.attrs.get("op_role") not in ("backward", "optimize"):
+            for n in op.input_arg_names:
+                reader.setdefault(n, i)
+    fetch = [loss.name] + [grads[n] for n in names] \
+        + [n for _, n in sites] + [grads[n] for n in trainable]
+    nf = 1 + len(names)
     batch = _resnet_batch(np, np.random.RandomState(SEED + 5),
                           RESNET_PARITY_BATCH, RESNET_PARITY_HW)
     cpu, start, cpu_after = _resnet_parity_run(
@@ -2052,6 +2234,34 @@ def phase_resnet_parity():
         res = {"loss": [float(fa[0][0]), float(fb[0][0])],
                "loss_rel_err": abs(float(fa[0][0] - fb[0][0]))
                / abs(float(fb[0][0]))}
+        # the relu masks site by site, and the first flipped site from
+        # the head
+        flips, kept = [], 0.0
+        for k in range(len(sites)):
+            x, y = fa[nf + k], fb[nf + k]
+            f = (x > 0) != (y > 0)
+            flips.append(int(f.sum()))
+            if f.any():
+                kept = max(kept, float(np.maximum(x[f], y[f]).max())
+                           / max(float(np.abs(y).max()), 1e-30))
+        top = max([sites[k][0] for k in range(len(sites)) if flips[k]],
+                  default=-1)
+        above = [n for n in trainable if reader[n] > top]
+        res["relu_flips_per_site"] = flips
+        res["flipped_unit_max_over_site_max"] = kept
+        res["first_flipped_site_from_head"] = max(
+            [k for k in range(len(sites)) if flips[k]], default=None)
+        res["params_above_first_flip"] = len(above)
+        res["above_flip_grad_max_rel_err"] = max(
+            [max_rel(fa[nf + len(sites) + trainable.index(n)],
+                     fb[nf + len(sites) + trainable.index(n)])
+             for n in above], default=0.0)
+        res["below_flip_grad_l2_rel_err"] = max(
+            [float(np.linalg.norm(fa[nf + len(sites) + j]
+                                  - fb[nf + len(sites) + j])
+                   / max(np.linalg.norm(fb[nf + len(sites) + j]), 1e-30))
+             for j, n in enumerate(trainable) if n not in above],
+            default=0.0)
         for name, g, c in zip(names, fa[1:], fb[1:]):
             res[name + "@GRAD max_rel_err"] = max_rel(g, c)
             res[name + "@GRAD l2_rel_err"] = float(
@@ -2068,7 +2278,10 @@ def phase_resnet_parity():
         and card["loss_rel_err"] <= PARITY_RESNET_RTOL \
         and card["moving_stats_max_rel_err"] <= PARITY_RESNET_RTOL \
         and all(card[n + "@GRAD max_rel_err"] <= PARITY_RESNET_RTOL
-                for n in names)
+                for n in names) \
+        and card["above_flip_grad_max_rel_err"] <= PARITY_RESNET_RTOL \
+        and card["below_flip_grad_l2_rel_err"] \
+        <= PARITY_RESNET_CPU_DEEP_RTOL
     emit(dict({"phase": "resnet_parity", "step": "card: K4 path vs fusion "
                "off (unfused ops, same cuDNN convolutions), one Momentum "
                "step, ResNet-50 NHWC %dx%d batch %d" % (
@@ -2089,14 +2302,389 @@ def phase_resnet_parity():
         <= PARITY_RESNET_CPU_FWD_RTOL \
         and vs_cpu["moving_stats_moved"] == len(moving) \
         and all(vs_cpu[n + "@GRAD l2_rel_err"] <= PARITY_RESNET_CPU_DEEP_RTOL
-                for n in deep)
+                for n in deep) \
+        and vs_cpu["flipped_unit_max_over_site_max"] \
+        <= PARITY_RESNET_FLIP_ATOL \
+        and vs_cpu["params_above_first_flip"] >= 2 \
+        and vs_cpu["above_flip_grad_max_rel_err"] \
+        <= PARITY_RESNET_CPU_FWD_RTOL \
+        and vs_cpu["below_flip_grad_l2_rel_err"] \
+        <= PARITY_RESNET_CPU_DEEP_RTOL
     emit(dict({"phase": "resnet_parity", "step": "card (K4) vs CPU plain "
                "versions, the same step", "loss_tol": PARITY_RESNET_CPU_RTOL,
                "fwd_tol": PARITY_RESNET_CPU_FWD_RTOL,
                "deep_grad_l2_tol": PARITY_RESNET_CPU_DEEP_RTOL,
+               "flip_atol": PARITY_RESNET_FLIP_ATOL,
                "moving_stats": len(moving), "ok": ok_cpu}, **vs_cpu))
     if not (ok and ok_site and ok_cpu):
         raise AssertionError("resnet parity failed")
+
+
+def phase_quant():
+    """``quantized_allreduce`` over a world-1 NCCL group on the card (the
+    binding a multi-card run uses): at n = 1 it still quantizes twice;
+    its result must equal the plain composite (``kernel=False``) bit for
+    bit, float32 and bfloat16, at the 32 MB bucket and an odd size."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.quant import quantized_allreduce
+
+    torch.cuda.set_device(0)
+    store = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_nccl_"),
+                         "store")
+    dist.init_process_group("nccl", init_method="file://" + store, rank=0,
+                            world_size=1)
+    try:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED + 7)
+        results = []
+        for numel, dtype in ((K7_BUCKET[0] * K7_BUCKET[1], torch.float32),
+                             (1000003, torch.float32),
+                             (1000003, torch.bfloat16)):
+            x = torch.randn(numel, generator=gen, device="cuda").to(dtype)
+            reset_launch_counts()
+            got = quantized_allreduce(x)
+            counts = launch_counts()
+            ref = quantized_allreduce(x, kernel=False)
+            torch.cuda.synchronize()
+            bad = _bit_mismatches(got, ref)
+            err = float((got.float() - x.float()).pow(2).mean().sqrt())
+            results.append({
+                "numel": numel, "dtype": _dname(dtype),
+                "backend": dist.get_backend(), "bits_differing": bad,
+                "k7_launches": [counts["block_quantize"],
+                                counts["block_dequantize"]],
+                "rms_vs_input": err})
+        emit({"phase": "quant", "step": "quantized_allreduce, world-1 NCCL "
+              "group, K7 vs plain composite", "cases": results})
+        if any(r["bits_differing"] or r["k7_launches"] != [2, 2]
+               for r in results):
+            raise AssertionError("quantized_allreduce on NCCL: %s" % results)
+    finally:
+        dist.destroy_process_group()
+
+
+def _dp_program(fluid, bert, cfg, rank, quant):
+    from paddle_tpu_torch.transpiler import GradAllReduce
+
+    main, startup, loss = _train_program(fluid, bert, cfg, SEQ)
+    if rank is not None:
+        GradAllReduce().transpile(program=main, startup_program=startup,
+                                  rank=rank, nranks=DP_RANKS)
+        main._num_trainers = DP_RANKS
+    if quant:
+        main._quant_buckets = {"min_bytes": 1}
+    return main, startup, loss
+
+
+def _params_digest(main, scope):
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in sorted(v.name for v in main.all_parameters()):
+        h.update(scope.get(p).detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_group(name):
+    if "dequantize" in name:
+        return "K7 dequant"
+    if "quantize_kernel" in name:
+        return "K7 quant"
+    if "Memcpy" in name or "memcpy" in name:
+        return "host staging copies"
+    return _kernel_group(name)
+
+
+def _dp_error_probe(records):
+    """Wrap ``quantized_allreduce`` so that each bucket also records its
+    dense sum and the error model's prediction: per rank, the RMS of its
+    own first pass, gathered, in quadrature with the requantize pass of
+    the sum (chaos.py's ``quant_reduce``, √2 for two equal passes).  The
+    model gives every block its scale; a block of zeros (the embedding
+    rows no id of the batch touched) carries the guard's unit scale and
+    no error, so the gated prediction counts it as 0 (``predicted_rms``),
+    and the model as the reference states it is kept beside it
+    (``predicted_rms_all_blocks``)."""
+    import torch
+
+    import paddle_tpu_torch.quant.collective as qc
+    from paddle_tpu_torch.ops import comm
+    from paddle_tpu_torch.quant import (block_quantize, predicted_rms_error,
+                                        quant_block)
+
+    orig = qc.quantized_allreduce
+
+    def model(x, b):
+        q, s = block_quantize(x, b)
+        live = q.view(s.numel(), -1).abs().amax(dim=1) > 0
+        return torch.stack([predicted_rms_error(s * live),
+                            predicted_rms_error(s)])
+
+    def probe(flat, group=None, block=None, kernel=True):
+        out = orig(flat, group, block, kernel)
+        b = block or quant_block()
+        dense = comm.all_reduce_sum(flat.float(), group)
+        preds = comm.all_gather(model(flat, b), group)
+        pred = torch.sqrt((preds ** 2).sum(dim=0) + model(dense, b) ** 2)
+        measured = float((out.float() - dense).pow(2).mean().sqrt())
+        records.append({"numel": flat.numel(), "measured_rms": measured,
+                        "predicted_rms": float(pred[0]),
+                        "predicted_rms_all_blocks": float(pred[1])})
+        return out
+
+    qc.quantized_allreduce = probe
+    return orig
+
+
+def _dp_rank(rank, store, out_path):
+    """One rank of the data-parallel run: the dense and the quant twin of
+    BERT-base pretraining (dropout 0.1) on this rank's 4 rows, a probed
+    quant step, a profiled quant step (rank 0), and a dense step at
+    dropout 0.  Writes its results to ``out_path``."""
+    import copy
+    import pickle
+    import statistics
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.static_analysis import fusion
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method="file://" + store,
+                            rank=rank, world_size=DP_RANKS)
+    try:
+        batch = bert.make_fake_batch(TRAIN_BATCH, SEQ, bert.BERT_BASE,
+                                     np.random.RandomState(SEED))
+        rows = TRAIN_BATCH // DP_RANKS
+        feed = {k: v[rank * rows:(rank + 1) * rows] for k, v in batch.items()}
+        out = {"rank": rank}
+        for twin in ("dense", "quant"):
+            main, startup, loss = _dp_program(fluid, bert, bert.BERT_BASE,
+                                              rank, twin == "quant")
+            scope = fluid.Scope()
+            with fluid.scope_guard(scope):
+                exe = fluid.Executor(fluid.CUDAPlace(0))
+                exe.run(startup)
+                prog, _ = fusion.resolve_fused_program(main,
+                                                       targets=[loss.name])
+                buckets = [sum(int(np.prod(prog.global_block().var(n).shape))
+                               for n in op.inputs["X"])
+                           for op in prog.global_block().ops
+                           if op.type in ("c_allreduce_quant",
+                                          "c_fused_allreduce_sum",
+                                          "c_allreduce_sum")]
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                dist.barrier()
+                reset_launch_counts()
+                losses, step_ms, digests = [], [], []
+                for _ in range(DP_STEPS):
+                    t0 = time.perf_counter()
+                    losses.append(float(exe.run(main, feed=feed,
+                                                fetch_list=[loss])[0][0]))
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                    digests.append(_params_digest(main, scope))
+                counts = launch_counts()
+                res = {"losses": losses, "step_ms": step_ms,
+                       "median_step_ms": statistics.median(step_ms[1:]),
+                       "digests": digests, "buckets": buckets,
+                       "launches": counts,
+                       "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+                if twin == "quant":
+                    records = []
+                    orig = _dp_error_probe(records)
+                    try:
+                        exe.run(main, feed=feed, fetch_list=[loss])
+                    finally:
+                        import paddle_tpu_torch.quant.collective as qc
+                        qc.quantized_allreduce = orig
+                    res["error_model"] = records
+                    if rank == 0:
+                        from torch.profiler import ProfilerActivity, profile
+
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        with profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA]) as pr:
+                            exe.run(main, feed=feed, fetch_list=[loss])
+                            torch.cuda.synchronize()
+                        wall = (time.perf_counter() - t0) * 1e3
+                        groups, top = _device_breakdown(pr, 1, _dp_group)
+                        res["profile"] = {
+                            "wall_ms": wall, "device_ms_by_group": groups,
+                            "device_ms": sum(groups.values()),
+                            "top_kernels": top[:10]}
+                    else:
+                        exe.run(main, feed=feed, fetch_list=[loss])
+                out[twin] = res
+            del scope, exe
+            torch.cuda.empty_cache()
+        cfg0 = copy.copy(bert.BERT_BASE)
+        cfg0.dropout = cfg0.attn_dropout = 0.0
+        main, startup, loss = _dp_program(fluid, bert, cfg0, rank, False)
+        grads = _grad_names(main)
+        scope = fluid.Scope()
+        with fluid.scope_guard(scope):
+            exe = fluid.Executor(fluid.CUDAPlace(0))
+            exe.run(startup)
+            vals = exe.run(main, feed=feed, fetch_list=[loss.name] + [
+                grads[n] for n in DP_PARITY_PARAMS])
+        out["dropout0"] = {"loss": float(vals[0][0]), "grads": vals[1:]}
+        with open(out_path, "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+DP_PARITY_PARAMS = ("bert.word_emb", "bert.layer0.attn.q.w",
+                    "bert.layer0.ln1.scale")
+
+
+def phase_dp(env):
+    """Data-parallel BERT-base MLM pretraining (T=512) as the reference's
+    collective mode runs it: two rank processes, each with the
+    ``GradAllReduce``-transpiled program, on the one card over a gloo
+    group (payloads cross through pinned host memory: a check of the
+    path, not of a collective's speed).  Dense and int8-quantized twins
+    from the same seeds and feeds; a dropout-0 dense step against one
+    process on all 8 rows."""
+    import copy
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert
+
+    # one process on the 8 rows, dropout 0: the parity reference
+    cfg0 = copy.copy(bert.BERT_BASE)
+    cfg0.dropout = cfg0.attn_dropout = 0.0
+    main, startup, loss = _dp_program(fluid, bert, cfg0, None, False)
+    grads = _grad_names(main)
+    batch = bert.make_fake_batch(TRAIN_BATCH, SEQ, bert.BERT_BASE,
+                                 np.random.RandomState(SEED))
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup)
+        one = exe.run(main, feed=batch, fetch_list=[loss.name] + [
+            grads[n] for n in DP_PARITY_PARAMS])
+    del scope, exe
+    torch.cuda.empty_cache()
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    store = os.path.join(work, "store")
+    ctx = mp.get_context("spawn")
+    paths = [os.path.join(work, "rank%d.pkl" % r) for r in range(DP_RANKS)]
+    procs = [ctx.Process(target=_dp_rank, args=(r, store, paths[r]))
+             for r in range(DP_RANKS)]
+    t0 = time.time()
+    for p in procs:
+        p.start()
+    try:
+        deadline = t0 + DP_TIMEOUT
+        for p in procs:
+            p.join(max(1.0, deadline - time.time()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * DP_RANKS:
+        raise AssertionError("dp ranks exited with %s" % codes)
+    ranks = []
+    for path in paths:
+        with open(path, "rb") as f:
+            ranks.append(pickle.load(f))
+
+    r0 = ranks[0]
+    nbuckets = len(r0["quant"]["buckets"])
+    per_step = {k: c / DP_STEPS for k, c in r0["quant"]["launches"].items()}
+    twins = {}
+    for twin in ("dense", "quant"):
+        twins[twin] = [float(np.mean([r[twin]["losses"][s] for r in ranks]))
+                       for s in range(DP_STEPS)]
+    delta = max(abs(a - b) for a, b in zip(twins["dense"], twins["quant"]))
+    same_params = {twin: [ranks[0][twin]["digests"][s]
+                          == ranks[1][twin]["digests"][s]
+                          for s in range(DP_STEPS)]
+                   for twin in ("dense", "quant")}
+    records = r0["quant"]["error_model"]
+    ratios = [rec["measured_rms"] / rec["predicted_rms"]
+              for rec in records if rec["predicted_rms"] > 0]
+    mean_loss = float(np.mean([r["dropout0"]["loss"] for r in ranks]))
+    parity = {"loss": [mean_loss, float(one[0][0])],
+              "loss_rel_err": abs(mean_loss - float(one[0][0]))
+              / abs(float(one[0][0])), "loss_tol": PARITY_LOSS_RTOL,
+              "grad_tol": PARITY_GRAD_RTOL}
+    ok_parity = parity["loss_rel_err"] <= PARITY_LOSS_RTOL
+    for name, g, c in zip(DP_PARITY_PARAMS, r0["dropout0"]["grads"],
+                          one[1:]):
+        err = float(np.abs(g - c).max()) / max(float(np.abs(c).max()), 1e-30)
+        parity[name + "@GRAD rel_err"] = err
+        ok_parity = ok_parity and err <= PARITY_GRAD_RTOL
+    emit({"phase": "dp", "step": "BERT-base MLM pretraining T=512, %d ranks "
+          "of %d rows on one card over gloo (host-staged), dense vs int8 "
+          "block-quantized gradient buckets" % (DP_RANKS, TRAIN_BATCH
+                                               // DP_RANKS),
+          "card": card_label(env), "seconds": time.time() - t0,
+          "buckets": {t: r0[t]["buckets"] for t in ("dense", "quant")},
+          "quant_buckets_per_step": nbuckets,
+          "launches_per_step_quant": per_step,
+          "losses": twins, "worst_loss_delta": delta,
+          "loss_gate": DP_LOSS_GATE,
+          "step_ms": {t: [r[t]["step_ms"] for r in ranks]
+                      for t in ("dense", "quant")},
+          "median_step_ms": {t: [r[t]["median_step_ms"] for r in ranks]
+                             for t in ("dense", "quant")},
+          "peak_memory_bytes": {t: [r[t]["peak_memory_bytes"] for r in ranks]
+                                for t in ("dense", "quant")},
+          "params_identical_across_ranks": same_params})
+    emit({"phase": "dp", "step": "error model per quantized bucket "
+          "(rank 0, one step): measured RMS against the model",
+          "buckets": records, "worst_ratio": max(ratios) if ratios else None,
+          "gate": DP_ERR_MODEL_GATE})
+    emit(dict({"phase": "dp", "step": "profile of one quant step, rank 0 "
+               "(the other rank runs beside it)"}, **r0["quant"]["profile"]))
+    emit(dict({"phase": "dp", "step": "dropout 0: one dense 2-rank step vs "
+               "one process on the 8 rows", "ok": ok_parity}, **parity))
+    failed = []
+    if per_step["block_quantize"] != 2 * nbuckets \
+            or per_step["block_dequantize"] != 2 * nbuckets or not nbuckets:
+        failed.append("K7 launches %s per step for %d buckets"
+                      % (per_step, nbuckets))
+    if not all(same_params["quant"]):
+        failed.append("quant twin's parameters differ across ranks")
+    if not all(same_params["dense"]):
+        failed.append("dense twin's parameters differ across ranks")
+    if not (delta <= DP_LOSS_GATE):
+        failed.append("worst loss delta %g > %g" % (delta, DP_LOSS_GATE))
+    if not ratios or max(ratios) > DP_ERR_MODEL_GATE:
+        failed.append("quant error %s x the model" % ratios)
+    if not ok_parity:
+        failed.append("dropout-0 DP step vs one process: %s" % parity)
+    if not all(np.isfinite(twins["dense"] + twins["quant"])):
+        failed.append("non-finite loss %s" % twins)
+    if failed:
+        raise AssertionError("dp failed: %s" % "; ".join(failed))
+    return r0["quant"]["launches"]
 
 
 def main():
@@ -2128,19 +2716,24 @@ def main():
     phase_decode_parity()
     resnet_counts = phase_resnet(env)
     phase_resnet_parity()
+    phase_quant()
+    dp_counts = phase_dp(env)
     paths = {"serve": serve_counts, "train": train_counts,
              "decode_ring": decode_counts["ring"],
              "decode_paged": decode_counts["paged"],
-             "resnet": resnet_counts}
+             "resnet": resnet_counts, "dp": dp_counts}
     for r in rows:
         # the decode path's launches (ring + paged runs) where it runs the
         # kernel, else the BERT training path's (the backward kernels),
-        # else the ResNet training path's (K4)
+        # else the ResNet training path's (K4), else the data-parallel
+        # path's (K7: rank 0's quant twin)
         name = r["name"]
         decode = paths["decode_ring"][name] + paths["decode_paged"][name]
-        r["launches"] = decode or train_counts[name] or resnet_counts[name]
+        r["launches"] = (decode or train_counts[name] or resnet_counts[name]
+                         or dp_counts[name])
         r["launches_path"] = "decode" if decode else (
-            "train" if train_counts[name] else "resnet")
+            "train" if train_counts[name] else (
+                "resnet" if resnet_counts[name] else "dp"))
     emit(dict({"phase": "launches"}, **paths))
     emit({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -42,6 +42,8 @@ from . import static_analysis
 from . import serving
 from . import models
 from . import convert
+from . import quant
+from . import transpiler
 
 __all__ = [
     "Program", "Block", "Operator", "Variable", "Parameter",
@@ -53,5 +55,5 @@ __all__ = [
     "scope_guard", "core", "unique_name", "initializer", "ops", "layers",
     "pipeline", "io", "analysis", "inference", "static_analysis",
     "serving", "models", "convert", "backward", "clip", "regularizer",
-    "optimizer", "append_backward", "gradients",
+    "optimizer", "append_backward", "gradients", "quant", "transpiler",
 ]

@@ -13,6 +13,11 @@ asynchronously, so ``run`` returns once the step is enqueued and the
 fetches decide when to wait: numpy arrays after one batched sync
 (``return_numpy=True``) or lazy :class:`FetchHandle`\\ s.
 
+Data parallelism follows the reference's collective mode: one process
+per rank runs the transpiled program, and its collective ops exchange
+over the ``torch.distributed`` group that the startup program's
+``c_comm_init`` bound in the scope (``ops/collective.py``).
+
 Persistable outputs are written back to the scope; a scope value is
 never updated in place, with one declared exception: an op registered
 with ``in_place={out_slot: in_slot}`` (the four KV-cache writes of
@@ -45,11 +50,15 @@ __all__ = ["Executor", "Scope", "global_scope", "scope_guard",
 
 
 class Scope:
-    """name → tensor map with the reference's parent-chain lookup."""
+    """name → tensor map with the reference's parent-chain lookup.
+    ``rings`` holds the collective rings a startup program's
+    ``c_comm_init`` bound in this scope (ring id → process group,
+    ``ops/collective.py``)."""
 
     def __init__(self, parent=None):
         self.vars = {}
         self.parent = parent
+        self.rings = {}
         self._kids = []
 
     def new_scope(self):
@@ -265,7 +274,8 @@ class Executor:
         ctx = op_registry.LoweringContext(
             seed=(program.random_seed or 0) * 1000003 + self._step,
             mode="train", device=self.device,
-            program_seed=program.random_seed or 0)
+            program_seed=program.random_seed or 0,
+            rings=scope.rings)
         self._step += 1
         with torch.no_grad():
             _run_ops_into_env(block, env, ctx)

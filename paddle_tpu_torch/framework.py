@@ -314,8 +314,21 @@ CLONE_VAR_MARKS = ("need_check_feed", "feed_hint",
                    "shard_spec")
 
 
+# program-level marks clone() preserves (the reference's
+# CLONE_PROGRAM_MARKS, as far as the port reads them): the gradient
+# allreduce's bucket cap and quantization mark.  Deliberately not
+# _num_trainers / _trainer_id, which place one worker in a topology; the
+# fusion pipeline carries those to its resolved clone itself.
+CLONE_PROGRAM_MARKS = ("_allreduce_bucket_mb", "_quant_buckets")
+
+
 class Program:
-    """A list of Blocks; block 0 is the global block."""
+    """A list of Blocks; block 0 is the global block.  Data-parallel
+    marks, read with ``getattr`` and unset by default as in the
+    reference: ``_num_trainers`` (ranks), ``_allreduce_bucket_mb`` (the
+    bucket cap of the fusion ``allreduce`` family) and
+    ``_quant_buckets`` (``{"min_bytes": …}``, the int8 exchange's
+    engagement threshold)."""
 
     def __init__(self):
         self.blocks = [Block(self, 0)]
@@ -389,6 +402,9 @@ class Program:
         ops (the reference's ``Program.clone``)."""
         p = Program()
         p.random_seed = self.random_seed
+        for mark in CLONE_PROGRAM_MARKS:
+            if hasattr(self, mark):
+                setattr(p, mark, getattr(self, mark))
         p.blocks = [Block(p, b.idx, b.parent_idx) for b in self.blocks]
         for b, nb in zip(self.blocks, p.blocks):
             for name, v in b.vars.items():

@@ -11,3 +11,4 @@ from . import nn  # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import decode  # noqa: F401
 from . import vision  # noqa: F401
+from . import collective  # noqa: F401

@@ -27,3 +27,24 @@ def fluid_broadcast(x, y, axis):
         axis = ynd - xnd
     new_shape = (1,) * axis + tuple(x.shape) + (1,) * (ynd - axis - xnd)
     return torch.reshape(x, new_shape), y
+
+
+def flatten_concat(xs, dtype=None):
+    """Pack a list of tensors into one flat stream (the bucketed-collective
+    layout), optionally casting each segment (``ops/common.py:51``)."""
+    return torch.cat([x.reshape(-1).to(dtype) if dtype is not None
+                      else x.reshape(-1) for x in xs])
+
+
+def split_like(flat, refs, cast=True):
+    """Unpack a flat stream into segments shaped (and, with ``cast``,
+    typed) like ``refs``: the inverse of :func:`flatten_concat`
+    (``ops/common.py:60``)."""
+    outs = []
+    off = 0
+    for r in refs:
+        n = r.numel()
+        seg = flat[off:off + n].reshape(r.shape)
+        outs.append(seg.to(r.dtype) if cast else seg)
+        off += n
+    return outs

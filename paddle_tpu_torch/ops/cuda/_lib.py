@@ -6,7 +6,12 @@ into one shared library with a plain C interface, and loaded with
 ``ctypes``.  The library lives under ``paddle_tpu_torch/_build/<hash>/``,
 keyed by a hash of the sources and flags, and is built at first use
 only: importing this module compiles nothing, so CPU-only hosts (which
-have no ``nvcc``) import the package freely.
+have no ``nvcc``) import the package freely.  Several processes may
+load it at once (the ranks of a data-parallel job on one host): the
+build holds an exclusive ``fcntl`` lock on ``_build/<hash>.lock``, the
+first holder compiles into a temporary directory and renames the
+finished library into place, and the others wait on the lock and load
+what it built.
 
 Each C entry point launches on the stream it is given and returns the
 ``cudaGetLastError()`` code of its launch; :func:`check` raises on a
@@ -15,6 +20,7 @@ raised by one where the wrapper launches its kernel and nowhere else.
 """
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -33,7 +39,8 @@ KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv",
            "flash_attention_bwd_dq", "fused_dropout_add_ln_fwd",
            "fused_dropout_add_ln_bwd", "embedding_gather_fwd",
            "flash_decode_fwd", "paged_flash_decode_fwd",
-           "bn_act_epilogue_fwd", "bn_act_epilogue_bwd")
+           "bn_act_epilogue_fwd", "bn_act_epilogue_bwd",
+           "block_quantize", "block_dequantize")
 _LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 _lock = threading.Lock()
@@ -81,6 +88,10 @@ _SIGNATURES = {
     # dout, y, gamma, beta, mean, rstd, dy, part, dgamma, dbeta, dmean,
     # drstd, rows, C, act, dtype, stream
     "pt_bn_act_bwd": (_P,) * 12 + (_L, _I, _I, _I, _P),
+    # x, q, scales, nblocks, block, stream
+    "pt_block_quantize": (_P, _P, _P, _L, _I, _P),
+    # q, scales, out, nblocks, block, dtype, stream
+    "pt_block_dequantize": (_P, _P, _P, _L, _I, _I, _P),
 }
 
 def sources():
@@ -115,42 +126,67 @@ def library_path():
 def build(verbose=False):
     """Compile every ``csrc/*.cu`` (in parallel) and link them into the
     shared library; return its path.  A finished build is reused."""
-    out = library_path()
+    return build_once(library_path(),
+                      lambda work: _compile(work, verbose))
+
+
+def build_once(out, make):
+    """``out`` if it exists, else ``make(work)``'s file renamed to it.
+
+    ``make`` builds into the fresh directory ``work`` and returns the
+    path of what it built there, a sibling of ``out``'s directory.  An
+    exclusive lock on that directory's name plus ``.lock`` serialises
+    builders across processes: the first builds, the rest wait and find
+    ``out`` done.  The rename is atomic, so a reader that takes no lock
+    still sees all of the file or none of it."""
     if os.path.exists(out):
         return out
-    nvcc = _nvcc()
-    os.makedirs(BUILD_ROOT, exist_ok=True)
-    work = tempfile.mkdtemp(prefix="build-", dir=BUILD_ROOT)
-    try:
-        cus = [s for s in sources() if s.endswith(".cu")]
-        procs = []
-        for src in cus:
-            obj = os.path.join(work, os.path.basename(src) + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", src, "-o", obj]
-            if verbose:
-                cmd.insert(1, "-Xptxas=-v")
-            procs.append((src, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-        logs = []
-        for src, _obj, p in procs:
-            text = p.communicate()[0].decode(errors="replace")
-            logs.append(text)
-            if p.returncode != 0:
-                raise RuntimeError("nvcc failed on %s:\n%s" % (src, text))
-        so = os.path.join(work, os.path.basename(out))
-        link = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-shared", "-o", so] + [o for _, o, _ in procs],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        if link.returncode != 0:
-            raise RuntimeError("nvcc link failed:\n%s"
-                               % link.stdout.decode(errors="replace"))
-        if verbose:
-            print("".join(logs))
-        os.makedirs(os.path.dirname(out), exist_ok=True)
-        os.replace(so, out)  # atomic: a concurrent builder sees all or none
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    root = os.path.dirname(os.path.dirname(out))
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.dirname(out) + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if os.path.exists(out):
+                return out
+            work = tempfile.mkdtemp(prefix="build-", dir=root)
+            try:
+                built = make(work)
+                os.makedirs(os.path.dirname(out), exist_ok=True)
+                os.replace(built, out)
+            finally:
+                shutil.rmtree(work, ignore_errors=True)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
     return out
+
+
+def _compile(work, verbose):
+    nvcc = _nvcc()
+    cus = [s for s in sources() if s.endswith(".cu")]
+    procs = []
+    for src in cus:
+        obj = os.path.join(work, os.path.basename(src) + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", src, "-o", obj]
+        if verbose:
+            cmd.insert(1, "-Xptxas=-v")
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    logs = []
+    for src, _obj, p in procs:
+        text = p.communicate()[0].decode(errors="replace")
+        logs.append(text)
+        if p.returncode != 0:
+            raise RuntimeError("nvcc failed on %s:\n%s" % (src, text))
+    so = os.path.join(work, "libpaddle_tpu_kernels.so")
+    link = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-shared", "-o", so] + [o for _, o, _ in procs],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    if link.returncode != 0:
+        raise RuntimeError("nvcc link failed:\n%s"
+                           % link.stdout.decode(errors="replace"))
+    if verbose:
+        print("".join(logs))
+    return so
 
 
 def lib():

@@ -50,8 +50,18 @@ def softmax_with_cross_entropy(ctx, attrs, Logits, Label):
         if lab.shape[axis] == 1:
             lab = lab.squeeze(axis)
         lab = lab.long().unsqueeze(axis)
-        loss = -torch.gather(log_softmax, axis, lab.clamp(min=0))
-        loss = torch.where(lab == ignore_index, torch.zeros_like(loss), loss)
+        # the reference's take_along_axis reads NaN for a label >= C
+        # (its fill mode) and class 0 for a negative one; clamping both
+        # ends keeps the gather in range (an out-of-range index is a
+        # device-side assert on CUDA), and the masks put back what the
+        # reference gives: NaN, then 0 for ignore_index
+        classes = log_softmax.shape[axis]
+        picked = torch.gather(log_softmax, axis,
+                              lab.clamp(0, classes - 1))
+        picked = torch.where(lab >= classes,
+                             torch.full_like(picked, float("nan")), picked)
+        loss = torch.where(lab == ignore_index, torch.zeros_like(picked),
+                           -picked)
     return {"Softmax": torch.exp(log_softmax.detach()).to(in_dtype),
             "Loss": loss}
 
@@ -344,7 +354,10 @@ def pool2d(ctx, attrs, X):
     elif adaptive:
         ksize = [s // k for s, k in zip(spatial, ksize)]
         strides, paddings = list(ksize), [0, 0]
-    if ptype == "max":
+    if any(2 * p > k for p, k in zip(paddings, ksize)):
+        out = _pool2d_wide_pad(x, ptype, ksize, strides, paddings,
+                               exclusive)
+    elif ptype == "max":
         out = F.max_pool2d(x, ksize, strides, paddings)
     else:
         out = F.avg_pool2d(x.float(), ksize, strides, paddings,
@@ -352,6 +365,31 @@ def pool2d(ctx, attrs, X):
                                                   and any(paddings)))
         out = out.to(X.dtype)
     return out.permute(0, 2, 3, 1) if channels_last else out
+
+
+def _pool2d_wide_pad(x, ptype, ksize, strides, paddings, exclusive):
+    """Pooling of an NCHW ``x`` whose padding exceeds half the window,
+    which ``F.max_pool2d`` / ``F.avg_pool2d`` refuse and the reference's
+    ``reduce_window`` takes: pad explicitly, then pool unpadded.  Max
+    pads with -inf (the least integer for integer inputs); average sums
+    in float32 over zero padding and divides by the window (inclusive)
+    or by the count of real cells under it (exclusive)."""
+    pad = (paddings[1], paddings[1], paddings[0], paddings[0])
+    if ptype == "max":
+        low = (float("-inf") if x.is_floating_point()
+               else torch.iinfo(x.dtype).min)
+        return F.max_pool2d(F.pad(x, pad, value=low), ksize, strides)
+    s = F.avg_pool2d(F.pad(x.float(), pad), ksize, strides,
+                     divisor_override=1)
+    if exclusive:
+        ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=torch.float32,
+                          device=x.device)
+        cnt = F.avg_pool2d(F.pad(ones, pad), ksize, strides,
+                           divisor_override=1)
+        out = s / cnt
+    else:
+        out = s / float(ksize[0] * ksize[1])
+    return out.to(x.dtype)
 
 
 @register_op("accuracy", inputs=["Out", "Indices", "Label"],

@@ -146,13 +146,19 @@ class LoweringContext:
     ``tape`` maps a forward op's id to its autograd graph until its grad
     op consumes it (:func:`call_op_taped`).  ``program_seed`` is the
     program's ``random_seed`` alone, for draws that must replay across
-    runs (the decode sampling ops)."""
+    runs (the decode sampling ops).  ``rings`` maps a collective op's
+    ``ring_id`` to its ``torch.distributed`` group (the reference's
+    ``collective_axis``): the startup program's ``c_comm_init`` binds a
+    ring there, and a collective op whose ring has no group exchanges
+    nothing (``ops/collective.py``)."""
 
-    def __init__(self, seed=0, mode="train", device=None, program_seed=0):
+    def __init__(self, seed=0, mode="train", device=None, program_seed=0,
+                 rings=None):
         self.seed = int(seed or 0)
         self.program_seed = int(program_seed or 0)
         self.mode = mode
         self.device = torch.device("cpu") if device is None else device
+        self.rings = {} if rings is None else rings
         self.tape = {}
         self._op_id = 0
         self._rng_count = 0

@@ -23,6 +23,14 @@ family                    rewrite
                           gather kernel), gated on ``D % 128 == 0`` and the
                           gathered slab at a nominal batch of 8 reaching
                           ``PADDLE_TPU_EMBED_FUSE_MIN_BYTES`` (default 4096)
+``allreduce`` (:1638)     the in-place ``c_allreduce_sum`` of each gradient
+                          (``GradAllReduce``), grouped by (ring,
+                          ``pre_scale``, dtype) into buckets of at most
+                          ``allreduce_bucket_mb`` (default 32 MB) in
+                          program order ⇒ one ``c_fused_allreduce_sum``
+                          per bucket, or ``c_allreduce_quant`` (the int8
+                          exchange on K7) once the bucket reaches
+                          ``quant.quant_min_bytes``
 ========================  ==================================================
 
 with the reference's gates and its uncalibrated cost factor 1.0
@@ -37,8 +45,13 @@ alone.  The executor runs a rewritten CLONE, cached on the original
 program by (config signature, program version, fetch set); the user's
 program is never mutated.  Kill switch: ``PADDLE_TPU_FUSION=0``.
 
-Not ported yet (ROADMAP.md): the attention, softmax_xent, optimizer and
-allreduce families, and the verifier bracket around each family.
+The executor's resolved clone carries the program marks the families
+and the collectives read (``_num_trainers``, ``_trainer_id``,
+``_allreduce_bucket_mb``, ``_quant_buckets``), as the reference's
+``_PROGRAM_MARKS`` (:119).
+
+Not ported yet (ROADMAP.md): the attention, softmax_xent and optimizer
+families, and the verifier bracket around each family.
 """
 
 import os
@@ -48,13 +61,19 @@ from ._defuse import resolve_sub_block, sub_block_reads_recursive
 
 __all__ = ["FusionConfig", "FusionRewrite", "FusionSkip", "FusionReport",
            "fusion_enabled", "conv_bn_min_bytes", "embed_fuse_min_bytes",
-           "apply_fusion_passes", "resolve_fused_program"]
+           "allreduce_bucket_mb", "apply_fusion_passes",
+           "resolve_fused_program"]
 
 _DTYPE_BYTES = {"float64": 8, "int64": 8, "float32": 4, "int32": 4,
                 "float16": 2, "bfloat16": 2, "int16": 2, "int8": 1,
                 "uint8": 1, "bool": 1}
 _FUSION_CACHE_CAP = 16
 _MAX_REWRITES = 10000
+# program marks Program.clone() does not carry that the resolved clone
+# must keep (the reference's _PROGRAM_MARKS, :119, as far as the port
+# reads them)
+_PROGRAM_MARKS = ("_num_trainers", "_trainer_id", "_allreduce_bucket_mb",
+                  "_quant_buckets")
 
 
 def fusion_enabled():
@@ -82,27 +101,55 @@ def embed_fuse_min_bytes():
         return 4096
 
 
+def allreduce_bucket_mb(program=None):
+    """Gradient-allreduce bucket cap in MB: the program's
+    ``_allreduce_bucket_mb`` mark, else ``PADDLE_TPU_ALLREDUCE_BUCKET_MB``,
+    default 32 (``fusion.py:198``)."""
+    mark = getattr(program, "_allreduce_bucket_mb", None) \
+        if program is not None else None
+    if mark:
+        try:
+            return float(mark)
+        except (TypeError, ValueError):
+            pass
+    try:
+        return float(os.environ.get(
+            "PADDLE_TPU_ALLREDUCE_BUCKET_MB", "32") or 32)
+    except ValueError:
+        return 32.0
+
+
 class FusionConfig:
     """Which families run; ``enabled`` follows the kill switch."""
 
     __slots__ = ("enabled", "fuse_elewise", "fuse_conv_bn_act",
-                 "fuse_embedding_gather")
+                 "fuse_embedding_gather", "fuse_allreduce")
 
     def __init__(self, enabled=None, fuse_elewise=True,
-                 fuse_conv_bn_act=True, fuse_embedding_gather=True):
+                 fuse_conv_bn_act=True, fuse_embedding_gather=True,
+                 fuse_allreduce=True):
         self.enabled = fusion_enabled() if enabled is None else bool(enabled)
         self.fuse_elewise = bool(fuse_elewise)
         self.fuse_conv_bn_act = bool(fuse_conv_bn_act)
         self.fuse_embedding_gather = bool(fuse_embedding_gather)
+        self.fuse_allreduce = bool(fuse_allreduce)
 
     @classmethod
     def default(cls):
         return cls()
 
-    def signature(self):
+    def signature(self, program=None):
+        """Hashable identity of the rewrite of ``program``: the bucket cap
+        and the quant threshold resolve mark → env → default, so the
+        program's marks are part of it."""
+        from ..quant.blockwise import quant_block
+        from ..quant.collective import quant_min_bytes
+
         return (self.enabled, self.fuse_elewise, self.fuse_conv_bn_act,
-                self.fuse_embedding_gather, conv_bn_min_bytes(),
-                embed_fuse_min_bytes())
+                self.fuse_embedding_gather, self.fuse_allreduce,
+                conv_bn_min_bytes(), embed_fuse_min_bytes(),
+                allreduce_bucket_mb(program), quant_min_bytes(program),
+                quant_block())
 
     def __repr__(self):
         return "FusionConfig%r" % (self.signature(),)
@@ -677,11 +724,127 @@ def _find_bias_act(view, report):
     return None
 
 
+def _find_allreduce(view, report):
+    """One bucket of in-place ``c_allreduce_sum`` ops ⇒ one
+    ``c_fused_allreduce_sum`` or ``c_allreduce_quant`` at the bucket's
+    last member (``fusion.py:1638-1770``)."""
+    from ..quant.blockwise import quant_block
+    from ..quant.collective import quant_min_bytes, quantized_wire_bytes
+
+    block = view.block
+    groups = {}
+    for i, op in enumerate(block.ops):
+        if op.type != "c_allreduce_sum":
+            continue
+        x = op.inputs.get("X", [None])
+        o = op.outputs.get("Out", [None])
+        if len(x) != 1 or len(o) != 1 or x[0] != o[0] or x[0] is None:
+            continue  # only the in-place grad-allreduce shape buckets
+        nbytes = _var_bytes(view, x[0])
+        if not nbytes:
+            continue
+        key = (op.attrs.get("ring_id"), op.attrs.get("pre_scale"),
+               str(view.var(x[0]).dtype))
+        groups.setdefault(key, []).append((i, op, nbytes))
+
+    cap = int(allreduce_bucket_mb(block.program) * (1 << 20))
+    qmin = quant_min_bytes(block.program)
+    qblock = quant_block()
+    for key, members in sorted(groups.items(), key=lambda kv: kv[1][0][0]):
+        buckets, cur, cur_bytes = [], [], 0
+        for i, op, nbytes in members:  # size-capped, in program order
+            if cur and cur_bytes + nbytes > cap:
+                buckets.append(cur)
+                cur, cur_bytes = [], 0
+            cur.append((i, op, nbytes))
+            cur_bytes += nbytes
+        if cur:
+            buckets.append(cur)
+        for bucket in buckets:
+            # a quantizable bucket engages at any member count; without
+            # quant a single member has nothing to coalesce
+            quantizable = (qmin is not None
+                           and key[2] in ("float32", "bfloat16")
+                           and sum(b for _, _, b in bucket) >= qmin)
+            if len(bucket) < 2 and not quantizable:
+                continue
+            flush_idx = bucket[-1][0]
+            member_ids = {id(op) for _, op, _ in bucket}
+            # coalescing delays each member's exchange to the flush site:
+            # no op in between may read or write the grad
+            safe = []
+            for i, op, nbytes in bucket:
+                g = op.inputs["X"][0]
+                ok = True
+                for j in range(i + 1, flush_idx + 1):
+                    other = block.ops[j]
+                    if id(other) in member_ids:
+                        continue
+                    if g in other.input_arg_names \
+                            or g in other.output_arg_names:
+                        ok = False
+                        break
+                    sub = resolve_sub_block(view.program, other,
+                                            host_block_idx=block.idx)
+                    if sub is not None and g in sub_block_reads_recursive(
+                            view.program, sub):
+                        ok = False
+                        break
+                if ok:
+                    safe.append((i, op, nbytes))
+                else:
+                    report.skip(
+                        "allreduce", i, op.type,
+                        "grad %r is read/written between its allreduce "
+                        "and the bucket flush site; stays unfused" % g,
+                        key=op.attrs.get("__op_id__"))
+            total = sum(b for _, _, b in safe)
+            quant = (qmin is not None
+                     and key[2] in ("float32", "bfloat16")
+                     and total >= qmin)
+            if len(safe) < (1 if quant else 2):
+                continue
+            names = [op.inputs["X"][0] for _, op, _ in safe]
+            attrs = {"ring_id": key[0], "op_role": "backward"}
+            if key[1]:
+                attrs["pre_scale"] = key[1]
+            if quant:
+                attrs["quant_block"] = qblock
+            fused_type = "c_allreduce_quant" if quant \
+                else "c_fused_allreduce_sum"
+            fused = _new_op(block, fused_type, {"X": list(names)},
+                            {"Out": list(names)}, attrs)
+            if quant:
+                esize = _DTYPE_BYTES[key[2]]
+                wire, dense = quantized_wire_bytes(
+                    total // esize, 2, block=qblock, dtype_bytes=esize)
+                predicted = {"collectives_removed": len(safe) - 1,
+                             "wire_bytes_saved": dense - wire,
+                             "quant_block": qblock,
+                             "bucket_mb_cap": cap / float(1 << 20)}
+                note = ("ring %r; int8 wire %d -> %d bytes, %d launches "
+                        "-> 1" % (key[0], dense, wire, len(safe)))
+            else:
+                predicted = {"collectives_removed": len(safe) - 1,
+                             "wire_bytes_unchanged": total,
+                             "bucket_mb_cap": cap / float(1 << 20)}
+                note = ("ring %r; wire volume unchanged, %d launches -> 1"
+                        % (key[0], len(safe)))
+            return {"replacements": {safe[-1][0]: fused},
+                    "removals": {i for i, _, _ in safe[:-1]},
+                    "rewrite": FusionRewrite(
+                        "allreduce", fused_type, [i for i, _, _ in safe],
+                        vars=tuple(names), predicted=predicted,
+                        note=note)}
+    return None
+
+
 _FAMILIES = (
     ("conv_bn_act", "fuse_conv_bn_act", _find_conv_bn_act),
     ("dropout_add_ln", "fuse_elewise", _find_dropout_add_ln),
     ("bias_act", "fuse_elewise", _find_bias_act),
     ("embedding_gather", "fuse_embedding_gather", _find_embedding_gather),
+    ("allreduce", "fuse_allreduce", _find_allreduce),
 )
 
 
@@ -723,7 +886,7 @@ def resolve_fused_program(program, config=None, targets=()):
     if not config.enabled:
         return program, FusionReport(config)
     tkey = tuple(sorted({getattr(t, "name", t) for t in (targets or ())}))
-    key = (config.signature(), program._version, tkey)
+    key = (config.signature(program), program._version, tkey)
     cache = program.__dict__.setdefault("_fusion_cache", {})
     hit = cache.get(key)
     if hit is not None:
@@ -734,12 +897,15 @@ def resolve_fused_program(program, config=None, targets=()):
     while len(cache) >= _FUSION_CACHE_CAP:
         del cache[next(iter(cache))]
     clone = program.clone()
+    for mark in _PROGRAM_MARKS:
+        if hasattr(program, mark):
+            setattr(clone, mark, getattr(program, mark))
     clone._fusion_applied = True
     report = apply_fusion_passes(clone, config, targets=tkey)
     if not report.applied:
         cache[key] = (None, report)
         return program, report
-    clone._fusion_sig = config.signature()
+    clone._fusion_sig = config.signature(program)
     clone._fusion_report = report
     cache[key] = (clone, report)
     return clone, report

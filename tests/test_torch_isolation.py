@@ -60,6 +60,39 @@ with fluid.scope_guard(fluid.Scope()):
         "img": np.ones((2, 32, 32, 3), "float32"),
         "label": np.zeros((2, 1), "int64")}, fetch_list=[rloss, racc])
 assert np.isfinite(rl).all() and ra.shape == (1,), (rl, ra)
+import os
+import tempfile
+
+import torch
+import torch.distributed as dist
+from paddle_tpu_torch import quant
+from paddle_tpu_torch.transpiler import GradAllReduce
+
+q, s = quant.block_quantize(torch.linspace(-1, 1, 1000))
+assert q.dtype == torch.int8 and s.numel() == 4
+back = quant.block_dequantize(q, s, size=1000)
+assert float((back - torch.linspace(-1, 1, 1000)).abs().max()) <= float(
+    s.max()) / 2
+main, startup = fluid.Program(), fluid.Program()
+with fluid.program_guard(main, startup):
+    x = fluid.layers.data("x", shape=[4], dtype="float32")
+    loss = fluid.layers.reduce_sum(fluid.layers.fc(x, size=3))
+    fluid.optimizer.SGD(0.1).minimize(loss)
+GradAllReduce().transpile(program=main, startup_program=startup, rank=0,
+                          nranks=1)
+main._quant_buckets = {"min_bytes": 1}
+dist.init_process_group("gloo", init_method="file://" + os.path.join(
+    tempfile.mkdtemp(), "store"), rank=0, world_size=1)
+try:
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(fluid.CPUPlace())
+        exe.run(startup)
+        assert scope.rings == {0: dist.group.WORLD}
+        exe.run(main, feed={"x": np.ones((2, 4), "float32")},
+                fetch_list=[loss])
+finally:
+    dist.destroy_process_group()
 assert not any(m.split(".")[0] in ("jax", "paddle_tpu")
                for m in sys.modules), sorted(sys.modules)
 print("ISOLATED-OK")

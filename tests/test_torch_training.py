@@ -273,3 +273,54 @@ def test_grad_op_without_its_forward_tape_raises():
     ctx = t_registry.LoweringContext()
     with pytest.raises(RuntimeError, match="never recomputes"):
         t_registry.call_op(opdef, ctx, {}, {"__fwd_op_id__": 42})
+
+
+@pytest.mark.parametrize("ignore_index, labels", [
+    (255, [[0], [255], [2], [1]]),      # an ignored label >= C: loss 0
+    (-100, [[0], [7], [2], [1]]),       # a label >= C: NaN, as jnp.take
+    (255, [[0], [7], [255], [-3]]),     # both, and a negative label
+])
+def test_softmax_with_cross_entropy_out_of_range_labels(ignore_index,
+                                                        labels):
+    """A label at or above the class count: the op masks and fills as
+    the reference does (the ignored row's loss 0, another label >= C
+    NaN, a negative label class 0) instead of gathering out of range;
+    the Softmax output and the gradients of the rows in range agree."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from paddle_tpu.ops import registry as j_registry
+
+    rng = np.random.RandomState(12)
+    logits = rng.randn(4, 3).astype("float32")
+    lab = np.asarray(labels, "int64")
+    attrs = {"ignore_index": ignore_index}
+    want = j_registry.get_op_def("softmax_with_cross_entropy").fn(
+        None, dict(attrs), jnp.asarray(logits), jnp.asarray(lab))
+    x = torch.from_numpy(logits).requires_grad_()
+    got = t_registry.get_op_def("softmax_with_cross_entropy").fn(
+        None, dict(attrs), x, torch.from_numpy(lab))
+    loss, wloss = got["Loss"].detach().numpy(), np.asarray(want["Loss"])
+    np.testing.assert_array_equal(np.isnan(loss), np.isnan(wloss))
+    assert np.isnan(wloss).any() == (7 in lab.ravel())
+    keep = ~np.isnan(wloss)
+    np.testing.assert_allclose(loss[keep], wloss[keep], rtol=1e-6,
+                               atol=1e-7)
+    assert (loss[lab == ignore_index] == 0).all()
+    np.testing.assert_allclose(got["Softmax"].numpy(),
+                               np.asarray(want["Softmax"]), rtol=1e-6)
+    # gradient of the finite rows' sum, against jax.grad of the same
+    finite = torch.from_numpy(keep.astype("float32"))
+    torch.where(torch.from_numpy(keep), got["Loss"],
+                torch.zeros_like(got["Loss"])).mul(finite).sum().backward()
+    opfn = j_registry.get_op_def("softmax_with_cross_entropy").fn
+
+    def jloss(z):
+        out = opfn(None, dict(attrs), z, jnp.asarray(lab))["Loss"]
+        return jnp.where(jnp.asarray(keep), out, 0.0).sum()
+
+    np.testing.assert_allclose(x.grad.numpy(),
+                               np.asarray(jax.grad(jloss)(
+                                   jnp.asarray(logits))),
+                               rtol=1e-5, atol=1e-6)

@@ -17,8 +17,9 @@ and the CUDA toolkit.  Phases, each printing one JSON line:
    dims 96 and 128, causal, fully masked rows; for the decode kernels
    lengths 0 to 1024 in one launch, head dim 128, shuffled block
    tables with -1 tails over a larger pool, block lengths 16 and 32),
-   with the error beside its tolerance, and the kernels' dropout keep
-   fractions against 1 - rate; then the kernel, the plain version and
+   with the error beside its tolerance, the kernels' dropout keep
+   fractions against 1 - rate, and the dK/dV and dQ kernels run twice on
+   the same inputs bit for bit; then the kernel, the plain version and
    one PyTorch library call for the same function are timed with L2
    flushed before every call (the library call is a yardstick only; the
    port never calls it);
@@ -121,6 +122,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+TF32_FLOPS = 495e12          # the tensor cores' dense TF32 rate
 L2_FLUSH_BYTES = 512 << 20   # ten times the H100's 50 MB L2
 BF16_UNIT = 2.0 ** -7        # one bf16 unit in the last place, relative
 SEED = 0
@@ -440,10 +442,21 @@ def kernel_flash(checks, torch, gen):
     return main_err
 
 
+def _shifted(torch, x):
+    """A contiguous copy of ``x`` whose data starts 4 bytes past a 16-byte
+    boundary."""
+    pad = 4 // x.element_size()
+    buf = torch.empty(x.numel() + pad, dtype=x.dtype, device=x.device)
+    y = buf[pad:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
 def _flash_bwd_case(checks, torch, fa, case, q, k, v, bias, causal, rate,
-                    gen):
+                    gen, shift=False):
     """Both backward kernels against the plain backward; returns each
-    kernel's largest error and the gradients."""
+    kernel's largest error and the gradients.  ``shift``: the kernels
+    read q, k, v and dO from copies 4 bytes off a 16-byte boundary."""
     dh = q.shape[2]
     seed = DROP_SEED if rate else None
     o, m, l = fa.flash_attention_fwd(q, k, v, bias, causal,
@@ -451,9 +464,11 @@ def _flash_bwd_case(checks, torch, fa, case, q, k, v, bias, causal, rate,
     do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
     delta = (do.float() * o.float()).sum(dim=-1)
     args = (causal, None, rate, seed)
-    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, bias, do, m, l, delta,
+    kq, kk, kv, kdo = ((_shifted(torch, x) for x in (q, k, v, do)) if shift
+                       else (q, k, v, do))
+    dk, dv = fa.flash_attention_bwd_dkv(kq, kk, kv, bias, kdo, m, l, delta,
                                         *args)
-    dq = fa.flash_attention_bwd_dq(q, k, v, bias, do, m, l, delta, *args)
+    dq = fa.flash_attention_bwd_dq(kq, kk, kv, bias, kdo, m, l, delta, *args)
     pq, pk, pv = fa.flash_attention_bwd_plain(q, k, v, bias, o, m, l, do,
                                               causal, dh ** -0.5, rate, seed)
     torch.cuda.synchronize()
@@ -473,11 +488,36 @@ def _flash_bwd_case(checks, torch, fa, case, q, k, v, bias, causal, rate,
     return errs, (dq, dk, dv)
 
 
+def _flash_bwd_determinism(checks, torch, fa, name, q, k, v, bias, gen):
+    """Each backward kernel run twice on the same inputs (dropout 0.1)
+    gives the same bits: a fixed loop order and no atomics."""
+    o, m, l = fa.flash_attention_fwd(q, k, v, bias, dropout_rate=DROPOUT,
+                                     dropout_seed=DROP_SEED)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    args = (False, None, DROPOUT, DROP_SEED)
+    runs = [fa.flash_attention_bwd_dkv(q, k, v, bias, do, m, l, delta, *args)
+            + (fa.flash_attention_bwd_dq(q, k, v, bias, do, m, l, delta,
+                                         *args),) for _ in range(2)]
+    torch.cuda.synchronize()
+    for kernel, what, i in (("flash_attention_bwd_dkv", "dk", 0),
+                            ("flash_attention_bwd_dkv", "dv", 1),
+                            ("flash_attention_bwd_dq", "dq", 2)):
+        a, b = runs[0][i], runs[1][i]
+        same = torch.equal(a.view(torch.int16 if a.dtype == torch.bfloat16
+                                  else torch.int32),
+                           b.view(torch.int16 if b.dtype == torch.bfloat16
+                                  else torch.int32))
+        checks.check(kernel, "%s bit-identical over two runs, B8 H12 T512 "
+                     "Dh64 rate %g %s" % (what, DROPOUT, name),
+                     0.0 if same else max(max_err(a, b), 2 ** -149), 0.0)
+
+
 def kernel_flash_bwd(checks, torch, gen):
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
 
     b, h, t, dh = 8, 12, SEQ, 64
-    main_err = None
+    main_err = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = _dname(dtype)
         q, k, v, bias = _flash_inputs(torch, b, h, t, dh, dtype, gen)
@@ -485,8 +525,10 @@ def kernel_flash_bwd(checks, torch, gen):
             err, _ = _flash_bwd_case(
                 checks, torch, fa, "B8 H12 T512 Dh64 padded keys rate %g %s"
                 % (rate, name), q, k, v, bias, False, rate, gen)
-            if dtype == torch.float32 and rate:
-                main_err = err
+            if rate:  # the timed rows' errors: f32, and bf16 suffixed
+                main_err.update(err if dtype == torch.float32 else {
+                    kname + "_bf16": e for kname, e in err.items()})
+        _flash_bwd_determinism(checks, torch, fa, name, q, k, v, bias, gen)
         q, k, v, bias = _flash_inputs(torch, 2, 3, 200, 64, dtype, gen)
         bias[0, 0] = float("-inf")
         bias[1, :] = float("-inf")
@@ -499,11 +541,19 @@ def kernel_flash_bwd(checks, torch, gen):
                      + float(dq[:3, 0].float().abs().max())
                      + float(dk[3:].float().abs().max())
                      + float(dv[3:].float().abs().max()), 0.0)
-        for t_, dh_, rate in ((200, 96, 0.0), (256, 128, DROPOUT)):
+        # Dh 30 (f32) and 100 (bf16): rows of Dh elements are not whole
+        # 16-byte chunks; with ``shift`` the tensors are not 16-byte
+        # aligned: both stage their tiles by plain loads, not cp.async
+        odd_dh = 30 if dtype == torch.float32 else 100
+        for t_, dh_, rate, shift in ((200, 96, 0.0, False),
+                                     (256, 128, DROPOUT, False),
+                                     (200, odd_dh, DROPOUT, False),
+                                     (200, 64, DROPOUT, True)):
             q, k, v, bias = _flash_inputs(torch, 2, 2, t_, dh_, dtype, gen)
-            _flash_bwd_case(checks, torch, fa, "B2 H2 T%d Dh%d rate %g %s"
-                            % (t_, dh_, rate, name), q, k, v, bias, False,
-                            rate, gen)
+            _flash_bwd_case(checks, torch, fa, "B2 H2 T%d Dh%d rate %g%s %s"
+                            % (t_, dh_, rate, ", 4 bytes off 16-byte "
+                               "alignment" if shift else "", name),
+                            q, k, v, bias, False, rate, gen, shift)
     return main_err
 
 
@@ -756,6 +806,71 @@ def _row(name, source, replaces, err, ms, plain_ms, bound, library_ms,
             "library_ms": library_ms, "shape": shape}
 
 
+def _tc_bound_ms(nbytes, flops, f32):
+    """The least time of work done on the tensor cores: float32 products
+    as 3xTF32 (three TF32 products each, at 495 TFLOP/s), bf16 at 989;
+    below the 67 TFLOP/s float32 rate of the CUDA cores, which is no
+    bound for a kernel that does not use them."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (3 * flops / TF32_FLOPS if f32
+             else flops / PEAK_FLOPS["bfloat16"]) * 1e3
+    return (max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_flash_bwd(torch, gen, errs, dtype):
+    """The dK/dV and dQ kernels' rows at the training path's shape
+    ([96, 512, 64], dropout 0.1) in ``dtype``, each bound by the tensor
+    cores that the kernels run on (``_tc_bound_ms``).  Plain and library
+    ms are of the whole backward (SDPA's backward in the same dtype)."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    b, h, t, dh = 8, 12, SEQ, 64
+    bh = b * h
+    name = _dname(dtype)
+    f32 = dtype == torch.float32
+    q, k, v, bias = _flash_inputs(torch, b, h, t, dh, dtype, gen)
+    sc = dh ** -0.5
+    drop = (DROPOUT, DROP_SEED)
+    o, m, l = fa.flash_attention_fwd(q, k, v, bias, dropout_rate=DROPOUT,
+                                     dropout_seed=DROP_SEED)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    plain = time_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, bias, o, m, l, do, False, sc, *drop))
+    q4, k4, v4 = (x.view(b, h, t, dh) for x in (q, k, v))
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q4, k4, v4))
+    lo = F.scaled_dot_product_attention(
+        qg, kg, vg, attn_mask=bias.view(b, 1, 1, t).to(dtype),
+        dropout_p=DROPOUT)
+    do4 = do.view(b, h, t, dh)
+    lib = time_ms(lambda: torch.autograd.grad(lo, (qg, kg, vg), do4,
+                                              retain_graph=True))
+    esize = 4 if f32 else 2
+    # q, k, v, dO read; m, l, delta (f32) and the bias read
+    io = esize * 4 * bh * t * dh + 4 * (3 * bh * t + b * t)
+    rows = []
+    for kernel, line, outs, flops, fn in (
+            ("flash_attention_bwd_dkv", "473", 2, 8 * bh * t * t * dh,
+             lambda: fa.flash_attention_bwd_dkv(
+                 q, k, v, bias, do, m, l, delta, False, None, *drop)),
+            ("flash_attention_bwd_dq", "521", 1, 6 * bh * t * t * dh,
+             lambda: fa.flash_attention_bwd_dq(
+                 q, k, v, bias, do, m, l, delta, False, None, *drop))):
+        r = _row(kernel, "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+                 "paddle_tpu/ops/pallas/flash_attention.py:" + line,
+                 errs[kernel] if f32 else errs[kernel + "_bf16"],
+                 time_ms(fn), plain,
+                 _tc_bound_ms(io + esize * outs * bh * t * dh, flops, f32),
+                 lib, "q,k,v,dO [96,512,64] %s, dropout 0.1; plain and "
+                 "library ms are of the whole backward (dQ, dK, dV)" % name)
+        rows.append(r)
+    del q, k, v, o, do, qg, kg, vg, lo
+    return rows
+
+
 def time_kernels(torch, gen, errs):
     """Cold-L2 times of every kernel at the training path's shapes and
     rate (K1, K2 at dropout 0.1; the forwards also at rate 0, as serving
@@ -795,38 +910,10 @@ def time_kernels(torch, gen, errs):
                  "q,k,v [96,512,64] f32, bias [8,512], dropout %g" % rate)
         (rows if rate else extra).append(r)
 
-    o, m, l = fa.flash_attention_fwd(q, k, v, bias, dropout_rate=DROPOUT,
-                                     dropout_seed=DROP_SEED)
-    do = torch.randn(q.shape, generator=gen, device="cuda")
-    delta = (do * o).sum(dim=-1)
-    plain = time_ms(lambda: fa.flash_attention_bwd_plain(
-        q, k, v, bias, o, m, l, do, False, sc, *drop))
-    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q4, k4, v4))
-    lo = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask4,
-                                        dropout_p=DROPOUT)
-    do4 = do.view(b, h, t, dh)
-    lib = time_ms(lambda: torch.autograd.grad(lo, (qg, kg, vg), do4,
-                                              retain_graph=True))
-    io = 4 * (4 * bh * t * dh + 3 * bh * t + b * t)
-    rows.append(_row(
-        "flash_attention_bwd_dkv", fa_src, fa_ref + "473",
-        errs["flash_attention_bwd_dkv"],
-        time_ms(lambda: fa.flash_attention_bwd_dkv(
-            q, k, v, bias, do, m, l, delta, False, None, *drop)),
-        plain, bound_ms(io + 4 * 2 * bh * t * dh, 8 * bh * t * t * dh,
-                        "float32"), lib,
-        "q,k,v,dO [96,512,64] f32, dropout 0.1; plain and library ms are "
-        "of the whole backward (dQ, dK, dV)"))
-    rows.append(_row(
-        "flash_attention_bwd_dq", fa_src, fa_ref + "521",
-        errs["flash_attention_bwd_dq"],
-        time_ms(lambda: fa.flash_attention_bwd_dq(
-            q, k, v, bias, do, m, l, delta, False, None, *drop)),
-        plain, bound_ms(io + 4 * bh * t * dh, 6 * bh * t * t * dh,
-                        "float32"), lib,
-        "q,k,v,dO [96,512,64] f32, dropout 0.1; plain and library ms are "
-        "of the whole backward (dQ, dK, dV)"))
-    del q, k, v, o, do, qg, kg, vg, lo
+    del q, k, v, q4, k4, v4, mask4
+    for dtype in (torch.float32, torch.bfloat16):
+        (rows if dtype == torch.float32 else extra).extend(
+            time_flash_bwd(torch, gen, errs, dtype))
 
     n, d = 4096, 768
     x, res, dout = (torch.randn((n, d), generator=gen, device="cuda")
@@ -2738,7 +2825,8 @@ def main():
     emit({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-        "launches_path")} for r in rows]})
+        "launches_path") if k in r}
+        for r in rows]})
     print(env["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

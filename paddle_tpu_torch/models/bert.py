@@ -63,7 +63,7 @@ def _attention(x, mask_bias, cfg, prefix):
     if getattr(cfg, "fused_qkv", False):
         raise NotImplementedError(
             "BertConfig(fused_qkv=True) needs the slice layer, which is not "
-            "ported yet (ROADMAP.md, Queue A item 1: training)")
+            "ported yet (ROADMAP.md, Queue A item 4: rest of training)")
     q = split_heads(proj(x, d, "q"))
     k = split_heads(proj(x, d, "k"))
     v = split_heads(proj(x, d, "v"))

@@ -1,5 +1,7 @@
 """Flash attention, forward and backward: hand-written CUDA kernels for
-Hopper (``csrc/flash_attention.cu``) and their plain PyTorch versions.
+Hopper (the forward in ``csrc/flash_attention.cu``, the dK/dV and dQ
+kernels on the tensor cores in ``csrc/flash_attention_bwd.cu``) and their
+plain PyTorch versions.
 
 Replaces the Pallas TPU kernels of ``paddle_tpu/ops/pallas/flash_attention.py``:
 the forward (``_flash_fwd`` :235, ``pallas_call`` :266, body

@@ -8,21 +8,29 @@ and the CUDA toolkit.  Phases, each printing one JSON line:
 
 1. environment: the card's name and power limit (``nvidia-smi``), torch
    and CUDA versions;
-2. build: ``nvcc`` builds the kernel library from ``paddle_tpu_torch/csrc``;
+2. build: ``nvcc`` builds the kernel library from ``paddle_tpu_torch/csrc``
+   and reports the registers and spills of the K1 forward and K2
+   backward kernels (``ptxas -v``), the HMMA instructions in each K1
+   forward kernel's SASS (``cuobjdump -sass``; none fails the run) and a
+   digest of the K1 backward kernels' SASS;
 3. kernels: each hand-written kernel (flash attention forward, its dK/dV
    and dQ backward kernels, fused add+LN forward and backward, embedding
    gather, flash decode and paged flash decode) against its plain
    PyTorch version on the card, in float32 and bfloat16, at dropout 0
    and 0.1, at the main paths' shapes and at edge cases (ragged T, head
-   dims 96 and 128, causal, fully masked rows; for the decode kernels
-   lengths 0 to 1024 in one launch, head dim 128, shuffled block
-   tables with -1 tails over a larger pool, block lengths 16 and 32),
-   with the error beside its tolerance, the kernels' dropout keep
-   fractions against 1 - rate, and the dK/dV and dQ kernels run twice on
-   the same inputs bit for bit; then the kernel, the plain version and
-   one PyTorch library call for the same function are timed with L2
-   flushed before every call (the library call is a yardstick only; the
-   port never calls it);
+   dims 30, 96, 100 and 128, causal, Tq != Tk, the decode path's causal
+   prefills, fully masked rows, inputs 4 bytes off 16-byte alignment;
+   for K2 D from 30 to 4096, ragged N, misaligned dout and y; for the
+   decode kernels lengths 0 to 1024 in one launch, head dim 128,
+   shuffled block tables with -1 tails over a larger pool, block lengths
+   16 and 32), with the error beside its tolerance, the kernels' dropout
+   keep fractions against 1 - rate, and the K1 forward, dK/dV, dQ and K2
+   backward kernels run twice on the same inputs bit for bit; then the
+   kernel, the plain version and one PyTorch library call for the same
+   function are timed with L2 flushed before every call (the library
+   call is a yardstick only; the port never calls it), and the K2
+   backward's call is split between its two launches
+   (``torch.profiler``);
 4. main path, serving: BERT-base (vocab 30522, hidden 768, 12 layers, 12
    heads, ffn 3072) at sequence length 512 with random weights from a
    seed is built with the port's layers, exported with
@@ -319,14 +327,111 @@ def phase_environment():
     return env
 
 
+# kernels whose registers and spills the build phase reports, and whose
+# SASS it reads: the K1 forward on the tensor cores (HMMA count), the K2
+# backward's two kernels, and the K1 backward (a digest of its SASS, which
+# moving its helpers into flash_mma.cuh must not change)
+BUILD_REPORT = ("flash_fwd_kernel", "add_ln_bwd_kernel",
+                "ln_bwd_reduce_kernel")
+SASS_DIGEST = ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
+
+
+def _demangle(names):
+    tool = shutil.which("c++filt")
+    if not tool or not names:
+        return list(names)
+    out = subprocess.run([tool], input="\n".join(names), text=True,
+                         stdout=subprocess.PIPE, check=True).stdout
+    return [n.replace("(anonymous namespace)::", "").split("(")[0]
+            for n in out.splitlines()]
+
+
+def _ptxas_report(log, needles):
+    """Registers and spill bytes of every kernel whose mangled name holds
+    one of ``needles``, from nvcc's ``-Xptxas=-v`` output."""
+    import re
+
+    rows, name, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and any(n in name for n in needles):
+            rows.append((name, int(m.group(1)), spill))
+            name = None
+    return [{"kernel": short, "registers": regs, "spill_stores": st,
+             "spill_loads": ld}
+            for short, (_, regs, (st, ld)) in zip(
+                _demangle([r[0] for r in rows]), rows)]
+
+
+def _sass_report(path, hmma_needles, digest_needles):
+    """From ``cuobjdump -sass`` of the library: the HMMA (tensor-core MMA)
+    instructions of each kernel named by ``hmma_needles``, and a digest of
+    the instruction text (addresses and encodings dropped) of each named
+    by ``digest_needles``."""
+    import hashlib
+    import re
+
+    from paddle_tpu_torch.ops.cuda import _lib
+
+    tool = os.path.join(os.path.dirname(_lib._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", path], stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True,
+                          check=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            funcs[name] = []
+        elif name is not None:
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+            if m:
+                funcs[name].append(m.group(1))
+    hmma = {n: sum("HMMA" in i for i in ins) for n, ins in funcs.items()
+            if any(k in n for k in hmma_needles)}
+    digests = {n: hashlib.sha256("\n".join(ins).encode()).hexdigest()[:16]
+               for n, ins in funcs.items()
+               if any(k in n for k in digest_needles)}
+    return ({k: v for k, v in zip(_demangle(list(hmma)), hmma.values())},
+            {k: v for k, v in zip(_demangle(list(digests)),
+                                  digests.values())})
+
+
 def phase_build():
+    import contextlib
+    import io
+
     from paddle_tpu_torch.ops.cuda import _lib
 
     t0 = time.time()
-    path = _lib.build(verbose=True)
+    out = io.StringIO()  # a verbose build prints nvcc's output
+    with contextlib.redirect_stdout(out):
+        path = _lib.build(verbose=True)
     _lib.lib()
-    emit({"phase": "build", "library": os.path.relpath(path, HERE),
-          "seconds": time.time() - t0})
+    seconds = time.time() - t0
+    log = out.getvalue()
+    print(log, flush=True)
+    hmma, digests = _sass_report(path, ("flash_fwd_kernel",), SASS_DIGEST)
+    report = {"phase": "build", "library": os.path.relpath(path, HERE),
+              "seconds": seconds,
+              "registers": _ptxas_report(log, BUILD_REPORT)
+              if "ptxas" in log else "library found built: no ptxas report",
+              "hmma_per_kernel": hmma, "sass_digest": digests}
+    emit(report)
+    return report
+
+
+def _gen(torch):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    return gen
 
 
 def _flash_inputs(torch, b, h, t, dh, dtype, gen, masked_tail=True):
@@ -372,7 +477,7 @@ def kernel_flash(checks, torch, gen):
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
 
     b, h, t, dh = 8, 12, SEQ, 64
-    main_err = None
+    main_err = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = _dname(dtype)
         q, k, v, bias = _flash_inputs(torch, b, h, t, dh, dtype, gen)
@@ -391,8 +496,8 @@ def kernel_flash(checks, torch, gen):
                          max_err(m, pm), 1e-3)
             checks.check("flash_attention_fwd", "l relative, " + case,
                          max_err(l / pl, torch.ones_like(pl)), 1e-4)
-            if dtype == torch.float32 and rate:
-                main_err = err
+            if rate:  # the timed rows' errors
+                main_err[name] = err
             if dtype == torch.bfloat16:
                 # a typical |o| is far below the largest, so the mean
                 # error must also stay under one unit of the mean |o|: a
@@ -439,7 +544,80 @@ def kernel_flash(checks, torch, gen):
             torch.cuda.synchronize()
             checks.check("flash_attention_fwd", "B2 H2 T%d Dh%d %s"
                          % (t_, dh_, name), max_err(o, po), _tol(po))
+    kernel_flash_fwd_edges(checks, torch, fa, gen)
     return main_err
+
+
+def _fwd_case(checks, torch, fa, case, q, k, v, bias, causal, rate,
+              shift=False):
+    """The forward kernel against its plain version: o within ``_tol``,
+    m within 1e-3, l within 1e-4 relative (kernel_flash's tolerances).
+    ``shift``: the kernel reads q, k and v from copies 4 bytes off a
+    16-byte boundary."""
+    seed = DROP_SEED if rate else None
+    dh = q.shape[2]
+    kq, kk, kv = ((_shifted(torch, x) for x in (q, k, v)) if shift
+                  else (q, k, v))
+    o, m, l = fa.flash_attention_fwd(kq, kk, kv, bias, causal,
+                                     dropout_rate=rate, dropout_seed=seed)
+    po, pm, pl = fa.flash_attention_fwd_plain(q, k, v, bias, causal,
+                                              dh ** -0.5, rate, seed)
+    torch.cuda.synchronize()
+    checks.check("flash_attention_fwd", case, max_err(o, po), _tol(po))
+    checks.check("flash_attention_fwd", "m, " + case, max_err(m, pm), 1e-3)
+    checks.check("flash_attention_fwd", "l relative, " + case,
+                 max_err(l / pl, torch.ones_like(pl)), 1e-4)
+
+
+def _same_bits_check(checks, torch, kernel, case, a, b):
+    """Two runs' outputs ``a`` and ``b`` bit for bit (error 0, tolerance
+    0; a difference reads as at least the smallest subnormal)."""
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    same = torch.equal(a.view(view), b.view(view))
+    checks.check(kernel, case, 0.0 if same
+                 else max(max_err(a, b), 2 ** -149), 0.0)
+
+
+def kernel_flash_fwd_edges(checks, torch, fa, gen):
+    """The tensor-core forward's own cases: a rerun bit for bit, the
+    decode path's causal prefills (b*h = 12 at T 128 and 512), the
+    plain-load staging (rows of Dh 30 or 100 elements that are not whole
+    16-byte chunks, and q, k, v 4 bytes off 16-byte alignment), and
+    Tq != Tk under the causal flag."""
+    for dtype in (torch.float32, torch.bfloat16):
+        name = _dname(dtype)
+        q, k, v, bias = _flash_inputs(torch, 8, 12, SEQ, 64, dtype, gen)
+        runs = [fa.flash_attention_fwd(q, k, v, bias, dropout_rate=DROPOUT,
+                                       dropout_seed=DROP_SEED)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        for i, what in enumerate(("o", "m", "l")):
+            _same_bits_check(checks, torch, "flash_attention_fwd",
+                             "%s bit-identical over two runs, B8 H12 T512 "
+                             "Dh64 rate %g %s" % (what, DROPOUT, name),
+                             runs[0][i], runs[1][i])
+        del q, k, v, runs
+        for t in (128, SEQ):
+            q, k, v, bias = _flash_inputs(torch, 1, 12, t, 64, dtype, gen)
+            _fwd_case(checks, torch, fa, "prefill B1 H12 T%d causal, padded "
+                      "keys %s" % (t, name), q, k, v, bias, True, 0.0)
+        for t_, dh_, rate, shift in ((200, 30, DROPOUT, False),
+                                     (200, 100, 0.0, False),
+                                     (200, 64, DROPOUT, True),
+                                     (256, 128, 0.0, True)):
+            q, k, v, bias = _flash_inputs(torch, 2, 2, t_, dh_, dtype, gen)
+            _fwd_case(checks, torch, fa, "B2 H2 T%d Dh%d rate %g%s %s"
+                      % (t_, dh_, rate, ", 4 bytes off 16-byte alignment"
+                         if shift else "", name),
+                      q, k, v, bias, False, rate, shift)
+        # Tq != Tk: 100 query rows against 260 keys, and 260 against 100
+        for tq, tk in ((100, 260), (260, 100)):
+            q = torch.randn((6, tq, 64), generator=gen,
+                            device="cuda").to(dtype)
+            _, k, v, bias = _flash_inputs(torch, 2, 3, tk, 64, dtype, gen)
+            _fwd_case(checks, torch, fa, "B2 H3 Tq%d Tk%d causal, rate %g %s"
+                      % (tq, tk, DROPOUT, name), q, k, v, bias, True,
+                      DROPOUT)
 
 
 def _shifted(torch, x):
@@ -503,14 +681,9 @@ def _flash_bwd_determinism(checks, torch, fa, name, q, k, v, bias, gen):
     for kernel, what, i in (("flash_attention_bwd_dkv", "dk", 0),
                             ("flash_attention_bwd_dkv", "dv", 1),
                             ("flash_attention_bwd_dq", "dq", 2)):
-        a, b = runs[0][i], runs[1][i]
-        same = torch.equal(a.view(torch.int16 if a.dtype == torch.bfloat16
-                                  else torch.int32),
-                           b.view(torch.int16 if b.dtype == torch.bfloat16
-                                  else torch.int32))
-        checks.check(kernel, "%s bit-identical over two runs, B8 H12 T512 "
-                     "Dh64 rate %g %s" % (what, DROPOUT, name),
-                     0.0 if same else max(max_err(a, b), 2 ** -149), 0.0)
+        _same_bits_check(checks, torch, kernel, "%s bit-identical over two "
+                         "runs, B8 H12 T512 Dh64 rate %g %s"
+                         % (what, DROPOUT, name), runs[0][i], runs[1][i])
 
 
 def kernel_flash_bwd(checks, torch, gen):
@@ -560,7 +733,7 @@ def kernel_flash_bwd(checks, torch, gen):
 def kernel_ln(checks, torch, gen):
     from paddle_tpu_torch.ops.cuda import fused_ln as fl
 
-    fwd_err = bwd_err = None
+    fwd_err = bwd_err = bwd_bf16_err = None
     for dtype in (torch.float32, torch.bfloat16):
         name = _dname(dtype)
         for n, d in ((4096, 768), (37, 640), (8, 4096)):
@@ -603,7 +776,49 @@ def kernel_ln(checks, torch, gen):
                     kept = (got[1] != res) | (x == 0)
                     _keep_fraction_check(checks, "fused_dropout_add_ln_fwd",
                                          kept, rate)
-    return fwd_err, bwd_err
+                if dtype == torch.bfloat16 and (n, d) == (4096, 768) and rate:
+                    bwd_bf16_err = max(errs)
+    kernel_ln_bwd_edges(checks, torch, fl, gen)
+    return fwd_err, bwd_err, bwd_bf16_err
+
+
+def kernel_ln_bwd_edges(checks, torch, fl, gen):
+    """The K2 backward's own cases: two runs bit for bit (dx, dres, dgamma,
+    dbeta: the partials are summed in a fixed order), D = 4096 over many
+    rows (8 warps a row), ragged N, rows that are not whole 16-byte chunks
+    (scalar accesses), and dout and y 4 bytes off 16-byte alignment;
+    tolerances as kernel_ln's."""
+    for dtype in (torch.float32, torch.bfloat16):
+        name = _dname(dtype)
+        for n, d, shift in ((4096, 768, False), (4096, 768, True),
+                            (300, 4096, False), (37, 4096, True),
+                            (37, 30, False), (300, 770, False),
+                            (37, 2050, True)):
+            x, res, dout = (torch.randn((n, d), generator=gen,
+                                        device="cuda").to(dtype)
+                            for _ in range(3))
+            g = torch.randn((d,), generator=gen, device="cuda")
+            bt = torch.randn((d,), generator=gen, device="cuda")
+            drop = (DROPOUT, DROP_SEED)
+            _, y, mean, rstd = fl.fused_dropout_add_ln_fwd(
+                x, res, g, bt, 1e-5, *drop, save_stats=True)
+            kd, ky = ((_shifted(torch, dout), _shifted(torch, y)) if shift
+                      else (dout, y))
+            runs = [fl.fused_dropout_add_ln_bwd(kd, ky, g, mean, rstd, *drop)
+                    for _ in range(2)]
+            refs = fl.fused_dropout_add_ln_bwd_plain(dout, y, g, mean, rstd,
+                                                     *drop)
+            torch.cuda.synchronize()
+            case = "N%d D%d rate %g%s %s" % (
+                n, d, DROPOUT, ", dout and y 4 bytes off 16-byte alignment"
+                if shift else "", name)
+            for i, what in enumerate(("dx", "dres", "dgamma", "dbeta")):
+                checks.check("fused_dropout_add_ln_bwd",
+                             "%s, %s" % (what, case),
+                             max_err(runs[0][i], refs[i]), _tol(refs[i]))
+                _same_bits_check(checks, torch, "fused_dropout_add_ln_bwd",
+                                 "%s bit-identical over two runs, %s"
+                                 % (what, case), runs[0][i], runs[1][i])
 
 
 def kernel_gather(checks, torch, gen):
@@ -861,13 +1076,101 @@ def time_flash_bwd(torch, gen, errs, dtype):
                  q, k, v, bias, do, m, l, delta, False, None, *drop))):
         r = _row(kernel, "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
                  "paddle_tpu/ops/pallas/flash_attention.py:" + line,
-                 errs[kernel] if f32 else errs[kernel + "_bf16"],
+                 errs.get(kernel if f32 else kernel + "_bf16"),
                  time_ms(fn), plain,
                  _tc_bound_ms(io + esize * outs * bh * t * dh, flops, f32),
                  lib, "q,k,v,dO [96,512,64] %s, dropout 0.1; plain and "
                  "library ms are of the whole backward (dQ, dK, dV)" % name)
         rows.append(r)
     del q, k, v, o, do, qg, kg, vg, lo
+    return rows
+
+
+def time_flash_fwd(torch, gen, errs):
+    """The K1 forward's rows at the training path's shape ([96, 512, 64],
+    bias [8, 512]): float32 at rates 0.1 (training) and 0 (serving), and
+    bf16 at 0.1, beside SDPA in the same dtype and at the same rate, each
+    bound by the tensor cores the kernel runs on (``_tc_bound_ms``).
+    ``errs`` gives the rows' errors (``kernel_flash``'s), where known."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    rows = []
+    b, h, t, dh = 8, 12, SEQ, 64
+    bh = b * h
+    sc = dh ** -0.5
+    for dtype, rate in ((torch.float32, DROPOUT), (torch.float32, 0.0),
+                        (torch.bfloat16, DROPOUT)):
+        f32 = dtype == torch.float32
+        esize = 4 if f32 else 2
+        q, k, v, bias = _flash_inputs(torch, b, h, t, dh, dtype, gen)
+        q4, k4, v4 = (x.view(b, h, t, dh) for x in (q, k, v))
+        mask4 = bias.view(b, 1, 1, t).to(dtype)
+        seed = DROP_SEED if rate else None
+        ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, bias,
+                                                    dropout_rate=rate,
+                                                    dropout_seed=seed))
+        plain = time_ms(lambda: fa.flash_attention_fwd_plain(
+            q, k, v, bias, sm_scale=sc, dropout_rate=rate,
+            dropout_seed=seed))
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask4, dropout_p=rate))
+        # q, k, v read and o written; the bias read, m and l written
+        bound = _tc_bound_ms(
+            esize * 4 * bh * t * dh + 4 * (b * t + 2 * bh * t),
+            4 * bh * t * t * dh, f32)
+        rows.append(_row(
+            "flash_attention_fwd", "paddle_tpu_torch/csrc/flash_attention.cu",
+            "paddle_tpu/ops/pallas/flash_attention.py:266",
+            errs.get("flash_attention_fwd" + ("" if f32 else "_bf16")), ms,
+            plain, bound, lib, "q,k,v [96,512,64] %s, bias [8,512], dropout "
+            "%g" % (_dname(dtype), rate)))
+        del q, k, v, q4, k4, v4, mask4
+    return rows
+
+
+def time_ln_bwd(torch, gen, errs):
+    """The K2 backward's rows at the training path's shape ([4096, 768],
+    dropout 0.1), float32 then bf16, beside ``layer_norm``'s backward in
+    the same dtype (gamma and beta in that dtype for the library call,
+    float32 for the kernel), bound by the bytes it moves.  ``errs`` gives
+    the rows' errors (``kernel_ln``'s), where known."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.cuda import fused_ln as fl
+
+    rows = []
+    n, d = 4096, 768
+    drop = (DROPOUT, DROP_SEED)
+    g = torch.randn((d,), generator=gen, device="cuda")
+    bt = torch.randn((d,), generator=gen, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        f32 = dtype == torch.float32
+        esize = 4 if f32 else 2
+        x, res, dout = (torch.randn((n, d), generator=gen, device="cuda")
+                        .to(dtype) for _ in range(3))
+        _, y, mean, rstd = fl.fused_dropout_add_ln_fwd(
+            x, res, g, bt, 1e-5, *drop, save_stats=True)
+        xr, rr, gr, br = (a.detach().clone().to(dtype).requires_grad_()
+                          for a in (x, res, g, bt))
+        lo = F.layer_norm(xr + rr, (d,), gr, br, 1e-5)
+        rows.append(_row(
+            "fused_dropout_add_ln_bwd", "paddle_tpu_torch/csrc/fused_ln.cu",
+            "paddle_tpu/ops/pallas/fused_ln.py:224",
+            errs.get("fused_dropout_add_ln_bwd" + ("" if f32 else "_bf16")),
+            time_ms(lambda: fl.fused_dropout_add_ln_bwd(
+                dout, y, g, mean, rstd, *drop), 50),
+            time_ms(lambda: fl.fused_dropout_add_ln_bwd_plain(
+                dout, y, g, mean, rstd, *drop), 50),
+            # dout, y read, dx, dres written; gamma read, dgamma and dbeta
+            # written (f32); mean and rstd read (f32)
+            bound_ms(esize * 4 * n * d + 4 * (3 * d + 2 * n), 12 * n * d,
+                     "float32"),
+            time_ms(lambda: torch.autograd.grad(lo, (xr, rr, gr, br), dout,
+                                                retain_graph=True), 50),
+            "dout,y [4096,768] %s, dropout 0.1" % _dname(dtype)))
+        del x, res, dout, y, xr, rr, lo
     return rows
 
 
@@ -878,46 +1181,22 @@ def time_kernels(torch, gen, errs):
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops.cuda import embedding as emb
-    from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import fused_ln as fl
 
-    fa_src, fa_ref = ("paddle_tpu_torch/csrc/flash_attention.cu",
-                      "paddle_tpu/ops/pallas/flash_attention.py:")
     ln_src, ln_ref = ("paddle_tpu_torch/csrc/fused_ln.cu",
                       "paddle_tpu/ops/pallas/fused_ln.py:")
     rows, extra = [], []
-    b, h, t, dh = 8, 12, SEQ, 64
-    bh = b * h
-    q, k, v, bias = _flash_inputs(torch, b, h, t, dh, torch.float32, gen)
-    sc = dh ** -0.5
     drop = (DROPOUT, DROP_SEED)
-    fwd_bound = bound_ms(4 * (4 * bh * t * dh + b * t + 2 * bh * t),
-                         4 * bh * t * t * dh, "float32")
-    q4, k4, v4 = (x.view(b, h, t, dh) for x in (q, k, v))
-    mask4 = bias.view(b, 1, 1, t)
-    for rate in (DROPOUT, 0.0):
-        seed = DROP_SEED if rate else None
-        ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, bias,
-                                                    dropout_rate=rate,
-                                                    dropout_seed=seed))
-        plain = time_ms(lambda: fa.flash_attention_fwd_plain(
-            q, k, v, bias, sm_scale=sc, dropout_rate=rate,
-            dropout_seed=seed))
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, attn_mask=mask4, dropout_p=rate))
-        r = _row("flash_attention_fwd", fa_src, fa_ref + "266",
-                 errs["flash_attention_fwd"], ms, plain, fwd_bound, lib,
-                 "q,k,v [96,512,64] f32, bias [8,512], dropout %g" % rate)
-        (rows if rate else extra).append(r)
-
-    del q, k, v, q4, k4, v4, mask4
+    fwd = time_flash_fwd(torch, gen, errs)
+    rows.append(fwd[0])
+    extra.extend(fwd[1:])
     for dtype in (torch.float32, torch.bfloat16):
         (rows if dtype == torch.float32 else extra).extend(
             time_flash_bwd(torch, gen, errs, dtype))
 
     n, d = 4096, 768
-    x, res, dout = (torch.randn((n, d), generator=gen, device="cuda")
-                    for _ in range(3))
+    x, res = (torch.randn((n, d), generator=gen, device="cuda")
+              for _ in range(2))
     g = torch.randn((d,), generator=gen, device="cuda")
     bt = torch.randn((d,), generator=gen, device="cuda")
     lib = time_ms(lambda: F.layer_norm(x + res, (d,), g, bt, 1e-5), 50)
@@ -938,23 +1217,10 @@ def time_kernels(torch, gen, errs):
                 50),
         bound_ms(4 * (3 * n * d + 2 * d), 8 * n * d, "float32"), lib,
         "x,res [4096,768] f32, dropout 0, out only (serving)"))
-    _, y, mean, rstd = fl.fused_dropout_add_ln_fwd(x, res, g, bt, 1e-5,
-                                                   *drop, save_stats=True)
-    xr, rr, gr, br = (a.detach().clone().requires_grad_()
-                      for a in (x, res, g, bt))
-    lo = F.layer_norm(xr + rr, (d,), gr, br, 1e-5)
-    rows.append(_row(
-        "fused_dropout_add_ln_bwd", ln_src, ln_ref + "224",
-        errs["fused_dropout_add_ln_bwd"],
-        time_ms(lambda: fl.fused_dropout_add_ln_bwd(dout, y, g, mean, rstd,
-                                                    *drop), 50),
-        time_ms(lambda: fl.fused_dropout_add_ln_bwd_plain(
-            dout, y, g, mean, rstd, *drop), 50),
-        bound_ms(4 * (4 * n * d + 3 * d + 2 * n), 12 * n * d, "float32"),
-        time_ms(lambda: torch.autograd.grad(lo, (xr, rr, gr, br), dout,
-                                            retain_graph=True), 50),
-        "dout,y [4096,768] f32, dropout 0.1"))
-    del x, res, dout, y, xr, rr, lo
+    del x, res
+    ln_bwd = time_ln_bwd(torch, gen, errs)
+    rows.append(ln_bwd[0])
+    extra.extend(ln_bwd[1:])
 
     table = torch.randn((30522, 768), generator=gen, device="cuda")
     ids = torch.randint(0, 30522, (4096,), generator=gen, device="cuda")
@@ -982,6 +1248,54 @@ def time_kernels(torch, gen, errs):
     scatter["bound_ms"], scatter["bound_by"] = bound_ms(
         4 * (30522 * 768 + 4096 * 768) + 8 * 4096, 4096 * 768, "float32")
     return rows, extra, scatter
+
+
+def profile_ln_bwd(torch, gen, calls=20):
+    """The K2 backward's call at the training path's shape ([4096, 768]
+    f32, dropout 0.1) split between its launches: device us per call of
+    each kernel (``torch.profiler``, L2 flushed before every call) beside
+    the call's CUDA-event time (``time_ms``), whose excess over the
+    kernels' sum is the gap between the launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.ops.cuda import fused_ln as fl
+
+    n, d = 4096, 768
+    x, res, dout = (torch.randn((n, d), generator=gen, device="cuda")
+                    for _ in range(3))
+    g = torch.randn((d,), generator=gen, device="cuda")
+    bt = torch.randn((d,), generator=gen, device="cuda")
+    drop = (DROPOUT, DROP_SEED)
+    _, y, mean, rstd = fl.fused_dropout_add_ln_fwd(x, res, g, bt, 1e-5,
+                                                   *drop, save_stats=True)
+
+    def call():
+        return fl.fused_dropout_add_ln_bwd(dout, y, g, mean, rstd, *drop)
+
+    event_ms = time_ms(call, 50)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush.zero_()
+            call()
+        torch.cuda.synchronize()
+    kernels = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us and "ln_bwd" in ev.key:
+            name = ev.key.replace("(anonymous namespace)::", "")
+            kernels[name.split("(")[0][:80]] = {
+                "us_per_call": dev_us / calls,
+                "launches_per_call": ev.count / calls}
+    total = sum(k["us_per_call"] for k in kernels.values())
+    return {"phase": "kernels", "k2_bwd_split": kernels,
+            "kernels_us_per_call": total if kernels else "not measured",
+            "event_us_per_call": event_ms * 1e3,
+            "shape": "dout,y [4096,768] f32, dropout 0.1"}
 
 
 def _bn_act_inputs(torch, gen, r, c, dtype):
@@ -1243,13 +1557,14 @@ def time_quant(torch, gen, errs):
 def phase_kernels():
     import torch
 
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED)
+    gen = _gen(torch)
     checks = Checks()
-    errs = {"flash_attention_fwd": kernel_flash(checks, torch, gen)}
+    fwd = kernel_flash(checks, torch, gen)
+    errs = {"flash_attention_fwd": fwd["float32"],
+            "flash_attention_fwd_bf16": fwd["bfloat16"]}
     errs.update(kernel_flash_bwd(checks, torch, gen))
-    errs["fused_dropout_add_ln_fwd"], errs["fused_dropout_add_ln_bwd"] = \
-        kernel_ln(checks, torch, gen)
+    errs["fused_dropout_add_ln_fwd"], errs["fused_dropout_add_ln_bwd"], \
+        errs["fused_dropout_add_ln_bwd_bf16"] = kernel_ln(checks, torch, gen)
     errs["embedding_gather_fwd"] = kernel_gather(checks, torch, gen)
     errs.update(kernel_decode(checks, torch, gen))
     errs.update(kernel_bn_act(checks, torch, gen))
@@ -1258,6 +1573,7 @@ def phase_kernels():
         raise AssertionError("kernel checks failed: %s"
                              % "; ".join(checks.failed))
     rows, extra, scatter = time_kernels(torch, gen, errs)
+    emit(profile_ln_bwd(torch, gen))
     decode_rows, decode_extra = time_decode_kernels(torch, gen, errs)
     bn_rows, bn_extra = time_bn_act(torch, gen, errs)
     quant_rows, quant_extra = time_quant(torch, gen, errs)
@@ -1332,8 +1648,8 @@ def phase_main_path(env):
         cpu_cfg = fluid.inference.AnalysisConfig(model_dir=export_dir)
         cpu_cfg.disable_gpu()
         cpu_pred = fluid.inference.create_paddle_predictor(cpu_cfg)
-    finally:
-        shutil.rmtree(os.path.dirname(export_dir), ignore_errors=True)
+    finally:  # only the export: .smoke_tmp/ may hold other work
+        shutil.rmtree(export_dir, ignore_errors=True)
     setup_s = time.time() - t0
     op_types = {}
     for op in pred.program.global_block().ops:
@@ -2792,7 +3108,17 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     env = phase_environment()
-    phase_build()
+    build = phase_build()
+    if not build["hmma_per_kernel"] or not all(
+            build["hmma_per_kernel"].values()):
+        raise AssertionError("no HMMA instruction in a K1 forward kernel: "
+                             "%s" % build["hmma_per_kernel"])
+    regs = build["registers"]  # a note instead when found built
+    spills = [r for r in (regs if isinstance(regs, list) else [])
+              if "add_ln_bwd" in r["kernel"]
+              and (r["spill_stores"] or r["spill_loads"])]
+    if spills:
+        raise AssertionError("K2 backward kernels spill: %s" % spills)
     rows = phase_kernels()
     serve_counts, pred, cfg = phase_main_path(env)
     phase_profile(env, pred, cfg)

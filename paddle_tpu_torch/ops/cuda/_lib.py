@@ -70,10 +70,11 @@ _SIGNATURES = {
     # stream
     "pt_fused_add_ln_fwd": (_P,) * 8 + (_L, _I, _F) + _DROP + (_I, _P),
     # dout, y, gamma, mean, rstd, dx, dres, part_g, part_b, dgamma, dbeta,
-    # N, D, dropout, dtype, stream
-    "pt_fused_add_ln_bwd": (_P,) * 11 + (_L, _I) + _DROP + (_I, _P),
-    # N → rows of the backward's partials
-    "pt_fused_add_ln_bwd_blocks": (_L,),
+    # N, D, partial rows, dropout, dtype, stream
+    "pt_fused_add_ln_bwd": (_P,) * 11 + (_L, _I, _I) + _DROP + (_I, _P),
+    # N, D, dtype → rows of the backward's partials (negated cudaError_t
+    # on failure)
+    "pt_fused_add_ln_bwd_blocks": (_L, _I, _I),
     # table, ids, out, n, V, D, padding_idx, ids_are_int64, dtype, stream
     "pt_embedding_gather_fwd": (_P, _P, _P, _L, _L, _I, _L, _I, _I, _P),
     # q, k, v, lengths, o, rows, Tmax, Dh, scale, dtype, stream

@@ -129,8 +129,9 @@ def fused_dropout_add_ln_bwd(dout, y, gamma, mean, rstd, dropout_rate=0.0,
                              dropout_seed=None):
     """Gradients (dx, dres, dgamma, dbeta) from the forward's saved y,
     mean and rstd.  CUDA tensors launch the backward kernel (a row kernel
-    writing per-block dgamma/dbeta partials, then their fixed-order sum);
-    CPU tensors run the plain version."""
+    on a grid sized to fill the card, writing per-block dgamma/dbeta
+    partials, then their fixed-order sum); CPU tensors run the plain
+    version."""
     rate = _drop.check_rate(dropout_rate, dropout_seed)
     if y.device.type != "cuda":
         return fused_dropout_add_ln_bwd_plain(dout, y, gamma, mean, rstd,
@@ -144,7 +145,10 @@ def fused_dropout_add_ln_bwd(dout, y, gamma, mean, rstd, dropout_rate=0.0,
     dout = dout.contiguous()
     _check_rows(KERNEL_BWD, (dout, y, gamma, mean, rstd), n, d)
     lib = _lib.lib()
-    blocks = lib.pt_fused_add_ln_bwd_blocks(n)
+    blocks = lib.pt_fused_add_ln_bwd_blocks(n, d, code)
+    if blocks < 1:  # a negated cudaError_t
+        raise RuntimeError("CUDA kernel %s: sizing its grid failed: "
+                           "cudaError %d" % (KERNEL_BWD, -blocks))
     dx = torch.empty_like(y)
     dres = torch.empty_like(y)
     parts = torch.empty((2, blocks, d), dtype=torch.float32, device=y.device)
@@ -154,7 +158,7 @@ def fused_dropout_add_ln_bwd(dout, y, gamma, mean, rstd, dropout_rate=0.0,
         dout.data_ptr(), y.data_ptr(), gamma.data_ptr(), mean.data_ptr(),
         rstd.data_ptr(), dx.data_ptr(), dres.data_ptr(), parts[0].data_ptr(),
         parts[1].data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), n, d,
-        *_drop.kernel_args(rate, dropout_seed), code,
+        blocks, *_drop.kernel_args(rate, dropout_seed), code,
         _lib.stream_handle(y.device))
     _lib.check(err, KERNEL_BWD)
     _lib.count_launch(KERNEL_BWD)

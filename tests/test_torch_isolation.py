@@ -114,6 +114,7 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "chip_ab.py")
 
 
 def test_no_source_imports_jax_or_the_reference():

@@ -9,10 +9,12 @@ and the CUDA toolkit.  Phases, each printing one JSON line:
 1. environment: the card's name and power limit (``nvidia-smi``), torch
    and CUDA versions;
 2. build: ``nvcc`` builds the kernel library from ``paddle_tpu_torch/csrc``
-   and reports the registers and spills of the K1 forward and K2
-   backward kernels (``ptxas -v``), the HMMA instructions in each K1
-   forward kernel's SASS (``cuobjdump -sass``; none fails the run) and a
-   digest of the K1 backward kernels' SASS;
+   and reports the registers and spills of the K1 forward, K2 backward
+   and K5/K6 decode kernels (``ptxas -v``; a spill in a K2 backward or
+   decode kernel fails the run), the blocks an SM holds of each decode
+   kernel, the HMMA instructions in each K1 forward kernel's SASS
+   (``cuobjdump -sass``; none fails the run) and a digest of the K1
+   backward kernels' SASS;
 3. kernels: each hand-written kernel (flash attention forward, its dK/dV
    and dQ backward kernels, fused add+LN forward and backward, embedding
    gather, flash decode and paged flash decode) against its plain
@@ -21,11 +23,15 @@ and the CUDA toolkit.  Phases, each printing one JSON line:
    dims 30, 96, 100 and 128, causal, Tq != Tk, the decode path's causal
    prefills, fully masked rows, inputs 4 bytes off 16-byte alignment;
    for K2 D from 30 to 4096, ragged N, misaligned dout and y; for the
-   decode kernels lengths 0 to 1024 in one launch, head dim 128,
-   shuffled block tables with -1 tails over a larger pool, block lengths
-   16 and 32), with the error beside its tolerance, the kernels' dropout
-   keep fractions against 1 - rate, and the K1 forward, dK/dV, dQ and K2
-   backward kernels run twice on the same inputs bit for bit; then the
+   decode kernels lengths 0 to 1024 in one launch, lengths on the
+   chunk edges in caches no multiple of the chunk deep, 64 x 12 rows
+   before smaller launches, head dim 128, shuffled block tables with -1
+   tails over a larger pool, block lengths 16 and 32, each also against
+   its chunked plain twin and the paged kernel against the ring kernel
+   bit for bit), with the error beside its tolerance, the kernels'
+   dropout keep fractions against 1 - rate, and the K1 forward, dK/dV,
+   dQ, K2 backward and decode kernels run twice on the same inputs bit
+   for bit; then the
    kernel, the plain version and one PyTorch library call for the same
    function are timed with L2 flushed before every call (the library
    call is a yardstick only; the port never calls it), and the K2
@@ -250,11 +256,14 @@ def card_label(env):
 # timing
 # ---------------------------------------------------------------------------
 
-def time_ms(fn, iters=20, warmup=3):
+def time_ms(fn, iters=20, warmup=3, clean_l2=False):
     """Mean device time of one cold call of ``fn()``: before each of
     ``iters`` calls (after ``warmup``) a write of L2_FLUSH_BYTES evicts
     the inputs from the 50 MB L2, and a pair of CUDA events brackets the
-    call alone, so the time reads against the HBM bound."""
+    call alone, so the time reads against the HBM bound.  The write
+    leaves L2 dirty, so the call's reads also pay the write-back of what
+    they evict; ``clean_l2`` flushes with a read of the same bytes
+    instead."""
     import torch
 
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
@@ -263,7 +272,10 @@ def time_ms(fn, iters=20, warmup=3):
         fn()
     pairs = []
     for _ in range(iters):
-        flush.zero_()
+        if clean_l2:
+            flush.sum()
+        else:
+            flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -329,10 +341,13 @@ def phase_environment():
 
 # kernels whose registers and spills the build phase reports, and whose
 # SASS it reads: the K1 forward on the tensor cores (HMMA count), the K2
-# backward's two kernels, and the K1 backward (a digest of its SASS, which
-# moving its helpers into flash_mma.cuh must not change)
+# backward's two kernels, the K5 and K6 decode kernels (with the blocks an
+# SM holds), and the K1 backward (a digest of its SASS, which moving its
+# helpers into flash_mma.cuh must not change)
 BUILD_REPORT = ("flash_fwd_kernel", "add_ln_bwd_kernel",
-                "ln_bwd_reduce_kernel")
+                "ln_bwd_reduce_kernel", "decode_kernel")
+# kernels whose spills fail the run
+NO_SPILL = ("add_ln_bwd", "decode_kernel")
 SASS_DIGEST = ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
 
 
@@ -423,9 +438,24 @@ def phase_build():
               "seconds": seconds,
               "registers": _ptxas_report(log, BUILD_REPORT)
               if "ptxas" in log else "library found built: no ptxas report",
-              "hmma_per_kernel": hmma, "sass_digest": digests}
+              "hmma_per_kernel": hmma, "sass_digest": digests,
+              "decode_blocks_per_sm": _decode_occupancy(_lib.lib())}
     emit(report)
     return report
+
+
+def _decode_occupancy(lib):
+    """Blocks of 256 threads one SM holds of each K5 / K6 kernel
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), or a note for a
+    library without the query (a parent's, under ``chip_ab.py``)."""
+    query = getattr(lib, "pt_flash_decode_blocks_per_sm", None)
+    if query is None:
+        return "not in this library"
+    return {"%s<%s, %d>" % (kernel, dtype, dh): query(paged, dh, code)
+            for paged, kernel in ((0, "decode_kernel"),
+                                  (1, "paged_decode_kernel"))
+            for code, dtype in ((0, "float"), (1, "__nv_bfloat16"))
+            for dh in (64, 128)}
 
 
 def _gen(torch):
@@ -888,64 +918,109 @@ def _paged_tables(torch, gen, lengths, block_len, max_blocks, pool_blocks):
     return torch.from_numpy(table).cuda()
 
 
+def _decode_cases():
+    """(sequences, heads, Tmax, Dh, lengths) of ``kernel_decode``: the
+    main path's shape with mixed lengths, Dh 128, a short cache; then 64
+    sequences x 12 heads of seeded lengths (a launch whose counters, left
+    non-zero, would break the smaller launches after it); then lengths on
+    the kernels' chunk edges (C - 1, C, C + 1, 2C, Tmax) beside an empty
+    row, in a cache whose depth is no multiple of the chunk, at Dh 64
+    and 128."""
+    from paddle_tpu_torch.ops.cuda.flash_decode import kernel_chunk
+
+    many = tuple((i * 389) % (DECODE_TMAX + 1) for i in range(63)) \
+        + (DECODE_TMAX,)
+    cases = [(8, 12, DECODE_TMAX, 64, DECODE_KERNEL_LENGTHS),
+             (3, 4, 256, 128, (0, 17, 256)),
+             (2, 2, 96, 64, (1, 95)),
+             (64, 12, DECODE_TMAX, 64, many)]
+    for dh in (64, 128):
+        c = kernel_chunk(dh)
+        cases.append((6, 4, 300, dh, (0, c - 1, c, c + 1, 2 * c, 300)))
+    return cases
+
+
+def _decode_kernel_checks(checks, torch, kernel, case, run, plain, twin,
+                          lens):
+    """One decode kernel against its plain version and its chunked twin,
+    length-0 rows exactly 0, and a rerun bit for bit; returns the error
+    against the plain version."""
+    got, again = run(), run()
+    ref, ref_twin = plain(), twin()
+    torch.cuda.synchronize()
+    err = checks.check(kernel, case, max_err(got, ref), _decode_tol(ref))
+    checks.check(kernel, "vs the chunked twin, " + case,
+                 max_err(got, ref_twin), _decode_tol(ref_twin))
+    _same_bits_check(checks, torch, kernel, "rerun bit for bit, " + case,
+                     got, again)
+    if 0 in lens:
+        checks.check(kernel, "length-0 rows are 0, " + case,
+                     float(got[[i for i, n in enumerate(lens) if n == 0]]
+                           .float().abs().max()), 0.0)
+    return got, err
+
+
 def kernel_decode(checks, torch, gen):
-    """K5 and K6 against their plain versions: the main path's shapes (8
-    sequences x 12 heads, Tmax 1024, Dh 64) with lengths 0, 1, 17, 500
-    and 1024 mixed in one launch, Dh 128, and for K6 shuffled block ids,
-    -1 tails, a pool larger than the tables, block_len 16 and 32."""
+    """K5 and K6 against their plain versions and their chunked twins
+    (``*_chunked_plain`` at the kernels' chunk), length-0 rows exactly 0,
+    each run twice bit for bit, in float32 and bfloat16, at every
+    ``_decode_cases`` shape; for K6 shuffled block ids, -1 tails, a pool
+    larger than the tables, block_len 16 and 32 (tables ceil(Tmax / BL)
+    deep), and the same cache rows through K5."""
     from paddle_tpu_torch.ops.cuda import flash_decode as fd
     from paddle_tpu_torch.ops.cuda import paged_flash_decode as pfd
 
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = _dname(dtype)
-        for b, h, t, dh, lens in (
-                (8, 12, DECODE_TMAX, 64, DECODE_KERNEL_LENGTHS),
-                (3, 4, 256, 128, (0, 17, 256)),
-                (2, 2, 96, 64, (1, 95))):
+        for b, h, t, dh, lens in _decode_cases():
             q, k, v, ln = _decode_ring_inputs(torch, gen, b, h, t, dh, dtype,
                                               lens)
-            got = fd.flash_decode(q, k, v, ln)
-            ref = fd.flash_decode_plain(q, k, v, ln)
-            torch.cuda.synchronize()
-            case = "B%d H%d Tmax%d Dh%d lengths %s %s" % (b, h, t, dh,
-                                                          list(lens), name)
-            err = checks.check("flash_decode_fwd", case, max_err(got, ref),
-                               _decode_tol(ref))
-            if 0 in lens:
-                checks.check("flash_decode_fwd", "length-0 rows are 0, "
-                             + case, float(got[[i for i, n in enumerate(lens)
-                                                if n == 0]].float().abs()
-                                           .max()), 0.0)
-            if dtype == torch.float32 and t == DECODE_TMAX:
+            case = "B%d H%d Tmax%d Dh%d lengths %s %s" % (
+                b, h, t, dh, list(lens) if b <= 8 else "seeded", name)
+            _, err = _decode_kernel_checks(
+                checks, torch, "flash_decode_fwd", case,
+                lambda: fd.flash_decode(q, k, v, ln),
+                lambda: fd.flash_decode_plain(q, k, v, ln),
+                lambda: fd.flash_decode_chunked_plain(q, k, v, ln,
+                                                      fd.kernel_chunk(dh)),
+                lens)
+            main_shape = dtype == torch.float32 and (b, t) == (8, DECODE_TMAX)
+            if main_shape:
                 errs["flash_decode_fwd"] = err
+            del k, v
             for bl in (16, 32):
-                if t % bl:
-                    continue
-                mb = t // bl
+                mb = -(-t // bl)
                 pool = b * mb + 37
                 table = _paged_tables(torch, gen, lens, bl, mb, pool)
                 kp, vp = (torch.randn((pool, h, bl, dh), generator=gen,
                                       device="cuda").to(dtype)
                           for _ in range(2))
-                got = pfd.paged_flash_decode(q, kp, vp, ln, table)
-                ref = pfd.paged_flash_decode_plain(q, kp, vp, ln, table)
-                torch.cuda.synchronize()
-                case = ("S%d H%d BL%d MB%d pool %d shuffled, -1 tails, "
-                        "Dh%d lengths %s %s" % (b, h, bl, mb, pool, dh,
-                                                list(lens), name))
-                err = checks.check("paged_flash_decode_fwd", case,
-                                   max_err(got, ref), _decode_tol(ref))
-                if dtype == torch.float32 and t == DECODE_TMAX and bl == 16:
+                pcase = ("S%d H%d BL%d MB%d pool %d shuffled, -1 tails, "
+                         "Dh%d lengths %s %s"
+                         % (b, h, bl, mb, pool, dh,
+                            list(lens) if b <= 8 else "seeded", name))
+                got, err = _decode_kernel_checks(
+                    checks, torch, "paged_flash_decode_fwd", pcase,
+                    lambda: pfd.paged_flash_decode(q, kp, vp, ln, table),
+                    lambda: pfd.paged_flash_decode_plain(q, kp, vp, ln,
+                                                         table),
+                    lambda: pfd.paged_flash_decode_chunked_plain(
+                        q, kp, vp, ln, table, fd.kernel_chunk(dh)),
+                    lens)
+                if main_shape and bl == 16:
                     errs["paged_flash_decode_fwd"] = err
-                # the same cache rows through the ring kernel agree too
+                # the same cache rows through the ring kernel: the same
+                # chunks and merge order, so the same bits
                 ring = fd.flash_decode(
                     q, pfd.gather_paged_cache(kp, table).contiguous(),
                     pfd.gather_paged_cache(vp, table).contiguous(), ln)
                 torch.cuda.synchronize()
-                checks.check("paged_flash_decode_fwd", "vs the ring kernel "
-                             "on the gathered rows, " + case,
-                             max_err(got, ring), _decode_tol(ring))
+                _same_bits_check(checks, torch, "paged_flash_decode_fwd",
+                                 "vs the ring kernel on the gathered rows, "
+                                 "bit for bit, " + pcase, got, ring)
+                del kp, vp, ring
+    torch.cuda.empty_cache()
     return errs
 
 
@@ -961,11 +1036,13 @@ def _decode_bound(lengths, heads, dh, esize, rows, table_bytes=0):
 
 def time_decode_kernels(torch, gen, errs):
     """Cold-L2 times of K5 and K6 at the decode path's shapes (8
-    sequences x 12 heads, Dh 64, Tmax 1024, float32) with the mixed
-    lengths of the checks, and with every row full; the bound counts the
-    live rows only.  K5's yardstick is one masked
+    sequences x 12 heads, Dh 64, Tmax 1024) with the mixed lengths of
+    the checks, and with every row full, in float32 (the kernels line's
+    rows: the mixed lengths) and bfloat16; the bound counts the live
+    rows only.  K5's yardstick is one masked
     ``scaled_dot_product_attention``; K6 has no single library call, so
-    the gather + SDPA pair is timed beside it."""
+    the gather + SDPA pair (two calls, a yardstick only) is timed beside
+    it."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops.cuda import flash_decode as fd
@@ -975,42 +1052,116 @@ def time_decode_kernels(torch, gen, errs):
     b, h, t, dh, bl = 8, 12, DECODE_TMAX, 64, 16
     mb = t // bl
     rows, extra = [], []
-    for lens in (DECODE_KERNEL_LENGTHS, (t,) * b):
+    # the method's floor: one launch of a kernel that does no work
+    floor = time_ms(lambda: torch.cuda._sleep(0), 50)
+    for dtype in (torch.float32, torch.bfloat16):
+        name, esize = _dname(dtype), dtype.itemsize
+        for lens in (DECODE_KERNEL_LENGTHS, (t,) * b):
+            main = dtype == torch.float32 and lens == DECODE_KERNEL_LENGTHS
+            q, k, v, ln = _decode_ring_inputs(torch, gen, b, h, t, dh,
+                                              dtype, lens)
+            mask = (torch.arange(t, device="cuda")[None, :] < ln[:, None]
+                    )[:, None, None, :]
+            q4 = q[:, :, None, :]
+            sdpa = time_ms(lambda: F.scaled_dot_product_attention(
+                q4, k, v, attn_mask=mask), 50)
+            shape = "q [8,12,64], k/v [8,12,1024,64] %s, lengths %s" % (
+                name, list(lens))
+            r = _row("flash_decode_fwd", src,
+                     "paddle_tpu/ops/pallas/flash_decode.py:178",
+                     errs.get("flash_decode_fwd"),
+                     time_ms(lambda: fd.flash_decode(q, k, v, ln), 50),
+                     time_ms(lambda: fd.flash_decode_plain(q, k, v, ln), 50),
+                     _decode_bound(lens, h, dh, esize, b * h), sdpa, shape)
+            r["ms_clean_l2"] = time_ms(lambda: fd.flash_decode(q, k, v, ln),
+                                       50, clean_l2=True)
+            r["launch_floor_ms"] = floor
+            (rows if main else extra).append(r)
+            table = _paged_tables(torch, gen, lens, bl, mb, b * mb)
+            kp, vp = (torch.randn((b * mb, h, bl, dh), generator=gen,
+                                  device="cuda").to(dtype)
+                      for _ in range(2))
+            r = _row("paged_flash_decode_fwd", src,
+                     "paddle_tpu/ops/pallas/paged_flash_decode.py:185",
+                     errs.get("paged_flash_decode_fwd"),
+                     time_ms(lambda: pfd.paged_flash_decode(q, kp, vp, ln,
+                                                            table), 50),
+                     time_ms(lambda: pfd.paged_flash_decode_plain(
+                         q, kp, vp, ln, table), 50),
+                     _decode_bound(lens, h, dh, esize, b * h,
+                                   4 * int((table >= 0).sum())),
+                     None, "q [8,12,64], pools [512,12,16,64] %s, shuffled "
+                     "tables [8,64], lengths %s" % (name, list(lens)))
+            r["gather_sdpa_ms"] = time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q4, pfd.gather_paged_cache(kp, table),
+                    pfd.gather_paged_cache(vp, table), attn_mask=mask), 50)
+            r["ms_clean_l2"] = time_ms(lambda: pfd.paged_flash_decode(
+                q, kp, vp, ln, table), 50, clean_l2=True)
+            r["launch_floor_ms"] = floor
+            (rows if main else extra).append(r)
+    return rows, extra
+
+
+def profile_decode_kernels(torch, gen, calls=20):
+    """Device us per call of K5 and K6 alone (``torch.profiler``: the
+    kernels' own span, without the launch that ``time_ms`` counts), L2
+    flushed by a read before every call, f32 at the decode path's shape
+    (8 x 12 rows, Dh 64, Tmax 1024, tables of 64 blocks of 16) with the
+    kernels line's mixed and full lengths and with the cursors of the
+    decode step's profile (``_decode_step_feed``: 102 to 460); and the
+    host's us per call of each wrapper (``calls`` calls enqueued back to
+    back, nothing waited for), which the host-bound decode step pays 12
+    times."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.ops.cuda import flash_decode as fd
+    from paddle_tpu_torch.ops.cuda import paged_flash_decode as pfd
+
+    b, h, t, dh, bl = 8, 12, DECODE_TMAX, 64, 16
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    step = tuple(int(n) for n in np.linspace(t // 10, t * 45 // 100, b)
+                 .astype("int32"))
+    out = {"phase": "kernels", "decode_kernels_us_per_call": {},
+           "host_us_per_call": {},
+           "shape": "q [8,12,64] f32, Tmax 1024, pools [512,12,16,64]"}
+    for name, lens in (("mixed", DECODE_KERNEL_LENGTHS),
+                       ("full", (t,) * b), ("step cursors", step)):
         q, k, v, ln = _decode_ring_inputs(torch, gen, b, h, t, dh,
                                           torch.float32, lens)
-        mask = (torch.arange(t, device="cuda")[None, :] < ln[:, None]
-                )[:, None, None, :]
-        q4 = q[:, :, None, :]
-        sdpa = time_ms(lambda: F.scaled_dot_product_attention(
-            q4, k, v, attn_mask=mask), 50)
-        shape = "q [8,12,64], k/v [8,12,1024,64] f32, lengths %s" % (
-            list(lens),)
-        r = _row("flash_decode_fwd", src,
-                 "paddle_tpu/ops/pallas/flash_decode.py:178",
-                 errs["flash_decode_fwd"],
-                 time_ms(lambda: fd.flash_decode(q, k, v, ln), 50),
-                 time_ms(lambda: fd.flash_decode_plain(q, k, v, ln), 50),
-                 _decode_bound(lens, h, dh, 4, b * h), sdpa, shape)
-        (rows if lens == DECODE_KERNEL_LENGTHS else extra).append(r)
-        table = _paged_tables(torch, gen, lens, bl, mb, b * mb)
-        kp, vp = (torch.randn((b * mb, h, bl, dh), generator=gen,
+        table = _paged_tables(torch, gen, lens, bl, t // bl, b * t // bl)
+        kp, vp = (torch.randn((b * t // bl, h, bl, dh), generator=gen,
                               device="cuda") for _ in range(2))
-        r = _row("paged_flash_decode_fwd", src,
-                 "paddle_tpu/ops/pallas/paged_flash_decode.py:185",
-                 errs["paged_flash_decode_fwd"],
-                 time_ms(lambda: pfd.paged_flash_decode(q, kp, vp, ln,
-                                                        table), 50),
-                 time_ms(lambda: pfd.paged_flash_decode_plain(
-                     q, kp, vp, ln, table), 50),
-                 _decode_bound(lens, h, dh, 4, b * h,
-                               4 * int((table >= 0).sum())),
-                 None, "q [8,12,64], pools [512,12,16,64] f32, shuffled "
-                 "tables [8,64], lengths %s" % (list(lens),))
-        r["gather_sdpa_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-            q4, pfd.gather_paged_cache(kp, table),
-            pfd.gather_paged_cache(vp, table), attn_mask=mask), 50)
-        (rows if lens == DECODE_KERNEL_LENGTHS else extra).append(r)
-    return rows, extra
+        for kernel, call in (
+                ("flash_decode_fwd", lambda: fd.flash_decode(q, k, v, ln)),
+                ("paged_flash_decode_fwd",
+                 lambda: pfd.paged_flash_decode(q, kp, vp, ln, table))):
+            call()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                call()
+            out["host_us_per_call"]["%s, %s" % (kernel, name)] = \
+                (time.perf_counter() - t0) / calls * 1e6
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    flush.sum()
+                    call()
+                torch.cuda.synchronize()
+            us = 0.0
+            for ev in prof.key_averages():
+                dev_us = getattr(ev, "self_device_time_total", None)
+                if dev_us is None:
+                    dev_us = getattr(ev, "self_cuda_time_total", 0)
+                if "decode_kernel" in ev.key:
+                    us += dev_us
+            out["decode_kernels_us_per_call"]["%s, %s %s" % (
+                kernel, name, list(lens))] = us / calls if us \
+                else "not measured"
+    return out
 
 
 def _row(name, source, replaces, err, ms, plain_ms, bound, library_ms,
@@ -1575,6 +1726,7 @@ def phase_kernels():
     rows, extra, scatter = time_kernels(torch, gen, errs)
     emit(profile_ln_bwd(torch, gen))
     decode_rows, decode_extra = time_decode_kernels(torch, gen, errs)
+    emit(profile_decode_kernels(torch, gen))
     bn_rows, bn_extra = time_bn_act(torch, gen, errs)
     quant_rows, quant_extra = time_quant(torch, gen, errs)
     rows += decode_rows + bn_rows + quant_rows
@@ -3115,10 +3267,11 @@ def main():
                              "%s" % build["hmma_per_kernel"])
     regs = build["registers"]  # a note instead when found built
     spills = [r for r in (regs if isinstance(regs, list) else [])
-              if "add_ln_bwd" in r["kernel"]
+              if any(n in r["kernel"] for n in NO_SPILL)
               and (r["spill_stores"] or r["spill_loads"])]
     if spills:
-        raise AssertionError("K2 backward kernels spill: %s" % spills)
+        raise AssertionError("K2 backward or decode kernels spill: %s"
+                             % spills)
     rows = phase_kernels()
     serve_counts, pred, cfg = phase_main_path(env)
     phase_profile(env, pred, cfg)

@@ -77,11 +77,14 @@ _SIGNATURES = {
     "pt_fused_add_ln_bwd_blocks": (_L, _I, _I),
     # table, ids, out, n, V, D, padding_idx, ids_are_int64, dtype, stream
     "pt_embedding_gather_fwd": (_P, _P, _P, _L, _L, _I, _L, _I, _I, _P),
-    # q, k, v, lengths, o, rows, Tmax, Dh, scale, dtype, stream
-    "pt_flash_decode_fwd": (_P,) * 5 + (_I,) * 3 + (_F, _I, _P),
-    # q, k, v, lengths, table, o, rows, H, N, BL, MB, Dh, scale, dtype,
-    # stream
-    "pt_paged_flash_decode_fwd": (_P,) * 6 + (_I,) * 6 + (_F, _I, _P),
+    # q, k, v, lengths, o, ws, counters, rows, H, Tmax, Dh, lengths'
+    # stride, chunk, scale, dtype, stream
+    "pt_flash_decode_fwd": (_P,) * 7 + (_I,) * 6 + (_F, _I, _P),
+    # q, k, v, lengths, table, o, ws, counters, rows, H, N, BL, MB, Dh,
+    # lengths' stride, chunk, scale, dtype, stream
+    "pt_paged_flash_decode_fwd": (_P,) * 8 + (_I,) * 8 + (_F, _I, _P),
+    # paged, Dh, dtype → blocks an SM holds (negated cudaError_t)
+    "pt_flash_decode_blocks_per_sm": (_I, _I, _I),
     # y, gamma, beta, mean, rstd, out, rows, C, act, dtype, stream
     "pt_bn_act_fwd": (_P,) * 6 + (_L, _I, _I, _I, _P),
     # rows, C, dtype → row tiles of the backward's partials

@@ -16,17 +16,34 @@ the mirror of the reference's oracle ``decode_reference`` (:95-118), for
 CPU tensors and for ``meta`` tensors during shape inference.  The kernel
 has no engagement threshold: the reference's ``decode_min_t`` and block
 autotune are TPU launch heuristics and are not ported.
+
+The kernel splits each row's keys into chunks of :func:`kernel_chunk` and
+merges the chunks' partials in chunk order inside the same launch;
+:func:`flash_decode_chunked_plain` is the plain twin of that arithmetic
+(tests and ``chip_smoke.py`` hold it against the reference and the
+kernel; the wrappers never call it).  A launch takes a float32 workspace
+from ``torch.empty`` and the per-row ticket counters of
+:func:`row_counters`, which the kernel leaves at 0: no host sync, no
+allocation inside the kernel.
 """
 
 import math
+import threading
 
 import torch
+import torch.nn.functional as F
 
 from . import _lib
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
 KERNEL = "flash_decode_fwd"
+CHUNK_ELEMS = 8192  # K elements a block takes: kChunkElems of the kernels
+
+# (device index, stream) → int32 ticket counters, one a row, all 0
+# between launches
+_COUNTERS = {}
+_COUNTERS_LOCK = threading.Lock()
 
 
 def norm_lengths(lengths, batch, device):
@@ -36,6 +53,41 @@ def norm_lengths(lengths, batch, device):
     if lengths.numel() == 1 and batch != 1:
         lengths = lengths.reshape(()).expand(batch)
     return lengths.reshape(batch)
+
+
+def kernel_chunk(head_dim):
+    """Keys a block of the decode kernels takes at ``head_dim``: 128 at
+    64, 64 at 128 (``chunk_keys`` of ``csrc/flash_decode.cu``)."""
+    return CHUNK_ELEMS // head_dim
+
+
+def kernel_lengths(lengths, batch, device):
+    """The lengths as the kernels read them: an int32 tensor and the
+    stride between sequences, 1 for a ``[batch]`` count and 0 for one
+    count every sequence shares (no per-row copy is made)."""
+    lengths = torch.as_tensor(lengths, device=device)
+    if lengths.dtype != torch.int32:
+        lengths = lengths.to(torch.int32)
+    if lengths.numel() == 1:
+        return lengths.reshape(1), 0
+    if lengths.numel() != batch:
+        raise ValueError("lengths hold %d counts for %d sequences"
+                         % (lengths.numel(), batch))
+    return lengths.reshape(batch).contiguous(), 1
+
+
+def row_counters(device, stream, rows):
+    """The ticket counters of the decode kernels launched on ``stream``
+    (a handle) of ``device``: int32, at least ``rows`` of them, zeroed
+    when made or grown and left at 0 by every launch."""
+    key = (device.index, stream)
+    with _COUNTERS_LOCK:
+        buf = _COUNTERS.get(key)
+        if buf is None or buf.numel() < rows:
+            buf = torch.zeros(max(rows, 1024), dtype=torch.int32,
+                              device=device)
+            _COUNTERS[key] = buf
+    return buf
 
 
 def flash_decode_plain(q, k, v, lengths, sm_scale=None):
@@ -59,6 +111,47 @@ def flash_decode_plain(q, k, v, lengths, sm_scale=None):
     l = torch.where(l == 0.0, torch.ones_like(l), l)  # empty → zeros
     p = (p / l).to(v.dtype)
     return torch.einsum("bht,bhtd->bhd", p.float(), v.float()).to(q.dtype)
+
+
+def flash_decode_chunked_plain(q, k, v, lengths, chunk, sm_scale=None):
+    """The kernel's arithmetic in plain PyTorch: q [B, H, D], k/v [B, H,
+    T, D], lengths scalar or [B] → [B, H, D].  The keys are split into
+    chunks of ``chunk``; each chunk's partial is its max score m_c, l_c =
+    sum exp(s - m_c) and acc_c = sum p v with the unnormalised p rounded
+    to v's dtype; the partials of the chunks that start below the length
+    merge in chunk order: M = max m_c, L = sum l_c e^(m_c - M), o = sum
+    acc_c e^(m_c - M) / L (no live chunk: zeros).  A twin for tests and
+    on-card checks; the main path never calls it."""
+    b, h, d = q.shape
+    t = k.shape[2]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    lengths = norm_lengths(lengths, b, q.device)
+    n = -(-t // chunk)
+    pad = n * chunk - t
+    s = torch.einsum("bhd,bhtd->bht", q.float(), k.float()) * sm_scale
+    mask = torch.arange(t, device=q.device)[None, None, :] \
+        < lengths[:, None, None]
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    s = F.pad(s, (0, pad), value=NEG_INF).reshape(b, h, n, chunk)
+    mask = F.pad(mask, (0, pad), value=False).reshape(b, 1, n, chunk)
+    vc = F.pad(v, (0, 0, 0, pad)).reshape(b, h, n, chunk, d).float()
+    m = s.amax(dim=-1)
+    p = torch.where(mask, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhnc,bhncd->bhnd", p.to(v.dtype).float(), vc)
+    live = (torch.arange(n, device=q.device) * chunk)[None, None, :] \
+        < lengths[:, None, None]
+    big = torch.where(live, m, torch.full_like(m, NEG_INF)).amax(dim=-1)
+    den = torch.zeros_like(big)
+    num = torch.zeros_like(acc[:, :, 0])
+    for c in range(n):
+        w = torch.where(live[..., c], torch.exp(m[..., c] - big),
+                        torch.zeros_like(big))
+        den = den + l[..., c] * w
+        num = num + acc[:, :, c] * w[..., None]
+    den = torch.where(den == 0.0, torch.ones_like(den), den)
+    return (num / den[..., None]).to(q.dtype)
 
 
 def check_operands(kernel, q, caches):
@@ -97,13 +190,18 @@ def flash_decode(q, k, v, lengths, sm_scale=None):
                                               tuple(k.shape), tuple(v.shape)))
     q = q.contiguous()
     code = check_operands(KERNEL, q, (("k", k), ("v", v)))
-    lens = norm_lengths(lengths, b, q.device).repeat_interleave(h)
-    lens = lens.contiguous()
+    lens, stride = kernel_lengths(lengths, b, q.device)
+    t = k.shape[2]
     o = torch.empty_like(q)
+    chunk = kernel_chunk(d)
+    ws = torch.empty((b * h, -(-t // chunk), d + 4), dtype=torch.float32,
+                     device=q.device)
+    stream = _lib.stream_handle(q.device)
     err = _lib.lib().pt_flash_decode_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-        o.data_ptr(), b * h, k.shape[2], d, float(sm_scale), code,
-        _lib.stream_handle(q.device))
+        o.data_ptr(), ws.data_ptr(),
+        row_counters(q.device, stream, b * h).data_ptr(), b * h, h, t, d,
+        stride, chunk, float(sm_scale), code, stream)
     _lib.check(err, KERNEL)
     _lib.count_launch(KERNEL)
     return o

@@ -17,7 +17,10 @@ the length.
 :func:`paged_flash_decode` launches the kernel for CUDA tensors (or
 raises) and runs :func:`paged_flash_decode_plain`, the mirror of
 ``paged_decode_reference`` (:90-101: gather the table's blocks into the
-ring layout, then the ring oracle), for CPU and ``meta`` tensors.
+ring layout, then the ring oracle), for CPU and ``meta`` tensors.  The
+kernel shares the ring kernel's chunking, merge, workspace and counters
+(``flash_decode``); :func:`paged_flash_decode_chunked_plain` is the plain
+twin of its arithmetic, for tests and on-card checks only.
 """
 
 import math
@@ -25,10 +28,11 @@ import math
 import torch
 
 from . import _lib
-from .flash_decode import check_operands, flash_decode_plain, norm_lengths
+from .flash_decode import (check_operands,
+                           flash_decode_chunked_plain, flash_decode_plain,
+                           kernel_chunk, kernel_lengths, row_counters)
 
 DEFAULT_BLOCK_LEN = 16   # the reference's hand-set default (:51)
-MAX_TABLE_BLOCKS = 4096  # the kernel stages a table row in shared memory
 KERNEL = "paged_flash_decode_fwd"
 
 
@@ -59,6 +63,18 @@ def paged_flash_decode_plain(q, k_cache, v_cache, lengths, table,
                               sm_scale)
 
 
+def paged_flash_decode_chunked_plain(q, k_cache, v_cache, lengths, table,
+                                     chunk, sm_scale=None):
+    """The kernel's arithmetic in plain PyTorch: gather, then
+    ``flash_decode_chunked_plain`` (chunks of ``chunk`` keys merged in
+    chunk order).  For tests and on-card checks; the main path never
+    calls it."""
+    table = _norm_table(table, q.shape[0])
+    return flash_decode_chunked_plain(
+        q, gather_paged_cache(k_cache, table),
+        gather_paged_cache(v_cache, table), lengths, chunk, sm_scale)
+
+
 def paged_flash_decode(q, k_cache, v_cache, lengths, table, sm_scale=None):
     """Single-step decode attention through a block table (the
     reference's ``paged_flash_decode``): q [S, H, D], pools [N, H, BL,
@@ -78,19 +94,22 @@ def paged_flash_decode(q, k_cache, v_cache, lengths, table, sm_scale=None):
         raise ValueError("%s: q %s does not fit pools %s / %s"
                          % (KERNEL, tuple(q.shape), tuple(k_cache.shape),
                             tuple(v_cache.shape)))
-    if not 1 <= mb <= MAX_TABLE_BLOCKS:
-        raise ValueError("%s: the table has %d blocks per row; the kernel "
-                         "takes 1 to %d" % (KERNEL, mb, MAX_TABLE_BLOCKS))
+    if mb < 1:
+        raise ValueError("%s: the table has no block per row" % KERNEL)
     q = q.contiguous()
     code = check_operands(KERNEL, q, (("k_cache", k_cache),
                                       ("v_cache", v_cache)))
-    lens = norm_lengths(lengths, s, q.device).repeat_interleave(h)
-    lens = lens.contiguous()
+    lens, stride = kernel_lengths(lengths, s, q.device)
     o = torch.empty_like(q)
+    chunk = kernel_chunk(d)
+    ws = torch.empty((s * h, -(-(mb * bl) // chunk), d + 4),
+                     dtype=torch.float32, device=q.device)
+    stream = _lib.stream_handle(q.device)
     err = _lib.lib().pt_paged_flash_decode_fwd(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lens.data_ptr(), table.data_ptr(), o.data_ptr(), s * h, h, n, bl,
-        mb, d, float(sm_scale), code, _lib.stream_handle(q.device))
+        lens.data_ptr(), table.data_ptr(), o.data_ptr(), ws.data_ptr(),
+        row_counters(q.device, stream, s * h).data_ptr(), s * h, h, n, bl,
+        mb, d, stride, chunk, float(sm_scale), code, stream)
     _lib.check(err, KERNEL)
     _lib.count_launch(KERNEL)
     return o

@@ -129,6 +129,92 @@ def test_paged_flash_decode_plain_matches_reference_kernel(interpret,
 
 
 # ---------------------------------------------------------------------------
+# the kernels' chunked arithmetic (split over the cache, fixed-order merge)
+# ---------------------------------------------------------------------------
+
+BF16_UNIT = 2.0 ** -7  # chip_smoke.py's bf16 tolerance: 2 units at max |ref|
+
+
+def _edge_lengths(chunk, tmax):
+    """Lengths at the chunk edges beside an empty row: 0, C-1, C, C+1,
+    Tmax."""
+    return (0, chunk - 1, chunk, chunk + 1, tmax)
+
+
+def _chunked(paged, lengths, chunk, rng, dtype=torch.float32, tmax=64,
+             mb=4, d=16):
+    """The chunked twin and the plain version on the same seeded inputs:
+    a ring cache of depth ``tmax``, or a pool of blocks of 16 through
+    shuffled tables ``mb`` deep."""
+    to = lambda x: torch.from_numpy(x).to(dtype)  # noqa: E731
+    lens = np.asarray(lengths, "int32")
+    if paged:
+        q, kp, vp, table = _paged_inputs(rng, lengths, s=len(lengths), d=d,
+                                         mb=mb, pool=4 * mb * len(lengths))
+        args = (to(q), to(kp), to(vp), torch.from_numpy(lens),
+                torch.from_numpy(table))
+        return (t_pfd.paged_flash_decode_chunked_plain(*args, chunk),
+                t_pfd.paged_flash_decode_plain(*args),
+                (q, kp, vp, lens, table))
+    q, k, v = _ring_inputs(rng, b=len(lengths), t=tmax, d=d)
+    args = (to(q), to(k), to(v), torch.from_numpy(lens))
+    return (t_fd.flash_decode_chunked_plain(*args, chunk),
+            t_fd.flash_decode_plain(*args), (q, k, v, lens))
+
+
+@pytest.mark.parametrize("chunk", [16, 32])
+@pytest.mark.parametrize("paged", [False, True], ids=["ring", "paged"])
+def test_chunked_plain_matches_reference_kernel(interpret, paged, chunk):
+    """The kernels' per-chunk partials and fixed-order merge against the
+    reference's Pallas kernels (interpret mode), at lengths on the chunk
+    edges and an empty row."""
+    lengths = _edge_lengths(chunk, MAX_LEN)
+    got, _plain, inputs = _chunked(paged, lengths, chunk,
+                                   np.random.RandomState(chunk + paged))
+    fn = j_pfd.paged_flash_decode if paged else j_fd.flash_decode
+    ref = np.asarray(fn(*(jnp.asarray(x) for x in inputs)))
+    _close(got.numpy(), ref)
+    assert not got[0].any()
+
+
+@pytest.mark.parametrize("chunk", [16, 32])
+@pytest.mark.parametrize("paged", [False, True], ids=["ring", "paged"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunked_plain_matches_plain(paged, chunk, dtype):
+    """The twin against the plain version, with cache depths that are not
+    a multiple of the chunk (ring 72; paged 5 blocks of 16 against chunks
+    of 32), lengths on the chunk edges and at twice the chunk: float32 at
+    1e-5, bfloat16 within 2 units at the largest |ref| (p is rounded
+    before the PV product, unnormalised in chunks against normalised in
+    the plain version)."""
+    dt = getattr(torch, dtype)
+    lengths = _edge_lengths(chunk, 80 if paged else 72) + (2 * chunk,)
+    got, plain, _ = _chunked(paged, lengths, chunk,
+                             np.random.RandomState(chunk), dt, tmax=72,
+                             mb=5)
+    assert got.dtype == dt and got.shape == plain.shape
+    big = float(plain.float().abs().max())
+    err = float((got.float() - plain.float()).abs().max())
+    tol = TOL * max(1.0, big) if dt == torch.float32 else 2 * BF16_UNIT * big
+    assert err <= tol, (err, tol)
+    assert not got[0].any()
+
+
+@pytest.mark.parametrize("lengths, stride", [
+    (7, 0), (np.asarray([7], "int32"), 0), (torch.tensor([3, 0, 9]), 1)],
+    ids=["scalar", "one", "per-sequence"])
+def test_kernel_lengths_are_per_sequence_or_shared(lengths, stride):
+    """The kernels read sequence s's length at ``lengths[s * stride]``: no
+    per-row copy, a shared length through a stride of 0."""
+    lens, got = t_fd.kernel_lengths(lengths, 3, "cpu")
+    assert got == stride and lens.dtype == torch.int32
+    assert lens.is_contiguous() and lens.numel() == (1 if stride == 0
+                                                     else 3)
+    with pytest.raises(ValueError, match="2 counts for 3 sequences"):
+        t_fd.kernel_lengths([1, 2], 3, "cpu")
+
+
+# ---------------------------------------------------------------------------
 # the decode ops, caches included
 # ---------------------------------------------------------------------------
 

@@ -109,7 +109,32 @@ and the CUDA toolkit.  Phases, each printing one JSON line:
    error is at most 3x the model, and a dropout-0 2-rank step matches
    one process on the 8 rows.
 
-The kernels phase also checks K4 forward and backward (float32 and
+14. graph: each main path eagerly (``use_program_cache=False``) against
+   the executor's captured CUDA graph in the same run: serving bucket 8
+   on the main path's predictor (after every bucket is called three
+   times and must end replaying), BERT-base training, GPT-2-small decode
+   ring and paged (both prefill buckets and the greedy step must end
+   replaying) and ResNet-50 training, each side from the same start and
+   feeds.  Results must be bit for bit (outputs; tokens and logits;
+   losses and a digest of every persistable); the training paths
+   compare their steps under PyTorch's deterministic algorithms, since
+   the embedding gradient's ``index_add_`` and cuDNN's convolution
+   backward add with atomics and an eager step does not repeat itself,
+   and take their numbers from fresh sides with the default algorithms.
+   The graph side must replay, and each side's launches a call must
+   match the expected counts by counter and by the kernel names
+   ``torch.profiler`` sees; each side's enqueue ms, step ms, idle share,
+   peak allocated and reserved memory, graph count and run mode are
+   printed.  The serving comparison runs after the profile phase,
+   the others after ResNet parity.
+
+The main paths run through the executor's program cache, so their
+timed steps replay CUDA graphs; the training and ResNet phases fail if
+their timed steps did not.  The kernels phase also captures each
+dropping kernel (K1 forward, dK/dV, dQ; K2 forward and backward) in a
+CUDA graph with its seed read from a device step tensor and replays it
+at two steps: each replay must match the plain twin at its step and
+the two must differ.  It also checks K4 forward and backward (float32 and
 bfloat16, identity and relu) at the ResNet-50 sites' shapes and a
 ragged one, and times them at every site shape of batch 64; and K7
 quantize and dequantize (to float32 and bfloat16), bit for bit, at the
@@ -124,6 +149,7 @@ phase exits non-zero before that line.  Without a CUDA device, or without
 the repository beside it, the script exits 2 and prints no result.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -146,7 +172,11 @@ BUCKETS = (1, 2, 4, 8)
 SERVE_ATOL = 1e-4     # served rows vs a direct run of the same rows (f32)
 CPU_ATOL = 2e-3       # GPU kernels vs CPU plain versions, 12 layers (f32)
 DROPOUT = 0.1         # BERT's hidden and attention dropout
-DROP_SEED = 1234      # the kernels' dropout seed in the kernel checks
+# the kernel checks' dropout seed, as the main path passes it: a step in a
+# 1-element int64 tensor on the card, read by the kernels through a
+# pointer, and a salt (drop_seed)
+DROP_STEP = 1234
+DROP_SALT = 0x5EED
 TRAIN_BATCH = 8
 TRAIN_WARMUP = 2
 TRAIN_STEPS = 5
@@ -155,6 +185,9 @@ TRAIN_LR = 1e-4
 # off: sums in another order through 2 layers, the vocab head and the
 # atomics of the embedding scatter-add
 PARITY_LOSS_RTOL = 1e-4
+# a parity step is the last of this many calls from one start: the card's
+# third call replays the graph its second captured
+PARITY_CALLS = 3
 PARITY_GRAD_RTOL = 1e-3   # max |GPU - CPU| over max |CPU| per gradient
 DECODE_TMAX = 1024        # GPT-2 small's n_ctx: the decode caches' depth
 # one K5/K6 launch's lengths at the main shapes (8 sequences): empty,
@@ -233,6 +266,18 @@ DP_STEPS = 3
 DP_TIMEOUT = 600            # seconds for both ranks
 DP_LOSS_GATE = 1e-3         # the reference's gate (bench.py:1950-1954)
 DP_ERR_MODEL_GATE = 3.0     # measured over modelled RMS (chaos.py:1007)
+# eager against the captured CUDA graph: compared calls a side (warm-up,
+# capture, two replays), then profiled calls a side
+GRAPH_STEPS = 4
+GRAPH_PROFILE_RUNS = 3
+PROFILE_MARGIN_S = 0.05
+# a profiled window of the graph phase opens and closes with marker
+# kernels, so a profile that lost records at its edges is known; one that
+# lost a marker is taken again, at most PROFILE_TRIES times in all
+PROFILE_MARKERS = 2
+PROFILE_TRIES = 3
+MARKER_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel
+MARKER_CYCLES = 1000
 
 
 def emit(obj):
@@ -464,6 +509,17 @@ def _gen(torch):
     return gen
 
 
+def drop_seed():
+    """The kernel checks' dropout seed (``DROP_STEP`` on the card, and
+    ``DROP_SALT``)."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda.dropout import StepSeed
+
+    return StepSeed(torch.full((1,), DROP_STEP, dtype=torch.int64,
+                               device="cuda"), DROP_SALT)
+
+
 def _flash_inputs(torch, b, h, t, dh, dtype, gen, masked_tail=True):
     dev = "cuda"
     q, k, v = (torch.randn((b * h, t, dh), generator=gen, device=dev)
@@ -512,7 +568,7 @@ def kernel_flash(checks, torch, gen):
         name = _dname(dtype)
         q, k, v, bias = _flash_inputs(torch, b, h, t, dh, dtype, gen)
         for rate in (0.0, DROPOUT):
-            seed = DROP_SEED if rate else None
+            seed = drop_seed() if rate else None
             o, m, l = fa.flash_attention_fwd(q, k, v, bias, dropout_rate=rate,
                                              dropout_seed=seed)
             po, pm, pl = fa.flash_attention_fwd_plain(
@@ -544,7 +600,7 @@ def kernel_flash(checks, torch, gen):
     q = q.repeat(1, 4, 1).contiguous()  # 512 query rows against 128 keys
     eye = torch.eye(128, device="cuda").expand(b * h, 128, 128).contiguous()
     o, _, _ = fa.flash_attention_fwd(q, k, eye, None, dropout_rate=DROPOUT,
-                                     dropout_seed=DROP_SEED)
+                                     dropout_seed=drop_seed())
     torch.cuda.synchronize()
     _keep_fraction_check(checks, "flash_attention_fwd", o != 0, DROPOUT)
     # edge cases: ragged T, causal, fully masked rows, ragged and 128 Dh
@@ -555,10 +611,10 @@ def kernel_flash(checks, torch, gen):
         bias[1, :] = float("-inf")   # batch 1: every row fully masked
         o, m, l = fa.flash_attention_fwd(q, k, v, bias, causal=True,
                                          dropout_rate=DROPOUT,
-                                         dropout_seed=DROP_SEED)
+                                         dropout_seed=drop_seed())
         po, pm, pl = fa.flash_attention_fwd_plain(q, k, v, bias, True,
                                                   64 ** -0.5, DROPOUT,
-                                                  DROP_SEED)
+                                                  drop_seed())
         torch.cuda.synchronize()
         checks.check("flash_attention_fwd",
                      "B2 H3 T200 causal, fully masked rows, rate %g %s"
@@ -584,7 +640,7 @@ def _fwd_case(checks, torch, fa, case, q, k, v, bias, causal, rate,
     m within 1e-3, l within 1e-4 relative (kernel_flash's tolerances).
     ``shift``: the kernel reads q, k and v from copies 4 bytes off a
     16-byte boundary."""
-    seed = DROP_SEED if rate else None
+    seed = drop_seed() if rate else None
     dh = q.shape[2]
     kq, kk, kv = ((_shifted(torch, x) for x in (q, k, v)) if shift
                   else (q, k, v))
@@ -618,7 +674,7 @@ def kernel_flash_fwd_edges(checks, torch, fa, gen):
         name = _dname(dtype)
         q, k, v, bias = _flash_inputs(torch, 8, 12, SEQ, 64, dtype, gen)
         runs = [fa.flash_attention_fwd(q, k, v, bias, dropout_rate=DROPOUT,
-                                       dropout_seed=DROP_SEED)
+                                       dropout_seed=drop_seed())
                 for _ in range(2)]
         torch.cuda.synchronize()
         for i, what in enumerate(("o", "m", "l")):
@@ -666,7 +722,7 @@ def _flash_bwd_case(checks, torch, fa, case, q, k, v, bias, causal, rate,
     kernel's largest error and the gradients.  ``shift``: the kernels
     read q, k, v and dO from copies 4 bytes off a 16-byte boundary."""
     dh = q.shape[2]
-    seed = DROP_SEED if rate else None
+    seed = drop_seed() if rate else None
     o, m, l = fa.flash_attention_fwd(q, k, v, bias, causal,
                                      dropout_rate=rate, dropout_seed=seed)
     do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
@@ -700,10 +756,10 @@ def _flash_bwd_determinism(checks, torch, fa, name, q, k, v, bias, gen):
     """Each backward kernel run twice on the same inputs (dropout 0.1)
     gives the same bits: a fixed loop order and no atomics."""
     o, m, l = fa.flash_attention_fwd(q, k, v, bias, dropout_rate=DROPOUT,
-                                     dropout_seed=DROP_SEED)
+                                     dropout_seed=drop_seed())
     do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
     delta = (do.float() * o.float()).sum(dim=-1)
-    args = (False, None, DROPOUT, DROP_SEED)
+    args = (False, None, DROPOUT, drop_seed())
     runs = [fa.flash_attention_bwd_dkv(q, k, v, bias, do, m, l, delta, *args)
             + (fa.flash_attention_bwd_dq(q, k, v, bias, do, m, l, delta,
                                          *args),) for _ in range(2)]
@@ -772,7 +828,7 @@ def kernel_ln(checks, torch, gen):
             g = torch.randn((d,), generator=gen, device="cuda")
             bt = torch.randn((d,), generator=gen, device="cuda")
             for rate in (0.0, DROPOUT):
-                seed = DROP_SEED if rate else None
+                seed = drop_seed() if rate else None
                 case = "N%d D%d rate %g %s" % (n, d, rate, name)
                 got = fl.fused_dropout_add_ln_fwd(x, res, g, bt, 1e-5, rate,
                                                   seed, save_stats=True)
@@ -829,7 +885,7 @@ def kernel_ln_bwd_edges(checks, torch, fl, gen):
                             for _ in range(3))
             g = torch.randn((d,), generator=gen, device="cuda")
             bt = torch.randn((d,), generator=gen, device="cuda")
-            drop = (DROPOUT, DROP_SEED)
+            drop = (DROPOUT, drop_seed())
             _, y, mean, rstd = fl.fused_dropout_add_ln_fwd(
                 x, res, g, bt, 1e-5, *drop, save_stats=True)
             kd, ky = ((_shifted(torch, dout), _shifted(torch, y)) if shift
@@ -1199,9 +1255,9 @@ def time_flash_bwd(torch, gen, errs, dtype):
     f32 = dtype == torch.float32
     q, k, v, bias = _flash_inputs(torch, b, h, t, dh, dtype, gen)
     sc = dh ** -0.5
-    drop = (DROPOUT, DROP_SEED)
+    drop = (DROPOUT, drop_seed())
     o, m, l = fa.flash_attention_fwd(q, k, v, bias, dropout_rate=DROPOUT,
-                                     dropout_seed=DROP_SEED)
+                                     dropout_seed=drop_seed())
     do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
     delta = (do.float() * o.float()).sum(dim=-1)
     plain = time_ms(lambda: fa.flash_attention_bwd_plain(
@@ -1258,7 +1314,7 @@ def time_flash_fwd(torch, gen, errs):
         q, k, v, bias = _flash_inputs(torch, b, h, t, dh, dtype, gen)
         q4, k4, v4 = (x.view(b, h, t, dh) for x in (q, k, v))
         mask4 = bias.view(b, 1, 1, t).to(dtype)
-        seed = DROP_SEED if rate else None
+        seed = drop_seed() if rate else None
         ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, bias,
                                                     dropout_rate=rate,
                                                     dropout_seed=seed))
@@ -1293,7 +1349,7 @@ def time_ln_bwd(torch, gen, errs):
 
     rows = []
     n, d = 4096, 768
-    drop = (DROPOUT, DROP_SEED)
+    drop = (DROPOUT, drop_seed())
     g = torch.randn((d,), generator=gen, device="cuda")
     bt = torch.randn((d,), generator=gen, device="cuda")
     for dtype in (torch.float32, torch.bfloat16):
@@ -1337,7 +1393,7 @@ def time_kernels(torch, gen, errs):
     ln_src, ln_ref = ("paddle_tpu_torch/csrc/fused_ln.cu",
                       "paddle_tpu/ops/pallas/fused_ln.py:")
     rows, extra = [], []
-    drop = (DROPOUT, DROP_SEED)
+    drop = (DROPOUT, drop_seed())
     fwd = time_flash_fwd(torch, gen, errs)
     rows.append(fwd[0])
     extra.extend(fwd[1:])
@@ -1416,7 +1472,7 @@ def profile_ln_bwd(torch, gen, calls=20):
                     for _ in range(3))
     g = torch.randn((d,), generator=gen, device="cuda")
     bt = torch.randn((d,), generator=gen, device="cuda")
-    drop = (DROPOUT, DROP_SEED)
+    drop = (DROPOUT, drop_seed())
     _, y, mean, rstd = fl.fused_dropout_add_ln_fwd(x, res, g, bt, 1e-5,
                                                    *drop, save_stats=True)
 
@@ -1705,6 +1761,88 @@ def time_quant(torch, gen, errs):
     return rows, extra
 
 
+def kernel_graph_masks(checks, torch, gen):
+    """The dropping kernels (K1 forward, dK/dV and dQ; K2 forward and
+    backward) captured once in a CUDA graph, their seed read from a step
+    tensor on the card, and the graph replayed at two steps: at each
+    step every output matches its plain twin drawn at that step, and the
+    outputs of the two steps differ (each mask moved)."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import fused_ln as fl
+    from paddle_tpu_torch.ops.cuda.dropout import StepSeed
+
+    step = torch.zeros((1,), dtype=torch.int64, device="cuda")
+    seed = StepSeed(step, DROP_SALT)
+    dh = 64
+    q, k, v, bias = _flash_inputs(torch, 2, 12, SEQ, dh, torch.float32, gen)
+    do = torch.randn(q.shape, generator=gen, device="cuda")
+    x, res, dout = (torch.randn((4096, 768), generator=gen, device="cuda")
+                    for _ in range(3))
+    g = torch.randn((768,), generator=gen, device="cuda")
+    bt = torch.randn((768,), generator=gen, device="cuda")
+
+    def launches():
+        o, m, l = fa.flash_attention_fwd(q, k, v, bias, dropout_rate=DROPOUT,
+                                         dropout_seed=seed)
+        delta = (do * o).sum(dim=-1)
+        args = (False, None, DROPOUT, seed)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, bias, do, m, l, delta,
+                                            *args)
+        dq = fa.flash_attention_bwd_dq(q, k, v, bias, do, m, l, delta, *args)
+        out, y, mean, rstd = fl.fused_dropout_add_ln_fwd(
+            x, res, g, bt, 1e-5, DROPOUT, seed, save_stats=True)
+        dx = fl.fused_dropout_add_ln_bwd(dout, y, g, mean, rstd, DROPOUT,
+                                         seed)[0]
+        return o, m, l, dk, dv, dq, out, y, mean, rstd, dx
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        launches()  # first use: the library, outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = launches()
+    got = {}
+    for s_ in (DROP_STEP, DROP_STEP + 1):
+        step.fill_(s_)
+        graph.replay()
+        torch.cuda.synchronize()
+        o, m, l, dk, dv, dq, out, y, mean, rstd, dx = \
+            [t.clone() for t in outs]
+        got[s_] = {"flash_attention_fwd": o, "flash_attention_bwd_dkv": dv,
+                   "flash_attention_bwd_dq": dq,
+                   "fused_dropout_add_ln_fwd": out,
+                   "fused_dropout_add_ln_bwd": dx}
+        po = fa.flash_attention_fwd_plain(q, k, v, bias, False, dh ** -0.5,
+                                          DROPOUT, seed)[0]
+        pq, pk, pv = fa.flash_attention_bwd_plain(
+            q, k, v, bias, o, m, l, do, False, dh ** -0.5, DROPOUT, seed)
+        pout = fl.fused_dropout_add_ln_fwd_plain(x, res, g, bt, 1e-5,
+                                                 DROPOUT, seed)[0]
+        pdx = fl.fused_dropout_add_ln_bwd_plain(dout, y, g, mean, rstd,
+                                                DROPOUT, seed)[0]
+        torch.cuda.synchronize()
+        for kernel, what, a, ref in (
+                ("flash_attention_fwd", "o", o, po),
+                ("flash_attention_bwd_dkv", "dk", dk, pk),
+                ("flash_attention_bwd_dkv", "dv", dv, pv),
+                ("flash_attention_bwd_dq", "dq", dq, pq),
+                ("fused_dropout_add_ln_fwd", "out", out, pout),
+                ("fused_dropout_add_ln_bwd", "dx", dx, pdx)):
+            checks.check(kernel, "%s, one launch in a CUDA graph replayed "
+                         "at step %d, vs the plain twin at that step"
+                         % (what, s_), max_err(a, ref), _tol(ref))
+    a, b = got[DROP_STEP], got[DROP_STEP + 1]
+    for kernel in a:
+        moved = not torch.equal(a[kernel], b[kernel])
+        checks.check(kernel, "replays at steps %d and %d differ (the mask "
+                     "moved with the device step)"
+                     % (DROP_STEP, DROP_STEP + 1), 0.0 if moved else 1.0,
+                     0.0)
+    del graph, outs, got
+
+
 def phase_kernels():
     import torch
 
@@ -1720,6 +1858,7 @@ def phase_kernels():
     errs.update(kernel_decode(checks, torch, gen))
     errs.update(kernel_bn_act(checks, torch, gen))
     errs.update(kernel_quant(checks, torch, gen))
+    kernel_graph_masks(checks, torch, gen)
     if checks.failed:
         raise AssertionError("kernel checks failed: %s"
                              % "; ".join(checks.failed))
@@ -1771,6 +1910,14 @@ def _bert_request(rng, rows, cfg):
             "pos_ids": np.tile(np.arange(SEQ, dtype="int64"), (rows, 1))}
 
 
+def _graphs_off(exe):
+    """The captured graphs of ``exe`` whose kernel nodes (what a replay
+    runs and counts) are not the launches their capture recorded."""
+    return [{"captured": e.captured, "kernel_nodes": e.kernel_nodes}
+            for e in exe._cache.values()
+            if e.graph is not None and e.captured != e.kernel_nodes]
+
+
 def phase_main_path(env):
     import numpy as np
 
@@ -1779,6 +1926,7 @@ def phase_main_path(env):
     from paddle_tpu_torch.executor import Scope, scope_guard
     from paddle_tpu_torch.models import bert
     from paddle_tpu_torch.ops.cuda import (KERNELS, launch_counts,
+                                           launch_counts_by_source,
                                            reset_launch_counts)
 
     cfg = bert.BERT_BASE
@@ -1829,6 +1977,7 @@ def phase_main_path(env):
         results = [f.result(timeout=600) for f in futures]
         wall_s = time.time() - t_start
         counts = launch_counts()
+        by_source = launch_counts_by_source()
     finally:
         server.close()
     batches = len(server.dispatch_log)
@@ -1836,12 +1985,16 @@ def phase_main_path(env):
     want.update({"flash_attention_fwd": 12 * batches,
                  "fused_dropout_add_ln_fwd": 25 * batches,
                  "embedding_gather_fwd": 3 * batches})
+    off = _graphs_off(pred._exe)
     emit({"phase": "main_path", "step": "serve", "batches": batches,
           "dispatch_log": server.dispatch_log, "launches": counts,
-          "expected_launches": want})
-    if counts != want:
-        raise AssertionError("launch counts %s != %s per %d batches"
-                             % (counts, want, batches))
+          "launches_by_source": by_source, "expected_launches": want,
+          "graph_count": pred._exe.graph_count,
+          "graphs_nodes_not_captured_launches": off})
+    if counts != want or off:
+        raise AssertionError("launch counts %s != %s per %d batches, or "
+                             "graphs %s" % (counts, want, batches, off))
+    serve_counts = by_source
 
     worst = 0.0
     for feed, out, rows, f in zip(requests, results, REQUEST_ROWS, futures):
@@ -1869,7 +2022,7 @@ def phase_main_path(env):
           "request_latency_ms": [f.latency_ms for f in futures],
           "tokens": tokens, "wall_s": wall_s,
           "tokens_per_s": tokens / wall_s})
-    return counts, pred, cfg
+    return serve_counts, pred, cfg
 
 
 def _median_ms(fn, reps=5, warmup=2):
@@ -1919,9 +2072,11 @@ def _device_breakdown(prof, runs, group=None):
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "self_cuda_time_total", 0)
-        # kernel rows only: a CPU op's row repeats its kernels' time
+        # kernel rows only: a CPU op's row repeats its kernels' time, and
+        # a scheduled profile's ProfilerStep rows span whole steps
         if not dev_us or not str(getattr(ev, "device_type", "")).endswith(
-                "CUDA"):
+                "CUDA") or ev.key.startswith("ProfilerStep") \
+                or MARKER_KERNEL in ev.key:
             continue
         ms = dev_us / 1e3 / runs
         g = group(ev.key)
@@ -1931,7 +2086,7 @@ def _device_breakdown(prof, runs, group=None):
     return groups, top
 
 
-def _step_profile(exe, main, batch, loss, group=None, runs=2, top_n=15):
+def _step_profile(exe, main, batch, fetch, group=None, runs=2, top_n=15):
     """The host's time to enqueue a training step (three times, nothing
     waited for), then ``runs`` steps under ``torch.profiler``: device ms
     per step by kernel group (``_device_breakdown``), the idle share of
@@ -1945,14 +2100,14 @@ def _step_profile(exe, main, batch, loss, group=None, runs=2, top_n=15):
     for _ in range(3):
         torch.cuda.synchronize()
         s0 = time.perf_counter()
-        exe.run(main, feed=batch, fetch_list=[loss], return_numpy=False)
+        exe.run(main, feed=batch, fetch_list=fetch, return_numpy=False)
         dispatch_ms.append((time.perf_counter() - s0) * 1e3)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         s0 = time.perf_counter()
         for _ in range(runs):
-            exe.run(main, feed=batch, fetch_list=[loss])
+            exe.run(main, feed=batch, fetch_list=fetch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - s0) * 1e3 / runs
     group = group or _kernel_group
@@ -2044,6 +2199,7 @@ def phase_train(env):
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models import bert
     from paddle_tpu_torch.ops.cuda import (KERNELS, launch_counts,
+                                           launch_counts_by_source,
                                            reset_launch_counts)
     from paddle_tpu_torch.static_analysis import fusion
 
@@ -2079,9 +2235,10 @@ def phase_train(env):
             losses.append(float(exe.run(main, feed=batch,
                                         fetch_list=[loss])[0][0]))
             step_ms.append((time.perf_counter() - s0) * 1e3)
-        counts = launch_counts()
+        counts = launch_counts_by_source()
         peak = torch.cuda.max_memory_allocated()
-        per_step = {k: c / TRAIN_STEPS for k, c in counts.items()}
+        mode, graphs = exe.last_run_mode, exe.graph_count
+        per_step = {k: c / TRAIN_STEPS for k, c in launch_counts().items()}
         want = dict.fromkeys(KERNELS, 0.0)
         want.update({"flash_attention_fwd": 12, "flash_attention_bwd_dkv": 12,
                      "flash_attention_bwd_dq": 12,
@@ -2089,35 +2246,59 @@ def phase_train(env):
                      "fused_dropout_add_ln_bwd": 25,
                      "embedding_gather_fwd": 3})
         med = statistics.median(step_ms)
+        off = _graphs_off(exe)
         emit({"phase": "train", "step": "steps", "card": card_label(env),
               "losses": losses, "step_ms": step_ms, "median_step_ms": med,
               "tokens_per_s": TRAIN_BATCH * SEQ / (med / 1e3),
-              "launches_per_step": per_step, "expected": want,
-              "peak_memory_bytes": peak})
-        if per_step != want:
-            raise AssertionError("launches per step %s != %s"
-                                 % (per_step, want))
+              "launches_per_step": per_step, "launches_by_source": counts,
+              "expected": want, "peak_memory_bytes": peak,
+              "last_run_mode": mode, "graph_count": graphs,
+              "graphs_nodes_not_captured_launches": off})
+        # every timed step replays: its launches are the graph's nodes
+        if per_step != want or any(counts["wrapper"].values()) or off:
+            raise AssertionError("launches per step %s != %s (by source "
+                                 "%s, graphs %s)"
+                                 % (per_step, want, counts, off))
+        if mode != "graph":
+            raise AssertionError("the timed steps ran %r, not the captured "
+                                 "graph" % mode)
         if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
             raise AssertionError("loss not finite and falling: %s" % losses)
 
         emit(dict({"phase": "train", "step": "profile",
                    "card": card_label(env)},
-                  **_step_profile(exe, main, batch, loss)))
+                  **_step_profile(exe, main, batch, [loss])))
     del scope, exe
     torch.cuda.empty_cache()
     return counts
+
+
+def _parity_calls(fluid, convert, exe, scope, main, place, start, call):
+    """PARITY_CALLS calls of ``call()``, each from the persistables
+    ``start`` loaded into ``scope`` afresh, so the last one is a single
+    step from ``start`` that the card runs from its captured graph →
+    (the last call's fetches, each call's run mode)."""
+    modes = []
+    for _ in range(PARITY_CALLS):
+        convert.load_params_into_scope(start, scope, place, program=main)
+        out = call()
+        modes.append(exe.last_run_mode)
+    return out, modes
 
 
 def phase_train_parity():
     """One dropout-0.1 step of a 2-layer BERT at BERT-base width (B=2,
     T=512) on the card and on the CPU with the plain versions: the seeded
     start is the same on both, and so is every dropout mask (the card
-    generator has a plain twin)."""
+    generator has a plain twin).  The step is the last of PARITY_CALLS
+    from the same start on each place, so the card's is a replay of its
+    captured graph."""
     import copy
 
     import numpy as np
 
     import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert
     from paddle_tpu_torch.models import bert
 
     cfg = copy.copy(bert.BERT_BASE)
@@ -2127,21 +2308,26 @@ def phase_train_parity():
     names = ["bert.word_emb", "bert.layer0.attn.q.w", "bert.layer0.ln1.scale"]
     fetch = [loss.name] + [grads[n] for n in names]
     batch = bert.make_fake_batch(2, SEQ, cfg, np.random.RandomState(SEED + 3))
-    out = {}
+    out, modes = {}, {}
     for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
         scope = fluid.Scope()
         with fluid.scope_guard(scope):
             exe = fluid.Executor(place)
             exe.run(startup)
-            out[place._kind] = exe.run(main, feed=batch, fetch_list=fetch)
+            start = convert.scope_persistables(main, scope)
+            out[place._kind], modes[place._kind] = _parity_calls(
+                fluid, convert, exe, scope, main, place, start,
+                lambda: exe.run(main, feed=batch, fetch_list=fetch))
         del scope, exe
     gpu, cpu = out["cuda"], out["cpu"]
     result = {"phase": "train_parity", "step": "GPU kernels vs CPU plain "
-              "versions, one step, dropout 0.1",
+              "versions, one step, dropout 0.1, the last of %d from one "
+              "start" % PARITY_CALLS, "modes": modes,
               "loss": [float(gpu[0][0]), float(cpu[0][0])],
               "loss_rel_err": abs(float(gpu[0][0] - cpu[0][0]))
               / abs(float(cpu[0][0])), "loss_tol": PARITY_LOSS_RTOL}
-    ok = result["loss_rel_err"] <= PARITY_LOSS_RTOL
+    ok = result["loss_rel_err"] <= PARITY_LOSS_RTOL \
+        and modes["cuda"][-1] == "graph"
     for name, g, c in zip(names, gpu[1:], cpu[1:]):
         err = float(np.abs(g - c).max()) / max(float(np.abs(c).max()), 1e-30)
         result[name + "@GRAD rel_err"] = err
@@ -2168,13 +2354,16 @@ def _logits_var(program):
                 if op.type == "top_k_sampling")
 
 
-def _decode_drive(eng, prompts, steps, forced=None):
+def _decode_drive(eng, prompts, steps, forced=None, cache=True,
+                  modes=None):
     """Run an engine's programs directly, as its scheduler does: prefill
     ``prompts`` into slots 0, 1, ... (paged: each slot owns its own
     blocks in reverse order), then ``steps`` greedy steps of every slot
     (the other slots inactive: token 0, cursor 0, table -1).  Returns the
     logits and tokens of every stage; ``forced`` (another drive's tokens)
-    feeds those tokens instead of this drive's own."""
+    feeds those tokens instead of this drive's own.  ``cache`` is the
+    runs' ``use_program_cache``; ``modes`` (a dict) collects each
+    program's run modes by its label."""
     import numpy as np
 
     mb = eng.max_blocks
@@ -2202,7 +2391,10 @@ def _decode_drive(eng, prompts, steps, forced=None):
             feed["slot"] = np.asarray([slot], "int32")
         cur[slot] = record(*eng._exe.run(
             main, feed=feed, fetch_list=[_logits_var(main), fetch],
-            scope=eng.scope))[0]
+            scope=eng.scope, use_program_cache=cache))[0]
+        if modes is not None:
+            modes.setdefault("prefill%d" % length, []).append(
+                eng._exe.last_run_mode)
         cursors[slot] = p.size
     live = len(prompts)
     for i in range(steps):
@@ -2213,7 +2405,9 @@ def _decode_drive(eng, prompts, steps, forced=None):
         nxt = record(*eng._exe.run(
             eng._step_prog, feed=feed,
             fetch_list=[_logits_var(eng._step_prog), eng._step_fetch],
-            scope=eng.scope))
+            scope=eng.scope, use_program_cache=cache))
+        if modes is not None:
+            modes.setdefault("step", []).append(eng._exe.last_run_mode)
         cur[:live] = nxt[:live]
         cursors[:live] += 1
     return stages, toks
@@ -2295,8 +2489,8 @@ def _decode_profile(env, eng, mode, rng, vocab, runs=DECODE_PROFILE_STEPS):
 def phase_decode(env):
     """GPT-2-small widths served by a PredictorServer decode tenant, ring
     then paged: 16 requests of seeded prompt lengths 32-500 on 8 slots,
-    greedy, 64 new tokens each, after one warm-up request per prompt
-    bucket.  Every request must complete with tokens in the vocabulary,
+    greedy, 64 new tokens each, after two warm-up requests per prompt
+    bucket (its prefill's eager warm-up and capture).  Every request must complete with tokens in the vocabulary,
     ring and paged must give the same tokens, and the launch counters
     must rise by the per-step and per-prefill counts.  Then per mode the
     enqueue time and device breakdown of a step, and whether the two
@@ -2309,7 +2503,9 @@ def phase_decode(env):
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import serving
     from paddle_tpu_torch.models import gpt
-    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.ops.cuda import (launch_counts,
+                                           launch_counts_by_source,
+                                           reset_launch_counts)
     from paddle_tpu_torch.static_analysis import fusion
 
     cfg = gpt.GPT2_SMALL_WIDTHS
@@ -2338,9 +2534,10 @@ def phase_decode(env):
               "kv_cache_bytes": eng.cache_bytes})
         server = serving.PredictorServer({"gpt2": eng}, verify=False)
         try:
+            # two per prompt bucket: its prefill's warm-up and capture
             warm = [server.submit("gpt2", p) for p in (
                 rng.randint(1, cfg.vocab - 1, b // 2 + 1).astype("int32")
-                for b in DECODE_BUCKETS)]
+                for b in DECODE_BUCKETS for _ in range(2))]
             for f in warm:
                 f.result(timeout=600)
             torch.cuda.synchronize()
@@ -2353,7 +2550,8 @@ def phase_decode(env):
             outs = [f.result(timeout=900) for f in futs]
             torch.cuda.synchronize()
             wall_s = time.time() - t_start
-            counts[mode] = launch_counts()
+            total = launch_counts()
+            counts[mode] = launch_counts_by_source()
             st1 = eng.stats()
         finally:
             server.close()
@@ -2381,11 +2579,15 @@ def phase_decode(env):
               "step_ms_mean": step_ms, "prefill_ms_mean": prefill_ms,
               "peak_memory_bytes": torch.cuda.max_memory_allocated(),
               "kv_cache_bytes": st1["kv_cache_bytes"],
-              "launches": counts[mode], "expected_launches": want})
-        if counts[mode] != want:
+              "graph_count": eng._exe.graph_count,
+              "launches": total, "launches_by_source": counts[mode],
+              "expected_launches": want,
+              "graphs_nodes_not_captured_launches": _graphs_off(eng._exe)})
+        if total != want or _graphs_off(eng._exe):
             raise AssertionError("%s: launches %s != %s for %d steps, %d "
-                                 "prefills" % (mode, counts[mode], want,
-                                               steps, prefills))
+                                 "prefills, or graphs %s"
+                                 % (mode, total, want, steps, prefills,
+                                    _graphs_off(eng._exe)))
         bad = [i for i, t in enumerate(tokens[mode])
                if len(t) != DECODE_NEW_TOKENS
                or not all(0 <= x < cfg.vocab for x in t)]
@@ -2527,8 +2729,9 @@ def _aten_calls_per_op(exe, program, feed, fetch):
         return out
 
     registry.call_op = counted
-    try:
-        exe.run(program, feed=feed, fetch_list=fetch)
+    try:  # eagerly: a graph replay calls no op
+        exe.run(program, feed=feed, fetch_list=fetch,
+                use_program_cache=False)
     finally:
         registry.call_op = orig
     return {t: {"ops": n, "aten_calls_per_op": a / n}
@@ -2574,6 +2777,7 @@ def phase_resnet(env):
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models import resnet
     from paddle_tpu_torch.ops.cuda import (KERNELS, launch_counts,
+                                           launch_counts_by_source,
                                            reset_launch_counts)
     from paddle_tpu_torch.static_analysis import fusion
 
@@ -2607,9 +2811,9 @@ def phase_resnet(env):
             np, np.random.RandomState(SEED), RESNET_BATCH,
             RESNET_HW).items()}
         losses = []
-        for _ in range(RESNET_WARMUP):
+        for _ in range(RESNET_WARMUP):  # the timed steps' cache key
             losses.append(float(exe.run(main, feed=batch,
-                                        fetch_list=[loss])[0][0]))
+                                        fetch_list=[loss, acc])[0][0]))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
@@ -2619,22 +2823,30 @@ def phase_resnet(env):
             out = exe.run(main, feed=batch, fetch_list=[loss, acc])
             step_ms.append((time.perf_counter() - s0) * 1e3)
             losses.append(float(out[0][0]))
-        counts = launch_counts()
+        counts = launch_counts_by_source()
         peak = torch.cuda.max_memory_allocated()
-        per_step = {k: c / RESNET_STEPS for k, c in counts.items()}
+        mode, graphs = exe.last_run_mode, exe.graph_count
+        per_step = {k: c / RESNET_STEPS for k, c in launch_counts().items()}
         want = dict.fromkeys(KERNELS, 0.0)
         want.update({"bn_act_epilogue_fwd": RESNET_SITES,
                      "bn_act_epilogue_bwd": RESNET_SITES})
         med = statistics.median(step_ms)
+        off = _graphs_off(exe)
         emit({"phase": "resnet", "step": "steps", "card": card_label(env),
               "batch": RESNET_BATCH, "image": RESNET_HW, "losses": losses,
               "step_ms": step_ms, "median_step_ms": med,
               "images_per_s": RESNET_BATCH / (med / 1e3),
-              "launches_per_step": per_step, "expected": want,
-              "peak_memory_bytes": peak})
-        if per_step != want:
-            raise AssertionError("launches per step %s != %s"
-                                 % (per_step, want))
+              "launches_per_step": per_step, "launches_by_source": counts,
+              "expected": want, "peak_memory_bytes": peak,
+              "last_run_mode": mode, "graph_count": graphs,
+              "graphs_nodes_not_captured_launches": off})
+        if per_step != want or any(counts["wrapper"].values()) or off:
+            raise AssertionError("launches per step %s != %s (by source "
+                                 "%s, graphs %s)"
+                                 % (per_step, want, counts, off))
+        if mode != "graph":
+            raise AssertionError("the timed steps ran %r, not the captured "
+                                 "graph" % mode)
         if not all(np.isfinite(losses)):
             raise AssertionError("loss not finite: %s" % losses)
 
@@ -2652,7 +2864,7 @@ def phase_resnet(env):
             raise AssertionError("eval batch: launches %s (want %s), loss "
                                  "%s" % (ev_counts, want_ev, ev_loss))
 
-        prof = _step_profile(exe, main, batch, loss, _resnet_group,
+        prof = _step_profile(exe, main, batch, [loss, acc], _resnet_group,
                              top_n=25)
         busy = prof["device_ms_per_step"]
         aten = _aten_calls_per_op(exe, main, batch, [loss])
@@ -2671,9 +2883,12 @@ def phase_resnet(env):
 
 def _resnet_parity_run(fluid, convert, main, startup, fetch, batch, place,
                        start, fuse):
-    """One training step → (fetches, persistables before it, after it);
-    ``start`` (a persistables dict) is loaded over the startup's values
-    when given.  ``fuse`` False runs it with the fusion pipeline off."""
+    """One training step → (fetches, persistables before it, after it,
+    run modes); ``start`` (a persistables dict) is loaded over the
+    startup's values when given.  The step is the last of PARITY_CALLS
+    from those values (``_parity_calls``), so the card's replays its
+    captured graph.  ``fuse`` False runs it with the fusion pipeline
+    off."""
     prev = os.environ.get("PADDLE_TPU_FUSION")
     os.environ["PADDLE_TPU_FUSION"] = "1" if fuse else "0"
     try:
@@ -2685,8 +2900,11 @@ def _resnet_parity_run(fluid, convert, main, startup, fetch, batch, place,
                 convert.load_params_into_scope(start, scope, place,
                                                program=main)
             before = convert.scope_persistables(main, scope)
-            out = exe.run(main, feed=batch, fetch_list=fetch)
-            return out, before, convert.scope_persistables(main, scope)
+            out, modes = _parity_calls(
+                fluid, convert, exe, scope, main, place, before,
+                lambda: exe.run(main, feed=batch, fetch_list=fetch))
+            return out, before, convert.scope_persistables(main, scope), \
+                modes
     finally:
         if prev is None:
             os.environ.pop("PADDLE_TPU_FUSION", None)
@@ -2741,7 +2959,9 @@ def phase_resnet_parity():
     versions.  Compared: the loss, the stem filter's, a stage-3
     batch_norm scale's and the fc weight's gradients, and the 130 moving
     statistics after the step; and one fused site alone, card against
-    CPU."""
+    CPU.  The step is the last of PARITY_CALLS from the same start on
+    each run (``_resnet_parity_run``), so the card's two runs replay
+    their captured graphs."""
     import numpy as np
 
     import paddle_tpu_torch as fluid
@@ -2770,12 +2990,13 @@ def phase_resnet_parity():
     nf = 1 + len(names)
     batch = _resnet_batch(np, np.random.RandomState(SEED + 5),
                           RESNET_PARITY_BATCH, RESNET_PARITY_HW)
-    cpu, start, cpu_after = _resnet_parity_run(
+    cpu, start, cpu_after, _ = _resnet_parity_run(
         fluid, convert, main, startup, fetch, batch, fluid.CPUPlace(), None,
         True)
     runs = {"cpu": (cpu, cpu_after)}
+    modes = {}
     for kind, fuse in (("cuda_k4", True), ("cuda_unfused", False)):
-        out, _, after = _resnet_parity_run(
+        out, _, after, modes[kind] = _resnet_parity_run(
             fluid, convert, main, startup, fetch, batch, fluid.CUDAPlace(0),
             start, fuse)
         runs[kind] = (out, after)
@@ -2841,7 +3062,8 @@ def phase_resnet_parity():
                "off (unfused ops, same cuDNN convolutions), one Momentum "
                "step, ResNet-50 NHWC %dx%d batch %d" % (
                    RESNET_PARITY_HW, RESNET_PARITY_HW, RESNET_PARITY_BATCH),
-               "tol": PARITY_RESNET_RTOL, "ok": ok}, **card))
+               "tol": PARITY_RESNET_RTOL, "modes": modes, "ok": ok},
+              **card))
     site = _fused_site_parity(fluid, convert, np)
     ok_site = all(e <= PARITY_RESNET_SITE_RTOL for e in site.values())
     emit({"phase": "resnet_parity", "step": "card vs CPU, one fused conv "
@@ -2871,8 +3093,446 @@ def phase_resnet_parity():
                "deep_grad_l2_tol": PARITY_RESNET_CPU_DEEP_RTOL,
                "flip_atol": PARITY_RESNET_FLIP_ATOL,
                "moving_stats": len(moving), "ok": ok_cpu}, **vs_cpu))
-    if not (ok and ok_site and ok_cpu):
+    replayed = all(m[-1] == "graph" for m in modes.values())
+    if not (ok and ok_site and ok_cpu and replayed):
         raise AssertionError("resnet parity failed")
+
+
+# ---------------------------------------------------------------------------
+# eager against the captured CUDA graph
+# ---------------------------------------------------------------------------
+
+def _kernels_seen(prof, runs):
+    """Each kernel's launches a call in a profile, by its device
+    function's name (``_lib.kernel_of``), and the marker kernels seen."""
+    from paddle_tpu_torch.ops.cuda import _lib
+
+    seen = dict.fromkeys(_lib.KERNELS, 0)
+    markers = 0
+    for ev in prof.key_averages():
+        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            continue
+        if MARKER_KERNEL in ev.key:
+            markers += ev.count
+        k = _lib.kernel_of(ev.key)
+        if k is not None:
+            seen[k] += ev.count
+    return {k: n / runs for k, n in seen.items()}, markers
+
+
+def _profiled_calls(call, runs):
+    """``runs`` calls under ``torch.profiler``, after one unrecorded call,
+    between PROFILE_MARKERS marker kernels (``torch.cuda._sleep``) on each
+    side: a profile that lost its first or last records (seen on the card)
+    loses markers, so it is known to be incomplete (``_kernels_seen``
+    counts them) → (profile, wall ms a call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=torch.profiler.schedule(
+                     wait=0, warmup=1, active=1, repeat=1)) as prof:
+        call()
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(PROFILE_MARGIN_S)
+        for _ in range(PROFILE_MARKERS):
+            torch.cuda._sleep(MARKER_CYCLES)
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        for _ in range(runs):
+            call()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - s0) * 1e3 / runs
+        for _ in range(PROFILE_MARKERS):
+            torch.cuda._sleep(MARKER_CYCLES)
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
+        prof.step()
+    return prof, wall
+
+
+def _graph_side(exe, call, call_async, group=None):
+    """One side of a path, after its compared calls: the host's time to
+    enqueue a call (five, each after a sync, nothing waited for), the
+    synchronised call (median of five), each kernel's launches a call by
+    source (its wrapper's launches that ran at once, the kernel nodes of
+    the replayed graphs), and over GRAPH_PROFILE_RUNS profiled calls the
+    device time by kernel group, the idle share and each kernel's
+    launches a call by the profiler's kernel names.  A profile whose
+    markers are not all seen is taken again, up to PROFILE_TRIES times
+    (``_graph_verdicts`` holds the first complete one).  Also the peak
+    memory since the side began, the memory reserved, the executor's
+    graphs and last run mode, and each graph's kernel nodes against the
+    launches its capture recorded."""
+    import statistics
+
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import (launch_counts_by_source,
+                                           reset_launch_counts)
+
+    enq = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        call_async()
+        enq.append((time.perf_counter() - s0) * 1e3)
+    torch.cuda.synchronize()
+    step = []
+    reset_launch_counts()
+    for _ in range(5):
+        s0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        step.append((time.perf_counter() - s0) * 1e3)
+    by_source = {src: {k: n / 5 for k, n in counts.items()}
+                 for src, counts in launch_counts_by_source().items()
+                 if src != "captured"}
+    runs = GRAPH_PROFILE_RUNS
+    tries = []
+    for _ in range(PROFILE_TRIES):
+        prof, wall = _profiled_calls(call, runs)
+        seen, markers = _kernels_seen(prof, runs)
+        tries.append({"markers_seen": markers,
+                      "complete": markers == 2 * PROFILE_MARKERS,
+                      "launches_by_profiler": seen})
+        if tries[-1]["complete"]:
+            break
+    groups, top = _device_breakdown(prof, runs, group)
+    busy = sum(groups.values())
+    return {"last_run_mode": exe.last_run_mode,
+            "graph_count": exe.graph_count,
+            "graphs": [{"captured": e.captured,
+                        "kernel_nodes": e.kernel_nodes}
+                       for e in exe._cache.values() if e.graph is not None],
+            "enqueue_ms": statistics.median(enq), "enqueue_ms_runs": enq,
+            "step_ms": statistics.median(step), "step_ms_runs": step,
+            "profiled_wall_ms": wall,
+            "device_ms": busy if busy else "not measured",
+            "idle_share": (1.0 - busy / wall) if busy else "not measured",
+            "device_ms_by_group": groups,
+            "top_kernels": [{"ms": t, "launches": n, "name": k}
+                            for t, n, k in top[:6]],
+            "launches_by_wrapper": by_source["wrapper"],
+            "launches_by_graph_nodes": by_source["graph_nodes"],
+            "profiles": tries,
+            "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "reserved_bytes": torch.cuda.memory_reserved()}
+
+
+def _graph_verdicts(path, eager, graph, same, want):
+    """What failed on a path: the graph side not replaying; results not
+    bit for bit; launches a call off the expected ``want`` (kernel →
+    launches a call) — the eager side's by its wrappers, the graph
+    side's by its graphs' kernel nodes, each side's by the kernel names
+    of its first complete profile; a launch counted from the other
+    source; or a graph whose kernel nodes are not the launches its
+    capture recorded."""
+    from paddle_tpu_torch.ops.cuda import KERNELS
+
+    failed = []
+    if graph["last_run_mode"] != "graph":
+        failed.append("%s: the graph side ran %r" % (path,
+                                                     graph["last_run_mode"]))
+    if not same:
+        failed.append("%s: eager and graph results differ" % path)
+    full = {k: float(want.get(k, 0)) for k in KERNELS}
+    none = dict.fromkeys(KERNELS, 0.0)
+    for label, side, counted, other in (
+            ("eager", eager, "launches_by_wrapper",
+             "launches_by_graph_nodes"),
+            ("graph", graph, "launches_by_graph_nodes",
+             "launches_by_wrapper")):
+        for how, expect in ((counted, full), (other, none)):
+            got = {k: float(side[how].get(k, 0)) for k in KERNELS}
+            if got != expect:
+                failed.append("%s %s: %s %s != %s"
+                              % (path, label, how, got, expect))
+        done = [t for t in side["profiles"] if t["complete"]]
+        if not done:
+            failed.append("%s %s: no complete profile in %d (markers seen "
+                          "%s)" % (path, label, len(side["profiles"]),
+                                   [t["markers_seen"]
+                                    for t in side["profiles"]]))
+        else:
+            got = {k: float(done[0]["launches_by_profiler"].get(k, 0))
+                   for k in KERNELS}
+            if got != full:
+                failed.append("%s %s: launches_by_profiler %s != %s"
+                              % (path, label, got, full))
+    for g in graph["graphs"]:
+        if g["captured"] != g["kernel_nodes"]:
+            failed.append("%s: a graph's kernel nodes %s != the launches "
+                          "its capture recorded %s"
+                          % (path, g["kernel_nodes"], g["captured"]))
+    return failed
+
+
+def _digest(scope, names):
+    """sha256 over the bytes of the named scope tensors, in name order."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for n in sorted(names):
+        t = scope.get(n)
+        if t is not None:
+            h.update(n.encode())
+            h.update(t.detach().cpu().contiguous().view(-1).view(
+                torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _persistable_names(program):
+    return [v.name for v in program.global_block().vars.values()
+            if v.persistable and not v.is_data]
+
+
+def phase_graph_serve(env, pred, cfg):
+    """The serving path, eager against its CUDA graphs, on the main
+    path's predictor: every bucket called three times must end
+    replaying; then one 8-row request eagerly (``use_program_cache=
+    False``) and through the bucket's graph, bit for bit, with each
+    side's numbers (``_graph_side``)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.executor import scope_guard
+
+    rng = np.random.RandomState(SEED + 6)
+    modes = {}
+    for rows in BUCKETS:
+        feed = _bert_request(rng, rows, cfg)
+        modes[rows] = []
+        for _ in range(3):
+            pred.run(feed)
+            modes[rows].append(pred._exe.last_run_mode)
+    feed = _bert_request(rng, BUCKETS[-1], cfg)
+    exe = pred._exe
+
+    def eager(return_numpy=True):
+        with scope_guard(pred._scope):
+            return exe.run(pred._program, feed=feed,
+                           fetch_list=pred._fetch_vars,
+                           return_numpy=return_numpy,
+                           use_program_cache=False)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    want_out = eager()[0]
+    e = _graph_side(exe, eager, lambda: eager(False))
+    torch.cuda.reset_peak_memory_stats()
+    got_out = pred.run(feed)[0]
+    g = _graph_side(exe, lambda: pred.run(feed),
+                    lambda: pred.run_async(feed))
+    same = bool(np.array_equal(want_out, got_out))
+    entries = [{"feeds": {n: [list(shape), dtype] for n, shape, dtype
+                          in key[3]}, "calls": entry.calls,
+                "graph": entry.graph is not None}
+               for key, entry in exe._cache.items()]
+    emit({"phase": "graph", "path": "serve", "bucket": BUCKETS[-1],
+          "card": card_label(env), "modes_by_bucket": modes,
+          "cache_entries": entries, "bit_identical": same, "eager": e,
+          "graph": g})
+    failed = _graph_verdicts("serve", e, g, same, {
+        "flash_attention_fwd": 12, "fused_dropout_add_ln_fwd": 25,
+        "embedding_gather_fwd": 3})
+    failed += ["serve: bucket %d ran %s" % (r, m) for r, m in modes.items()
+               if m[-1] != "graph"]
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """PyTorch's deterministic algorithms for the block: the embedding
+    gradient's ``index_add_`` and cuDNN's convolution backward otherwise
+    add with atomics, in an order that changes from run to run, so an
+    eager step does not repeat itself bit for bit."""
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _train_graph_side(fluid, main, startup, loss, batch, cache, group=None,
+                      timed=True):
+    """One side of a training path from a fresh scope: GRAPH_STEPS steps;
+    returns their losses and modes, a digest of every persistable after
+    them and, when ``timed``, the side's numbers (``_graph_side``)."""
+    import numpy as np
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup)
+
+        def call(return_numpy=True):
+            return exe.run(main, feed=batch, fetch_list=[loss],
+                           return_numpy=return_numpy,
+                           use_program_cache=cache)
+
+        losses, modes = [], []
+        for _ in range(GRAPH_STEPS):
+            losses.append(np.asarray(call()[0]).copy())
+            modes.append(exe.last_run_mode)
+        side = _graph_side(exe, call, lambda: call(False), group) \
+            if timed else {}
+        side["modes"] = modes
+        digest = _digest(scope, _persistable_names(main))
+        del call
+    del scope, exe
+    torch.cuda.empty_cache()
+    return losses, digest, side
+
+
+def _train_graph_path(env, path, fluid, main, startup, loss, batch, want,
+                      group=None):
+    """A training path eager against graph, same program, same start,
+    same feeds.  Under PyTorch's deterministic algorithms
+    (``_deterministic``) the losses of GRAPH_STEPS steps and the digest
+    of every persistable after them must be bit for bit, and a second
+    eager side says whether eager repeats itself; then each side's
+    numbers from a fresh start with the default algorithms, as the main
+    path runs."""
+    import numpy as np
+
+    def same(a, b):
+        return a[1] == b[1] and all(np.array_equal(x, y)
+                                    for x, y in zip(a[0], b[0]))
+
+    with _deterministic():
+        e_det = _train_graph_side(fluid, main, startup, loss, batch, False,
+                                  timed=False)
+        g_det = _train_graph_side(fluid, main, startup, loss, batch, True,
+                                  timed=False)
+        again = _train_graph_side(fluid, main, startup, loss, batch, False,
+                                  timed=False)
+    _, _, e = _train_graph_side(fluid, main, startup, loss, batch, False,
+                                group)
+    _, _, g = _train_graph_side(fluid, main, startup, loss, batch, True,
+                                group)
+    identical = same(e_det, g_det)
+    emit({"phase": "graph", "path": path, "card": card_label(env),
+          "bit_identical": identical,
+          "eager_repeats_bit_for_bit": same(e_det, again),
+          "deterministic_algorithms": "for the compared steps",
+          "losses_eager": [float(x.reshape(-1)[0]) for x in e_det[0]],
+          "losses_graph": [float(x.reshape(-1)[0]) for x in g_det[0]],
+          "modes_graph_compared": g_det[2]["modes"], "eager": e,
+          "graph": g})
+    return _graph_verdicts(path, e, g, identical, want)
+
+
+def _decode_graph_path(env, cfg, paged, params):
+    """A decode path eager against graph: two engines from one parameter
+    dict, each driven through prefills of three prompts per bucket and
+    GRAPH_STEPS greedy steps of every slot (``_decode_drive``), eagerly
+    and through the cache: logits and tokens bit for bit, and both
+    prefill buckets and the step must end replaying; then each side's
+    numbers on one all-slots step."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as fluid
+
+    mode = "paged" if paged else "ring"
+    rng = np.random.RandomState(SEED + 8)
+    lens = [n for b in DECODE_BUCKETS for n in (b // 2, b - 9, b - 1)]
+    prompts = [rng.randint(1, cfg.vocab - 1, size=n).astype("int32")
+               for n in lens]
+    out, sides, modes = {}, {}, {}
+    for cache in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        eng = _decode_engine(cfg, paged, fluid.CUDAPlace(0), params,
+                             name="graph%d" % cache)
+        modes[cache] = {}
+        out[cache] = _decode_drive(eng, prompts, GRAPH_STEPS, cache=cache,
+                                   modes=modes[cache])
+        feed = _decode_step_feed(eng, rng, cfg.vocab)
+
+        def call(return_numpy=True, eng=eng, feed=feed, cache=cache):
+            return eng._exe.run(eng._step_prog, feed=feed,
+                                fetch_list=[eng._step_fetch],
+                                scope=eng.scope, return_numpy=return_numpy,
+                                use_program_cache=cache)
+
+        for _ in range(2):  # this fetch list's warm-up and capture
+            call()
+        sides[cache] = _graph_side(eng._exe, call, lambda c=call: c(False))
+        sides[cache]["modes"] = modes[cache]
+        del eng, call
+        torch.cuda.empty_cache()
+    (e_logits, e_toks), (g_logits, g_toks) = out[False], out[True]
+    same = all(np.array_equal(a, b) for a, b in zip(e_logits, g_logits)) \
+        and all(np.array_equal(a, b) for a, b in zip(e_toks, g_toks))
+    emit({"phase": "graph", "path": "decode_" + mode,
+          "card": card_label(env), "bit_identical": same,
+          "prompt_lens": lens, "eager": sides[False], "graph": sides[True]})
+    failed = _graph_verdicts("decode_" + mode, sides[False], sides[True],
+                             same, _decode_launches(cfg, paged, 1, 0))
+    failed += ["decode_%s: %s ran %s" % (mode, label, m)
+               for label, m in modes[True].items() if m[-1] != "graph"]
+    return failed
+
+
+def phase_graph(env):
+    """Eager against the captured CUDA graph on the training, decode and
+    ResNet paths, at the main paths' configurations: BERT-base MLM
+    pretraining (T=512, batch 8, dropout 0.1), GPT-2-small widths decoded
+    ring then paged, ResNet-50 NHWC at batch 64; every result bit for
+    bit, every graph side replaying, each side's numbers
+    (``_graph_side``)."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert, gpt, resnet
+
+    failed = []
+    cfg = bert.BERT_BASE
+    main, startup, loss = _train_program(fluid, bert, cfg, SEQ)
+    batch = bert.make_fake_batch(TRAIN_BATCH, SEQ, cfg,
+                                 np.random.RandomState(SEED))
+    failed += _train_graph_path(env, "train", fluid, main, startup, loss,
+                                batch, {"flash_attention_fwd": 12,
+                                        "flash_attention_bwd_dkv": 12,
+                                        "flash_attention_bwd_dq": 12,
+                                        "fused_dropout_add_ln_fwd": 25,
+                                        "fused_dropout_add_ln_bwd": 25,
+                                        "embedding_gather_fwd": 3})
+    del main, startup, batch
+    gcfg = gpt.GPT2_SMALL_WIDTHS
+    first = _decode_engine(gcfg, False, fluid.CUDAPlace(0))
+    params = {p.name: first.scope.get(p.name).cpu().numpy()
+              for p in first._step_prog.all_parameters()}
+    del first
+    torch.cuda.empty_cache()
+    for paged in (False, True):
+        failed += _decode_graph_path(env, gcfg, paged, params)
+    del params
+    main, startup, _feeds, loss, _acc = resnet.build(
+        dataset="imagenet", depth=50, data_format="NHWC")
+    main.random_seed = startup.random_seed = SEED
+    batch = {k: torch.from_numpy(v).cuda() for k, v in _resnet_batch(
+        np, np.random.RandomState(SEED), RESNET_BATCH, RESNET_HW).items()}
+    failed += _train_graph_path(env, "resnet", fluid, main, startup, loss,
+                                batch, {"bn_act_epilogue_fwd": RESNET_SITES,
+                                        "bn_act_epilogue_bwd": RESNET_SITES},
+                                _resnet_group)
+    del main, startup, batch
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("graph phase failed: %s" % "; ".join(failed))
 
 
 def phase_quant():
@@ -3275,6 +3935,7 @@ def main():
     rows = phase_kernels()
     serve_counts, pred, cfg = phase_main_path(env)
     phase_profile(env, pred, cfg)
+    phase_graph_serve(env, pred, cfg)
     del pred
     train_counts = phase_train(env)
     phase_train_parity()
@@ -3282,29 +3943,43 @@ def main():
     phase_decode_parity()
     resnet_counts = phase_resnet(env)
     phase_resnet_parity()
+    phase_graph(env)
     phase_quant()
     dp_counts = phase_dp(env)
+    from paddle_tpu_torch.ops.cuda import KERNELS
+
+    # each path's launches by source: the wrappers' launches that ran at
+    # once and the kernel nodes that graph replays ran (the dp ranks run
+    # eagerly: a collective is not capturable)
     paths = {"serve": serve_counts, "train": train_counts,
              "decode_ring": decode_counts["ring"],
              "decode_paged": decode_counts["paged"],
-             "resnet": resnet_counts, "dp": dp_counts}
+             "resnet": resnet_counts,
+             "dp": {"wrapper": dp_counts,
+                    "graph_nodes": dict.fromkeys(KERNELS, 0)}}
     for r in rows:
         # the decode path's launches (ring + paged runs) where it runs the
         # kernel, else the BERT training path's (the backward kernels),
         # else the ResNet training path's (K4), else the data-parallel
         # path's (K7: rank 0's quant twin)
         name = r["name"]
-        decode = paths["decode_ring"][name] + paths["decode_paged"][name]
-        r["launches"] = (decode or train_counts[name] or resnet_counts[name]
-                         or dp_counts[name])
-        r["launches_path"] = "decode" if decode else (
-            "train" if train_counts[name] else (
-                "resnet" if resnet_counts[name] else "dp"))
+        for label in ("decode", "train", "resnet", "dp"):
+            run = [paths[p] for p in (("decode_ring", "decode_paged")
+                                      if label == "decode" else (label,))]
+            wrapper = sum(c["wrapper"][name] for c in run)
+            nodes = sum(c["graph_nodes"][name] for c in run)
+            if wrapper + nodes:
+                break
+        r["launches"] = wrapper + nodes
+        r["launches_by_wrapper"] = wrapper
+        r["launches_by_graph_nodes"] = nodes
+        r["launches_path"] = label
     emit(dict({"phase": "launches"}, **paths))
     emit({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-        "launches_path") if k in r}
+        "launches_by_wrapper", "launches_by_graph_nodes", "launches_path")
+        if k in r}
         for r in rows]})
     print(env["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -190,6 +190,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  float* __restrict__ l_out, int heads, int tq, int tk,
                  int dh, float scale, int causal, pt::Dropout drop,
                  bool vec) {
+  drop.load_seed(blockIdx.x);
   using Sh = Shape<T, DMAX>;
   constexpr int S = Sh::S, BN = Sh::BN, NJ = Sh::NJ, ND = Sh::ND;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -216,7 +217,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     rows[h] = q0 + 16 * warp + g + 8 * h;
     m_run[h] = kNegInf;
     l_run[h] = 0.f;
-    rkey[h] = drop.mode == 1 ? drop.row_key(bh, rows[h]) : 0u;
+    rkey[h] = drop.mode == 1 ? drop.row_key(rows[h]) : 0u;
   }
 
   float acc[ND][4];
@@ -401,19 +402,21 @@ int dispatch(const Args& a, int dtype, void* stream) {
 
 // q, k, v [bh, t, dh] contiguous; bias [bh / heads, tk] float32 or null;
 // o like q; m, l [bh, tq] float32.  Dropout: mode 0 off, 1 card
-// generator, 2 debug hash (dropout.cuh).  Returns the launch's cudaError_t.
+// generator, 2 debug hash; the seed is step_seed(*step, salt), or the
+// salt when step is null (dropout.cuh).  Returns the launch's cudaError_t.
 extern "C" int pt_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, const void* bias,
                                       void* o, void* m, void* l, int bh,
                                       int heads, int tq, int tk, int dh,
                                       float scale, int causal, int drop_mode,
-                                      unsigned seed, unsigned threshold,
-                                      float keep_scale, int dtype,
+                                      const void* step, unsigned salt,
+                                      unsigned threshold, float keep_scale,
+                                      int dtype,
                                       void* stream) {
   Args a = {};
   a.q = q, a.k = k, a.v = v, a.bias = bias, a.o = o, a.mo = m, a.lo = l;
   a.bh = bh, a.heads = heads, a.tq = tq, a.tk = tk, a.dh = dh;
   a.scale = scale, a.causal = causal;
-  a.drop = pt::make_dropout(drop_mode, seed, threshold, keep_scale);
+  a.drop = pt::make_dropout(drop_mode, step, salt, threshold, keep_scale);
   return dispatch(a, dtype, stream);
 }

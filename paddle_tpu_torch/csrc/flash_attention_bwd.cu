@@ -95,6 +95,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, int heads, int tq, int tk, int dh,
                      float scale, int causal, pt::Dropout drop, bool vec) {
+  drop.load_seed(blockIdx.x);
   using Sh = Shape<T, DMAX>;
   constexpr int S = Sh::S, BN = Sh::BN, NJ = Sh::NJ, ND = Sh::ND;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -188,7 +189,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const float ml = sM[buf * BN + c] * kLog2e;
           const float inv_l = rcp(sL[buf * BN + c]);
           const float dr = sD[buf * BN + c];
-          const uint32_t rkey = MODE == 1 ? dd.row_key(bh, row) : 0u;
+          const uint32_t rkey = MODE == 1 ? dd.row_key(row) : 0u;
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
             const int e = 2 * half + par;
@@ -241,6 +242,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     int heads, int tq, int tk, int dh, float scale,
                     int causal, pt::Dropout drop, bool vec) {
+  drop.load_seed(blockIdx.x);
   using Sh = Shape<T, DMAX>;
   constexpr int S = Sh::S, BN = Sh::BN, NJ = Sh::NJ, ND = Sh::ND;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -272,7 +274,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     ml[h] = in ? m[r] * kLog2e : 0.f;
     inv_l[h] = in ? rcp(l[r]) : 0.f;
     dr[h] = in ? delta[r] : 0.f;
-    rkey[h] = drop.mode == 1 ? drop.row_key(bh, rows[h]) : 0u;
+    rkey[h] = drop.mode == 1 ? drop.row_key(rows[h]) : 0u;
   }
 
   float adq[ND][4];
@@ -440,14 +442,15 @@ extern "C" int pt_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* bias,
     const void* dout, const void* m, const void* l, const void* delta,
     void* dk, void* dv, int bh, int heads, int tq, int tk, int dh,
-    float scale, int causal, int drop_mode, unsigned seed,
-    unsigned threshold, float keep_scale, int dtype, void* stream) {
+    float scale, int causal, int drop_mode, const void* step,
+    unsigned salt, unsigned threshold, float keep_scale, int dtype,
+    void* stream) {
   Args a = {};
   a.q = q, a.k = k, a.v = v, a.bias = bias, a.dout = dout;
   a.m = m, a.l = l, a.delta = delta, a.dk = dk, a.dv = dv;
   a.bh = bh, a.heads = heads, a.tq = tq, a.tk = tk, a.dh = dh;
   a.scale = scale, a.causal = causal;
-  a.drop = pt::make_dropout(drop_mode, seed, threshold, keep_scale);
+  a.drop = pt::make_dropout(drop_mode, step, salt, threshold, keep_scale);
   return dispatch(true, a, dtype, stream);
 }
 
@@ -456,13 +459,13 @@ extern "C" int pt_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* bias,
     const void* dout, const void* m, const void* l, const void* delta,
     void* dq, int bh, int heads, int tq, int tk, int dh, float scale,
-    int causal, int drop_mode, unsigned seed, unsigned threshold,
-    float keep_scale, int dtype, void* stream) {
+    int causal, int drop_mode, const void* step, unsigned salt,
+    unsigned threshold, float keep_scale, int dtype, void* stream) {
   Args a = {};
   a.q = q, a.k = k, a.v = v, a.bias = bias, a.dout = dout;
   a.m = m, a.l = l, a.delta = delta, a.dq = dq;
   a.bh = bh, a.heads = heads, a.tq = tq, a.tk = tk, a.dh = dh;
   a.scale = scale, a.causal = causal;
-  a.drop = pt::make_dropout(drop_mode, seed, threshold, keep_scale);
+  a.drop = pt::make_dropout(drop_mode, step, salt, threshold, keep_scale);
   return dispatch(false, a, dtype, stream);
 }

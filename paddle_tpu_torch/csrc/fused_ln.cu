@@ -67,12 +67,13 @@ add_ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
                   T* __restrict__ y_out, float* __restrict__ mean_out,
                   float* __restrict__ rstd_out, long long n, int d,
                   float eps, pt::Dropout drop) {
+  drop.load_seed(0u);
   const int lane = threadIdx.x % 32;
   const long long row = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
   if (row >= n) return;
   const T* xr = x + row * d;
   const T* rr = res + row * d;
-  const uint32_t key = drop.mode == 1 ? drop.row_key(0u, (uint32_t)row) : 0u;
+  const uint32_t key = drop.mode == 1 ? drop.row_key((uint32_t)row) : 0u;
 
   float y[VPT];
   float sum = 0.f;
@@ -130,8 +131,11 @@ struct alignas(sizeof(T) * V) Pack {
 // time; its thread tt owns the NV accesses of V columns at (tt + 32 * WPR
 // * i) * V, i < NV, of every row (VPT = V * NV values); the next row's
 // loads are issued before the current row computes.
+// The explicit minimum of one block an SM keeps ptxas from capping the
+// narrow variants at 80 registers (three blocks) with a few bytes of
+// spills; the grid is sized from the occupancy the build gives.
 template <typename T, int V, int NV, int WPR>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kBwdThreads, 1)
 add_ln_bwd_kernel(const T* __restrict__ dout, const T* __restrict__ y,
                   const float* __restrict__ gamma,
                   const float* __restrict__ mean,
@@ -139,6 +143,7 @@ add_ln_bwd_kernel(const T* __restrict__ dout, const T* __restrict__ y,
                   T* __restrict__ dres, float* __restrict__ part_g,
                   float* __restrict__ part_b, long long n, int d,
                   pt::Dropout drop) {
+  drop.load_seed(0u);
   constexpr int TEAM = 32 * WPR;
   constexpr int TEAMS = kBwdThreads / TEAM;
   constexpr int VPT = V * NV;
@@ -219,7 +224,7 @@ add_ln_bwd_kernel(const T* __restrict__ dout, const T* __restrict__ y,
       parity ^= 1;  // the next row writes the other slot: one barrier a row
     }
     const float m1 = s1 / (float)d, m2 = s2 / (float)d;
-    const uint32_t key = drop.mode == 1 ? drop.row_key(0u, (uint32_t)row) : 0u;
+    const uint32_t key = drop.mode == 1 ? drop.row_key((uint32_t)row) : 0u;
     P* dxr = reinterpret_cast<P*>(dx + row * d);
     P* drr = reinterpret_cast<P*>(dres + row * d);
 #pragma unroll
@@ -448,15 +453,17 @@ extern "C" int pt_fused_add_ln_bwd_blocks(long long n, int d, int dtype) {
 
 // x, residual, out [n, d] contiguous, gamma/beta [d] float32, d <= 4096.
 // y (like x), mean and rstd ([n] float32) are written when y is not null.
-// Dropout: mode 0 off, 1 card generator, 2 debug hash (dropout.cuh).
+// Dropout: mode 0 off, 1 card generator, 2 debug hash; the seed is
+// step_seed(*step, salt), or the salt when step is null (dropout.cuh).
 // Returns the launch's cudaError_t.
 extern "C" int pt_fused_add_ln_fwd(const void* x, const void* res,
                                    const void* gamma, const void* beta,
                                    void* out, void* y, void* mean,
                                    void* rstd, long long n, int d, float eps,
-                                   int drop_mode, unsigned seed,
-                                   unsigned threshold, float keep_scale,
-                                   int dtype, void* stream) {
+                                   int drop_mode, const void* step,
+                                   unsigned salt, unsigned threshold,
+                                   float keep_scale, int dtype,
+                                   void* stream) {
   if (n < 1 || d < 1 || d > 4096 || (n + kWarps - 1) / kWarps > 0x7fffffffLL ||
       drop_mode < 0 || drop_mode > 2 ||
       (y != nullptr && (mean == nullptr || rstd == nullptr)))
@@ -466,8 +473,8 @@ extern "C" int pt_fused_add_ln_fwd(const void* x, const void* res,
   const float* b = (const float*)beta;
   float* mu = (float*)mean;
   float* rs = (float*)rstd;
-  const pt::Dropout drop = pt::make_dropout(drop_mode, seed, threshold,
-                                            keep_scale);
+  const pt::Dropout drop =
+      pt::make_dropout(drop_mode, step, salt, threshold, keep_scale);
 #define PT_LN_FWD(T, VPT) \
   launch_fwd<T, VPT>(x, res, g, b, out, y, mu, rs, n, d, eps, drop, s)
   if (dtype == pt::kFloat32) {
@@ -494,8 +501,9 @@ extern "C" int pt_fused_add_ln_bwd(const void* dout, const void* y,
                                    void* part_g, void* part_b, void* dgamma,
                                    void* dbeta, long long n, int d,
                                    int part_rows, int drop_mode,
-                                   unsigned seed, unsigned threshold,
-                                   float keep_scale, int dtype,
+                                   const void* step, unsigned salt,
+                                   unsigned threshold, float keep_scale,
+                                   int dtype,
                                    void* stream) {
   if (n < 1 || d < 1 || d > 4096 || part_rows < 1 || drop_mode < 0 ||
       drop_mode > 2)
@@ -506,7 +514,7 @@ extern "C" int pt_fused_add_ln_bwd(const void* dout, const void* y,
   a.dx = dx, a.dres = dres, a.part_g = (float*)part_g;
   a.part_b = (float*)part_b, a.dgamma = (float*)dgamma;
   a.dbeta = (float*)dbeta, a.n = n, a.d = d;
-  a.drop = pt::make_dropout(drop_mode, seed, threshold, keep_scale);
+  a.drop = pt::make_dropout(drop_mode, step, salt, threshold, keep_scale);
   const int err = dispatch_bwd(a, dtype, true, part_rows,
                                (cudaStream_t)stream);
   return err < 0 ? -err : err;

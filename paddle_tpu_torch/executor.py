@@ -1,34 +1,79 @@
-"""Executor: runs a Program's global block op by op on a torch device.
+"""Executor: runs a Program's global block on a torch device, as one
+captured CUDA graph per (program, feeds) from the second call on.
 
 Mirrors ``paddle_tpu/executor.py`` (``Scope``, ``scope_guard``,
-``global_scope``, ``_check_feed_shapes`` :1050, ``Executor.run`` :1093).
-The reference lowers the whole block into one jitted jax function; here
-the block is interpreted eagerly, op by op, into an environment of
-tensors on the place's device (compare the reference's
-``_run_ops_into_env`` :999).  A training program's grad ops
-differentiate the autograd graphs their forward ops recorded in the
-same run (``ops/registry.py``); the graphs are dropped when ``run``
-returns.  PyTorch launches CUDA kernels
-asynchronously, so ``run`` returns once the step is enqueued and the
-fetches decide when to wait: numpy arrays after one batched sync
-(``return_numpy=True``) or lazy :class:`FetchHandle`\\ s.
+``global_scope``, ``_check_feed_shapes`` :1050, ``_analyze_block`` :449,
+``_CompiledBlock`` :535, ``Executor.run`` :1093 with its cache key
+:1241-1285).  The reference lowers the whole block into one jitted jax
+function and caches it; here the counterpart of that function is the
+block's step captured in a CUDA graph:
+
+1. ``_analyze_block`` finds, once per cache entry, the scope vars the
+   step reads, split into the read-write persistables (``rw_names``,
+   the reference's donated params), the read-only ones (``ro_names``)
+   and the persistables it writes without reading (``fresh_persist``);
+2. the entry (:class:`_CompiledBlock`) is cached in ``Executor._cache``
+   under the reference's key: ``(id(program), program._version,
+   id(scope), feed names/shapes/dtypes, fetch names, fusion
+   signature)``;
+3. the first call for a key runs eagerly, op by op (the warm-up: the
+   kernel library is built, cuDNN and cuBLAS set up, the decode kernels'
+   row counters made), on the executor's side stream; the second call
+   captures the step in ``torch.cuda.graph`` on that stream (one memory
+   pool per executor, shared by its graphs) and replays it; later calls
+   copy the feeds into the entry's static input tensors, fill the step
+   tensor and ``replay()``;
+4. the step goes in as a device tensor (``LoweringContext.step``), as
+   the reference passes its rng key (:1292): every dropout mask is drawn
+   from it in the kernels, so a replay draws new masks.
+
+A program with an op that is not capturable (``register_op(...,
+capturable=...)``: host sampling, a tensor-bounded ``range``, the
+collectives, the host random initialisers) runs eagerly on every call,
+decided at analysis; a capture that fails raises.  ``last_run_mode``
+(``"eager"``, ``"capture"`` or ``"graph"``) and ``last_run_reason`` say
+what the last call did.  On the CPU there is no graph: from the second
+call the entry's step runs directly on its static inputs, through the
+same bookkeeping.  ``use_program_cache=False`` runs eagerly, as the
+reference's uncached path.
+
+State.  A captured step reads the scope tensors it was captured with and
+ends by copying each new read-write value into its tensor
+(``resident.copy_(new)``, the counterpart of the reference's
+``donate_argnums=(1,)``), so parameters, optimizer moments and batch-norm
+statistics keep their addresses; an op registered with
+``in_place={out_slot: in_slot}`` (the KV-cache writes of
+``ops/decode.py``) writes the resident tensor itself and needs no copy.
+Before each replay every scope value the graph reads is checked to be
+the tensor it was captured with; a value replaced since (``scope.set``,
+a load, a convert) of the same shape and dtype is copied into the
+captured tensor, which goes back into the scope, and any other change
+drops the entry, so the graph never reads a stale or freed tensor.
+Fetches and fresh persistables are cloned out of the graph's memory
+after each replay, so a lazy :class:`FetchHandle` keeps its value.  A
+replay calls no kernel wrapper: the kernel launches it runs are counted
+from the captured graph's own kernel nodes, read through libcuda once
+after the capture (``ops/cuda/_lib.py`` ``graph_kernel_nodes``).
+
+The eager path interprets the block op by op into an environment of
+tensors (the reference's ``_run_ops_into_env`` :999) and writes every
+persistable output back to the scope as a new tensor, except the
+declared in-place writes, which update the resident cache rows they
+touch; where the program sends such an op's result to a var other than
+the input's, the op gets a copy of the input.  A training program's grad
+ops differentiate the autograd graphs their forward ops recorded in the
+same step (``ops/registry.py``), in the eager run and in the captured
+one alike.  PyTorch launches CUDA work asynchronously, so ``run``
+returns once the step is enqueued and the fetches decide when to wait:
+numpy arrays after one batched sync (``return_numpy=True``) or lazy
+:class:`FetchHandle`\\ s.
 
 Data parallelism follows the reference's collective mode: one process
 per rank runs the transpiled program, and its collective ops exchange
 over the ``torch.distributed`` group that the startup program's
-``c_comm_init`` bound in the scope (``ops/collective.py``).
-
-Persistable outputs are written back to the scope; a scope value is
-never updated in place, with one declared exception: an op registered
-with ``in_place={out_slot: in_slot}`` (the four KV-cache writes of
-``ops/decode.py``) writes into its input's tensor, so a decode step
-updates the resident cache rows it touches instead of copying the cache.
-Where the program sends such an op's result to a var other than the
-input's, the op gets a copy of the input and the resident tensor stays
-as it was.  There is no jit cache, scan or sharding; a CUDA
-graph of the step comes in a later slice (ROADMAP.md).  On a CUDA place
-the executor turns TF32 off for float32 products
-(``torch.backends.cuda.matmul.allow_tf32`` and
+``c_comm_init`` bound in the scope (``ops/collective.py``); such a
+program runs eagerly.  On a CUDA place the executor turns TF32 off for
+float32 products (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``), so they run in full float32 as on
 the CPU.
 """
@@ -36,12 +81,14 @@ the CPU.
 import contextlib
 import threading
 
+import numpy as np
 import torch
 
 from . import core
 from . import pipeline as _pipeline
 from .framework import Variable, default_main_program
 from .ops import registry as op_registry
+from .ops.cuda import _lib as _kernels
 from .ops.registry import EMPTY_VAR_NAME, np_to_torch
 from .pipeline import FetchHandle
 
@@ -212,6 +259,204 @@ def _run_ops_into_env(block, env, ctx):
     return env
 
 
+# ops the reference runs host-side around its jitted step (:275)
+_HOST_SIDE_OPS = ("feed", "fetch", "save", "load", "save_combine",
+                  "load_combine")
+
+
+def _analyze_block(block, feed_names, fetch_names):
+    """SSA analysis (the reference's, :449): (external scope reads,
+    written names, written persistables)."""
+    defined = set(feed_names)
+    ext_reads = []
+    written = []
+    for op in block.ops:
+        if op.type in _HOST_SIDE_OPS:
+            continue
+        for n in op.input_arg_names:
+            if n and n != EMPTY_VAR_NAME and n not in defined:
+                if n not in ext_reads:
+                    ext_reads.append(n)
+        for n in op.output_arg_names:
+            if n and n != EMPTY_VAR_NAME:
+                defined.add(n)
+                written.append(n)
+    for n in fetch_names:
+        if n not in defined and n not in ext_reads:
+            ext_reads.append(n)
+    persist_written = []
+    for n in written:
+        v = block._find_var_recursive(n)
+        if v is not None and v.persistable and n not in persist_written:
+            persist_written.append(n)
+    return ext_reads, written, persist_written
+
+
+def _eager_reason(block):
+    """Why ``block`` cannot be captured in a CUDA graph (its first op
+    that is not capturable), or None."""
+    for op in block.ops:
+        if op.type in _HOST_SIDE_OPS:
+            continue
+        if not op_registry.get_op_def(op.type).is_capturable(op.attrs,
+                                                             op.inputs):
+            return "op %r (%s) is not capturable" % (
+                op.type, op.output_arg_names[:1] or op.input_arg_names[:1])
+    return None
+
+
+def _storage(t):
+    return (t.device, t.untyped_storage().data_ptr())
+
+
+def _host_value(value):
+    """A feed as given: a tensor, or a numpy array."""
+    if isinstance(value, FetchHandle):
+        value = value.device_value
+    if isinstance(value, (torch.Tensor, np.ndarray)):
+        return value
+    return np.asarray(value)
+
+
+class _CompiledBlock:
+    """One cache entry: the block's analysis and, from its second call,
+    the captured step (the reference's ``_CompiledBlock``).  ``reads``
+    are the scope tensors the step reads (read-write and read-only),
+    ``feeds`` its static inputs, ``step`` its step tensor; ``fetches``
+    and ``fresh`` are its outputs inside the graph's memory.
+    ``captured`` counts the kernel launches that the wrappers recorded
+    into the graph and ``kernel_nodes`` the graph's kernel nodes by
+    kernel, as libcuda lists them; a replay runs the latter."""
+
+    def __init__(self, program, feed_names, fetch_names):
+        self.program = program  # holds id(program) for the key's life
+        self.block = program.global_block()
+        self.feed_names = list(feed_names)
+        self.fetch_names = list(fetch_names)
+        ext_reads, _written, persist_written = _analyze_block(
+            self.block, feed_names, fetch_names)
+        self.rw_names = [n for n in ext_reads if n in persist_written]
+        self.ro_names = [n for n in ext_reads if n not in persist_written]
+        self.fresh_persist = [n for n in persist_written
+                              if n not in self.rw_names]
+        self.eager_reason = _eager_reason(self.block)
+        self.calls = 0
+        self.graph = None
+        self.reads = None
+        self.feeds = None
+        self.staging = {}
+        self.feed_done = None
+        self.step = None
+        self.fetches = None
+        self.fresh = None
+        self.captured = {}
+        self.kernel_nodes = {}
+
+    def bind(self, scope, feed_vals, device):
+        """Fix the step's inputs: the scope tensors it reads (a read-write
+        one that shares memory with another read is replaced by a copy,
+        so copying its new value back changes nothing else) and static
+        copies of the feeds."""
+        rw = set(self.rw_names)
+        reads, seen = {}, set()
+        for n in self.ro_names + self.rw_names:
+            val = scope.get(n) if scope.has(n) else None
+            if val is None:
+                continue
+            if not isinstance(val, torch.Tensor) or val.device != device:
+                val = np_to_torch(val, device)
+                scope.set(n, val)
+            if n in rw and _storage(val) in seen:
+                val = val.clone()
+                scope.set(n, val)
+            seen.add(_storage(val))
+            reads[n] = val
+        self.reads = reads
+        self.feeds = {n: v.clone() for n, v in feed_vals.items()}
+        if device.type == "cuda":
+            self.staging = {n: torch.empty(v.shape, dtype=v.dtype,
+                                           pin_memory=True)
+                            for n, v in self.feeds.items()}
+
+    def trace(self, ctx):
+        """The step on the bound inputs: every op, then each new
+        read-write value copied into its resident tensor.  Returns the
+        fetches and the fresh persistables."""
+        env = dict(self.reads)
+        env.update(self.feeds)
+        with torch.no_grad():
+            _run_ops_into_env(self.block, env, ctx)
+            ctx.tape.clear()
+            news = {}
+            for n in self.rw_names:
+                new, old = env.get(n), self.reads.get(n)
+                if new is None or old is None or new is old:
+                    continue  # unwritten, or written in place
+                if new.shape != old.shape or new.dtype != old.dtype:
+                    raise RuntimeError(
+                        "%r changes from %s %s to %s %s in the step; a "
+                        "captured step keeps each state var's shape and "
+                        "dtype (run with use_program_cache=False)"
+                        % (n, tuple(old.shape), old.dtype, tuple(new.shape),
+                           new.dtype))
+                news[n] = new
+            held = {_storage(t) for t in self.reads.values()}
+            for n, new in news.items():
+                # a value in another resident's memory is taken first, so
+                # the order of the copies cannot matter
+                if _storage(new) in held:
+                    news[n] = new.clone()
+            for n, new in news.items():
+                self.reads[n].copy_(new)
+        missing = [n for n in self.fetch_names if n not in env]
+        if missing:
+            raise RuntimeError("fetch target %r was not produced by the "
+                               "program and is not in the scope"
+                               % missing[0])
+        fetches = [env[n] for n in self.fetch_names]
+        fresh = {n: env[n] for n in self.fresh_persist if n in env}
+        return fetches, fresh
+
+    def rebind(self, scope):
+        """True when every scope value the step reads is its bound tensor,
+        after copying into it any value of the same shape and dtype that
+        replaced it; False when one changed otherwise."""
+        for n, t in self.reads.items():
+            cur = scope.get(n)
+            if cur is t:
+                continue
+            if cur is None:
+                return False
+            if not isinstance(cur, torch.Tensor):
+                cur = np_to_torch(cur, torch.device("cpu"))
+            if cur.shape != t.shape or cur.dtype != t.dtype:
+                return False
+            if cur.device != t.device or cur.data_ptr() != t.data_ptr() \
+                    or cur.stride() != t.stride():
+                t.copy_(cur)
+            scope.set(n, t)
+        return True
+
+    def stage(self, feed):
+        """Copy this call's feeds into the static inputs (host arrays
+        through pinned buffers, waiting only for the previous call's
+        copies out of them)."""
+        if self.feed_done is not None:
+            self.feed_done.synchronize()
+        for n, value in feed.items():
+            dst = self.feeds[n]
+            if not isinstance(value, torch.Tensor):
+                value = np_to_torch(value, torch.device("cpu"))
+                buf = self.staging.get(n)
+                if buf is not None:
+                    buf.copy_(value)
+                    value = buf
+            dst.copy_(value, non_blocking=True)
+        if self.staging:
+            self.feed_done = torch.cuda.Event()
+            self.feed_done.record()
+
+
 class Executor:
     """``Executor(place).run(program, feed, fetch_list)``.  The place
     defaults to ``CUDAPlace(0)``; pass ``CPUPlace()`` for the CPU.  A CUDA
@@ -224,9 +469,21 @@ class Executor:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self._step = 0
+        self._cache = {}
+        self._lock = threading.RLock()
+        self._stream = None
+        self._pool = None
+        self.last_run_mode = None
+        self.last_run_reason = None
 
     def close(self):
-        pass
+        with self._lock:
+            self._cache.clear()
+
+    @property
+    def graph_count(self):
+        """Captured CUDA graphs held by this executor's cache."""
+        return sum(1 for e in self._cache.values() if e.graph is not None)
 
     def run(self, program=None, feed=None, fetch_list=None,
             feed_var_name="feed", fetch_var_name="fetch", scope=None,
@@ -243,19 +500,141 @@ class Executor:
             program = default_main_program()
         if scope is None:
             scope = global_scope()
-        feed = feed or {}
         fetch_names = [v.name if isinstance(v, Variable) else str(v)
                        for v in (fetch_list or [])]
         program, _report = _fusion.resolve_fused_program(
             program, targets=fetch_names)
+        feed = {n: _host_value(v) for n, v in (feed or {}).items()}
+        _check_feed_shapes(program, feed)
+        if not use_program_cache:
+            return self._run_eager(program, scope, feed, fetch_names,
+                                   return_numpy, "use_program_cache=False")
+        key = (id(program), program._version, id(scope),
+               tuple((n, tuple(v.shape), str(v.dtype))
+                     for n, v in sorted(feed.items())),
+               tuple(fetch_names), getattr(program, "_fusion_sig", None))
+        with self._lock:
+            entry = self._cache.get(key)
+            if entry is not None and entry.reads is not None \
+                    and not entry.rebind(scope):
+                entry = None  # a scope var changed shape or dtype
+            if entry is None:
+                entry = self._cache[key] = _CompiledBlock(
+                    program, list(feed), fetch_names)
+            if entry.eager_reason is not None:
+                return self._run_eager(program, scope, feed, fetch_names,
+                                       return_numpy, entry.eager_reason)
+            entry.calls += 1
+            if entry.calls == 1:
+                return self._warm_up(program, scope, feed, fetch_names,
+                                     return_numpy)
+            step = self._next_step()
+            if entry.reads is None:
+                fetches, fresh = self._capture(entry, program, scope, feed,
+                                               step)
+            else:
+                fetches, fresh = self._replay(entry, program, scope, feed,
+                                              step)
+            fetches = [t.clone() for t in fetches]
+            for n, t in fresh.items():
+                if not entry.block.vars[n].is_data:
+                    scope.set(n, t.clone())
+        return self._finish(fetches, return_numpy)
 
-        feed_vals = {}
-        for name, value in feed.items():
-            if isinstance(value, FetchHandle):
-                value = value.device_value
-            feed_vals[name] = np_to_torch(value, self.device)
-        _check_feed_shapes(program, feed_vals)
+    def _next_step(self):
+        step = self._step
+        self._step += 1
+        return step
 
+    def _context(self, program, scope, step, step_tensor):
+        return op_registry.LoweringContext(
+            seed=(program.random_seed or 0) * 1000003 + step,
+            mode="train", device=self.device,
+            program_seed=program.random_seed or 0, rings=scope.rings,
+            step=step_tensor)
+
+    def _side_stream(self):
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        return self._stream
+
+    def _warm_up(self, program, scope, feed, fetch_names, return_numpy):
+        """The first call for a key: eager, on the side stream that the
+        capture will use, so everything made on first use is made for
+        it."""
+        reason = "warm-up: the first call for this key"
+        if self.device.type != "cuda":
+            return self._run_eager(program, scope, feed, fetch_names,
+                                   return_numpy, reason, own_state=True)
+        cur = torch.cuda.current_stream(self.device)
+        side = self._side_stream()
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            out = self._run_eager(program, scope, feed, fetch_names,
+                                  return_numpy, reason, own_state=True)
+        cur.wait_stream(side)
+        return out
+
+    def _capture(self, entry, program, scope, feed, step):
+        """The second call for a key: bind the step's inputs, capture it
+        (on the CPU: run it) and replay it."""
+        feed_vals = {n: np_to_torch(v, self.device) for n, v in feed.items()}
+        entry.bind(scope, feed_vals, self.device)
+        entry.step = torch.full((1,), step, dtype=torch.int64,
+                                device=self.device)
+        ctx = self._context(program, scope, step, entry.step)
+        if self.device.type != "cuda":
+            fetches, fresh = entry.trace(ctx)
+            self.last_run_mode = "capture"
+            self.last_run_reason = "no CUDA graph on %s: the step ran " \
+                "on its static inputs" % self.device
+        else:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            before = _kernels.launch_counts_by_source()["captured"]
+            # keep_graph: the graph's nodes stay readable after capture
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  stream=self._side_stream(),
+                                  capture_error_mode="thread_local"):
+                entry.fetches, entry.fresh = entry.trace(ctx)
+            graph.instantiate()
+            after = _kernels.launch_counts_by_source()["captured"]
+            entry.captured = {k: after[k] - before[k] for k in after
+                              if after[k] != before[k]}
+            entry.kernel_nodes = _kernels.graph_kernel_nodes(graph)
+            entry.graph = graph
+            graph.replay()
+            _kernels.count_replay(entry.kernel_nodes)
+            fetches, fresh = entry.fetches, entry.fresh
+            self.last_run_mode = "capture"
+            self.last_run_reason = "captured the step, then replayed it"
+        return fetches, fresh
+
+    def _replay(self, entry, program, scope, feed, step):
+        entry.stage(feed)
+        entry.step.fill_(step)
+        if entry.graph is None:  # the CPU: run the step itself
+            fetches, fresh = entry.trace(
+                self._context(program, scope, step, entry.step))
+            self.last_run_mode = "graph"
+            self.last_run_reason = "no CUDA graph on %s: the step ran " \
+                "on its static inputs" % self.device
+            return fetches, fresh
+        entry.graph.replay()
+        _kernels.count_replay(entry.kernel_nodes)
+        self.last_run_mode = "graph"
+        self.last_run_reason = "replayed the captured step"
+        return entry.fetches, entry.fresh
+
+    def _run_eager(self, program, scope, feed, fetch_names, return_numpy,
+                   reason, own_state=False):
+        """The block op by op, its persistable outputs written back to the
+        scope as new tensors.  ``own_state``: a fetch that is a scope
+        tensor is returned as a copy, since the captured step that follows
+        a warm-up updates the scope's tensors in place."""
+        self.last_run_mode, self.last_run_reason = "eager", reason
+        feed_vals = {n: np_to_torch(v, self.device) for n, v in feed.items()}
         block = program.global_block()
         env = {}
         for op in block.ops:
@@ -271,12 +650,9 @@ class Executor:
                     scope.set(n, val)  # keep it resident on this device
                 env[n] = val
         env.update(feed_vals)
-        ctx = op_registry.LoweringContext(
-            seed=(program.random_seed or 0) * 1000003 + self._step,
-            mode="train", device=self.device,
-            program_seed=program.random_seed or 0,
-            rings=scope.rings)
-        self._step += 1
+        step = self._next_step()
+        ctx = self._context(program, scope, step, torch.full(
+            (1,), step, dtype=torch.int64, device=self.device))
         with torch.no_grad():
             _run_ops_into_env(block, env, ctx)
         ctx.tape.clear()  # graphs of forwards whose grads were not run
@@ -289,6 +665,13 @@ class Executor:
                 raise RuntimeError("fetch target %r was not produced by the "
                                    "program and is not in the scope" % n)
             fetches.append(env[n] if n in env else scope.get(n))
+        if own_state:
+            state = {id(scope.get(n)) for n in fetch_names if scope.has(n)}
+            fetches = [t.clone() if id(t) in state else t for t in fetches]
+        return self._finish(fetches, return_numpy)
+
+    @staticmethod
+    def _finish(fetches, return_numpy):
         if return_numpy:
             return _pipeline.host_values(fetches)
         return [v if isinstance(v, FetchHandle) else FetchHandle(v)

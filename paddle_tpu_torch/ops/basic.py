@@ -6,7 +6,8 @@
 Random draws come from the per-draw ``torch.Generator`` of
 :meth:`LoweringContext.rng`, drawn on the CPU and moved to the run's
 device, so a seeded startup program initializes identical parameters on
-the CPU and on the GPU.
+the CPU and on the GPU; a host draw per run is not capturable in a CUDA
+graph, so a program that holds one runs eagerly.
 """
 
 import math
@@ -14,7 +15,7 @@ import math
 import torch
 
 from .common import resolve_dtype
-from .registry import register_op
+from .registry import EMPTY_VAR_NAME, register_op
 
 
 def _shape(attrs):
@@ -72,8 +73,9 @@ def cast(ctx, attrs, X):
 
 @register_op("increment", inputs=["X"], outputs=["Out"], no_grad=True)
 def increment(ctx, attrs, X):
-    return X + torch.tensor(attrs.get("step", 1.0), dtype=X.dtype,
-                            device=X.device)
+    # a device fill, not a host-to-device copy: capturable
+    return X + torch.full((), attrs.get("step", 1.0), dtype=X.dtype,
+                          device=X.device)
 
 
 def _infer_range_shape(op, block):
@@ -86,8 +88,18 @@ def _infer_range_shape(op, block):
         out.shape = (max(0, math.ceil((a["end"] - a["start"]) / a["step"])),)
 
 
+def _range_bounds_static(attrs, inputs):
+    """Every bound an attr or absent: a tensor bound is read on the host
+    and sizes the output, so such a ``range`` is not capturable."""
+    return all(attr in attrs or not [n for n in inputs.get(slot, ())
+                                     if n and n != EMPTY_VAR_NAME]
+               for slot, attr in (("Start", "start"), ("End", "end"),
+                                  ("Step", "step")))
+
+
 @register_op("range", inputs=["Start", "End", "Step"], outputs=["Out"],
-             no_grad=True, infer_shape=_infer_range_shape)
+             no_grad=True, infer_shape=_infer_range_shape,
+             capturable=_range_bounds_static)
 def range_op(ctx, attrs, Start=None, End=None, Step=None):
     """``arange`` with bounds from attrs (python scalars at build time)
     or from one-element input tensors."""
@@ -104,7 +116,8 @@ def range_op(ctx, attrs, Start=None, End=None, Step=None):
                         ).to(dtype)
 
 
-@register_op("gaussian_random", inputs=[], outputs=["Out"], no_grad=True)
+@register_op("gaussian_random", inputs=[], outputs=["Out"], no_grad=True,
+             capturable=False)
 def gaussian_random(ctx, attrs):
     dtype = resolve_dtype(attrs.get("dtype", "float32"))
     if ctx.device.type == "meta":
@@ -114,7 +127,8 @@ def gaussian_random(ctx, attrs):
                   dtype)
 
 
-@register_op("uniform_random", inputs=[], outputs=["Out"], no_grad=True)
+@register_op("uniform_random", inputs=[], outputs=["Out"], no_grad=True,
+             capturable=False)
 def uniform_random(ctx, attrs):
     dtype = resolve_dtype(attrs.get("dtype", "float32"))
     if ctx.device.type == "meta":
@@ -125,7 +139,7 @@ def uniform_random(ctx, attrs):
 
 
 @register_op("truncated_gaussian_random", inputs=[], outputs=["Out"],
-             no_grad=True)
+             no_grad=True, capturable=False)
 def truncated_gaussian_random(ctx, attrs):
     """mean + std * N(0,1) truncated to [-2, 2], by inverting the normal
     CDF on a uniform draw (the reference uses

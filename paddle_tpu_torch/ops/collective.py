@@ -20,9 +20,11 @@ Averaging rides on the collective as ``pre_scale`` (1/nranks), applied
 to the flat bucket in its own dtype before the exchange.  The dense ops
 sum with ``all_reduce``; ``c_allreduce_quant`` runs
 :func:`paddle_tpu_torch.quant.quantized_allreduce` on the K7 kernels.
-Not ported (ROADMAP.md, Queue A 7): ``hier_groups``, the
-``c_allreduce_start`` / ``c_allreduce_wait`` pair and the other
-collectives.
+Every op here talks to other processes (and a gloo payload crosses
+host memory), so none is capturable in a CUDA graph: a transpiled
+program runs eagerly.  Not ported (ROADMAP.md, Queue A 7):
+``hier_groups``, the ``c_allreduce_start`` / ``c_allreduce_wait`` pair
+and the other collectives.
 """
 
 import logging
@@ -52,7 +54,8 @@ def _pre_scale(x, attrs):
     return x
 
 
-@register_op("c_allreduce_sum", inputs=["X"], outputs=["Out"], no_grad=True)
+@register_op("c_allreduce_sum", inputs=["X"], outputs=["Out"],
+             no_grad=True, capturable=False)
 def c_allreduce_sum(ctx, attrs, X):
     group = _group(ctx, attrs)
     if group is None:
@@ -61,7 +64,7 @@ def c_allreduce_sum(ctx, attrs, X):
 
 
 @register_op("c_fused_allreduce_sum", inputs=["X*"], outputs=["Out*"],
-             no_grad=True)
+             no_grad=True, capturable=False)
 def c_fused_allreduce_sum(ctx, attrs, X):
     """A bucket of same-(ring, dtype) grads flattened into one buffer,
     one allreduce, split back: elementwise the same sums as one
@@ -74,7 +77,7 @@ def c_fused_allreduce_sum(ctx, attrs, X):
 
 
 @register_op("c_allreduce_quant", inputs=["X*"], outputs=["Out*"],
-             no_grad=True)
+             no_grad=True, capturable=False)
 def c_allreduce_quant(ctx, attrs, X):
     """The bucket as ``c_fused_allreduce_sum`` flattens it, exchanged in
     int8 blocks (:func:`~paddle_tpu_torch.quant.quantized_allreduce`):
@@ -90,13 +93,15 @@ def c_allreduce_quant(ctx, attrs, X):
     return {"Out": split_like(flat, X, cast=False)}
 
 
-@register_op("c_gen_nccl_id", inputs=[], outputs=["Out"], no_grad=True)
+@register_op("c_gen_nccl_id", inputs=[], outputs=["Out"], no_grad=True,
+             capturable=False)
 def c_gen_nccl_id(ctx, attrs):
     # the group's rendezvous is the caller's init_process_group
     return torch.zeros((1,), dtype=torch.int32, device=ctx.device)
 
 
-@register_op("c_comm_init", inputs=["X"], outputs=[], no_grad=True)
+@register_op("c_comm_init", inputs=["X"], outputs=[], no_grad=True,
+             capturable=False)
 def c_comm_init(ctx, attrs, X):
     """Bind ring ``ring_id`` to the default process group, after checking
     that it is the group the program was transpiled for."""

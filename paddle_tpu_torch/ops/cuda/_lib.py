@@ -15,8 +15,18 @@ what it built.
 
 Each C entry point launches on the stream it is given and returns the
 ``cudaGetLastError()`` code of its launch; :func:`check` raises on a
-non-zero code.  :data:`_LAUNCHES` holds one plain integer per kernel,
-raised by one where the wrapper launches its kernel and nowhere else.
+non-zero code.
+
+Launch counts.  A wrapper calls :func:`count_launch` where it launches
+its kernel and nowhere else: :data:`_LAUNCHES` counts the launches that
+run at once, :data:`_CAPTURED` those recorded into a CUDA graph being
+captured, which run only when the graph is replayed.  A replay calls no
+wrapper: :func:`graph_kernel_nodes` reads a captured graph's kernel
+nodes through libcuda by device function name (:data:`KERNEL_FUNCTIONS`),
+and the executor adds them to :data:`_REPLAYED` on every replay
+(:func:`count_replay`).  :func:`launch_counts` is each kernel's launches
+that ran, the sum of the two; :func:`launch_counts_by_source` keeps them
+apart.
 """
 
 import ctypes
@@ -42,6 +52,25 @@ KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv",
            "bn_act_epilogue_fwd", "bn_act_epilogue_bwd",
            "block_quantize", "block_dequantize")
 _LAUNCHES = dict.fromkeys(KERNELS, 0)
+_CAPTURED = dict.fromkeys(KERNELS, 0)
+_REPLAYED = dict.fromkeys(KERNELS, 0)
+
+# each kernel's device functions (the K2 and K4 backward wrappers' second
+# launch, the partials' sum, is not counted)
+KERNEL_FUNCTIONS = {
+    "flash_attention_fwd": ("flash_fwd_kernel",),
+    "flash_attention_bwd_dkv": ("flash_bwd_dkv_kernel",),
+    "flash_attention_bwd_dq": ("flash_bwd_dq_kernel",),
+    "fused_dropout_add_ln_fwd": ("add_ln_fwd_kernel",),
+    "fused_dropout_add_ln_bwd": ("add_ln_bwd_kernel",),
+    "embedding_gather_fwd": ("gather_kernel",),
+    "flash_decode_fwd": ("decode_kernel",),
+    "paged_flash_decode_fwd": ("paged_decode_kernel",),
+    "bn_act_epilogue_fwd": ("bn_act_fwd_kernel",),
+    "bn_act_epilogue_bwd": ("bn_act_bwd_kernel",),
+    "block_quantize": ("quantize_kernel",),
+    "block_dequantize": ("dequantize_kernel", "dequantize_vec_kernel"),
+}
 
 _lock = threading.Lock()
 _lib = None
@@ -51,9 +80,10 @@ _I = ctypes.c_int
 _U = ctypes.c_uint
 _L = ctypes.c_longlong
 _F = ctypes.c_float
-# the dropout arguments of every kernel that drops: mode, seed,
-# threshold, keep scale (csrc/dropout.cuh)
-_DROP = (_I, _U, _U, _F)
+# the dropout arguments of every kernel that drops: mode, the step's
+# device pointer (null when it does not drop), salt, threshold, keep
+# scale (csrc/dropout.cuh)
+_DROP = (_I, _P, _U, _U, _F)
 _SIGNATURES = {
     # q, k, v, bias, o, m, l, BH, H, Tq, Tk, Dh, scale, causal, dropout,
     # dtype, stream
@@ -214,16 +244,128 @@ def check(code, kernel):
 
 
 def count_launch(kernel):
-    _LAUNCHES[kernel] += 1
+    import torch
+
+    if torch.cuda.is_current_stream_capturing():
+        _CAPTURED[kernel] += 1
+    else:
+        _LAUNCHES[kernel] += 1
+
+
+def count_replay(nodes):
+    """Count one replay of a captured graph whose kernel nodes are
+    ``nodes`` (:func:`graph_kernel_nodes`)."""
+    for k, n in nodes.items():
+        _REPLAYED[k] += n
 
 
 def launch_counts():
-    return dict(_LAUNCHES)
+    """Each kernel's launches that ran: at once from its wrapper, or as a
+    node of a replayed CUDA graph."""
+    return {k: _LAUNCHES[k] + _REPLAYED[k] for k in KERNELS}
+
+
+def launch_counts_by_source():
+    """``{"wrapper": …, "graph_nodes": …, "captured": …}``: the launches
+    that ran at once, the kernel nodes that replays ran, and the launches
+    recorded into captured graphs."""
+    return {"wrapper": dict(_LAUNCHES), "graph_nodes": dict(_REPLAYED),
+            "captured": dict(_CAPTURED)}
 
 
 def reset_launch_counts():
-    for k in _LAUNCHES:
-        _LAUNCHES[k] = 0
+    for counts in (_LAUNCHES, _CAPTURED, _REPLAYED):
+        for k in counts:
+            counts[k] = 0
+
+
+def kernel_of(function_name):
+    """The kernel (a :data:`KERNELS` name) whose device function this is,
+    from its mangled or demangled name, or None.  The package's kernels
+    live in anonymous namespaces (``csrc/*.cu``)."""
+    import re
+
+    mangled = "_GLOBAL__N_" in function_name
+    for k, names in KERNEL_FUNCTIONS.items():
+        for n in names:
+            # mangled: the identifier after its length; demangled: the
+            # identifier before its template or parameter list
+            if (mangled and "%d%s" % (len(n), n) in function_name) \
+                    or re.search(r"\(anonymous namespace\)::%s(?=[<(])" % n,
+                                 function_name):
+                return k
+    return None
+
+
+class _KernelNodeParams(ctypes.Structure):
+    # CUDA_KERNEL_NODE_PARAMS_v2 (cuda.h)
+    _fields_ = [("func", _P), ("grid", _U * 3), ("block", _U * 3),
+                ("shared_mem", _U), ("params", _P), ("extra", _P),
+                ("kern", _P), ("ctx", _P)]
+
+
+_libcuda = None
+
+
+def _cu():
+    global _libcuda
+    if _libcuda is None:
+        cu = ctypes.CDLL("libcuda.so.1")
+        for name, argtypes in (
+                ("cuGraphGetNodes", (_P, ctypes.POINTER(_P),
+                                     ctypes.POINTER(ctypes.c_size_t))),
+                ("cuGraphNodeGetType", (_P, ctypes.POINTER(_I))),
+                ("cuGraphKernelNodeGetParams_v2",
+                 (_P, ctypes.POINTER(_KernelNodeParams))),
+                ("cuFuncGetName", (ctypes.POINTER(ctypes.c_char_p), _P)),
+                ("cuKernelGetName", (ctypes.POINTER(ctypes.c_char_p), _P))):
+            fn = getattr(cu, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = _I
+        _libcuda = cu
+    return _libcuda
+
+
+def _cu_check(code, call):
+    if code != 0:
+        raise RuntimeError("%s failed: CUresult %d" % (call, code))
+
+
+def graph_kernel_nodes(graph):
+    """``{kernel: nodes}``: the kernel nodes of a captured
+    ``torch.cuda.CUDAGraph`` (made with ``keep_graph=True``) whose device
+    function is one of :data:`KERNELS`', by the name libcuda gives the
+    function; every replay of the graph runs each of them once."""
+    cu = _cu()
+    g = _P(graph.raw_cuda_graph())
+    num = ctypes.c_size_t(0)
+    _cu_check(cu.cuGraphGetNodes(g, None, ctypes.byref(num)),
+              "cuGraphGetNodes")
+    nodes = (_P * num.value)()
+    _cu_check(cu.cuGraphGetNodes(g, nodes, ctypes.byref(num)),
+              "cuGraphGetNodes")
+    counts = {}
+    kind = _I()
+    params = _KernelNodeParams()
+    name = ctypes.c_char_p()
+    for node in nodes[:num.value]:
+        _cu_check(cu.cuGraphNodeGetType(node, ctypes.byref(kind)),
+                  "cuGraphNodeGetType")
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        _cu_check(cu.cuGraphKernelNodeGetParams_v2(node,
+                                                   ctypes.byref(params)),
+                  "cuGraphKernelNodeGetParams")
+        if params.func:
+            _cu_check(cu.cuFuncGetName(ctypes.byref(name), params.func),
+                      "cuFuncGetName")
+        else:
+            _cu_check(cu.cuKernelGetName(ctypes.byref(name), params.kern),
+                      "cuKernelGetName")
+        k = kernel_of(name.value.decode(errors="replace"))
+        if k is not None:
+            counts[k] = counts.get(k, 0) + 1
+    return counts
 
 
 def stream_handle(device):

@@ -19,8 +19,18 @@ arithmetic masked to 32 bits:
 ``b`` is the batch·head index for attention and 0 for layer norm.  A cell
 is kept iff its bits >= :func:`rate_threshold` and a kept value is
 scaled by ``1 / (1 - rate)``, as in the reference.
+
+A kernel takes its seed as a :class:`StepSeed`: the executor's step, a
+1-element int64 tensor on the kernel's device, and a per-op ``salt``
+(:func:`op_salt`).  It reads the step through a device pointer and
+derives the seed in its prologue (:func:`step_seed`, the same 32 bits on
+the host, on a tensor and in ``dropout.cuh``), so a step replayed from a
+captured CUDA graph draws new masks each time its step tensor is filled
+with a new value.  The plain twins also take a host ``int`` seed, used
+as it is.
 """
 
+import collections
 import os
 
 import torch
@@ -64,17 +74,63 @@ def check_rate(rate, seed):
     return rate
 
 
+class StepSeed(collections.namedtuple("StepSeed", ["step", "salt"])):
+    """A dropout seed drawn on the device: ``step`` is a 1-element int64
+    tensor (the executor's step), ``salt`` a host int naming the draw
+    (:func:`op_salt`).  The seed is :func:`step_seed` of the two."""
+
+    __slots__ = ()
+
+
+def step_seed(step, salt):
+    """The 32-bit seed of (step, salt): ``fmix32`` of the step's two
+    halves, then of that plus ``salt`` times an odd constant.  ``step``
+    is an int or an int64 tensor (then so is the result); the kernels'
+    ``pt::step_seed`` computes the same bits."""
+    lo = step & MASK32
+    hi = (step >> 32) & MASK32
+    h = _fmix32(lo ^ _mul32(hi, 0x9E3779B9))
+    return _fmix32((h + _mul32(int(salt) & MASK32, 0x85EBCA77)) & MASK32)
+
+
+def op_salt(program_seed, op_id, draw):
+    """The 32-bit salt of draw ``draw`` of op ``op_id`` in a program of
+    seed ``program_seed``: ``fmix32`` chained over the three, so it does
+    not depend on op order or on the step."""
+    h = _fmix32((int(program_seed) & MASK32)
+                ^ _mul32((int(program_seed) >> 32) & MASK32, 0x9E3779B9))
+    h = _fmix32((h + _mul32(int(op_id) & MASK32, 0x7FEB352D)) & MASK32)
+    return _fmix32((h + _mul32(int(draw) & MASK32, 0x846CA68B)) & MASK32)
+
+
 def seed_u32(seed):
-    return 0 if seed is None else int(seed) & MASK32
+    """The seed's 32 bits: an int, or for a :class:`StepSeed` a 0-d int64
+    tensor on the step's device."""
+    if seed is None:
+        return 0
+    if isinstance(seed, StepSeed):
+        return step_seed(seed.step.reshape(()).to(torch.int64), seed.salt)
+    return int(seed) & MASK32
 
 
 def kernel_args(rate, seed):
-    """The dropout arguments every dropping kernel takes: mode, seed,
-    threshold, keep scale."""
+    """The dropout arguments every dropping kernel takes: mode, the step's
+    device pointer, salt, threshold, keep scale.  A kernel that drops
+    takes a :class:`StepSeed` whose step lies on the card."""
     if not rate:
-        return (MODE_OFF, 0, 0, 1.0)
-    return (mode(rate), seed_u32(seed), rate_threshold(rate),
-            keep_scale(rate))
+        return (MODE_OFF, None, 0, 0, 1.0)
+    if not isinstance(seed, StepSeed):
+        raise TypeError("a kernel that drops takes a StepSeed (the step on "
+                        "the card and a salt), got %r; an int seed is for "
+                        "the plain versions on the CPU" % (seed,))
+    step = seed.step
+    if step.dtype != torch.int64 or step.numel() != 1 \
+            or step.device.type != "cuda":
+        raise ValueError("a dropout step must be a 1-element int64 CUDA "
+                         "tensor, got %s %s on %s"
+                         % (tuple(step.shape), step.dtype, step.device))
+    return (mode(rate), step.data_ptr(), int(seed.salt) & MASK32,
+            rate_threshold(rate), keep_scale(rate))
 
 
 def _mul32(a, c):
@@ -97,7 +153,8 @@ def _fmix32(h):
 def _as_u32(x, device):
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.int64) & MASK32
-    return torch.tensor(int(x) & MASK32, dtype=torch.int64, device=device)
+    # a fill, not a host-to-device copy: capturable in a CUDA graph
+    return torch.full((), int(x) & MASK32, dtype=torch.int64, device=device)
 
 
 def card_bits(seed, b, rows, cols):

@@ -26,6 +26,9 @@ Sampling draws from a ``torch.Generator`` seeded from (program seed, op
 id, the ``seed`` attr, ``Step``), so a step replays its draw exactly; it
 cannot reproduce the reference's ``jax.random`` draws.  Greedy (``k=1``
 or ``temperature <= 0``) is an argmax and matches the reference exactly.
+A sampling op reads ``Step`` on the host and draws on the host, so it
+is not capturable in a CUDA graph (a program that samples runs
+eagerly); a greedy one is.
 """
 
 import math
@@ -215,16 +218,21 @@ def _greedy(X):
     return torch.argmax(X, dim=-1).to(torch.int32)
 
 
+def _top_k_greedy(attrs, inputs=None):
+    return int(attrs.get("k", 1)) <= 1 \
+        or float(attrs.get("temperature", 1.0)) <= 0.0
+
+
 @register_op("top_k_sampling", inputs=["X", "Step"], outputs=["Out"],
-             no_grad=True)
+             no_grad=True, capturable=_top_k_greedy)
 def top_k_sampling(ctx, attrs, X, Step):
     """Token ids from the top-k of each row of logits X [B, V]: greedy
     argmax for ``k <= 1`` or ``temperature <= 0``, else Gumbel-max over
     the top k logits over ``temperature``."""
+    if _top_k_greedy(attrs):
+        return _greedy(X)
     k = int(attrs.get("k", 1))
     temp = float(attrs.get("temperature", 1.0))
-    if k <= 1 or temp <= 0.0:
-        return _greedy(X)
     if X.device.type == "meta":
         return torch.empty(X.shape[:-1], dtype=torch.int32, device="meta")
     vals, idx = torch.topk(X, min(k, X.shape[-1]), dim=-1)
@@ -233,16 +241,20 @@ def top_k_sampling(ctx, attrs, X, Step):
     return idx.gather(1, choice[:, None])[:, 0].to(torch.int32)
 
 
+def _top_p_greedy(attrs, inputs=None):
+    return float(attrs.get("temperature", 1.0)) <= 0.0
+
+
 @register_op("top_p_sampling", inputs=["X", "Step"], outputs=["Out"],
-             no_grad=True)
+             no_grad=True, capturable=_top_p_greedy)
 def top_p_sampling(ctx, attrs, X, Step):
     """Nucleus sampling: keep the smallest prefix of the descending
     softmax whose mass reaches ``p`` (the head token always survives),
     then Gumbel-max over the survivors; ``temperature <= 0`` is greedy."""
+    if _top_p_greedy(attrs):
+        return _greedy(X)
     p = float(attrs.get("p", 0.9))
     temp = float(attrs.get("temperature", 1.0))
-    if temp <= 0.0:
-        return _greedy(X)
     if X.device.type == "meta":
         return torch.empty(X.shape[:-1], dtype=torch.int32, device="meta")
     order = torch.argsort(-X, dim=-1, stable=True)

@@ -11,8 +11,9 @@ The four kernel-backed ``fused_*`` ops route to the hand-written CUDA
 kernels under :mod:`paddle_tpu_torch.ops.cuda`, whose autograd functions
 carry their backward kernels; the other ops are plain PyTorch.  The
 convolutions and pooling windows stay PyTorch calls (cuDNN on the GPU),
-as the reference leaves them to XLA.  A fused op that drops draws its
-seed per step and per op from ``ctx.rng``, as the reference does
+as the reference leaves them to XLA.  An op that drops takes its seed
+from the device, per step and per op (``ctx.step_seed``: the run's step
+tensor and the op's salt), as the reference folds its traced step key
 (:542-547, :569-574), and runs at rate 0 under ``is_test`` or in shape
 inference.
 """
@@ -28,11 +29,6 @@ from .cuda.embedding import embedding_gather
 from .cuda.flash_attention import flash_attention
 from .cuda.fused_ln import fused_dropout_add_ln as _fused_ln
 from .registry import get_op_def, register_op
-
-
-def _step_seed(ctx):
-    """A seed in [0, 2**31 - 1) for this op in this step."""
-    return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=ctx.rng()))
 
 
 @register_op("softmax_with_cross_entropy", inputs=["Logits", "Label"],
@@ -78,17 +74,16 @@ def softmax(ctx, attrs, X):
 def dropout(ctx, attrs, X):
     """The keep mask comes from the card generator of the fused kernels
     (:mod:`.cuda.dropout`, b = 0 over the rows of the last axis), seeded
-    per step and per op, so it is the same on every device; the
-    reference draws it with ``jax.random``."""
+    from the device per step and per op (a user ``seed`` attr folded
+    into the salt), so it is the same on every device; the reference
+    draws it with ``jax.random``."""
     p = float(attrs.get("dropout_prob", 0.5))
     is_test = attrs.get("is_test", False) or ctx.mode == "infer"
     impl = attrs.get("dropout_implementation", "downgrade_in_infer")
     if is_test:
         out = X if impl == "upscale_in_train" else X * (1.0 - p)
         return {"Out": out, "Mask": torch.ones_like(X, dtype=torch.uint8)}
-    seed = _step_seed(ctx)
-    if attrs.get("seed", 0):  # a user seed pins the stream, folded in
-        seed = (seed * 1000003 + int(attrs["seed"])) % (2 ** 31 - 1)
+    seed = ctx.step_seed(fold=int(attrs.get("seed", 0) or 0))
     keep = _drop.row_keep_mask(seed, p, tuple(X.shape), X.device,
                                debug=False)
     if impl == "upscale_in_train":
@@ -180,7 +175,7 @@ def fused_multihead_attention(ctx, attrs, Q, K, V, BiasQK=None):
                            causal=bool(attrs.get("causal", False)),
                            sm_scale=None if scale is None else float(scale),
                            dropout_rate=rate,
-                           dropout_seed=_step_seed(ctx) if rate else None)
+                           dropout_seed=ctx.step_seed() if rate else None)
 
 
 @register_op("fused_dropout_add_ln", inputs=["X", "Residual", "Scale", "Bias"],
@@ -194,7 +189,7 @@ def fused_dropout_add_ln(ctx, attrs, X, Residual, Scale, Bias):
     out = _fused_ln(X.reshape(-1, d).contiguous(),
                     Residual.reshape(-1, d).contiguous(), Scale, Bias,
                     dropout_rate=rate, eps=float(attrs.get("epsilon", 1e-5)),
-                    seed=_step_seed(ctx) if rate else None)
+                    seed=ctx.step_seed() if rate else None)
     return out.reshape(shape)
 
 

@@ -28,12 +28,28 @@ in_slot})`` says the op writes its ``out_slot`` result into the tensor
 of ``in_slot`` and returns that tensor (the KV-cache writes of
 ``ops/decode.py``).  The executor honours the declaration
 (``executor.py``); no other op may write an input.
+
+Capturable ops.  The executor replays a program's step from a captured
+CUDA graph only when every op of it is capturable: it reads no device
+value on the host, allocates nothing whose shape depends on device
+values, draws no host random number per run, and talks to no other
+process.  ``register_op(..., capturable=...)`` declares it, True by
+default; a callable ``capturable(attrs, inputs)`` decides per op from
+its attrs and its bound input slots (``OpDef.is_capturable``).
+
+Dropout seeds.  A dropping op takes its seed from the device:
+:meth:`LoweringContext.step_seed` pairs the run's step tensor with the
+op's salt (``ops/cuda/dropout.py`` ``op_salt``, a pure function of the
+program seed, the op's id and the draw), and the kernels derive the seed
+from both (``step_seed`` there and in ``csrc/dropout.cuh``), so a
+replayed step draws new masks.
 """
 
 import numpy as np
 import torch
 
 from .. import core
+from .cuda import dropout as _drop
 
 __all__ = [
     "register_op",
@@ -76,8 +92,10 @@ def _kwarg_name(slot):
 
 class OpDef:
     def __init__(self, type, fn, inputs, outputs, no_grad=False,
-                 infer_shape=None, stateful_outputs=(), in_place=None):
+                 infer_shape=None, stateful_outputs=(), in_place=None,
+                 capturable=True):
         self.type = type
+        self.capturable = capturable
         self.fn = fn
         self.inputs = _parse_slots(inputs)
         self.outputs = _parse_slots(outputs)
@@ -94,15 +112,24 @@ class OpDef:
     def output_slot_names(self):
         return [s for s, _ in self.outputs]
 
+    def is_capturable(self, attrs, inputs):
+        """Whether a CUDA graph may capture this op with these attrs;
+        ``inputs`` maps its input slots to the bound var names."""
+        if callable(self.capturable):
+            return bool(self.capturable(attrs, inputs))
+        return bool(self.capturable)
+
 
 def register_op(type, inputs, outputs, no_grad=False, infer_shape=None,
-                stateful_outputs=(), in_place=None):
+                stateful_outputs=(), in_place=None, capturable=True):
     """Decorator: register ``fn(ctx, attrs, **slots)`` as the lowering of
     ``type``.  Slot kwargs are tensors (lists for duplicable slots, None
     for absent optional slots).  Return a single tensor (one output
     slot), a tuple in declared output order, or a dict slot→tensor.
     ``in_place`` (``{out_slot: in_slot}``) declares a grad-free op that
-    writes its result into that input's tensor."""
+    writes its result into that input's tensor.  ``capturable`` (a bool,
+    or ``capturable(attrs, inputs)``) says whether a CUDA graph may
+    capture the op."""
 
     if in_place and not no_grad:
         raise ValueError("op %r: an in-place op must be no_grad" % type)
@@ -111,7 +138,7 @@ def register_op(type, inputs, outputs, no_grad=False, infer_shape=None,
         _OP_REGISTRY[type] = OpDef(type, fn, inputs, outputs, no_grad=no_grad,
                                    infer_shape=infer_shape,
                                    stateful_outputs=stateful_outputs,
-                                   in_place=in_place)
+                                   in_place=in_place, capturable=capturable)
         return fn
 
     return deco
@@ -139,8 +166,12 @@ class LoweringContext:
     """Per-run state threaded through op functions.
 
     ``device`` is where creation ops allocate.  ``mode`` is ``"train"``
-    or ``"infer"`` (shape inference).  RNG: every random draw gets its
-    own ``torch.Generator`` seeded from (program seed, op id, draw
+    or ``"infer"`` (shape inference).  ``step`` is the run's step on the
+    device, a 1-element int64 tensor set once per run (the executor's;
+    a zero tensor when none is given): dropout draws
+    :meth:`step_seed` from it, so a run replayed from a CUDA graph draws
+    new masks.  Host RNG: every host random draw (the initialisers) gets
+    its own ``torch.Generator`` seeded from (``seed``, op id, draw
     index), so a draw does not depend on op order and a fixed
     ``random_seed`` reproduces across builds, as in the reference.
     ``tape`` maps a forward op's id to its autograd graph until its grad
@@ -153,8 +184,9 @@ class LoweringContext:
     nothing (``ops/collective.py``)."""
 
     def __init__(self, seed=0, mode="train", device=None, program_seed=0,
-                 rings=None):
+                 rings=None, step=None):
         self.seed = int(seed or 0)
+        self._step = step
         self.program_seed = int(program_seed or 0)
         self.mode = mode
         self.device = torch.device("cpu") if device is None else device
@@ -167,8 +199,25 @@ class LoweringContext:
         self._op_id = int(op_id)
         self._rng_count = 0
 
+    @property
+    def step(self):
+        if self._step is None:
+            self._step = torch.zeros((1,), dtype=torch.int64,
+                                     device=self.device)
+        return self._step
+
+    def step_seed(self, fold=0):
+        """The device-side seed of the next draw of the current op: the
+        run's step and the draw's salt (``_drop.op_salt``, with ``fold``,
+        a user's ``seed`` attr, mixed in when non-zero)."""
+        salt = _drop.op_salt(self.program_seed, self._op_id, self._rng_count)
+        self._rng_count += 1
+        if fold:
+            salt = _drop.op_salt(salt, fold, 0)
+        return _drop.StepSeed(self.step, salt)
+
     def rng(self, device="cpu"):
-        """A fresh generator for the next draw of the current op."""
+        """A fresh host generator for the next draw of the current op."""
         mix = (self.seed * 1000003 + self._op_id) * 7919 + self._rng_count
         self._rng_count += 1
         g = torch.Generator(device=device)
@@ -359,14 +408,14 @@ def infer_output_structs(op, block):
 
 
 def np_to_torch(value, device):
-    """Host value → tensor on ``device`` (int64 stays int64)."""
+    """Host value → tensor on ``device`` (int64 stays int64).  A numpy
+    array is copied, also onto the CPU: a compiled step updates its
+    read-write state in place, which must never write into the caller's
+    array."""
     if isinstance(value, torch.Tensor):
         return value.to(device)
     arr = np.asarray(value)
     if arr.dtype.name == "bfloat16":
         t = torch.from_numpy(arr.view(np.uint16).astype(np.int32))
         return (t << 16).view(torch.float32).to(torch.bfloat16).to(device)
-    arr = np.ascontiguousarray(arr)
-    if not arr.flags.writeable:  # torch tensors over read-only memory
-        arr = arr.copy()
-    return torch.from_numpy(arr).to(device)
+    return torch.from_numpy(np.array(arr, order="C")).to(device)

@@ -36,7 +36,17 @@ and the CUDA toolkit.  Phases, each printing one JSON line:
    function are timed with L2 flushed before every call (the library
    call is a yardstick only; the port never calls it), and the K2
    backward's call is split between its two launches
-   (``torch.profiler``);
+   (``torch.profiler``).  K3 backward (the sorted segment-sum) against
+   ``index_add_`` at a tolerance, against its sorted plain twin and over
+   two runs bit for bit, at BERT-base's three tables and the training
+   batch's ids, all ids alike and a ragged case; the in-place update
+   kernels (Adam, Momentum plain and Nesterov, SGD) against their plain
+   twins bit for bit in float32 and bfloat16 at BERT-base's and
+   ResNet-50's largest and smallest parameters, writing into their
+   inputs; the multi-tensor Adam and SGD over BERT-base's parameter
+   list against the per-parameter kernels bit for bit; each timed, and
+   one small update's device time in a graph (the optimizer fusion's
+   CUDA gate);
 4. main path, serving: BERT-base (vocab 30522, hidden 768, 12 layers, 12
    heads, ffn 3072) at sequence length 512 with random weights from a
    seed is built with the port's layers, exported with
@@ -52,11 +62,13 @@ and the CUDA toolkit.  Phases, each printing one JSON line:
 6. main path, training: ``models/bert.build_pretrain`` (MLM head, Adam,
    dropout 0.1) for BERT-base at T=512 runs ``TRAIN_WARMUP`` + ``TRAIN_STEPS``
    steps of batch 8 on one repeated batch through ``Executor``; the loss
-   must be finite and fall, and every step must launch exactly 12 flash
-   forward, 12 dK/dV, 12 dQ, 25 LN forward, 25 LN backward and 3 gather
-   kernels; step time, tokens/s, peak memory, the host's time to enqueue
-   a step, and the device time by kernel group with the idle share (and
-   the busiest host ops) over two profiled steps;
+   must be finite and fall, every step must launch exactly 12 flash
+   forward, 12 dK/dV, 12 dQ, 25 LN forward, 25 LN backward, 3 gather, 3
+   gather backward and 197 Adam update kernels, and copy no state back
+   (the updates write in place); step time, tokens/s, peak memory, the
+   host's time to enqueue a step, and the device time by kernel group
+   (the optimizer a group of its own) with the idle share (and the
+   busiest host ops) over two profiled steps;
 7. train parity: one dropout-0.1 step of a 2-layer BERT at BERT-base
    width (batch 2, T=512) on the card and on the CPU with the plain
    versions, from the same seeded start and with the same masks; the
@@ -83,10 +95,11 @@ and the CUDA toolkit.  Phases, each printing one JSON line:
    one repeated batch, then one eval batch through the for-test clone;
    every loss must be finite, every training step must launch exactly
    65 K4 forward and 65 K4 backward kernels (one per conv -> batch_norm
-   site) and the eval batch 65 forward; step time, images/s, peak
-   memory, the host's time to enqueue a step, and the device time by
-   kernel group (conv fwd/bwd, K4 fwd/bwd, BN statistics, Momentum and
-   elementwise, pooling, layout copies) with the idle share;
+   site) and 197 Momentum update kernels and copy no state back, and the
+   eval batch 65 forward; step time, images/s, peak memory, the host's
+   time to enqueue a step, and the device time by kernel group (conv
+   fwd/bwd, K4 fwd/bwd, BN statistics, optimizer, elementwise, pooling,
+   layout copies) with the idle share;
 11. ResNet parity: full-depth ResNet-50 NHWC at 64x64, batch 4, one
    step on the card and on the CPU with the plain versions from one
    parameter dict: the loss, every gradient and the moving statistics
@@ -116,11 +129,13 @@ and the CUDA toolkit.  Phases, each printing one JSON line:
    ring and paged (both prefill buckets and the greedy step must end
    replaying) and ResNet-50 training, each side from the same start and
    feeds.  Results must be bit for bit (outputs; tokens and logits;
-   losses and a digest of every persistable); the training paths
-   compare their steps under PyTorch's deterministic algorithms, since
-   the embedding gradient's ``index_add_`` and cuDNN's convolution
-   backward add with atomics and an eager step does not repeat itself,
-   and take their numbers from fresh sides with the default algorithms.
+   losses and a digest of every persistable); the training paths also
+   eager against a second eager side, BERT with the default algorithms,
+   ResNet under ``set_flags({"FLAGS_cpu_deterministic": True})`` (cuDNN's
+   default convolution backward adds with atomics), with its step time
+   with and without the flag and whether it repeats without it; the
+   training graph sides must copy no state back; each side's numbers
+   come from fresh sides with the default flags.
    The graph side must replay, and each side's launches a call must
    match the expected counts by counter and by the kernel names
    ``torch.profiler`` sees; each side's enqueue ms, step ms, idle share,
@@ -183,7 +198,7 @@ TRAIN_STEPS = 5
 TRAIN_LR = 1e-4
 # one training step, GPU kernels vs CPU plain versions, float32 with TF32
 # off: sums in another order through 2 layers, the vocab head and the
-# atomics of the embedding scatter-add
+# embedding gradient's pieces
 PARITY_LOSS_RTOL = 1e-4
 # a parity step is the last of this many calls from one start: the card's
 # third call replays the graph its second captured
@@ -1440,21 +1455,7 @@ def time_kernels(torch, gen, errs):
         bound_ms(4096 * 768 * 4 * 2 + 4096 * 8, 0, "float32"),
         time_ms(lambda: F.embedding(ids, table), 50),
         "table [30522,768] f32, ids [4096] int64"))
-    # the gather's backward: a PyTorch scatter-add (index_add_), as the
-    # reference leaves it to XLA; timed for the table, not a kernel here
-    gout = torch.randn((4096, 768), generator=gen, device="cuda")
-    scatter = {
-        "phase": "kernels", "timing": True,
-        "library_op": "embedding_gather_bwd (index_add_ scatter-add)",
-        "replaces": "paddle_tpu/ops/pallas/embedding.py:96 (XLA scatter-add)",
-        "ms": time_ms(lambda: emb.embedding_gather_bwd(gout, ids, 30522),
-                      50),
-        "library_ms": time_ms(lambda: torch.zeros(
-            (30522, 768), device="cuda").index_add_(0, ids, gout), 50),
-        "shape": "dout [4096,768] f32 → table grad [30522,768]"}
-    scatter["bound_ms"], scatter["bound_by"] = bound_ms(
-        4 * (30522 * 768 + 4096 * 768) + 8 * 4096, 4096 * 768, "float32")
-    return rows, extra, scatter
+    return rows, extra
 
 
 def profile_ln_bwd(torch, gen, calls=20):
@@ -1761,6 +1762,360 @@ def time_quant(torch, gen, errs):
     return rows, extra
 
 
+# ---------------------------------------------------------------------------
+# K3 backward and the optimizer updates
+# ---------------------------------------------------------------------------
+
+# BERT-base's embedding tables and the training batch's ids: word (random
+# over the vocabulary), position (each of 512 ids 8 times), token type
+# (two ids over 4096 positions)
+GATHER_BWD_CASES = (("word V30522", 30522, "random"),
+                    ("position V512", 512, "positions"),
+                    ("token type V2", 2, "halves"))
+# parameter shapes of the update checks: BERT-base's largest and smallest,
+# ResNet-50's largest and smallest
+UPDATE_SHAPES = ((30522, 768), (2,), (3, 3, 512, 512), (64,))
+OPT_LR = 1e-3
+
+
+def _gather_bwd_ids(torch, gen, rows, layout, n=TRAIN_BATCH * SEQ):
+    if layout == "random":
+        return torch.randint(0, rows, (n,), generator=gen, device="cuda")
+    if layout == "positions":
+        return torch.arange(rows, device="cuda").repeat(n // rows)
+    if layout == "halves":
+        return (torch.arange(n, device="cuda") >= n // 2).long()
+    return torch.full((n,), 7, dtype=torch.int64, device="cuda")
+
+
+def kernel_gather_bwd(checks, torch, gen):
+    """K3 backward (the sorted segment-sum) against ``index_add_`` at a
+    tolerance, against its sorted plain twin on the same plan bit for bit,
+    and run twice on the same inputs bit for bit: BERT-base's three tables
+    at the training batch's ids, all 4096 ids alike, and a ragged case
+    (D 100, negative ids, ids >= V, padding_idx), float32 and bfloat16."""
+    from paddle_tpu_torch.ops.cuda import embedding as emb
+
+    kernel = "embedding_gather_bwd"
+    main_err = None
+    cases = [(label, rows, _gather_bwd_ids(torch, gen, rows, layout), -1,
+              768) for label, rows, layout in GATHER_BWD_CASES]
+    cases.append(("all 4096 ids alike V30522", 30522,
+                  _gather_bwd_ids(torch, gen, 30522, "same"), -1, 768))
+    ragged = torch.randint(-2, 1010, (1000,), generator=gen, device="cuda")
+    ragged[:40] = 5
+    cases.append(("ragged V1000 D100 n1000, negative, >=V, padding_idx 9",
+                  1000, ragged.to(torch.int32), 9, 100))
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, rows, ids, pad, d in cases:
+            case = "%s %s" % (label, _dname(dtype))
+            dout = torch.randn((ids.shape[0], d), generator=gen,
+                               device="cuda").to(dtype)
+            got = emb.embedding_gather_bwd(dout, ids, rows, pad)
+            again = emb.embedding_gather_bwd(dout, ids, rows, pad)
+            ref = emb.embedding_gather_bwd_plain(dout, ids, rows, pad)
+            twin = emb.embedding_gather_bwd_sorted_plain(
+                dout, emb.scatter_plan(ids, rows, pad), rows)
+            torch.cuda.synchronize()
+            err = checks.check(kernel, case + " vs index_add_",
+                               max_err(got, ref), _tol(ref))
+            checks.check(kernel, case + " vs its sorted plain twin, bits "
+                         "differing", _bit_mismatches(got, twin), 0)
+            checks.check(kernel, case + " twice, bits differing",
+                         _bit_mismatches(got, again), 0)
+            if dtype == torch.float32 and main_err is None:
+                main_err = err
+    return main_err
+
+
+def _update_inputs(torch, gen, shape, dtype, step=3):
+    """A parameter, its gradient, Adam's moments (m2 >= 0) and beta powers
+    at step ``step``, a velocity and the learning rate, on the card."""
+    def rnd(scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    powers = [torch.full((1,), b ** step, device="cuda").to(dtype)
+              for b in (0.9, 0.999)]
+    return {"p": rnd(), "g": rnd(0.1), "m1": rnd(0.01),
+            "m2": rnd(1e-3).abs(), "b1p": powers[0], "b2p": powers[1],
+            "v": rnd(0.1),
+            "lr": torch.full((1,), OPT_LR, dtype=torch.float32,
+                             device="cuda")}
+
+
+def _clone_inputs(x):
+    return {k: v.clone() for k, v in x.items()}
+
+
+def _update_cases():
+    """(kernel, label, in-place wrapper call, plain call) of each update:
+    the call takes the inputs' dict and returns the updated tensors."""
+    from paddle_tpu_torch.ops.cuda import optimizer as opt
+
+    adam_args = ("p", "g", "lr", "m1", "m2", "b1p", "b2p")
+    return (
+        ("adam_update", "adam",
+         lambda x: opt.adam_(*[x[k] for k in adam_args]),
+         lambda x: opt.adam_plain(*[x[k] for k in adam_args])),
+        ("momentum_update", "momentum",
+         lambda x: opt.momentum_(x["p"], x["g"], x["v"], x["lr"], 0.9),
+         lambda x: opt.momentum_plain(x["p"], x["g"], x["v"], x["lr"], 0.9)),
+        ("momentum_update", "momentum nesterov",
+         lambda x: opt.momentum_(x["p"], x["g"], x["v"], x["lr"], 0.9, True),
+         lambda x: opt.momentum_plain(x["p"], x["g"], x["v"], x["lr"], 0.9,
+                                      True)),
+        ("sgd_update", "sgd",
+         lambda x: (opt.sgd_(x["p"], x["g"], x["lr"]),),
+         lambda x: (opt.sgd_plain(x["p"], x["g"], x["lr"]),)))
+
+
+def kernel_updates(checks, torch, gen):
+    """Each in-place update kernel against its plain twin bit for bit
+    (every output: parameter, moments or velocity, beta powers), in
+    float32 and bfloat16 at BERT-base's and ResNet-50's largest and
+    smallest parameters, each writing into its inputs; then the
+    multi-tensor Adam and SGD over BERT-base's parameter list against the
+    per-parameter kernels, bit for bit."""
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in UPDATE_SHAPES:
+            x = _update_inputs(torch, gen, shape, dtype)
+            for kernel, label, run, plain in _update_cases():
+                want = plain(x)
+                mine = _clone_inputs(x)
+                ptrs = {k: v.data_ptr() for k, v in mine.items()}
+                got = run(mine)
+                torch.cuda.synchronize()
+                case = "%s %s %s" % (label, list(shape), _dname(dtype))
+                bad = sum(_bit_mismatches(a, b) for a, b in zip(got, want))
+                checks.check(kernel, case + ", bits differing", bad, 0)
+                checks.check(kernel, case + ", outputs not in the inputs",
+                             sum(t.data_ptr() not in ptrs.values()
+                                 for t in got), 0)
+                errs.setdefault(kernel, max(max_err(a, b)
+                                            for a, b in zip(got, want)))
+    errs.update(kernel_multi_updates(checks, torch, gen))
+    return errs
+
+
+def _bert_base_shapes():
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert
+
+    main, _startup, _loss = _train_program(fluid, bert, bert.BERT_BASE, SEQ)
+    return [tuple(p.shape) for p in main.all_parameters() if p.trainable]
+
+
+def kernel_multi_updates(checks, torch, gen):
+    """The multi-tensor kernels over BERT-base's parameters (each member
+    at its own step, so each takes its own bias correction) against the
+    per-parameter kernels on copies of the same inputs, bit for bit."""
+    from paddle_tpu_torch.ops.cuda import optimizer as opt
+
+    shapes = _bert_base_shapes()
+    members = [_update_inputs(torch, gen, s, torch.float32, step=1 + i % 5)
+               for i, s in enumerate(shapes)]
+    lr = members[0]["lr"]
+    ref = [_clone_inputs(m) for m in members]
+    for m in ref:
+        opt.adam_(m["p"], m["g"], lr, m["m1"], m["m2"], m["b1p"], m["b2p"])
+        opt.sgd_(m["v"], m["g"], lr)  # the velocity stands in for a param
+    got = [_clone_inputs(m) for m in members]
+
+    def col(key):
+        return [m[key] for m in got]
+
+    opt.multi_adam_(col("p"), col("g"), lr, col("m1"), col("m2"),
+                    col("b1p"), col("b2p"))
+    opt.multi_sgd_(col("v"), col("g"), lr)
+    torch.cuda.synchronize()
+    errs = {}
+    for kernel, keys in (("multi_tensor_adam", ("p", "m1", "m2", "b1p",
+                                                "b2p")),
+                         ("multi_tensor_sgd", ("v",))):
+        bad = sum(_bit_mismatches(g[k], r[k]) for g, r in zip(got, ref)
+                  for k in keys)
+        checks.check(kernel, "BERT-base's %d parameters (%d elements) vs "
+                     "the per-parameter kernels, bits differing"
+                     % (len(shapes), sum(m["p"].numel() for m in members)),
+                     bad, 0)
+        errs[kernel] = max(max_err(g[k], r[k]) for g, r in zip(got, ref)
+                           for k in keys)
+    del members, ref, got
+    torch.cuda.empty_cache()
+    return errs
+
+
+def _small_update_overhead(torch, gen, calls=200):
+    """The device time of one small Adam update (768 elements: the update
+    launch and its beta-power launch) in a replayed CUDA graph of
+    ``calls`` of them, as the step runs it, and that time as bytes at
+    3.35 TB/s: the CUDA default of the optimizer fusion's gate
+    (``fusion._CUDA_OVERHEAD_BYTES``)."""
+    from paddle_tpu_torch.ops.cuda import optimizer as opt
+
+    small = _update_inputs(torch, gen, (768,), torch.float32)
+    args = [small[k] for k in ("p", "g", "lr", "m1", "m2", "b1p", "b2p")]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            opt.adam_(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            opt.adam_(*args)
+    graph.replay()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    us = start.elapsed_time(stop) / calls * 1e3
+    del graph
+    return {"name": "optimizer_fuse_overhead",
+            "adam_update_768_in_a_graph_us": us,
+            "as_bytes_at_3.35_TB_s": us * 1e-6 * HBM_BYTES_PER_S}
+
+
+def time_updates(torch, gen, errs):
+    """Rows of K3 backward and the update kernels at the main paths'
+    shapes (cold L2): K3 backward at BERT-base's word table; Adam at
+    BERT-base's word embedding [30522, 768] (the largest parameter);
+    Momentum (Nesterov) at ResNet-50's [3, 3, 512, 512]; SGD at the word
+    embedding; the multi-tensor kernels over BERT-base's parameter list.
+    Library calls: ``index_add_`` for K3 backward; for Nesterov Momentum
+    ``torch._fused_sgd_`` (weight decay 0, dampening 0: the same function,
+    checked here against the plain twin), for SGD ``add_`` with alpha
+    -lr, for the multi-tensor SGD ``_foreach_add_``; none computes the
+    reference's Adam (``torch.optim``'s puts eps elsewhere).  Also the
+    launch and ramp of one small update (``_small_update_overhead``)."""
+    from paddle_tpu_torch.ops.cuda import embedding as emb
+    from paddle_tpu_torch.ops.cuda import optimizer as opt
+
+    rows = []
+    src = "paddle_tpu_torch/csrc/optimizer.cu"
+    ref_file = "paddle_tpu/ops/optimizer_ops.py:"
+    ids = torch.randint(0, 30522, (4096,), generator=gen, device="cuda")
+    dout = torch.randn((4096, 768), generator=gen, device="cuda")
+    rows.append(_row(
+        "embedding_gather_bwd", "paddle_tpu_torch/csrc/embedding.cu",
+        "paddle_tpu/ops/pallas/embedding.py:96 (XLA scatter-add of "
+        "_gather_core_bwd)", errs["embedding_gather_bwd"],
+        time_ms(lambda: emb.embedding_gather_bwd(dout, ids, 30522), 50),
+        time_ms(lambda: emb.embedding_gather_bwd_plain(dout, ids, 30522),
+                50),
+        bound_ms(4 * (30522 * 768 + 4096 * 768) + 8 * 4096, 4096 * 768,
+                 "float32"),
+        time_ms(lambda: torch.zeros((30522, 768), device="cuda")
+                .index_add_(0, ids, dout), 50),
+        "dout [4096,768] f32, ids random over 30522 → table grad "
+        "[30522,768]"))
+    tt = (torch.arange(4096, device="cuda") >= 2048).long()
+    extra = [{"name": "embedding_gather_bwd",
+              "shape": "token type table: 2 ids over 4096 positions",
+              "ms": time_ms(lambda: emb.embedding_gather_bwd(dout, tt, 2),
+                            50),
+              "library_ms": time_ms(lambda: torch.zeros(
+                  (2, 768), device="cuda").index_add_(0, tt, dout), 50)}]
+    del dout
+
+    x = _update_inputs(torch, gen, (30522, 768), torch.float32)
+    n = x["p"].numel()
+    adam_args = [x[k] for k in ("p", "g", "lr", "m1", "m2", "b1p", "b2p")]
+    rows.append(_row(
+        "adam_update", src, ref_file + "46 (adam; XLA in the reference)",
+        errs["adam_update"], time_ms(lambda: opt.adam_(*adam_args), 20),
+        time_ms(lambda: opt.adam_plain(*adam_args), 20),
+        bound_ms(28 * n, 14 * n, "float32"), None,
+        "[30522,768] f32 (BERT-base word embedding)"))
+    sgd_args = (x["p"], x["g"], x["lr"])
+    rows.append(_row(
+        "sgd_update", src, ref_file + "22 (sgd; XLA in the reference)",
+        errs["sgd_update"], time_ms(lambda: opt.sgd_(*sgd_args), 20),
+        time_ms(lambda: opt.sgd_plain(*sgd_args), 20),
+        bound_ms(12 * n, 2 * n, "float32"),
+        time_ms(lambda: x["p"].add_(x["g"], alpha=-OPT_LR), 20),
+        "[30522,768] f32"))
+    del x, adam_args, sgd_args
+
+    y = _update_inputs(torch, gen, (3, 3, 512, 512), torch.float32)
+    n = y["p"].numel()
+    fused = getattr(torch, "_fused_sgd_", None)
+    lib_ms, lib_note = None, "torch._fused_sgd_ not in this PyTorch"
+    if fused is not None:
+        def library():
+            fused([y["p"]], [y["g"]], [y["v"]], weight_decay=0.0,
+                  momentum=0.9, lr=OPT_LR, dampening=0.0, nesterov=True,
+                  maximize=False, is_first_step=False)
+
+        z = _clone_inputs(y)
+        want = opt.momentum_plain(z["p"], z["g"], z["v"], z["lr"], 0.9, True)
+        try:  # a yardstick only: its absence or refusal fails nothing
+            fused([z["p"]], [z["g"]], [z["v"]], weight_decay=0.0,
+                  momentum=0.9, lr=OPT_LR, dampening=0.0, nesterov=True,
+                  maximize=False, is_first_step=False)
+            lib_note = ("torch._fused_sgd_ (nesterov, dampening 0): the "
+                        "reference's Nesterov update; max |diff| against "
+                        "the plain twin %g (param), %g (velocity)"
+                        % (max_err(z["p"], want[0]),
+                           max_err(z["v"], want[1])))
+            lib_ms = time_ms(library, 20)
+        except (TypeError, RuntimeError) as e:
+            lib_note = "torch._fused_sgd_ refused the call: %s" % e
+        del z, want
+    rows.append(_row(
+        "momentum_update", src,
+        ref_file + "28 (momentum; XLA in the reference)",
+        errs["momentum_update"],
+        time_ms(lambda: opt.momentum_(y["p"], y["g"], y["v"], y["lr"], 0.9,
+                                      True), 20),
+        time_ms(lambda: opt.momentum_plain(y["p"], y["g"], y["v"], y["lr"],
+                                           0.9, True), 20),
+        bound_ms(20 * n, 6 * n, "float32"), lib_ms,
+        "[3,3,512,512] f32 Nesterov (ResNet-50's largest conv)"))
+    rows[-1]["library_note"] = lib_note
+    del y
+
+    shapes = _bert_base_shapes()
+    members = [_update_inputs(torch, gen, s, torch.float32)
+               for s in shapes]
+    n = sum(m["p"].numel() for m in members)
+    lr = members[0]["lr"]
+
+    def col(key):
+        return [m[key] for m in members]
+
+    madam = [col(k) for k in ("p", "g")] + [lr] + [
+        col(k) for k in ("m1", "m2", "b1p", "b2p")]
+    rows.append(_row(
+        "multi_tensor_adam", src, ref_file + "366 (fused_adam)",
+        errs["multi_tensor_adam"],
+        time_ms(lambda: opt.multi_adam_(*madam), 10),
+        time_ms(lambda: [opt.adam_plain(*[a[i] if isinstance(a, list)
+                                          else a for a in madam])
+                         for i in range(len(shapes))], 3),
+        bound_ms(28 * n + 16 * len(shapes), 14 * n, "float32"), None,
+        "BERT-base's %d parameters, %d elements, f32" % (len(shapes), n)))
+    rows.append(_row(
+        "multi_tensor_sgd", src, ref_file + "347 (fused_sgd)",
+        errs["multi_tensor_sgd"],
+        time_ms(lambda: opt.multi_sgd_(col("p"), col("g"), lr), 10),
+        time_ms(lambda: [opt.sgd_plain(p, g, lr) for p, g in
+                         zip(col("p"), col("g"))], 3),
+        bound_ms(12 * n, 2 * n, "float32"),
+        time_ms(lambda: torch._foreach_add_(col("p"), col("g"),
+                                            alpha=-OPT_LR), 10),
+        "BERT-base's %d parameters, %d elements, f32" % (len(shapes), n)))
+    del members, madam
+
+    extra.append(_small_update_overhead(torch, gen))
+    torch.cuda.empty_cache()
+    return rows, extra
+
+
 def kernel_graph_masks(checks, torch, gen):
     """The dropping kernels (K1 forward, dK/dV and dQ; K2 forward and
     backward) captured once in a CUDA graph, their seed read from a step
@@ -1855,6 +2210,8 @@ def phase_kernels():
     errs["fused_dropout_add_ln_fwd"], errs["fused_dropout_add_ln_bwd"], \
         errs["fused_dropout_add_ln_bwd_bf16"] = kernel_ln(checks, torch, gen)
     errs["embedding_gather_fwd"] = kernel_gather(checks, torch, gen)
+    errs["embedding_gather_bwd"] = kernel_gather_bwd(checks, torch, gen)
+    errs.update(kernel_updates(checks, torch, gen))
     errs.update(kernel_decode(checks, torch, gen))
     errs.update(kernel_bn_act(checks, torch, gen))
     errs.update(kernel_quant(checks, torch, gen))
@@ -1862,16 +2219,17 @@ def phase_kernels():
     if checks.failed:
         raise AssertionError("kernel checks failed: %s"
                              % "; ".join(checks.failed))
-    rows, extra, scatter = time_kernels(torch, gen, errs)
+    rows, extra = time_kernels(torch, gen, errs)
+    update_rows, update_extra = time_updates(torch, gen, errs)
     emit(profile_ln_bwd(torch, gen))
     decode_rows, decode_extra = time_decode_kernels(torch, gen, errs)
     emit(profile_decode_kernels(torch, gen))
     bn_rows, bn_extra = time_bn_act(torch, gen, errs)
     quant_rows, quant_extra = time_quant(torch, gen, errs)
-    rows += decode_rows + bn_rows + quant_rows
-    for r in rows + extra + decode_extra + bn_extra + quant_extra:
+    rows += update_rows + decode_rows + bn_rows + quant_rows
+    for r in rows + extra + update_extra + decode_extra + bn_extra \
+            + quant_extra:
         emit(dict({"phase": "kernels", "timing": True}, **r))
-    emit(scatter)
     torch.cuda.empty_cache()
     return rows
 
@@ -2041,6 +2399,16 @@ def _median_ms(fn, reps=5, warmup=2):
     return statistics.median(times)
 
 
+# the update kernels and their beta-power launches (csrc/optimizer.cu)
+OPTIMIZER_KERNELS = ("adam_update_kernel", "adam_pow_kernel",
+                     "momentum_update_kernel", "sgd_update_kernel",
+                     "multi_adam_kernel", "multi_adam_pow_kernel",
+                     "multi_sgd_kernel")
+# K3 backward's index preparation: torch.sort and torch.searchsorted
+SORT_KERNELS = ("radixsort", "radix_sort", "sort_kernel", "searchsorted",
+                "segmented_sort")
+
+
 def _kernel_group(name):
     """The profile's group of a device kernel, by its name."""
     for group, needles in (
@@ -2049,6 +2417,8 @@ def _kernel_group(name):
             ("K2 fwd", ("add_ln_fwd_kernel",)),
             ("K2 bwd", ("add_ln_bwd_kernel", "ln_bwd_reduce_kernel")),
             ("gather", ("::gather_kernel<",)),
+            ("K3 bwd", ("segment_sum_kernel",)),
+            ("optimizer", OPTIMIZER_KERNELS),
             ("K6 paged decode", ("paged_decode_kernel<",)),
             ("K5 decode", ("decode_kernel<",)),
             ("scatter", ("indexFunc", "index_add", "scatter_add",
@@ -2056,10 +2426,14 @@ def _kernel_group(name):
         if any(n in name for n in needles):
             return group
     low = name.lower()
+    if any(n in low for n in SORT_KERNELS):
+        return "K3 bwd index sort"
     if "gemm" in low or "cutlass" in low or "xmma" in low:
         return "GEMM"
+    if "copy" in low:
+        return "copies"
     if "elementwise" in low or "reduce" in low:
-        return "Adam and elementwise"
+        return "elementwise"
     return "other"
 
 
@@ -2181,10 +2555,47 @@ def _train_program(fluid, bert, cfg, seq):
     return main, startup, loss
 
 
+def _train_launches(prog):
+    """The kernel launches of one BERT-base training step of the
+    fusion-resolved program ``prog``."""
+    want = {"flash_attention_fwd": 12, "flash_attention_bwd_dkv": 12,
+            "flash_attention_bwd_dq": 12, "fused_dropout_add_ln_fwd": 25,
+            "fused_dropout_add_ln_bwd": 25, "embedding_gather_fwd": 3,
+            "embedding_gather_bwd": 3}
+    want.update(_update_launches(prog))
+    return want
+
+
 def _grad_names(main):
     """param name → its gradient var, read off the adam ops."""
     return {op.inputs["Param"][0]: op.inputs["Grad"][0]
             for op in main.global_block().ops if op.type == "adam"}
+
+
+def _copy_backs(exe):
+    """Each captured entry's copies of new state values into their
+    resident tensors a step (0 when every update is in place)."""
+    return [e.copy_backs for e in exe._cache.values() if e.graph is not None]
+
+
+def _update_launches(program):
+    """The update kernels' launches of one step of ``program`` (its
+    fusion-resolved clone): one per per-parameter update op, one per
+    chunk of a fused one."""
+    from paddle_tpu_torch.ops.cuda import optimizer as opt
+
+    kinds = {"adam": "adam_update", "momentum": "momentum_update",
+             "sgd": "sgd_update", "fused_adam": "multi_tensor_adam",
+             "fused_sgd": "multi_tensor_sgd"}
+    out = {}
+    for op in program.global_block().ops:
+        k = kinds.get(op.type)
+        if k is None:
+            continue
+        chunk = opt.CHUNK.get(k)
+        n = -(-len(op.inputs["Param"]) // chunk) if chunk else 1
+        out[k] = out.get(k, 0) + n
+    return out
 
 
 def phase_train(env):
@@ -2240,20 +2651,20 @@ def phase_train(env):
         mode, graphs = exe.last_run_mode, exe.graph_count
         per_step = {k: c / TRAIN_STEPS for k, c in launch_counts().items()}
         want = dict.fromkeys(KERNELS, 0.0)
-        want.update({"flash_attention_fwd": 12, "flash_attention_bwd_dkv": 12,
-                     "flash_attention_bwd_dq": 12,
-                     "fused_dropout_add_ln_fwd": 25,
-                     "fused_dropout_add_ln_bwd": 25,
-                     "embedding_gather_fwd": 3})
+        want.update(_train_launches(prog))
         med = statistics.median(step_ms)
         off = _graphs_off(exe)
+        copies = _copy_backs(exe)
         emit({"phase": "train", "step": "steps", "card": card_label(env),
               "losses": losses, "step_ms": step_ms, "median_step_ms": med,
               "tokens_per_s": TRAIN_BATCH * SEQ / (med / 1e3),
               "launches_per_step": per_step, "launches_by_source": counts,
               "expected": want, "peak_memory_bytes": peak,
               "last_run_mode": mode, "graph_count": graphs,
+              "copy_backs_per_step": copies,
               "graphs_nodes_not_captured_launches": off})
+        if copies != [0]:
+            raise AssertionError("state copied back a step: %s" % copies)
         # every timed step replays: its launches are the graph's nodes
         if per_step != want or any(counts["wrapper"].values()) or off:
             raise AssertionError("launches per step %s != %s (by source "
@@ -2679,6 +3090,8 @@ def phase_decode_parity():
 def _resnet_group(name):
     """The ResNet profile's group of a device kernel, by its name."""
     low = name.lower()
+    if any(n in name for n in OPTIMIZER_KERNELS):
+        return "optimizer"
     for group, needles in (
             ("K4 fwd", ("bn_act_fwd_kernel",)),
             ("K4 bwd", ("bn_act_bwd_kernel", "bn_act_bwd_reduce_kernel")),
@@ -2697,8 +3110,17 @@ def _resnet_group(name):
         if any(n.lower() in low for n in needles):
             return group
     if "elementwise" in low or "vectorized" in low:
-        return "Momentum and elementwise"
+        return "elementwise"
     return "other"
+
+
+def _resnet_launches(prog):
+    """The kernel launches of one ResNet-50 training step of the
+    fusion-resolved program ``prog``."""
+    want = {"bn_act_epilogue_fwd": RESNET_SITES,
+            "bn_act_epilogue_bwd": RESNET_SITES}
+    want.update(_update_launches(prog))
+    return want
 
 
 def _aten_calls_per_op(exe, program, feed, fetch):
@@ -2828,10 +3250,10 @@ def phase_resnet(env):
         mode, graphs = exe.last_run_mode, exe.graph_count
         per_step = {k: c / RESNET_STEPS for k, c in launch_counts().items()}
         want = dict.fromkeys(KERNELS, 0.0)
-        want.update({"bn_act_epilogue_fwd": RESNET_SITES,
-                     "bn_act_epilogue_bwd": RESNET_SITES})
+        want.update(_resnet_launches(prog))
         med = statistics.median(step_ms)
         off = _graphs_off(exe)
+        copies = _copy_backs(exe)
         emit({"phase": "resnet", "step": "steps", "card": card_label(env),
               "batch": RESNET_BATCH, "image": RESNET_HW, "losses": losses,
               "step_ms": step_ms, "median_step_ms": med,
@@ -2839,7 +3261,10 @@ def phase_resnet(env):
               "launches_per_step": per_step, "launches_by_source": counts,
               "expected": want, "peak_memory_bytes": peak,
               "last_run_mode": mode, "graph_count": graphs,
+              "copy_backs_per_step": copies,
               "graphs_nodes_not_captured_launches": off})
+        if copies != [0]:
+            raise AssertionError("state copied back a step: %s" % copies)
         if per_step != want or any(counts["wrapper"].values()) or off:
             raise AssertionError("launches per step %s != %s (by source "
                                  "%s, graphs %s)"
@@ -3345,21 +3770,6 @@ def phase_graph_serve(env, pred, cfg):
         raise AssertionError("; ".join(failed))
 
 
-@contextlib.contextmanager
-def _deterministic():
-    """PyTorch's deterministic algorithms for the block: the embedding
-    gradient's ``index_add_`` and cuDNN's convolution backward otherwise
-    add with atomics, in an order that changes from run to run, so an
-    eager step does not repeat itself bit for bit."""
-    import torch
-
-    torch.use_deterministic_algorithms(True)
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(False)
-
-
 def _train_graph_side(fluid, main, startup, loss, batch, cache, group=None,
                       timed=True):
     """One side of a training path from a fresh scope: GRAPH_STEPS steps;
@@ -3387,6 +3797,7 @@ def _train_graph_side(fluid, main, startup, loss, batch, cache, group=None,
         side = _graph_side(exe, call, lambda: call(False), group) \
             if timed else {}
         side["modes"] = modes
+        side["copy_backs_per_step"] = _copy_backs(exe)
         digest = _digest(scope, _persistable_names(main))
         del call
     del scope, exe
@@ -3395,41 +3806,64 @@ def _train_graph_side(fluid, main, startup, loss, batch, cache, group=None,
 
 
 def _train_graph_path(env, path, fluid, main, startup, loss, batch, want,
-                      group=None):
+                      group=None, deterministic_flag=False):
     """A training path eager against graph, same program, same start,
-    same feeds.  Under PyTorch's deterministic algorithms
-    (``_deterministic``) the losses of GRAPH_STEPS steps and the digest
-    of every persistable after them must be bit for bit, and a second
-    eager side says whether eager repeats itself; then each side's
-    numbers from a fresh start with the default algorithms, as the main
-    path runs."""
+    same feeds: the losses of GRAPH_STEPS steps and the digest of every
+    persistable after them must be bit for bit eager against graph and
+    eager against a second eager side, with the default algorithms or,
+    with ``deterministic_flag``, under ``set_flags({
+    "FLAGS_cpu_deterministic": True})`` (then also whether eager repeats
+    itself without the flag, and a graph side's numbers with the flag);
+    each graph side copies no state back.  Then each side's numbers from
+    a fresh start with the default flags, as the main path runs."""
     import numpy as np
 
     def same(a, b):
         return a[1] == b[1] and all(np.array_equal(x, y)
                                     for x, y in zip(a[0], b[0]))
 
-    with _deterministic():
-        e_det = _train_graph_side(fluid, main, startup, loss, batch, False,
-                                  timed=False)
-        g_det = _train_graph_side(fluid, main, startup, loss, batch, True,
-                                  timed=False)
-        again = _train_graph_side(fluid, main, startup, loss, batch, False,
-                                  timed=False)
-    _, _, e = _train_graph_side(fluid, main, startup, loss, batch, False,
-                                group)
-    _, _, g = _train_graph_side(fluid, main, startup, loss, batch, True,
-                                group)
-    identical = same(e_det, g_det)
-    emit({"phase": "graph", "path": path, "card": card_label(env),
-          "bit_identical": identical,
-          "eager_repeats_bit_for_bit": same(e_det, again),
-          "deterministic_algorithms": "for the compared steps",
-          "losses_eager": [float(x.reshape(-1)[0]) for x in e_det[0]],
-          "losses_graph": [float(x.reshape(-1)[0]) for x in g_det[0]],
-          "modes_graph_compared": g_det[2]["modes"], "eager": e,
-          "graph": g})
-    return _graph_verdicts(path, e, g, identical, want)
+    def side(cache, timed=False):
+        return _train_graph_side(fluid, main, startup, loss, batch, cache,
+                                 group, timed=timed)
+
+    fluid.set_flags({"FLAGS_cpu_deterministic": deterministic_flag})
+    try:
+        e_cmp, g_cmp, again = side(False), side(True), side(False)
+        flagged = side(True, timed=True)[2] if deterministic_flag else None
+    finally:
+        fluid.set_flags({"FLAGS_cpu_deterministic": False})
+    loose = None
+    if deterministic_flag:
+        loose = same(side(False), side(False))
+    _, _, e = side(False, timed=True)
+    _, _, g = side(True, timed=True)
+    identical, repeats = same(e_cmp, g_cmp), same(e_cmp, again)
+    line = {"phase": "graph", "path": path, "card": card_label(env),
+            "flags_of_compared_steps": {
+                "FLAGS_cpu_deterministic": deterministic_flag},
+            "bit_identical": identical, "eager_repeats_bit_for_bit": repeats,
+            "losses_eager": [float(x.reshape(-1)[0]) for x in e_cmp[0]],
+            "losses_graph": [float(x.reshape(-1)[0]) for x in g_cmp[0]],
+            "modes_graph_compared": g_cmp[2]["modes"],
+            "copy_backs_compared_graph": g_cmp[2]["copy_backs_per_step"],
+            "eager": e, "graph": g}
+    if deterministic_flag:
+        line.update({
+            "eager_repeats_without_the_flag": loose,
+            "graph_with_the_flag": flagged,
+            "graph_step_ms_with_and_without_the_flag": [
+                flagged["step_ms"], g["step_ms"]]})
+    emit(line)
+    failed = _graph_verdicts(path, e, g, identical, want)
+    if not repeats:
+        failed.append("%s: a second eager side differs from the first"
+                      % path)
+    for label, copies in (("compared", g_cmp[2]["copy_backs_per_step"]),
+                          ("timed", g["copy_backs_per_step"])):
+        if copies != [0]:
+            failed.append("%s %s graph side copied state back: %s"
+                          % (path, label, copies))
+    return failed
 
 
 def _decode_graph_path(env, cfg, paged, params):
@@ -3497,19 +3931,16 @@ def phase_graph(env):
 
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models import bert, gpt, resnet
+    from paddle_tpu_torch.static_analysis import fusion
 
     failed = []
     cfg = bert.BERT_BASE
     main, startup, loss = _train_program(fluid, bert, cfg, SEQ)
     batch = bert.make_fake_batch(TRAIN_BATCH, SEQ, cfg,
                                  np.random.RandomState(SEED))
+    prog, _ = fusion.resolve_fused_program(main, targets=[loss.name])
     failed += _train_graph_path(env, "train", fluid, main, startup, loss,
-                                batch, {"flash_attention_fwd": 12,
-                                        "flash_attention_bwd_dkv": 12,
-                                        "flash_attention_bwd_dq": 12,
-                                        "fused_dropout_add_ln_fwd": 25,
-                                        "fused_dropout_add_ln_bwd": 25,
-                                        "embedding_gather_fwd": 3})
+                                batch, _train_launches(prog))
     del main, startup, batch
     gcfg = gpt.GPT2_SMALL_WIDTHS
     first = _decode_engine(gcfg, False, fluid.CUDAPlace(0))
@@ -3525,10 +3956,10 @@ def phase_graph(env):
     main.random_seed = startup.random_seed = SEED
     batch = {k: torch.from_numpy(v).cuda() for k, v in _resnet_batch(
         np, np.random.RandomState(SEED), RESNET_BATCH, RESNET_HW).items()}
+    prog, _ = fusion.resolve_fused_program(main, targets=[loss.name])
     failed += _train_graph_path(env, "resnet", fluid, main, startup, loss,
-                                batch, {"bn_act_epilogue_fwd": RESNET_SITES,
-                                        "bn_act_epilogue_bwd": RESNET_SITES},
-                                _resnet_group)
+                                batch, _resnet_launches(prog), _resnet_group,
+                                deterministic_flag=True)
     del main, startup, batch
     torch.cuda.empty_cache()
     if failed:
@@ -3962,8 +4393,13 @@ def main():
         # kernel, else the BERT training path's (the backward kernels),
         # else the ResNet training path's (K4), else the data-parallel
         # path's (K7: rank 0's quant twin)
+        # (the multi-tensor and SGD kernels run on no main path: the
+        # optimizer fusion's gate keeps BERT-base's Adam per parameter)
         name = r["name"]
-        for label in ("decode", "train", "resnet", "dp"):
+        for label in ("decode", "train", "resnet", "dp", "none"):
+            if label == "none":
+                wrapper = nodes = 0
+                break
             run = [paths[p] for p in (("decode_ring", "decode_paged")
                                       if label == "decode" else (label,))]
             wrapper = sum(c["wrapper"][name] for c in run)

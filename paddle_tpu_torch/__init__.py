@@ -23,7 +23,7 @@ from .framework import (
     name_scope, default_main_program, default_startup_program,
     switch_main_program, switch_startup_program, cpu_places, cuda_places,
     tpu_places, device_places)
-from .core import CPUPlace, CUDAPlace, TPUPlace
+from .core import CPUPlace, CUDAPlace, TPUPlace, set_flags, get_flags
 from .param_attr import ParamAttr, WeightNormParamAttr
 from . import initializer
 from . import ops
@@ -50,7 +50,8 @@ __all__ = [
     "program_guard", "name_scope", "default_main_program",
     "default_startup_program", "switch_main_program",
     "switch_startup_program", "cpu_places", "cuda_places", "tpu_places",
-    "device_places", "CPUPlace", "CUDAPlace", "TPUPlace", "ParamAttr",
+    "device_places", "CPUPlace", "CUDAPlace", "TPUPlace", "set_flags",
+    "get_flags", "ParamAttr",
     "WeightNormParamAttr", "Executor", "Scope", "global_scope",
     "scope_guard", "core", "unique_name", "initializer", "ops", "layers",
     "pipeline", "io", "analysis", "inference", "static_analysis",

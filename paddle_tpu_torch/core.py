@@ -1,6 +1,6 @@
-"""Core runtime types: places, dtypes, VarType.
+"""Core runtime types: places, dtypes, VarType, and the runtime flags.
 
-Mirrors ``paddle_tpu/core.py`` (places at :98-140).  A Place resolves to
+Mirrors ``paddle_tpu/core.py`` (places at :98-140, flags at :149-197).  A Place resolves to
 an explicit ``torch.device``: ``CUDAPlace(i)`` is ``cuda:i`` and
 ``CPUPlace()`` is ``cpu``.  ``TPUPlace`` is accepted as an alias of
 ``CUDAPlace`` so user scripts written for the reference package still
@@ -159,3 +159,87 @@ def as_torch_device(place):
     if dev.type == "cuda":
         return CUDAPlace(dev.index or 0).torch_device()
     return dev
+
+
+# ---------------------------------------------------------------------------
+# Flags (``paddle_tpu/core.py:149-197``): the same three flags with the same
+# defaults, ``FLAGS_*`` environment variables read at import, ``KeyError``
+# on an unknown name.  What each does on this package's devices:
+#
+# - ``FLAGS_check_nan_inf``: the executor runs every block eagerly, op by
+#   op, and raises ``FloatingPointError`` naming the first op (its type and
+#   the output var) whose floating output holds a NaN or an Inf; the
+#   reference's ``jax_debug_nans``.  A captured CUDA graph cannot stop at an
+#   op, so none is captured or replayed while the flag is set.
+# - ``FLAGS_cpu_deterministic``: cuDNN picks deterministic algorithms only
+#   (``torch.backends.cudnn.deterministic = True``, ``benchmark = False``);
+#   setting it back to False restores the two switches as they were.  The
+#   package's own kernels are deterministic without it (the embedding
+#   gradient is a sorted segment-sum, the dropout masks come from a
+#   counter-based generator), so it does nothing else; the reference's
+#   switch of its rng implementation has no counterpart here.
+# - ``FLAGS_benchmark``: stored, and does nothing, as in the reference.
+#
+# ``flags_key()`` is the part of the executor's cache key that the flags
+# decide, so a graph captured under one setting is never replayed under
+# another.
+# ---------------------------------------------------------------------------
+
+_flags = {
+    "FLAGS_check_nan_inf": False,
+    "FLAGS_cpu_deterministic": False,
+    "FLAGS_benchmark": False,
+}
+_cudnn_before = None
+
+
+def _set_cudnn_deterministic(on):
+    global _cudnn_before
+    cudnn = torch.backends.cudnn
+    if on:
+        if _cudnn_before is None:
+            _cudnn_before = (cudnn.deterministic, cudnn.benchmark)
+        cudnn.deterministic, cudnn.benchmark = True, False
+    elif _cudnn_before is not None:
+        cudnn.deterministic, cudnn.benchmark = _cudnn_before
+        _cudnn_before = None
+
+
+def set_flags(flags):
+    """Set runtime flags (the reference's ``fluid.set_flags``)."""
+    flags = dict(flags)
+    unknown = [n for n in flags if n not in _flags]
+    if unknown:
+        raise KeyError("unknown flag(s) %r (known: %s)"
+                       % (unknown, sorted(_flags)))
+    for name, value in flags.items():
+        _flags[name] = value
+        if name == "FLAGS_cpu_deterministic":
+            _set_cudnn_deterministic(bool(value))
+
+
+def get_flags(names):
+    if isinstance(names, str):
+        return {names: _flags[names]}
+    return {n: _flags[n] for n in names}
+
+
+def flags_key():
+    """The flags that change what a step runs, as a hashable tuple."""
+    return (bool(_flags["FLAGS_check_nan_inf"]),
+            bool(_flags["FLAGS_cpu_deterministic"]))
+
+
+def _bootstrap_flags():
+    """Forward ``FLAGS_*`` environment variables into the flags at import
+    (the reference's ``__bootstrap__`` pattern)."""
+    import os
+
+    for name in list(_flags):
+        raw = os.environ.get(name)
+        if raw is None:
+            continue
+        set_flags({name: raw.lower() in ("1", "true", "yes", "on")})
+
+
+_bootstrap_flags()

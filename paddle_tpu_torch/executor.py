@@ -30,25 +30,34 @@ block's step captured in a CUDA graph:
 A program with an op that is not capturable (``register_op(...,
 capturable=...)``: host sampling, a tensor-bounded ``range``, the
 collectives, the host random initialisers) runs eagerly on every call,
-decided at analysis; a capture that fails raises.  ``last_run_mode``
+decided at analysis; a capture that fails raises.  While
+``FLAGS_check_nan_inf`` is set every call runs eagerly and checks each
+op's floating outputs (``core.set_flags``); the flags that change what
+runs (``core.flags_key``) are part of the cache key.  ``last_run_mode``
 (``"eager"``, ``"capture"`` or ``"graph"``) and ``last_run_reason`` say
 what the last call did.  On the CPU there is no graph: from the second
 call the entry's step runs directly on its static inputs, through the
 same bookkeeping.  ``use_program_cache=False`` runs eagerly, as the
 reference's uncached path.
 
-State.  A captured step reads the scope tensors it was captured with and
-ends by copying each new read-write value into its tensor
-(``resident.copy_(new)``, the counterpart of the reference's
-``donate_argnums=(1,)``), so parameters, optimizer moments and batch-norm
-statistics keep their addresses; an op registered with
-``in_place={out_slot: in_slot}`` (the KV-cache writes of
-``ops/decode.py``) writes the resident tensor itself and needs no copy.
-Before each replay every scope value the graph reads is checked to be
-the tensor it was captured with; a value replaced since (``scope.set``,
-a load, a convert) of the same shape and dtype is copied into the
-captured tensor, which goes back into the scope, and any other change
-drops the entry, so the graph never reads a stale or freed tensor.
+State.  A captured step reads the scope tensors it was captured with,
+so parameters, optimizer moments and batch-norm statistics keep their
+addresses (the counterpart of the reference's ``donate_argnums=(1,)``).
+An op registered with ``in_place={out_slot: in_slot}`` writes the
+resident tensor itself: the optimizer updates (``ops/optimizer_ops.py``),
+batch norm's running statistics and the KV-cache writes of
+``ops/decode.py``.  Any other new read-write value is copied into its
+tensor at the end of the step (``resident.copy_(new)``;
+``_CompiledBlock.copy_backs`` counts them: 0 on the training paths).  An
+in-place write of a tensor that a later grad op's forward read raises,
+naming the op and the var (``_run_ops_into_env``).  Before a replay the
+scope values the graph reads are checked to be the tensors it was
+captured with, once the scope's generation (``Scope.generation``, moved
+by every write to the scope or a parent) differs from the one recorded
+at the last check; a value replaced since (``scope.set``, a load, a
+convert) of the same shape and dtype is copied into the captured tensor,
+which goes back into the scope, and any other change drops the entry, so
+the graph never reads a stale or freed tensor.
 Fetches and fresh persistables are cloned out of the graph's memory
 after each replay, so a lazy :class:`FetchHandle` keeps its value.  A
 replay calls no kernel wrapper: the kernel launches it runs are counted
@@ -96,17 +105,60 @@ __all__ = ["Executor", "Scope", "global_scope", "scope_guard",
            "FetchHandle"]
 
 
+class _Vars(dict):
+    """A scope's name → value map: every write or removal bumps the
+    scope's generation."""
+
+    def __init__(self, scope):
+        super().__init__()
+        self._scope = scope
+
+    def __setitem__(self, name, value):
+        self._scope._gen += 1
+        super().__setitem__(name, value)
+
+    def __delitem__(self, name):
+        self._scope._gen += 1
+        super().__delitem__(name)
+
+    def _bumped(name):
+        def method(self, *args, **kwargs):
+            self._scope._gen += 1
+            return getattr(dict, name)(self, *args, **kwargs)
+        return method
+
+    pop = _bumped("pop")
+    popitem = _bumped("popitem")
+    clear = _bumped("clear")
+    update = _bumped("update")
+    setdefault = _bumped("setdefault")
+    del _bumped
+
+
 class Scope:
     """name → tensor map with the reference's parent-chain lookup.
     ``rings`` holds the collective rings a startup program's
     ``c_comm_init`` bound in this scope (ring id → process group,
-    ``ops/collective.py``)."""
+    ``ops/collective.py``).  :attr:`generation` changes whenever a value
+    that :meth:`get` can return does: a write to this scope's or a
+    parent's ``vars``."""
 
     def __init__(self, parent=None):
-        self.vars = {}
+        self._gen = 0
+        self.vars = _Vars(self)
         self.parent = parent
         self.rings = {}
         self._kids = []
+
+    @property
+    def generation(self):
+        """The sum of the write counters up the parent chain; each only
+        grows, so any write on the chain moves it."""
+        gen, s = 0, self
+        while s is not None:
+            gen += s._gen
+            s = s.parent
+        return gen
 
     def new_scope(self):
         kid = Scope(parent=self)
@@ -144,7 +196,11 @@ class Scope:
         return False
 
     def set(self, name, value):
-        self._owner_of(name).vars[name] = value
+        """Bind ``name``; setting the value it already holds changes
+        nothing, not even the generation."""
+        owner = self._owner_of(name)
+        if name not in owner.vars or owner.vars[name] is not value:
+            owner.vars[name] = value
 
 
 _global_scope = Scope()
@@ -217,13 +273,32 @@ def _grad_twins(block):
     return wanted
 
 
-def _run_ops_into_env(block, env, ctx):
+def _check_finite(op, names, vals):
+    """``FLAGS_check_nan_inf``: raise on the first floating output of
+    ``op`` that holds a NaN or an Inf (one host read per output)."""
+    for n, v in zip(names, vals):
+        if isinstance(v, torch.Tensor) and v.is_floating_point() \
+                and not bool(torch.isfinite(v).all()):
+            raise FloatingPointError(
+                "FLAGS_check_nan_inf: op %s (id %s) wrote NaN or Inf into "
+                "%r" % (op.type, op.attrs.get("__op_id__"), n))
+
+
+def _run_ops_into_env(block, env, ctx, check_nan_inf=False):
     """Run every op of ``block`` on the tensors in ``env`` (name →
     tensor), adding each op's outputs.  Call it under ``torch.no_grad()``:
     a forward op that a grad op of the block differentiates records its
     autograd graph on ``ctx.tape`` (``registry.call_op_taped``), every
-    other op (grad, optimizer, ops without a twin) runs without one."""
+    other op (grad, optimizer, ops without a twin) runs without one.
+
+    An op that writes an input in place (``register_op(...,
+    in_place=...)``, the optimizer updates and the KV-cache writes) may
+    not write a tensor that a taped forward whose grad op has not run yet
+    read: autograd saved it for that grad op.  Such an op raises, naming
+    itself and the var, before it writes.  With ``check_nan_inf`` every
+    op's floating outputs are checked (``_check_finite``)."""
     twins = _grad_twins(block)
+    pending = {}  # taped forward op id -> the var names it read
     for op in block.ops:
         if op.type in ("feed", "fetch"):
             continue
@@ -245,15 +320,31 @@ def _run_ops_into_env(block, env, ctx):
             if op.outputs.get(out_slot) != op.inputs.get(in_slot):
                 ins[in_slot] = [None if v is None else v.clone()
                                 for v in ins[in_slot]]
+                continue
+            for n in op.inputs.get(in_slot, ()):
+                for fwd_id, read in pending.items():
+                    if n in read:
+                        raise RuntimeError(
+                            "op %s writes %r in place, but the grad op of "
+                            "forward op %s runs after it and needs the "
+                            "value that op read; put every grad op before "
+                            "the updates (append_backward, then the "
+                            "optimizer)" % (op.type, n, fwd_id))
+        fwd_of = op.attrs.get("__fwd_op_id__")
         op_id = op.attrs.get("__fwd_op_id__", op.attrs.get("__op_id__", 0))
-        if "__fwd_op_id__" not in op.attrs and op_id in twins:
+        if fwd_of is None and op_id in twins:
             outs = op_registry.call_op_taped(opdef, ctx, ins, op.attrs,
                                              op_id, twins[op_id])
+            pending[op_id] = set(op.input_arg_names)
         else:
             outs = op_registry.call_op(opdef, ctx, ins, op.attrs,
                                        op_id=op_id)
+            pending.pop(fwd_of, None)
         for slot, names in op.outputs.items():
-            for n, v in zip(names, outs.get(slot, ())):
+            vals = outs.get(slot, ())
+            if check_nan_inf:
+                _check_finite(op, names, vals)
+            for n, v in zip(names, vals):
                 if n and n != EMPTY_VAR_NAME and v is not None:
                     env[n] = v
     return env
@@ -326,7 +417,11 @@ class _CompiledBlock:
     and ``fresh`` are its outputs inside the graph's memory.
     ``captured`` counts the kernel launches that the wrappers recorded
     into the graph and ``kernel_nodes`` the graph's kernel nodes by
-    kernel, as libcuda lists them; a replay runs the latter."""
+    kernel, as libcuda lists them; a replay runs the latter.
+    ``copy_backs`` is the number of new read-write values the step copies
+    into their resident tensors (0 when every state write is declared in
+    place).  ``generation`` is the scope's generation when the bound
+    tensors were last checked against it (:meth:`rebind`)."""
 
     def __init__(self, program, feed_names, fetch_names):
         self.program = program  # holds id(program) for the key's life
@@ -351,6 +446,8 @@ class _CompiledBlock:
         self.fresh = None
         self.captured = {}
         self.kernel_nodes = {}
+        self.copy_backs = 0
+        self.generation = None
 
     def bind(self, scope, feed_vals, device):
         """Fix the step's inputs: the scope tensors it reads (a read-write
@@ -372,6 +469,7 @@ class _CompiledBlock:
             seen.add(_storage(val))
             reads[n] = val
         self.reads = reads
+        self.generation = scope.generation
         self.feeds = {n: v.clone() for n, v in feed_vals.items()}
         if device.type == "cuda":
             self.staging = {n: torch.empty(v.shape, dtype=v.dtype,
@@ -408,6 +506,7 @@ class _CompiledBlock:
                     news[n] = new.clone()
             for n, new in news.items():
                 self.reads[n].copy_(new)
+            self.copy_backs = len(news)
         missing = [n for n in self.fetch_names if n not in env]
         if missing:
             raise RuntimeError("fetch target %r was not produced by the "
@@ -420,7 +519,11 @@ class _CompiledBlock:
     def rebind(self, scope):
         """True when every scope value the step reads is its bound tensor,
         after copying into it any value of the same shape and dtype that
-        replaced it; False when one changed otherwise."""
+        replaced it; False when one changed otherwise.  Nothing is walked
+        while the scope's generation is the one recorded after the last
+        check: no value it can return has been replaced since."""
+        if scope.generation == self.generation:
+            return True
         for n, t in self.reads.items():
             cur = scope.get(n)
             if cur is t:
@@ -435,6 +538,7 @@ class _CompiledBlock:
                     or cur.stride() != t.stride():
                 t.copy_(cur)
             scope.set(n, t)
+        self.generation = scope.generation
         return True
 
     def stage(self, feed):
@@ -509,10 +613,16 @@ class Executor:
         if not use_program_cache:
             return self._run_eager(program, scope, feed, fetch_names,
                                    return_numpy, "use_program_cache=False")
+        if core.get_flags("FLAGS_check_nan_inf")["FLAGS_check_nan_inf"]:
+            return self._run_eager(
+                program, scope, feed, fetch_names, return_numpy,
+                "FLAGS_check_nan_inf: every op's outputs are checked, "
+                "which a captured graph cannot stop at")
         key = (id(program), program._version, id(scope),
                tuple((n, tuple(v.shape), str(v.dtype))
                      for n, v in sorted(feed.items())),
-               tuple(fetch_names), getattr(program, "_fusion_sig", None))
+               tuple(fetch_names), getattr(program, "_fusion_sig", None),
+               core.flags_key())
         with self._lock:
             entry = self._cache.get(key)
             if entry is not None and entry.reads is not None \
@@ -539,6 +649,8 @@ class Executor:
             for n, t in fresh.items():
                 if not entry.block.vars[n].is_data:
                     scope.set(n, t.clone())
+            # the fresh values are no read of this entry's
+            entry.generation = scope.generation
         return self._finish(fetches, return_numpy)
 
     def _next_step(self):
@@ -565,13 +677,13 @@ class Executor:
         reason = "warm-up: the first call for this key"
         if self.device.type != "cuda":
             return self._run_eager(program, scope, feed, fetch_names,
-                                   return_numpy, reason, own_state=True)
+                                   return_numpy, reason)
         cur = torch.cuda.current_stream(self.device)
         side = self._side_stream()
         side.wait_stream(cur)
         with torch.cuda.stream(side):
             out = self._run_eager(program, scope, feed, fetch_names,
-                                  return_numpy, reason, own_state=True)
+                                  return_numpy, reason)
         cur.wait_stream(side)
         return out
 
@@ -628,11 +740,11 @@ class Executor:
         return entry.fetches, entry.fresh
 
     def _run_eager(self, program, scope, feed, fetch_names, return_numpy,
-                   reason, own_state=False):
+                   reason):
         """The block op by op, its persistable outputs written back to the
-        scope as new tensors.  ``own_state``: a fetch that is a scope
-        tensor is returned as a copy, since the captured step that follows
-        a warm-up updates the scope's tensors in place."""
+        scope (the in-place updates leave the resident tensors there).  A
+        fetch that is a scope tensor is returned as a copy, since later
+        steps update the scope's tensors in place."""
         self.last_run_mode, self.last_run_reason = "eager", reason
         feed_vals = {n: np_to_torch(v, self.device) for n, v in feed.items()}
         block = program.global_block()
@@ -653,9 +765,12 @@ class Executor:
         step = self._next_step()
         ctx = self._context(program, scope, step, torch.full(
             (1,), step, dtype=torch.int64, device=self.device))
-        with torch.no_grad():
-            _run_ops_into_env(block, env, ctx)
-        ctx.tape.clear()  # graphs of forwards whose grads were not run
+        check = core.get_flags("FLAGS_check_nan_inf")["FLAGS_check_nan_inf"]
+        try:
+            with torch.no_grad():
+                _run_ops_into_env(block, env, ctx, check_nan_inf=bool(check))
+        finally:
+            ctx.tape.clear()  # graphs of forwards whose grads were not run
         for v in block.vars.values():
             if v.persistable and not v.is_data and v.name in env:
                 scope.set(v.name, env[v.name])
@@ -665,9 +780,8 @@ class Executor:
                 raise RuntimeError("fetch target %r was not produced by the "
                                    "program and is not in the scope" % n)
             fetches.append(env[n] if n in env else scope.get(n))
-        if own_state:
-            state = {id(scope.get(n)) for n in fetch_names if scope.has(n)}
-            fetches = [t.clone() if id(t) in state else t for t in fetches]
+        state = {id(scope.get(n)) for n in fetch_names if scope.has(n)}
+        fetches = [t.clone() if id(t) in state else t for t in fetches]
         return self._finish(fetches, return_numpy)
 
     @staticmethod

@@ -48,15 +48,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv",
            "flash_attention_bwd_dq", "fused_dropout_add_ln_fwd",
            "fused_dropout_add_ln_bwd", "embedding_gather_fwd",
-           "flash_decode_fwd", "paged_flash_decode_fwd",
-           "bn_act_epilogue_fwd", "bn_act_epilogue_bwd",
-           "block_quantize", "block_dequantize")
+           "embedding_gather_bwd", "flash_decode_fwd",
+           "paged_flash_decode_fwd", "bn_act_epilogue_fwd",
+           "bn_act_epilogue_bwd", "block_quantize", "block_dequantize",
+           "adam_update", "momentum_update", "sgd_update",
+           "multi_tensor_adam", "multi_tensor_sgd")
 _LAUNCHES = dict.fromkeys(KERNELS, 0)
 _CAPTURED = dict.fromkeys(KERNELS, 0)
 _REPLAYED = dict.fromkeys(KERNELS, 0)
 
 # each kernel's device functions (the K2 and K4 backward wrappers' second
-# launch, the partials' sum, is not counted)
+# launch, the partials' sum, is not counted, nor the Adam updates' second
+# launch, which advances the beta powers: adam_pow_kernel,
+# multi_adam_pow_kernel)
 KERNEL_FUNCTIONS = {
     "flash_attention_fwd": ("flash_fwd_kernel",),
     "flash_attention_bwd_dkv": ("flash_bwd_dkv_kernel",),
@@ -64,12 +68,18 @@ KERNEL_FUNCTIONS = {
     "fused_dropout_add_ln_fwd": ("add_ln_fwd_kernel",),
     "fused_dropout_add_ln_bwd": ("add_ln_bwd_kernel",),
     "embedding_gather_fwd": ("gather_kernel",),
+    "embedding_gather_bwd": ("segment_sum_kernel",),
     "flash_decode_fwd": ("decode_kernel",),
     "paged_flash_decode_fwd": ("paged_decode_kernel",),
     "bn_act_epilogue_fwd": ("bn_act_fwd_kernel",),
     "bn_act_epilogue_bwd": ("bn_act_bwd_kernel",),
     "block_quantize": ("quantize_kernel",),
     "block_dequantize": ("dequantize_kernel", "dequantize_vec_kernel"),
+    "adam_update": ("adam_update_kernel",),
+    "momentum_update": ("momentum_update_kernel",),
+    "sgd_update": ("sgd_update_kernel",),
+    "multi_tensor_adam": ("multi_adam_kernel",),
+    "multi_tensor_sgd": ("multi_sgd_kernel",),
 }
 
 _lock = threading.Lock()
@@ -107,6 +117,8 @@ _SIGNATURES = {
     "pt_fused_add_ln_bwd_blocks": (_L, _I, _I),
     # table, ids, out, n, V, D, padding_idx, ids_are_int64, dtype, stream
     "pt_embedding_gather_fwd": (_P, _P, _P, _L, _L, _I, _L, _I, _I, _P),
+    # dout, keys, perm, lo, hi, out, ws, tickets, n, rows, D, dtype, stream
+    "pt_embedding_gather_bwd": (_P,) * 8 + (_L, _L, _I, _I, _P),
     # q, k, v, lengths, o, ws, counters, rows, H, Tmax, Dh, lengths'
     # stride, chunk, scale, dtype, stream
     "pt_flash_decode_fwd": (_P,) * 7 + (_I,) * 6 + (_F, _I, _P),
@@ -126,6 +138,20 @@ _SIGNATURES = {
     "pt_block_quantize": (_P, _P, _P, _L, _I, _P),
     # q, scales, out, nblocks, block, dtype, stream
     "pt_block_dequantize": (_P, _P, _P, _L, _I, _I, _P),
+    # p, g, m1, m2, lr, b1p, b2p, n, p/g/m/lr/pow dtypes, beta1, 1 - beta1,
+    # beta2, 1 - beta2, eps, stream
+    "pt_adam_update": (_P,) * 7 + (_L,) + (_I,) * 5 + (_F,) * 5 + (_P,),
+    # p, g, v, lr, n, p/g/lr dtypes, mu, nesterov, stream
+    "pt_momentum_update": (_P,) * 4 + (_L, _I, _I, _I, _F, _I, _P),
+    # p, g, lr, n, p/g/lr dtypes, stream
+    "pt_sgd_update": (_P,) * 3 + (_L, _I, _I, _I, _P),
+    # arrays of p, g, m1, m2, b1p, b2p pointers and of sizes, count, lr,
+    # dtypes and hyperparameters as pt_adam_update, stream
+    "pt_multi_adam_update": (_P,) * 7 + (_I, _P) + (_I,) * 5 + (_F,) * 5
+    + (_P,),
+    # arrays of p and g pointers and of sizes, count, lr, p/g/lr dtypes,
+    # stream
+    "pt_multi_sgd_update": (_P,) * 3 + (_I, _P, _I, _I, _I, _P),
 }
 
 def sources():

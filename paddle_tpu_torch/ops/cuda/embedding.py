@@ -1,5 +1,5 @@
-"""Embedding row gather: a hand-written CUDA kernel for Hopper
-(``csrc/embedding.cu``) and its plain PyTorch version.
+"""Embedding row gather and its table gradient: hand-written CUDA kernels
+for Hopper (``csrc/embedding.cu``) and their plain PyTorch versions.
 
 Replaces the Pallas TPU kernel ``paddle_tpu/ops/pallas/embedding.py``
 (``_pallas_gather`` at :63, ``pallas_call`` at :74, body ``_gather_kernel``
@@ -15,8 +15,15 @@ tensors.  :func:`embedding_gather` is a ``torch.autograd.Function`` over
 it whose backward is the reference's scatter-add (``_gather_core_bwd``
 :96-101): duplicate ids accumulate, negative ids feed row 0, and ids >= V
 and ``padding_idx`` rows send no gradient.  The reference leaves the
-scatter to XLA; here it is ``index_add_``, whose CUDA atomics sum
-duplicate ids in an order that varies from run to run.
+scatter to XLA.  Here :func:`embedding_gather_bwd` launches a
+deterministic sorted segment-sum for CUDA tensors (``segment_sum_kernel``;
+``index_add_``'s CUDA atomics would sum duplicate ids in an order that
+changes from run to run): :func:`scatter_plan` sorts the clamped ids
+(plain torch, any device, no shape that depends on the data) and the
+kernel sums each id's rows in a fixed order.  Its plain version,
+:func:`embedding_gather_bwd_plain`, is ``index_add_`` (sequential on the
+CPU); :func:`embedding_gather_bwd_sorted_plain` repeats the kernel's order
+of additions from the same plan, bit for bit.
 """
 
 import torch
@@ -24,6 +31,9 @@ import torch
 from . import _lib
 
 KERNEL = "embedding_gather_fwd"
+KERNEL_BWD = "embedding_gather_bwd"
+# sorted positions one block of the backward sums (csrc/embedding.cu)
+PIECE = 16
 
 
 def embedding_gather_fwd_plain(table, ids, padding_idx=-1):
@@ -71,19 +81,96 @@ def embedding_gather_fwd(table, ids, padding_idx=-1):
     return out
 
 
-def embedding_gather_bwd(dout, ids, rows, padding_idx=-1):
+def _dropped(ids, rows, padding_idx):
+    drop = ids >= rows
+    if padding_idx is not None and padding_idx != -1:
+        drop = drop | (ids == padding_idx)
+    return drop
+
+
+def embedding_gather_bwd_plain(dout, ids, rows, padding_idx=-1):
     """The gather's table gradient [rows, D] (float32 sums, then dout's
     dtype): the scatter-add of ``dout`` [n, D] at the clamped ids, with
     the rows of ids >= V and of ``padding_idx`` zeroed first."""
     ids = ids.long()
-    drop = ids >= rows
-    if padding_idx is not None and padding_idx != -1:
-        drop = drop | (ids == padding_idx)
-    g = dout.float().masked_fill(drop[:, None], 0.0)
+    g = dout.float().masked_fill(_dropped(ids, rows, padding_idx)[:, None],
+                                 0.0)
     table = torch.zeros((rows, dout.shape[1]), dtype=torch.float32,
                         device=dout.device)
     table.index_add_(0, ids.clamp(0, rows - 1), g)
     return table.to(dout.dtype)
+
+
+def scatter_plan(ids, rows, padding_idx=-1):
+    """The backward's index preparation: ``(keys, perm, lo, hi)``, each
+    [n] int64.  ``keys`` are the ids clamped at 0, with ids >= ``rows``
+    and ``padding_idx`` set to ``rows`` (they send nothing), sorted
+    stably; ``perm`` their positions in ``ids``; ``[lo[i], hi[i])`` the
+    sorted positions of ``keys[i]``."""
+    ids = ids.long()
+    keys = ids.clamp(min=0).masked_fill(_dropped(ids, rows, padding_idx),
+                                        rows)
+    keys, perm = torch.sort(keys, stable=True)
+    return (keys, perm, torch.searchsorted(keys, keys),
+            torch.searchsorted(keys, keys, right=True))
+
+
+def embedding_gather_bwd_sorted_plain(dout, plan, rows):
+    """The kernel's arithmetic on a plan (:func:`scatter_plan`): each
+    segment of at most PIECE sorted positions summed in sorted order; a
+    longer one's pieces summed each in order, then the pieces' sums in
+    piece order; float32, then dout's dtype."""
+    keys, _perm, lo, hi = (t.tolist() for t in plan)
+    g = dout.float()[plan[1]]
+    out = torch.zeros((rows, dout.shape[1]), dtype=torch.float32,
+                      device=dout.device)
+    for i, key in enumerate(keys):
+        if key >= rows or lo[i] != i:
+            continue
+        parts = []
+        for start in range(lo[i], hi[i], PIECE):
+            acc = torch.zeros_like(out[0])
+            for j in range(start, min(start + PIECE, hi[i])):
+                acc = acc + g[j]
+            parts.append(acc)
+        acc = parts[0]
+        if len(parts) > 1:
+            acc = torch.zeros_like(out[0])
+            for part in parts:
+                acc = acc + part
+        out[key] = acc
+    return out.to(dout.dtype)
+
+
+def embedding_gather_bwd(dout, ids, rows, padding_idx=-1):
+    """The gather's table gradient [rows, D] from ``dout`` [n, D]: CUDA
+    tensors launch the segment-sum kernel on :func:`scatter_plan`'s
+    order; CPU and meta tensors run :func:`embedding_gather_bwd_plain`."""
+    if dout.device.type != "cuda":
+        return embedding_gather_bwd_plain(dout, ids, rows, padding_idx)
+    code = _lib.dtype_code(dout, KERNEL_BWD)
+    if dout.dim() != 2 or ids.dim() != 1 or ids.shape[0] != dout.shape[0]:
+        raise ValueError("dout must be [n, D] and ids [n], got %s / %s"
+                         % (tuple(dout.shape), tuple(ids.shape)))
+    if ids.device != dout.device:
+        raise ValueError("dout on %s, ids on %s" % (dout.device, ids.device))
+    n, d = dout.shape
+    if n == 0 or rows == 0 or d == 0:
+        raise ValueError("embedding gather backward kernel takes non-empty "
+                         "dout and table, got %s / %d rows"
+                         % (tuple(dout.shape), rows))
+    dout = dout.contiguous()
+    keys, perm, lo, hi = scatter_plan(ids, rows, padding_idx)
+    out = torch.zeros((rows, d), dtype=dout.dtype, device=dout.device)
+    ws = torch.empty((n, d), dtype=torch.float32, device=dout.device)
+    tickets = torch.zeros((n,), dtype=torch.int32, device=dout.device)
+    err = _lib.lib().pt_embedding_gather_bwd(
+        dout.data_ptr(), keys.data_ptr(), perm.data_ptr(), lo.data_ptr(),
+        hi.data_ptr(), out.data_ptr(), ws.data_ptr(), tickets.data_ptr(), n,
+        rows, d, code, _lib.stream_handle(dout.device))
+    _lib.check(err, KERNEL_BWD)
+    _lib.count_launch(KERNEL_BWD)
+    return out
 
 
 class _EmbeddingGather(torch.autograd.Function):

@@ -223,9 +223,12 @@ def _batch_stats(x32, reduce_dims):
 
 
 def _running(stat, batch, momentum):
-    """``stat * momentum + batch * (1 - momentum)``, outside the tape (the
-    reference's stop_gradient): a stateful output takes no gradient."""
-    return stat * momentum + batch.detach() * (1 - momentum)
+    """``stat * momentum + batch * (1 - momentum)`` written into ``stat``
+    (declared in place), outside the tape (the reference's
+    stop_gradient): a stateful output takes no gradient."""
+    with torch.no_grad():
+        stat.copy_(stat * momentum + batch.detach() * (1 - momentum))
+    return stat
 
 
 @register_op(
@@ -233,7 +236,8 @@ def _running(stat, batch, momentum):
     inputs=["X", "Scale", "Bias", "Mean", "Variance"],
     outputs=["Y", "MeanOut", "VarianceOut", "SavedMean", "SavedVariance"],
     stateful_outputs=("MeanOut", "VarianceOut", "SavedMean",
-                      "SavedVariance"))
+                      "SavedVariance"),
+    in_place={"MeanOut": "Mean", "VarianceOut": "Variance"})
 def batch_norm(ctx, attrs, X, Scale, Bias, Mean, Variance):
     """Training uses the batch's statistics and moves the running ones
     (MeanOut/VarianceOut, the same vars as Mean/Variance) by
@@ -405,7 +409,8 @@ def accuracy(ctx, attrs, Out, Indices, Label):
     "fused_conv_bn_act",
     inputs=["Input", "Filter", "Scale", "Bias", "Mean", "Variance"],
     outputs=["Out", "MeanOut", "VarianceOut"],
-    stateful_outputs=("MeanOut", "VarianceOut"))
+    stateful_outputs=("MeanOut", "VarianceOut"),
+    in_place={"MeanOut": "Mean", "VarianceOut": "Variance"})
 def fused_conv_bn_act(ctx, attrs, Input, Filter, Scale, Bias, Mean,
                       Variance):
     """conv2d → batch_norm → activation as one op.  The conv is the same

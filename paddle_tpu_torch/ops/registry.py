@@ -26,8 +26,10 @@ In-place ops.  An op is a function of its inputs and never writes one,
 with one declared exception: ``register_op(..., in_place={out_slot:
 in_slot})`` says the op writes its ``out_slot`` result into the tensor
 of ``in_slot`` and returns that tensor (the KV-cache writes of
-``ops/decode.py``).  The executor honours the declaration
-(``executor.py``); no other op may write an input.
+``ops/decode.py``, the optimizer updates of ``ops/optimizer_ops.py``,
+batch norm's running statistics).  An op with a gradient may declare
+only stateful outputs so (they take no gradient).  The executor honours
+the declaration (``executor.py``); no other op may write an input.
 
 Capturable ops.  The executor replays a program's step from a captured
 CUDA graph only when every op of it is capturable: it reads no device
@@ -126,13 +128,16 @@ def register_op(type, inputs, outputs, no_grad=False, infer_shape=None,
     ``type``.  Slot kwargs are tensors (lists for duplicable slots, None
     for absent optional slots).  Return a single tensor (one output
     slot), a tuple in declared output order, or a dict slot→tensor.
-    ``in_place`` (``{out_slot: in_slot}``) declares a grad-free op that
-    writes its result into that input's tensor.  ``capturable`` (a bool,
+    ``in_place`` (``{out_slot: in_slot}``) declares that the op writes
+    that result into that input's tensor (a grad-free op, or a stateful
+    output).  ``capturable`` (a bool,
     or ``capturable(attrs, inputs)``) says whether a CUDA graph may
     capture the op."""
 
-    if in_place and not no_grad:
-        raise ValueError("op %r: an in-place op must be no_grad" % type)
+    if in_place and not no_grad \
+            and not set(in_place) <= set(stateful_outputs):
+        raise ValueError("op %r: an op with a gradient may write in place "
+                         "only its stateful outputs" % type)
 
     def deco(fn):
         _OP_REGISTRY[type] = OpDef(type, fn, inputs, outputs, no_grad=no_grad,
@@ -273,8 +278,12 @@ def call_op_taped(opdef, ctx, ins, attrs, op_id, wanted):
     with torch.enable_grad():
         outs = call_op(opdef, ctx, leaves, attrs, op_id=op_id)
     ctx.tape[op_id] = (leaves, outs, wanted)
-    return {slot: [v.detach() if isinstance(v, torch.Tensor) else v
-                   for v in vals] for slot, vals in outs.items()}
+    plain = {slot: [v.detach() if isinstance(v, torch.Tensor) else v
+                    for v in vals] for slot, vals in outs.items()}
+    for out_slot, in_slot in opdef.in_place.items():
+        if out_slot in plain:  # written into the input: return the input
+            plain[out_slot] = list(ins[in_slot])
+    return plain
 
 
 def _make_generic_grad_def(fwd_def):

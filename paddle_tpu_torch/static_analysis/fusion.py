@@ -23,6 +23,12 @@ family                    rewrite
                           gather kernel), gated on ``D % 128 == 0`` and the
                           gathered slab at a nominal batch of 8 reaching
                           ``PADDLE_TPU_EMBED_FUSE_MIN_BYTES`` (default 4096)
+``optimizer`` (:1521)     a run of per-parameter ``adam``/``sgd`` ops with
+                          one key (type, dtypes, LearningRate, Adam's
+                          hyperparameters) ⇒ one ``fused_adam`` /
+                          ``fused_sgd`` (the multi-tensor update kernels),
+                          gated by the reference's traffic model and
+                          formula (``optimizer_fuse_overhead_bytes``)
 ``allreduce`` (:1638)     the in-place ``c_allreduce_sum`` of each gradient
                           (``GradAllReduce``), grouped by (ring,
                           ``pre_scale``, dtype) into buckets of at most
@@ -50,8 +56,8 @@ and the collectives read (``_num_trainers``, ``_trainer_id``,
 ``_allreduce_bucket_mb``, ``_quant_buckets``), as the reference's
 ``_PROGRAM_MARKS`` (:119).
 
-Not ported yet (ROADMAP.md): the attention, softmax_xent and optimizer
-families, and the verifier bracket around each family.
+Not ported yet (ROADMAP.md): the attention and softmax_xent families,
+and the verifier bracket around each family.
 """
 
 import os
@@ -61,8 +67,8 @@ from ._defuse import resolve_sub_block, sub_block_reads_recursive
 
 __all__ = ["FusionConfig", "FusionRewrite", "FusionSkip", "FusionReport",
            "fusion_enabled", "conv_bn_min_bytes", "embed_fuse_min_bytes",
-           "allreduce_bucket_mb", "apply_fusion_passes",
-           "resolve_fused_program"]
+           "allreduce_bucket_mb", "optimizer_fuse_overhead_bytes",
+           "apply_fusion_passes", "resolve_fused_program"]
 
 _DTYPE_BYTES = {"float64": 8, "int64": 8, "float32": 4, "int32": 4,
                 "float16": 2, "bfloat16": 2, "int16": 2, "int8": 1,
@@ -119,19 +125,47 @@ def allreduce_bucket_mb(program=None):
         return 32.0
 
 
+# the CUDA default of optimizer_fuse_overhead_bytes: the device time of one
+# small Adam update (768 elements, its two launches) in a replayed CUDA
+# graph, 3.03 us on an NVIDIA H100 80GB HBM3 at a 700 W power limit
+# (chip_smoke.py _small_update_overhead), as bytes at 3.35 TB/s
+_CUDA_OVERHEAD_BYTES = 10_150_000
+
+
+def optimizer_fuse_overhead_bytes():
+    """Per-op overhead the multi-tensor optimizer fusion is credited with
+    removing, as bytes of device-memory traffic (``fusion.py:218-242``):
+    ``PADDLE_TPU_FUSE_OPT_OVERHEAD_BYTES`` overrides; else 256 KiB on a
+    host without CUDA, the reference's CPU default, so both packages fuse
+    the same programs there, and on a CUDA host the launch and ramp of one
+    small update kernel as bytes at 3.35 TB/s (``_CUDA_OVERHEAD_BYTES``;
+    ``chip_smoke.py`` measures it: PERF.md)."""
+    val = os.environ.get("PADDLE_TPU_FUSE_OPT_OVERHEAD_BYTES", "").strip()
+    if val:
+        try:
+            return int(val)
+        except ValueError:
+            pass
+    import torch
+
+    return _CUDA_OVERHEAD_BYTES if torch.cuda.is_available() \
+        else (256 << 10)
+
+
 class FusionConfig:
     """Which families run; ``enabled`` follows the kill switch."""
 
     __slots__ = ("enabled", "fuse_elewise", "fuse_conv_bn_act",
-                 "fuse_embedding_gather", "fuse_allreduce")
+                 "fuse_embedding_gather", "fuse_optimizer", "fuse_allreduce")
 
     def __init__(self, enabled=None, fuse_elewise=True,
                  fuse_conv_bn_act=True, fuse_embedding_gather=True,
-                 fuse_allreduce=True):
+                 fuse_optimizer=True, fuse_allreduce=True):
         self.enabled = fusion_enabled() if enabled is None else bool(enabled)
         self.fuse_elewise = bool(fuse_elewise)
         self.fuse_conv_bn_act = bool(fuse_conv_bn_act)
         self.fuse_embedding_gather = bool(fuse_embedding_gather)
+        self.fuse_optimizer = bool(fuse_optimizer)
         self.fuse_allreduce = bool(fuse_allreduce)
 
     @classmethod
@@ -146,8 +180,9 @@ class FusionConfig:
         from ..quant.collective import quant_min_bytes
 
         return (self.enabled, self.fuse_elewise, self.fuse_conv_bn_act,
-                self.fuse_embedding_gather, self.fuse_allreduce,
-                conv_bn_min_bytes(), embed_fuse_min_bytes(),
+                self.fuse_embedding_gather, self.fuse_optimizer,
+                self.fuse_allreduce, conv_bn_min_bytes(),
+                embed_fuse_min_bytes(), optimizer_fuse_overhead_bytes(),
                 allreduce_bucket_mb(program), quant_min_bytes(program),
                 quant_block())
 
@@ -724,6 +759,106 @@ def _find_bias_act(view, report):
     return None
 
 
+_OPT_SLOTS = {
+    "adam": (("Param", "Grad", "Moment1", "Moment2", "Beta1Pow",
+              "Beta2Pow"),
+             ("ParamOut", "Moment1Out", "Moment2Out", "Beta1PowOut",
+              "Beta2PowOut")),
+    "sgd": (("Param", "Grad"), ("ParamOut",)),
+}
+
+
+def _opt_key(view, op):
+    """The key of a per-parameter update that may join a fused one
+    (``fusion.py:1533-1553``), or None."""
+    if op.type not in _OPT_SLOTS or _is_grad_op(op):
+        return None
+    pname = op.inputs.get("Param", [None])[0]
+    pv = view.var(pname) if pname else None
+    if pv is None or pv.shape is None:
+        return None
+    if getattr(pv, "_is_distributed", False) \
+            or getattr(pv, "shard_spec", None):
+        return None
+    gname = op.inputs.get("Grad", [None])[0]
+    gv = view.var(gname) if gname else None
+    key = (op.type, str(pv.dtype),
+           str(gv.dtype) if gv is not None else str(pv.dtype),
+           tuple(op.inputs.get("LearningRate", [])))
+    if op.type == "adam":
+        key += (op.attrs.get("beta1", 0.9), op.attrs.get("beta2", 0.999),
+                op.attrs.get("epsilon", 1e-8))
+    return key
+
+
+def _find_optimizer(view, report):
+    """The first run of adjacent per-parameter updates with one key that
+    the gate admits ⇒ one ``fused_adam``/``fused_sgd`` at its first op
+    (``fusion.py:1556-1630``).  The gate is the reference's: a fused run
+    is credited ``(members - 1) * optimizer_fuse_overhead_bytes()`` of
+    launches saved against ``n_streams * elements * max(dtype bytes, 4)``
+    of flat-stream traffic (7 streams for Adam, 3 for SGD), and fuses
+    only when the credit is larger.  The port's multi-tensor kernel moves
+    no more bytes than the per-parameter ones; the formula is kept so
+    both packages rewrite the same programs."""
+    block = view.block
+    runs = []
+    cur, cur_key = [], None
+    for i, op in enumerate(block.ops):
+        key = _opt_key(view, op)
+        if key is not None and key == cur_key:
+            cur.append((i, op))
+            continue
+        if len(cur) >= 2:
+            runs.append((cur_key, cur))
+        cur, cur_key = ([(i, op)], key) if key is not None else ([], None)
+    if len(cur) >= 2:
+        runs.append((cur_key, cur))
+
+    for key, members in runs:
+        if any(view.idx_of(o) != i for i, o in members):
+            continue
+        op_type = key[0]
+        dt_bytes = _DTYPE_BYTES.get(key[1], 4)
+        total = sum(_numel(view.var(o.inputs["Param"][0]).shape) or 0
+                    for _, o in members)
+        n_streams = 7 if op_type == "adam" else 3
+        extra_bytes = n_streams * total * max(dt_bytes, 4)
+        benefit = (len(members) - 1) * optimizer_fuse_overhead_bytes()
+        first_idx = members[0][0]
+        if benefit <= extra_bytes:
+            report.skip(
+                "optimizer", first_idx, op_type,
+                "cost model (the reference's gate): a flat-stream update "
+                "would add ~%d MB of traffic vs ~%d MB of launch savings "
+                "for %d params" % (extra_bytes >> 20, benefit >> 20,
+                                   len(members)),
+                key=members[0][1].attrs.get("__op_id__"))
+            continue
+        in_slots, out_slots = _OPT_SLOTS[op_type]
+        ins = {"LearningRate": list(
+            members[0][1].inputs.get("LearningRate", []))}
+        for slot in in_slots:
+            ins[slot] = [o.inputs[slot][0] for _, o in members]
+        outs = {slot: [o.outputs[slot][0] for _, o in members]
+                for slot in out_slots}
+        attrs = {k: v for k, v in members[0][1].attrs.items()
+                 if not k.startswith("__")}
+        attrs["op_role"] = "optimize"
+        fused = _new_op(block, "fused_" + op_type, ins, outs, attrs)
+        return {"replacements": {first_idx: fused},
+                "removals": {i for i, _ in members[1:]},
+                "rewrite": FusionRewrite(
+                    "optimizer", "fused_" + op_type,
+                    [i for i, _ in members], vars=tuple(ins["Param"]),
+                    predicted={"ops_removed": len(members) - 1,
+                               "hbm_bytes_added": extra_bytes,
+                               "launch_bytes_saved": benefit},
+                    note="bit-exact multi-tensor update (%d params, %d "
+                         "elems)" % (len(members), total))}
+    return None
+
+
 def _find_allreduce(view, report):
     """One bucket of in-place ``c_allreduce_sum`` ops ⇒ one
     ``c_fused_allreduce_sum`` or ``c_allreduce_quant`` at the bucket's
@@ -844,6 +979,7 @@ _FAMILIES = (
     ("dropout_add_ln", "fuse_elewise", _find_dropout_add_ln),
     ("bias_act", "fuse_elewise", _find_bias_act),
     ("embedding_gather", "fuse_embedding_gather", _find_embedding_gather),
+    ("optimizer", "fuse_optimizer", _find_optimizer),
     ("allreduce", "fuse_allreduce", _find_allreduce),
 )
 

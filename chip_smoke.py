@@ -36,17 +36,21 @@ and the CUDA toolkit.  Phases, each printing one JSON line:
    function are timed with L2 flushed before every call (the library
    call is a yardstick only; the port never calls it), and the K2
    backward's call is split between its two launches
-   (``torch.profiler``).  K3 backward (the sorted segment-sum) against
-   ``index_add_`` at a tolerance, against its sorted plain twin and over
-   two runs bit for bit, at BERT-base's three tables and the training
-   batch's ids, all ids alike and a ragged case; the in-place update
-   kernels (Adam, Momentum plain and Nesterov, SGD) against their plain
-   twins bit for bit in float32 and bfloat16 at BERT-base's and
-   ResNet-50's largest and smallest parameters, writing into their
-   inputs; the multi-tensor Adam and SGD over BERT-base's parameter
-   list against the per-parameter kernels bit for bit; each timed, and
-   one small update's device time in a graph (the optimizer fusion's
-   CUDA gate);
+   (``torch.profiler``).  K3 backward (a table pass, then the long
+   rows) against ``index_add_`` at a tolerance, against its sorted
+   plain twin and over two runs bit for bit, at BERT-base's three
+   tables and the training batch's ids, all ids alike, 20000 ids and a
+   ragged case, with its launches a call counted by kernel name and
+   split between them; the in-place update kernels (Adam, Momentum
+   plain and Nesterov, SGD) against their plain twins bit for bit in
+   float32 and bfloat16 at BERT-base's and ResNet-50's largest and
+   smallest parameters, writing into their inputs; the multi-tensor
+   Adam and SGD over BERT-base's parameter list against the
+   per-parameter kernels bit for bit; SGD and the multi-tensor SGD at
+   odd lengths, mixed types and misaligned views against ``sgd_plain``
+   bit for bit; each timed (K3 backward beside ``index_add_`` and the
+   deterministic ``index_put_``), and one small update's device time in
+   a graph (the optimizer fusion's CUDA gate);
 4. main path, serving: BERT-base (vocab 30522, hidden 768, 12 layers, 12
    heads, ffn 3072) at sequence length 512 with random weights from a
    seed is built with the port's layers, exported with
@@ -316,20 +320,32 @@ def card_label(env):
 # timing
 # ---------------------------------------------------------------------------
 
-def time_ms(fn, iters=20, warmup=3, clean_l2=False):
+def time_ms(fn, iters=20, warmup=3, clean_l2=False, graph=False):
     """Mean device time of one cold call of ``fn()``: before each of
     ``iters`` calls (after ``warmup``) a write of L2_FLUSH_BYTES evicts
     the inputs from the 50 MB L2, and a pair of CUDA events brackets the
     call alone, so the time reads against the HBM bound.  The write
     leaves L2 dirty, so the call's reads also pay the write-back of what
     they evict; ``clean_l2`` flushes with a read of the same bytes
-    instead."""
+    instead.  ``graph`` captures ``fn`` once in a CUDA graph and times its
+    replays, so host work inside ``fn`` (a multi-tensor wrapper's checks
+    of every member) cannot hold the card idle inside the window."""
     import torch
 
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device="cuda")
     for _ in range(warmup):
         fn()
+    if graph:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        captured = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(captured):
+            fn()
+        fn = captured.replay
     pairs = []
     for _ in range(iters):
         if clean_l2:
@@ -405,7 +421,8 @@ def phase_environment():
 # SM holds), and the K1 backward (a digest of its SASS, which moving its
 # helpers into flash_mma.cuh must not change)
 BUILD_REPORT = ("flash_fwd_kernel", "add_ln_bwd_kernel",
-                "ln_bwd_reduce_kernel", "decode_kernel")
+                "ln_bwd_reduce_kernel", "decode_kernel", "embedding_bwd_",
+                "sgd_update_kernel", "multi_sgd_kernel")
 # kernels whose spills fail the run
 NO_SPILL = ("add_ln_bwd", "decode_kernel")
 SASS_DIGEST = ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
@@ -1464,8 +1481,6 @@ def profile_ln_bwd(torch, gen, calls=20):
     each kernel (``torch.profiler``, L2 flushed before every call) beside
     the call's CUDA-event time (``time_ms``), whose excess over the
     kernels' sum is the gap between the launches."""
-    from torch.profiler import ProfilerActivity, profile
-
     from paddle_tpu_torch.ops.cuda import fused_ln as fl
 
     n, d = 4096, 768
@@ -1481,6 +1496,20 @@ def profile_ln_bwd(torch, gen, calls=20):
         return fl.fused_dropout_add_ln_bwd(dout, y, g, mean, rstd, *drop)
 
     event_ms = time_ms(call, 50)
+    kernels = _kernel_split(torch, call, "ln_bwd", calls)
+    total = sum(k["us_per_call"] for k in kernels.values())
+    return {"phase": "kernels", "k2_bwd_split": kernels,
+            "kernels_us_per_call": total if kernels else "not measured",
+            "event_us_per_call": event_ms * 1e3,
+            "shape": "dout,y [4096,768] f32, dropout 0.1"}
+
+
+def _kernel_split(torch, call, needle, calls):
+    """Device us per call of each kernel whose name holds ``needle``
+    (``torch.profiler``, L2 flushed by a write before every call) and
+    its launches per call."""
+    from torch.profiler import ProfilerActivity, profile
+
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device="cuda")
     torch.cuda.synchronize()
@@ -1494,16 +1523,33 @@ def profile_ln_bwd(torch, gen, calls=20):
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "self_cuda_time_total", 0)
-        if dev_us and "ln_bwd" in ev.key:
+        if dev_us and needle in ev.key:
             name = ev.key.replace("(anonymous namespace)::", "")
             kernels[name.split("(")[0][:80]] = {
                 "us_per_call": dev_us / calls,
                 "launches_per_call": ev.count / calls}
-    total = sum(k["us_per_call"] for k in kernels.values())
-    return {"phase": "kernels", "k2_bwd_split": kernels,
-            "kernels_us_per_call": total if kernels else "not measured",
-            "event_us_per_call": event_ms * 1e3,
-            "shape": "dout,y [4096,768] f32, dropout 0.1"}
+    return kernels
+
+
+def profile_gather_bwd(torch, gen, calls=20):
+    """K3 backward's call split between its two launches (device us per
+    call, ``_kernel_split``) beside the call's CUDA-event
+    time, at BERT-base's three tables with the training batch's ids."""
+    from paddle_tpu_torch.ops.cuda import embedding as emb
+
+    n = TRAIN_BATCH * SEQ
+    dout = torch.randn((n, 768), generator=gen, device="cuda")
+    out = {"phase": "kernels", "k3_bwd_split": {}}
+    for label, table, layout in GATHER_BWD_CASES:
+        ids = _gather_bwd_ids(torch, gen, table, layout)
+
+        def call():
+            return emb.embedding_gather_bwd(dout, ids, table)
+
+        out["k3_bwd_split"][label] = {
+            "kernels": _kernel_split(torch, call, "embedding_bwd_", calls),
+            "event_us_per_call": time_ms(call, 50) * 1e3}
+    return out
 
 
 def _bn_act_inputs(torch, gen, r, c, dtype):
@@ -1772,6 +1818,10 @@ def time_quant(torch, gen, errs):
 GATHER_BWD_CASES = (("word V30522", 30522, "random"),
                     ("position V512", 512, "positions"),
                     ("token type V2", 2, "halves"))
+# K3 backward's device functions (csrc/embedding.cu): the rows, then the
+# long rows; launches of one call at BERT's shapes
+K3_BWD_FUNCTIONS = ("embedding_bwd_rows_kernel", "embedding_bwd_long_kernel")
+K3_BWD_LAUNCHES = 2
 # parameter shapes of the update checks: BERT-base's largest and smallest,
 # ResNet-50's largest and smallest
 UPDATE_SHAPES = ((30522, 768), (2,), (3, 3, 512, 512), (64,))
@@ -1788,12 +1838,44 @@ def _gather_bwd_ids(torch, gen, rows, layout, n=TRAIN_BATCH * SEQ):
     return torch.full((n,), 7, dtype=torch.int64, device="cuda")
 
 
+def _device_kernels(torch, fn):
+    """{device kernel or copy name: launches} of one call of ``fn()``
+    under ``torch.profiler``, after an unrecorded call, between
+    PROFILE_MARKERS marker kernels on each side; a profile that lost a
+    marker (its edge records) is taken again, PROFILE_TRIES times in
+    all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_MARKERS):
+                torch.cuda._sleep(MARKER_CYCLES)
+            fn()
+            for _ in range(PROFILE_MARKERS):
+                torch.cuda._sleep(MARKER_CYCLES)
+            torch.cuda.synchronize()
+        seen = {ev.key: ev.count for ev in prof.key_averages()
+                if str(getattr(ev, "device_type", "")).endswith("CUDA")}
+        markers = sum(n for k, n in seen.items() if MARKER_KERNEL in k)
+        if markers == 2 * PROFILE_MARKERS:
+            break
+    return {k: n for k, n in seen.items() if MARKER_KERNEL not in k}
+
+
 def kernel_gather_bwd(checks, torch, gen):
-    """K3 backward (the sorted segment-sum) against ``index_add_`` at a
-    tolerance, against its sorted plain twin on the same plan bit for bit,
-    and run twice on the same inputs bit for bit: BERT-base's three tables
-    at the training batch's ids, all 4096 ids alike, and a ragged case
-    (D 100, negative ids, ids >= V, padding_idx), float32 and bfloat16."""
+    """K3 backward (one pass over the table, then the long rows) against
+    ``index_add_`` at a tolerance, against its sorted plain twin bit for
+    bit, and run twice on the same inputs bit for bit: BERT-base's three
+    tables at the training batch's ids, all 4096 ids alike, 20000 random
+    ids (five of the chunks a block scans at once) and a ragged case (D
+    100, negative ids, ids >= V, padding_idx, int32 ids), float32 and
+    bfloat16.  Then one call at the
+    word table under the profiler: K3_BWD_LAUNCHES launches, every one a
+    kernel of K3_BWD_FUNCTIONS (no sort, memset or scatter of
+    PyTorch's)."""
     from paddle_tpu_torch.ops.cuda import embedding as emb
 
     kernel = "embedding_gather_bwd"
@@ -1802,10 +1884,13 @@ def kernel_gather_bwd(checks, torch, gen):
               768) for label, rows, layout in GATHER_BWD_CASES]
     cases.append(("all 4096 ids alike V30522", 30522,
                   _gather_bwd_ids(torch, gen, 30522, "same"), -1, 768))
+    cases.append(("20000 random ids V30522 (five chunks)", 30522,
+                  _gather_bwd_ids(torch, gen, 30522, "random", n=20000), -1,
+                  768))
     ragged = torch.randint(-2, 1010, (1000,), generator=gen, device="cuda")
     ragged[:40] = 5
-    cases.append(("ragged V1000 D100 n1000, negative, >=V, padding_idx 9",
-                  1000, ragged.to(torch.int32), 9, 100))
+    cases.append(("ragged V1000 D100 n1000 int32, negative, >=V, "
+                  "padding_idx 9", 1000, ragged.to(torch.int32), 9, 100))
     for dtype in (torch.float32, torch.bfloat16):
         for label, rows, ids, pad, d in cases:
             case = "%s %s" % (label, _dname(dtype))
@@ -1825,6 +1910,17 @@ def kernel_gather_bwd(checks, torch, gen):
                          _bit_mismatches(got, again), 0)
             if dtype == torch.float32 and main_err is None:
                 main_err = err
+    ids = _gather_bwd_ids(torch, gen, 30522, "random")
+    dout = torch.randn((ids.shape[0], 768), generator=gen, device="cuda")
+    seen = _device_kernels(
+        torch, lambda: emb.embedding_gather_bwd(dout, ids, 30522))
+    emit({"phase": "kernels", "kernel": kernel,
+          "device_kernels_a_call": seen})
+    checks.check(kernel, "launches a call at the word table, off by",
+                 abs(sum(seen.values()) - K3_BWD_LAUNCHES), 0)
+    checks.check(kernel, "device work a call not of its kernels",
+                 sum(n for k, n in seen.items()
+                     if not any(f in k for f in K3_BWD_FUNCTIONS)), 0)
     return main_err
 
 
@@ -1896,7 +1992,64 @@ def kernel_updates(checks, torch, gen):
                 errs.setdefault(kernel, max(max_err(a, b)
                                             for a, b in zip(got, want)))
     errs.update(kernel_multi_updates(checks, torch, gen))
+    kernel_sgd_layouts(checks, torch, gen)
     return errs
+
+
+# lengths of the SGD layout checks: odd, past several blocks' chunks
+# (csrc sgd_chunk: 2048 float32 elements), and the word embedding's
+SGD_LENGTHS = (1, 7, 4097, 3 * 8192 + 5, 30522 * 768)
+# (parameter, gradient) bytes past a 16-byte boundary: both aligned, both
+# off (a scalar head and tail), the gradient alone off (all scalar)
+SGD_OFFSETS = ((0, 0), (4, 4), (0, 4))
+
+
+def kernel_sgd_layouts(checks, torch, gen):
+    """SGD and the multi-tensor SGD over SGD_LENGTHS, parameter and
+    gradient each float32 or bfloat16, at the SGD_OFFSETS views: the
+    per-parameter kernel against ``sgd_plain`` bit for bit, and the
+    multi-tensor kernel over the lengths against ``sgd_plain`` bit for
+    bit, each writing into its views."""
+    from paddle_tpu_torch.ops.cuda import optimizer as opt
+
+    lr = torch.full((1,), OPT_LR, device="cuda")
+
+    def view(base, off_bytes):
+        return base[off_bytes // base.element_size():]
+
+    for p_dtype in (torch.float32, torch.bfloat16):
+        for g_dtype in (torch.float32, torch.bfloat16):
+            for p_off, g_off in SGD_OFFSETS:
+                case = "p %s +%dB, g %s +%dB" % (
+                    _dname(p_dtype), p_off, _dname(g_dtype), g_off)
+                bases, grads, wants, singles = [], [], [], []
+                for n in SGD_LENGTHS:
+                    base = torch.randn((n + 8,), generator=gen,
+                                       device="cuda").to(p_dtype)
+                    g = view((torch.randn((n + 8,), generator=gen,
+                                          device="cuda") * 0.1).to(g_dtype),
+                             g_off)[:n]
+                    p = view(base, p_off)[:n]
+                    wants.append(opt.sgd_plain(p, g, lr))
+                    single = view(base.clone(), p_off)[:n]
+                    opt.sgd_(single, g, lr)
+                    bases.append(base)
+                    grads.append(g)
+                    singles.append(single)
+                multi = [view(b.clone(), p_off)[:n]
+                         for b, n in zip(bases, SGD_LENGTHS)]
+                opt.multi_sgd_(multi, grads, lr)
+                torch.cuda.synchronize()
+                for n, want, single, mine in zip(SGD_LENGTHS, wants,
+                                                 singles, multi):
+                    checks.check("sgd_update", "%s n=%d vs sgd_plain, "
+                                 "bits differing" % (case, n),
+                                 _bit_mismatches(single, want), 0)
+                    checks.check("multi_tensor_sgd", "%s n=%d vs sgd_plain, "
+                                 "bits differing" % (case, n),
+                                 _bit_mismatches(mine, want), 0)
+                del bases, grads, wants, singles, multi
+    torch.cuda.empty_cache()
 
 
 def _bert_base_shapes():
@@ -1982,11 +2135,16 @@ def _small_update_overhead(torch, gen, calls=200):
 
 def time_updates(torch, gen, errs):
     """Rows of K3 backward and the update kernels at the main paths'
-    shapes (cold L2): K3 backward at BERT-base's word table; Adam at
-    BERT-base's word embedding [30522, 768] (the largest parameter);
-    Momentum (Nesterov) at ResNet-50's [3, 3, 512, 512]; SGD at the word
-    embedding; the multi-tensor kernels over BERT-base's parameter list.
-    Library calls: ``index_add_`` for K3 backward; for Nesterov Momentum
+    shapes (cold L2): K3 backward at BERT-base's three tables (the word
+    table's row in the kernels line, the position and token-type tables'
+    as extra lines); Adam at BERT-base's word embedding [30522, 768] (the
+    largest parameter); Momentum (Nesterov) at ResNet-50's [3, 3, 512,
+    512]; SGD at the word embedding; the multi-tensor kernels over
+    BERT-base's parameter list, timed from a captured CUDA graph.  K3
+    backward and SGD also with L2 flushed by a read; the SGD rows also at
+    views 4 bytes past a 16-byte boundary.  Library calls: ``index_add_`` into zeros for K3
+    backward, and beside it the deterministic ``index_put_`` with
+    ``accumulate=True``; for Nesterov Momentum
     ``torch._fused_sgd_`` (weight decay 0, dampening 0: the same function,
     checked here against the plain twin), for SGD ``add_`` with alpha
     -lr, for the multi-tensor SGD ``_foreach_add_``; none computes the
@@ -1995,31 +2153,45 @@ def time_updates(torch, gen, errs):
     from paddle_tpu_torch.ops.cuda import embedding as emb
     from paddle_tpu_torch.ops.cuda import optimizer as opt
 
-    rows = []
+    rows, extra = [], []
     src = "paddle_tpu_torch/csrc/optimizer.cu"
     ref_file = "paddle_tpu/ops/optimizer_ops.py:"
-    ids = torch.randint(0, 30522, (4096,), generator=gen, device="cuda")
-    dout = torch.randn((4096, 768), generator=gen, device="cuda")
-    rows.append(_row(
-        "embedding_gather_bwd", "paddle_tpu_torch/csrc/embedding.cu",
-        "paddle_tpu/ops/pallas/embedding.py:96 (XLA scatter-add of "
-        "_gather_core_bwd)", errs["embedding_gather_bwd"],
-        time_ms(lambda: emb.embedding_gather_bwd(dout, ids, 30522), 50),
-        time_ms(lambda: emb.embedding_gather_bwd_plain(dout, ids, 30522),
-                50),
-        bound_ms(4 * (30522 * 768 + 4096 * 768) + 8 * 4096, 4096 * 768,
-                 "float32"),
-        time_ms(lambda: torch.zeros((30522, 768), device="cuda")
-                .index_add_(0, ids, dout), 50),
-        "dout [4096,768] f32, ids random over 30522 → table grad "
-        "[30522,768]"))
-    tt = (torch.arange(4096, device="cuda") >= 2048).long()
-    extra = [{"name": "embedding_gather_bwd",
-              "shape": "token type table: 2 ids over 4096 positions",
-              "ms": time_ms(lambda: emb.embedding_gather_bwd(dout, tt, 2),
-                            50),
-              "library_ms": time_ms(lambda: torch.zeros(
-                  (2, 768), device="cuda").index_add_(0, tt, dout), 50)}]
+    n_ids = TRAIN_BATCH * SEQ
+    dout = torch.randn((n_ids, 768), generator=gen, device="cuda")
+    for label, table, layout in GATHER_BWD_CASES:
+        ids = _gather_bwd_ids(torch, gen, table, layout)
+
+        def library():
+            return torch.zeros((table, 768), device="cuda").index_put_(
+                (ids,), dout, accumulate=True)
+
+        was = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True)
+        try:
+            deterministic_ms = time_ms(library, 50)
+        finally:
+            torch.use_deterministic_algorithms(was)
+        r = _row(
+            "embedding_gather_bwd", "paddle_tpu_torch/csrc/embedding.cu",
+            "paddle_tpu/ops/pallas/embedding.py:96 (XLA scatter-add of "
+            "_gather_core_bwd)", errs["embedding_gather_bwd"],
+            time_ms(lambda: emb.embedding_gather_bwd(dout, ids, table), 50),
+            time_ms(lambda: emb.embedding_gather_bwd_plain(dout, ids, table),
+                    50),
+            bound_ms(4 * (table * 768 + n_ids * 768) + 8 * n_ids,
+                     n_ids * 768, "float32"),
+            time_ms(lambda: torch.zeros((table, 768), device="cuda")
+                    .index_add_(0, ids, dout), 50),
+            "%s table: dout [%d,768] f32, ids %s → table grad [%d,768]"
+            % (label, n_ids, layout, table))
+        r["ms_clean_l2"] = time_ms(
+            lambda: emb.embedding_gather_bwd(dout, ids, table), 50,
+            clean_l2=True)
+        r["library_deterministic_ms"] = deterministic_ms
+        r["library_deterministic"] = ("zeros.index_put_((ids,), dout, "
+                                      "accumulate=True) under "
+                                      "torch.use_deterministic_algorithms")
+        (rows if table == GATHER_BWD_CASES[0][1] else extra).append(r)
     del dout
 
     x = _update_inputs(torch, gen, (30522, 768), torch.float32)
@@ -2039,7 +2211,19 @@ def time_updates(torch, gen, errs):
         bound_ms(12 * n, 2 * n, "float32"),
         time_ms(lambda: x["p"].add_(x["g"], alpha=-OPT_LR), 20),
         "[30522,768] f32"))
-    del x, adam_args, sgd_args
+    rows[-1]["ms_clean_l2"] = time_ms(lambda: opt.sgd_(*sgd_args), 20,
+                                      clean_l2=True)
+    rows[-1]["library_ms_clean_l2"] = time_ms(
+        lambda: x["p"].add_(x["g"], alpha=-OPT_LR), 20, clean_l2=True)
+    # views 4 bytes past a 16-byte boundary: a scalar head and tail
+    p_off, g_off = x["p"].view(-1)[1:], x["g"].view(-1)[1:]
+    rows[-1]["ms_misaligned"] = time_ms(
+        lambda: opt.sgd_(p_off, g_off, x["lr"]), 20)
+    rows[-1]["library_ms_misaligned"] = time_ms(
+        lambda: p_off.add_(g_off, alpha=-OPT_LR), 20)
+    rows[-1]["bound_ms_misaligned"] = bound_ms(12 * (n - 1), 2 * (n - 1),
+                                               "float32")[0]
+    del x, adam_args, sgd_args, p_off, g_off
 
     y = _update_inputs(torch, gen, (3, 3, 512, 512), torch.float32)
     n = y["p"].numel()
@@ -2093,7 +2277,7 @@ def time_updates(torch, gen, errs):
     rows.append(_row(
         "multi_tensor_adam", src, ref_file + "366 (fused_adam)",
         errs["multi_tensor_adam"],
-        time_ms(lambda: opt.multi_adam_(*madam), 10),
+        time_ms(lambda: opt.multi_adam_(*madam), 10, graph=True),
         time_ms(lambda: [opt.adam_plain(*[a[i] if isinstance(a, list)
                                           else a for a in madam])
                          for i in range(len(shapes))], 3),
@@ -2102,14 +2286,24 @@ def time_updates(torch, gen, errs):
     rows.append(_row(
         "multi_tensor_sgd", src, ref_file + "347 (fused_sgd)",
         errs["multi_tensor_sgd"],
-        time_ms(lambda: opt.multi_sgd_(col("p"), col("g"), lr), 10),
+        time_ms(lambda: opt.multi_sgd_(col("p"), col("g"), lr), 10,
+                graph=True),
         time_ms(lambda: [opt.sgd_plain(p, g, lr) for p, g in
                          zip(col("p"), col("g"))], 3),
         bound_ms(12 * n, 2 * n, "float32"),
         time_ms(lambda: torch._foreach_add_(col("p"), col("g"),
-                                            alpha=-OPT_LR), 10),
+                                            alpha=-OPT_LR), 10, graph=True),
         "BERT-base's %d parameters, %d elements, f32" % (len(shapes), n)))
-    del members, madam
+    p_off = [t.view(-1)[1:] for t in col("p")]
+    g_off = [t.view(-1)[1:] for t in col("g")]
+    rows[-1]["ms_misaligned"] = time_ms(
+        lambda: opt.multi_sgd_(p_off, g_off, lr), 10, graph=True)
+    rows[-1]["library_ms_misaligned"] = time_ms(
+        lambda: torch._foreach_add_(p_off, g_off, alpha=-OPT_LR), 10,
+        graph=True)
+    rows[-1]["bound_ms_misaligned"] = bound_ms(
+        12 * (n - len(shapes)), 2 * (n - len(shapes)), "float32")[0]
+    del members, madam, p_off, g_off
 
     extra.append(_small_update_overhead(torch, gen))
     torch.cuda.empty_cache()
@@ -2222,6 +2416,7 @@ def phase_kernels():
     rows, extra = time_kernels(torch, gen, errs)
     update_rows, update_extra = time_updates(torch, gen, errs)
     emit(profile_ln_bwd(torch, gen))
+    emit(profile_gather_bwd(torch, gen))
     decode_rows, decode_extra = time_decode_kernels(torch, gen, errs)
     emit(profile_decode_kernels(torch, gen))
     bn_rows, bn_extra = time_bn_act(torch, gen, errs)
@@ -2404,9 +2599,6 @@ OPTIMIZER_KERNELS = ("adam_update_kernel", "adam_pow_kernel",
                      "momentum_update_kernel", "sgd_update_kernel",
                      "multi_adam_kernel", "multi_adam_pow_kernel",
                      "multi_sgd_kernel")
-# K3 backward's index preparation: torch.sort and torch.searchsorted
-SORT_KERNELS = ("radixsort", "radix_sort", "sort_kernel", "searchsorted",
-                "segmented_sort")
 
 
 def _kernel_group(name):
@@ -2417,7 +2609,7 @@ def _kernel_group(name):
             ("K2 fwd", ("add_ln_fwd_kernel",)),
             ("K2 bwd", ("add_ln_bwd_kernel", "ln_bwd_reduce_kernel")),
             ("gather", ("::gather_kernel<",)),
-            ("K3 bwd", ("segment_sum_kernel",)),
+            ("K3 bwd", K3_BWD_FUNCTIONS),
             ("optimizer", OPTIMIZER_KERNELS),
             ("K6 paged decode", ("paged_decode_kernel<",)),
             ("K5 decode", ("decode_kernel<",)),
@@ -2426,8 +2618,6 @@ def _kernel_group(name):
         if any(n in name for n in needles):
             return group
     low = name.lower()
-    if any(n in low for n in SORT_KERNELS):
-        return "K3 bwd index sort"
     if "gemm" in low or "cutlass" in low or "xmma" in low:
         return "GEMM"
     if "copy" in low:
@@ -2458,6 +2648,17 @@ def _device_breakdown(prof, runs, group=None):
         top.append((ms, ev.count // runs, ev.key[:90]))
     top.sort(reverse=True)
     return groups, top
+
+
+def _group_launches(prof, runs, group):
+    """Device launches per run by kernel group (``group(name)``)."""
+    out = {}
+    for ev in prof.key_averages():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA") \
+                and MARKER_KERNEL not in ev.key:
+            g = group(ev.key)
+            out[g] = out.get(g, 0) + ev.count / runs
+    return out
 
 
 def _step_profile(exe, main, batch, fetch, group=None, runs=2, top_n=15):
@@ -2501,6 +2702,7 @@ def _step_profile(exe, main, batch, fetch, group=None, runs=2, top_n=15):
             "device_idle_share": (1.0 - busy / wall_ms) if busy
             else "not measured",
             "device_ms_by_group": groups,
+            "launches_by_group": _group_launches(prof, runs, group),
             "top_kernels": [{"ms": t, "launches": n, "group": group(k),
                              "name": k} for t, n, k in top[:top_n]]}
 
@@ -2676,9 +2878,15 @@ def phase_train(env):
         if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
             raise AssertionError("loss not finite and falling: %s" % losses)
 
+        prof = _step_profile(exe, main, batch, [loss])
         emit(dict({"phase": "train", "step": "profile",
-                   "card": card_label(env)},
-                  **_step_profile(exe, main, batch, [loss])))
+                   "card": card_label(env)}, **prof))
+        k3 = prof["launches_by_group"].get("K3 bwd", 0)
+        if k3 != want["embedding_gather_bwd"] * K3_BWD_LAUNCHES:
+            raise AssertionError(
+                "K3 backward's kernels launched %s times a step by the "
+                "profiler's names, not %d calls x %d" % (
+                    k3, want["embedding_gather_bwd"], K3_BWD_LAUNCHES))
     del scope, exe
     torch.cuda.empty_cache()
     return counts
@@ -4172,6 +4380,8 @@ def _dp_rank(rank, store, out_path):
                         res["profile"] = {
                             "wall_ms": wall, "device_ms_by_group": groups,
                             "device_ms": sum(groups.values()),
+                            "launches_by_group": _group_launches(
+                                pr, 1, _dp_group),
                             "top_kernels": top[:10]}
                     else:
                         exe.run(main, feed=feed, fetch_list=[loss])
@@ -4312,6 +4522,13 @@ def phase_dp(env):
     emit(dict({"phase": "dp", "step": "dropout 0: one dense 2-rank step vs "
                "one process on the 8 rows", "ok": ok_parity}, **parity))
     failed = []
+    k3 = r0["quant"]["profile"]["launches_by_group"].get("K3 bwd", 0)
+    if per_step["embedding_gather_bwd"] != 3 \
+            or k3 != 3 * K3_BWD_LAUNCHES:
+        failed.append("K3 backward: %s calls a step by its wrapper, %s "
+                      "launches in the profiled step by the kernels' names "
+                      "(want 3 and %d)" % (per_step["embedding_gather_bwd"],
+                                           k3, 3 * K3_BWD_LAUNCHES))
     if per_step["block_quantize"] != 2 * nbuckets \
             or per_step["block_dequantize"] != 2 * nbuckets or not nbuckets:
         failed.append("K7 launches %s per step for %d buckets"

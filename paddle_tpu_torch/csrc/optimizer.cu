@@ -13,11 +13,17 @@
 //
 // What bounds them on the H100: bytes.  Adam reads p, g, m1, m2 and writes
 // p, m1, m2 (28 bytes a float32 parameter), Momentum 20, SGD 12; a few
-// operations each, far below the card's operation rate.  Each kernel is
-// one grid-stride loop; the multi-tensor kernels take their members'
-// pointers as kernel arguments, by value (a table of at most kMaxAdam or
-// kMaxSgd members, under the 4 KB argument limit), so a launch copies
-// nothing from the host and a CUDA graph captures it as it is.
+// operations each, far below the card's operation rate.  Adam and
+// Momentum are one grid-stride loop of 4-byte accesses.  SGD moves 16
+// bytes an access (float4, 8 bfloat16) with kSgdUnroll vectors of p and g
+// in flight a thread and a scalar head and tail where p is not 16-byte
+// aligned; each block takes a fixed chunk of elements (one such run a
+// thread), of the parameter or, in the multi-tensor SGD, of a member
+// found by a binary search over the members' first blocks.  The
+// multi-tensor kernels take their members' pointers as kernel arguments,
+// by value (a table of at most kMaxAdam or kMaxSgd members, under the 4 KB
+// argument limit), so a launch copies nothing from the host and a CUDA
+// graph captures it as it is.
 //
 // Arithmetic.  Each element is computed as the plain PyTorch op computes
 // it, one rounding per PyTorch kernel: __fmul_rn / __fadd_rn / __fsub_rn
@@ -46,6 +52,7 @@ constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 16;
 constexpr int kMaxAdam = 56;
 constexpr int kMaxSgd = 128;
+constexpr int kSgdUnroll = 2;  // vectors of p and g in flight a thread
 
 using bf16 = __nv_bfloat16;
 
@@ -133,28 +140,92 @@ momentum_update_kernel(T* p, const G* g, T* v, const void* lr, int lr_code,
 }
 
 // SGD: p -= lr * g, both ops rounded to the parameter's type T
-template <typename T, typename G>
-__device__ __forceinline__ void sgd_elems(T* p, const G* g, long long n,
-                                          long long first, long long stride,
-                                          float lr_p) {
-  for (long long i = first; i < n; i += stride) {
-    const float step = pt::round_to<T>(
-        __fmul_rn(lr_p, pt::round_to<T>(pt::to_f(g[i]))));
-    p[i] = pt::from_f<T>(__fsub_rn(pt::to_f(p[i]), step));
+template <typename T>
+__device__ __forceinline__ float sgd_value(float p, float g, float lr_p) {
+  const float step = pt::round_to<T>(__fmul_rn(lr_p, pt::round_to<T>(g)));
+  return __fsub_rn(p, step);
+}
+
+// SGD over `count` runs of kW consecutive elements: thread tid takes
+// every nthreads-th run, kSgdUnroll runs of p and g in flight
+template <int kW, typename T, typename G>
+__device__ __forceinline__ void sgd_runs(T* p, const G* g, long long count,
+                                         long long tid, long long nthreads,
+                                         float lr_p) {
+  for (long long v0 = tid; v0 < count; v0 += nthreads * kSgdUnroll) {
+    float pf[kSgdUnroll][kW], gf[kSgdUnroll][kW];
+#pragma unroll
+    for (int u = 0; u < kSgdUnroll; ++u) {
+      const long long v = v0 + u * nthreads;
+      if (v < count) {
+        pt::load_vec(p + v * kW, pf[u]);
+        pt::load_vec(g + v * kW, gf[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kSgdUnroll; ++u) {
+      const long long v = v0 + u * nthreads;
+      if (v < count) {
+#pragma unroll
+        for (int e = 0; e < kW; ++e)
+          pf[u][e] = sgd_value<T>(pf[u][e], gf[u][e], lr_p);
+        pt::store_vec(p + v * kW, pf[u]);
+      }
+    }
   }
 }
 
+// SGD over n elements by a block's threads: 16-byte accesses (kV elements
+// of T; g's kV elements in one or two accesses) from p's first 16-byte
+// boundary, the elements before it and after the last whole vector one
+// a thread, loaded beside the vectors; all one element an access where
+// g's vectors would not be aligned where p's are
+template <typename T, typename G>
+__device__ __forceinline__ void sgd_span(T* p, const G* g, long long n,
+                                         long long tid, long long nthreads,
+                                         float lr_p) {
+  constexpr int kV = 16 / sizeof(T);
+  constexpr int kGAlign = kV * sizeof(G) < 16 ? kV * sizeof(G) : 16;
+  const uintptr_t to_edge = (16 - ((uintptr_t)p & 15)) & 15;
+  long long head = (long long)(to_edge / sizeof(T));
+  if (head > n) head = n;
+  if (((uintptr_t)(g + head) & (kGAlign - 1)) != 0) {
+    sgd_runs<1>(p, g, n, tid, nthreads, lr_p);
+    return;
+  }
+  const long long vecs = (n - head) / kV;
+  const long long tail = head + vecs * kV;
+  long long one = -1;  // this thread's element outside the vectors
+  float p1 = 0.f, g1 = 0.f;
+  if (tid < head + (n - tail)) {
+    one = tid < head ? tid : tail + (tid - head);
+    p1 = pt::to_f(p[one]);
+    g1 = pt::to_f(g[one]);
+  }
+  sgd_runs<kV>(p + head, g + head, vecs, tid, nthreads, lr_p);
+  if (one >= 0) p[one] = pt::from_f<T>(sgd_value<T>(p1, g1, lr_p));
+}
+
+// elements an SGD block takes: one run of kSgdUnroll vectors a thread
+template <typename T>
+__host__ __device__ constexpr long long sgd_chunk() {
+  return (long long)kThreads * kSgdUnroll * (16 / sizeof(T));
+}
+
+// block b takes elements [b, b + 1) * sgd_chunk<T>()
 template <typename T, typename G>
 __global__ void __launch_bounds__(kThreads)
 sgd_update_kernel(T* p, const G* g, const void* lr, int lr_code,
                   long long n) {
-  sgd_elems(p, g, n, (long long)blockIdx.x * kThreads + threadIdx.x,
-            (long long)gridDim.x * kThreads,
-            pt::round_to<T>(load_scalar(lr, lr_code)));
+  constexpr long long chunk = sgd_chunk<T>();
+  const long long first = (long long)blockIdx.x * chunk;
+  sgd_span(p + first, g + first, n - first < chunk ? n - first : chunk,
+           threadIdx.x, kThreads, pt::round_to<T>(load_scalar(lr, lr_code)));
 }
 
 // ---- multi-tensor: a chunk's members by value; member k owns blocks
-// [start[k], start[k + 1]) and strides over its elements with them
+// [start[k], start[k + 1]) (Adam: strides over its elements with them;
+// SGD: one fixed chunk of its elements a block)
 
 struct AdamMember {
   void* p;
@@ -217,15 +288,27 @@ __global__ void multi_adam_pow_kernel(const __grid_constant__ AdamTable t, int c
                __fmul_rn(load_scalar(t.m[k].b2p, code), beta2));
 }
 
+// each block takes chunk c of member k, elements [c, c + 1) *
+// sgd_chunk<T>(), where start[k] + c is its index: k by a binary search
+// over start
 template <typename T, typename G>
 __global__ void __launch_bounds__(kThreads)
 multi_sgd_kernel(const __grid_constant__ SgdTable t, const void* lr, int lr_code) {
-  const int k = member_of(t.start, t.count, blockIdx.x);
+  const int b = blockIdx.x;
+  int k = 0, hi = t.count - 1;
+  while (k < hi) {
+    const int mid = (k + hi + 1) >> 1;
+    if (t.start[mid] <= b)
+      k = mid;
+    else
+      hi = mid - 1;
+  }
   const SgdMember& m = t.m[k];
-  const long long blocks = t.start[k + 1] - t.start[k];
-  sgd_elems((T*)m.p, (const G*)m.g, m.n,
-            (long long)(blockIdx.x - t.start[k]) * kThreads + threadIdx.x,
-            blocks * kThreads, pt::round_to<T>(load_scalar(lr, lr_code)));
+  constexpr long long chunk = sgd_chunk<T>();
+  const long long first = (long long)(b - t.start[k]) * chunk;
+  sgd_span((T*)m.p + first, (const G*)m.g + first,
+           m.n - first < chunk ? m.n - first : chunk, threadIdx.x, kThreads,
+           pt::round_to<T>(load_scalar(lr, lr_code)));
 }
 
 int blocks_for(long long n) {
@@ -306,7 +389,9 @@ struct SgdLaunch {
   cudaStream_t s;
   template <typename T, typename G>
   int run() {
-    sgd_update_kernel<T, G><<<blocks_for(n), kThreads, 0, s>>>(
+    sgd_update_kernel<T, G>
+        <<<(unsigned)((n + sgd_chunk<T>() - 1) / sgd_chunk<T>()), kThreads,
+           0, s>>>(
         (T*)p, (const G*)g, lr, lr_code, n);
     return (int)cudaGetLastError();
   }
@@ -340,7 +425,7 @@ struct MultiSgdLaunch {
   }
 };
 
-// blocks of one member of a multi-tensor chunk: a quarter of the
+// blocks of one member of a multi-tensor Adam chunk: a quarter of the
 // per-parameter kernel's, at least one (each thread strides over ~4
 // elements of a member that has them)
 int member_blocks(long long n) {
@@ -452,7 +537,11 @@ extern "C" int pt_multi_sgd_update(void* const* p, const void* const* g,
       const int i = c0 + k;
       if (n[i] < 1) return (int)cudaErrorInvalidValue;
       t.m[k] = SgdMember{p[i], g[i], n[i]};
-      t.start[k + 1] = t.start[k] + member_blocks(n[i]);
+      const long long chunk = p_code == pt::kFloat32 ? sgd_chunk<float>()
+                                                     : sgd_chunk<bf16>();
+      const long long next = t.start[k] + (n[i] + chunk - 1) / chunk;
+      if (next > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+      t.start[k + 1] = (int)next;
     }
     const int err = with_types2(p_code, g_code,
                                 MultiSgdLaunch{&t, t.start[t.count], lr,

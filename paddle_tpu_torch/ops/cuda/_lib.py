@@ -58,7 +58,8 @@ _CAPTURED = dict.fromkeys(KERNELS, 0)
 _REPLAYED = dict.fromkeys(KERNELS, 0)
 
 # each kernel's device functions (the K2 and K4 backward wrappers' second
-# launch, the partials' sum, is not counted, nor the Adam updates' second
+# launch, the partials' sum, is not counted, nor K3 backward's second, the
+# long rows' sums (embedding_bwd_long_kernel), nor the Adam updates' second
 # launch, which advances the beta powers: adam_pow_kernel,
 # multi_adam_pow_kernel)
 KERNEL_FUNCTIONS = {
@@ -68,7 +69,7 @@ KERNEL_FUNCTIONS = {
     "fused_dropout_add_ln_fwd": ("add_ln_fwd_kernel",),
     "fused_dropout_add_ln_bwd": ("add_ln_bwd_kernel",),
     "embedding_gather_fwd": ("gather_kernel",),
-    "embedding_gather_bwd": ("segment_sum_kernel",),
+    "embedding_gather_bwd": ("embedding_bwd_rows_kernel",),
     "flash_decode_fwd": ("decode_kernel",),
     "paged_flash_decode_fwd": ("paged_decode_kernel",),
     "bn_act_epilogue_fwd": ("bn_act_fwd_kernel",),
@@ -117,8 +118,12 @@ _SIGNATURES = {
     "pt_fused_add_ln_bwd_blocks": (_L, _I, _I),
     # table, ids, out, n, V, D, padding_idx, ids_are_int64, dtype, stream
     "pt_embedding_gather_fwd": (_P, _P, _P, _L, _L, _I, _L, _I, _I, _P),
-    # dout, keys, perm, lo, hi, out, ws, tickets, n, rows, D, dtype, stream
-    "pt_embedding_gather_bwd": (_P,) * 8 + (_L, _L, _I, _I, _P),
+    # n, rows → the backward's int32 workspace words (negated
+    # cudaError_t on failure; returns a long long)
+    "pt_embedding_gather_bwd_workspace": (_L, _L),
+    # dout, ids, out, ws, n, rows, D, padding_idx, ids_are_int64, dtype,
+    # stream
+    "pt_embedding_gather_bwd": (_P,) * 4 + (_L, _L, _I, _L, _I, _I, _P),
     # q, k, v, lengths, o, ws, counters, rows, H, Tmax, Dh, lengths'
     # stride, chunk, scale, dtype, stream
     "pt_flash_decode_fwd": (_P,) * 7 + (_I,) * 6 + (_F, _I, _P),
@@ -153,6 +158,10 @@ _SIGNATURES = {
     # stream
     "pt_multi_sgd_update": (_P,) * 3 + (_I, _P, _I, _I, _I, _P),
 }
+
+# entry points that return something other than an int
+_RESTYPES = {"pt_embedding_gather_bwd_workspace": ctypes.c_longlong}
+
 
 def sources():
     return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
@@ -258,7 +267,7 @@ def lib():
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
             _lib = handle
     return _lib
 

@@ -15,15 +15,18 @@ tensors.  :func:`embedding_gather` is a ``torch.autograd.Function`` over
 it whose backward is the reference's scatter-add (``_gather_core_bwd``
 :96-101): duplicate ids accumulate, negative ids feed row 0, and ids >= V
 and ``padding_idx`` rows send no gradient.  The reference leaves the
-scatter to XLA.  Here :func:`embedding_gather_bwd` launches a
-deterministic sorted segment-sum for CUDA tensors (``segment_sum_kernel``;
-``index_add_``'s CUDA atomics would sum duplicate ids in an order that
-changes from run to run): :func:`scatter_plan` sorts the clamped ids
-(plain torch, any device, no shape that depends on the data) and the
-kernel sums each id's rows in a fixed order.  Its plain version,
+scatter to XLA.  Here :func:`embedding_gather_bwd` launches two
+hand-written kernels for CUDA tensors (``index_add_``'s CUDA atomics
+would sum duplicate ids in an order that changes from run to run): one
+pass that writes every row of the table once, each block finding its
+rows' ids in order by scanning the ids itself, then the rows with more
+than :data:`LONG` ids summed in :data:`PARTS` parts over many blocks.
+Nothing of it runs on the host, and no allocation depends on the data,
+so a CUDA graph captures it.  Its plain version,
 :func:`embedding_gather_bwd_plain`, is ``index_add_`` (sequential on the
-CPU); :func:`embedding_gather_bwd_sorted_plain` repeats the kernel's order
-of additions from the same plan, bit for bit.
+CPU); :func:`embedding_gather_bwd_sorted_plain` repeats the kernels'
+order of additions on :func:`scatter_plan`'s description of it, bit for
+bit.
 """
 
 import torch
@@ -32,8 +35,11 @@ from . import _lib
 
 KERNEL = "embedding_gather_fwd"
 KERNEL_BWD = "embedding_gather_bwd"
-# sorted positions one block of the backward sums (csrc/embedding.cu)
-PIECE = 16
+# the backward's order (csrc/embedding.cu kLong, kParts): a row with at
+# most LONG ids sums them in the ids' order; a longer one sums PARTS parts
+# cut by its length alone, each in order, then the parts in order
+LONG = 32
+PARTS = 16
 
 
 def embedding_gather_fwd_plain(table, ids, padding_idx=-1):
@@ -102,56 +108,76 @@ def embedding_gather_bwd_plain(dout, ids, rows, padding_idx=-1):
 
 
 def scatter_plan(ids, rows, padding_idx=-1):
-    """The backward's index preparation: ``(keys, perm, lo, hi)``, each
-    [n] int64.  ``keys`` are the ids clamped at 0, with ids >= ``rows``
-    and ``padding_idx`` set to ``rows`` (they send nothing), sorted
-    stably; ``perm`` their positions in ``ids``; ``[lo[i], hi[i])`` the
-    sorted positions of ``keys[i]``."""
+    """The order in which the backward's kernels add, as a plan for
+    the plain twin: ``(perm, keys, starts)``, int64.  ``perm`` holds the
+    positions of the
+    ids that send a gradient (not >= ``rows``, not ``padding_idx``),
+    ordered by their row (a negative id: row 0) and, within a row, by
+    position; ``keys`` the rows they touch, ascending; the positions of
+    ``keys[j]`` are ``perm[starts[j]:starts[j + 1]]``."""
     ids = ids.long()
-    keys = ids.clamp(min=0).masked_fill(_dropped(ids, rows, padding_idx),
-                                        rows)
-    keys, perm = torch.sort(keys, stable=True)
-    return (keys, perm, torch.searchsorted(keys, keys),
-            torch.searchsorted(keys, keys, right=True))
+    kept = torch.nonzero(~_dropped(ids, rows, padding_idx)).reshape(-1)
+    rows_of = ids[kept].clamp(min=0)
+    order = torch.sort(rows_of, stable=True).indices
+    keys, counts = torch.unique_consecutive(rows_of[order],
+                                            return_counts=True)
+    starts = torch.zeros(keys.shape[0] + 1, dtype=torch.int64,
+                         device=ids.device)
+    torch.cumsum(counts, 0, out=starts[1:])
+    return kept[order], keys, starts
+
+
+def _run_sums(g, lo, length):
+    """Float32 sums of the runs ``g[lo[r]:lo[r] + length[r]]``, each
+    added in order from 0 (all runs in step)."""
+    acc = torch.zeros((lo.shape[0], g.shape[1]), dtype=torch.float32,
+                      device=g.device)
+    top = int(length.max()) if length.numel() else 0
+    for k in range(top):
+        live = (k < length)[:, None]
+        acc = torch.where(live, acc + g[(lo + k).clamp(max=g.shape[0] - 1)],
+                          acc)
+    return acc
 
 
 def embedding_gather_bwd_sorted_plain(dout, plan, rows):
-    """The kernel's arithmetic on a plan (:func:`scatter_plan`): each
-    segment of at most PIECE sorted positions summed in sorted order; a
-    longer one's pieces summed each in order, then the pieces' sums in
-    piece order; float32, then dout's dtype."""
-    keys, _perm, lo, hi = (t.tolist() for t in plan)
-    g = dout.float()[plan[1]]
+    """The kernels' arithmetic on a plan (:func:`scatter_plan`), float32,
+    then dout's dtype: a row of at most LONG ids sums their rows of
+    ``dout`` in the ids' order, from 0; a longer one of L ids cuts them
+    into PARTS parts, part k the ids [k L // PARTS, (k + 1) L // PARTS),
+    sums each in order from 0, then the parts in order from 0."""
+    perm, keys, starts = plan
+    g = dout.float()[perm]
+    lo, length = starts[:-1], starts[1:] - starts[:-1]
     out = torch.zeros((rows, dout.shape[1]), dtype=torch.float32,
                       device=dout.device)
-    for i, key in enumerate(keys):
-        if key >= rows or lo[i] != i:
-            continue
-        parts = []
-        for start in range(lo[i], hi[i], PIECE):
-            acc = torch.zeros_like(out[0])
-            for j in range(start, min(start + PIECE, hi[i])):
-                acc = acc + g[j]
-            parts.append(acc)
-        acc = parts[0]
-        if len(parts) > 1:
-            acc = torch.zeros_like(out[0])
-            for part in parts:
-                acc = acc + part
-        out[key] = acc
+    short = length <= LONG
+    out[keys[short]] = _run_sums(g, lo[short], length[short])
+    lo_l, len_l = lo[~short], length[~short]
+    if lo_l.numel():
+        cuts = [lo_l + k * len_l // PARTS for k in range(PARTS + 1)]
+        parts = [_run_sums(g, cuts[k], cuts[k + 1] - cuts[k])
+                 for k in range(PARTS)]
+        acc = torch.zeros_like(parts[0])
+        for part in parts:
+            acc = acc + part
+        out[keys[~short]] = acc
     return out.to(dout.dtype)
 
 
 def embedding_gather_bwd(dout, ids, rows, padding_idx=-1):
     """The gather's table gradient [rows, D] from ``dout`` [n, D]: CUDA
-    tensors launch the segment-sum kernel on :func:`scatter_plan`'s
-    order; CPU and meta tensors run :func:`embedding_gather_bwd_plain`."""
+    tensors launch the rows and long-rows kernels (ids int32 or int64 as
+    they come); CPU and meta tensors run
+    :func:`embedding_gather_bwd_plain`."""
     if dout.device.type != "cuda":
         return embedding_gather_bwd_plain(dout, ids, rows, padding_idx)
     code = _lib.dtype_code(dout, KERNEL_BWD)
     if dout.dim() != 2 or ids.dim() != 1 or ids.shape[0] != dout.shape[0]:
         raise ValueError("dout must be [n, D] and ids [n], got %s / %s"
                          % (tuple(dout.shape), tuple(ids.shape)))
+    if ids.dtype not in (torch.int32, torch.int64):
+        raise TypeError("ids must be int32 or int64, got %s" % ids.dtype)
     if ids.device != dout.device:
         raise ValueError("dout on %s, ids on %s" % (dout.device, ids.device))
     n, d = dout.shape
@@ -159,15 +185,18 @@ def embedding_gather_bwd(dout, ids, rows, padding_idx=-1):
         raise ValueError("embedding gather backward kernel takes non-empty "
                          "dout and table, got %s / %d rows"
                          % (tuple(dout.shape), rows))
-    dout = dout.contiguous()
-    keys, perm, lo, hi = scatter_plan(ids, rows, padding_idx)
-    out = torch.zeros((rows, d), dtype=dout.dtype, device=dout.device)
-    ws = torch.empty((n, d), dtype=torch.float32, device=dout.device)
-    tickets = torch.zeros((n,), dtype=torch.int32, device=dout.device)
-    err = _lib.lib().pt_embedding_gather_bwd(
-        dout.data_ptr(), keys.data_ptr(), perm.data_ptr(), lo.data_ptr(),
-        hi.data_ptr(), out.data_ptr(), ws.data_ptr(), tickets.data_ptr(), n,
-        rows, d, code, _lib.stream_handle(dout.device))
+    dout, ids = dout.contiguous(), ids.contiguous()
+    lib = _lib.lib()
+    words = lib.pt_embedding_gather_bwd_workspace(n, rows)
+    if words < 0:
+        _lib.check(-words, KERNEL_BWD)
+    ws = torch.empty((words,), dtype=torch.int32, device=dout.device)
+    out = torch.empty((rows, d), dtype=dout.dtype, device=dout.device)
+    pad = -1 if padding_idx is None else int(padding_idx)
+    err = lib.pt_embedding_gather_bwd(
+        dout.data_ptr(), ids.data_ptr(), out.data_ptr(), ws.data_ptr(), n,
+        rows, d, pad, int(ids.dtype == torch.int64), code,
+        _lib.stream_handle(dout.device))
     _lib.check(err, KERNEL_BWD)
     _lib.count_launch(KERNEL_BWD)
     return out

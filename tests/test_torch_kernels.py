@@ -343,6 +343,50 @@ def test_embedding_gather_bwd_matches_reference_scatter_add(interpret):
     np.testing.assert_allclose(g.numpy(), want, atol=1e-6, rtol=1e-6)
 
 
+# (rows, n, ids from a RandomState, padding_idx) of the backward's order
+_BWD_ORDER_CASES = {
+    "random": (30522, 4096, lambda rng: rng.randint(0, 30522, 4096), -1),
+    "all_alike": (64, 4096, lambda rng: np.full(4096, 7), -1),
+    "ragged": (40, 500, lambda rng: rng.randint(-3, 44, 500), 6),
+    # more ids than a block of the kernels scans at once (csrc kChunk)
+    "several_chunks": (3000, 9000, lambda rng: rng.randint(-1, 3002, 9000),
+                        11),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_BWD_ORDER_CASES))
+def test_embedding_bwd_order_matches_reference_scatter_add(interpret, case):
+    """The CUDA backward's order of additions, as its CPU twin
+    ``embedding_gather_bwd_sorted_plain`` repeats it on ``scatter_plan``'s
+    plan, against the reference's scatter-add (the vjp of
+    ``embedding_gather``) and ``embedding_gather_bwd_plain``.  Tolerance:
+    two float32 sums of the same L terms in any orders differ by at most
+    2 L 2^-24 times the sum of the terms' magnitudes, per element."""
+    rows, n, make, pad = _BWD_ORDER_CASES[case]
+    rng = np.random.RandomState(5)
+    ids = make(rng).astype("int32")
+    d = 24
+    cot = rng.randn(n, d).astype("float32")
+    _, (want,) = _jvjp(
+        lambda t: EMB.embedding_gather(t, jnp.asarray(ids), pad),
+        (np.zeros((rows, d), "float32"),), cot)
+    tids = torch.from_numpy(ids)
+    got = t_emb.embedding_gather_bwd_sorted_plain(
+        torch.from_numpy(cot), t_emb.scatter_plan(tids, rows, pad),
+        rows).numpy()
+    plain = t_emb.embedding_gather_bwd_plain(torch.from_numpy(cot), tids,
+                                             rows, pad).numpy()
+    kept = (ids < rows) & (ids != pad)
+    where = np.clip(ids, 0, None)[kept]
+    count = np.bincount(where, minlength=rows)[:, None]
+    mags = np.zeros((rows, d), "float64")
+    np.add.at(mags, where, np.abs(cot[kept]))
+    bound = 2 * count * 2.0 ** -24 * mags
+    assert np.all(np.abs(got - want) <= bound)
+    assert np.all(np.abs(got - plain) <= bound)
+    assert (got[count[:, 0] == 0] == 0).all()
+
+
 def _bn_act_inputs(seed, r, c):
     rng = np.random.RandomState(seed)
     y = rng.randn(r, c).astype("float32")

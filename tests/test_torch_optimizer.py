@@ -9,7 +9,7 @@ numpy inputs, trained models are held against the reference and against
 the port's own eager executor, the ``optimizer`` fusion family is held
 against the reference's report, and the executor's replay is shown to
 skip its walk over the scope until the scope changes.  K3 backward's
-index preparation is held against ``index_add_``.
+plan and order of additions are held against ``index_add_``.
 
 Tolerances.  The updates: float32 on both sides with the same formula,
 so the port agrees with the reference to 2 float32 units in the last
@@ -564,43 +564,127 @@ def test_replay_walks_the_scope_only_after_it_changed(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# K3 backward's index preparation
+# SGD at odd lengths, per parameter and multi-tensor
+# ---------------------------------------------------------------------------
+
+_SGD_LENGTHS = (1, 7, 4097)
+
+
+def _sgd_inputs(dtype, lengths):
+    """Seeded numpy parameters and gradients of ``lengths`` (bfloat16:
+    values a bfloat16 holds exactly) and the learning rate."""
+    rng = np.random.RandomState(SEED)
+    ins = {"Param": [rng.randn(n).astype("float32") for n in lengths],
+           "Grad": [(0.1 * rng.randn(n)).astype("float32")
+                    for n in lengths]}
+    if dtype == "bfloat16":
+        ins = {k: [torch.from_numpy(a).bfloat16().float().numpy()
+                   for a in v] for k, v in ins.items()}
+    ins["LearningRate"] = [np.full((1,), LR, "float32")]
+    return ins
+
+
+def _reference_sgd(op_type, ins, dtype):
+    out = j_registry.call_op(
+        j_registry.get_op_def(op_type), j_registry.LoweringContext(),
+        {s: [_to_jax(a, s, dtype) for a in v] for s, v in ins.items()}, {})
+    return [np.asarray(jnp.asarray(w).astype(jnp.float32))
+            for w in out["ParamOut"]]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("length", _SGD_LENGTHS)
+def test_sgd_plain_matches_reference_at_odd_lengths(length, dtype):
+    """``sgd_plain`` and ``sgd_`` on the CPU against the reference's
+    ``sgd`` lowering (float32: 2 units in the last place; bfloat16: 1
+    bfloat16 unit), at lengths that leave a scalar tail after the
+    kernel's 16-byte vectors."""
+    ins = _sgd_inputs(dtype, (length,))
+    (want,) = _reference_sgd("sgd", ins, dtype)
+    p, g = (_to_torch(ins[s][0], s, dtype) for s in ("Param", "Grad"))
+    lr = torch.from_numpy(ins["LearningRate"][0])
+    plain = t_opt.sgd_plain(p, g, lr)
+    np.testing.assert_allclose(plain.float().numpy(), want, rtol=0,
+                               atol=_tol(dtype, want))
+    ptr = p.data_ptr()
+    assert t_opt.sgd_(p, g, lr) is p and p.data_ptr() == ptr
+    assert torch.equal(p, plain)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_multi_sgd_matches_reference_fused_sgd(dtype):
+    """``multi_sgd_`` over members of lengths 1, 7 and 4097 on the CPU
+    against the reference's ``fused_sgd`` (tolerances as for ``sgd``),
+    each member written in place and equal to ``sgd_plain`` bit for
+    bit."""
+    ins = _sgd_inputs(dtype, _SGD_LENGTHS)
+    wants = _reference_sgd("fused_sgd", ins, dtype)
+    ps, gs = ([_to_torch(a, s, dtype) for a in ins[s]]
+              for s in ("Param", "Grad"))
+    lr = torch.from_numpy(ins["LearningRate"][0])
+    plains = [t_opt.sgd_plain(p, g, lr) for p, g in zip(ps, gs)]
+    ptrs = [p.data_ptr() for p in ps]
+    got = t_opt.multi_sgd_(ps, gs, lr)
+    for i, (p, want, plain) in enumerate(zip(got, wants, plains)):
+        assert p is ps[i] and p.data_ptr() == ptrs[i]
+        assert torch.equal(p, plain)
+        np.testing.assert_allclose(p.float().numpy(), want, rtol=0,
+                                   atol=_tol(dtype, want),
+                                   err_msg="member %d" % i)
+
+
+# ---------------------------------------------------------------------------
+# K3 backward's plan and order of additions
 # ---------------------------------------------------------------------------
 
 _PLAN_CASES = {
-    # BERT's word ids: random over the vocabulary
+    # random over a small vocabulary: rows of ~20 ids, a few above LONG
     "random": (200, 4096, lambda rng: rng.randint(0, 200, 4096), -1),
-    # one id over every position: 256 pieces merged in order
+    # one id over every position: one long row, summed in parts
     "all_alike": (50, 4096, lambda rng: np.full(4096, 7), -1),
     # negative ids feed row 0; ids >= V and padding_idx send nothing
     "ragged": (30, 300, lambda rng: rng.randint(-3, 35, 300), 4),
+    # more ids than a block of the kernels scans at once (csrc kChunk)
+    "several_chunks": (700, 9000, lambda rng: rng.randint(-1, 702, 9000),
+                        3),
 }
 
 
 @pytest.mark.parametrize("case", sorted(_PLAN_CASES))
 def test_scatter_plan_segment_sum_matches_index_add(case):
-    """The backward's sorted plan and the kernel's order of additions
-    (``embedding_gather_bwd_sorted_plain``) against ``index_add_``: equal
-    bit for bit where every segment fits one piece (the kernel adds in
-    the ids' order, as ``index_add_`` on the CPU), else within 1e-5 of
-    the largest row sum (pieces then their sums, in a fixed order)."""
+    """The backward's plan (``scatter_plan``) and the kernels' order of
+    additions (``embedding_gather_bwd_sorted_plain``) against
+    ``index_add_``.  The plan: every position that sends a gradient once,
+    ordered by (row, position); its rows unique and ascending; each
+    segment the positions of its row.  The sums: equal to ``index_add_``
+    bit for bit where every row has at most LONG ids (the kernel adds
+    them in the ids' order, as ``index_add_`` on the CPU), else within
+    1e-5 of the largest row sum (parts, then their sums, in a fixed
+    order)."""
     rows, n, make, pad = _PLAN_CASES[case]
     rng = np.random.RandomState(SEED)
     ids = torch.from_numpy(make(rng).astype("int64"))
     dout = torch.from_numpy(rng.randn(n, 24).astype("float32"))
-    keys, perm, lo, hi = t_emb.scatter_plan(ids, rows, pad)
-    assert torch.equal(keys, torch.sort(keys).values)
-    dropped = (ids >= rows) | (ids == pad)
-    clamped = ids.clamp(min=0).masked_fill(dropped, rows)
-    assert torch.equal(clamped[perm], keys)
-    assert torch.equal(lo, torch.searchsorted(keys, keys))
+    perm, keys, starts = t_emb.scatter_plan(ids, rows, pad)
+    kept = torch.nonzero((ids < rows) & (ids != pad)).reshape(-1)
+    assert torch.equal(torch.sort(perm).values, kept)
+    row_of = ids.clamp(min=0)[perm]
+    assert torch.equal(torch.unique(row_of), keys)
+    assert int(starts[0]) == 0 and int(starts[-1]) == kept.numel()
+    assert bool((starts[1:] > starts[:-1]).all())
+    for j in range(keys.numel()):
+        seg = perm[starts[j]:starts[j + 1]]
+        assert bool((row_of[starts[j]:starts[j + 1]] == keys[j]).all())
+        assert bool((seg[1:] > seg[:-1]).all())
     want = t_emb.embedding_gather_bwd_plain(dout, ids, rows, pad)
-    got = t_emb.embedding_gather_bwd_sorted_plain(dout, (keys, perm, lo, hi),
+    got = t_emb.embedding_gather_bwd_sorted_plain(dout, (perm, keys, starts),
                                                   rows)
-    if int((hi - lo).max()) <= t_emb.PIECE:
+    longest = int((starts[1:] - starts[:-1]).max())
+    if longest <= t_emb.LONG:
         np.testing.assert_array_equal(got.numpy(), want.numpy())
     else:
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
                                    atol=1e-5 * float(want.abs().max()))
-    assert float(got[rows - 1 if case != "ragged" else pad].abs().sum()) \
-        == 0.0 or case == "random"
+    untouched = torch.ones(rows, dtype=torch.bool)
+    untouched[keys] = False
+    assert float(got[untouched].abs().sum()) == 0.0

@@ -146,6 +146,34 @@ and the CUDA toolkit.  Phases, each printing one JSON line:
    peak allocated and reserved memory, graph count and run mode are
    printed.  The serving comparison runs after the profile phase,
    the others after ResNet parity.
+15. bf16 AMP (``contrib.mixed_precision``), each phase after the one it
+   mirrors.  ``serve_bf16`` (after the serving graph comparison): the
+   same seeded BERT-base exported again and loaded with
+   ``AnalysisConfig.enable_bf16()``; the analysis passes must have run
+   before the rewrite (casts present, no batch_norm, the float32
+   predictor's fused op counts), requests go through
+   ``PredictorServer`` in the same buckets with the launches read per
+   batch and every K1 and K2 graph node bfloat16, each bucket's latency
+   and tokens/s beside the float32 predictor's in turns, and the error
+   against float32 must lie in (1e-6, 0.05) of the output's scale.
+   ``train_amp`` (after train parity): ``build_pretrain(BERT_BASE,
+   seq_len=512, amp=True)``, batch 8, dropout 0.1, Adam on float32
+   masters, on the captured graph: the launches per step by kernel and
+   by the element type of each replayed graph node's device function
+   (K1 and K2 bfloat16, K3 backward and Adam float32), no state copied
+   back, median step, tokens/s, peak memory, device time by group with
+   the casts a group of their own, then eager = graph = eager bit for
+   bit; ``train_amp_parity``: one AMP step of a 2-layer
+   BERT at BERT-base width on the card against the CPU plain versions,
+   and the AMP loss against the float32 loss of the same step.
+   ``resnet_amp`` (after ResNet parity): ``resnet.build(dataset=
+   "imagenet", depth=50, data_format="NHWC", amp=True)`` at batch 64:
+   65 fused sites that absorbed the AMP cast sandwich and no batch_norm
+   op left, 65 K4 forward and 65 K4 backward graph nodes a step, all
+   bfloat16, median step, images/s, device time by group and the
+   layout copies' device ms against the float32 path's;
+   ``resnet_amp_parity``: one AMP step of ResNet-20 NHWC on the card
+   against the CPU.  Each phase fails the run on a failed check.
 
 The main paths run through the executor's program cache, so their
 timed steps replay CUDA graphs; the training and ResNet phases fail if
@@ -155,7 +183,11 @@ CUDA graph with its seed read from a device step tensor and replays it
 at two steps: each replay must match the plain twin at its step and
 the two must differ.  It also checks K4 forward and backward (float32 and
 bfloat16, identity and relu) at the ResNet-50 sites' shapes and a
-ragged one, and times them at every site shape of batch 64; and K7
+ragged one, and times them at every site shape of batch 64; the kernels
+in the AMP paths' call forms (K2 through its op entry with bf16 gamma
+and beta, K1 through its entry with a bf16 mask bias, K4 in bf16 at
+every ResNet-50 site shape) against their plain versions, with K2
+forward and K4 forward and backward timed in bf16; and K7
 quantize and dequantize (to float32 and bfloat16), bit for bit, at the
 32 MB bucket, odd B, an unaligned pointer, an odd tail and zero,
 subnormal, NaN, inf and tie blocks, timed at the bucket and at
@@ -2471,6 +2503,14 @@ def _graphs_off(exe):
             if e.graph is not None and e.captured != e.kernel_nodes]
 
 
+def _op_type_counts(program):
+    """Op type → ops in ``program``'s global block."""
+    out = {}
+    for op in program.global_block().ops:
+        out[op.type] = out.get(op.type, 0) + 1
+    return out
+
+
 def phase_main_path(env):
     import numpy as np
 
@@ -2504,9 +2544,7 @@ def phase_main_path(env):
     finally:  # only the export: .smoke_tmp/ may hold other work
         shutil.rmtree(export_dir, ignore_errors=True)
     setup_s = time.time() - t0
-    op_types = {}
-    for op in pred.program.global_block().ops:
-        op_types[op.type] = op_types.get(op.type, 0) + 1
+    op_types = _op_type_counts(pred.program)
     emit({"phase": "main_path", "step": "export+load",
           "seconds": setup_s, "analyzed_ops": op_types})
 
@@ -2618,7 +2656,7 @@ def _kernel_group(name):
         if any(n in name for n in needles):
             return group
     low = name.lower()
-    if "gemm" in low or "cutlass" in low or "xmma" in low:
+    if any(n in low for n in ("gemm", "cutlass", "xmma", "nvjet")):
         return "GEMM"
     if "copy" in low:
         return "copies"
@@ -2826,9 +2864,7 @@ def phase_train(env):
         torch.cuda.synchronize()
         prog, report = fusion.resolve_fused_program(main,
                                                     targets=[loss.name])
-        op_types = {}
-        for op in prog.global_block().ops:
-            op_types[op.type] = op_types.get(op.type, 0) + 1
+        op_types = _op_type_counts(prog)
         emit({"phase": "train", "step": "build+startup",
               "seconds": time.time() - t0, "ops_per_step": sum(
                   op_types.values()), "fused": report.counts(),
@@ -3314,7 +3350,8 @@ def _resnet_group(name):
                                "copy_kernel", "transpose")),
             ("pooling", ("pool",)),
             ("BN statistics and reductions", ("reduce_kernel", "reduce")),
-            ("GEMM (fc)", ("gemm", "cutlass", "xmma"))):
+            ("GEMM (fc; 1x1 convs cuDNN hands to cuBLAS)",
+             ("gemm", "cutlass", "xmma", "nvjet"))):
         if any(n.lower() in low for n in needles):
             return group
     if "elementwise" in low or "vectorized" in low:
@@ -3423,9 +3460,7 @@ def phase_resnet(env):
         torch.cuda.synchronize()
         prog, report = fusion.resolve_fused_program(
             main, targets=[loss.name, acc.name])
-        op_types = {}
-        for op in prog.global_block().ops:
-            op_types[op.type] = op_types.get(op.type, 0) + 1
+        op_types = _op_type_counts(prog)
         emit({"phase": "resnet", "step": "build+startup",
               "seconds": time.time() - t0, "ops_per_step": sum(
                   op_types.values()), "fused": report.counts(),
@@ -3511,7 +3546,7 @@ def phase_resnet(env):
             "aten_calls_by_op_type": aten}, **prof))
     del scope, exe, batch
     torch.cuda.empty_cache()
-    return counts
+    return counts, prof["device_ms_by_group"]
 
 
 def _resnet_parity_run(fluid, convert, main, startup, fetch, batch, place,
@@ -4550,6 +4585,780 @@ def phase_dp(env):
     return r0["quant"]["launches"]
 
 
+# ---------------------------------------------------------------------------
+# bf16 AMP: the kernels in the AMP paths' call forms, and the three paths
+# ---------------------------------------------------------------------------
+
+AMP_TRAIN_STEPS = 5
+# one AMP step of a 2-layer BERT at BERT-base width, card against the
+# CPU plain versions: the loss is a bf16 value (one unit is 2^-7
+# relative at most; measured equal); the float32 master gradients come
+# through bf16 products that round alike on both sides but for values on
+# a rounding boundary, which then differ by a unit and carry it on
+# (measured up to 9.6e-3, the word embedding's)
+PARITY_AMP_LOSS_RTOL = 2 * BF16_UNIT
+PARITY_AMP_GRAD_RTOL = 4 * BF16_UNIT   # max |GPU - CPU| over max |CPU|
+# the same step in float32: AMP's loss must differ from it by more than
+# the float32 parity tolerance (bf16 ran) and less than this bound
+PARITY_AMP_VS_F32_MAX = 0.05
+# one AMP Momentum step of ResNet-20 (cifar10, NHWC, 21 fused sites with
+# the cast sandwich) at batch 8, card against CPU: the float32 loss
+# (measured 6.4e-5), the fc gradients (3.7e-3) and the moving statistics
+# (9.2e-4, max over max)
+PARITY_RESNET_AMP_LOSS_RTOL = 1e-3
+PARITY_RESNET_AMP_GRAD_RTOL = 4 * BF16_UNIT   # l2 |GPU - CPU| / l2 |CPU|
+# every other gradient's cosine with the CPU's: bf16 relu flips move the
+# convolution and batch_norm gradients by tens of percent (bf16 against
+# float32 on the CPU: 30-50% l2), so these are held in direction only
+PARITY_RESNET_AMP_DEEP_COS = 0.5
+RESNET_AMP_PARITY_BATCH = 8
+# serving: the reference's bounds on a bf16 predictor's error against
+# float32, max |diff| over max |f32| (tests/test_inference.py:317-320)
+SERVE_BF16_ERR = (1e-6, 0.05)
+
+
+# the elementwise copies that convert between float32 and bfloat16
+CAST_NEEDLES = ("bfloat16_copy", "float16_copy", "withcast", "_to_copy",
+                "casting")
+
+
+def _with_casts(group):
+    """``group`` (a profile's kernel grouping) with the dtype casts a
+    group of their own."""
+    def grouped(name):
+        low = name.lower()
+        return "casts" if any(n in low for n in CAST_NEEDLES) \
+            else group(name)
+    return grouped
+
+
+def _dtype_nodes(exe):
+    """``{"kernel:dtype": nodes}`` over the executor's captured graphs:
+    each kernel node of :data:`KERNELS`, with the element type its
+    device function was instantiated for (``_lib.kernel_dtype``; the
+    gather moves raw words, so it has none)."""
+    from paddle_tpu_torch.ops.cuda import _lib
+
+    out = {}
+    for e in exe._cache.values():
+        if e.graph is None:
+            continue
+        for fn in _lib.graph_kernel_functions(e.graph):
+            k = _lib.kernel_of(fn)
+            if k is not None:
+                key = "%s:%s" % (k, _lib.kernel_dtype(fn) or "words")
+                out[key] = out.get(key, 0) + 1
+    return out
+
+
+def kernel_amp(checks, torch, gen):
+    """The kernels in the call forms of the AMP paths, against their
+    plain versions on the same inputs: K2 through its op entry with bf16
+    gamma and beta (the rewrite casts them; they go up to float32, and
+    their gradients come back through the cast), K1 through its entry
+    with a bf16 mask bias ([B,1,1,T], -1e4 rounded to bf16), both at
+    BERT-base's shapes and dropout 0 and 0.1, and K4 forward and backward
+    in bf16 at every ResNet-50 site shape, relu and identity.  Returns
+    the bf16 rows' errors."""
+    from paddle_tpu_torch.ops.cuda import conv_bn_act as cba
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import fused_ln as fl
+
+    errs = {}
+    n, d = TRAIN_BATCH * SEQ, 768
+    bf = torch.bfloat16
+    for rate in (0.0, DROPOUT):
+        seed = drop_seed() if rate else None
+        x, res, dout = (torch.randn((n, d), generator=gen, device="cuda")
+                        .to(bf) for _ in range(3))
+        g = (1 + 0.1 * torch.randn((d,), generator=gen, device="cuda")
+             ).to(bf)
+        b = (0.1 * torch.randn((d,), generator=gen, device="cuda")).to(bf)
+        leaves = [t.clone().requires_grad_() for t in (x, res, g, b)]
+        out = fl.fused_dropout_add_ln(*leaves, dropout_rate=rate,
+                                      eps=1e-12, seed=seed)
+        grads = torch.autograd.grad(out, leaves, dout)
+        ref, y, mean, rstd = fl.fused_dropout_add_ln_fwd_plain(
+            x, res, g.float(), b.float(), 1e-12, rate, seed)
+        refs = fl.fused_dropout_add_ln_bwd_plain(dout, y, g.float(), mean,
+                                                 rstd, rate, seed)
+        refs = refs[:2] + tuple(t.to(bf) for t in refs[2:])
+        torch.cuda.synchronize()
+        case = "op entry, bf16 x/res/gamma/beta [%d, %d] rate %g" % (
+            n, d, rate)
+        errs["fused_dropout_add_ln_fwd_bf16_rate%g" % rate] = checks.check(
+            "fused_dropout_add_ln_fwd", case, max_err(out, ref),
+            _tol(ref, units=1))
+        bwd = []
+        for what, a, r in zip(("dx", "dres", "dgamma", "dbeta"), grads,
+                              refs):
+            if a.dtype != r.dtype:
+                checks.failed.append("fused_dropout_add_ln_bwd %s: %s is "
+                                     "%s, not %s" % (case, what, a.dtype,
+                                                     r.dtype))
+            bwd.append(checks.check("fused_dropout_add_ln_bwd",
+                                    "%s, %s" % (what, case), max_err(a, r),
+                                    _tol(r)))
+        errs["fused_dropout_add_ln_bwd_bf16_rate%g" % rate] = max(bwd)
+        del x, res, dout, out, grads, ref, refs, leaves
+    bh, t, dh = TRAIN_BATCH * 12, SEQ, 64
+    for rate in (0.0, DROPOUT):
+        seed = drop_seed() if rate else None
+        q, k, v, bias = _flash_inputs(torch, TRAIN_BATCH, 12, t, dh, bf, gen)
+        bias4 = bias.to(bf).reshape(TRAIN_BATCH, 1, 1, t)
+        do = torch.randn((bh, t, dh), generator=gen, device="cuda").to(bf)
+        leaves = [a.reshape(TRAIN_BATCH, 12, t, dh).clone().requires_grad_()
+                  for a in (q, k, v)]
+        o = fa.flash_attention(*leaves, bias=bias4, sm_scale=0.125,
+                               dropout_rate=rate, dropout_seed=seed)
+        grads = torch.autograd.grad(o, leaves, do.reshape(o.shape))
+        b32 = bias4.float().reshape(TRAIN_BATCH, t)
+        ro, m, l = fa.flash_attention_fwd_plain(q, k, v, b32, False, 0.125,
+                                                rate, seed)
+        rg = fa.flash_attention_bwd_plain(q, k, v, b32, ro, m, l, do, False,
+                                          0.125, rate, seed)
+        torch.cuda.synchronize()
+        case = "entry, bf16 q/k/v [%d, %d, %d] + bf16 mask bias, rate %g" % (
+            bh, t, dh, rate)
+        errs["flash_attention_fwd_bf16_rate%g" % rate] = checks.check(
+            "flash_attention_fwd", case, max_err(o.reshape(ro.shape), ro),
+            _tol(ro))
+        for kernel, what, a, r in (
+                ("flash_attention_bwd_dq", "dq", grads[0], rg[0]),
+                ("flash_attention_bwd_dkv", "dk", grads[1], rg[1]),
+                ("flash_attention_bwd_dkv", "dv", grads[2], rg[2])):
+            errs["%s_bf16_rate%g" % (kernel, rate)] = max(
+                errs.get("%s_bf16_rate%g" % (kernel, rate), 0.0),
+                checks.check(kernel, "%s, %s" % (what, case),
+                             max_err(a.reshape(r.shape), r), _tol(r)))
+        del q, k, v, do, leaves, o, grads, ro, rg
+    for r, c in RESNET_SITE_SHAPES:
+        y, g, b, mean, rstd, dout = _bn_act_inputs(torch, gen, r, c, bf)
+        for act in ("relu", "identity"):
+            case = "[%d, %d] %s bfloat16 (a ResNet-50 site)" % (r, c, act)
+            got = cba.bn_act_epilogue_fwd(y, g, b, mean, rstd, act)
+            ref = cba.bn_act_epilogue_fwd_plain(y, g, b, mean, rstd, act)
+            grads = cba.bn_act_epilogue_bwd(dout, y, g, b, mean, rstd, act)
+            refs = cba.bn_act_epilogue_bwd_plain(dout, y, g, b, mean, rstd,
+                                                 act)
+            torch.cuda.synchronize()
+            ferr = checks.check("bn_act_epilogue_fwd", case,
+                                max_err(got, ref), _tol(ref, units=1))
+            berr = max(checks.check(
+                "bn_act_epilogue_bwd", "%s, %s" % (what, case),
+                max_err(a, rf), _tol(rf))
+                for what, a, rf in zip(("dy", "dgamma", "dbeta", "dmean",
+                                        "drstd"), grads, refs))
+            if (r, c) == K4_TIME_SHAPE and act == "relu":
+                errs["bn_act_epilogue_fwd_bf16"] = ferr
+                errs["bn_act_epilogue_bwd_bf16"] = berr
+        del y, dout, got, ref, grads, refs
+    torch.cuda.empty_cache()
+    return errs
+
+
+def time_amp_kernels(torch, gen, errs):
+    """Cold-L2 times of the kernels the AMP paths launch in bfloat16 that
+    the other rows time in float32 only: K2 forward at [4096, 768] bf16,
+    rate 0.1 with y/mean/rstd saved (training) and rate 0 out only
+    (serving), beside ``layer_norm(x + res)`` in bf16; K4 forward and
+    backward at [200704, 256] bf16 relu, beside ``F.batch_norm`` + relu in
+    bf16 and ATen's batch-norm backward pass in bf16.  Bounds by the
+    bytes moved at 2 bytes an element (gamma, beta and the statistics
+    float32)."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.cuda import conv_bn_act as cba
+    from paddle_tpu_torch.ops.cuda import fused_ln as fl
+
+    bf = torch.bfloat16
+    rows = []
+    n, d = 4096, 768
+    x, res = (torch.randn((n, d), generator=gen, device="cuda").to(bf)
+              for _ in range(2))
+    g = torch.randn((d,), generator=gen, device="cuda")
+    bt = torch.randn((d,), generator=gen, device="cuda")
+    gb, bb = g.to(bf), bt.to(bf)
+    lib = time_ms(lambda: F.layer_norm(x + res, (d,), gb, bb, 1e-5), 50)
+    src = ("paddle_tpu_torch/csrc/fused_ln.cu",
+           "paddle_tpu/ops/pallas/fused_ln.py:190")
+    drop = (DROPOUT, drop_seed())
+    rows.append(_row(
+        "fused_dropout_add_ln_fwd", *src,
+        errs.get("fused_dropout_add_ln_fwd_bf16_rate%g" % DROPOUT),
+        time_ms(lambda: fl.fused_dropout_add_ln_fwd(
+            x, res, g, bt, 1e-5, *drop, save_stats=True), 50),
+        time_ms(lambda: fl.fused_dropout_add_ln_fwd_plain(
+            x, res, g, bt, 1e-5, *drop), 50),
+        bound_ms(2 * 4 * n * d + 4 * (2 * d + 2 * n), 10 * n * d,
+                 "float32"),
+        lib, "x,res [4096,768] bf16, dropout 0.1, y/mean/rstd saved"))
+    rows.append(_row(
+        "fused_dropout_add_ln_fwd", *src,
+        errs.get("fused_dropout_add_ln_fwd_bf16_rate0"),
+        time_ms(lambda: fl.fused_dropout_add_ln_fwd(x, res, g, bt), 50),
+        time_ms(lambda: fl.fused_dropout_add_ln_fwd_plain(x, res, g, bt),
+                50),
+        bound_ms(2 * 3 * n * d + 4 * 2 * d, 8 * n * d, "float32"), lib,
+        "x,res [4096,768] bf16, dropout 0, out only (serving)"))
+    del x, res
+    r, c = K4_TIME_SHAPE
+    y, g, b, mean, rstd, dout = _bn_act_inputs(torch, gen, r, c, bf)
+    side = int(round((r // RESNET_BATCH) ** 0.5))
+    y4 = y.view(RESNET_BATCH, side, side, c).permute(0, 3, 1, 2)
+    d4 = dout.view(RESNET_BATCH, side, side, c).permute(0, 3, 1, 2)
+    var = 1.0 / (rstd * rstd) - 1e-5
+    gb, bb = g.to(bf), b.to(bf)
+    n_el = r * c
+    ksrc = ("paddle_tpu_torch/csrc/conv_bn_act.cu",
+            "paddle_tpu/ops/pallas/conv_bn_act.py:")
+    shape = "y [%d, %d] bf16 relu (%dx%d x %d channels at batch %d)" % (
+        r, c, side, side, c, RESNET_BATCH)
+    rows.append(_row(
+        "bn_act_epilogue_fwd", ksrc[0], ksrc[1] + "153",
+        errs.get("bn_act_epilogue_fwd_bf16"),
+        time_ms(lambda: cba.bn_act_epilogue_fwd(y, g, b, mean, rstd,
+                                                "relu"), 20),
+        time_ms(lambda: cba.bn_act_epilogue_fwd_plain(y, g, b, mean, rstd,
+                                                      "relu"), 20),
+        bound_ms(2 * 2 * n_el + 4 * 4 * c, 5 * n_el, "float32"),
+        time_ms(lambda: F.relu(F.batch_norm(y4, mean, var, gb, bb, False,
+                                            0.0, 1e-5)), 20),
+        shape + "; library: F.batch_norm + relu, bf16"))
+    try:
+        lib_bwd = time_ms(lambda: _bn_act_library_bwd(
+            torch, y4, d4, g, mean, rstd), 20)
+    except (RuntimeError, TypeError) as e:  # a yardstick only
+        lib_bwd = None
+        emit({"phase": "kernels", "library_bwd_bf16_unavailable": str(e)})
+    rows.append(_row(
+        "bn_act_epilogue_bwd", ksrc[0], ksrc[1] + "175",
+        errs.get("bn_act_epilogue_bwd_bf16"),
+        time_ms(lambda: cba.bn_act_epilogue_bwd(dout, y, g, b, mean, rstd,
+                                                "relu"), 20),
+        time_ms(lambda: cba.bn_act_epilogue_bwd_plain(dout, y, g, b, mean,
+                                                      rstd, "relu"), 20),
+        bound_ms(2 * 3 * n_el + 4 * (4 * c + 4 * c), 12 * n_el, "float32"),
+        lib_bwd, shape + "; library: ATen batch_norm_backward_reduce + "
+        "_elemt, bf16"))
+    del y, dout, y4, d4
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_amp_kernels():
+    """``kernel_amp``'s checks, then ``time_amp_kernels``' rows, each
+    printed as a timing line."""
+    import torch
+
+    gen = _gen(torch)
+    checks = Checks()
+    errs = kernel_amp(checks, torch, gen)
+    if checks.failed:
+        raise AssertionError("AMP kernel checks failed: %s"
+                             % "; ".join(checks.failed))
+    for r in time_amp_kernels(torch, gen, errs):
+        emit(dict({"phase": "kernels", "timing": True, "amp": True}, **r))
+    torch.cuda.empty_cache()
+
+
+def _amp_train_program(fluid, bert, cfg):
+    main, startup, _feeds, loss = bert.build_pretrain(
+        cfg, seq_len=SEQ, lr=TRAIN_LR, amp=True)
+    main.random_seed = startup.random_seed = SEED
+    return main, startup, loss
+
+
+def _amp_steps(env, phase, exe, main, batch, fetch, want, want_dtype,
+               per_item):
+    """An AMP path's warm-up (eager, then capture) and AMP_TRAIN_STEPS
+    timed replays on one repeated batch: the launches a step by source
+    and, from the replayed graphs' kernel nodes, by kernel and element
+    type, against ``want`` / ``want_dtype``; peak memory; copy-backs;
+    finite losses (the first fetch).  ``per_item`` is (label, items a
+    step) for the rate.  Emits the steps line, raises on a failed check
+    → the launches by source."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import (KERNELS, launch_counts,
+                                           launch_counts_by_source,
+                                           reset_launch_counts)
+
+    losses = [float(np.asarray(exe.run(main, feed=batch, fetch_list=fetch)
+                               [0]).reshape(-1)[0])
+              for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    step_ms = []
+    for _ in range(AMP_TRAIN_STEPS):
+        s0 = time.perf_counter()
+        out = exe.run(main, feed=batch, fetch_list=fetch)
+        step_ms.append((time.perf_counter() - s0) * 1e3)
+        losses.append(float(np.asarray(out[0]).reshape(-1)[0]))
+    counts = launch_counts_by_source()
+    per_step = {k: c / AMP_TRAIN_STEPS for k, c in launch_counts().items()}
+    full = dict.fromkeys(KERNELS, 0.0)
+    full.update(want)
+    by_dtype = _dtype_nodes(exe)
+    med = statistics.median(step_ms)
+    off = _graphs_off(exe)
+    copies = _copy_backs(exe)
+    emit({"phase": phase, "step": "steps", "card": card_label(env),
+          "losses": losses, "step_ms": step_ms, "median_step_ms": med,
+          per_item[0]: per_item[1] / (med / 1e3),
+          "launches_per_step": per_step, "launches_by_source": counts,
+          "expected": full, "graph_nodes_by_kernel_and_dtype": by_dtype,
+          "expected_by_dtype": want_dtype,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+          "last_run_mode": exe.last_run_mode, "copy_backs_per_step": copies,
+          "graphs_nodes_not_captured_launches": off})
+    failed = []
+    if copies != [0]:
+        failed.append("state copied back a step: %s" % copies)
+    if per_step != full or any(counts["wrapper"].values()) or off:
+        failed.append("launches per step %s != %s (by source %s, graphs "
+                      "%s)" % (per_step, full, counts, off))
+    if by_dtype != want_dtype:
+        failed.append("graph nodes by dtype %s != %s"
+                      % (by_dtype, want_dtype))
+    if exe.last_run_mode != "graph":
+        failed.append("the timed steps ran %r" % exe.last_run_mode)
+    if not all(np.isfinite(losses)):
+        failed.append("loss not finite: %s" % losses)
+    if failed:
+        raise AssertionError("%s: %s" % (phase, "; ".join(failed)))
+    return counts, losses
+
+
+def phase_train_amp(env):
+    """BERT-base MLM pretraining with ``build_pretrain(amp=True)`` (T=512,
+    B=8, dropout 0.1, Adam on float32 masters) on the executor's captured
+    graph: warm-up, then timed steps with the launches read from the
+    replayed graphs' kernel nodes, by kernel and by the element type of
+    each node's device function; peak memory; copy-backs; device time by
+    group with the casts a group of their own; then eager = graph =
+    eager, bit for bit, over GRAPH_STEPS steps from one start."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.static_analysis import fusion
+
+    cfg = bert.BERT_BASE
+    t0 = time.time()
+    main, startup, loss = _amp_train_program(fluid, bert, cfg)
+    batch = bert.make_fake_batch(TRAIN_BATCH, SEQ, cfg,
+                                 np.random.RandomState(SEED))
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup)
+        prog, report = fusion.resolve_fused_program(main,
+                                                    targets=[loss.name])
+        op_types = _op_type_counts(prog)
+        masters = sorted({str(p.dtype) for p in main.all_parameters()})
+        emit({"phase": "train_amp", "step": "build+startup",
+              "seconds": time.time() - t0, "fused": report.counts(),
+              "op_types": op_types, "parameter_dtypes": masters})
+        if masters != ["float32"] or not op_types.get("cast"):
+            raise AssertionError("AMP program: parameters %s, %s casts"
+                                 % (masters, op_types.get("cast")))
+        want = _train_launches(prog)
+        want_dtype = {
+            "flash_attention_fwd:bfloat16": 12,
+            "flash_attention_bwd_dkv:bfloat16": 12,
+            "flash_attention_bwd_dq:bfloat16": 12,
+            "fused_dropout_add_ln_fwd:bfloat16": 25,
+            "fused_dropout_add_ln_bwd:bfloat16": 25,
+            "embedding_gather_fwd:words": 3,
+            "embedding_gather_bwd:float32": 3,
+            "adam_update:float32": want["adam_update"]}
+        counts, losses = _amp_steps(
+            env, "train_amp", exe, main, batch, [loss], want, want_dtype,
+            ("tokens_per_s", TRAIN_BATCH * SEQ))
+        if not losses[-1] < losses[0]:
+            raise AssertionError("train_amp: loss not falling: %s" % losses)
+        prof = _step_profile(exe, main, batch, [loss],
+                             _with_casts(_kernel_group))
+        emit(dict({"phase": "train_amp", "step": "profile",
+                   "card": card_label(env)}, **prof))
+    del scope, exe
+    torch.cuda.empty_cache()
+    # eager = graph = eager over the same steps from the same start
+    sides = [_train_graph_side(fluid, main, startup, loss, batch, cache,
+                               timed=False)
+             for cache in (False, True, False)]
+    same = [a[1] == b[1] and all(np.array_equal(x, y)
+                                 for x, y in zip(a[0], b[0]))
+            for a, b in ((sides[0], sides[1]), (sides[0], sides[2]))]
+    graph = sides[1][2]
+    emit({"phase": "train_amp", "step": "eager = graph = eager",
+          "losses": [[float(x.reshape(-1)[0]) for x in s[0]]
+                     for s in sides],
+          "modes": [s[2]["modes"] for s in sides], "bit_identical": same,
+          "copy_backs_graph_side": graph["copy_backs_per_step"]})
+    if not all(same) or graph["modes"][-1] != "graph" \
+            or graph["copy_backs_per_step"] != [0]:
+        raise AssertionError("train_amp: eager, graph and eager differ or "
+                             "the graph side did not replay")
+    return counts
+
+
+def phase_train_amp_parity():
+    """One AMP step (dropout 0.1) of a 2-layer BERT at BERT-base width
+    (B=2, T=512) on the card and on the CPU with the plain versions, from
+    the same start and masks, the card's a replay of its captured graph;
+    and the same step in float32 on the card (the same calls, so the same
+    masks): AMP's loss must differ from it by more than the float32
+    parity tolerance and less than PARITY_AMP_VS_F32_MAX, and the
+    gradients' AMP-against-float32 differences are printed."""
+    import copy
+
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.models import bert
+
+    cfg = copy.copy(bert.BERT_BASE)
+    cfg.layers = 2
+    with fluid.unique_name.guard():  # the f32 twin's names alike
+        main, startup, loss = _amp_train_program(fluid, bert, cfg)
+    grads = _grad_names(main)
+    names = ["bert.word_emb", "bert.layer0.attn.q.w", "bert.layer0.ln1.scale"]
+    fetch = [loss.name] + [grads[n] for n in names]
+    batch = bert.make_fake_batch(2, SEQ, cfg, np.random.RandomState(SEED + 3))
+    out, modes, start = {}, {}, None
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        scope = fluid.Scope()
+        with fluid.scope_guard(scope):
+            exe = fluid.Executor(place)
+            exe.run(startup)
+            if start is None:
+                start = convert.scope_persistables(main, scope)
+            out[place._kind], modes[place._kind] = _parity_calls(
+                fluid, convert, exe, scope, main, place, start,
+                lambda: exe.run(main, feed=batch, fetch_list=fetch))
+        del scope, exe
+    with fluid.unique_name.guard():
+        f32main, f32startup, f32loss = _train_program(fluid, bert, cfg, SEQ)
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):  # the same calls, so the same masks
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(f32startup)
+        f32_out, _ = _parity_calls(
+            fluid, convert, exe, scope, f32main, fluid.CUDAPlace(0), start,
+            lambda: exe.run(f32main, feed=batch,
+                            fetch_list=[f32loss.name] + fetch[1:]))
+        f32 = float(f32_out[0][0])
+    del scope, exe
+    gpu, cpu = out["cuda"], out["cpu"]
+    g_loss, c_loss = float(gpu[0][0]), float(cpu[0][0])
+    result = {"phase": "train_amp_parity", "step": "GPU kernels vs CPU "
+              "plain versions, one AMP step, dropout 0.1, the last of %d "
+              "from one start" % PARITY_CALLS, "modes": modes,
+              "loss_dtype": str(np.asarray(gpu[0]).dtype),
+              "loss": [g_loss, c_loss],
+              "loss_rel_err": abs(g_loss - c_loss) / abs(c_loss),
+              "loss_tol": PARITY_AMP_LOSS_RTOL, "f32_loss": f32,
+              "amp_vs_f32_rel": abs(g_loss - f32) / abs(f32),
+              "amp_vs_f32_bounds": [PARITY_LOSS_RTOL,
+                                    PARITY_AMP_VS_F32_MAX],
+              "amp_vs_f32_grad_rel": {
+                  n: float(np.abs(g - f).max()) / max(float(np.abs(f).max()),
+                                                      1e-30)
+                  for n, g, f in zip(names, gpu[1:], f32_out[1:])}}
+    ok = result["loss_rel_err"] <= PARITY_AMP_LOSS_RTOL \
+        and modes["cuda"][-1] == "graph" \
+        and PARITY_LOSS_RTOL < result["amp_vs_f32_rel"] \
+        < PARITY_AMP_VS_F32_MAX
+    for name, g, c in zip(names, gpu[1:], cpu[1:]):
+        err = float(np.abs(g - c).max()) / max(float(np.abs(c).max()), 1e-30)
+        result[name + "@GRAD rel_err"] = err
+        result[name + "@GRAD dtype"] = str(g.dtype)
+        ok = ok and np.isfinite(g).all() and err <= PARITY_AMP_GRAD_RTOL \
+            and g.dtype == np.float32
+    result["grad_tol"] = PARITY_AMP_GRAD_RTOL
+    emit(result)
+    if not ok:
+        raise AssertionError("train_amp parity failed: %s" % result)
+
+
+def phase_resnet_amp(env, f32_groups):
+    """ResNet-50 NHWC (``resnet.build(dataset="imagenet", depth=50,
+    data_format="NHWC", amp=True)``) at batch 64, Nesterov Momentum, on
+    the captured graph: every conv -> batch_norm site fused with its
+    cast sandwich and no batch_norm op left; 65 K4 forward and 65 K4
+    backward graph nodes a step, all bfloat16; timed steps, images/s,
+    peak memory, copy-backs, device time by group (the casts apart); and
+    the layout copies' device ms a step against the float32 path's
+    (``f32_groups``, phase_resnet's profile in the same run)."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.static_analysis import fusion
+
+    t0 = time.time()
+    main, startup, _feeds, loss, acc = resnet.build(
+        dataset="imagenet", depth=50, data_format="NHWC", amp=True)
+    main.random_seed = startup.random_seed = SEED
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup)
+        prog, report = fusion.resolve_fused_program(
+            main, targets=[loss.name, acc.name])
+        op_types = _op_type_counts(prog)
+        notes = [r.note for r in report.applied if r.family == "conv_bn_act"]
+        sandwiches = sum("AMP cast sandwich" in n for n in notes)
+        emit({"phase": "resnet_amp", "step": "build+startup",
+              "seconds": time.time() - t0, "fused": report.counts(),
+              "sites_with_cast_sandwich": sandwiches, "op_types": op_types})
+        if report.counts() != {"conv_bn_act": RESNET_SITES} \
+                or sandwiches != RESNET_SITES or op_types.get("batch_norm"):
+            raise AssertionError("resnet_amp fusion: %s, %d sandwiches, %s "
+                                 "batch_norm" % (report.counts(), sandwiches,
+                                                 op_types.get("batch_norm")))
+        batch = {k: torch.from_numpy(v).cuda() for k, v in _resnet_batch(
+            np, np.random.RandomState(SEED), RESNET_BATCH,
+            RESNET_HW).items()}
+        want = _resnet_launches(prog)
+        want_dtype = {"bn_act_epilogue_fwd:bfloat16": RESNET_SITES,
+                      "bn_act_epilogue_bwd:bfloat16": RESNET_SITES,
+                      "momentum_update:float32": want["momentum_update"]}
+        counts, _ = _amp_steps(
+            env, "resnet_amp", exe, main, batch, [loss, acc], want,
+            want_dtype, ("images_per_s", RESNET_BATCH))
+        prof = _step_profile(exe, main, batch, [loss, acc],
+                             _with_casts(_resnet_group), top_n=25)
+        emit(dict({"phase": "resnet_amp", "step": "profile",
+                   "card": card_label(env),
+                   "layout_copies_ms_bf16_vs_f32": [
+                       prof["device_ms_by_group"].get("layout copies", 0.0),
+                       f32_groups.get("layout copies", 0.0)],
+                   "f32_device_ms_by_group": f32_groups}, **prof))
+    del scope, exe, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_resnet_amp_parity():
+    """One AMP Nesterov Momentum step of ResNet-20 (``resnet.build(
+    dataset="cifar10", data_format="NHWC", amp=True)``, 21 fused sites
+    with the cast sandwich) at batch RESNET_AMP_PARITY_BATCH, on the card
+    (the K4 kernels in bf16, the last of PARITY_CALLS from one start, so
+    a graph replay) and on the CPU with the plain versions: the loss, the
+    fc weight's and bias' float32 gradients and every moving statistic
+    after the step within PARITY_RESNET_AMP_GRAD_RTOL; every other
+    gradient at least PARITY_RESNET_AMP_DEEP_COS alike in direction (a
+    bf16 relu input that rounds across 0 on one side only moves the
+    convolution and batch_norm gradients below it by tens of percent,
+    as bf16 against float32 does in one package)."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.models import resnet
+
+    with fluid.unique_name.guard():
+        main, startup, _feeds, loss, _acc = resnet.build(
+            dataset="cifar10", data_format="NHWC", amp=True)
+    main.random_seed = startup.random_seed = SEED
+    grads = {op.inputs["Param"][0]: op.inputs["Grad"][0]
+             for op in main.global_block().ops if op.type == "momentum"}
+    names = sorted(grads)
+    held = [n for n in names if n.startswith("fc")]
+    moving = sorted(p.name for p in main.all_parameters()
+                    if not p.trainable)
+    fetch = [loss.name] + [grads[n] for n in names]
+    rng = np.random.RandomState(SEED + 9)
+    batch = {"img": rng.randn(RESNET_AMP_PARITY_BATCH, 32, 32, 3).astype(
+        "float32"), "label": rng.randint(0, 10, (RESNET_AMP_PARITY_BATCH,
+                                                 1)).astype("int64")}
+    out, after, modes, start = {}, {}, {}, None
+    for place in (fluid.CPUPlace(), fluid.CUDAPlace(0)):
+        scope = fluid.Scope()
+        with fluid.scope_guard(scope):
+            exe = fluid.Executor(place)
+            exe.run(startup)
+            if start is None:
+                start = convert.scope_persistables(main, scope)
+            out[place._kind], modes[place._kind] = _parity_calls(
+                fluid, convert, exe, scope, main, place, start,
+                lambda: exe.run(main, feed=batch, fetch_list=fetch))
+            after[place._kind] = convert.scope_persistables(main, scope)
+        del scope, exe
+    gpu, cpu = out["cuda"], out["cpu"]
+    g_loss, c_loss = float(gpu[0][0]), float(cpu[0][0])
+    res = {"phase": "resnet_amp_parity", "step": "card (K4 bf16) vs CPU "
+           "plain versions, one AMP Momentum step, ResNet-20 NHWC 32x32 "
+           "batch %d" % RESNET_AMP_PARITY_BATCH, "modes": modes,
+           "loss": [g_loss, c_loss],
+           "loss_rel_err": abs(g_loss - c_loss) / abs(c_loss),
+           "loss_tol": PARITY_RESNET_AMP_LOSS_RTOL,
+           "grad_tol": PARITY_RESNET_AMP_GRAD_RTOL,
+           "cos_min_tol": PARITY_RESNET_AMP_DEEP_COS}
+    ok = res["loss_rel_err"] <= PARITY_RESNET_AMP_LOSS_RTOL \
+        and modes["cuda"][-1] == "graph"
+    cos = {}
+    for name, g, c in zip(names, gpu[1:], cpu[1:]):
+        ok = ok and g.dtype == np.float32 and bool(np.isfinite(g).all())
+        cos[name] = float(np.dot(g.ravel(), c.ravel()) / max(
+            float(np.linalg.norm(g) * np.linalg.norm(c)), 1e-30))
+        if name in held:
+            err = float(np.linalg.norm(g - c)
+                        / max(np.linalg.norm(c), 1e-30))
+            res[name + "@GRAD l2_rel_err"] = err
+            ok = ok and err <= PARITY_RESNET_AMP_GRAD_RTOL
+    res["grad_cos_min"] = min(cos.values())
+    res["grad_cos_min_at"] = min(cos, key=cos.get)
+    res["grad_cos_median"] = float(np.median(list(cos.values())))
+    ok = ok and res["grad_cos_min"] >= PARITY_RESNET_AMP_DEEP_COS
+    res["moving_stats_max_rel_err"] = max(
+        float(np.abs(after["cuda"][k] - after["cpu"][k]).max())
+        / max(float(np.abs(after["cpu"][k]).max()), 1e-30) for k in moving)
+    res["moving_stats_moved"] = sum(
+        not np.array_equal(after["cuda"][k], start[k]) for k in moving)
+    ok = ok and res["moving_stats_max_rel_err"] \
+        <= PARITY_RESNET_AMP_GRAD_RTOL \
+        and res["moving_stats_moved"] == len(moving)
+    res["ok"] = ok
+    emit(res)
+    if not ok:
+        raise AssertionError("resnet_amp parity failed: %s" % res)
+
+
+def phase_serve_bf16(env, pred_f32, cfg):
+    """BERT-base at T=512 served with ``AnalysisConfig.enable_bf16()``:
+    the same seeded model exported again and loaded by a bf16 predictor
+    on the card; the analysis passes ran before the rewrite (casts
+    present, no batch_norm, the float32 predictor's fused op counts);
+    requests through ``PredictorServer`` in the existing buckets with the
+    launches read per batch, all K1 and K2 graph nodes bfloat16; per
+    bucket the bf16 and the float32 predictor's latency and tokens/s in
+    turns; and the error against float32 within SERVE_BF16_ERR."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.executor import Scope, scope_guard
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops.cuda import (KERNELS, launch_counts,
+                                           launch_counts_by_source,
+                                           reset_launch_counts)
+    from paddle_tpu_torch.static_analysis import fusion
+
+    feeds = ["input_ids", "token_type_ids", "attn_mask_bias", "pos_ids"]
+    t0 = time.time()
+    main, startup, hidden = _bert_program(fluid, bert, cfg)
+    export_dir = os.path.join(HERE, ".smoke_tmp", "bert_base_bf16_export")
+    shutil.rmtree(export_dir, ignore_errors=True)
+    try:
+        scope = Scope()
+        with scope_guard(scope):
+            exe = fluid.Executor(fluid.CUDAPlace(0))
+            exe.run(startup)
+            fluid.io.save_inference_model(export_dir, feeds, [hidden], exe,
+                                          main_program=main)
+        del scope, exe
+        bcfg = fluid.inference.AnalysisConfig(model_dir=export_dir)
+        bcfg.enable_bf16()
+        pred = fluid.inference.create_paddle_predictor(bcfg)
+    finally:
+        shutil.rmtree(export_dir, ignore_errors=True)
+
+    def fused_counts(p):
+        prog, _ = fusion.resolve_fused_program(
+            p.program, targets=p.get_output_names())
+        return {k: v for k, v in _op_type_counts(prog).items()
+                if k.startswith("fused_") or k == "fc"}
+
+    ops = _op_type_counts(pred.program)
+    fused_bf16, fused_f32 = fused_counts(pred), fused_counts(pred_f32)
+    emit({"phase": "serve_bf16", "step": "export+load",
+          "seconds": time.time() - t0, "analyzed_ops": ops,
+          "fused_bf16": fused_bf16, "fused_f32": fused_f32})
+    if not ops.get("cast") or ops.get("batch_norm") \
+            or fused_bf16 != fused_f32:
+        raise AssertionError("bf16 predictor: casts %s, fused %s vs f32 %s"
+                             % (ops.get("cast"), fused_bf16, fused_f32))
+    rng = np.random.RandomState(SEED)
+    requests = [_bert_request(rng, r, cfg) for r in REQUEST_ROWS]
+    server = serving.PredictorServer(
+        {"bert": pred}, verify=False, buckets=BUCKETS, auto_start=False)
+    try:
+        warm = _bert_request(np.random.RandomState(SEED + 1), BUCKETS[-1],
+                             cfg)
+        for _ in range(2):
+            pred.run(warm)
+        reset_launch_counts()
+        futures = [server.submit("bert", feed, request_id=i)
+                   for i, feed in enumerate(requests)]
+        server.start()
+        results = [f.result(timeout=600) for f in futures]
+        counts = launch_counts()
+        by_source = launch_counts_by_source()
+    finally:
+        server.close()
+    batches = len(server.dispatch_log)
+    want = dict.fromkeys(KERNELS, 0)
+    want.update({"flash_attention_fwd": 12 * batches,
+                 "fused_dropout_add_ln_fwd": 25 * batches,
+                 "embedding_gather_fwd": 3 * batches})
+    by_dtype = _dtype_nodes(pred._exe)
+    bad_dtype = {k: n for k, n in by_dtype.items()
+                 if k.split(":")[0] in ("flash_attention_fwd",
+                                        "fused_dropout_add_ln_fwd")
+                 and not k.endswith(":bfloat16")}
+    emit({"phase": "serve_bf16", "step": "serve", "batches": batches,
+          "launches": counts, "expected_launches": want,
+          "graph_nodes_by_kernel_and_dtype": by_dtype})
+    if counts != want or bad_dtype:
+        raise AssertionError("serve_bf16 launches %s != %s, or K1/K2 nodes "
+                             "not bf16: %s" % (counts, want, bad_dtype))
+    errs = []
+    for feed, out, rows in zip(requests, results, REQUEST_ROWS):
+        got = np.asarray(out[0]).astype("float32")
+        if got.shape != (rows, SEQ, cfg.hidden) or not np.isfinite(got).all():
+            raise AssertionError("bf16 request: shape %s or non-finite"
+                                 % (got.shape,))
+        ref = pred_f32.run(feed)[0]
+        errs.append(float(np.abs(got - ref).max() / np.abs(ref).max()))
+    lat = {}
+    rng = np.random.RandomState(SEED + 2)
+    for rows in BUCKETS:
+        feed = _bert_request(rng, rows, cfg)
+        for label, p in (("bf16", pred), ("f32", pred_f32), ("bf16", pred),
+                         ("f32", pred_f32)):
+            ms = _median_ms(lambda: p.run(feed))
+            lat.setdefault(label, {}).setdefault(rows, []).append(ms)
+    torch.cuda.synchronize()
+    per_bucket = {str(rows): {
+        label: {"latency_ms": min(lat[label][rows]),
+                "tokens_per_s": rows * SEQ / (min(lat[label][rows]) / 1e3)}
+        for label in ("bf16", "f32")} for rows in BUCKETS}
+    emit({"phase": "serve_bf16", "step": "latency",
+          "card": card_label(env), "per_bucket": per_bucket,
+          "request_latency_ms": [f.latency_ms for f in futures],
+          "scale_rel_err_vs_f32": errs, "err_bounds": SERVE_BF16_ERR,
+          "output_dtype": str(np.asarray(results[0][0]).dtype)})
+    lo, hi = SERVE_BF16_ERR
+    if not all(lo < e < hi for e in errs):
+        raise AssertionError("bf16 serving error vs f32 %s outside %s"
+                             % (errs, SERVE_BF16_ERR))
+    del server, pred
+    torch.cuda.empty_cache()
+    return by_source
+
+
 def main():
     try:
         import torch
@@ -4567,6 +5376,8 @@ def main():
     sys.path.insert(0, HERE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
     env = phase_environment()
     build = phase_build()
     if not build["hmma_per_kernel"] or not all(
@@ -4581,16 +5392,22 @@ def main():
         raise AssertionError("K2 backward or decode kernels spill: %s"
                              % spills)
     rows = phase_kernels()
+    phase_amp_kernels()
     serve_counts, pred, cfg = phase_main_path(env)
     phase_profile(env, pred, cfg)
     phase_graph_serve(env, pred, cfg)
+    serve_bf16_counts = phase_serve_bf16(env, pred, cfg)
     del pred
     train_counts = phase_train(env)
     phase_train_parity()
+    train_amp_counts = phase_train_amp(env)
+    phase_train_amp_parity()
     decode_counts = phase_decode(env)
     phase_decode_parity()
-    resnet_counts = phase_resnet(env)
+    resnet_counts, resnet_groups = phase_resnet(env)
     phase_resnet_parity()
+    resnet_amp_counts = phase_resnet_amp(env, resnet_groups)
+    phase_resnet_amp_parity()
     phase_graph(env)
     phase_quant()
     dp_counts = phase_dp(env)
@@ -4604,7 +5421,9 @@ def main():
              "decode_paged": decode_counts["paged"],
              "resnet": resnet_counts,
              "dp": {"wrapper": dp_counts,
-                    "graph_nodes": dict.fromkeys(KERNELS, 0)}}
+                    "graph_nodes": dict.fromkeys(KERNELS, 0)},
+             "serve_bf16": serve_bf16_counts, "train_amp": train_amp_counts,
+             "resnet_amp": resnet_amp_counts}
     for r in rows:
         # the decode path's launches (ring + paged runs) where it runs the
         # kernel, else the BERT training path's (the backward kernels),

@@ -44,6 +44,7 @@ from . import models
 from . import convert
 from . import quant
 from . import transpiler
+from . import contrib
 
 __all__ = [
     "Program", "Block", "Operator", "Variable", "Parameter",
@@ -57,4 +58,5 @@ __all__ = [
     "pipeline", "io", "analysis", "inference", "static_analysis",
     "serving", "models", "convert", "backward", "clip", "regularizer",
     "optimizer", "append_backward", "gradients", "quant", "transpiler",
+    "contrib",
 ]

@@ -84,7 +84,10 @@ over the ``torch.distributed`` group that the startup program's
 program runs eagerly.  On a CUDA place the executor turns TF32 off for
 float32 products (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``), so they run in full float32 as on
-the CPU.
+the CPU, and turns off cuBLAS's bf16 reduction of split-K partials
+(``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``,
+on by default), so a bf16 product accumulates in float32 to the end, as
+the reference's ``preferred_element_type=float32``.
 """
 
 import contextlib
@@ -572,6 +575,8 @@ class Executor:
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul \
+                .allow_bf16_reduced_precision_reduction = False
         self._step = 0
         self._cache = {}
         self._lock = threading.RLock()

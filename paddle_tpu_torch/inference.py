@@ -6,8 +6,10 @@ The predictor places on ``cuda:0`` unless the config asks for the CPU
 with :meth:`AnalysisConfig.disable_gpu` (the reference Fluid API name);
 asking for the GPU where CUDA is unavailable raises.  ``run`` returns
 numpy arrays after one batched sync; ``run_async`` returns lazy
-``FetchHandle``\\ s.  ``run_batches`` (the prefetching serving loop) and
-``enable_bf16`` (the AMP rewrite) come with later slices (ROADMAP.md)."""
+``FetchHandle``\\ s.  :meth:`AnalysisConfig.enable_bf16` rewrites the
+analysed program to bf16 (:mod:`.contrib.mixed_precision`).
+``run_batches`` (the prefetching serving loop) comes with a later slice
+(ROADMAP.md)."""
 
 import os
 
@@ -143,6 +145,7 @@ class AnalysisConfig:
         self.params_file = params_file
         self._ir_optim = True
         self._use_gpu = True
+        self._bf16 = False
         self._pass_builder = PassBuilder()
 
     def disable_gpu(self):
@@ -159,10 +162,13 @@ class AnalysisConfig:
         return self._ir_optim
 
     def enable_bf16(self, flag=True):
-        raise NotImplementedError(
-            "AnalysisConfig.enable_bf16 needs the bf16 program rewrite of "
-            "the AMP slice, which is not ported yet (ROADMAP.md, Queue A "
-            "item 2: AMP/bf16)")
+        """Rewrite the loaded program to bf16 after the analysis passes:
+        rewriting first would put float32 casts between each conv and
+        its (black-listed) batch_norm and defeat the conv + bn fold."""
+        self._bf16 = bool(flag)
+
+    def bf16_enabled(self):
+        return self._bf16
 
     def pass_builder(self):
         return self._pass_builder
@@ -195,6 +201,10 @@ class AnalysisPredictor:
                 program = Analyzer(config.pass_builder()).run(
                     program, scope=self._scope,
                     targets=[v.name for v in fetch_vars])
+            if config.bf16_enabled():
+                from .contrib.mixed_precision import rewrite_program_bf16
+
+                rewrite_program_bf16(program)
         self._program = program
         self._feed_names = feed_names
         self._fetch_vars = fetch_vars

@@ -7,14 +7,18 @@ parameter names, so a checkpoint of either package loads in the other.
 :func:`~paddle_tpu_torch.ops.cuda.flash_attention.flash_min_t`
 (``PADDLE_TPU_FLASH_MIN_T``, default 512), read when the program is
 built: the fused attention op at or above it, the unfused matmul/softmax
-chain below.  ``fused_qkv`` (needs the ``slice`` layer), ``recompute``
-and ``build_pretrain(amp=True)`` are not ported yet (ROADMAP.md)."""
+chain below.  ``build_pretrain(amp=True)`` runs the bf16 rewrite
+(:mod:`paddle_tpu_torch.contrib.mixed_precision`): through the decorated
+Adam when training, directly on the forward program otherwise.
+``fused_qkv`` (needs the ``slice`` layer) and ``recompute`` are not
+ported yet (ROADMAP.md)."""
 
 import copy
 import math
 
 from .. import layers
 from .. import optimizer
+from ..contrib import mixed_precision
 from ..framework import Program, program_guard
 from ..initializer import TruncatedNormal
 from ..ops.cuda.flash_attention import flash_min_t
@@ -162,10 +166,6 @@ def build_pretrain(cfg=BERT_BASE, seq_len=128, lr=1e-4, amp=False,
     gathered before the vocab projection, which is tied to the word
     embedding; ``max_pred=0`` scores every position.  With
     ``train=False`` only the forward loss graph is built, dropout off."""
-    if amp:
-        raise NotImplementedError(
-            "build_pretrain(amp=True) needs the bf16 rewrite, which is not "
-            "ported yet (ROADMAP.md, Queue A: AMP/bf16)")
     if max_pred is None:
         max_pred = default_max_pred(seq_len)
     if not train:
@@ -218,7 +218,12 @@ def build_pretrain(cfg=BERT_BASE, seq_len=128, lr=1e-4, amp=False,
         den = layers.reduce_sum(w_flat)
         loss = layers.elementwise_div(num, den)
         if train:
-            optimizer.Adam(learning_rate=lr).minimize(loss)
+            opt = optimizer.Adam(learning_rate=lr)
+            if amp:
+                opt = mixed_precision.decorate(opt)
+            opt.minimize(loss)
+        elif amp:
+            mixed_precision.rewrite_program_bf16(main)
     feeds = ["input_ids", "token_type_ids", "attn_mask_bias", "pos_ids",
              "mlm_labels", "mlm_weights"]
     if max_pred:

@@ -8,8 +8,8 @@ both packages build the same program.  ``data_format="NHWC"`` builds the
 channels-last variant (the ``img`` feed is then [H, W, C]; conv filters
 stay OIHW): there the fusion pipeline rewrites every conv → batch_norm
 (→ relu) into ``fused_conv_bn_act``, whose epilogue is the K4 kernel.
-``build(amp=True)`` needs the bf16 rewrite, which is not ported yet, and
-raises ``NotImplementedError``."""
+``build(amp=True)`` decorates the optimizer with the bf16 rewrite
+(:mod:`paddle_tpu_torch.contrib.mixed_precision`)."""
 
 import paddle_tpu_torch as fluid
 
@@ -139,15 +139,10 @@ def resnet_imagenet(input, class_dim=1000, depth=50, is_test=False,
 def build(dataset="cifar10", depth=None, batch_lr=0.1, class_dim=None,
           is_test=False, amp=False, data_format="NCHW", stem="conv7"):
     """Returns (main, startup, feeds, loss, acc): the training program
-    (Momentum, lr ``batch_lr``, momentum 0.9, Nesterov).  amp=True
-    raises (not ported).  data_format="NHWC" builds the channels-last variant (the ``img``
+    (Momentum, lr ``batch_lr``, momentum 0.9, Nesterov), decorated for
+    bf16 with ``amp=True``.  data_format="NHWC" builds the channels-last variant (the ``img``
     feed is then [H, W, C]).  stem="s2d" (imagenet only) uses the
     space-to-depth stem — see ``_s2d_stem``."""
-    if amp:
-        raise NotImplementedError(
-            "resnet.build(amp=True) needs the bf16 rewrite "
-            "(contrib/mixed_precision), which is not ported yet "
-            "(ROADMAP.md, Queue A 2); build in float32 with amp=False")
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
         if dataset == "cifar10":
@@ -173,5 +168,7 @@ def build(dataset="cifar10", depth=None, batch_lr=0.1, class_dim=None,
         acc = fluid.layers.accuracy(fluid.layers.softmax(logits), label)
         opt = fluid.optimizer.Momentum(learning_rate=batch_lr, momentum=0.9,
                                        use_nesterov=True)
+        if amp:
+            opt = fluid.contrib.mixed_precision.decorate(opt)
         opt.minimize(loss)
     return main, startup, [img, label], loss, acc

@@ -2,9 +2,12 @@
 :19, whose gradient at 0 is 0 as ``jax.nn.relu``'s; ``gelu`` at :46 —
 exact erf form unless ``approximate`` is set)."""
 
+import math
+
 import torch
 import torch.nn.functional as F
 
+from .common import scalar_like
 from .registry import register_op
 
 
@@ -13,7 +16,44 @@ def relu(ctx, attrs, X):
     return torch.relu(X)
 
 
+class _GeluErfLowp(torch.autograd.Function):
+    """``jax.nn.gelu(x, approximate=False)`` in x's low-precision dtype,
+    op by op, each op rounded to that dtype as the reference's are:
+    ``a = 0.5 x``, ``z = -x * c`` (c = sqrt(1/2) in x's dtype),
+    ``e = erfc(z)``, ``out = a * e``; and its gradient as ``jax.vjp``
+    takes it through those ops (erfc's derivative is ``C * (g * exp(-z²))``
+    with C = -2/sqrt(pi) in x's dtype, lax's jvp rule)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        a = 0.5 * x
+        z = -x * scalar_like(math.sqrt(0.5), x)
+        e = torch.erfc(z)
+        ctx.save_for_backward(a, z, e)
+        return a * e
+
+    @staticmethod
+    def backward(ctx, g):
+        a, z, e = ctx.saved_tensors
+        d_a = g * e
+        d_e = a * g
+        d_z = (scalar_like(-2.0 / math.sqrt(math.pi), z) * d_e) \
+            * torch.exp(-(z * z))
+        return 0.5 * d_a - d_z * scalar_like(math.sqrt(0.5), z)
+
+
 @register_op("gelu", inputs=["X"], outputs=["Out"])
 def gelu(ctx, attrs, X):
-    approx = "tanh" if attrs.get("approximate", False) else "none"
-    return F.gelu(X, approximate=approx)
+    """float32: ``F.gelu``.  bf16/f16 (the AMP path): ``jax.nn.gelu``'s
+    formula op by op in the input's dtype, its constants rounded to that
+    dtype, as the reference computes it (PyTorch's own gelu would
+    compute in float32 and round once): the erf form through
+    :class:`_GeluErfLowp`, the tanh form through autograd."""
+    approx = bool(attrs.get("approximate", False))
+    if X.dtype not in (torch.bfloat16, torch.float16):
+        return F.gelu(X, approximate="tanh" if approx else "none")
+    if approx:
+        c = scalar_like(math.sqrt(2.0 / math.pi), X)
+        inner = c * (X + scalar_like(0.044715, X) * X ** 3)
+        return X * (0.5 * (1.0 + torch.tanh(inner)))
+    return _GeluErfLowp.apply(X)

@@ -12,6 +12,15 @@ def resolve_dtype(attr_dtype):
     return core.torch_dtype(attr_dtype)
 
 
+def scalar_like(value, x):
+    """``value`` rounded to ``x``'s floating dtype, as the reference's
+    ``jnp.asarray(value, x.dtype)``: a bf16 op scales by the bf16 scalar
+    (PyTorch would otherwise apply the scalar in float32)."""
+    if x.is_floating_point() and x.dtype != torch.float32:
+        return float(torch.tensor(float(value), dtype=x.dtype))
+    return value
+
+
 def fluid_broadcast(x, y, axis):
     """Fluid elementwise broadcast: align y's dims to x's starting at
     ``axis`` (default -1 = trailing alignment, i.e. numpy)."""

@@ -366,11 +366,10 @@ def _cu_check(code, call):
         raise RuntimeError("%s failed: CUresult %d" % (call, code))
 
 
-def graph_kernel_nodes(graph):
-    """``{kernel: nodes}``: the kernel nodes of a captured
-    ``torch.cuda.CUDAGraph`` (made with ``keep_graph=True``) whose device
-    function is one of :data:`KERNELS`', by the name libcuda gives the
-    function; every replay of the graph runs each of them once."""
+def graph_kernel_functions(graph):
+    """The device function name, as libcuda gives it, of every kernel
+    node of a captured ``torch.cuda.CUDAGraph`` (made with
+    ``keep_graph=True``)."""
     cu = _cu()
     g = _P(graph.raw_cuda_graph())
     num = ctypes.c_size_t(0)
@@ -379,7 +378,7 @@ def graph_kernel_nodes(graph):
     nodes = (_P * num.value)()
     _cu_check(cu.cuGraphGetNodes(g, nodes, ctypes.byref(num)),
               "cuGraphGetNodes")
-    counts = {}
+    names = []
     kind = _I()
     params = _KernelNodeParams()
     name = ctypes.c_char_p()
@@ -397,10 +396,54 @@ def graph_kernel_nodes(graph):
         else:
             _cu_check(cu.cuKernelGetName(ctypes.byref(name), params.kern),
                       "cuKernelGetName")
-        k = kernel_of(name.value.decode(errors="replace"))
+        names.append(name.value.decode(errors="replace"))
+    return names
+
+
+def graph_kernel_nodes(graph):
+    """``{kernel: nodes}``: the kernel nodes of a captured graph
+    (:func:`graph_kernel_functions`) whose device function is one of
+    :data:`KERNELS`'; every replay of the graph runs each of them
+    once."""
+    counts = {}
+    for fn in graph_kernel_functions(graph):
+        k = kernel_of(fn)
         if k is not None:
             counts[k] = counts.get(k, 0) + 1
     return counts
+
+
+def kernel_dtype(function_name):
+    """The element type a device function of :data:`KERNELS` was
+    instantiated for, from its name: ``"bfloat16"`` or ``"float32"`` by
+    its first floating template argument (``__nv_bfloat16`` / ``float``),
+    or None when it has none (the gather moves raw words)."""
+    import re
+
+    types = {"__nv_bfloat16": "bfloat16", "float": "float32"}
+    for names in KERNEL_FUNCTIONS.values():
+        for n in names:
+            key = "%d%sI" % (len(n), n)
+            at = function_name.find(key)
+            if at >= 0:  # mangled: walk the template arguments
+                rest = function_name[at + len(key):]
+                while rest and rest[0] != "E":
+                    if rest.startswith("13__nv_bfloat16"):
+                        return "bfloat16"
+                    if rest[0] == "f":
+                        return "float32"
+                    if rest[0] == "L":  # a literal: L<type><value>E
+                        rest = rest[rest.index("E") + 1:]
+                        continue
+                    m = re.match(r"\d+", rest)  # a named type, by length
+                    rest = rest[len(m.group()) + int(m.group()):] if m \
+                        else rest[1:]
+                return None
+            m = re.search(r"(?:::|\b)%s<([^>]*)>" % n, function_name)
+            if m:  # demangled
+                return next((types[a.strip()] for a in m.group(1).split(",")
+                             if a.strip() in types), None)
+    return None
 
 
 def stream_handle(device):

@@ -190,8 +190,13 @@ def fused_dropout_add_ln(x, residual, gamma, beta, dropout_rate=0.0,
     """``layer_norm(residual + dropout(x)) * gamma + beta`` over the last
     axis of ``[N, D]`` rows (the reference's entry).  When a gradient is
     wanted it goes through the autograd function, whose forward saves y,
-    mean and rstd; otherwise only ``out`` is written."""
+    mean and rstd; otherwise only ``out`` is written.  bf16 gamma/beta
+    (the AMP rewrite casts every float input of the op) go up to f32,
+    which is exact, as the reference's kernel body reads them; their
+    gradients come back through the cast, rounded to bf16 once, as the
+    reference's vjp rounds them."""
     rate = _drop.check_rate(dropout_rate, seed)
+    gamma, beta = gamma.float(), beta.float()
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, residual, gamma, beta)):
         return _FusedDropoutAddLN.apply(x, residual, gamma, beta, float(eps),

@@ -9,15 +9,20 @@ import math as _math
 
 import torch
 
-from .common import fluid_broadcast
+from .common import fluid_broadcast, scalar_like
 from .registry import register_op
 
 
 def _matmul(x, y):
-    if x.dtype in (torch.bfloat16, torch.float16) or \
-            y.dtype in (torch.bfloat16, torch.float16):
-        # f32 accumulation of low-precision products, as the reference's
-        # preferred_element_type=float32
+    """The reference's matmul: low-precision products accumulate in f32
+    (``preferred_element_type``) and the result takes ``result_type(x,
+    y)``.  Two bf16/f16 CUDA operands run cuBLAS's own low-precision
+    GEMM, which accumulates in f32 (the executor turns off its reduced-
+    precision split-K reduction); elsewhere the operands go up to f32."""
+    low = (torch.bfloat16, torch.float16)
+    if x.dtype in low or y.dtype in low:
+        if x.dtype == y.dtype and x.device.type == "cuda":
+            return torch.matmul(x, y)
         return torch.matmul(x.float(), y.float()).to(
             torch.promote_types(x.dtype, y.dtype))
     return torch.matmul(x, y)
@@ -43,7 +48,7 @@ def matmul(ctx, attrs, X, Y):
     out = _matmul(x, y)
     alpha = attrs.get("alpha", 1.0)
     if alpha != 1.0:
-        out = out * alpha
+        out = out * scalar_like(alpha, out)
     return out
 
 
@@ -106,8 +111,8 @@ def cumsum(ctx, attrs, X):
 
 @register_op("scale", inputs=["X"], outputs=["Out"])
 def scale(ctx, attrs, X):
-    s = float(attrs.get("scale", 1.0))
-    b = float(attrs.get("bias", 0.0))
+    s = scalar_like(float(attrs.get("scale", 1.0)), X)
+    b = scalar_like(float(attrs.get("bias", 0.0)), X)
     if attrs.get("bias_after_scale", True):
         return X * s + b
     return (X + b) * s

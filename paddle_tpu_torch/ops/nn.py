@@ -21,7 +21,7 @@ inference.
 import torch
 import torch.nn.functional as F
 
-from .common import fluid_broadcast
+from .common import fluid_broadcast, scalar_like
 from .cuda import dropout as _drop
 from .cuda.conv_bn_act import ACTS as _EPILOGUE_ACTS
 from .cuda.conv_bn_act import bn_act_epilogue
@@ -81,14 +81,16 @@ def dropout(ctx, attrs, X):
     is_test = attrs.get("is_test", False) or ctx.mode == "infer"
     impl = attrs.get("dropout_implementation", "downgrade_in_infer")
     if is_test:
-        out = X if impl == "upscale_in_train" else X * (1.0 - p)
+        out = X if impl == "upscale_in_train" \
+            else X * scalar_like(1.0 - p, X)
         return {"Out": out, "Mask": torch.ones_like(X, dtype=torch.uint8)}
     seed = ctx.step_seed(fold=int(attrs.get("seed", 0) or 0))
     keep = _drop.row_keep_mask(seed, p, tuple(X.shape), X.device,
                                debug=False)
     if impl == "upscale_in_train":
         scale = 1.0 / (1.0 - p) if p < 1.0 else 0.0
-        out = torch.where(keep, X * scale, torch.zeros_like(X))
+        out = torch.where(keep, X * scalar_like(scale, X),
+                          torch.zeros_like(X))
     else:
         out = torch.where(keep, X, torch.zeros_like(X))
     return {"Out": out, "Mask": keep.to(torch.uint8)}

@@ -23,9 +23,14 @@ def _is_cuda(v):
 
 
 def _to_numpy(t):
+    """A host tensor as numpy.  bfloat16 becomes ``ml_dtypes.bfloat16``,
+    numpy's bf16 and the reference's fetch dtype, where ``ml_dtypes`` is
+    installed, else float32 (exact): PyTorch does not depend on it."""
     if t.dtype == torch.bfloat16:
-        import ml_dtypes
-
+        try:
+            import ml_dtypes
+        except ImportError:
+            return t.float().numpy()
         return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
     return t.numpy()
 

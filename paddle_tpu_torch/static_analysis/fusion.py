@@ -526,20 +526,31 @@ _ACT_TYPES = ("relu", "gelu", "tanh", "sigmoid", "relu6", "leaky_relu",
 def _find_conv_bn_act(view, report):
     """conv2d → batch_norm (→ activation) ⇒ ``fused_conv_bn_act``, with
     its grad twins all or none, gated on the conv output's bytes.  The
-    reference also absorbs the AMP rewrite's cast pair around the
-    batch_norm; that waits with AMP here, so a cast between the conv and
-    the batch_norm leaves the site unfused (as half a cast pair does in
-    the reference)."""
+    bf16 rewrite's cast pair around the batch_norm (conv bf16 → cast f32
+    → batch_norm → cast bf16 → act, the reference's AMP cast sandwich,
+    ``paddle_tpu/static_analysis/fusion.py:1220-1310``) is absorbed: the
+    fused op keeps f32 statistics and writes its output in the conv's
+    dtype, which is what the sandwich computes.  Half a sandwich leaves
+    the site unfused."""
     block = view.block
     for i, op in enumerate(block.ops):
         if op.type != "conv2d" or _is_grad_op(op):
             continue
         conv_out = op.outputs["Output"][0]
+        cv = view.var(conv_out)
+        conv_dtype = str(cv.dtype) if cv is not None else "float32"
         nxt = view.sole_fwd_consumer(conv_out)
+        cast_in = None
+        if nxt is not None and nxt[1].type == "cast" \
+                and str(nxt[1].attrs.get("out_dtype")) == "float32" \
+                and conv_dtype != "float32":
+            cast_in = nxt[1]
+            nxt = view.sole_fwd_consumer(cast_in.outputs["Out"][0])
         if nxt is None or nxt[1].type != "batch_norm":
             continue
         bn = nxt[1]
-        if bn.inputs.get("X", [None])[0] != conv_out:
+        bn_x = conv_out if cast_in is None else cast_in.outputs["Out"][0]
+        if bn.inputs.get("X", [None])[0] != bn_x:
             continue
         conv_fmt = op.attrs.get("data_format", "NCHW")
         if conv_fmt == "AnyLayout":
@@ -551,20 +562,31 @@ def _find_conv_bn_act(view, report):
         if None in (scale, bias, mean, var):
             continue
         y = bn.outputs["Y"][0]
-        act_op = None
         nxt2 = view.sole_fwd_consumer(y)
+        cast_out = None
+        if cast_in is not None and nxt2 is not None \
+                and nxt2[1].type == "cast" \
+                and str(nxt2[1].attrs.get("out_dtype")) == conv_dtype:
+            cast_out = nxt2[1]
+            nxt2 = view.sole_fwd_consumer(cast_out.outputs["Out"][0])
+        if (cast_in is None) != (cast_out is None):
+            continue  # half a sandwich
+        act_op = None
         if nxt2 is not None and nxt2[1].type in _ACT_TYPES \
                 and not _is_grad_op(nxt2[1]):
             act_op = nxt2[1]
-        group = [op, bn] + ([act_op] if act_op is not None else [])
-        out_final = act_op.outputs["Out"][0] if act_op is not None else y
+        group = [o for o in (op, cast_in, bn, cast_out, act_op)
+                 if o is not None]
+        out_final = group[-1].outputs[
+            "Y" if group[-1] is bn else "Out"][0]
         twins = view.group_twins(group)
         if twins is None:
             continue
         all_ops = group + [t[1] for _, t in twins]
-        # removed intermediates: the conv output, bn's Y when the act
-        # follows it, and the saved batch statistics
-        removed = [conv_out] + ([y] if act_op is not None else [])
+        # removed intermediates: every forward output inside the group
+        # but the last, and the saved batch statistics
+        removed = [conv_out] + [o.outputs["Y" if o is bn else "Out"][0]
+                                for o in group[1:-1]]
         removed += [n for s in ("SavedMean", "SavedVariance")
                     for n in bn.outputs.get(s, []) if n]
         if not all(view.unconsumed(n, all_ops) for n in removed):
@@ -572,7 +594,7 @@ def _find_conv_bn_act(view, report):
         twin_of = {id(o): t[1] for o, t in twins}
         if twins:
             internal = [_grad_out(twin_of[id(o)], "X@GRAD")
-                        for o in (bn, act_op) if o is not None]
+                        for o in group[1:]]
             if not all(n == EMPTY_VAR_NAME or view.unconsumed(n, all_ops)
                        for n in internal):
                 continue
@@ -612,8 +634,8 @@ def _find_conv_bn_act(view, report):
         if twins:
             last = twin_of[id(group[-1])]
             g_ins = dict(ins, Out=[out_final], **{"Out@GRAD": list(
-                last.inputs.get("Out@GRAD" if act_op is not None
-                                else "Y@GRAD", [EMPTY_VAR_NAME]))})
+                last.inputs.get("Y@GRAD" if group[-1] is bn
+                                else "Out@GRAD", [EMPTY_VAR_NAME]))})
             conv_twin, bn_twin = twin_of[id(op)], twin_of[id(bn)]
             g_outs = {"Input@GRAD": [_grad_out(conv_twin, "Input@GRAD")],
                       "Filter@GRAD": [_grad_out(conv_twin, "Filter@GRAD")],
@@ -632,7 +654,9 @@ def _find_conv_bn_act(view, report):
                     predicted={"hbm_bytes_saved": 2 * (len(group) - 1)
                                * out_bytes, "ops_removed": len(group) - 1,
                                "calibration": factor},
-                    note="%s epilogue" % act_name)}
+                    note="%s epilogue%s" % (
+                        act_name, " +AMP cast sandwich"
+                        if cast_in is not None else ""))}
     return None
 
 

@@ -194,8 +194,6 @@ def test_unported_gates_raise(tmp_path):
         analysis.Analyzer().run(pred.program, verify=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         fluid.Executor(fluid.CPUPlace()).run(pred.program, verify=True)
-    with pytest.raises(NotImplementedError, match="AMP"):
-        cfg.enable_bf16()
 
 
 def test_unported_training_options_raise():
@@ -211,16 +209,11 @@ def test_unported_training_options_raise():
         loss = fluid.layers.reduce_sum(fluid.layers.fc(x, size=3))
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             fluid.optimizer.SGD(0.01).minimize(loss, grad_clip=object())
-    from paddle_tpu_torch.models import bert
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        bert.build_pretrain(bert.BERT_TINY, seq_len=16, amp=True)
 
 
 def test_resnet_unported_options_raise_and_cuda_is_the_default(no_cuda):
     from paddle_tpu_torch.models import resnet
 
-    with pytest.raises(NotImplementedError, match="amp"):
-        resnet.build(amp=True)
     main, startup, _, _, _ = resnet.build(depth=8, data_format="NHWC")
     with pytest.raises(RuntimeError, match="CUDAPlace"):
         fluid.Executor().run(startup)

@@ -458,21 +458,47 @@ def test_small_conv_outputs_stay_unfused_below_the_gate(monkeypatch):
                                   for s in report.skipped)
 
 
+def _cast_site(fluid, cast_back):
+    """bf16 conv → cast f32 → batch_norm (→ cast bf16) → relu, as the
+    AMP rewrite leaves a conv → batch_norm site (build only)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data("x", shape=[8, 8, 64], dtype="bfloat16")
+        conv = fluid.layers.conv2d(x, 128, 3, padding=1, bias_attr=False,
+                                   data_format="NHWC")
+        y = fluid.layers.batch_norm(fluid.layers.cast(conv, "float32"),
+                                    data_layout="NHWC")
+        if cast_back:
+            y = fluid.layers.cast(y, "bfloat16")
+        out = fluid.layers.relu(y)
+    return main, out
+
+
 def test_a_cast_between_conv_and_batch_norm_leaves_the_site_unfused():
-    """The AMP rewrite's cast pair (bf16 conv → cast f32 → batch_norm →
-    cast bf16 → relu) is not matched until AMP is ported: the site keeps
-    its ops (build only)."""
-    main, startup = tfluid.Program(), tfluid.Program()
-    with tfluid.unique_name.guard(), tfluid.program_guard(main, startup):
-        x = tfluid.layers.data("x", shape=[8, 8, 64], dtype="bfloat16")
-        conv = tfluid.layers.conv2d(x, 128, 3, padding=1, bias_attr=False,
-                                    data_format="NHWC")
-        y = tfluid.layers.batch_norm(tfluid.layers.cast(conv, "float32"),
-                                     data_layout="NHWC")
-        out = tfluid.layers.relu(tfluid.layers.cast(y, "bfloat16"))
-    prog, report = tfusion.resolve_fused_program(main, targets=[out.name])
-    assert report.counts() == {} and prog is main
-    assert _op_counts(main)["batch_norm"] == 1
+    """A cast to float32 between the conv and the batch_norm with no
+    cast back after it is half the AMP rewrite's sandwich: the site
+    keeps its ops, in both packages."""
+    jmain, jout = _cast_site(jfluid, cast_back=False)
+    tmain, tout = _cast_site(tfluid, cast_back=False)
+    _, jreport = jfusion.resolve_fused_program(jmain, targets=[jout.name])
+    prog, report = tfusion.resolve_fused_program(tmain, targets=[tout.name])
+    assert report.counts() == jreport.counts() == {} and prog is tmain
+    assert _op_counts(tmain)["batch_norm"] == 1
+
+
+def test_the_amp_cast_sandwich_fuses_like_the_reference():
+    """The whole sandwich (conv bf16 → cast f32 → batch_norm → cast bf16
+    → relu) is one ``fused_conv_bn_act`` in both packages, with the
+    reference's op counts and its rewrite note."""
+    jmain, jout = _cast_site(jfluid, cast_back=True)
+    tmain, tout = _cast_site(tfluid, cast_back=True)
+    jprog, jreport = jfusion.resolve_fused_program(jmain,
+                                                   targets=[jout.name])
+    prog, report = tfusion.resolve_fused_program(tmain, targets=[tout.name])
+    assert report.counts() == jreport.counts() == {"conv_bn_act": 1}
+    assert _op_counts(prog) == _op_counts(jprog)
+    assert _op_counts(prog)["batch_norm"] == _op_counts(prog)["cast"] == 0
+    assert "AMP cast sandwich" in report.applied[0].note
 
 
 # ---------------------------------------------------------------------------

@@ -449,14 +449,14 @@ def phase_environment():
 
 # kernels whose registers and spills the build phase reports, and whose
 # SASS it reads: the K1 forward on the tensor cores (HMMA count), the K2
-# backward's two kernels, the K5 and K6 decode kernels (with the blocks an
-# SM holds), and the K1 backward (a digest of its SASS, which moving its
-# helpers into flash_mma.cuh must not change)
-BUILD_REPORT = ("flash_fwd_kernel", "add_ln_bwd_kernel",
+# forward and the K2 backward's two kernels, the K5 and K6 decode kernels
+# (with the blocks an SM holds), and the K1 backward (a digest of its
+# SASS, which moving its helpers into flash_mma.cuh must not change)
+BUILD_REPORT = ("flash_fwd_kernel", "add_ln_fwd_kernel", "add_ln_bwd_kernel",
                 "ln_bwd_reduce_kernel", "decode_kernel", "embedding_bwd_",
                 "sgd_update_kernel", "multi_sgd_kernel")
 # kernels whose spills fail the run
-NO_SPILL = ("add_ln_bwd", "decode_kernel")
+NO_SPILL = ("add_ln_fwd", "add_ln_bwd", "decode_kernel")
 SASS_DIGEST = ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
 
 
@@ -928,8 +928,86 @@ def kernel_ln(checks, torch, gen):
                                          kept, rate)
                 if dtype == torch.bfloat16 and (n, d) == (4096, 768) and rate:
                     bwd_bf16_err = max(errs)
+    kernel_ln_fwd_edges(checks, torch, fl, gen)
     kernel_ln_bwd_edges(checks, torch, fl, gen)
     return fwd_err, bwd_err, bwd_bf16_err
+
+
+# the K2 forward's own cases (rows, columns, x and residual 4 bytes off
+# 16-byte alignment): the decode step's 8 rows, a prefill's 512, rows
+# that leave the grid's last stride partial, rows of 30 and 1000 columns
+# (not whole 16-byte chunks: scalar accesses), 1000 and 4096 (a team of
+# several warps)
+LN_FWD_CASES = ((8, 768, False), (512, 768, False), (4133, 768, False),
+                (4096, 768, True), (300, 30, False), (300, 1000, False),
+                (37, 1000, True), (4096, 4096, False), (37, 4096, True))
+
+
+def kernel_ln_fwd_edges(checks, torch, fl, gen):
+    """The K2 forward's own cases (``LN_FWD_CASES``) in float32 and bf16
+    at rates 0 and 0.1, out (with and without the saved statistics), y,
+    mean and rstd against the plain version at kernel_ln's tolerances;
+    the keep fraction of every dropping case's mask (drawn on x = 1, res
+    = 0, so a kept cell is never 0); two runs bit for bit; and bf16 gamma
+    and beta (the AMP path's form) against the same values widened to
+    float32, bit for bit."""
+    for dtype in (torch.float32, torch.bfloat16):
+        name = _dname(dtype)
+        for n, d, shift in LN_FWD_CASES:
+            x, res = (torch.randn((n, d), generator=gen, device="cuda")
+                      .to(dtype) for _ in range(2))
+            g = torch.randn((d,), generator=gen, device="cuda")
+            bt = torch.randn((d,), generator=gen, device="cuda")
+            kx, kr = ((_shifted(torch, x), _shifted(torch, res)) if shift
+                      else (x, res))
+            for rate in (0.0, DROPOUT):
+                drop = (rate, drop_seed() if rate else None)
+                case = "N%d D%d rate %g%s %s" % (
+                    n, d, rate, ", x and res 4 bytes off 16-byte alignment"
+                    if shift else "", name)
+                runs = [fl.fused_dropout_add_ln_fwd(
+                    kx, kr, g, bt, 1e-5, *drop, save_stats=True)
+                    for _ in range(2)]
+                serve = fl.fused_dropout_add_ln_fwd(kx, kr, g, bt, 1e-5,
+                                                    *drop)
+                ref = fl.fused_dropout_add_ln_fwd_plain(x, res, g, bt, 1e-5,
+                                                        *drop)
+                torch.cuda.synchronize()
+                checks.check("fused_dropout_add_ln_fwd", case,
+                             max(max_err(runs[0][0], ref[0]),
+                                 max_err(serve, ref[0])),
+                             _tol(ref[0], units=1))
+                for i, what in enumerate(("out", "y", "mean", "rstd")):
+                    if i:
+                        checks.check("fused_dropout_add_ln_fwd",
+                                     "%s, %s" % (what, case),
+                                     max_err(runs[0][i], ref[i]),
+                                     _tol(ref[i], units=1))
+                    _same_bits_check(checks, torch, "fused_dropout_add_ln_fwd",
+                                     "%s bit-identical over two runs, %s"
+                                     % (what, case), runs[0][i], runs[1][i])
+                if rate:  # x = 1, res = 0: y is 0 where dropped
+                    ones = torch.ones_like(kx)
+                    kept = fl.fused_dropout_add_ln_fwd(
+                        ones, ones * 0, g, bt, 1e-5, *drop,
+                        save_stats=True)[1] != 0
+                    _keep_fraction_check(checks, "fused_dropout_add_ln_fwd",
+                                         kept, rate)
+            if dtype == torch.bfloat16:
+                gb, bb = g.to(dtype), bt.to(dtype)
+                drop = (DROPOUT, drop_seed())
+                got = fl.fused_dropout_add_ln_fwd(kx, kr, gb, bb, 1e-5,
+                                                  *drop, save_stats=True)
+                wide = fl.fused_dropout_add_ln_fwd(kx, kr, gb.float(),
+                                                   bb.float(), 1e-5, *drop,
+                                                   save_stats=True)
+                torch.cuda.synchronize()
+                for i, what in enumerate(("out", "y", "mean", "rstd")):
+                    _same_bits_check(
+                        checks, torch, "fused_dropout_add_ln_fwd",
+                        "%s with bf16 gamma/beta = widened, N%d D%d rate %g"
+                        % (what, n, d, DROPOUT), got[i], wide[i])
+            del x, res, kx, kr
 
 
 def kernel_ln_bwd_edges(checks, torch, fl, gen):
@@ -969,6 +1047,19 @@ def kernel_ln_bwd_edges(checks, torch, fl, gen):
                 _same_bits_check(checks, torch, "fused_dropout_add_ln_bwd",
                                  "%s bit-identical over two runs, %s"
                                  % (what, case), runs[0][i], runs[1][i])
+            if dtype == torch.bfloat16:
+                # gamma in x's dtype, read as the widened float32 gamma
+                gb = g.to(dtype)
+                got = fl.fused_dropout_add_ln_bwd(kd, ky, gb, mean, rstd,
+                                                  *drop)
+                wide = fl.fused_dropout_add_ln_bwd(kd, ky, gb.float(), mean,
+                                                   rstd, *drop)
+                torch.cuda.synchronize()
+                for i, what in enumerate(("dx", "dres", "dgamma", "dbeta")):
+                    _same_bits_check(
+                        checks, torch, "fused_dropout_add_ln_bwd",
+                        "%s with bf16 gamma = widened, %s" % (what, case),
+                        got[i], wide[i])
 
 
 def kernel_gather(checks, torch, gen):
@@ -1308,7 +1399,8 @@ def time_flash_bwd(torch, gen, errs, dtype):
     """The dK/dV and dQ kernels' rows at the training path's shape
     ([96, 512, 64], dropout 0.1) in ``dtype``, each bound by the tensor
     cores that the kernels run on (``_tc_bound_ms``).  Plain and library
-    ms are of the whole backward (SDPA's backward in the same dtype)."""
+    ms are of the whole backward (SDPA's backward in the same dtype, its
+    kernels' device time, ``_grad_device_ms``)."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
@@ -1331,9 +1423,7 @@ def time_flash_bwd(torch, gen, errs, dtype):
     lo = F.scaled_dot_product_attention(
         qg, kg, vg, attn_mask=bias.view(b, 1, 1, t).to(dtype),
         dropout_p=DROPOUT)
-    do4 = do.view(b, h, t, dh)
-    lib = time_ms(lambda: torch.autograd.grad(lo, (qg, kg, vg), do4,
-                                              retain_graph=True))
+    lib = _grad_device_ms(torch, lo, (qg, kg, vg), do.view(b, h, t, dh))
     esize = 4 if f32 else 2
     # q, k, v, dO read; m, l, delta (f32) and the bias read
     io = esize * 4 * bh * t * dh + 4 * (3 * bh * t + b * t)
@@ -1351,7 +1441,8 @@ def time_flash_bwd(torch, gen, errs, dtype):
                  time_ms(fn), plain,
                  _tc_bound_ms(io + esize * outs * bh * t * dh, flops, f32),
                  lib, "q,k,v,dO [96,512,64] %s, dropout 0.1; plain and "
-                 "library ms are of the whole backward (dQ, dK, dV)" % name)
+                 "library ms are of the whole backward (dQ, dK, dV), the "
+                 "library's its kernels' device time" % name)
         rows.append(r)
     del q, k, v, o, do, qg, kg, vg, lo
     return rows
@@ -1405,7 +1496,8 @@ def time_ln_bwd(torch, gen, errs):
     """The K2 backward's rows at the training path's shape ([4096, 768],
     dropout 0.1), float32 then bf16, beside ``layer_norm``'s backward in
     the same dtype (gamma and beta in that dtype for the library call,
-    float32 for the kernel), bound by the bytes it moves.  ``errs`` gives
+    float32 for the kernel; its kernels' device time,
+    ``_grad_device_ms``), bound by the bytes it moves.  ``errs`` gives
     the rows' errors (``kernel_ln``'s), where known."""
     import torch.nn.functional as F
 
@@ -1425,7 +1517,6 @@ def time_ln_bwd(torch, gen, errs):
             x, res, g, bt, 1e-5, *drop, save_stats=True)
         xr, rr, gr, br = (a.detach().clone().to(dtype).requires_grad_()
                           for a in (x, res, g, bt))
-        lo = F.layer_norm(xr + rr, (d,), gr, br, 1e-5)
         rows.append(_row(
             "fused_dropout_add_ln_bwd", "paddle_tpu_torch/csrc/fused_ln.cu",
             "paddle_tpu/ops/pallas/fused_ln.py:224",
@@ -1438,11 +1529,137 @@ def time_ln_bwd(torch, gen, errs):
             # written (f32); mean and rstd read (f32)
             bound_ms(esize * 4 * n * d + 4 * (3 * d + 2 * n), 12 * n * d,
                      "float32"),
-            time_ms(lambda: torch.autograd.grad(lo, (xr, rr, gr, br), dout,
-                                                retain_graph=True), 50),
-            "dout,y [4096,768] %s, dropout 0.1" % _dname(dtype)))
-        del x, res, dout, y, xr, rr, lo
+            _grad_device_ms(torch, F.layer_norm(xr + rr, (d,), gr, br,
+                                                1e-5), (xr, rr, gr, br),
+                            dout),
+            "dout,y [4096,768] %s, dropout 0.1; library: layer_norm's "
+            "backward, its kernels' device time" % _dname(dtype)))
+        del x, res, dout, y, xr, rr
     return rows
+
+
+def time_ln_fwd(torch, gen, errs, dtype):
+    """The K2 forward's rows at the training path's shape ([4096, 768])
+    in ``dtype``: dropout 0.1 with y/mean/rstd saved (training), then
+    dropout 0 with out only (serving), then the decode step's 8 rows out
+    only (its times and the launch floor only), gamma and beta float32,
+    beside ``layer_norm(x + res)`` (gamma and beta in x's dtype), bound
+    by the bytes moved.  Each row also holds the call's time after a
+    read flush (``ms_clean_l2``), replayed from a CUDA graph
+    (``ms_graph``), the kernel's own device time (``kernel_us_profiler``,
+    ``torch.profiler``, write flush), and two floors under the same
+    flushes: a launch that does no work, and ``torch.add(x, res,
+    out=o)``, which moves the bytes of the out-only form.  The bf16 rows
+    also time the AMP path's call, the op entry with bf16 gamma and beta
+    (its whole call, and the kernel's own time).  ``errs`` gives the
+    rows' errors (``kernel_ln``'s, ``kernel_amp``'s)."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.cuda import fused_ln as fl
+
+    n, d = 4096, 768
+    name, esize = _dname(dtype), dtype.itemsize
+    f32 = dtype == torch.float32
+    x, res = (torch.randn((n, d), generator=gen, device="cuda").to(dtype)
+              for _ in range(2))
+    g = torch.randn((d,), generator=gen, device="cuda")
+    bt = torch.randn((d,), generator=gen, device="cuda")
+    gl, bl = g.to(dtype), bt.to(dtype)
+    lib = time_ms(lambda: F.layer_norm(x + res, (d,), gl, bl, 1e-5), 50)
+    o = torch.empty_like(x)
+    floors = {}
+    for key, fn in (("launch_floor", lambda: torch.cuda._sleep(0)),
+                    ("add_floor", lambda: torch.add(x, res, out=o))):
+        floors[key + "_ms"] = time_ms(fn, 50)
+        floors[key + "_clean_l2_ms"] = time_ms(fn, 50, clean_l2=True)
+    rows = []
+    for rate, save in ((DROPOUT, True), (0.0, False)):
+        drop = (rate, drop_seed() if rate else None)
+
+        def call():
+            return fl.fused_dropout_add_ln_fwd(x, res, g, bt, 1e-5, *drop,
+                                               save_stats=save)
+
+        err = errs.get("fused_dropout_add_ln_fwd" if f32 else
+                       "fused_dropout_add_ln_fwd_bf16_rate%g" % rate)
+        # x, res read, out (and y) written; gamma, beta read (f32); mean
+        # and rstd written (f32) when saved
+        r = _row("fused_dropout_add_ln_fwd",
+                 "paddle_tpu_torch/csrc/fused_ln.cu",
+                 "paddle_tpu/ops/pallas/fused_ln.py:190", err,
+                 time_ms(call, 50),
+                 time_ms(lambda: fl.fused_dropout_add_ln_fwd_plain(
+                     x, res, g, bt, 1e-5, *drop), 50),
+                 bound_ms(esize * (3 + save) * n * d + 4 * 2 * d
+                          + (4 * 2 * n if save else 0),
+                          (10 if save else 8) * n * d, "float32"),
+                 lib, "x,res [4096,768] %s, dropout %g, %s" % (
+                     name, rate, "y/mean/rstd saved" if save
+                     else "out only (serving)"))
+        r["ms_clean_l2"] = time_ms(call, 50, clean_l2=True)
+        r["ms_graph"] = time_ms(call, 50, graph=True)
+        r["kernel_us_profiler"] = sum(
+            k["us_per_call"] for k in _kernel_split(
+                torch, call, "add_ln_fwd_kernel", 20).values()) \
+            or "not measured"
+        r.update(floors)
+        if not f32:  # the AMP path's call: the op entry, bf16 gamma/beta
+            entry = lambda: fl.fused_dropout_add_ln(  # noqa: E731
+                x, res, gl, bl, rate, 1e-5, drop[1])
+            r["entry_ms_bf16_params"] = time_ms(entry, 50)
+            r["entry_kernel_us_bf16_params"] = sum(
+                k["us_per_call"] for k in _kernel_split(
+                    torch, entry, "add_ln_fwd_kernel", 20).values()) \
+                or "not measured"
+        rows.append(r)
+    # the decode step's call: 8 rows, out only
+    x8, r8 = x[:8].clone(), res[:8].clone()
+    r = _row("fused_dropout_add_ln_fwd", "paddle_tpu_torch/csrc/fused_ln.cu",
+             "paddle_tpu/ops/pallas/fused_ln.py:190",
+             errs.get("fused_dropout_add_ln_fwd" if f32 else
+                      "fused_dropout_add_ln_fwd_bf16_rate0"),
+             time_ms(lambda: fl.fused_dropout_add_ln_fwd(x8, r8, g, bt), 50),
+             time_ms(lambda: fl.fused_dropout_add_ln_fwd_plain(
+                 x8, r8, g, bt), 50),
+             bound_ms(esize * 3 * 8 * d + 4 * 2 * d, 8 * 8 * d, "float32"),
+             time_ms(lambda: F.layer_norm(x8 + r8, (d,), gl, bl, 1e-5), 50),
+             "x,res [8,768] %s, dropout 0, out only (decode step)" % name)
+    r["launch_floor_ms"] = floors["launch_floor_ms"]
+    rows.append(r)
+    del x, res, o, x8, r8
+    return rows
+
+
+def _grad_device_ms(torch, out, inputs, grad_out, calls=20):
+    """Device ms of a library backward: ``torch.autograd.grad(out,
+    inputs, grad_out)``'s kernels summed per call (``torch.profiler``),
+    L2 flushed before every call by a negation of L2_FLUSH_BYTES (a
+    read and a write, like ``time_ms``'s flush, under a kernel name no
+    backward launches), so the autograd engine's host time stays out of
+    the number.  A CUDA graph cannot hold SDPA's dropout backward apart
+    from its forward: captured alone it reads the forward's host-side
+    seed through a device pointer."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    for _ in range(3):
+        torch.autograd.grad(out, inputs, grad_out, retain_graph=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush.neg_()
+            torch.autograd.grad(out, inputs, grad_out, retain_graph=True)
+        torch.cuda.synchronize()
+    us = 0.0
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if str(getattr(ev, "device_type", "")).endswith("CUDA") \
+                and "neg_kernel" not in ev.key:
+            us += dev_us
+    return us / calls / 1e3 if us else None
 
 
 def time_kernels(torch, gen, errs):
@@ -1452,12 +1669,8 @@ def time_kernels(torch, gen, errs):
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops.cuda import embedding as emb
-    from paddle_tpu_torch.ops.cuda import fused_ln as fl
 
-    ln_src, ln_ref = ("paddle_tpu_torch/csrc/fused_ln.cu",
-                      "paddle_tpu/ops/pallas/fused_ln.py:")
     rows, extra = [], []
-    drop = (DROPOUT, drop_seed())
     fwd = time_flash_fwd(torch, gen, errs)
     rows.append(fwd[0])
     extra.extend(fwd[1:])
@@ -1465,30 +1678,9 @@ def time_kernels(torch, gen, errs):
         (rows if dtype == torch.float32 else extra).extend(
             time_flash_bwd(torch, gen, errs, dtype))
 
-    n, d = 4096, 768
-    x, res = (torch.randn((n, d), generator=gen, device="cuda")
-              for _ in range(2))
-    g = torch.randn((d,), generator=gen, device="cuda")
-    bt = torch.randn((d,), generator=gen, device="cuda")
-    lib = time_ms(lambda: F.layer_norm(x + res, (d,), g, bt, 1e-5), 50)
-    rows.append(_row(
-        "fused_dropout_add_ln_fwd", ln_src, ln_ref + "190",
-        errs["fused_dropout_add_ln_fwd"],
-        time_ms(lambda: fl.fused_dropout_add_ln_fwd(
-            x, res, g, bt, 1e-5, *drop, save_stats=True), 50),
-        time_ms(lambda: fl.fused_dropout_add_ln_fwd_plain(
-            x, res, g, bt, 1e-5, *drop), 50),
-        bound_ms(4 * (4 * n * d + 2 * d + 2 * n), 10 * n * d, "float32"),
-        lib, "x,res [4096,768] f32, dropout 0.1, y/mean/rstd saved"))
-    extra.append(_row(
-        "fused_dropout_add_ln_fwd", ln_src, ln_ref + "190",
-        errs["fused_dropout_add_ln_fwd"],
-        time_ms(lambda: fl.fused_dropout_add_ln_fwd(x, res, g, bt), 50),
-        time_ms(lambda: fl.fused_dropout_add_ln_fwd_plain(x, res, g, bt),
-                50),
-        bound_ms(4 * (3 * n * d + 2 * d), 8 * n * d, "float32"), lib,
-        "x,res [4096,768] f32, dropout 0, out only (serving)"))
-    del x, res
+    ln_fwd = time_ln_fwd(torch, gen, errs, torch.float32)
+    rows.append(ln_fwd[0])
+    extra.extend(ln_fwd[1:])
     ln_bwd = time_ln_bwd(torch, gen, errs)
     rows.append(ln_bwd[0])
     extra.extend(ln_bwd[1:])
@@ -1512,7 +1704,9 @@ def profile_ln_bwd(torch, gen, calls=20):
     f32, dropout 0.1) split between its launches: device us per call of
     each kernel (``torch.profiler``, L2 flushed before every call) beside
     the call's CUDA-event time (``time_ms``), whose excess over the
-    kernels' sum is the gap between the launches."""
+    kernels' sum is the gap between the launches; and the same split in
+    the AMP path's call form (bf16 throughout, through the op entry's
+    autograd function)."""
     from paddle_tpu_torch.ops.cuda import fused_ln as fl
 
     n, d = 4096, 768
@@ -1530,10 +1724,21 @@ def profile_ln_bwd(torch, gen, calls=20):
     event_ms = time_ms(call, 50)
     kernels = _kernel_split(torch, call, "ln_bwd", calls)
     total = sum(k["us_per_call"] for k in kernels.values())
+    # the AMP path's form: bf16 activations, gamma and beta through the op
+    # entry, the backward's kernels alone out of the autograd call
+    leaves = [t.to(torch.bfloat16).requires_grad_() for t in (x, res, g, bt)]
+    out = fl.fused_dropout_add_ln(*leaves, dropout_rate=DROPOUT,
+                                  seed=drop_seed())
+    dout_bf = dout.to(torch.bfloat16)
+    amp = _kernel_split(torch, lambda: torch.autograd.grad(
+        out, leaves, dout_bf, retain_graph=True), "ln_bwd", calls)
     return {"phase": "kernels", "k2_bwd_split": kernels,
             "kernels_us_per_call": total if kernels else "not measured",
             "event_us_per_call": event_ms * 1e3,
-            "shape": "dout,y [4096,768] f32, dropout 0.1"}
+            "shape": "dout,y [4096,768] f32, dropout 0.1",
+            "k2_bwd_split_amp_entry": amp,
+            "amp_entry_shape": "bf16 x, res, gamma, beta [4096,768] "
+                               "through fused_dropout_add_ln, dropout 0.1"}
 
 
 def _kernel_split(torch, call, needle, calls):
@@ -4651,6 +4856,17 @@ def _dtype_nodes(exe):
     return out
 
 
+def _cast_nodes(exe):
+    """The dtype casts (kernel nodes named by ``CAST_NEEDLES``) of each of
+    the executor's captured graphs, in the cache's order: one replay of a
+    graph runs each of them once."""
+    from paddle_tpu_torch.ops.cuda import _lib
+
+    return [sum(any(n in fn.lower() for n in CAST_NEEDLES)
+                for fn in _lib.graph_kernel_functions(e.graph))
+            for e in exe._cache.values() if e.graph is not None]
+
+
 def kernel_amp(checks, torch, gen):
     """The kernels in the call forms of the AMP paths, against their
     plain versions on the same inputs: K2 through its op entry with bf16
@@ -4759,49 +4975,18 @@ def kernel_amp(checks, torch, gen):
 
 def time_amp_kernels(torch, gen, errs):
     """Cold-L2 times of the kernels the AMP paths launch in bfloat16 that
-    the other rows time in float32 only: K2 forward at [4096, 768] bf16,
-    rate 0.1 with y/mean/rstd saved (training) and rate 0 out only
-    (serving), beside ``layer_norm(x + res)`` in bf16; K4 forward and
-    backward at [200704, 256] bf16 relu, beside ``F.batch_norm`` + relu in
-    bf16 and ATen's batch-norm backward pass in bf16.  Bounds by the
-    bytes moved at 2 bytes an element (gamma, beta and the statistics
-    float32)."""
+    the other rows time in float32 only: K2 forward at [4096, 768] bf16
+    (``time_ln_fwd``: rate 0.1 with y/mean/rstd saved, training; rate 0
+    out only, serving); K4 forward and backward at [200704, 256] bf16
+    relu, beside ``F.batch_norm`` + relu in bf16 and ATen's batch-norm
+    backward pass in bf16.  Bounds by the bytes moved at 2 bytes an
+    element (gamma, beta and the statistics float32)."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops.cuda import conv_bn_act as cba
-    from paddle_tpu_torch.ops.cuda import fused_ln as fl
 
     bf = torch.bfloat16
-    rows = []
-    n, d = 4096, 768
-    x, res = (torch.randn((n, d), generator=gen, device="cuda").to(bf)
-              for _ in range(2))
-    g = torch.randn((d,), generator=gen, device="cuda")
-    bt = torch.randn((d,), generator=gen, device="cuda")
-    gb, bb = g.to(bf), bt.to(bf)
-    lib = time_ms(lambda: F.layer_norm(x + res, (d,), gb, bb, 1e-5), 50)
-    src = ("paddle_tpu_torch/csrc/fused_ln.cu",
-           "paddle_tpu/ops/pallas/fused_ln.py:190")
-    drop = (DROPOUT, drop_seed())
-    rows.append(_row(
-        "fused_dropout_add_ln_fwd", *src,
-        errs.get("fused_dropout_add_ln_fwd_bf16_rate%g" % DROPOUT),
-        time_ms(lambda: fl.fused_dropout_add_ln_fwd(
-            x, res, g, bt, 1e-5, *drop, save_stats=True), 50),
-        time_ms(lambda: fl.fused_dropout_add_ln_fwd_plain(
-            x, res, g, bt, 1e-5, *drop), 50),
-        bound_ms(2 * 4 * n * d + 4 * (2 * d + 2 * n), 10 * n * d,
-                 "float32"),
-        lib, "x,res [4096,768] bf16, dropout 0.1, y/mean/rstd saved"))
-    rows.append(_row(
-        "fused_dropout_add_ln_fwd", *src,
-        errs.get("fused_dropout_add_ln_fwd_bf16_rate0"),
-        time_ms(lambda: fl.fused_dropout_add_ln_fwd(x, res, g, bt), 50),
-        time_ms(lambda: fl.fused_dropout_add_ln_fwd_plain(x, res, g, bt),
-                50),
-        bound_ms(2 * 3 * n * d + 4 * 2 * d, 8 * n * d, "float32"), lib,
-        "x,res [4096,768] bf16, dropout 0, out only (serving)"))
-    del x, res
+    rows = time_ln_fwd(torch, gen, errs, bf)
     r, c = K4_TIME_SHAPE
     y, g, b, mean, rstd, dout = _bn_act_inputs(torch, gen, r, c, bf)
     side = int(round((r // RESNET_BATCH) ** 0.5))
@@ -4874,8 +5059,9 @@ def _amp_steps(env, phase, exe, main, batch, fetch, want, want_dtype,
     """An AMP path's warm-up (eager, then capture) and AMP_TRAIN_STEPS
     timed replays on one repeated batch: the launches a step by source
     and, from the replayed graphs' kernel nodes, by kernel and element
-    type, against ``want`` / ``want_dtype``; peak memory; copy-backs;
-    finite losses (the first fetch).  ``per_item`` is (label, items a
+    type, against ``want`` / ``want_dtype``, and the dtype casts each
+    graph holds; peak memory; copy-backs; finite losses (the first
+    fetch).  ``per_item`` is (label, items a
     step) for the rate.  Emits the steps line, raises on a failed check
     → the launches by source."""
     import statistics
@@ -4912,6 +5098,7 @@ def _amp_steps(env, phase, exe, main, batch, fetch, want, want_dtype,
           per_item[0]: per_item[1] / (med / 1e3),
           "launches_per_step": per_step, "launches_by_source": counts,
           "expected": full, "graph_nodes_by_kernel_and_dtype": by_dtype,
+          "cast_nodes_per_graph": _cast_nodes(exe),
           "expected_by_dtype": want_dtype,
           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
           "last_run_mode": exe.last_run_mode, "copy_backs_per_step": copies,
@@ -5241,9 +5428,13 @@ def phase_serve_bf16(env, pred_f32, cfg):
     on the card; the analysis passes ran before the rewrite (casts
     present, no batch_norm, the float32 predictor's fused op counts);
     requests through ``PredictorServer`` in the existing buckets with the
-    launches read per batch, all K1 and K2 graph nodes bfloat16; per
-    bucket the bf16 and the float32 predictor's latency and tokens/s in
-    turns; and the error against float32 within SERVE_BF16_ERR."""
+    launches read per batch, all K1 and K2 graph nodes bfloat16, and
+    the dtype casts each bucket's graph holds; a digest of the served
+    outputs; per bucket the bf16 and the float32 predictor's latency and
+    tokens/s in turns; and the error against float32 within
+    SERVE_BF16_ERR."""
+    import hashlib
+
     import numpy as np
     import torch
 
@@ -5320,7 +5511,8 @@ def phase_serve_bf16(env, pred_f32, cfg):
                  and not k.endswith(":bfloat16")}
     emit({"phase": "serve_bf16", "step": "serve", "batches": batches,
           "launches": counts, "expected_launches": want,
-          "graph_nodes_by_kernel_and_dtype": by_dtype})
+          "graph_nodes_by_kernel_and_dtype": by_dtype,
+          "cast_nodes_per_graph": _cast_nodes(pred._exe)})
     if counts != want or bad_dtype:
         raise AssertionError("serve_bf16 launches %s != %s, or K1/K2 nodes "
                              "not bf16: %s" % (counts, want, bad_dtype))
@@ -5349,6 +5541,8 @@ def phase_serve_bf16(env, pred_f32, cfg):
           "card": card_label(env), "per_bucket": per_bucket,
           "request_latency_ms": [f.latency_ms for f in futures],
           "scale_rel_err_vs_f32": errs, "err_bounds": SERVE_BF16_ERR,
+          "outputs_sha256": hashlib.sha256(b"".join(
+              np.asarray(out[0]).tobytes() for out in results)).hexdigest(),
           "output_dtype": str(np.asarray(results[0][0]).dtype)})
     lo, hi = SERVE_BF16_ERR
     if not all(lo < e < hi for e in errs):
@@ -5389,7 +5583,7 @@ def main():
               if any(n in r["kernel"] for n in NO_SPILL)
               and (r["spill_stores"] or r["spill_loads"])]
     if spills:
-        raise AssertionError("K2 backward or decode kernels spill: %s"
+        raise AssertionError("K2 or decode kernels spill: %s"
                              % spills)
     rows = phase_kernels()
     phase_amp_kernels()

@@ -108,11 +108,12 @@ _SIGNATURES = {
     "pt_flash_attention_bwd_dq": (_P,) * 9 + (_I,) * 5 + (_F, _I) + _DROP
     + (_I, _P),
     # x, res, gamma, beta, out, y, mean, rstd, N, D, eps, dropout, dtype,
-    # stream
-    "pt_fused_add_ln_fwd": (_P,) * 8 + (_L, _I, _F) + _DROP + (_I, _P),
+    # gamma/beta dtype, stream
+    "pt_fused_add_ln_fwd": (_P,) * 8 + (_L, _I, _F) + _DROP + (_I, _I, _P),
     # dout, y, gamma, mean, rstd, dx, dres, part_g, part_b, dgamma, dbeta,
-    # N, D, partial rows, dropout, dtype, stream
-    "pt_fused_add_ln_bwd": (_P,) * 11 + (_L, _I, _I) + _DROP + (_I, _P),
+    # N, D, partial rows, dropout, dtype, gamma dtype, stream
+    "pt_fused_add_ln_bwd": (_P,) * 11 + (_L, _I, _I) + _DROP
+    + (_I, _I, _P),
     # N, D, dtype → rows of the backward's partials (negated cudaError_t
     # on failure)
     "pt_fused_add_ln_bwd_blocks": (_L, _I, _I),

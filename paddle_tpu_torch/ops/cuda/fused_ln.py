@@ -10,7 +10,8 @@ the last axis of ``[N, D]`` rows, mean and variance in f32 by two passes
 the backward; and the backward (``_bwd_call`` :217, ``pallas_call`` :224,
 body ``_bwd_kernel`` :108), which gives dx, dres, dgamma and dbeta, the
 forward's dropout mask re-applied to dx.  The mask is :mod:`.dropout`'s
-row form (b = 0).
+row form (b = 0).  gamma and beta are float32 or x's dtype: the kernels
+widen them in registers, which is exact.
 
 :func:`fused_dropout_add_ln_fwd` and :func:`fused_dropout_add_ln_bwd`
 launch the kernels for CUDA tensors (or raise) and run the ``_plain``
@@ -72,6 +73,15 @@ def fused_dropout_add_ln_bwd_plain(dout, y, gamma, mean, rstd,
     return dx.to(y.dtype), dy.to(y.dtype), dgamma, dbeta
 
 
+def _param_code(x, params, kernel):
+    """The dtype code of gamma (and beta): float32 or x's dtype."""
+    dtypes = {p.dtype for p in params}
+    if len(dtypes) != 1 or not dtypes <= {torch.float32, x.dtype}:
+        raise TypeError("%s: gamma/beta must be float32 or %s alike, got %s"
+                        % (kernel, x.dtype, sorted(map(str, dtypes))))
+    return _lib.dtype_code(params[0], kernel)
+
+
 def _check_rows(kernel, tensors, n, d):
     if n == 0 or not 1 <= d <= MAX_D:
         raise ValueError("%s kernel takes non-empty rows with 1 <= D <= %d, "
@@ -84,9 +94,10 @@ def _check_rows(kernel, tensors, n, d):
 def fused_dropout_add_ln_fwd(x, residual, gamma, beta, eps=1e-5,
                              dropout_rate=0.0, dropout_seed=None,
                              save_stats=False):
-    """x, residual [N, D]; gamma, beta [D] float32 → out [N, D] in x's
-    dtype, or (out, y, mean, rstd) with ``save_stats``.  CUDA tensors
-    launch the kernel; CPU and meta tensors run the plain version."""
+    """x, residual [N, D]; gamma, beta [D] float32 or x's dtype → out
+    [N, D] in x's dtype, or (out, y, mean, rstd) with ``save_stats``.
+    CUDA tensors launch the kernel; CPU and meta tensors run the plain
+    version."""
     rate = _drop.check_rate(dropout_rate, dropout_seed)
     if x.dim() != 2 or residual.shape != x.shape:
         raise ValueError("x and residual must be the same [N, D], got %s / %s"
@@ -105,8 +116,7 @@ def fused_dropout_add_ln_fwd(x, residual, gamma, beta, eps=1e-5,
     if residual.dtype != x.dtype:
         raise TypeError("residual dtype %s != x dtype %s"
                         % (residual.dtype, x.dtype))
-    if gamma.dtype != torch.float32 or beta.dtype != torch.float32:
-        raise TypeError("gamma/beta must be float32")
+    pcode = _param_code(x, (gamma, beta), KERNEL)
     _check_rows(KERNEL, (x, residual, gamma, beta), n, d)
     out = torch.empty_like(x)
     y = mean = rstd = None
@@ -118,7 +128,7 @@ def fused_dropout_add_ln_fwd(x, residual, gamma, beta, eps=1e-5,
     err = _lib.lib().pt_fused_add_ln_fwd(
         x.data_ptr(), residual.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
         out.data_ptr(), ptr(y), ptr(mean), ptr(rstd), n, d, float(eps),
-        *_drop.kernel_args(rate, dropout_seed), code,
+        *_drop.kernel_args(rate, dropout_seed), code, pcode,
         _lib.stream_handle(x.device))
     _lib.check(err, KERNEL)
     _lib.count_launch(KERNEL)
@@ -142,6 +152,7 @@ def fused_dropout_add_ln_bwd(dout, y, gamma, mean, rstd, dropout_rate=0.0,
                          % (tuple(dout.shape), dout.dtype, tuple(y.shape),
                             y.dtype))
     code = _lib.dtype_code(y, KERNEL_BWD)
+    pcode = _param_code(y, (gamma,), KERNEL_BWD)
     dout = dout.contiguous()
     _check_rows(KERNEL_BWD, (dout, y, gamma, mean, rstd), n, d)
     lib = _lib.lib()
@@ -158,7 +169,7 @@ def fused_dropout_add_ln_bwd(dout, y, gamma, mean, rstd, dropout_rate=0.0,
         dout.data_ptr(), y.data_ptr(), gamma.data_ptr(), mean.data_ptr(),
         rstd.data_ptr(), dx.data_ptr(), dres.data_ptr(), parts[0].data_ptr(),
         parts[1].data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), n, d,
-        blocks, *_drop.kernel_args(rate, dropout_seed), code,
+        blocks, *_drop.kernel_args(rate, dropout_seed), code, pcode,
         _lib.stream_handle(y.device))
     _lib.check(err, KERNEL_BWD)
     _lib.count_launch(KERNEL_BWD)
@@ -190,13 +201,16 @@ def fused_dropout_add_ln(x, residual, gamma, beta, dropout_rate=0.0,
     """``layer_norm(residual + dropout(x)) * gamma + beta`` over the last
     axis of ``[N, D]`` rows (the reference's entry).  When a gradient is
     wanted it goes through the autograd function, whose forward saves y,
-    mean and rstd; otherwise only ``out`` is written.  bf16 gamma/beta
-    (the AMP rewrite casts every float input of the op) go up to f32,
-    which is exact, as the reference's kernel body reads them; their
-    gradients come back through the cast, rounded to bf16 once, as the
-    reference's vjp rounds them."""
+    mean and rstd; otherwise only ``out`` is written.  gamma and beta in
+    x's dtype (the AMP rewrite casts every float input of the op to bf16)
+    go to the kernels as they are, which widen them exactly, as the
+    reference's kernel body reads them; their gradients are summed in
+    float32 and rounded to bf16 once, as the reference's vjp rounds them.
+    gamma and beta of another dtype are widened to float32 first."""
     rate = _drop.check_rate(dropout_rate, seed)
-    gamma, beta = gamma.float(), beta.float()
+    if gamma.dtype != beta.dtype \
+            or gamma.dtype not in (torch.float32, x.dtype):
+        gamma, beta = gamma.float(), beta.float()
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, residual, gamma, beta)):
         return _FusedDropoutAddLN.apply(x, residual, gamma, beta, float(eps),

@@ -45,6 +45,7 @@ from paddle_tpu_torch.contrib import mixed_precision as tmp
 from paddle_tpu_torch.models import bert as tbert
 from paddle_tpu_torch.models import resnet as tres
 from paddle_tpu_torch.ops import registry as t_registry
+from paddle_tpu_torch.ops.cuda import fused_ln as t_fln
 from paddle_tpu_torch.static_analysis import fusion as tfusion
 
 BF16_ULP = 2.0 ** -7    # one bf16 unit in the last place, relative
@@ -325,9 +326,9 @@ def test_cast_and_its_grad(src, dst):
 
 
 def test_fused_dropout_add_ln_with_bf16_scale_and_bias(interpret):
-    """The rewrite casts the op's Scale and Bias to bf16: they go up to
-    f32 inside (exact), and their gradients come back bf16, rounded as
-    the reference's vjp rounds them."""
+    """The rewrite casts the op's Scale and Bias to bf16: the kernels
+    widen them to f32 (exact), and their gradients come back bf16,
+    rounded as the reference's vjp rounds them."""
     rng = _rng(1)
     n, d = 64, 128
     x, res = (rng.randn(n, d).astype("float32") for _ in range(2))
@@ -339,6 +340,54 @@ def test_fused_dropout_add_ln_with_bf16_scale_and_bias(interpret):
                      ["X", "Residual", "Scale", "Bias"])
     _assert_pairs(pairs, OP_RTOL)
     assert pairs["Scale@GRAD"][0].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_fused_ln_entry_takes_bf16_scale_and_bias_as_widened(rate):
+    """The K2 entry given bf16 Scale and Bias computes what it computed
+    from the same values widened to float32 first (the cast launches it
+    no longer makes), with gradients of the same dtype and bits: dgamma
+    and dbeta summed in float32 and rounded to bf16 once."""
+    rng = _rng(3)
+    n, d = 37, 96
+    x, res, dout = (torch.from_numpy(rng.randn(n, d).astype("float32"))
+                    .bfloat16() for _ in range(3))
+    g = torch.from_numpy((1 + 0.1 * rng.randn(d)).astype("float32"))
+    b = torch.from_numpy((0.1 * rng.randn(d)).astype("float32"))
+    seed = 5 if rate else None
+    runs = []
+    for widen in (False, True):
+        leaves = [t.clone().requires_grad_() for t in
+                  (x, res, g.bfloat16(), b.bfloat16())]
+        args = leaves[:2] + ([t.float() for t in leaves[2:]] if widen
+                             else leaves[2:])
+        out = t_fln.fused_dropout_add_ln(*args, dropout_rate=rate,
+                                         eps=1e-12, seed=seed)
+        runs.append([out] + list(torch.autograd.grad(out, leaves, dout)))
+    for name, a, w in zip(("out", "dx", "dres", "dgamma", "dbeta"), *runs):
+        assert a.dtype == w.dtype == torch.bfloat16, (name, a.dtype, w.dtype)
+        assert torch.equal(a.view(torch.int16), w.view(torch.int16)), name
+
+
+def test_fused_ln_entry_passes_bf16_scale_and_bias_on(monkeypatch):
+    """The entry hands bf16 gamma/beta to the forward wrapper as they
+    are, with and without a gradient wanted; gamma/beta of a third dtype
+    are widened to float32."""
+    seen = []
+    real = t_fln.fused_dropout_add_ln_fwd
+
+    def spy(x, residual, gamma, beta, *args, **kwargs):
+        seen.append((gamma.dtype, beta.dtype))
+        return real(x, residual, gamma, beta, *args, **kwargs)
+
+    monkeypatch.setattr(t_fln, "fused_dropout_add_ln_fwd", spy)
+    x = torch.randn(8, 32).bfloat16()
+    g, b = torch.ones(32).bfloat16(), torch.zeros(32).bfloat16()
+    t_fln.fused_dropout_add_ln(x, x, g, b)
+    t_fln.fused_dropout_add_ln(x.requires_grad_(), x, g, b)
+    t_fln.fused_dropout_add_ln(x.float(), x.float(), g, b)
+    assert seen == [(torch.bfloat16, torch.bfloat16)] * 2 \
+        + [(torch.float32, torch.float32)]
 
 
 def test_fused_multihead_attention_with_bf16_qkv_and_mask_bias(interpret):

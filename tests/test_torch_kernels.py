@@ -145,6 +145,92 @@ def test_fused_ln_matches_pallas_kernel(interpret):
     np.testing.assert_allclose(got, want, atol=LN_TOL, rtol=LN_TOL)
 
 
+# the widths at which the K2 forward's instance table switches (one warp
+# up to 768 columns, several above; 30 and 1000 are not whole 16-byte
+# chunks of bf16 or float32 and take scalar accesses), and row counts the
+# reference's Pallas kernel takes (a multiple of 8, interpret mode) or
+# leaves to its XLA composite (ragged)
+LN_FWD_DS = [30, 640, 768, 1000, 4096]
+LN_FWD_NS = [40, 37]
+# bf16: the same float32 arithmetic rounded once, the row sums in another
+# order: at most one unit in the last place at the largest |out|
+LN_BF16_UNITS = 1
+
+
+def _ln_fwd_inputs(seed, n, d, dtype="float32"):
+    rng = np.random.RandomState(seed)
+    x, res = (rng.randn(n, d).astype("float32") for _ in range(2))
+    if dtype == "bfloat16":  # bf16 values, carried in float32 arrays
+        x, res = (torch.from_numpy(a).bfloat16().float().numpy()
+                  for a in (x, res))
+    g = (1.0 + 0.1 * rng.randn(d)).astype("float32")
+    b = (0.1 * rng.randn(d)).astype("float32")
+    return x, res, g, b
+
+
+def _ln_fwd_pair(x, res, g, b, rate, dtype):
+    """The port's forward with its statistics, and the reference's fused
+    op: ``_fwd_call``'s out, y, mean and rstd where its Pallas kernel
+    takes the shape, else the public entry's out; all float32 numpy."""
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    jx, jr = (jnp.asarray(a).astype(jdt) for a in (x, res))
+    jg, jb = jnp.asarray(g), jnp.asarray(b)
+    jseed = jnp.asarray([DROP_SEED if rate else 0], jnp.int32)
+    if FLN._eligible(jx):
+        want = FLN._fwd_call(jx, jr, jg, jb, rate, 1e-5, jseed)
+    else:
+        want = (FLN.fused_dropout_add_ln(jx, jr, jg, jb, dropout_rate=rate,
+                                         seed=jseed),)
+    want = [np.asarray(w.astype(jnp.float32)) for w in want]
+    got = t_fln.fused_dropout_add_ln_fwd(
+        torch.from_numpy(x).to(tdt), torch.from_numpy(res).to(tdt),
+        torch.from_numpy(g), torch.from_numpy(b), 1e-5, rate,
+        DROP_SEED if rate else None, save_stats=True)
+    # the reference's mean and rstd are [1, N]
+    return ([t.float().numpy() for t in got],
+            [w[0] if w.shape[0] == 1 else w for w in want])
+
+
+@pytest.mark.parametrize("n", LN_FWD_NS)
+@pytest.mark.parametrize("d", LN_FWD_DS)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_fused_ln_fwd_matches_reference_across_widths(interpret,
+                                                      debug_dropout, n, d,
+                                                      rate):
+    """The forward in float32 at every width the kernel's instance table
+    tells apart, against the reference (its Pallas kernel in interpret
+    mode where it takes the shape, with y, mean and rstd; its composite
+    otherwise), the debug hash's mask at rate 0.1."""
+    x, res, g, b = _ln_fwd_inputs(11 + d, n, d)
+    got, want = _ln_fwd_pair(x, res, g, b, rate, "float32")
+    for name, a, w in zip(("out", "y", "mean", "rstd"), got, want):
+        np.testing.assert_allclose(a, w, atol=LN_TOL, rtol=LN_TOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("d", LN_FWD_DS)
+def test_fused_ln_fwd_matches_reference_in_bfloat16(interpret,
+                                                    debug_dropout, d):
+    """x and residual in bf16 at rate 0.1 over a ragged N: out within
+    ``LN_BF16_UNITS`` units in the last place at its largest value, and
+    y, one rounding of the same float32 sum under the reference's debug
+    mask, bit for bit."""
+    n = 37
+    x, res, g, b = _ln_fwd_inputs(21 + d, n, d, "bfloat16")
+    got, want = _ln_fwd_pair(x, res, g, b, 0.1, "bfloat16")
+    unit = 2.0 ** -7 * np.abs(want[0]).max()
+    assert np.abs(got[0] - want[0]).max() <= LN_BF16_UNITS * unit
+    rows = np.arange(n, dtype=np.uint32)[:, None]
+    cols = np.arange(d, dtype=np.uint32)[None, :]
+    keep = np.asarray(FA._hash_bits(jnp.uint32(0), rows, cols,
+                                    jnp.uint32(DROP_SEED))
+                      >= FA._rate_threshold(0.1))
+    y = np.where(keep, x * np.float32(1.0 / 0.9), np.float32(0)) + res
+    np.testing.assert_array_equal(
+        got[1], torch.from_numpy(y).bfloat16().float().numpy())
+
+
 @pytest.mark.parametrize("ids_dtype", ["int32", "int64"])
 def test_embedding_gather_matches_pallas_kernel(interpret, ids_dtype):
     """Negative ids read row 0, ids >= V read NaN, padding_idx reads

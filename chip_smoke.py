@@ -174,6 +174,24 @@ and the CUDA toolkit.  Phases, each printing one JSON line:
    layout copies' device ms against the float32 path's;
    ``resnet_amp_parity``: one AMP step of ResNet-20 NHWC on the card
    against the CPU.  Each phase fails the run on a failed check.
+16. serve (after decode parity): serving started as the reference starts
+   it.  One ``PredictorServer`` with default arguments (the scope-overlap
+   proof and the zero-sync certificate gate its construction; the
+   earlier phases' servers are gated too) over BERT-base T=512 and a
+   GPT-2-small ring ``DecodeEngine`` (8 slots, prompt buckets 128/512);
+   400 one-row BERT requests open loop at 100 requests/s through
+   ``serving.run_load`` while 16 seeded prompts decode 64 tokens each,
+   four times with telemetry and tracing on, off, on, off (latency p50 and
+   p99, shed and rejected, decode tokens/s and step ms, host µs of a
+   bucket-8 enqueue and of a decode-step enqueue on a drained device;
+   the first run's spans by name and exported serving series); every
+   request must complete and the tokens repeat across runs.  Then
+   ``run_batches(verify=True)`` over 32 bucket-8 batches at depths 1 and
+   2 must equal ``run`` bit for bit (batches/s printed); BERT and greedy
+   decode replays run under ``torch.cuda.set_sync_debug_mode("error")``;
+   a top-k sampled step's syncs are counted under "warn"; and
+   ``python -m paddle_tpu_torch.tools.serve`` runs as a subprocess (64
+   requests, ``--json``; ``--certify-zero-sync``), both exiting 0.
 
 The main paths run through the executor's program cache, so their
 timed steps replay CUDA graphs; the training and ResNet phases fail if
@@ -2756,7 +2774,7 @@ def phase_main_path(env):
     rng = np.random.RandomState(SEED)
     requests = [_bert_request(rng, r, cfg) for r in REQUEST_ROWS]
     server = serving.PredictorServer(
-        {"bert": pred}, verify=False, buckets=BUCKETS, auto_start=False)
+        {"bert": pred}, buckets=BUCKETS, auto_start=False)
     try:
         # compile-free, but the first runs of a shape pay cuBLAS handle
         # and heuristic set-up: warm the 8-row bucket the server will use,
@@ -3392,7 +3410,7 @@ def phase_decode(env):
         emit({"phase": "decode", "mode": mode, "step": "build",
               "seconds": time.time() - t0, "programs": fused,
               "kv_cache_bytes": eng.cache_bytes})
-        server = serving.PredictorServer({"gpt2": eng}, verify=False)
+        server = serving.PredictorServer({"gpt2": eng})
         try:
             # two per prompt bucket: its prefill's warm-up and capture
             warm = [server.submit("gpt2", p) for p in (
@@ -3471,6 +3489,533 @@ def phase_decode(env):
     del engines
     torch.cuda.empty_cache()
     return counts
+
+
+SERVE_REQUESTS = 400          # the serve phase's BERT load, open loop
+SERVE_QPS = 100.0             # ~a quarter of bucket 8's ~387 rows/s
+SERVE_BATCHES = 32            # run_batches: bucket-8 batches per depth
+SERVE_SYNC_CALLS = 5          # replays checked under sync debug "error"
+SERVE_HOST_CALLS = 200        # enqueues timed per side (drained device)
+SERVE_CLI_REQUESTS = 64
+SERVE_CLI_TIMEOUT = 600
+
+
+def _spans_by_name(records):
+    import statistics
+
+    by = {}
+    for r in records:
+        if r.get("dur_ms") is not None:
+            by.setdefault(r["name"], []).append(r["dur_ms"])
+    return {n: {"count": len(v), "median_ms": statistics.median(v)}
+            for n, v in sorted(by.items())}
+
+
+def _serving_series(obs):
+    """The exported serving, decode and KV series: counters and gauges
+    by value, histograms by count, p50 and p99."""
+    out = {}
+    for k, m in obs.export_json()["metrics"].items():
+        if not k.startswith(("serving_", "decode_", "kv_")):
+            continue
+        out[k] = (m["value"] if m["type"] != "histogram"
+                  else {"count": m["count"], "p50": m["p50"],
+                        "p99": m["p99"]})
+    return out
+
+
+def _enqueue_us(torch, obs, call, calls=SERVE_HOST_CALLS):
+    """Host µs of ``call()`` (an enqueue that returns handles) with
+    telemetry and tracing on and off in turns, call by call, the device
+    drained before each call so nothing it does waits on earlier work:
+    ``{"on": {"p10", "p50", "p90"}, "off": {...}}``."""
+    times = {True: [], False: []}
+    try:
+        for i in range(2 * calls):
+            on = i % 2 == 0
+            obs.set_telemetry_enabled(on)
+            obs.set_tracing_enabled(on)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            times[on].append((time.perf_counter() - t0) * 1e6)
+    finally:
+        obs.set_telemetry_enabled(None)
+        obs.set_tracing_enabled(None)
+    torch.cuda.synchronize()
+    return {("on" if on else "off"): _quantiles(v)
+            for on, v in times.items()}
+
+
+def _quantiles(values):
+    xs = sorted(values)
+    return {q: xs[min(len(xs) - 1, int(round(f * (len(xs) - 1))))]
+            for q, f in (("p10", 0.1), ("p50", 0.5), ("p90", 0.9))}
+
+
+def _hook_us(obs, calls=20000):
+    """Host µs, on this host's CPU with no device work, of what one
+    served step records: a traced ``executor.step`` with its
+    ``executor.dispatch`` child, ``record_jit_cache`` and
+    ``record_step``; the same calls with telemetry and tracing off."""
+    from paddle_tpu_torch.observability import runtime, tracing
+
+    def hooks():
+        with tracing.span("executor.step", step=1):
+            with tracing.span_if_traced("executor.dispatch"):
+                pass
+        runtime.record_jit_cache(True)
+        runtime.record_step("executor", 1, 1.0, dispatch_ms=0.5)
+
+    out = {}
+    obs.reset_telemetry()
+    try:
+        for on in (True, False):
+            obs.set_telemetry_enabled(on)
+            obs.set_tracing_enabled(on)
+            with obs.span("serving.dispatch"):  # inside a trace, as served
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    hooks()
+                out["on" if on else "off"] = \
+                    (time.perf_counter() - t0) / calls * 1e6
+    finally:
+        obs.reset_telemetry()
+    return out
+
+
+def _decode_run(obs, server, eng, prompts, telemetry, tracing):
+    """Serve ``prompts`` through the decode tenant alone with telemetry
+    and tracing as given; its tokens/s and the engine's mean step ms."""
+    obs.reset_telemetry()
+    obs.set_telemetry_enabled(telemetry)
+    obs.set_tracing_enabled(tracing)
+    st0 = eng.stats()
+    t0 = time.time()
+    done = [f.result(timeout=900)
+            for f in [server.submit("gpt2", p) for p in prompts]]
+    wall = time.time() - t0
+    st1 = eng.stats()
+    steps = st1["decode_steps"] - st0["decode_steps"]
+    return {"telemetry": telemetry, "tracing": tracing,
+            "tokens_per_s": sum(len(t) for t, _ in done) / wall,
+            "step_ms_mean": (st1["step_ms_mean"] * st1["decode_steps"]
+                             - st0["step_ms_mean"] * st0["decode_steps"])
+            / steps}
+
+
+def _in_span(obs, name, call, *args):
+    with obs.span(name):
+        return call(*args)
+
+
+def _serve_load(serving, server, eng, bert_sampler, prompts):
+    """The serve phase's traffic: the decode prompts submitted first, then
+    the BERT requests open loop through the load generator while the
+    engine generates.  Returns the load report and the decode numbers."""
+    st0 = eng.stats()
+    t0 = time.time()
+    futs = [server.submit("gpt2", p, request_id="g%d" % i)
+            for i, p in enumerate(prompts)]
+    report = serving.run_load(server, {"bert": bert_sampler},
+                              qps=SERVE_QPS, requests=SERVE_REQUESTS)
+    outs = [f.result(timeout=900) for f in futs]
+    done_s = max(f.enqueue_ts + f.info["latency_ms"] / 1e3 for f in futs)
+    st1 = eng.stats()
+    n_tok = sum(len(t) for t, _ in outs)
+    steps = st1["decode_steps"] - st0["decode_steps"]
+    step_ms = (st1["step_ms_mean"] * st1["decode_steps"]
+               - st0["step_ms_mean"] * st0["decode_steps"]) / steps
+    return report, {"tokens": n_tok, "tokens_per_s": n_tok / (done_s - t0),
+                    "decode_steps": steps, "step_ms_mean": step_ms,
+                    "tokens_list": [list(t) for t, _ in outs]}
+
+
+def phase_serve(env):
+    """Serving started as the reference starts it: one ``PredictorServer``
+    with default arguments (the scope-overlap proof and the zero-sync
+    certificate gate its construction) over BERT-base T=512 and a
+    GPT-2-small ring ``DecodeEngine`` (8 slots, prompt buckets 128/512);
+    ``SERVE_REQUESTS`` BERT requests at ``SERVE_QPS`` through
+    ``serving.run_load`` while 16 seeded prompts decode 64 tokens each,
+    with telemetry and tracing on, off, on, off; the host µs of an
+    enqueue both ways; ``run_batches(verify=True)`` at depths 1 and 2
+    against ``run`` bit for bit; the BERT and greedy-decode replays under
+    ``torch.cuda.set_sync_debug_mode("error")``, and a sampled step under
+    "warn" (counted); then ``python -m paddle_tpu_torch.tools.serve`` as
+    a subprocess, a load and ``--certify-zero-sync``, both exit 0."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as fluid
+    import paddle_tpu_torch.observability as obs
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.executor import Scope, scope_guard
+    from paddle_tpu_torch.models import bert, gpt
+    from paddle_tpu_torch.ops.cuda import (launch_counts_by_source,
+                                           reset_launch_counts)
+
+    cfg = bert.BERT_BASE
+    gcfg = gpt.GPT2_SMALL_WIDTHS
+    export_dir = os.path.join(HERE, ".smoke_tmp", "serve_bert_export")
+    shutil.rmtree(export_dir, ignore_errors=True)
+    ring = os.environ.pop("PADDLE_TPU_TRACE_RING", None)
+    obs.reset_telemetry()
+    server = None
+    try:
+        t0 = time.time()
+        main, startup, hidden = _bert_program(fluid, bert, cfg)
+        with scope_guard(Scope()):
+            exe = fluid.Executor(fluid.CUDAPlace(0))
+            exe.run(startup)
+            fluid.io.save_inference_model(
+                export_dir, ["input_ids", "token_type_ids",
+                             "attn_mask_bias", "pos_ids"], [hidden], exe,
+                main_program=main)
+        del exe
+        pred = fluid.inference.create_paddle_predictor(
+            fluid.inference.AnalysisConfig(model_dir=export_dir))
+        eng = _decode_engine(gcfg, False, fluid.CUDAPlace(0))
+        server = serving.PredictorServer({"bert": pred, "gpt2": eng})
+        emit({"phase": "serve", "step": "gates", "seconds": time.time() - t0,
+              "placement_diags": len(server.placement_diags),
+              "placement": [str(d) for d in server.placement_diags],
+              "certificates": {n: c.ok
+                               for n, c in server.certificates.items()},
+              "buckets": list(server.buckets.sizes)})
+        if not all(c.ok for c in server.certificates.values()) \
+                or sorted(server.certificates) != ["bert", "gpt2"]:
+            raise AssertionError("zero-sync certificates %s"
+                                 % server.certificates)
+        rng = np.random.RandomState(SEED + 7)
+        server.warmup({"bert": _bert_request(rng, 1, cfg)})
+        warm = [server.submit("gpt2", rng.randint(
+            1, gcfg.vocab - 1, b // 2 + 1).astype("int32"))
+            for b in DECODE_BUCKETS for _ in range(2)]
+        for f in warm:
+            f.result(timeout=600)
+        lens = rng.randint(DECODE_PROMPT_LENS[0], DECODE_PROMPT_LENS[1] + 1,
+                           DECODE_REQUESTS)
+        prompts = [rng.randint(1, gcfg.vocab - 1, size=n).astype("int32")
+                   for n in lens]
+
+        def bert_sampler():
+            return _bert_request(rng, 1, cfg)
+
+        feed8 = _bert_request(np.random.RandomState(SEED + 8), 8, cfg)
+        step_feed = _decode_step_feed(eng, np.random.RandomState(SEED + 9),
+                                      gcfg.vocab)
+
+        def step_enqueue():
+            with eng._exe_lock:
+                return eng._exe.run(eng._step_prog, feed=step_feed,
+                                    fetch_list=[eng._step_fetch],
+                                    scope=eng.scope, return_numpy=False)
+
+        # an unreported first run warms what the load alone touches
+        _serve_load(serving, server, eng, bert_sampler, prompts)
+        runs, tokens = [], None
+        # run 0 keeps every span (a ring of 65536) for the spans by name;
+        # runs 1-4 alternate the defaults on and off for the cost
+        for i, on in enumerate((True, True, False, True, False)):
+            if i == 0:
+                os.environ["PADDLE_TPU_TRACE_RING"] = "65536"
+            else:
+                os.environ.pop("PADDLE_TPU_TRACE_RING", None)
+            obs.reset_telemetry()
+            obs.set_telemetry_enabled(on)
+            obs.set_tracing_enabled(on)
+            if i == 0:
+                reset_launch_counts()
+            batches0 = len(server.dispatch_log)
+            report, dec = _serve_load(serving, server, eng, bert_sampler,
+                                      prompts)
+            torch.cuda.synchronize()
+            if i == 0:
+                launches = launch_counts_by_source()
+                spans = _spans_by_name(obs.get_tracer().records())
+                series = _serving_series(obs)
+            toks = dec.pop("tokens_list")
+            tokens = toks if tokens is None else tokens
+            row = {"phase": "serve", "step": "load", "run": i,
+                   "trace_ring": 65536 if i == 0 else "default",
+                   "telemetry": on, "tracing": on, "card": card_label(env),
+                   "requests": report["requests"],
+                   "completed": report["completed"],
+                   "shed": report["shed"], "rejected": report["rejected"],
+                   "failed": report["failed"],
+                   "p50_ms": report["p50_ms"], "p99_ms": report["p99_ms"],
+                   "mean_ms": report["mean_ms"], "qps": report["qps"],
+                   "offered_qps": SERVE_QPS,
+                   "batches": len(server.dispatch_log) - batches0,
+                   "decode_requests": len(prompts),
+                   "tokens_equal_first_run": toks == tokens}
+            row.update(dec)
+            emit(row)
+            runs.append(row)
+            if report["completed"] != SERVE_REQUESTS or report["failed"] \
+                    or toks != tokens \
+                    or any(len(t) != DECODE_NEW_TOKENS for t in toks):
+                raise AssertionError("serve load run %d: %s" % (i, row))
+        obs.set_telemetry_enabled(None)
+        obs.set_tracing_enabled(None)
+        emit({"phase": "serve", "step": "spans", "spans": spans})
+        emit({"phase": "serve", "step": "telemetry", "series": series})
+        seen = {k: launches["wrapper"][k] + launches["graph_nodes"][k]
+                for k in launches["wrapper"]}
+        need = ("flash_attention_fwd", "fused_dropout_add_ln_fwd",
+                "embedding_gather_fwd", "flash_decode_fwd")
+        emit({"phase": "serve", "step": "launches", "launches": seen})
+        for name in ("serving.request", "serving.batch", "serving.device",
+                     "serving.sync", "serving.prefill",
+                     "serving.decode_step", "executor.step"):
+            if name not in spans:
+                raise AssertionError("no %s span in the serve run" % name)
+        if not all(seen[k] for k in need):
+            raise AssertionError("a kernel of the serve path never "
+                                 "launched: %s" % seen)
+        # the decode tenant alone, telemetry and tracing off and on in
+        # turns: the engine's host-bound step without the BERT load
+        try:
+            alone = [_decode_run(obs, server, eng, prompts, on_, on_)
+                     for on_ in (False, True, False, True)]
+        finally:
+            obs.set_telemetry_enabled(None)
+            obs.set_tracing_enabled(None)
+        on = [r for r in runs[1:] if r["telemetry"]]
+        off = [r for r in runs[1:] if not r["telemetry"]]
+        # inside the span the server opens around each, so a traced
+        # enqueue records its whole subtree as it does when served
+        emit({"phase": "serve", "step": "telemetry cost",
+              "card": card_label(env),
+              "served_batch_enqueue_us": _enqueue_us(
+                  torch, obs, lambda: _in_span(obs, "serving.dispatch",
+                                               pred.run_async, feed8)),
+              "decode_step_enqueue_us": _enqueue_us(
+                  torch, obs, lambda: _in_span(obs, "serving.decode_step",
+                                               step_enqueue)),
+              "step_hooks_us": _hook_us(obs),
+              "decode_step_ms_mean": {
+                  "on": [r["step_ms_mean"] for r in on],
+                  "off": [r["step_ms_mean"] for r in off]},
+              "decode_tokens_per_s": {
+                  "on": [r["tokens_per_s"] for r in on],
+                  "off": [r["tokens_per_s"] for r in off]},
+              "p50_ms": {"on": [r["p50_ms"] for r in on],
+                         "off": [r["p50_ms"] for r in off]},
+              "p99_ms": {"on": [r["p99_ms"] for r in on],
+                         "off": [r["p99_ms"] for r in off]},
+              "decode_alone": alone})
+
+        brng = np.random.RandomState(SEED + 10)
+        batches = [_bert_request(brng, 8, cfg)
+                   for _ in range(SERVE_BATCHES)]
+        want = [pred.run(b)[0] for b in batches]
+        per_depth = {}
+        for depth in (1, 2):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            got = [o[0] for o in pred.run_batches(
+                batches, max_in_flight=depth, verify=True)]
+            wall = time.time() - t0
+            same = all(np.array_equal(g, w) for g, w in zip(got, want))
+            per_depth[depth] = {"batches_per_s": len(got) / wall,
+                                "rows_per_s": 8 * len(got) / wall,
+                                "bit_identical_to_run": same}
+            if len(got) != SERVE_BATCHES or not same:
+                raise AssertionError("run_batches(max_in_flight=%d) != run"
+                                     % depth)
+        emit({"phase": "serve", "step": "run_batches",
+              "card": card_label(env), "batches": SERVE_BATCHES,
+              "bucket": 8, "depths": per_depth})
+
+        modes = []
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(SERVE_SYNC_CALLS):
+                handles = pred.run_async(feed8)
+                modes.append(("bert", pred._exe.last_run_mode))
+                step = step_enqueue()
+                modes.append(("gpt2 greedy", eng._exe.last_run_mode))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        fluid.pipeline.materialize(handles + step)
+        emit({"phase": "serve", "step": "sync debug error", "modes": modes,
+              "raised": False})
+        if any(m != "graph" for _n, m in modes):
+            raise AssertionError("checked dispatches did not replay: %s"
+                                 % modes)
+        emit({"phase": "serve", "step": "sampled decode step syncs",
+              "syncs_per_step": _sampled_step_syncs(torch, fluid, serving,
+                                                    gpt, warnings),
+              "note": "top_k sampling reads Step on the host "
+                      "(ops/decode.py _gumbel): ROADMAP Queue A 1"})
+
+        server.close()
+        server = None
+        del pred, eng
+        torch.cuda.empty_cache()
+        cli = {}
+        for label, args in (("load", ["--requests", str(SERVE_CLI_REQUESTS),
+                                      "--json"]),
+                            ("certify", ["--certify-zero-sync"])):
+            t0 = time.time()
+            res = subprocess.run(
+                [sys.executable, "-m", "paddle_tpu_torch.tools.serve",
+                 export_dir] + args, cwd=HERE,
+                env=dict(os.environ, PYTHONPATH=HERE),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                timeout=SERVE_CLI_TIMEOUT)
+            out = res.stdout.strip().splitlines()
+            cli[label] = {"rc": res.returncode,
+                          "seconds": time.time() - t0,
+                          "stdout_tail": out[-3:],
+                          "stderr_tail": res.stderr.strip().splitlines()[-5:]}
+            if label == "load" and res.returncode == 0:
+                cli[label]["report"] = json.loads(out[-1])
+        emit({"phase": "serve", "step": "cli", "card": card_label(env),
+              "runs": cli})
+        if any(c["rc"] != 0 for c in cli.values()) \
+                or cli["load"]["report"]["completed"] != SERVE_CLI_REQUESTS:
+            raise AssertionError("tools.serve: %s" % cli)
+    finally:
+        if server is not None:
+            server.close()
+        shutil.rmtree(export_dir, ignore_errors=True)
+        if ring is None:
+            os.environ.pop("PADDLE_TPU_TRACE_RING", None)
+        else:
+            os.environ["PADDLE_TPU_TRACE_RING"] = ring
+        obs.reset_telemetry()
+    torch.cuda.empty_cache()
+
+
+def profile_telemetry(env, runs=2, top=15):
+    """Where telemetry's host time goes in the decode engine's step
+    (run alone, not from ``main``): GPT-2-small ring decode, 16 requests
+    a run, with telemetry and tracing each on and off (``runs`` rounds
+    of the four settings), the cost of the system calls the hooks make
+    in a tight loop, and ``cProfile`` of the engine's ``_step`` with both
+    on against both off (the functions whose own time differs most)."""
+    import cProfile
+    import pstats
+
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as fluid
+    import paddle_tpu_torch.observability as obs
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.models import gpt
+
+    cfg = gpt.GPT2_SMALL_WIDTHS
+    rng = np.random.RandomState(SEED + 4)
+    prompts = [rng.randint(1, cfg.vocab - 1, size=n).astype("int32")
+               for n in rng.randint(DECODE_PROMPT_LENS[0],
+                                    DECODE_PROMPT_LENS[1] + 1,
+                                    DECODE_REQUESTS)]
+    eng = _decode_engine(cfg, False, fluid.CUDAPlace(0))
+    server = serving.PredictorServer({"gpt2": eng})
+    real_step = eng._step
+    prof = {"p": None}
+
+    def step():
+        p = prof["p"]
+        if p is None:
+            return real_step()
+        p.enable()
+        try:
+            return real_step()
+        finally:
+            p.disable()
+
+    eng._step = step
+
+    def run(tel, trc, profile=False):
+        prof["p"] = cProfile.Profile() if profile else None
+        row = _decode_run(obs, server, eng, prompts, tel, trc)
+        p, prof["p"] = prof["p"], None
+        return row, p
+
+    def loop_us(fn, n=20000):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    try:
+        for f in [server.submit("gpt2", rng.randint(
+                1, cfg.vocab - 1, b // 2 + 1).astype("int32"))
+                for b in DECODE_BUCKETS for _ in range(2)]:
+            f.result(timeout=600)
+        rows = [run(tel, trc)[0] for _ in range(runs)
+                for tel, trc in ((False, False), (True, False),
+                                 (False, True), (True, True))]
+        emit({"phase": "profile_telemetry", "step": "decode alone",
+              "card": card_label(env), "runs": rows})
+        emit({"phase": "profile_telemetry", "step": "system calls, µs",
+              "os.getpid": loop_us(os.getpid),
+              "os.urandom(16)": loop_us(lambda: os.urandom(16)),
+              "time.time": loop_us(time.time)})
+        own = {}
+        for on in (True, False):
+            row, p = run(on, on, profile=True)
+            own[on] = {k: (v[1], v[2]) for k, v in
+                       pstats.Stats(p).stats.items()}
+            emit({"phase": "profile_telemetry", "step": "profiled run",
+                  "row": row})
+        diff = []
+        for k, (n, tt) in own[True].items():
+            n0, tt0 = own[False].get(k, (0, 0.0))
+            diff.append((tt - tt0, n - n0, "%s:%d(%s)" % (
+                os.path.basename(k[0]), k[1], k[2])))
+        emit({"phase": "profile_telemetry", "step": "own time, on - off",
+              "top": [{"fn": f, "own_s": t, "calls": n}
+                      for t, n, f in sorted(diff, reverse=True)[:top]]})
+    finally:
+        obs.set_telemetry_enabled(None)
+        obs.set_tracing_enabled(None)
+        server.close()
+    del eng, server
+    torch.cuda.empty_cache()
+
+
+def _sampled_step_syncs(torch, fluid, serving, gpt, warnings):
+    """Device syncs of one top-k sampled decode step (1 layer at GPT-2
+    width), counted under ``set_sync_debug_mode("warn")``."""
+    import numpy as np
+
+    cfg = gpt.GPTConfig(vocab=gpt.GPT2_SMALL_WIDTHS.vocab, hidden=768,
+                        layers=1, heads=12, max_len=DECODE_TMAX)
+    eng = serving.DecodeEngine(
+        gpt.DecodeAdapter(cfg, seed=SEED), slots=DECODE_SLOTS,
+        prompt_buckets=DECODE_BUCKETS,
+        config=serving.GenerationConfig(strategy="top_k", k=8),
+        place=fluid.CUDAPlace(0), name="sampled", paged=False,
+        auto_start=False)
+    feed = _decode_step_feed(eng, np.random.RandomState(SEED + 11),
+                             cfg.vocab)
+
+    def step():
+        return eng._exe.run(eng._step_prog, feed=feed,
+                            fetch_list=[eng._step_fetch], scope=eng.scope,
+                            return_numpy=False)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            handles = step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    fluid.pipeline.materialize(handles)
+    return sum(1 for w in caught if "synchroniz" in str(w.message))
 
 
 def _greedy_mismatches(got, ref):
@@ -5484,7 +6029,7 @@ def phase_serve_bf16(env, pred_f32, cfg):
     rng = np.random.RandomState(SEED)
     requests = [_bert_request(rng, r, cfg) for r in REQUEST_ROWS]
     server = serving.PredictorServer(
-        {"bert": pred}, verify=False, buckets=BUCKETS, auto_start=False)
+        {"bert": pred}, buckets=BUCKETS, auto_start=False)
     try:
         warm = _bert_request(np.random.RandomState(SEED + 1), BUCKETS[-1],
                              cfg)
@@ -5598,6 +6143,7 @@ def main():
     phase_train_amp_parity()
     decode_counts = phase_decode(env)
     phase_decode_parity()
+    phase_serve(env)
     resnet_counts, resnet_groups = phase_resnet(env)
     phase_resnet_parity()
     resnet_amp_counts = phase_resnet_amp(env, resnet_groups)

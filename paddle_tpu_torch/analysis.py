@@ -47,8 +47,8 @@ def fc_fuse_pass(program, scope=None, targets=None):
     bias broadcast over the last dim.  The consumer map is rebuilt after
     every fusion, and sub-block reads count as consumers."""
     from .framework import Operator
-    from .static_analysis._defuse import (resolve_sub_block,
-                                          sub_block_reads_recursive)
+    from .static_analysis.defuse import (resolve_sub_block,
+                                         sub_block_reads_recursive)
 
     block = program.global_block()
     closure_reads = {}
@@ -122,8 +122,8 @@ def dead_code_elimination_pass(program, scope=None, targets=None):
     persistable var, and sub-block reads of kept ops, stay live."""
     if not targets:
         return program
-    from .static_analysis._defuse import (resolve_sub_block,
-                                          sub_block_reads_recursive)
+    from .static_analysis.defuse import (resolve_sub_block,
+                                         sub_block_reads_recursive)
 
     block = program.global_block()
     needed = set(targets)

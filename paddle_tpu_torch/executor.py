@@ -88,10 +88,25 @@ the CPU, and turns off cuBLAS's bf16 reduction of split-K partials
 (``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``,
 on by default), so a bf16 product accumulates in float32 to the end, as
 the reference's ``preferred_element_type=float32``.
+
+Telemetry (the reference's hooks, :1258-1343): every cache key lookup is
+``record_jit_cache`` (a hit when the key has an entry).  The port's
+analog of the reference's lower-and-jit on a cache miss is a key's first
+call, eager (the warm-up), and its second, which captures the CUDA graph:
+the ``executor.compile`` span (attribute ``phase``: ``"warm-up"``,
+``"capture"``, or ``"uncached"`` under ``use_program_cache=False``)
+covers that whole call, capture, instantiation and first replay
+included, and ``record_compile`` gets its wall time.  Every call is an
+``executor.step`` span (sampled by ``sample_step``: always inside a
+trace, 1 in ``PADDLE_TPU_TRACE_SAMPLE`` standalone) around an
+``executor.dispatch`` span (``span_if_traced``) that ends once the step
+is enqueued, and ``record_step`` gets the call's wall time and its
+dispatch time.  All of it is host time: nothing waits on the device.
 """
 
 import contextlib
 import threading
+import time
 
 import numpy as np
 import torch
@@ -99,6 +114,8 @@ import torch
 from . import core
 from . import pipeline as _pipeline
 from .framework import Variable, default_main_program
+from .observability import runtime as _obs
+from .observability import tracing as _tr
 from .ops import registry as op_registry
 from .ops.cuda import _lib as _kernels
 from .ops.registry import EMPTY_VAR_NAME, np_to_torch
@@ -399,6 +416,20 @@ def _eager_reason(block):
     return None
 
 
+def _in_place_writes(block):
+    """Names the block's ops write in place (``register_op(...,
+    in_place=...)`` with the output slot naming the input var)."""
+    names = set()
+    for op in block.ops:
+        if op.type in ("feed", "fetch"):
+            continue
+        for out_slot, in_slot in op_registry.get_op_def(
+                op.type).in_place.items():
+            if op.outputs.get(out_slot) == op.inputs.get(in_slot):
+                names.update(op.inputs.get(in_slot, ()))
+    return names
+
+
 def _storage(t):
     return (t.device, t.untyped_storage().data_ptr())
 
@@ -545,10 +576,13 @@ class _CompiledBlock:
         return True
 
     def stage(self, feed):
-        """Copy this call's feeds into the static inputs (host arrays
-        through pinned buffers, waiting only for the previous call's
-        copies out of them)."""
-        if self.feed_done is not None:
+        """Copy this call's feeds into the static inputs: host arrays
+        through pinned buffers, waiting only for the previous copies out
+        of them; tensors (feeds already staged on the device) directly,
+        with no wait."""
+        pinned = bool(self.staging) and any(
+            not isinstance(v, torch.Tensor) for v in feed.values())
+        if pinned and self.feed_done is not None:
             self.feed_done.synchronize()
         for n, value in feed.items():
             dst = self.feeds[n]
@@ -559,7 +593,7 @@ class _CompiledBlock:
                     buf.copy_(value)
                     value = buf
             dst.copy_(value, non_blocking=True)
-        if self.staging:
+        if pinned:
             self.feed_done = torch.cuda.Event()
             self.feed_done.record()
 
@@ -616,47 +650,98 @@ class Executor:
         feed = {n: _host_value(v) for n, v in (feed or {}).items()}
         _check_feed_shapes(program, feed)
         if not use_program_cache:
-            return self._run_eager(program, scope, feed, fetch_names,
-                                   return_numpy, "use_program_cache=False")
+            _obs.record_jit_cache(False)
+            return self._step_call(
+                lambda: (lambda: self._run_eager(
+                    program, scope, feed, fetch_names,
+                    "use_program_cache=False"), "uncached"),
+                return_numpy, lock=False)
         if core.get_flags("FLAGS_check_nan_inf")["FLAGS_check_nan_inf"]:
-            return self._run_eager(
-                program, scope, feed, fetch_names, return_numpy,
-                "FLAGS_check_nan_inf: every op's outputs are checked, "
-                "which a captured graph cannot stop at")
+            return self._step_call(
+                lambda: (lambda: self._run_eager(
+                    program, scope, feed, fetch_names,
+                    "FLAGS_check_nan_inf: every op's outputs are checked, "
+                    "which a captured graph cannot stop at"), None),
+                return_numpy, lock=False)
         key = (id(program), program._version, id(scope),
-               tuple((n, tuple(v.shape), str(v.dtype))
+               # a staged tensor and a host array of one dtype share a key
+               tuple((n, tuple(v.shape), str(v.dtype).replace("torch.", ""))
                      for n, v in sorted(feed.items())),
                tuple(fetch_names), getattr(program, "_fusion_sig", None),
                core.flags_key())
-        with self._lock:
-            entry = self._cache.get(key)
-            if entry is not None and entry.reads is not None \
-                    and not entry.rebind(scope):
-                entry = None  # a scope var changed shape or dtype
-            if entry is None:
-                entry = self._cache[key] = _CompiledBlock(
-                    program, list(feed), fetch_names)
-            if entry.eager_reason is not None:
-                return self._run_eager(program, scope, feed, fetch_names,
-                                       return_numpy, entry.eager_reason)
-            entry.calls += 1
-            if entry.calls == 1:
-                return self._warm_up(program, scope, feed, fetch_names,
-                                     return_numpy)
-            step = self._next_step()
-            if entry.reads is None:
-                fetches, fresh = self._capture(entry, program, scope, feed,
-                                               step)
-            else:
-                fetches, fresh = self._replay(entry, program, scope, feed,
-                                              step)
-            fetches = [t.clone() for t in fetches]
-            for n, t in fresh.items():
-                if not entry.block.vars[n].is_data:
-                    scope.set(n, t.clone())
-            # the fresh values are no read of this entry's
-            entry.generation = scope.generation
-        return self._finish(fetches, return_numpy)
+        return self._step_call(
+            lambda: self._choose(key, program, scope, feed, fetch_names),
+            return_numpy)
+
+    def _choose(self, key, program, scope, feed, fetch_names):
+        """Under the lock: the cache entry of ``key`` and what this call
+        of it runs, as ``(dispatch, compile_phase)``."""
+        entry = self._cache.get(key)
+        if entry is not None and entry.reads is not None \
+                and not entry.rebind(scope):
+            entry = None  # a scope var changed shape or dtype
+        _obs.record_jit_cache(entry is not None)
+        if entry is None:
+            entry = self._cache[key] = _CompiledBlock(
+                program, list(feed), fetch_names)
+        entry.calls += 1
+        if entry.eager_reason is not None:
+            return (lambda: self._run_eager(program, scope, feed, fetch_names,
+                                            entry.eager_reason),
+                    "warm-up" if entry.calls == 1 else None)
+        if entry.calls == 1:
+            return (lambda: self._warm_up(program, scope, feed, fetch_names),
+                    "warm-up")
+        return (lambda: self._run_compiled(entry, program, scope, feed),
+                "capture" if entry.reads is None else None)
+
+    def _step_call(self, choose, return_numpy, lock=True):
+        """One step with the reference's telemetry.  ``choose()`` returns
+        ``(dispatch, compile_phase)``: ``dispatch()`` enqueues the step
+        and returns its fetches, ``compile_phase`` names a call that is
+        its key's compile (module docstring).  With ``lock`` both run
+        under the executor's lock; the fetches are read after it."""
+        cur_step = self._step
+        t_step = time.perf_counter()
+        step_span = (_tr.span("executor.step", step=cur_step)
+                     if _tr.sample_step(cur_step) else _tr.NULL_SPAN)
+        if step_span.recording:
+            for ring, shape in _obs.collective_step_shape().items():
+                step_span.set_attr(ring, shape)
+        with step_span:
+            with self._lock if lock else contextlib.nullcontext():
+                dispatch, compile_phase = choose()
+                compile_span = (_tr.span("executor.compile", step=cur_step,
+                                         phase=compile_phase)
+                                if compile_phase is not None
+                                else contextlib.nullcontext())
+                with compile_span:
+                    with _tr.span_if_traced("executor.dispatch"):
+                        fetches = dispatch()
+            dispatch_ms = (time.perf_counter() - t_step) * 1000.0
+            if compile_phase is not None:
+                _obs.record_compile(dispatch_ms)
+            result = self._finish(fetches, return_numpy)
+        _obs.record_step("executor", cur_step,
+                         (time.perf_counter() - t_step) * 1000.0,
+                         dispatch_ms=dispatch_ms)
+        return result
+
+    def _run_compiled(self, entry, program, scope, feed):
+        """The second call of a key (capture) or a later one (replay);
+        returns the fetches, cloned out of the graph's memory."""
+        step = self._next_step()
+        if entry.reads is None:
+            fetches, fresh = self._capture(entry, program, scope, feed, step)
+        else:
+            fetches, fresh = self._replay(entry, program, scope, feed, step)
+        fetches = [t.clone() for t in fetches]
+        for n, t in fresh.items():
+            if not entry.block.vars[n].is_data:
+                scope.set(n, t.clone())
+        # the fresh values are no read of this entry's
+        entry.generation = scope.generation
+        return fetches
 
     def _next_step(self):
         step = self._step
@@ -675,20 +760,18 @@ class Executor:
             self._stream = torch.cuda.Stream(self.device)
         return self._stream
 
-    def _warm_up(self, program, scope, feed, fetch_names, return_numpy):
+    def _warm_up(self, program, scope, feed, fetch_names):
         """The first call for a key: eager, on the side stream that the
         capture will use, so everything made on first use is made for
         it."""
         reason = "warm-up: the first call for this key"
         if self.device.type != "cuda":
-            return self._run_eager(program, scope, feed, fetch_names,
-                                   return_numpy, reason)
+            return self._run_eager(program, scope, feed, fetch_names, reason)
         cur = torch.cuda.current_stream(self.device)
         side = self._side_stream()
         side.wait_stream(cur)
         with torch.cuda.stream(side):
-            out = self._run_eager(program, scope, feed, fetch_names,
-                                  return_numpy, reason)
+            out = self._run_eager(program, scope, feed, fetch_names, reason)
         cur.wait_stream(side)
         return out
 
@@ -744,15 +827,22 @@ class Executor:
         self.last_run_reason = "replayed the captured step"
         return entry.fetches, entry.fresh
 
-    def _run_eager(self, program, scope, feed, fetch_names, return_numpy,
-                   reason):
+    def _run_eager(self, program, scope, feed, fetch_names, reason):
         """The block op by op, its persistable outputs written back to the
-        scope (the in-place updates leave the resident tensors there).  A
-        fetch that is a scope tensor is returned as a copy, since later
-        steps update the scope's tensors in place."""
+        scope (the in-place updates leave the resident tensors there); the
+        fetches.  A fetch that is a scope tensor is returned as a copy,
+        since later steps update the scope's tensors in place, and a fed
+        tensor that an op writes in place is copied first, so a caller's
+        (or a feed cache's) tensor is never written."""
         self.last_run_mode, self.last_run_reason = "eager", reason
-        feed_vals = {n: np_to_torch(v, self.device) for n, v in feed.items()}
         block = program.global_block()
+        written = _in_place_writes(block)
+        feed_vals = {}
+        for n, v in feed.items():
+            t = np_to_torch(v, self.device)
+            if n in written and t is v:
+                t = t.clone()
+            feed_vals[n] = t
         env = {}
         for op in block.ops:
             for n in op.input_arg_names:
@@ -786,8 +876,7 @@ class Executor:
                                    "program and is not in the scope" % n)
             fetches.append(env[n] if n in env else scope.get(n))
         state = {id(scope.get(n)) for n in fetch_names if scope.has(n)}
-        fetches = [t.clone() if id(t) in state else t for t in fetches]
-        return self._finish(fetches, return_numpy)
+        return [t.clone() if id(t) in state else t for t in fetches]
 
     @staticmethod
     def _finish(fetches, return_numpy):

@@ -6,10 +6,12 @@ The predictor places on ``cuda:0`` unless the config asks for the CPU
 with :meth:`AnalysisConfig.disable_gpu` (the reference Fluid API name);
 asking for the GPU where CUDA is unavailable raises.  ``run`` returns
 numpy arrays after one batched sync; ``run_async`` returns lazy
-``FetchHandle``\\ s.  :meth:`AnalysisConfig.enable_bf16` rewrites the
-analysed program to bf16 (:mod:`.contrib.mixed_precision`).
-``run_batches`` (the prefetching serving loop) comes with a later slice
-(ROADMAP.md)."""
+``FetchHandle``\\ s; ``run_batches`` (reference :297) streams batches
+through :class:`~paddle_tpu_torch.pipeline.DeviceFeedPipeline` with a
+window of un-synced steps, behind the concurrency gate of
+:mod:`.static_analysis.concurrency` when ``verify=True``.
+:meth:`AnalysisConfig.enable_bf16` rewrites the analysed program to bf16
+(:mod:`.contrib.mixed_precision`)."""
 
 import os
 
@@ -246,6 +248,83 @@ class AnalysisPredictor:
     def run_async(self, inputs):
         """Dispatch one batch without waiting: lazy ``FetchHandle``\\ s."""
         return self.run(inputs, return_numpy=False)
+
+    def run_batches(self, batches, max_in_flight=2, return_numpy=True,
+                    verify=False, request_ids=None):
+        """Streamed serving loop: a generator yielding one result list per
+        input batch, keeping up to ``max_in_flight`` dispatched batches'
+        results un-synced while a background thread stages upcoming feeds
+        on the device (:class:`~paddle_tpu_torch.pipeline.DeviceFeedPipeline`,
+        on this predictor's place).
+
+        ``max_in_flight`` is the latency-vs-throughput knob: 1 is the
+        synchronous loop, 2-4 overlap host preparation and copies with
+        device compute.  With ``return_numpy=False`` the generator yields
+        un-synced handles and never blocks on results.
+
+        ``verify=True`` gates entry on the static concurrency analyzer:
+        the program the executor will run (its fused twin included) is
+        race-checked at this in-flight depth and certified free of
+        host-sync points; a finding raises ``VerifyError`` naming the op,
+        before any batch is dispatched.
+
+        Every batch is validated against the program's ``need_check_feed``
+        declarations as it is staged, so a malformed feed raises a
+        ``ValueError`` naming the batch — by the matching entry of
+        ``request_ids`` when given."""
+        if max_in_flight < 1:
+            raise ValueError("max_in_flight must be >= 1, got %d"
+                             % max_in_flight)
+        # the serving-path marks: strict-sync promotion + the in-flight
+        # depth the race checks assume for this program from now on
+        self._program._serving_hot_loop = True
+        self._program._max_in_flight = max(
+            max_in_flight,
+            int(getattr(self._program, "_max_in_flight", 1) or 1))
+        if verify:
+            from .static_analysis.concurrency import verify_async_hot_path
+
+            verify_async_hot_path(
+                self._program,
+                targets=[v.name for v in self._fetch_vars],
+                max_in_flight=max_in_flight, label="serving hot loop")
+        if request_ids is not None:
+            request_ids = list(request_ids)
+        return self._run_batches(batches, max_in_flight, return_numpy,
+                                 request_ids)
+
+    def _run_batches(self, batches, max_in_flight, return_numpy,
+                     request_ids=None):
+        import collections
+
+        from . import pipeline as pl
+        from .executor import _check_feed_shapes
+
+        def feeds():
+            for i, b in enumerate(batches):
+                rid = None
+                if request_ids is not None and i < len(request_ids):
+                    rid = request_ids[i]
+                try:
+                    feed = self._as_feed(b)
+                    _check_feed_shapes(self._program, feed)
+                except ValueError as exc:
+                    who = ("request %r (batch #%d)" % (rid, i)
+                           if rid is not None else "batch #%d" % i)
+                    raise ValueError("%s: %s" % (who, exc)) from None
+                yield feed
+
+        def finish(handles):
+            return pl.materialize(handles) if return_numpy else handles
+
+        inflight = collections.deque()
+        for feed in pl.DeviceFeedPipeline(feeds, depth=max_in_flight,
+                                          place=self._exe.device):
+            inflight.append(self.run_async(feed))
+            if len(inflight) >= max_in_flight:
+                yield finish(inflight.popleft())
+        while inflight:
+            yield finish(inflight.popleft())
 
 
 def create_paddle_predictor(config):

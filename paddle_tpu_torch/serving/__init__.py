@@ -1,14 +1,16 @@
 """Serving tier (mirrors ``paddle_tpu/serving/``): the continuous-batching
-:class:`PredictorServer` for batch tenants, its shape buckets, and the
-:class:`DecodeEngine` decode tenant with its paged KV pool.  The load
-generator, speculative decoding and telemetry come with later slices
-(ROADMAP.md)."""
+:class:`PredictorServer` for batch and decode tenants behind its
+construction gates, its shape buckets, the :class:`DecodeEngine` decode
+tenant with its paged KV pool, and the load generator
+(:func:`run_load`).  CLI: ``python -m paddle_tpu_torch.tools.serve``.
+Speculative decoding comes with a later slice (ROADMAP.md)."""
 
 from .buckets import (  # noqa: F401
     BUCKETS_ENV, DEFAULT_BUCKETS, ShapeBuckets, derive_buckets,
     parse_buckets, resolve_buckets)
 from .decode import (  # noqa: F401
     DecodeEngine, DecodeRequest, GenerationConfig)
+from .loadgen import make_feed_sampler, percentile, run_load  # noqa: F401
 from .paging import (  # noqa: F401
     BlockAllocator, KVPoolExhausted, blocks_needed, build_block_table,
     paged_kv_enabled)

@@ -35,10 +35,16 @@ the decode scheduler by transferring the block-table entries, the K/V
 rows never move.  One executor lock serialises the two threads' device
 work.
 
-Not ported yet (ROADMAP.md, Queue A item 3): the reference's telemetry
-and tracing spans, and what only its static-analysis gates read (the
-co-residency proof's handoff declaration, ``coresident_programs`` and
-the tenant-introspection names).
+Telemetry and tracing as the reference's (:504-861): a
+``serving.request`` span per request (submit → done), ``serving.prefill``
+and ``serving.decode_step`` around the device work, a retroactive
+``serving.kv_handoff`` (prefill done → decode slot) and
+``serving.decode`` (first token → done), and the ``serving_*`` /
+``decode_*`` / ``kv_*`` recorders of :mod:`..observability.runtime`.  A
+paged engine declares its pool vars as a KV-block handoff
+(``_kv_handoff_vars``) and :meth:`DecodeEngine.coresident_programs` lists
+a disaggregated engine's prefill programs beside its step program, so a
+``PredictorServer`` proves and certifies them all.
 :meth:`DecodeEngine.stats` adds the mean host wall time of a decode step
 and of a prefill (run and token read).
 """
@@ -49,6 +55,8 @@ import time
 import numpy as np
 
 from .. import core
+from ..observability import runtime as _obs
+from ..observability import tracing as _tr
 from .buckets import ShapeBuckets
 from .paging import (BlockAllocator, blocks_needed, build_block_table,
                      paged_kv_enabled)
@@ -81,7 +89,7 @@ class DecodeRequest:
     ``{"generated_len", "ttft_ms", "latency_ms"}``."""
 
     __slots__ = ("id", "prompt", "enqueue_ts", "_event", "_tokens",
-                 "_error", "info", "first_token_ts")
+                 "_error", "info", "span", "first_token_ts", "tenant")
 
     def __init__(self, rid, prompt):
         self.id = rid
@@ -91,7 +99,14 @@ class DecodeRequest:
         self._tokens = None
         self._error = None
         self.info = {}
+        self.span = _tr.NULL_SPAN
         self.first_token_ts = None
+        self.tenant = None
+
+    @property
+    def latency_ms(self):
+        """Loadgen-compatible latency accessor (None until done)."""
+        return self.info.get("latency_ms")
 
     def done(self):
         return self._event.is_set()
@@ -111,10 +126,13 @@ class DecodeRequest:
         if self.first_token_ts is not None:
             self.info["ttft_ms"] = (self.first_token_ts
                                     - self.enqueue_ts) * 1000.0
+        self.span.set_attr("generated_len", len(self._tokens))
+        self.span.end("ok")
         self._event.set()
 
     def _fail(self, exc):
         self._error = exc
+        self.span.end("error:%s" % type(exc).__name__)
         self._event.set()
 
 
@@ -203,7 +221,7 @@ class DecodeEngine:
             raise ValueError("disaggregate=True requires paged KV mode "
                              "(the handoff transfers block-table "
                              "entries, not cache rows)")
-        self._handoff = []       # (req, blocks, table, first token)
+        self._handoff = []       # (req, blocks, table, first, ready_ts)
         self._exe_lock = threading.Lock()
         self._slots = [_Slot() for _ in range(self.slots)]
         self._queue = []
@@ -213,11 +231,14 @@ class DecodeEngine:
         self._resizing = False
         self._admitting = 0
         self._step_count = 0
+        self._tokens_done = 0
+        self._rate_t0 = None
         self.stats_lock = threading.Lock()
         self._counts = {"submitted": 0, "completed": 0, "failed": 0,
                         "tokens": 0, "prefills": 0}
         self._timing = {"step_s": 0.0, "prefill_s": 0.0}
         self._build_programs()
+        self._publish_pool()
         if auto_start:
             self.start()
 
@@ -264,15 +285,25 @@ class DecodeEngine:
                     _layers().fill_constant(self._cache_shape(), "float32",
                                             0.0, out=var)
         self._init, self._startup = init, startup
+        # paged: the pool vars prefill WRITES and decode READS+WRITES are
+        # a declared KV-block handoff, not an accidental overlap — the
+        # co-residency proof downgrades it to INFO only when BOTH programs
+        # carry the declaration
+        handoff = frozenset(n for pair in self._cache_names for n in pair) \
+            if self.paged else None
         self._prefill = {}
         for length in self.buckets.seq_sizes:
             main = framework.Program()
             with framework.program_guard(main, startup):
                 first = self._build_prefill(main.global_block(), length)
+            if handoff is not None:
+                main._kv_handoff_vars = handoff
             self._prefill[length] = (main, first.name)
         main = framework.Program()
         with framework.program_guard(main, startup):
             nxt = self._build_step(main.global_block())
+        if handoff is not None:
+            main._kv_handoff_vars = handoff
         self._step_prog, self._step_fetch = main, nxt.name
         #: the program PredictorServer treats as the tenant's hot loop
         self.program = main
@@ -328,6 +359,27 @@ class DecodeEngine:
             logits = self.model.build_step(cur, cursors, caches)
         return self._sample(logits, step)
 
+    # the PredictorServer tenant-introspection surface
+    def get_input_names(self):
+        return ["prompt_ids"]
+
+    def get_output_names(self):
+        return [self._step_fetch]
+
+    def coresident_programs(self):
+        """Every program family this engine keeps resident, as ``(label,
+        program, fetch_targets)``: the step program and, with
+        disaggregated prefill (its own thread, the same scope), the
+        prefill programs, so the server's placement proof and zero-sync
+        certification cover them too."""
+        progs = [(self.name, self._step_prog, [self._step_fetch])]
+        if self.disaggregate:
+            for length in sorted(self._prefill):
+                main, fetch = self._prefill[length]
+                progs.append(("%s.prefill%d" % (self.name, length), main,
+                              [fetch]))
+        return progs
+
     # ------------------------------------------------------------------
     # client side
     # ------------------------------------------------------------------
@@ -358,9 +410,14 @@ class DecodeEngine:
             rid = request_id if request_id is not None \
                 else len(self._queue) + self._counts["submitted"]
             req = DecodeRequest(rid, prompt)
+            req.tenant = self.name
+            req.span = _tr.start_span("serving.request",
+                                      tenant=self.name, request_id=rid,
+                                      prompt_len=int(prompt.size))
             self._queue.append(req)
             self._count("submitted")
             self._cond.notify()
+        _obs.record_serving_request(self.name)
         return req
 
     # ------------------------------------------------------------------
@@ -423,6 +480,7 @@ class DecodeEngine:
                         "decode engine %r did not drain to idle within "
                         "%.1fs for resize" % (self.name, timeout))
                 time.sleep(0.01)
+            old = self.slots
             self.slots = slots
             self._slots = [_Slot() for _ in range(slots)]
             if self.paged:
@@ -430,6 +488,8 @@ class DecodeEngine:
                     self.num_blocks = slots * self.max_blocks
                 self._pool = BlockAllocator(self.num_blocks, self.block_len)
             self._build_programs()
+            self._publish_pool()
+            _obs.record_decode_resize(self.name, old, slots)
         finally:
             with self._cond:
                 self._resizing = False
@@ -454,6 +514,12 @@ class DecodeEngine:
     def _drained(self):
         return (not self._queue and not self._handoff
                 and self._admitting == 0 and not self._active())
+
+    def _publish_pool(self):
+        if self.paged:
+            with self._cond:
+                free = self._pool.num_free
+            _obs.set_kv_pool(self.name, self._pool.num_blocks, free)
 
     def _blocks_for_len(self, prompt_len):
         """Blocks to reserve at admission: the whole prompt plus the full
@@ -504,14 +570,20 @@ class DecodeEngine:
         main, fetch = self._prefill[length]
         feed = {"prompt_ids": padded,
                 "prompt_len": np.asarray([req.prompt.size], "int32")}
+        attrs = dict(tenant=self.name, bucket=length,
+                     prompt_len=int(req.prompt.size))
         if self.paged:
             feed["block_table"] = table.reshape(1, self.max_blocks)
+            attrs["blocks"] = int((table >= 0).sum())
         else:
             feed["slot"] = np.asarray([slot], "int32")
+        if slot is not None:
+            attrs["slot"] = slot
         t0 = time.perf_counter()
-        with self._exe_lock:
-            out = self._exe.run(main, feed=feed, fetch_list=[fetch],
-                                scope=self.scope)
+        with _tr.span("serving.prefill", parent=req.span, **attrs):
+            with self._exe_lock:
+                out = self._exe.run(main, feed=feed, fetch_list=[fetch],
+                                    scope=self.scope)
         self._time("prefill_s", time.perf_counter() - t0, "prefills")
         return int(np.asarray(out[0]).reshape(-1)[0])
 
@@ -557,6 +629,7 @@ class DecodeEngine:
             with self._cond:
                 self._admitting -= 1
                 self._cond.notify_all()
+            self._publish_pool()
 
     def _drain_handoffs(self):
         """Activate finished prefills: the KV-pool blocks change owner
@@ -567,7 +640,13 @@ class DecodeEngine:
             with self._cond:
                 if free is None or not self._handoff:
                     return
-                req, blocks, table, first = self._handoff.pop(0)
+                req, blocks, table, first, ready_ts = self._handoff.pop(0)
+            wait_ms = (time.time() - ready_ts) * 1000.0
+            _tr.start_span("serving.kv_handoff", parent=req.span,
+                           start_ts=ready_ts, tenant=self.name,
+                           slot=free, blocks=len(blocks)).end(
+                dur_ms=wait_ms)
+            _obs.record_kv_handoff(self.name, wait_ms, len(blocks))
             self._activate(free, req, first, blocks, table)
 
     def _prefill_loop(self):
@@ -593,9 +672,11 @@ class DecodeEngine:
                 first = self._run_prefill(req, table=table)
                 req.first_token_ts = time.time()
                 with self._cond:
-                    self._handoff.append((req, blocks, table, first))
+                    self._handoff.append((req, blocks, table, first,
+                                          time.time()))
                     self._admitting -= 1
                     self._cond.notify_all()
+                self._publish_pool()
         except Exception as exc:  # noqa: BLE001
             self._fail_all(exc)
 
@@ -621,13 +702,23 @@ class DecodeEngine:
             self._step_count += 1
             feed["step"] = np.asarray([self._step_count], "int32")
             t0 = time.perf_counter()
-            with self._exe_lock:
-                out = self._exe.run(self._step_prog, feed=feed,
-                                    fetch_list=[self._step_fetch],
-                                    scope=self.scope)
+            with _tr.span("serving.decode_step", tenant=self.name,
+                          step=self._step_count, active=len(active)):
+                with self._exe_lock:
+                    out = self._exe.run(self._step_prog, feed=feed,
+                                        fetch_list=[self._step_fetch],
+                                        scope=self.scope)
             self._time("step_s", time.perf_counter() - t0)
             nxt = np.asarray(out[0]).reshape(-1)
+            now = time.time()
+            if self._rate_t0 is None:
+                self._rate_t0 = now
+            self._tokens_done += len(active)
             self._count("tokens", len(active))
+            _obs.record_decode_tokens(self.name, len(active))
+            span_s = now - self._rate_t0
+            if span_s > 0:
+                _obs.set_decode_throughput(self._tokens_done / span_s)
             for i in active:
                 s = self._slots[i]
                 tok = int(nxt[i])
@@ -651,8 +742,24 @@ class DecodeEngine:
                         self._cond.notify_all()  # wake admission
                     s.blocks = []
                     s.table = None
+                    self._publish_pool()
+                # retroactive per-request decode span (first token →
+                # done): the request's critical path split into prefill
+                # and decode
+                if req.first_token_ts is not None:
+                    _tr.start_span(
+                        "serving.decode", parent=req.span,
+                        start_ts=req.first_token_ts, tenant=self.name,
+                        tokens=len(s.tokens)).end(
+                        dur_ms=(time.time()
+                                - req.first_token_ts) * 1000.0)
                 req._complete(s.tokens)
                 self._count("completed")
+                _obs.record_decode_request(
+                    self.name, len(s.tokens),
+                    ttft_ms=req.info.get("ttft_ms"))
+                _obs.record_serving_done(self.name,
+                                         req.info["latency_ms"])
 
     def _count(self, key, n=1):
         with self.stats_lock:

@@ -63,7 +63,7 @@ and the verifier bracket around each family.
 import os
 
 from ..ops.registry import EMPTY_VAR_NAME
-from ._defuse import resolve_sub_block, sub_block_reads_recursive
+from .defuse import resolve_sub_block, sub_block_reads_recursive
 
 __all__ = ["FusionConfig", "FusionRewrite", "FusionSkip", "FusionReport",
            "fusion_enabled", "conv_bn_min_bytes", "embed_fuse_min_bytes",
@@ -1045,13 +1045,17 @@ def resolve_fused_program(program, config=None, targets=()):
             or FusionReport(config)
     if not config.enabled:
         return program, FusionReport(config)
+    from ..observability import runtime as _obs
+
     tkey = tuple(sorted({getattr(t, "name", t) for t in (targets or ())}))
     key = (config.signature(program), program._version, tkey)
     cache = program.__dict__.setdefault("_fusion_cache", {})
     hit = cache.get(key)
     if hit is not None:
+        _obs.record_fusion_resolve(True)
         fused, report = hit
         return (fused if fused is not None else program), report
+    _obs.record_fusion_resolve(False)
     for k in [k for k in cache if k[1] != program._version]:
         del cache[k]
     while len(cache) >= _FUSION_CACHE_CAP:

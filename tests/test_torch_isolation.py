@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: it imports neither ``jax`` nor
-``paddle_tpu``, its entry points run on the GPU unless the caller asks
-for the CPU, and the static-analysis gates it has not ported yet raise
-rather than being skipped silently."""
+``paddle_tpu`` (the observability layer, the concurrency proofs and the
+serving CLI included), its entry points run on the GPU unless the caller
+asks for the CPU, and the static-analysis gates it has not ported yet
+raise rather than being skipped silently."""
 
 import os
 import re
@@ -35,6 +36,9 @@ from paddle_tpu_torch.models import bert  # noqa: F401
 from paddle_tpu_torch.models import gpt  # noqa: F401
 from paddle_tpu_torch.models import resnet
 import paddle_tpu_torch.serving  # noqa: F401
+import paddle_tpu_torch.observability as obs
+from paddle_tpu_torch.static_analysis import concurrency
+from paddle_tpu_torch.tools import serve  # noqa: F401
 
 main, startup = fluid.Program(), fluid.Program()
 with fluid.program_guard(main, startup):
@@ -52,6 +56,9 @@ with fluid.scope_guard(scope):
                  fetch_list=[loss])[0]
 assert out.shape == (2, 3), out.shape
 assert l1[0] < l0[0], (l0, l1)
+assert concurrency.certify_zero_sync(main).ok
+assert obs.registry().get("steps_total", runner="executor").value == 3
+assert "paddle_tpu_steps_total" in obs.export_prometheus()
 rmain, rstart, _, rloss, racc = resnet.build(depth=8, data_format="NHWC")
 with fluid.scope_guard(fluid.Scope()):
     exe = fluid.Executor(fluid.CPUPlace())
@@ -155,6 +162,22 @@ def test_decode_engine_defaults_to_cuda_and_raises_without_it(no_cuda):
     assert eng.place == fluid.CPUPlace() and eng.paged
 
 
+def test_feed_pipeline_defaults_to_cuda_and_raises_without_it(no_cuda):
+    import numpy as np
+
+    from paddle_tpu_torch import pipeline
+
+    feed = {"x": np.ones((2, 4), "float32")}
+    with pytest.raises(RuntimeError, match="CUDAPlace"):
+        pipeline.DeviceFeedPipeline([feed])
+    with pytest.raises(RuntimeError, match="CUDAPlace"):
+        pipeline.device_put_feed(feed)
+    got = list(pipeline.DeviceFeedPipeline([feed, feed],
+                                           place=fluid.CPUPlace()))
+    assert [g["x"].device.type for g in got] == ["cpu", "cpu"]
+    assert got[0]["x"] is got[1]["x"]  # the second is a cache hit
+
+
 def _export_tiny(tmp_path):
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
@@ -184,12 +207,15 @@ def test_predictor_defaults_to_cuda_and_raises_without_it(no_cuda,
 
 
 def test_unported_gates_raise(tmp_path):
+    """The verifier's battery raises; the server's construction gates
+    (the concurrency proofs) are ported and run by default."""
     d = _export_tiny(tmp_path)
     cfg = fluid.inference.AnalysisConfig(model_dir=d)
     cfg.disable_gpu()
     pred = fluid.inference.create_paddle_predictor(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        fluid.serving.PredictorServer(pred)
+    server = fluid.serving.PredictorServer(pred, auto_start=False)
+    assert server.certificates["default"].ok
+    server.close()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         analysis.Analyzer().run(pred.program, verify=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -323,6 +323,14 @@ TRAIN_BATCH = 8
 TRAIN_WARMUP = 2
 TRAIN_STEPS = 5
 TRAIN_LR = 1e-4
+# the flagship training layout (bench.py:2741-2770): T=128, batch 64, and
+# its LR schedule: linear warm-up over 10 steps to 1e-4, then a linear
+# decay to 0 over 1000
+RECIPE_SEQ = 128
+RECIPE_BATCH = 64
+RECIPE_LR = 1e-4
+RECIPE_WARMUP_STEPS = 10
+RECIPE_DECAY_STEPS = 1000
 # one training step, GPU kernels vs CPU plain versions, float32 with TF32
 # off: sums in another order through 2 layers, the vocab head and the
 # embedding gradient's pieces
@@ -409,8 +417,8 @@ DP_TIMEOUT = 600            # seconds for both ranks
 DP_LOSS_GATE = 1e-3         # the reference's gate (bench.py:1950-1954)
 DP_ERR_MODEL_GATE = 3.0     # measured over modelled RMS (chaos.py:1007)
 # eager against the captured CUDA graph: compared calls a side (warm-up,
-# capture, two replays), then profiled calls a side
-GRAPH_STEPS = 4
+# capture, a replay), then profiled calls a side
+GRAPH_STEPS = 3
 GRAPH_PROFILE_RUNS = 3
 PROFILE_MARGIN_S = 0.05
 # a profiled window of the graph phase opens and closes with marker
@@ -3084,6 +3092,59 @@ def phase_profile(env, pred, cfg, runs=3):
           "card": card_label(env)})
 
 
+def recipe_program(fluid, bert, cfg, seq, max_pred=None):
+    """The reference's flagship training program (``bench.py:2741-2770``:
+    BERT MLM pretraining with the gathered head, ``cfg`` carrying
+    ``fused_ln`` and ``fused_qkv``), trained as its users train it: bf16
+    AMP through ``contrib.mixed_precision.decorate`` over
+    ``LambOptimizer(lamb_weight_decay=0.01)``, the learning rate
+    ``linear_lr_warmup(polynomial_decay(...))`` and the gradients clipped
+    to a global norm of 1.  Built by the same code in either package
+    (``fluid`` and its ``bert`` module).  ``decorate``'s ``minimize`` takes
+    no ``grad_clip`` in either package, so the clip is set for the
+    program (``set_gradient_clip``), which ``minimize(grad_clip=)`` does
+    for the length of its call.  → ``(main, startup, loss, lr)``."""
+    import importlib
+
+    amp = importlib.import_module(fluid.__name__
+                                  + ".contrib.mixed_precision")
+    L = fluid.layers
+    if max_pred is None:
+        max_pred = bert.default_max_pred(seq)
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup):
+        ids = L.data("input_ids", shape=[seq], dtype="int64")
+        types = L.data("token_type_ids", shape=[seq], dtype="int64")
+        bias = L.data("attn_mask_bias", shape=[1, 1, seq], dtype="float32")
+        labels = L.data("mlm_labels", shape=[max_pred], dtype="int64")
+        weights = L.data("mlm_weights", shape=[max_pred], dtype="float32")
+        mask_pos = L.data("mask_pos", shape=[max_pred], dtype="int64")
+        x = bert.encoder(ids, types, bias, cfg, seq)
+        row_t = L.fill_constant_batch_size_like(
+            weights, shape=[-1, 1], dtype="int64", value=float(seq))
+        offs = L.elementwise_sub(L.cumsum(row_t, axis=0), row_t)
+        pos = L.reshape(L.elementwise_add(mask_pos, offs), shape=[-1])
+        x = L.gather(L.reshape(x, shape=[-1, cfg.hidden]), pos)
+        logits = L.matmul(x, main.global_block().var("bert.word_emb"),
+                          transpose_y=True)
+        tok = L.squeeze(L.softmax_with_cross_entropy(
+            logits, L.reshape(labels, shape=[-1, 1])), [1])
+        w = L.reshape(weights, shape=[-1])
+        loss = L.elementwise_div(L.reduce_sum(L.elementwise_mul(tok, w)),
+                                 L.reduce_sum(w))
+        lr = L.linear_lr_warmup(
+            L.polynomial_decay(RECIPE_LR, RECIPE_DECAY_STEPS,
+                               end_learning_rate=0.0, power=1.0),
+            warmup_steps=RECIPE_WARMUP_STEPS, start_lr=0.0,
+            end_lr=RECIPE_LR)
+        fluid.clip.set_gradient_clip(
+            fluid.clip.GradientClipByGlobalNorm(1.0), program=main)
+        amp.decorate(fluid.optimizer.LambOptimizer(
+            learning_rate=lr, lamb_weight_decay=0.01)).minimize(loss)
+    return main, startup, loss, lr
+
+
 def _train_program(fluid, bert, cfg, seq):
     main, startup, _feeds, loss = bert.build_pretrain(cfg, seq_len=seq,
                                                       lr=TRAIN_LR)
@@ -3953,24 +4014,32 @@ def phase_serve(env):
         server = None
         del pred, eng
         torch.cuda.empty_cache()
-        cli = {}
-        for label, args in (("load", ["--requests", str(SERVE_CLI_REQUESTS),
-                                      "--json"]),
-                            ("certify", ["--certify-zero-sync"])):
-            t0 = time.time()
-            res = subprocess.run(
-                [sys.executable, "-m", "paddle_tpu_torch.tools.serve",
-                 export_dir] + args, cwd=HERE,
-                env=dict(os.environ, PYTHONPATH=HERE),
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                timeout=SERVE_CLI_TIMEOUT)
-            out = res.stdout.strip().splitlines()
-            cli[label] = {"rc": res.returncode,
-                          "seconds": time.time() - t0,
-                          "stdout_tail": out[-3:],
-                          "stderr_tail": res.stderr.strip().splitlines()[-5:]}
-            if label == "load" and res.returncode == 0:
-                cli[label]["report"] = json.loads(out[-1])
+        cli, procs = {}, {}
+        try:
+            # both at once: each is mostly an interpreter's start-up
+            for label, args in (("load", ["--requests",
+                                          str(SERVE_CLI_REQUESTS), "--json"]),
+                                ("certify", ["--certify-zero-sync"])):
+                procs[label] = (time.time(), subprocess.Popen(
+                    [sys.executable, "-m", "paddle_tpu_torch.tools.serve",
+                     export_dir] + args, cwd=HERE,
+                    env=dict(os.environ, PYTHONPATH=HERE),
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True))
+            for label, (t0, proc) in procs.items():
+                stdout, stderr = proc.communicate(timeout=SERVE_CLI_TIMEOUT)
+                out = stdout.strip().splitlines()
+                cli[label] = {"rc": proc.returncode,
+                              "seconds": time.time() - t0,
+                              "stdout_tail": out[-3:],
+                              "stderr_tail": stderr.strip().splitlines()[-5:]}
+                if label == "load" and proc.returncode == 0:
+                    cli[label]["report"] = json.loads(out[-1])
+        finally:
+            for _t0, proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
         emit({"phase": "serve", "step": "cli", "card": card_label(env),
               "runs": cli})
         if any(c["rc"] != 0 for c in cli.values()) \
@@ -6601,6 +6670,7 @@ def phase_verify(env):
     export_dir = os.path.join(HERE, ".smoke_tmp", "verify_export")
     shutil.rmtree(export_dir, ignore_errors=True)
     env_prev = os.environ.get("PADDLE_TPU_VERIFY_PASSES")
+    procs = {}
     try:
         main, startup, hidden = _bert_program(fluid, bert, bert.BERT_BASE)
         scope = Scope()
@@ -6625,6 +6695,8 @@ def phase_verify(env):
                  pred.get_output_names())
         del pred
         lint = {}
+        # all four at once, beside analyze_program's two: each is mostly
+        # an interpreter's start-up and import on the host
         for label, args in (
                 ("default", [export_dir]),
                 ("fail_on_info", [export_dir, "--json", "--fail-on",
@@ -6632,19 +6704,24 @@ def phase_verify(env):
                 ("ring_step", ["--program-json", step_json]),
                 ("ring_step_fail_on_info", ["--program-json", step_json,
                                             "--json", "--fail-on", "INFO"])):
-            res = subprocess.run(
+            procs[label] = (args, subprocess.Popen(
                 [sys.executable, "-m", "paddle_tpu_torch.tools.lint_program"]
                 + args, cwd=HERE,
                 env=dict(os.environ, PYTHONPATH=HERE),
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                timeout=600)
-            lint[label] = {"rc": res.returncode,
-                           "stdout_tail": res.stdout.strip().splitlines()[-3:]}
-            if "--json" in args and res.returncode in (0, 1):
-                lint[label]["findings"] = len(
-                    json.loads(res.stdout)["diagnostics"])
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
         analyze = _analyze_program_runs(fluid, bert, proto, export_dir)
+        for label, (args, proc) in procs.items():
+            stdout, _stderr = proc.communicate(timeout=600)
+            lint[label] = {"rc": proc.returncode,
+                           "stdout_tail": stdout.strip().splitlines()[-3:]}
+            if "--json" in args and proc.returncode in (0, 1):
+                lint[label]["findings"] = len(
+                    json.loads(stdout)["diagnostics"])
     finally:
+        for _args, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
         if env_prev is None:
             os.environ.pop("PADDLE_TPU_VERIFY_PASSES", None)
         else:
@@ -7221,6 +7298,489 @@ def phase_autotune(env):
                              % (before, after, decision, overridden))
 
 
+# ---------------------------------------------------------------------------
+# The rest of BERT training: the flagship recipe and recompute regions
+# ---------------------------------------------------------------------------
+
+RECIPE_TIMED_STEPS = 5
+RECIPE_GRAPH_STEPS = 12   # eager = graph over the schedule's first steps
+RECIPE_PARITY_BATCH = 4
+RECOMPUTE_STEPS = 3       # the bit-for-bit steps of each side
+RECOMPUTE_TIMED = 5       # graph replays timed after them
+RECOMPUTE_GRADS = ("bert.word_emb", "bert.layer0.attn.q.w",
+                   "bert.layer11.ln2.scale")
+
+
+def _recipe_cfg(bert, layers=None):
+    """BERT-base with the flagship's ``fused_ln`` and ``fused_qkv``
+    (dropout 0.1, attention dropout 0.1)."""
+    import copy
+
+    cfg = copy.copy(bert.BERT_BASE)
+    cfg.fused_ln = True
+    cfg.fused_qkv = True
+    if layers is not None:
+        cfg.layers = layers
+    return cfg
+
+
+def _recipe_side(fluid, main, startup, fetch, batch, cache, steps):
+    """``steps`` steps of a training program from a fresh scope, cached
+    (a capture, then replays) or not (eager) → (each step's fetches,
+    run modes, copy-backs, digest of every persistable after them)."""
+    import numpy as np
+    import torch
+
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup)
+        rows, modes = [], []
+        for _ in range(steps):
+            rows.append([np.asarray(v).copy() for v in exe.run(
+                main, feed=batch, fetch_list=fetch,
+                use_program_cache=cache)])
+            modes.append(exe.last_run_mode)
+        copies = _copy_backs(exe)
+        digest = _digest(scope, _persistable_names(main))
+    del scope, exe
+    torch.cuda.empty_cache()
+    return rows, modes, copies, digest
+
+
+def time_plain_updates(torch, gen, ops_per_step):
+    """The LAMB and LARS updates, plain PyTorch ops on the card (the
+    reference's XLA fusions; no hand-written kernel yet), at BERT-base's
+    word embedding [30522, 768] f32: device ms of one op (cold L2), its
+    bound (each input read once, each output written once), the CUDA
+    kernels one op launches (the nodes of a graph captured around it)
+    and the ops a step of its path runs."""
+    from paddle_tpu_torch.ops import optimizer_ops as ops
+    from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.ops.cuda import _lib
+
+    x = _update_inputs(torch, gen, (30522, 768), torch.float32)
+    n = x["p"].numel()
+    ctx = registry.LoweringContext(device=torch.device("cuda"))
+    cases = {
+        "lamb": (lambda: ops.lamb(ctx, {"weight_decay": 0.01}, x["p"],
+                                  x["g"], x["lr"], x["m1"], x["m2"],
+                                  x["b1p"], x["b2p"]),
+                 28 * n, 22 * n,
+                 "paddle_tpu/ops/optimizer_ops.py:228 (lamb; XLA)"),
+        "lars_momentum": (lambda: ops.lars_momentum(
+            ctx, {"mu": 0.9}, x["p"], x["g"], x["v"], x["lr"]),
+            20 * n, 12 * n,
+            "paddle_tpu/ops/optimizer_ops.py:202 (lars_momentum; XLA)"),
+    }
+    rows = []
+    for name, (call, nbytes, flops, replaces) in cases.items():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph):
+            call()
+        graph.instantiate()
+        kernels = len(_lib.graph_kernel_functions(graph))
+        bound, by = bound_ms(nbytes, flops, "float32")
+        rows.append({"name": name, "route": "plain PyTorch",
+                     "source": "paddle_tpu_torch/ops/optimizer_ops.py",
+                     "replaces": replaces,
+                     "shape": "[30522,768] f32 (BERT-base word embedding)",
+                     "ms": time_ms(call, 20),
+                     "ms_graph": time_ms(graph.replay, 20),
+                     "bound_ms": bound, "bound_by": by,
+                     "library_ms": None,
+                     "cuda_kernels_per_op": kernels,
+                     "ops_per_step": ops_per_step.get(name, 0)})
+        del graph
+    return rows
+
+
+def _f32_loss_parts(main, loss):
+    """The float32 sums whose quotient is the recipe's loss: the AMP
+    rewrite makes the quotient itself bf16 (its ``elementwise_div`` is
+    white-listed, in both packages), a resolution of 1/32 at a loss of 6
+    to 10, so the step-to-step change shows only in the sums."""
+    block = main.global_block()
+    div = next(op for op in block.ops if loss.name in op.output("Out"))
+    parts = []
+    for slot in ("X", "Y"):
+        name = div.input(slot)[0]
+        cast = next((op for op in block.ops if op.type == "cast"
+                     and name in op.output("Out")), None)
+        parts.append(cast.input("X")[0] if cast is not None else name)
+    return parts
+
+
+def phase_train_recipe(env):
+    """The reference's flagship training layout (``bench.py:2741-2770``)
+    trained as its users train it (``recipe_program``): BERT-base, T=128,
+    batch 64, ``fused_ln`` and ``fused_qkv``, bf16 AMP, LAMB with weight
+    decay, the warm-up and decay schedule, the global-norm clip, on the
+    card's own flash threshold (recorded by ``phase_autotune``, which
+    runs first): warm-up steps, then timed graph replays with the launches
+    read from the replayed graphs' kernel nodes (K1 fwd and bwd, K2 fwd
+    and bwd in bf16, K3), the learning rate of every step, peak allocated
+    and reserved memory, device time by group; eager = graph over
+    RECIPE_GRAPH_STEPS steps from one start, bit for bit, the schedule
+    warming up then decaying, and whether the loss fell over the warm-up
+    (read from its float32 sums: the loss itself is bf16); the LAMB and
+    LARS updates' rows."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops.cuda import (KERNELS, launch_counts,
+                                           launch_counts_by_source,
+                                           reset_launch_counts)
+    from paddle_tpu_torch.ops.cuda.flash_attention import flash_min_t
+    from paddle_tpu_torch.static_analysis import fusion
+
+    threshold = flash_min_t()
+    if threshold > RECIPE_SEQ:
+        raise AssertionError("train_recipe: the card's flash threshold is "
+                             "%d, above T=%d: K1 would not run"
+                             % (threshold, RECIPE_SEQ))
+    cfg = _recipe_cfg(bert)
+    t0 = time.time()
+    with fluid.unique_name.guard():
+        main, startup, loss, lr = recipe_program(fluid, bert, cfg,
+                                                 RECIPE_SEQ)
+    fetch = [loss.name, lr.name] + _f32_loss_parts(main, loss)
+    batch = bert.make_fake_batch(RECIPE_BATCH, RECIPE_SEQ, cfg,
+                                 np.random.RandomState(SEED))
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup)
+        prog, report = fusion.resolve_fused_program(
+            main, targets=[loss.name, lr.name])
+        op_types = _op_type_counts(prog)
+        n_params = len(main.all_parameters())
+        emit({"phase": "train_recipe", "step": "build+startup",
+              "seconds": time.time() - t0, "flash_min_t": threshold,
+              "fused": report.counts(), "op_types": op_types,
+              "parameters": n_params})
+        if op_types.get("lamb") != n_params \
+                or op_types.get("squared_l2_norm") != n_params \
+                or op_types.get("slice") != 3 * cfg.layers \
+                or op_types.get("fused_multihead_attention") != cfg.layers:
+            raise AssertionError("train_recipe: not the flagship program: "
+                                 "%s" % op_types)
+        want = _train_launches(prog)
+        want_dtype = {
+            "flash_attention_fwd:bfloat16": 12,
+            "flash_attention_bwd_dkv:bfloat16": 12,
+            "flash_attention_bwd_dq:bfloat16": 12,
+            "fused_dropout_add_ln_fwd:bfloat16": 25,
+            "fused_dropout_add_ln_bwd:bfloat16": 25,
+            "embedding_gather_fwd:words": 3,
+            "embedding_gather_bwd:float32": 3}
+        losses, lrs, f32_losses = [], [], []
+
+        def step():
+            out = [float(np.asarray(v).reshape(-1)[0])
+                   for v in exe.run(main, feed=batch, fetch_list=fetch)]
+            losses.append(out[0])
+            lrs.append(out[1])
+            f32_losses.append(out[2] / out[3])
+
+        for _ in range(TRAIN_WARMUP):
+            step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        step_ms = []
+        for _ in range(RECIPE_TIMED_STEPS):
+            s0 = time.perf_counter()
+            step()
+            step_ms.append((time.perf_counter() - s0) * 1e3)
+        counts = launch_counts_by_source()
+        per_step = {k: c / RECIPE_TIMED_STEPS
+                    for k, c in launch_counts().items()}
+        full = dict.fromkeys(KERNELS, 0.0)
+        full.update(want)
+        by_dtype = _dtype_nodes(exe)
+        med = statistics.median(step_ms)
+        off = _graphs_off(exe)
+        copies = _copy_backs(exe)
+        emit({"phase": "train_recipe", "step": "steps",
+              "card": card_label(env), "losses": losses,
+              "losses_from_f32_sums": f32_losses, "lr": lrs,
+              "step_ms": step_ms, "median_step_ms": med,
+              "tokens_per_s": RECIPE_BATCH * RECIPE_SEQ / (med / 1e3),
+              "launches_per_step": per_step, "launches_by_source": counts,
+              "expected": full, "graph_nodes_by_kernel_and_dtype": by_dtype,
+              "expected_by_dtype": want_dtype,
+              "cast_nodes_per_graph": _cast_nodes(exe),
+              "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+              "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+              "last_run_mode": exe.last_run_mode,
+              "copy_backs_per_step": copies,
+              "graphs_nodes_not_captured_launches": off})
+        failed = []
+        if copies != [0]:
+            failed.append("state copied back a step: %s" % copies)
+        if per_step != full or any(counts["wrapper"].values()) or off:
+            failed.append("launches per step %s != %s (by source %s, "
+                          "graphs %s)" % (per_step, full, counts, off))
+        if by_dtype != want_dtype:
+            failed.append("graph nodes by dtype %s != %s"
+                          % (by_dtype, want_dtype))
+        if exe.last_run_mode != "graph":
+            failed.append("the timed steps ran %r" % exe.last_run_mode)
+        if not all(np.isfinite(losses)):
+            failed.append("loss not finite: %s" % losses)
+        if failed:
+            raise AssertionError("train_recipe: %s" % "; ".join(failed))
+        prof = _step_profile(exe, main, batch, fetch,
+                             _with_casts(_kernel_group))
+        emit(dict({"phase": "train_recipe", "step": "profile",
+                   "card": card_label(env)}, **prof))
+        ops_per_step = {"lamb": op_types.get("lamb", 0)}
+    del scope, exe
+    torch.cuda.empty_cache()
+    sides = [_recipe_side(fluid, main, startup, fetch, batch, cache,
+                          RECIPE_GRAPH_STEPS) for cache in (False, True)]
+    same = sides[0][3] == sides[1][3] and all(
+        np.array_equal(a, b) for ra, rb in zip(sides[0][0], sides[1][0])
+        for a, b in zip(ra, rb))
+    side_losses = [[float(r[0].reshape(-1)[0]) for r in s[0]] for s in sides]
+    side_lrs = [[float(r[1].reshape(-1)[0]) for r in s[0]] for s in sides]
+    f32 = [float(r[2].reshape(-1)[0] / r[3].reshape(-1)[0])
+           for r in sides[1][0]]
+    lr_peak = side_lrs[1].index(max(side_lrs[1]))
+    # reported, not gated: at warm-up rates of 1e-5..1e-4 LAMB moves each
+    # tensor by that fraction of its norm a step, and each step draws
+    # new dropout masks, so the loss's change over the warm-up may be
+    # below its step-to-step spread
+    falling = f32[RECIPE_WARMUP_STEPS - 1] < f32[0]
+    emit({"phase": "train_recipe", "step": "eager = graph",
+          "losses": side_losses, "losses_from_f32_sums_graph_side": f32,
+          "loss_fell_over_the_warm_up": falling, "lr": side_lrs,
+          "modes": [s[1] for s in sides], "bit_identical": same,
+          "copy_backs_graph_side": sides[1][2], "lr_peak_step": lr_peak + 1})
+    failed = []
+    if not same or sides[1][1][-1] != "graph" or sides[1][2] != [0]:
+        failed.append("eager and graph differ, or the graph side did not "
+                      "replay or copied state back")
+    warm = side_lrs[1][:RECIPE_WARMUP_STEPS]
+    if warm != sorted(warm) or lr_peak != RECIPE_WARMUP_STEPS - 1 \
+            or side_lrs[1][lr_peak:] != sorted(side_lrs[1][lr_peak:],
+                                               reverse=True):
+        failed.append("the schedule did not warm up over %d steps, then "
+                      "decay: %s" % (RECIPE_WARMUP_STEPS, side_lrs[1]))
+    if not all(np.isfinite(f32 + side_losses[1])):
+        failed.append("loss not finite: %s" % f32)
+    if failed:
+        raise AssertionError("train_recipe: %s" % "; ".join(failed))
+    rows = time_plain_updates(torch, _gen(torch), ops_per_step)
+    emit({"phase": "train_recipe", "step": "updates",
+          "card": card_label(env), "rows": rows})
+    return counts
+
+
+def phase_train_recipe_parity():
+    """One step of the flagship recipe at 2 layers of BERT-base width
+    (B=4, T=128, dropout 0.1) on the card and on the CPU with the plain
+    versions, from one start and the same masks, the card's a replay of
+    its captured graph: the loss, the learning rate and the clipped
+    gradients LAMB reads, for the word embedding, a fused QKV projection
+    and an LN scale."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.models import bert
+
+    cfg = _recipe_cfg(bert, layers=2)
+    with fluid.unique_name.guard():
+        main, startup, loss, lr = recipe_program(fluid, bert, cfg,
+                                                 RECIPE_SEQ)
+    grads = {op.inputs["Param"][0]: op.inputs["Grad"][0]
+             for op in main.global_block().ops if op.type == "lamb"}
+    names = ["bert.word_emb", "bert.layer0.attn.qkv.w",
+             "bert.layer0.ln1.scale"]
+    fetch = [loss.name, lr.name] + [grads[n] for n in names]
+    batch = bert.make_fake_batch(RECIPE_PARITY_BATCH, RECIPE_SEQ, cfg,
+                                 np.random.RandomState(SEED + 3))
+    out, modes, start = {}, {}, None
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        scope = fluid.Scope()
+        with fluid.scope_guard(scope):
+            exe = fluid.Executor(place)
+            exe.run(startup)
+            if start is None:
+                start = convert.scope_persistables(main, scope)
+            out[place._kind], modes[place._kind] = _parity_calls(
+                fluid, convert, exe, scope, main, place, start,
+                lambda: exe.run(main, feed=batch, fetch_list=fetch))
+        del scope, exe
+    gpu, cpu = out["cuda"], out["cpu"]
+    g_loss, c_loss = float(gpu[0][0]), float(cpu[0][0])
+    result = {"phase": "train_recipe_parity", "step": "GPU kernels vs CPU "
+              "plain versions, one recipe step, dropout 0.1, the last of "
+              "%d from one start" % PARITY_CALLS, "modes": modes,
+              "loss": [g_loss, c_loss],
+              "loss_rel_err": abs(g_loss - c_loss) / abs(c_loss),
+              "loss_tol": PARITY_AMP_LOSS_RTOL,
+              "lr": [float(gpu[1][0]), float(cpu[1][0])]}
+    ok = result["loss_rel_err"] <= PARITY_AMP_LOSS_RTOL \
+        and modes["cuda"][-1] == "graph" and gpu[1][0] == cpu[1][0]
+    for name, g, c in zip(names, gpu[2:], cpu[2:]):
+        err = float(np.abs(g - c).max()) / max(float(np.abs(c).max()), 1e-30)
+        result[name + "@GRAD (clipped) rel_err"] = err
+        ok = ok and np.isfinite(g).all() and err <= PARITY_AMP_GRAD_RTOL \
+            and g.dtype == np.float32
+    result["grad_tol"] = PARITY_AMP_GRAD_RTOL
+    emit(result)
+    if not ok:
+        raise AssertionError("train_recipe parity failed: %s" % result)
+
+
+def _recompute_side(fluid, bert, recompute, cache, batch, start):
+    """BERT-base T=512 b8 training (float32, dropout 0.1, Adam,
+    ``fused_ln``), with every encoder layer in a recompute region or
+    not, from the persistables ``start`` (None: the startup's, which are
+    returned), RECOMPUTE_STEPS steps eager or cached → the side's
+    numbers and each step's fetches (the loss and RECOMPUTE_GRADS'
+    gradients).  Peak memory counts from the first step (eager) or from
+    the capture (cached, after the warm-up's blocks are released), and a
+    cached side then times RECOMPUTE_TIMED replays with their launches."""
+    import copy
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    cfg = copy.copy(bert.BERT_BASE)
+    cfg.fused_ln = True
+    cfg.recompute = recompute
+    with fluid.unique_name.guard():
+        main, startup, loss = _train_program(fluid, bert, cfg, SEQ)
+    grads = _grad_names(main)
+    fetch = [loss.name] + [grads[n] for n in RECOMPUTE_GRADS]
+    scope = fluid.Scope()
+    side = {"recompute": recompute,
+            "mode": "graph" if cache else "eager",
+            "regions": _op_type_counts(main).get("recompute_block", 0)}
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup)
+        if start is None:
+            start = convert.scope_persistables(main, scope)
+        else:
+            convert.load_params_into_scope(start, scope,
+                                           fluid.CUDAPlace(0), program=main)
+        rows, modes, step_ms = [], [], []
+        for i in range(RECOMPUTE_STEPS):
+            torch.cuda.synchronize()
+            if i == (1 if cache else 0):
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launch_counts()
+            s0 = time.perf_counter()
+            rows.append([np.asarray(v).copy() for v in exe.run(
+                main, feed=batch, fetch_list=fetch,
+                use_program_cache=cache)])
+            step_ms.append((time.perf_counter() - s0) * 1e3)
+            modes.append(exe.last_run_mode)
+        side["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        side["peak_reserved_bytes"] = torch.cuda.max_memory_reserved()
+        side["modes"] = modes
+        if cache:
+            reset_launch_counts()
+            timed = []
+            for _ in range(RECOMPUTE_TIMED):
+                s0 = time.perf_counter()
+                exe.run(main, feed=batch, fetch_list=fetch)
+                timed.append((time.perf_counter() - s0) * 1e3)
+            side["launches_per_step"] = {
+                k: c / RECOMPUTE_TIMED for k, c in launch_counts().items()
+                if c}
+            side["step_ms"] = timed
+            side["copy_backs_per_step"] = _copy_backs(exe)
+        else:
+            side["launches_per_step"] = {
+                k: c / RECOMPUTE_STEPS for k, c in launch_counts().items()
+                if c}
+            side["step_ms"] = step_ms[1:]
+        side["median_step_ms"] = statistics.median(side["step_ms"])
+        side["tokens_per_s"] = TRAIN_BATCH * SEQ / (
+            side["median_step_ms"] / 1e3)
+    del scope, exe
+    torch.cuda.empty_cache()
+    return side, rows, start
+
+
+def phase_recompute(env):
+    """BERT-base MLM pretraining at T=512, batch 8, float32, dropout 0.1,
+    Adam, with ``BertConfig(recompute=True)`` (every encoder layer one
+    region) and without, from one start, eager and from the captured
+    graph: RECOMPUTE_STEPS steps whose losses and RECOMPUTE_GRADS'
+    gradients must be bit for bit equal on all four sides (a region's
+    second run draws its first run's masks); step ms, peak allocated and
+    reserved of each side; K1 and K2 forward launches twice the
+    forward's with recompute."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert
+
+    batch = bert.make_fake_batch(TRAIN_BATCH, SEQ, bert.BERT_BASE,
+                                 np.random.RandomState(SEED + 9))
+    sides, start, ref = [], None, None
+    for recompute in (False, True):
+        for cache in (False, True):
+            side, rows, start = _recompute_side(fluid, bert, recompute,
+                                                cache, batch, start)
+            side["bit_identical_to_first_side"] = ref is None or all(
+                np.array_equal(a, b) for ra, rb in zip(ref, rows)
+                for a, b in zip(ra, rb))
+            side["losses"] = [float(r[0].reshape(-1)[0]) for r in rows]
+            ref = rows if ref is None else ref
+            emit(dict({"phase": "recompute", "card": card_label(env)},
+                      **side))
+            sides.append(side)
+    failed = [s for s in sides if not s["bit_identical_to_first_side"]]
+    want = {False: {"flash_attention_fwd": 12,
+                    "fused_dropout_add_ln_fwd": 25},
+            True: {"flash_attention_fwd": 24,
+                   "fused_dropout_add_ln_fwd": 49}}
+    for s in sides:
+        got = {k: s["launches_per_step"].get(k, 0)
+               for k in want[s["recompute"]]}
+        if got != want[s["recompute"]] or \
+                s["launches_per_step"].get("flash_attention_bwd_dq") != 12:
+            failed.append("launches %s: %s" % (s["mode"], got))
+        if s["mode"] == "graph" and (s["modes"][-1] != "graph"
+                                     or s["copy_backs_per_step"] != [0]):
+            failed.append("the graph side did not replay, or copied state "
+                          "back: %s %s" % (s["modes"],
+                                           s["copy_backs_per_step"]))
+    peak = {(s["recompute"], s["mode"]): s["peak_allocated_bytes"]
+            for s in sides}
+    emit({"phase": "recompute", "step": "summary", "card": card_label(env),
+          "peak_allocated_bytes": {"%s %s" % ("recompute" if k[0] else
+                                              "plain", k[1]): v
+                                   for k, v in peak.items()},
+          "step_ms": {"%s %s" % ("recompute" if s["recompute"] else "plain",
+                                 s["mode"]): s["median_step_ms"]
+                      for s in sides}})
+    if failed:
+        raise AssertionError("recompute: %s" % failed)
+
+
 def main():
     try:
         import torch
@@ -7248,13 +7808,23 @@ def main():
         shutil.rmtree(tune_dir, ignore_errors=True)
 
 
+def _timed(seconds, phase, *args):
+    """``phase(*args)``, its wall seconds recorded under its name."""
+    t0 = time.time()
+    try:
+        return phase(*args)
+    finally:
+        seconds[phase.__name__] = time.time() - t0
+
+
 def _run_phases(torch):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
         False
-    env = phase_environment()
-    build = phase_build()
+    seconds = {}
+    env = _timed(seconds, phase_environment)
+    build = _timed(seconds, phase_build)
     if not build["hmma_per_kernel"] or not all(
             build["hmma_per_kernel"].values()):
         raise AssertionError("no HMMA instruction in a K1 forward kernel: "
@@ -7266,32 +7836,35 @@ def _run_phases(torch):
     if spills:
         raise AssertionError("K2 or decode kernels spill: %s"
                              % spills)
-    rows = phase_kernels()
-    phase_amp_kernels()
-    serve_counts, pred, cfg = phase_main_path(env)
-    phase_profile(env, pred, cfg)
-    phase_profiler(env, pred, cfg)
-    phase_graph_serve(env, pred, cfg)
-    serve_bf16_counts = phase_serve_bf16(env, pred, cfg)
+    rows = _timed(seconds, phase_kernels)
+    _timed(seconds, phase_amp_kernels)
+    serve_counts, pred, cfg = _timed(seconds, phase_main_path, env)
+    _timed(seconds, phase_profile, env, pred, cfg)
+    _timed(seconds, phase_profiler, env, pred, cfg)
+    _timed(seconds, phase_graph_serve, env, pred, cfg)
+    serve_bf16_counts = _timed(seconds, phase_serve_bf16, env, pred, cfg)
     del pred
-    train_counts = phase_train(env)
-    phase_train_parity()
-    train_amp_counts = phase_train_amp(env)
-    phase_train_amp_parity()
-    decode_counts, decode_rates = phase_decode(env)
-    phase_decode_parity()
-    phase_sampled(env, decode_rates)
-    phase_serve(env)
-    resnet_counts, resnet_groups = phase_resnet(env)
-    phase_resnet_parity()
-    resnet_amp_counts = phase_resnet_amp(env, resnet_groups)
-    phase_resnet_amp_parity()
-    phase_graph(env)
-    phase_quant()
-    dp_counts = phase_dp(env)
-    phase_verify(env)
-    phase_fusion(env)
-    phase_autotune(env)
+    train_counts = _timed(seconds, phase_train, env)
+    _timed(seconds, phase_train_parity)
+    train_amp_counts = _timed(seconds, phase_train_amp, env)
+    _timed(seconds, phase_train_amp_parity)
+    decode_counts, decode_rates = _timed(seconds, phase_decode, env)
+    _timed(seconds, phase_decode_parity)
+    _timed(seconds, phase_sampled, env, decode_rates)
+    _timed(seconds, phase_serve, env)
+    resnet_counts, resnet_groups = _timed(seconds, phase_resnet, env)
+    _timed(seconds, phase_resnet_parity)
+    resnet_amp_counts = _timed(seconds, phase_resnet_amp, env, resnet_groups)
+    _timed(seconds, phase_resnet_amp_parity)
+    _timed(seconds, phase_graph, env)
+    _timed(seconds, phase_quant)
+    dp_counts = _timed(seconds, phase_dp, env)
+    _timed(seconds, phase_verify, env)
+    _timed(seconds, phase_fusion, env)
+    _timed(seconds, phase_autotune, env)
+    recipe_counts = _timed(seconds, phase_train_recipe, env)
+    _timed(seconds, phase_train_recipe_parity)
+    _timed(seconds, phase_recompute, env)
     from paddle_tpu_torch.ops.cuda import KERNELS
 
     # each path's launches by source: the wrappers' launches that ran at
@@ -7304,7 +7877,7 @@ def _run_phases(torch):
              "dp": {"wrapper": dp_counts,
                     "graph_nodes": dict.fromkeys(KERNELS, 0)},
              "serve_bf16": serve_bf16_counts, "train_amp": train_amp_counts,
-             "resnet_amp": resnet_amp_counts}
+             "resnet_amp": resnet_amp_counts, "train_recipe": recipe_counts}
     for r in rows:
         # the decode path's launches (ring + paged runs) where it runs the
         # kernel, else the BERT training path's (the backward kernels),
@@ -7328,6 +7901,8 @@ def _run_phases(torch):
         r["launches_by_graph_nodes"] = nodes
         r["launches_path"] = label
     emit(dict({"phase": "launches"}, **paths))
+    emit({"phase": "seconds", "by_phase": seconds,
+          "total": sum(seconds.values())})
     emit({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

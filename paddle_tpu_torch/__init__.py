@@ -33,6 +33,8 @@ from . import clip
 from . import regularizer
 from . import optimizer
 from .backward import append_backward, gradients
+from .clip import (GradientClipByGlobalNorm, GradientClipByNorm,
+                   GradientClipByValue)
 from .executor import Executor, Scope, global_scope, scope_guard
 from . import pipeline
 from . import io
@@ -62,4 +64,5 @@ __all__ = [
     "serving", "models", "convert", "backward", "clip", "regularizer",
     "optimizer", "append_backward", "gradients", "quant", "transpiler",
     "contrib", "profiler", "autotune", "verify_program", "analyze_program",
+    "GradientClipByGlobalNorm", "GradientClipByNorm", "GradientClipByValue",
 ]

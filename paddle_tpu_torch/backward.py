@@ -8,13 +8,20 @@ gradient with a ``fill_constant`` of 1 (:341-350), and prunes branches
 with no gradient path.  The grad program is the reference's, op for op;
 each grad op is the registry's generic ``<type>_grad``, which
 differentiates the autograd graph its forward recorded in the same run
-(``ops/registry.py``).  Grads through sub-block ops (``while``,
-``conditional_block``, ``recurrent``, ``recompute_block``, :216-316) are
-not ported yet and raise.
+(``ops/registry.py``).  A ``recompute_block`` region gets one
+``recompute_block_grad`` op (``_backprop_sub_block_op`` :218-316): it
+reads the region's ``Captured`` inputs, outputs and output gradients and
+writes ``Captured@GRAD``, the gradients of every captured var that can
+have one (the parameters the region uses among them).  The grads of
+``while``, ``conditional_block`` and ``recurrent`` are not ported yet and
+raise (ROADMAP.md, Queue A item 5).  ``checkpoints`` is accepted and
+unused, as in the reference (:319): regions come from
+``layers.recompute()`` or ``optimizer.rewrite_program_recompute``.
 """
 
 from . import unique_name
 from .framework import Parameter, Variable, grad_var_name
+from .ops import control_flow as cf_ops
 from .ops import registry as op_registry
 
 __all__ = ["append_backward", "gradients", "calc_gradient"]
@@ -98,10 +105,13 @@ class _GradEngine:
 
     def backprop_op(self, op):
         """Append the grad op of ``op``; True if one was appended."""
+        if op.type == "recompute_block":
+            return self._backprop_recompute(op)
         if op.type in _SUB_BLOCK_OPS:
             raise NotImplementedError(
                 "the gradient of %r (a sub-block op) is not ported yet "
-                "(ROADMAP.md, Queue A: sub-block grads)" % op.type)
+                "(ROADMAP.md, Queue A item 5: while, conditional_block and "
+                "their grads)" % op.type)
         try:
             opdef = op_registry.get_op_def(op.type)
         except op_registry.OpNotRegistered:
@@ -162,6 +172,44 @@ class _GradEngine:
                     self.pending.setdefault(x, []).append(g)
         return True
 
+    def _backprop_recompute(self, op):
+        """The ``recompute_block_grad`` op of a region (the reference's
+        ``_backprop_sub_block_op`` for ``recompute_block``)."""
+        out_names = op.outputs.get("Out", [])
+        gnames = [self.resolve(y) or op_registry.EMPTY_VAR_NAME
+                  for y in out_names]
+        if all(g == op_registry.EMPTY_VAR_NAME for g in gnames):
+            return False
+        sub_block = self.block.program.block(op.attrs["sub_block"])
+        captured = [n for n in cf_ops.sub_block_external_reads(sub_block)
+                    if self.block._find_var_recursive(n) is not None]
+        cap_gouts, targets = [], []
+        for x in captured:
+            if _var_can_have_grad(self.block, x, self.no_grad_set):
+                gn = self.new_grad_name(x)
+                cap_gouts.append(gn)
+                targets.append((x, gn))
+            else:
+                cap_gouts.append(op_registry.EMPTY_VAR_NAME)
+        if not targets:
+            return False
+        inputs = {k: list(v) for k, v in op.inputs.items()}
+        inputs["Captured"] = captured
+        inputs["Out"] = list(out_names)
+        inputs["Out@GRAD"] = gnames
+        attrs = dict(op.attrs)
+        attrs["__fwd_op_id__"] = op.attrs.get("__op_id__", 0)
+        attrs["op_role"] = "backward"
+        attrs.pop("__op_id__", None)
+        for fwd_name, gn in targets:
+            _create_grad_var(self.block, fwd_name, gn)
+        self.block.append_op(type="recompute_block_grad", inputs=inputs,
+                             outputs={"Captured@GRAD": cap_gouts},
+                             attrs=attrs)
+        for fwd_name, gn in targets:
+            self.pending.setdefault(fwd_name, []).append(gn)
+        return True
+
 
 def _seed_grad(block, target):
     """d(target)/d(target) = 1 as a ``fill_constant`` grad var."""
@@ -179,10 +227,6 @@ def append_backward(loss, parameter_list=None, no_grad_set=None,
     """Append the grad ops of ``loss``; returns ``[(param, grad_var)]``."""
     if not isinstance(loss, Variable):
         raise TypeError("append_backward takes the loss Variable")
-    if checkpoints:
-        raise NotImplementedError(
-            "append_backward(checkpoints=...) (recompute) is not ported yet "
-            "(ROADMAP.md, Queue A)")
     block = loss.block
     program = block.program
     no_grad = set(no_grad_set or [])

@@ -8,7 +8,13 @@ bfloat16 input of a black-listed op.  Parameters stay float32 masters:
 a white-listed op reads the parameter's ``.cast_bfloat16`` copy, and
 the ``cast`` op's gradient casts back to float32, so the optimizer
 updates float32 parameters with float32 gradients.  The loss-scaling
-arguments are accepted and ignored, as bf16 needs no loss scaling."""
+arguments are accepted and ignored, as bf16 needs no loss scaling.
+
+Where the reference's rewrite runs after regions exist (a model built
+with ``layers.recompute()``, or ``RecomputeOptimizer`` wrapping the
+decorated optimizer), it leaves the regions float32; this one walks into
+them.  Rewritten first (``decorate(RecomputeOptimizer(...))``, the
+reference test's order), both packages build the same program."""
 
 from ... import unique_name
 from ...framework import Operator
@@ -20,9 +26,17 @@ __all__ = ["decorate", "OptimizerWithMixedPrecision", "rewrite_program_bf16"]
 def rewrite_program_bf16(program, amp_lists=None):
     """Rewrite the global block of ``program`` in place (see the module
     docstring) and return it.  A var cast once to a dtype is cast once:
-    later readers share the cast."""
-    amp_lists = amp_lists or AutoMixedPrecisionLists()
-    block = program.global_block()
+    later readers in the same block share the cast.  The rewrite walks
+    into ``recompute_block`` regions and puts their casts inside them, so
+    a region's second run casts again instead of the step keeping the
+    casts."""
+    _rewrite_block(program.global_block(),
+                   amp_lists or AutoMixedPrecisionLists())
+    program._bump_version()
+    return program
+
+
+def _rewrite_block(block, amp_lists):
     cast_cache = {}  # (var, dtype) -> cast var name
     new_ops = []
 
@@ -48,7 +62,10 @@ def rewrite_program_bf16(program, amp_lists=None):
             op.inputs[slot] = new_names
 
     for op in block.ops:
-        if op.type in amp_lists.white_list:
+        if op.type == "recompute_block":
+            _rewrite_block(block.program.block(op.attrs["sub_block"]),
+                           amp_lists)
+        elif op.type in amp_lists.white_list:
             cast_input(op, "bfloat16", ("float32",))
             # the op's float outputs are bf16 when it runs
             for name in op.output_arg_names:
@@ -59,8 +76,6 @@ def rewrite_program_bf16(program, amp_lists=None):
             cast_input(op, "float32", ("bfloat16",))
         new_ops.append(op)
     block.ops = new_ops
-    program._bump_version()
-    return program
 
 
 class OptimizerWithMixedPrecision:

@@ -7,7 +7,10 @@ model builders are the same.  :func:`read_exported_params` reads an
 exported directory into a ``{name: np.ndarray}`` dict, and
 :func:`scope_persistables` reads every persistable var of a program out
 of a scope of either package (parameters, and the state a step carries:
-batch_norm's moving means and variances, optimizer accumulators);
+batch_norm's moving means and variances, optimizer accumulators, among
+them LAMB's moments and beta powers and LARS's velocity, and the
+learning-rate schedules' ``@LR_DECAY_COUNTER@``, so both packages can
+start from one state mid-schedule);
 :func:`convert_params` turns such a dict into the port's CPU tensors and
 :func:`load_params_into_scope` places them in a port ``Scope`` on a
 device.  The port's random initialisation draws other numbers than the

@@ -129,6 +129,7 @@ from . import profiler as _prof
 from .framework import Variable, default_main_program
 from .observability import runtime as _obs
 from .observability import tracing as _tr
+from .ops import control_flow as _cf
 from .ops import registry as op_registry
 from .ops.cuda import _lib as _kernels
 from .ops.registry import EMPTY_VAR_NAME, np_to_torch
@@ -319,23 +320,60 @@ def _check_finite(op, names, vals):
                 "%r" % (op.type, op.attrs.get("__op_id__"), n))
 
 
-def _run_ops_into_env(block, env, ctx, check_nan_inf=False):
+def _region_live(block, fetch_names):
+    """The names a recompute region of ``block`` may leave in the
+    environment: those an op of ``block`` reads (a region's grad op reads
+    its ``Captured`` inputs and output gradients, not its outputs, which
+    it computes again), the fetches, and the persistables."""
+    live = set(fetch_names)
+    for op in block.ops:
+        for slot, names in op.inputs.items():
+            if op.type == "recompute_block_grad" and slot == "Out":
+                continue
+            live.update(names)
+    live.update(n for n, v in block.vars.items() if v.persistable)
+    return live
+
+
+def _run_ops_into_env(block, env, ctx, check_nan_inf=False, fetch_names=(),
+                      replay=False):
     """Run every op of ``block`` on the tensors in ``env`` (name →
     tensor), adding each op's outputs.  Call it under ``torch.no_grad()``:
     a forward op that a grad op of the block differentiates records its
     autograd graph on ``ctx.tape`` (``registry.call_op_taped``), every
-    other op (grad, optimizer, ops without a twin) runs without one.
+    other op (grad, optimizer, ops without a twin) runs without one.  A
+    sub-block op (a recompute region and its grad) runs its block through
+    this same loop (``ops/control_flow.py``); a region leaves in ``env``
+    only what a later op, ``fetch_names`` or the scope reads.
 
     An op that writes an input in place (``register_op(...,
     in_place=...)``, the optimizer updates and the KV-cache writes) may
-    not write a tensor that a taped forward whose grad op has not run yet
-    read: autograd saved it for that grad op.  Such an op raises, naming
-    itself and the var, before it writes.  With ``check_nan_inf`` every
-    op's floating outputs are checked (``_check_finite``)."""
+    not write a tensor that a taped forward or a region whose grad op has
+    not run yet read: autograd saved it, or the region reads it again,
+    for that grad op.  Such an op raises, naming itself and the var,
+    before it writes.  With ``replay`` (a region's second run) every
+    in-place op writes a copy.  With ``check_nan_inf`` every op's
+    floating outputs are checked (``_check_finite``)."""
     twins = _grad_twins(block)
     pending = {}  # taped forward op id -> the var names it read
+    live = None
+
+    def run_block(sub_block, sub_env, again):
+        return _run_ops_into_env(sub_block, sub_env, ctx, check_nan_inf,
+                                 live, replay or again)
+
     for op in block.ops:
         if op.type in ("feed", "fetch"):
+            continue
+        if op.type in _cf.SUB_BLOCK_OPS:
+            if live is None:
+                live = _region_live(block, fetch_names)
+            op_id = op.attrs.get("__op_id__")
+            if op.type == "recompute_block_grad":
+                pending.pop(op.attrs.get("__fwd_op_id__"), None)
+            elif op_id in twins:
+                pending[op_id] = set(op.input_arg_names)
+            _cf.run_sub_block_op(op, block, env, ctx, run_block, live)
             continue
         opdef = op_registry.get_op_def(op.type)
         ins = {}
@@ -352,7 +390,7 @@ def _run_ops_into_env(block, env, ctx, check_nan_inf=False):
                 vals.append(env[n])
             ins[slot] = vals
         for out_slot, in_slot in opdef.in_place.items():
-            if op.outputs.get(out_slot) != op.inputs.get(in_slot):
+            if replay or op.outputs.get(out_slot) != op.inputs.get(in_slot):
                 ins[in_slot] = [None if v is None else v.clone()
                                 for v in ins[in_slot]]
                 continue
@@ -418,10 +456,21 @@ def _analyze_block(block, feed_names, fetch_names):
     return ext_reads, written, persist_written
 
 
-def _eager_reason(block):
-    """Why ``block`` cannot be captured in a CUDA graph (its first op
-    that is not capturable), or None."""
+def _ops_with_regions(block):
+    """The ops of ``block`` and of the sub-blocks its ops run, the
+    sub-block ops themselves left out."""
     for op in block.ops:
+        if op.type in _cf.SUB_BLOCK_OPS:
+            yield from _ops_with_regions(
+                block.program.block(op.attrs["sub_block"]))
+        else:
+            yield op
+
+
+def _eager_reason(block):
+    """Why ``block`` cannot be captured in a CUDA graph (its first op,
+    or first op of a region, that is not capturable), or None."""
+    for op in _ops_with_regions(block):
         if op.type in _HOST_SIDE_OPS:
             continue
         if not op_registry.get_op_def(op.type).is_capturable(op.attrs,
@@ -435,7 +484,7 @@ def _in_place_writes(block):
     """Names the block's ops write in place (``register_op(...,
     in_place=...)`` with the output slot naming the input var)."""
     names = set()
-    for op in block.ops:
+    for op in _ops_with_regions(block):
         if op.type in ("feed", "fetch"):
             continue
         for out_slot, in_slot in op_registry.get_op_def(
@@ -533,7 +582,8 @@ class _CompiledBlock:
         env = dict(self.reads)
         env.update(self.feeds)
         with torch.no_grad():
-            _run_ops_into_env(self.block, env, ctx)
+            _run_ops_into_env(self.block, env, ctx,
+                              fetch_names=self.fetch_names)
             ctx.tape.clear()
             news = {}
             for n in self.rw_names:
@@ -936,7 +986,8 @@ class Executor:
         check = core.get_flags("FLAGS_check_nan_inf")["FLAGS_check_nan_inf"]
         try:
             with torch.no_grad():
-                _run_ops_into_env(block, env, ctx, check_nan_inf=bool(check))
+                _run_ops_into_env(block, env, ctx, check_nan_inf=bool(check),
+                                  fetch_names=fetch_names)
         finally:
             ctx.tape.clear()  # graphs of forwards whose grads were not run
         for v in block.vars.values():

@@ -64,7 +64,9 @@ def name_scope(prefix=None):
 
 
 class Variable:
-    """A tensor-valued symbolic variable in a Block."""
+    """A tensor-valued symbolic variable in a Block.  Its arithmetic and
+    comparison operators append ops (the reference's :153-195, through
+    ``layers/math_op_patch.py``)."""
 
     def __init__(
         self,
@@ -109,11 +111,63 @@ class Variable:
     def grad_name(self):
         return grad_var_name(self.name)
 
+    def astype(self, dtype):
+        from .layers import tensor as _tensor
+
+        return _tensor.cast(self, dtype)
+
     def __str__(self):
         return "Variable(name=%s, shape=%s, dtype=%s, persistable=%s)" % (
             self.name, self.shape, self.dtype, self.persistable)
 
     __repr__ = __str__
+
+    def _binary_op(self, other, op, reverse=False):
+        from .layers import math_op_patch
+
+        return math_op_patch.binary_op(self, other, op, reverse)
+
+    def __add__(self, other):
+        return self._binary_op(other, "elementwise_add")
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._binary_op(other, "elementwise_sub")
+
+    def __rsub__(self, other):
+        return self._binary_op(other, "elementwise_sub", reverse=True)
+
+    def __mul__(self, other):
+        return self._binary_op(other, "elementwise_mul")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return self._binary_op(other, "elementwise_div")
+
+    def __rtruediv__(self, other):
+        return self._binary_op(other, "elementwise_div", reverse=True)
+
+    def __pow__(self, other):
+        return self._binary_op(other, "elementwise_pow")
+
+    def __neg__(self):
+        from .layers import ops as _ops
+
+        return _ops.scale(self, scale=-1.0)
+
+    def __lt__(self, other):
+        return self._binary_op(other, "less_than")
+
+    def __le__(self, other):
+        return self._binary_op(other, "less_equal")
+
+    def __gt__(self, other):
+        return self._binary_op(other, "greater_than")
+
+    def __ge__(self, other):
+        return self._binary_op(other, "greater_equal")
 
 
 class Parameter(Variable):

@@ -3,8 +3,9 @@
 ``layer_norm`` :342, ``dropout`` :408, ``softmax`` :427,
 ``cross_entropy`` :447, ``softmax_with_cross_entropy`` :459,
 ``reduce_sum`` :574, ``matmul`` :594, ``elementwise_add/sub/mul/div``
-:637-650, ``reshape`` :665,
-``transpose`` :678, ``squeeze``/``unsqueeze`` :724-748, ``gather`` :806,
+:637-650, ``elementwise_max/min/pow`` :653-661, ``reshape`` :665,
+``transpose`` :678, ``squeeze``/``unsqueeze`` :724-748, ``slice`` :795,
+``gather`` :806, ``clip`` / ``clip_by_norm`` :901-918, ``where`` :1050,
 ``one_hot`` :838, ``fused_dropout_add_ln`` :1084,
 ``fused_multihead_attention`` :1113; for ResNet ``conv2d`` :169,
 ``pool2d`` :260, ``batch_norm`` :284, ``mean`` :549, ``topk`` :848,
@@ -23,8 +24,9 @@ __all__ = ["fc", "embedding", "layer_norm", "dropout", "softmax",
            "cross_entropy", "softmax_with_cross_entropy", "reduce_sum",
            "matmul",
            "elementwise_add", "elementwise_sub", "elementwise_mul",
-           "elementwise_div", "reshape", "transpose", "squeeze", "unsqueeze",
-           "gather", "one_hot", "fused_dropout_add_ln",
+           "elementwise_div", "elementwise_max", "elementwise_min",
+           "elementwise_pow", "reshape", "transpose", "squeeze", "unsqueeze",
+           "slice", "gather", "clip", "clip_by_norm", "where", "one_hot", "fused_dropout_add_ln",
            "fused_multihead_attention", "conv2d", "pool2d", "batch_norm",
            "mean", "topk", "relu", "pad", "space_to_depth"]
 
@@ -195,6 +197,55 @@ def elementwise_mul(x, y, axis=-1, act=None, name=None):
 
 def elementwise_div(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_div", x, y, axis, act, name)
+
+
+def elementwise_max(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_max", x, y, axis, act, name)
+
+
+def elementwise_min(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_min", x, y, axis, act, name)
+
+
+def elementwise_pow(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_pow", x, y, axis, act, name)
+
+
+def slice(input, axes, starts, ends):
+    helper = LayerHelper("slice", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="slice", inputs={"Input": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"axes": list(axes),
+                            "starts": [int(s) for s in starts],
+                            "ends": [int(e) for e in ends]})
+    return out
+
+
+def clip(x, min, max, name=None):
+    helper = LayerHelper("clip", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="clip", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"min": float(min), "max": float(max)})
+    return out
+
+
+def clip_by_norm(x, max_norm, name=None):
+    helper = LayerHelper("clip_by_norm", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="clip_by_norm", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"max_norm": float(max_norm)})
+    return out
+
+
+def where(condition, x=None, y=None):
+    helper = LayerHelper("where", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="where",
+                     inputs={"Condition": [condition], "X": [x], "Y": [y]},
+                     outputs={"Out": [out]})
+    return out
 
 
 def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):

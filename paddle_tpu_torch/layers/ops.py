@@ -1,9 +1,12 @@
 """Op-wrapping layers (mirrors ``paddle_tpu/layers/ops.py``: the unary
-generator :18 for ``gelu`` :56, ``cumsum`` :137)."""
+generator :18 for ``exp`` :31, ``sqrt`` :33, ``ceil`` / ``floor``
+:36-37, ``cos`` :38, ``gelu`` :56, ``sign`` :60; ``pow`` :76, ``scale``
+:86, ``cumsum`` :137)."""
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["gelu", "cumsum"]
+__all__ = ["exp", "sqrt", "ceil", "floor", "cos", "sign", "gelu", "pow",
+           "scale", "cumsum"]
 
 
 def _generate_unary(op_type):
@@ -19,7 +22,31 @@ def _generate_unary(op_type):
     return func
 
 
+exp = _generate_unary("exp")
+sqrt = _generate_unary("sqrt")
+ceil = _generate_unary("ceil")
+floor = _generate_unary("floor")
+cos = _generate_unary("cos")
 gelu = _generate_unary("gelu")
+sign = _generate_unary("sign")
+
+
+def pow(x, factor=1.0, name=None):
+    helper = LayerHelper("pow", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="pow", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"factor": float(factor)})
+    return out
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
+          name=None):
+    helper = LayerHelper("scale", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="scale", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"scale": float(scale), "bias": float(bias),
+                            "bias_after_scale": bias_after_scale})
+    return helper.append_activation(out)
 
 
 def cumsum(x, axis=None, exclusive=None, reverse=None):

@@ -12,8 +12,9 @@ pipeline's attention rewrite fuses when the threshold is lower at run
 time.  ``build_pretrain(amp=True)`` runs the bf16 rewrite
 (:mod:`paddle_tpu_torch.contrib.mixed_precision`): through the decorated
 Adam when training, directly on the forward program otherwise.
-``fused_qkv`` (needs the ``slice`` layer) and ``recompute`` are not
-ported yet (ROADMAP.md)."""
+``fused_qkv`` projects Q, K and V with one ``.qkv.w`` [D, 3D] and three
+``slice``s (:73-81); ``recompute`` puts each encoder layer in a
+``layers.recompute()`` region (:183-187)."""
 
 import copy
 import math
@@ -67,12 +68,15 @@ def _attention(x, mask_bias, cfg, prefix):
         return layers.transpose(t, [0, 2, 1, 3])
 
     if getattr(cfg, "fused_qkv", False):
-        raise NotImplementedError(
-            "BertConfig(fused_qkv=True) needs the slice layer, which is not "
-            "ported yet (ROADMAP.md, Queue A item 4: rest of training)")
-    q = split_heads(proj(x, d, "q"))
-    k = split_heads(proj(x, d, "k"))
-    v = split_heads(proj(x, d, "v"))
+        # one [*, d] x [d, 3d] product instead of three [d, d] ones
+        qkv = proj(x, 3 * d, "qkv")
+        q = split_heads(layers.slice(qkv, [2], [0], [d]))
+        k = split_heads(layers.slice(qkv, [2], [d], [2 * d]))
+        v = split_heads(layers.slice(qkv, [2], [2 * d], [3 * d]))
+    else:
+        q = split_heads(proj(x, d, "q"))
+        k = split_heads(proj(x, d, "k"))
+        v = split_heads(proj(x, d, "v"))
     fuse = cfg.fuse_attn
     if fuse == "auto":
         fuse = int(q.shape[2]) >= flash_min_t()
@@ -126,10 +130,6 @@ def _encoder_layer(x, mask_bias, cfg, prefix):
 
 def encoder(input_ids, token_type_ids, attn_mask_bias, cfg, seq_len):
     """[B,T] ids → [B,T,D] hidden states (declares the ``pos_ids`` feed)."""
-    if cfg.recompute:
-        raise NotImplementedError(
-            "BertConfig(recompute=True) is not ported yet (ROADMAP.md, "
-            "Queue A: recompute)")
     init = TruncatedNormal(scale=0.02)
     word_emb = layers.embedding(
         input_ids, size=[cfg.vocab_size, cfg.hidden],
@@ -151,7 +151,12 @@ def encoder(input_ids, token_type_ids, attn_mask_bias, cfg, seq_len):
         x = layers.dropout(x, cfg.dropout,
                            dropout_implementation="upscale_in_train")
     for i in range(cfg.layers):
-        x = _encoder_layer(x, attn_mask_bias, cfg, "bert.layer%d" % i)
+        if cfg.recompute:
+            with layers.recompute():
+                x = _encoder_layer(x, attn_mask_bias, cfg,
+                                   "bert.layer%d" % i)
+        else:
+            x = _encoder_layer(x, attn_mask_bias, cfg, "bert.layer%d" % i)
     return x
 
 

@@ -1,6 +1,9 @@
 """Activation ops (mirrors ``paddle_tpu/ops/activations.py``: ``relu`` at
-:19, whose gradient at 0 is 0 as ``jax.nn.relu``'s; ``gelu`` at :46 —
-exact erf form unless ``approximate`` is set)."""
+:19, whose gradient at 0 is 0 as ``jax.nn.relu``'s; the unary math ops
+the learning-rate schedules and the regularizers build, ``exp`` :23,
+``sqrt`` :25, ``ceil`` / ``floor`` :32-33, ``cos`` :35, ``sign`` :42,
+each one PyTorch call; ``gelu`` at :46 — exact erf form unless
+``approximate`` is set)."""
 
 import math
 
@@ -14,6 +17,22 @@ from .registry import register_op
 @register_op("relu", inputs=["X"], outputs=["Out"])
 def relu(ctx, attrs, X):
     return torch.relu(X)
+
+
+def _unary(name, fn):
+    @register_op(name, inputs=["X"], outputs=["Out"])
+    def _op(ctx, attrs, X, _fn=fn):
+        return _fn(X)
+
+    return _op
+
+
+exp = _unary("exp", torch.exp)
+sqrt = _unary("sqrt", torch.sqrt)
+ceil = _unary("ceil", torch.ceil)
+floor = _unary("floor", torch.floor)
+cos = _unary("cos", torch.cos)
+sign = _unary("sign", torch.sign)
 
 
 class _GeluErfLowp(torch.autograd.Function):

@@ -1,7 +1,8 @@
 """Creation ops, ``sum``, small tensor ops and feed/fetch markers (mirrors
 ``paddle_tpu/ops/basic.py`` lines 17-237: ``fill_constant_batch_size_like``
 :24, ``assign`` :95, ``cast`` :116, ``sum`` :130, ``increment`` :143,
-``range`` :202).
+``clip`` / ``clip_by_norm`` / ``squared_l2_norm`` :148-161, ``range``
+:202).
 
 Random draws come from the per-draw ``torch.Generator`` of
 :meth:`LoweringContext.rng`, drawn on the CPU and moved to the run's
@@ -63,7 +64,8 @@ def sum_op(ctx, attrs, X):
 
 @register_op("assign", inputs=["X"], outputs=["Out"])
 def assign(ctx, attrs, X):
-    return X
+    """A copy: a later in-place op on the result must not write X."""
+    return X.clone()
 
 
 @register_op("cast", inputs=["X"], outputs=["Out"])
@@ -71,11 +73,35 @@ def cast(ctx, attrs, X):
     return X.to(resolve_dtype(attrs.get("out_dtype", "float32")))
 
 
-@register_op("increment", inputs=["X"], outputs=["Out"], no_grad=True)
+@register_op("increment", inputs=["X"], outputs=["Out"], no_grad=True,
+             in_place={"Out": "X"})
 def increment(ctx, attrs, X):
-    # a device fill, not a host-to-device copy: capturable
-    return X + torch.full((), attrs.get("step", 1.0), dtype=X.dtype,
-                          device=X.device)
+    """``X += step`` in place (the learning-rate schedules' step counter
+    and the decode counters); a device add, no host copy: capturable."""
+    return X.add_(torch.full((), attrs.get("step", 1.0), dtype=X.dtype,
+                             device=X.device))
+
+
+@register_op("clip", inputs=["X"], outputs=["Out"])
+def clip(ctx, attrs, X):
+    return torch.clamp(X, attrs.get("min"), attrs.get("max"))
+
+
+@register_op("clip_by_norm", inputs=["X"], outputs=["Out"])
+def clip_by_norm(ctx, attrs, X):
+    """``X * max_norm / norm`` where the L2 norm exceeds ``max_norm``,
+    else ``X``; the norm stays on the device."""
+    max_norm = float(attrs["max_norm"])
+    norm = torch.sqrt(torch.sum(torch.square(X)))
+    scale = torch.where(norm > max_norm,
+                        max_norm / torch.clamp(norm, min=1e-12),
+                        torch.ones_like(norm))
+    return X * scale.to(X.dtype)
+
+
+@register_op("squared_l2_norm", inputs=["X"], outputs=["Out"])
+def squared_l2_norm(ctx, attrs, X):
+    return torch.sum(torch.square(X)).reshape(1)
 
 
 def _infer_range_shape(op, block):

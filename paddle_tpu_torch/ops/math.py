@@ -1,6 +1,7 @@
 """Matmul / elementwise / reduction ops (mirrors ``paddle_tpu/ops/math.py``:
 ``mul`` at :23, ``matmul``, ``elementwise_add/sub/mul/div`` :66-68,
-``reduce_sum`` :98, ``mean`` :107, ``top_k`` :117, ``cumsum`` :145).  The products stay
+``elementwise_min/max/pow`` :69-71, ``reduce_sum`` :98, ``mean`` :107,
+``pow`` :112, ``top_k`` :117, ``cumsum`` :145).  The products stay
 ``torch.matmul`` (cuBLAS), as the reference left them to XLA; with TF32
 off (set by the Executor on a CUDA place) f32 products run in full f32.
 """
@@ -65,6 +66,9 @@ elementwise_add = _elementwise("elementwise_add", torch.add)
 elementwise_sub = _elementwise("elementwise_sub", torch.sub)
 elementwise_mul = _elementwise("elementwise_mul", torch.mul)
 elementwise_div = _elementwise("elementwise_div", torch.div)
+elementwise_min = _elementwise("elementwise_min", torch.minimum)
+elementwise_max = _elementwise("elementwise_max", torch.maximum)
+elementwise_pow = _elementwise("elementwise_pow", torch.pow)
 
 
 @register_op("reduce_sum", inputs=["X"], outputs=["Out"])
@@ -83,6 +87,12 @@ def reduce_sum(ctx, attrs, X):
 @register_op("mean", inputs=["X"], outputs=["Out"])
 def mean(ctx, attrs, X):
     return X.mean().reshape(1)
+
+
+@register_op("pow", inputs=["X"], outputs=["Out"])
+def pow_op(ctx, attrs, X):
+    """``X ** factor``, the factor in X's dtype as the reference's."""
+    return torch.pow(X, scalar_like(float(attrs.get("factor", 1.0)), X))
 
 
 @register_op("top_k", inputs=["X"], outputs=["Out", "Indices"])

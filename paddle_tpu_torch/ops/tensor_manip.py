@@ -1,7 +1,10 @@
 """Shape and indexing ops (mirrors ``paddle_tpu/ops/tensor_manip.py``:
 ``reshape2`` at :79, ``transpose2`` at :91, ``squeeze2`` :146,
-``unsqueeze2`` :160, ``gather`` :203, ``pad`` :246).  ``XShape`` is a zero-size placeholder kept
-for program-structure parity with serialized reference models."""
+``slice`` :119, ``unsqueeze2`` :160, ``gather`` :203, ``pad`` :246).
+``XShape`` is a zero-size placeholder kept for program-structure parity
+with serialized reference models.  ``slice`` returns a view, as
+``reshape2`` and ``transpose2`` may: a kernel wrapper that needs
+contiguous rows makes them so itself."""
 
 import torch
 
@@ -86,6 +89,23 @@ def unsqueeze2(ctx, attrs, X):
     for a in sorted(attrs.get("axes", [])):
         out = torch.unsqueeze(out, a)
     return {"Out": out, "XShape": _xshape(X)}
+
+
+@register_op("slice", inputs=["Input"], outputs=["Out"])
+def slice_op(ctx, attrs, Input):
+    """``Input[starts:ends]`` along ``axes`` (an end past the dim is
+    clipped), then ``decrease_axis`` squeezed."""
+    idx = [slice(None)] * Input.dim()
+    for ax, st, en in zip(attrs.get("axes", []), attrs.get("starts", []),
+                          attrs.get("ends", [])):
+        en = int(en)
+        idx[ax] = slice(int(st), min(en, Input.shape[ax]) if en >= 0
+                        else en)
+    out = Input[tuple(idx)]
+    decrease = attrs.get("decrease_axis", [])
+    if decrease:
+        out = torch.squeeze(out, dim=tuple(decrease))
+    return out
 
 
 @register_op("gather", inputs=["X", "Index"], outputs=["Out"])

@@ -2,24 +2,32 @@
 the ``Optimizer`` base with ``_create_global_learning_rate`` :94,
 ``_add_accumulator`` :141, ``_create_optimization_pass`` :196,
 ``apply_gradients`` :216, ``minimize`` :233; ``SGDOptimizer`` :368-393;
-``MomentumOptimizer`` :395-443; ``AdamOptimizer`` :549-631).  ``minimize`` = ``append_backward`` + one
+``MomentumOptimizer`` :395-443; ``LarsMomentumOptimizer`` :449;
+``AdamOptimizer`` :549-631; ``LambOptimizer`` :831;
+``rewrite_program_recompute`` :1347 and ``RecomputeOptimizer`` :1409).
+``minimize`` = ``append_backward``, then clip → regularize → one
 optimizer op per parameter, whose lowering (``ops/optimizer_ops.py``)
-writes new tensors that the executor binds to the same names.  The
-dygraph paths and the other optimizers are not ported yet (ROADMAP.md)."""
+writes the parameter and its accumulators in place.  The learning rate
+is a float or a Variable (a schedule of ``layers.learning_rate_scheduler``).
+The dygraph paths and the other optimizers (adamax, adagrad,
+decayed_adagrad, adadelta, rmsprop, ftrl, the proximal ones) are not
+ported yet (ROADMAP.md, Queue A item 4)."""
 
 from collections import defaultdict
 
 from . import unique_name
 from .backward import append_backward
 from .clip import append_gradient_clip_ops, per_call_gradient_clip
-from .framework import (Variable, default_main_program,
+from .framework import (Operator, Variable, default_main_program,
                         default_startup_program, name_scope, program_guard)
 from .initializer import ConstantInitializer
 from .layer_helper import LayerHelper
 from .regularizer import append_regularization_ops
 
 __all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum",
-           "MomentumOptimizer", "Adam", "AdamOptimizer"]
+           "MomentumOptimizer", "Adam", "AdamOptimizer", "Lamb",
+           "LambOptimizer", "LarsMomentum", "LarsMomentumOptimizer",
+           "RecomputeOptimizer"]
 
 
 class Optimizer:
@@ -232,6 +240,189 @@ class AdamOptimizer(Optimizer):
                    "op_role": "optimize"})
 
 
+class LarsMomentumOptimizer(Optimizer):
+    """Momentum with the LARS layer-wise rate: the ``lars_momentum`` op
+    (its norms on the device)."""
+
+    _velocity_acc_str = "velocity"
+
+    def __init__(self, learning_rate, momentum, lars_coeff=0.001,
+                 lars_weight_decay=0.0005, regularization=None, name=None):
+        self.type = "lars_momentum"
+        super().__init__(learning_rate, regularization, name)
+        self._momentum = momentum
+        self._lars_coeff = lars_coeff
+        self._lars_weight_decay = lars_weight_decay
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._velocity_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        velocity = self._get_accumulator(self._velocity_acc_str, param)
+        return block.append_op(
+            type="lars_momentum",
+            inputs={"Param": [param], "Grad": [grad], "Velocity": [velocity],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [param], "VelocityOut": [velocity]},
+            attrs={"mu": self._momentum, "lars_coeff": self._lars_coeff,
+                   "lars_weight_decay": self._lars_weight_decay,
+                   "op_role": "optimize"})
+
+
+class LambOptimizer(AdamOptimizer):
+    """Adam's accumulators, the ``lamb`` update (decoupled weight decay
+    and the per-tensor trust ratio, its norms on the device)."""
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-6, regularization=None,
+                 name=None):
+        super().__init__(learning_rate, beta1, beta2, epsilon,
+                         regularization, name)
+        self.type = "lamb"
+        self._weight_decay = lamb_weight_decay
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        m1, m2, b1p, b2p = (self._get_accumulator(a, param) for a in (
+            self._moment1_acc_str, self._moment2_acc_str,
+            self._beta1_pow_acc_str, self._beta2_pow_acc_str))
+        return block.append_op(
+            type="lamb",
+            inputs={"Param": [param], "Grad": [grad],
+                    "LearningRate": [self._create_param_lr(param_and_grad)],
+                    "Moment1": [m1], "Moment2": [m2], "Beta1Pow": [b1p],
+                    "Beta2Pow": [b2p]},
+            outputs={"ParamOut": [param], "Moment1Out": [m1],
+                     "Moment2Out": [m2], "Beta1PowOut": [b1p],
+                     "Beta2PowOut": [b2p]},
+            attrs={"beta1": self._beta1, "beta2": self._beta2,
+                   "epsilon": self._epsilon,
+                   "weight_decay": self._weight_decay,
+                   "op_role": "optimize"})
+
+
+# ops rewrite_program_recompute never moves into a region: the executor
+# runs them around the step (feed/fetch) or on the host
+_UNWRAPPABLE = ("feed", "fetch", "save", "load", "save_combine",
+                "load_combine")
+
+
+def rewrite_program_recompute(program, checkpoints):
+    """Split the global block's forward at the checkpoint vars: each
+    segment of two or more ops ending at a checkpoint becomes one
+    ``recompute_block`` region (``layers.recompute()`` applied after the
+    build); the last segment, which feeds the loss, stays as it is.  Runs
+    before ``append_backward``, which must see the regions.  Returns the
+    number of regions."""
+    from .layers.control_flow import make_recompute_region_op_spec
+
+    block = program.global_block()
+    if any(op.type.endswith("_grad") for op in block.ops):
+        raise RuntimeError(
+            "rewrite_program_recompute must run before append_backward/"
+            "minimize (backward needs to see the recompute regions)")
+    cps = {getattr(c, "name", c) for c in checkpoints}
+    missing = [c for c in cps if block._find_var_recursive(c) is None]
+    if missing:
+        raise ValueError("checkpoint vars %s not found in the program"
+                         % sorted(missing))
+    segments, cur = [], []
+    for op in block.ops:
+        if op.type in _UNWRAPPABLE:
+            if cur:
+                segments.append(cur)
+                cur = []
+            segments.append([op])
+            continue
+        cur.append(op)
+        if cps & set(op.output_arg_names):
+            segments.append(cur)
+            cur = []
+    if cur:
+        segments.append(cur)
+    new_ops, n_wrapped = [], 0
+    for si, seg in enumerate(segments):
+        if len(seg) < 2 or si == len(segments) - 1:
+            new_ops.extend(seg)
+            continue
+        sub = program._create_block(parent_idx=0)
+        program._rollback()
+        sub.ops = list(seg)
+        for op in seg:
+            op.block = sub
+        spec = make_recompute_region_op_spec(
+            block, sub, unique_name.generate("recompute_seg") + ".scope")
+        new_ops.append(Operator(block, **spec))
+        n_wrapped += 1
+    block.ops = new_ops
+    program._bump_version()
+    return n_wrapped
+
+
+class RecomputeOptimizer:
+    """Activation recompute as an optimizer wrapper:
+    ``_set_checkpoints`` names the segment boundaries, and ``backward``
+    / ``minimize`` rewrite the forward into ``recompute_block`` regions
+    (:func:`rewrite_program_recompute`) before the inner optimizer's."""
+
+    def __init__(self, optimizer):
+        self._optimizer = optimizer
+        self._checkpoints = None
+
+    def _set_checkpoints(self, checkpoints):
+        self._checkpoints = list(checkpoints)
+
+    def _apply_rewrite(self, loss):
+        if not self._checkpoints:
+            raise ValueError(
+                "RecomputeOptimizer needs checkpoints: call "
+                "_set_checkpoints([...]) with the segment-boundary vars")
+        rewrite_program_recompute(loss.block.program, self._checkpoints)
+
+    def backward(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None, callbacks=None):
+        self._apply_rewrite(loss)
+        return self._optimizer.backward(
+            loss, startup_program=startup_program,
+            parameter_list=parameter_list, no_grad_set=no_grad_set,
+            callbacks=callbacks)
+
+    def apply_gradients(self, params_grads):
+        return self._optimizer.apply_gradients(params_grads)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        self._apply_rewrite(loss)
+        return self._optimizer.minimize(
+            loss, startup_program=startup_program,
+            parameter_list=parameter_list, no_grad_set=no_grad_set)
+
+
 SGD = SGDOptimizer
 Momentum = MomentumOptimizer
 Adam = AdamOptimizer
+Lamb = LambOptimizer
+LarsMomentum = LarsMomentumOptimizer
+
+# the reference's optimizers this package does not have yet
+_NOT_PORTED = ("Adagrad", "AdagradOptimizer", "DecayedAdagrad",
+               "DecayedAdagradOptimizer", "Adamax", "AdamaxOptimizer",
+               "Adadelta", "AdadeltaOptimizer", "RMSProp",
+               "RMSPropOptimizer", "Ftrl", "FtrlOptimizer",
+               "ExponentialMovingAverage",
+               "ModelAverage", "PipelineOptimizer", "DGCMomentumOptimizer")
+
+
+class OptimizerNotPorted(NotImplementedError, AttributeError):
+    """An optimizer of the reference that is not ported yet; an
+    ``AttributeError`` too, so ``hasattr`` answers False."""
+
+
+def __getattr__(name):
+    if name in _NOT_PORTED:
+        raise OptimizerNotPorted(
+            "optimizer.%s is not ported yet (ROADMAP.md, Queue A item 4: "
+            "the other optimizers)" % name)
+    raise AttributeError("module %r has no attribute %r" % (__name__, name))

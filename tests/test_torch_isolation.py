@@ -265,18 +265,23 @@ def test_unported_gates_raise(tmp_path):
 
 
 def test_unported_training_options_raise():
+    """What training still lacks raises, citing its queue item: the
+    optimizers not ported yet (item 4), grads through ``while`` (item 5)."""
+    for name in ("Adagrad", "RMSPropOptimizer", "Ftrl", "ModelAverage"):
+        with pytest.raises(NotImplementedError, match="Queue A item 4"):
+            getattr(fluid.optimizer, name)
+        assert not hasattr(fluid.optimizer, name)
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
         x = fluid.layers.data("x", shape=[4], dtype="float32")
-        loss = fluid.layers.reduce_sum(fluid.layers.fc(x, size=3))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            fluid.optimizer.Adam(0.01, regularization=object()).minimize(loss)
-    main, startup = fluid.Program(), fluid.Program()
-    with fluid.program_guard(main, startup):
-        x = fluid.layers.data("x", shape=[4], dtype="float32")
-        loss = fluid.layers.reduce_sum(fluid.layers.fc(x, size=3))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            fluid.optimizer.SGD(0.01).minimize(loss, grad_clip=object())
+        with fluid.layers.recompute():
+            h = fluid.layers.fc(x, size=3)
+        loss = fluid.layers.reduce_sum(h)
+    region = main.global_block().ops[-2]
+    assert region.type == "recompute_block"
+    region.type = "while"
+    with pytest.raises(NotImplementedError, match="Queue A item 5"):
+        fluid.optimizer.SGD(0.01).minimize(loss)
 
 
 def test_resnet_unported_options_raise_and_cuda_is_the_default(no_cuda):

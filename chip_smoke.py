@@ -250,6 +250,53 @@ and the CUDA toolkit.  Phases, each printing one JSON line:
    ``record_flash_min_t``; ``flash_min_t()`` must then return the
    decision and ``PADDLE_TPU_FLASH_MIN_T`` still override it.
 
+21. tools (after the bf16 serving phase, on the main path's
+   predictor): 32 one-row BERT-base requests through a default
+   ``PredictorServer`` and 4 steps of a 2-layer BERT-base-width MLM
+   program (T=128, batch 2, Adam) under one temporary
+   ``PADDLE_TPU_TELEMETRY_DIR`` with every step journaled, a
+   ``HeartbeatWriter`` beating for rank 0; then ``python -m
+   paddle_tpu_torch.tools.monitor DIR --once --json``, ``python -m
+   paddle_tpu_torch.tools.trace DIR --serving --json`` and two monitor
+   alerts (``steps>0`` must exit 1, ``lost_ranks>0`` 0) as subprocesses
+   at once: the monitor's newest step and step events must be what the
+   executors ran, the rank alive and not wedged, trace's request count
+   the requests sent with each phase's p50 and p99; the directory is
+   deleted afterwards.
+22. optimizers (last but two): BERT-base MLM pretraining (T=512, batch
+   8, float32, dropout 0.1) with each of ``RULES`` — Adagrad,
+   DecayedAdagrad, Adamax, Adadelta, centered RMSProp (momentum 0.9),
+   Ftrl (``lr_power`` -0.5), DGCMomentum (its warning printed) and Adam
+   extended by ``extend_with_decoupled_weight_decay`` — each program
+   built once: the eager step (the key's first call) and, from the same
+   start at the same executor step, the captured step must agree bit for
+   bit (the loss and three parameters), then 3 timed replays, whose
+   launches must be K1 12/12/12, K2 25/25, K3 3/3 and the rule's update
+   kernels; the copy-backs a step by the op that wrote each (only
+   Adamax's ``scale`` of each ``Beta1Pow`` and decoupled weight decay's
+   ``assign`` of each parameter may copy back); then the nine new update
+   ops alone at [30522, 768] float32 (ms from a graph with L2 evicted,
+   byte bound, CUDA kernels an op).
+23. optimizers_parity: each rule's first step on a 2-layer BERT-base-
+   width model (T=128, batch 2, dropout 0.1), the card's captured step
+   against the CPU's plain versions from one start and with the same
+   masks: the loss within 1e-4 and three parameters within 1e-6 of their
+   scale plus, element by element, what the two sides' gradients can
+   explain (``rule_parity_tol``: a rule's step swings only where the
+   gradients differ in sign or by a large share); the card's parameters
+   moved; the same check would fail the card's update dropped or
+   reversed, with each parameter's share of elements that catch either.
+24. averaging (last): BERT-base T=512 b8 with Adam, an
+   ``ExponentialMovingAverage`` whose decay is scheduled from
+   ``autoincreased_step_counter`` (``thres_steps``) and a
+   ``ModelAverage`` (windows 2 to 4, so it restarts), a warm-up and 6
+   graph steps; inside each ``apply``, eager and captured, every
+   parameter within 4 float32 units of the average computed in plain
+   torch from the recorded parameters (and inside the eager one the
+   eval program's loss); after ``restore`` every
+   parameter bit for bit its value before; the apply and restore
+   programs' ms, eager then captured.
+
 The whole run reads and writes a fresh autotune cache in a temp
 directory (``PADDLE_TPU_AUTOTUNE_CACHE``), so no decision of an earlier
 run routes it: the main paths run at the hand-set threshold, 512.  The
@@ -428,6 +475,7 @@ PROFILE_MARKERS = 2
 PROFILE_TRIES = 3
 MARKER_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel
 MARKER_CYCLES = 1000
+OUTSIDE_SHOWN = 8  # starts shown a kernel left out of a profile's window
 
 
 def emit(obj):
@@ -3092,6 +3140,33 @@ def phase_profile(env, pred, cfg, runs=3):
           "card": card_label(env)})
 
 
+def _mlm_loss(fluid, bert, cfg, seq, max_pred):
+    """Under a ``program_guard``: ``build_pretrain``'s masked-LM graph
+    (the feeds, the encoder, the gathered head tied to the word
+    embedding, the weighted token loss) → the loss."""
+    L = fluid.layers
+    main = fluid.default_main_program()
+    ids = L.data("input_ids", shape=[seq], dtype="int64")
+    types = L.data("token_type_ids", shape=[seq], dtype="int64")
+    bias = L.data("attn_mask_bias", shape=[1, 1, seq], dtype="float32")
+    labels = L.data("mlm_labels", shape=[max_pred], dtype="int64")
+    weights = L.data("mlm_weights", shape=[max_pred], dtype="float32")
+    mask_pos = L.data("mask_pos", shape=[max_pred], dtype="int64")
+    x = bert.encoder(ids, types, bias, cfg, seq)
+    row_t = L.fill_constant_batch_size_like(
+        weights, shape=[-1, 1], dtype="int64", value=float(seq))
+    offs = L.elementwise_sub(L.cumsum(row_t, axis=0), row_t)
+    pos = L.reshape(L.elementwise_add(mask_pos, offs), shape=[-1])
+    x = L.gather(L.reshape(x, shape=[-1, cfg.hidden]), pos)
+    logits = L.matmul(x, main.global_block().var("bert.word_emb"),
+                      transpose_y=True)
+    tok = L.squeeze(L.softmax_with_cross_entropy(
+        logits, L.reshape(labels, shape=[-1, 1])), [1])
+    w = L.reshape(weights, shape=[-1])
+    return L.elementwise_div(L.reduce_sum(L.elementwise_mul(tok, w)),
+                             L.reduce_sum(w))
+
+
 def recipe_program(fluid, bert, cfg, seq, max_pred=None):
     """The reference's flagship training program (``bench.py:2741-2770``:
     BERT MLM pretraining with the gathered head, ``cfg`` carrying
@@ -3114,25 +3189,7 @@ def recipe_program(fluid, bert, cfg, seq, max_pred=None):
     main, startup = fluid.Program(), fluid.Program()
     main.random_seed = startup.random_seed = SEED
     with fluid.program_guard(main, startup):
-        ids = L.data("input_ids", shape=[seq], dtype="int64")
-        types = L.data("token_type_ids", shape=[seq], dtype="int64")
-        bias = L.data("attn_mask_bias", shape=[1, 1, seq], dtype="float32")
-        labels = L.data("mlm_labels", shape=[max_pred], dtype="int64")
-        weights = L.data("mlm_weights", shape=[max_pred], dtype="float32")
-        mask_pos = L.data("mask_pos", shape=[max_pred], dtype="int64")
-        x = bert.encoder(ids, types, bias, cfg, seq)
-        row_t = L.fill_constant_batch_size_like(
-            weights, shape=[-1, 1], dtype="int64", value=float(seq))
-        offs = L.elementwise_sub(L.cumsum(row_t, axis=0), row_t)
-        pos = L.reshape(L.elementwise_add(mask_pos, offs), shape=[-1])
-        x = L.gather(L.reshape(x, shape=[-1, cfg.hidden]), pos)
-        logits = L.matmul(x, main.global_block().var("bert.word_emb"),
-                          transpose_y=True)
-        tok = L.squeeze(L.softmax_with_cross_entropy(
-            logits, L.reshape(labels, shape=[-1, 1])), [1])
-        w = L.reshape(weights, shape=[-1])
-        loss = L.elementwise_div(L.reduce_sum(L.elementwise_mul(tok, w)),
-                                 L.reduce_sum(w))
+        loss = _mlm_loss(fluid, bert, cfg, seq, max_pred)
         lr = L.linear_lr_warmup(
             L.polynomial_decay(RECIPE_LR, RECIPE_DECAY_STEPS,
                                end_learning_rate=0.0, power=1.0),
@@ -3143,6 +3200,61 @@ def recipe_program(fluid, bert, cfg, seq, max_pred=None):
         amp.decorate(fluid.optimizer.LambOptimizer(
             learning_rate=lr, lamb_weight_decay=0.01)).minimize(loss)
     return main, startup, loss, lr
+
+
+# the update rules of the optimizers phases: each rule's optimizer class
+# and every setting it runs with, the one place they are stated.
+# rule_optimizer builds the rule from here in either package (for the
+# chip phases and the CPU tests) and rule_step_bound reads its settings
+# from here.  adamw is Adam extended by extend_with_decoupled_weight_decay.
+RULE_SETTINGS = {
+    "adagrad": ("Adagrad", {"epsilon": 1e-6}),
+    "decayed_adagrad": ("DecayedAdagrad", {"decay": 0.95, "epsilon": 1e-6}),
+    "adamax": ("Adamax", {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}),
+    "adadelta": ("Adadelta", {"epsilon": 1e-6, "rho": 0.95}),
+    "rmsprop": ("RMSProp", {"rho": 0.95, "epsilon": 1e-6, "momentum": 0.9,
+                            "centered": True}),
+    "ftrl": ("Ftrl", {"l1": 0.0, "l2": 0.0, "lr_power": -0.5}),
+    # it warns that it runs as plain momentum
+    "dgc_momentum": ("DGCMomentumOptimizer", {"momentum": 0.9}),
+    "adamw": ("Adam", {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8,
+                       "weight_decay": 0.01}),
+}
+RULES = tuple(RULE_SETTINGS)
+
+
+def rule_optimizer(fluid, rule, lr):
+    """The optimizer of update rule ``rule`` in package ``fluid``, built
+    with its RULE_SETTINGS at rate ``lr``."""
+    import importlib
+
+    name, settings = RULE_SETTINGS[rule]
+    cls = getattr(fluid.optimizer, name)
+    settings = dict(settings)
+    if rule == "adamw":
+        ext = importlib.import_module(fluid.__name__
+                                      + ".contrib.extend_optimizer")
+        return ext.extend_with_decoupled_weight_decay(cls)(
+            settings.pop("weight_decay"), learning_rate=lr, **settings)
+    return cls(lr, **settings)
+
+
+def rule_program(fluid, bert, cfg, seq, rule, lr=TRAIN_LR, max_pred=None):
+    """``build_pretrain``'s masked-LM program trained by update rule
+    ``rule`` (:func:`rule_optimizer`), built by the same code in either
+    package → ``(main, startup, loss)``."""
+    import warnings
+
+    if max_pred is None:
+        max_pred = bert.default_max_pred(seq)
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup):
+        loss = _mlm_loss(fluid, bert, cfg, seq, max_pred)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # DGCMomentum's, reported apart
+            rule_optimizer(fluid, rule, lr).minimize(loss)
+    return main, startup, loss
 
 
 def _train_program(fluid, bert, cfg, seq):
@@ -3173,6 +3285,28 @@ def _copy_backs(exe):
     """Each captured entry's copies of new state values into their
     resident tensors a step (0 when every update is in place)."""
     return [e.copy_backs for e in exe._cache.values() if e.graph is not None]
+
+
+def copy_back_writers(exe):
+    """The state each captured entry of ``exe`` copies back a step, by
+    the op type that wrote it through a new value (not in place) →
+    ``{op type: count}`` over the entries."""
+    from paddle_tpu_torch.ops import registry
+
+    out = {}
+    for e in exe._cache.values():
+        writer = {}
+        for op in e.block.ops:
+            if op.type in ("feed", "fetch"):
+                continue
+            in_place = registry.get_op_def(op.type).in_place
+            for slot, names in op.outputs.items():
+                for n in names:
+                    if op.inputs.get(in_place.get(slot)) != names:
+                        writer[n] = op.type
+        for n in e.copy_back_names:
+            out[writer[n]] = out.get(writer[n], 0) + 1
+    return out
 
 
 def _update_launches(program):
@@ -4687,20 +4821,40 @@ def phase_resnet_parity():
 
 def _kernels_seen(prof, runs):
     """Each kernel's launches a call in a profile, by its device
-    function's name (``_lib.kernel_of``), and the marker kernels seen."""
+    function's name (``_lib.kernel_of``), the marker kernels seen, and
+    the port's kernels the profile holds outside the markers.  With every
+    marker seen, only the kernels that start between the markers before
+    and after the timed calls count: a record of the profile's
+    unrecorded warm-up call can land in the active window (seen on the
+    card: 5 Adam updates more over 3 eager BERT steps).  The ones left
+    out are returned by kernel, each with its start in µs from the last
+    marker before the timed calls (negative) or from the first after them
+    (positive), at most OUTSIDE_SHOWN a kernel → (launches a call,
+    markers seen, ``{kernel: {"count", "start_us"}}``)."""
     from paddle_tpu_torch.ops.cuda import _lib
 
+    kernels = [ev for ev in prof.events()
+               if str(getattr(ev, "device_type", "")).endswith("CUDA")]
+    marks = sorted(ev.time_range.start for ev in kernels
+                   if MARKER_KERNEL in ev.name)
+    outside = {}
+    if len(marks) == 2 * PROFILE_MARKERS:
+        lo, hi = marks[PROFILE_MARKERS - 1], marks[PROFILE_MARKERS]
+        for ev in kernels:
+            k, t = _lib.kernel_of(ev.name), ev.time_range.start
+            if k is None or lo < t < hi:
+                continue
+            row = outside.setdefault(k, {"count": 0, "start_us": []})
+            row["count"] += 1
+            if len(row["start_us"]) < OUTSIDE_SHOWN:
+                row["start_us"].append(t - lo if t <= lo else t - hi)
+        kernels = [ev for ev in kernels if lo < ev.time_range.start < hi]
     seen = dict.fromkeys(_lib.KERNELS, 0)
-    markers = 0
-    for ev in prof.key_averages():
-        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            continue
-        if MARKER_KERNEL in ev.key:
-            markers += ev.count
-        k = _lib.kernel_of(ev.key)
+    for ev in kernels:
+        k = _lib.kernel_of(ev.name)
         if k is not None:
-            seen[k] += ev.count
-    return {k: n / runs for k, n in seen.items()}, markers
+            seen[k] += 1
+    return {k: n / runs for k, n in seen.items()}, len(marks), outside
 
 
 def _profiled_calls(call, runs):
@@ -4776,10 +4930,11 @@ def _graph_side(exe, call, call_async, group=None):
     tries = []
     for _ in range(PROFILE_TRIES):
         prof, wall = _profiled_calls(call, runs)
-        seen, markers = _kernels_seen(prof, runs)
+        seen, markers, outside = _kernels_seen(prof, runs)
         tries.append({"markers_seen": markers,
                       "complete": markers == 2 * PROFILE_MARKERS,
-                      "launches_by_profiler": seen})
+                      "launches_by_profiler": seen,
+                      "outside_markers": outside})
         if tries[-1]["complete"]:
             break
     groups, top = _device_breakdown(prof, runs, group)
@@ -7781,6 +7936,751 @@ def phase_recompute(env):
         raise AssertionError("recompute: %s" % failed)
 
 
+# ---------------------------------------------------------------------------
+# The reference's other optimizers, the averages, and the operator's CLIs
+# ---------------------------------------------------------------------------
+
+# the ftrl op adds this to its l1 and to its l2, as the reference's does
+FTRL_L_FLOOR = 1e-10
+# a relative change δ of an element's gradients changes a step of a rule
+# that divides the gradient by a running norm of itself by at most
+# PARITY_GRAD_K δ of the rule's step bound (Adagrad's first step,
+# lr g / (|g| + eps), by at most lr δ; the later steps' running norms
+# and moments add a few δ more)
+PARITY_GRAD_K = 4
+
+
+def rule_step_bound(rule, lr):
+    """The largest step rule ``rule`` takes an element in one of its
+    first 3 steps at rate ``lr`` from zero accumulators, its settings
+    read from RULE_SETTINGS: ``lr`` for Adagrad, Adamax, Adam and Ftrl's
+    ``p - lr sign(g)``; ``lr / sqrt(1 - decay)`` for DecayedAdagrad; for
+    centered RMSProp ``lr / sqrt(w - w^2)`` (``w = 1 - rho``) a step
+    accumulated by its momentum over 3 steps; Adadelta takes no rate, and
+    its step grows from ``sqrt(eps / (1 - rho))`` to at most ``sqrt(4 eps
+    / (1 - rho))`` by the third; 0 for DGCMomentum, whose step scales
+    with the gradient (:func:`rule_parity_tol` bounds it apart)."""
+    s = RULE_SETTINGS[rule][1]
+    if rule == "decayed_adagrad":
+        return lr / (1 - s["decay"]) ** 0.5
+    if rule == "adadelta":
+        return (4 * s["epsilon"] / (1 - s["rho"])) ** 0.5
+    if rule == "rmsprop":
+        w, mu = 1 - s["rho"], s["momentum"]
+        return lr * (1 + mu + mu ** 2) / (w - w ** 2) ** 0.5
+    if rule == "dgc_momentum":
+        return 0.0
+    return lr
+
+
+def rule_parity_tol(rule, lr, start, grads_a, grads_b, base):
+    """The bound on ``|a - b|`` for each element of a parameter that held
+    ``start`` and was updated by rule ``rule`` at rate ``lr`` in two runs
+    a and b from that start; ``grads_a`` and ``grads_b`` are each run's
+    gradients of the parameter, one numpy array a step.  ``base`` covers
+    float32 rounding.  On top of it an element gets what the two runs'
+    gradients can explain, and no more:
+
+    - a rule that divides the gradient by a running norm of itself moves
+      the element at most B = :func:`rule_step_bound` a step whatever its
+      gradient, so with δ the element's largest relative gradient
+      difference over the steps (``|a - b| / min(|a|, |b|)``, infinite
+      where the signs differ or one is 0: rounding noise) its steps
+      differ by at most ``min(2, PARITY_GRAD_K δ) steps B``;
+    - DGCMomentum's step is ``lr`` times the gradient accumulated by its
+      momentum: ``lr steps sum(mu^k, k < steps) max |a - b|``;
+    - Ftrl sets an element to ``p - lr sign(g)`` (the δ term above with
+      B = ``lr``) shifted by its l1 and l2 (each plus FTRL_L_FLOOR) by at
+      most ``(l1 + l2 (|p| + steps lr)) lr / sqrt(n)`` a step, n the sum
+      of the squared gradients, which is at least the first gradient's
+      square; 0, where ``|z| <= l1``, lies within that shift too.  Each
+      run adds ``steps`` such shifts, and the whole is capped at ``|p| +
+      2 steps lr``, the farthest two of its values lie apart.
+
+    → the bound, an array shaped as ``start``."""
+    import numpy as np
+
+    steps = len(grads_a)
+    ga = np.stack(grads_a).astype("float64")
+    gb = np.stack(grads_b).astype("float64")
+    low = np.minimum(np.abs(ga), np.abs(gb))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        rel = np.where((np.sign(ga) == np.sign(gb)) & (low > 0),
+                       np.abs(ga - gb) / low, np.inf).max(axis=0)
+    s = RULE_SETTINGS[rule][1]
+    if rule == "dgc_momentum":
+        slack = lr * steps * sum(s["momentum"] ** k for k in range(steps)) \
+            * np.abs(ga - gb).max(axis=0)
+        return base + slack
+    step = rule_step_bound(rule, lr)
+    slack = np.minimum(2.0, PARITY_GRAD_K * rel) * steps * step
+    if rule == "ftrl":
+        p = np.abs(start.astype("float64"))
+        l1, l2 = s["l1"] + FTRL_L_FLOOR, s["l2"] + FTRL_L_FLOOR
+        with np.errstate(divide="ignore"):
+            shift = sum(steps * (l1 + l2 * (p + steps * lr)) * lr
+                        / np.abs(g[0]) for g in (ga, gb))
+        slack = np.minimum(slack + shift, p + 2 * steps * lr)
+    return base + slack
+
+
+def rule_grads(main):
+    """param name → its gradient var, read off the update ops."""
+    return {op.inputs["Param"][0]: op.inputs["Grad"][0]
+            for op in main.global_block().ops
+            if "Param" in op.inputs and "Grad" in op.inputs}
+
+
+RULE_REPLAYS = 3          # timed graph replays a rule
+RULE_PARAMS = ("bert.word_emb", "bert.layer0.attn.q.w",
+               "bert.layer11.ln2.scale")
+RULE_PARITY_SEQ = 128
+RULE_PARITY_BATCH = 2
+RULE_PARITY_PARAMS = ("bert.word_emb", "bert.layer0.attn.q.w",
+                      "bert.layer0.ln1.scale")
+# of the parameter's largest value (8 float32 units of it: one step's
+# rounding), plus what the gradients explain (rule_parity_tol)
+PARITY_PARAM_RTOL = 1e-6
+AVERAGING_GRAPH_STEPS = 6
+AVERAGING_EMA_DECAY = 0.999
+AVERAGING_WINDOW = (2, 4)  # ModelAverage's min and max window: restarts
+AVERAGE_ULPS = 4           # applied value vs plain torch, float32 units
+TOOLS_REQUESTS = 32
+TOOLS_STEPS = 4
+TOOLS_SEQ = 128
+HEARTBEAT_S = 0.2
+TOOLS_TIMEOUT = 300
+
+
+def _scope_params(scope, names):
+    """Device copies of the named scope tensors."""
+    return {n: scope.get(n).detach().clone() for n in names}
+
+
+def _restore_scope(scope, saved):
+    """Write ``saved`` into the scope's current tensors."""
+    for n, t in saved.items():
+        scope.get(n).copy_(t)
+
+
+def _rule_run(fluid, bert, cfg, rule, batch):
+    """One rule on BERT-base T=512 b8 on the card: the eager step (the
+    key's first call), then the start restored and the same executor
+    step captured and replayed (compared bit for bit: the loss and
+    RULE_PARAMS after the update), then RULE_REPLAYS timed replays with
+    their launches → the rule's row."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import (KERNELS, launch_counts,
+                                           reset_launch_counts)
+    from paddle_tpu_torch.static_analysis import fusion
+
+    t0 = time.time()
+    with fluid.unique_name.guard():
+        main, startup, loss = rule_program(fluid, bert, cfg, SEQ, rule)
+    n_params = len(main.all_parameters())
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup)
+        prog, _ = fusion.resolve_fused_program(main, targets=[loss.name])
+        start = _scope_params(scope, _persistable_names(main))
+        step = exe._step
+        build_s = time.time() - t0
+        runs = []
+        for _ in range(2):  # eager, then capture + replay
+            _restore_scope(scope, start)
+            exe._step = step
+            out = float(exe.run(main, feed=batch, fetch_list=[loss])[0][0])
+            runs.append((exe.last_run_mode, out,
+                         _scope_params(scope, RULE_PARAMS)))
+        same = runs[0][1] == runs[1][1] and all(
+            torch.equal(runs[0][2][n], runs[1][2][n]) for n in RULE_PARAMS)
+        reset_launch_counts()
+        step_ms, losses = [], [runs[1][1]]
+        for _ in range(RULE_REPLAYS):
+            s0 = time.perf_counter()
+            losses.append(float(exe.run(main, feed=batch,
+                                        fetch_list=[loss])[0][0]))
+            step_ms.append((time.perf_counter() - s0) * 1e3)
+        per_step = {k: c / RULE_REPLAYS for k, c in launch_counts().items()}
+        want = dict.fromkeys(KERNELS, 0.0)
+        want.update(_train_launches(prog))
+        copies = copy_back_writers(exe)
+        row = {"phase": "optimizers", "rule": rule,
+               "build+startup_s": build_s,
+               "modes": [r[0] for r in runs] + [exe.last_run_mode],
+               "eager_equals_graph_bit_for_bit": same,
+               "loss_eager_graph": [runs[0][1], runs[1][1]],
+               "losses": losses, "loss_finite": bool(np.all(
+                   np.isfinite(losses))),
+               "graph_step_ms": step_ms,
+               "median_graph_step_ms": sorted(step_ms)[len(step_ms) // 2],
+               "copy_backs_per_step": _copy_backs(exe),
+               "copy_backs_by_writer": copies,
+               "launches_per_step": {k: v for k, v in per_step.items() if v},
+               "k1_k2_k3_per_step": {k: per_step.get(k, 0) for k in (
+                   "flash_attention_fwd", "flash_attention_bwd_dkv",
+                   "flash_attention_bwd_dq", "fused_dropout_add_ln_fwd",
+                   "fused_dropout_add_ln_bwd", "embedding_gather_fwd",
+                   "embedding_gather_bwd")},
+               "parameters": n_params}
+        expect = {"adamax": {"scale": n_params},
+                  "adamw": {"assign": n_params}}.get(rule, {})
+        failed = []
+        if not same or row["modes"] != ["eager", "capture", "graph"]:
+            failed.append("eager and graph differ, or no replay: %s"
+                          % row["modes"])
+        if not row["loss_finite"]:
+            failed.append("loss not finite: %s" % losses)
+        if copies != expect:
+            failed.append("copy-backs %s, not %s" % (copies, expect))
+        if per_step != want:
+            failed.append("launches per step %s != %s" % (per_step, want))
+        row["failed"] = failed
+    del scope, exe
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_optimizers(env):
+    """BERT-base MLM pretraining (T=512, batch 8, float32, dropout 0.1;
+    K1, K2 and K3 forward and backward) with each of RULES, each program
+    built once: the eager step against the captured step from the same
+    start bit for bit, RULE_REPLAYS timed replays with their launches,
+    the copy-backs a step by the op that wrote each; then the nine new
+    update ops alone at [30522, 768] float32."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        rule_optimizer(fluid, "dgc_momentum", 0.1)
+    emit({"phase": "optimizers", "step": "DGCMomentum's warning",
+          "warnings": [str(w.message) for w in caught]})
+    batch = bert.make_fake_batch(TRAIN_BATCH, SEQ, bert.BERT_BASE,
+                                 np.random.RandomState(SEED))
+    failed = []
+    for rule in RULES:
+        row = _rule_run(fluid, bert, bert.BERT_BASE, rule, batch)
+        row["card"] = card_label(env)
+        emit(row)
+        failed += ["%s: %s" % (rule, f) for f in row["failed"]]
+    rows = time_new_updates(torch, _gen(torch))
+    emit({"phase": "optimizers", "step": "updates",
+          "card": card_label(env), "rows": rows})
+    if len(caught) != 1 or "plain momentum" not in str(caught[0].message):
+        failed.append("DGCMomentum did not warn: %s" % caught)
+    if failed:
+        raise AssertionError("optimizers: %s" % failed)
+
+
+def time_new_updates(torch, gen):
+    """The nine update ops of this package's other optimizers, plain
+    PyTorch on the card, at BERT-base's word embedding [30522, 768]
+    float32: device ms of one op (cold L2), its bound (each input read
+    once, each output written once) and the CUDA kernels one op launches
+    (the nodes of a graph captured around it)."""
+    from paddle_tpu_torch.ops import optimizer_ops as ops
+    from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.ops.cuda import _lib
+
+    shape = (30522, 768)
+    n = shape[0] * shape[1]
+    x = _update_inputs(torch, gen, shape, torch.float32)
+    pos = x["m2"]  # a non-negative accumulator
+    pos2 = x["v"].abs()  # another
+    pos3 = pos + 1.0  # above the centered RMSProp's squared mean
+    counters = [torch.full((1,), c, dtype=torch.int64, device="cuda")
+                for c in (3, 2, 9)]
+    ctx = registry.LoweringContext(device=torch.device("cuda"))
+    ref = "paddle_tpu/ops/optimizer_ops.py:%d (%s; XLA)"
+    # name → (call, bytes, operations, the reference's function)
+    cases = {
+        "adamax": (lambda: ops.adamax(ctx, {}, x["p"], x["g"], x["lr"],
+                                      x["m1"], pos2, x["b1p"]),
+                   28 * n, 10 * n, ref % (86, "adamax")),
+        "adagrad": (lambda: ops.adagrad(ctx, {}, x["p"], x["g"], pos,
+                                        x["lr"]), 20 * n, 7 * n,
+                    ref % (104, "adagrad")),
+        "decayed_adagrad": (lambda: ops.decayed_adagrad(
+            ctx, {}, x["p"], x["g"], pos, x["lr"]), 20 * n, 9 * n,
+            ref % (117, "decayed_adagrad")),
+        "adadelta": (lambda: ops.adadelta(ctx, {}, x["p"], x["g"], pos,
+                                          pos2), 28 * n, 15 * n,
+                     ref % (131, "adadelta")),
+        "rmsprop (centered)": (lambda: ops.rmsprop(
+            ctx, {"centered": True, "momentum": 0.9, "decay": 0.95},
+            x["p"], x["g"], pos3, x["m1"], x["v"], x["lr"]),
+            36 * n, 15 * n, ref % (151, "rmsprop")),
+        "ftrl": (lambda: ops.ftrl(ctx, {}, x["p"], pos, x["m1"], x["g"],
+                                  x["lr"]), 28 * n, 20 * n,
+                 ref % (181, "ftrl")),
+        "average_accumulates": (lambda: ops.average_accumulates(
+            ctx, {"average_window": 1.0, "min_average_window": 2,
+                  "max_average_window": 4}, x["p"], x["m1"], x["m2"],
+            x["v"], *counters), 28 * n, 8 * n,
+            ref % (274, "average_accumulates")),
+        "proximal_gd": (lambda: ops.proximal_gd(
+            ctx, {"l1": 1e-4, "l2": 1e-4}, x["p"], x["g"], x["lr"]),
+            12 * n, 8 * n, ref % (315, "proximal_gd")),
+        "proximal_adagrad": (lambda: ops.proximal_adagrad(
+            ctx, {"l1": 1e-4, "l2": 1e-4}, x["p"], pos, x["g"], x["lr"]),
+            20 * n, 12 * n, ref % (331, "proximal_adagrad")),
+    }
+    rows = []
+    for name, (call, nbytes, flops, replaces) in cases.items():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph):
+            call()
+        graph.instantiate()
+        kernels = len(_lib.graph_kernel_functions(graph))
+        bound, by = bound_ms(nbytes, flops, "float32")
+        ms = time_ms(graph.replay, 20)
+        rows.append({"name": name, "route": "plain PyTorch",
+                     "source": "paddle_tpu_torch/ops/optimizer_ops.py",
+                     "replaces": replaces,
+                     "shape": "[30522,768] f32 (BERT-base word embedding)",
+                     "ms_graph": ms, "bound_ms": bound, "bound_by": by,
+                     "bound_share": bound / ms,
+                     "cuda_kernels_per_op": kernels})
+        del graph
+    return rows
+
+
+def phase_optimizers_parity():
+    """Each rule's first step on a 2-layer BERT at BERT-base width (T=128,
+    batch 2, dropout 0.1) on the card (a captured step, replayed) and on
+    the CPU with the plain versions, from the card's start and at the same
+    executor step (so the same masks): the loss within PARITY_LOSS_RTOL
+    and RULE_PARITY_PARAMS after the update within PARITY_PARAM_RTOL of
+    their scale plus what the two sides' gradients explain
+    (:func:`rule_parity_tol`), the card's parameters moved, and the same
+    bounds failing the card's update dropped and reversed."""
+    import copy
+    import warnings
+
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.models import bert
+
+    cfg = copy.copy(bert.BERT_BASE)
+    cfg.layers = 2
+    batch = bert.make_fake_batch(RULE_PARITY_BATCH, RULE_PARITY_SEQ, cfg,
+                                 np.random.RandomState(SEED + 5))
+    failed = []
+    for rule in RULES:
+        with fluid.unique_name.guard():
+            main, startup, loss = rule_program(fluid, bert, cfg,
+                                               RULE_PARITY_SEQ, rule)
+        grads = rule_grads(main)
+        fetch = [loss.name] + [grads[n] for n in RULE_PARITY_PARAMS]
+        out, start = {}, None
+        for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+            scope = fluid.Scope()
+            with fluid.scope_guard(scope), warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                exe = fluid.Executor(place)
+                exe.run(startup)
+                if start is None:
+                    start = convert.scope_persistables(main, scope)
+                    step = exe._step
+                convert.load_params_into_scope(start, scope, place,
+                                               program=main)
+                calls = 2 if place._kind == "cuda" else 1
+                for _ in range(calls):  # the card: warm-up, then capture
+                    convert.load_params_into_scope(start, scope, place,
+                                                   program=main)
+                    exe._step = step
+                    vals = exe.run(main, feed=batch, fetch_list=fetch)
+                out[place._kind] = (float(vals[0][0]), exe.last_run_mode, {
+                    n: np.asarray(scope.get(n).detach().cpu())
+                    for n in RULE_PARITY_PARAMS}, dict(zip(
+                        RULE_PARITY_PARAMS, vals[1:])))
+            del scope, exe
+        (g_loss, g_mode, g, g_grad), (c_loss, _, c, c_grad) = \
+            out["cuda"], out["cpu"]
+        row = {"phase": "optimizers_parity", "rule": rule,
+               "step": "GPU kernels vs CPU plain versions, one step, "
+                       "dropout 0.1, the card's a captured step",
+               "mode": g_mode, "loss": [g_loss, c_loss],
+               "loss_rel_err": abs(g_loss - c_loss) / abs(c_loss),
+               "loss_tol": PARITY_LOSS_RTOL}
+        ok = row["loss_rel_err"] <= PARITY_LOSS_RTOL and g_mode == "capture"
+        caught = {"dropped": False, "reversed": False}
+        for n in RULE_PARITY_PARAMS:
+            p0 = start[n].astype("float64")
+            card, cpu = g[n].astype("float64"), c[n].astype("float64")
+            diff = np.abs(card - cpu)
+            tol = rule_parity_tol(
+                rule, TRAIN_LR, start[n], [g_grad[n]], [c_grad[n]],
+                PARITY_PARAM_RTOL * float(np.abs(p0).max()))
+            # the check's power: the card's update dropped, or reversed
+            miss = {"dropped": np.abs(p0 - cpu) > tol,
+                    "reversed": np.abs(2 * p0 - card - cpu) > tol}
+            row[n] = {"max_abs_err": float(diff.max()),
+                      "min_tol": float(np.min(tol)),
+                      "median_tol": float(np.median(tol)),
+                      "worst_err_over_tol": float(np.max(diff / tol)),
+                      "cpu_update": float(np.abs(cpu - p0).max()),
+                      "card_update": float(np.abs(card - p0).max()),
+                      "share_tol_over_own_update": float(np.mean(
+                          tol >= np.abs(cpu - p0))),
+                      "share_catching": {k: float(np.mean(m))
+                                         for k, m in miss.items()}}
+            for k, m in miss.items():
+                caught[k] = caught[k] or bool(m.any())
+            ok = ok and np.isfinite(g[n]).all() and bool(np.all(
+                diff <= tol)) and row[n]["cpu_update"] > 0 \
+                and row[n]["card_update"] > 0
+        row["update_dropped_or_reversed_would_fail"] = caught
+        ok = ok and all(caught.values())
+        emit(row)
+        if not ok:
+            failed.append(row)
+    if failed:
+        raise AssertionError("optimizers parity failed: %s" % failed)
+
+
+def averaging_program(fluid, bert, cfg, seq, lr=TRAIN_LR, max_pred=None):
+    """``build_pretrain``'s masked-LM program with Adam, an
+    ``ExponentialMovingAverage`` whose decay is scheduled from a step
+    counter (``thres_steps``) and a ``ModelAverage`` whose window
+    restarts every few steps → ``(main, startup, loss, ema, average)``."""
+    if max_pred is None:
+        max_pred = bert.default_max_pred(seq)
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup):
+        loss = _mlm_loss(fluid, bert, cfg, seq, max_pred)
+        fluid.optimizer.Adam(learning_rate=lr).minimize(loss)
+        counter = fluid.layers.autoincreased_step_counter(begin=0)
+        ema = fluid.optimizer.ExponentialMovingAverage(
+            AVERAGING_EMA_DECAY, thres_steps=counter)
+        ema.update()
+        # ParamAttr's do_model_average is False by default in both
+        # packages: the model's parameters opt in here
+        for p in main.all_parameters():
+            p.do_model_average = True
+        average = fluid.optimizer.ModelAverage(
+            1.0, min_average_window=AVERAGING_WINDOW[0],
+            max_average_window=AVERAGING_WINDOW[1])
+    return main, startup, loss, ema, average
+
+
+def _plain_averages(torch, history):
+    """The EMA (bias-corrected as the apply program corrects it) and the
+    window average of each parameter, in plain torch where the values
+    lie, from its value after each step → ``({name: ema}, {name:
+    average})``."""
+    names = list(history[0])
+    f32 = dict(dtype=torch.float32, device=history[0][names[0]].device)
+    emas = {n: torch.zeros_like(history[0][n]) for n in names}
+    d = None
+    for t, params in enumerate(history):
+        tf = torch.full((1,), float(t), **f32)
+        d = torch.minimum((tf * 1.0 + 1.0) / (tf * 1.0 + 10.0),
+                          torch.full((1,), AVERAGING_EMA_DECAY, **f32))
+        one_minus = d * -1.0 + 1.0
+        for n in names:
+            emas[n] = emas[n] * d + params[n] * one_minus
+    denom = torch.maximum(
+        1.0 - torch.pow(d, torch.full((1,), float(len(history)), **f32)),
+        torch.full((1,), 1e-12, **f32))
+    ema_out = {n: emas[n] / denom for n in names}
+    lo, hi = AVERAGING_WINDOW
+    out = {}
+    for n in names:
+        s1 = s2 = s3 = torch.zeros_like(history[0][n])
+        na = ona = nu = 0
+        for params in history:
+            nu += 1
+            na += 1
+            s1 = s1 + params[n]
+            if nu % 16384 == 0:
+                s2, s1 = s2 + s1, torch.zeros_like(s1)
+            if na >= lo and na >= min(hi, nu * 1.0):
+                s3 = s1 + s2
+                s1, s2 = torch.zeros_like(s1), torch.zeros_like(s2)
+                ona, na = na, 0
+        cnt = torch.full((1,), float(na + ona), **f32)
+        out[n] = (s1 + s2 + s3) / cnt
+    return ema_out, out
+
+
+def _ulps_off(torch, got, want):
+    """max |got - want| in float32 units of the largest |want|."""
+    err = float((got - want).abs().max())
+    unit = float(torch.finfo(torch.float32).eps) * max(
+        float(want.abs().max()), 1e-30)
+    return err / unit
+
+
+def phase_averaging(env):
+    """BERT-base T=512 b8 (float32, dropout 0.1) with Adam, an EMA whose
+    decay is scheduled from a step counter and a ModelAverage whose window
+    restarts, AVERAGING_GRAPH_STEPS graph steps after the warm-up; then
+    each average applied: the eval program's loss inside ``apply``, every
+    parameter held to the plain-torch average of its recorded values
+    inside the eager and the captured apply both, and
+    after ``restore`` every parameter bit for bit its value before; the
+    apply and restore programs' ms (eager, then captured)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BERT_BASE
+    with fluid.unique_name.guard():
+        main, startup, loss, ema, average = averaging_program(
+            fluid, bert, cfg, SEQ)
+    eval_cfg = copy.copy(cfg)
+    eval_cfg.dropout = eval_cfg.attn_dropout = 0.0
+    eval_main, eval_start = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), \
+            fluid.program_guard(eval_main, eval_start):
+        eval_loss = _mlm_loss(fluid, bert, eval_cfg, SEQ,
+                              bert.default_max_pred(SEQ))
+    batch = bert.make_fake_batch(TRAIN_BATCH, SEQ, cfg,
+                                 np.random.RandomState(SEED + 7))
+    names = [p.name for p in main.all_parameters()]
+    failed = []
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup)
+        history, modes, losses = [], [], []
+        for _ in range(AVERAGING_GRAPH_STEPS + 1):
+            losses.append(float(exe.run(main, feed=batch,
+                                        fetch_list=[loss])[0][0]))
+            modes.append(exe.last_run_mode)
+            history.append(_scope_params(scope, names))
+        copies = copy_back_writers(exe)
+        plain_ema, plain_avg = _plain_averages(torch, history)
+        raw_loss = float(exe.run(eval_main, feed=batch,
+                                 fetch_list=[eval_loss])[0][0])
+        rows = {}
+        for label, avg, plain in (("ema", ema, plain_ema),
+                                  ("model_average", average, plain_avg)):
+            before = _scope_params(scope, names)
+            timing, ulps = [], []
+            for call in range(2):  # the eager run, then the captured one
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with avg.apply(exe, need_restore=False):
+                    torch.cuda.synchronize()
+                    t_apply = (time.perf_counter() - t0) * 1e3
+                    if call == 0:
+                        applied_loss = float(exe.run(
+                            eval_main, feed=batch,
+                            fetch_list=[eval_loss])[0][0])
+                    ulps.append(max(_ulps_off(torch, scope.get(n), plain[n])
+                                    for n in names))
+                    t1 = time.perf_counter()
+                    avg.restore(exe)
+                    torch.cuda.synchronize()
+                    t_restore = (time.perf_counter() - t1) * 1e3
+                timing.append({"apply_ms": t_apply, "restore_ms": t_restore,
+                               "mode": exe.last_run_mode})
+                restored = all(torch.equal(scope.get(n), before[n])
+                               for n in names)
+                if not restored:
+                    failed.append("%s: restore %d not bit for bit"
+                                  % (label, call))
+            rows[label] = {"applied_ulps_vs_plain_torch": ulps,
+                           "tol_ulps": AVERAGE_ULPS,
+                           "eval_loss_applied": applied_loss,
+                           "runs": timing}
+            if not max(ulps) <= AVERAGE_ULPS or \
+                    not np.isfinite(applied_loss):
+                failed.append("%s: applied values %s units off plain "
+                              "torch (eager, captured), eval loss %s"
+                              % (label, ulps, applied_loss))
+        state = {n: int(scope.get(n).reshape(-1)[0]) for n in (
+            average._get_accumulator(k, main.all_parameters()[0]).name
+            for k in ("num_accumulates", "old_num_accumulates",
+                      "num_updates"))}
+    emit({"phase": "averaging", "card": card_label(env), "losses": losses,
+          "modes": modes, "eval_loss_raw": raw_loss,
+          "copy_backs_by_writer": copies, "window_state": state,
+          "parameters": len(names), **rows})
+    if modes[-1] != "graph" or not all(np.isfinite(losses)):
+        failed.append("the steps did not replay, or a loss is not finite")
+    # the EMA's sum into each average (its scheduled decay is written
+    # before it is read: a fresh value a step, no copy-back)
+    if copies != {"sum": len(names)}:
+        failed.append("copy-backs %s, not the EMA's sum of each parameter"
+                      % copies)
+    if failed:
+        raise AssertionError("averaging: %s" % failed)
+    del scope, exe
+    torch.cuda.empty_cache()
+
+
+def telemetry_run(fluid, pred, requests, train, steps,
+                  heartbeat_s=HEARTBEAT_S):
+    """Under the telemetry directory the caller set: ``requests`` served
+    one by one through a default ``PredictorServer`` over ``pred``, then
+    ``train = (main, startup, feed, fetch, place)`` run for its startup
+    and ``steps`` steps on a fresh executor while a ``HeartbeatWriter``
+    beats for rank 0; the journal, the spans and a metrics snapshot
+    flushed → (what ran, the writer, still beating)."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.resilience import HeartbeatWriter
+
+    dirname = obs.journal_dir()
+    served_from = pred._exe._step
+    server = serving.PredictorServer({"bert": pred})
+    futures = [server.submit("bert", r, request_id="req%d" % i)
+               for i, r in enumerate(requests)]
+    server.start()
+    outs = [f.result(timeout=TOOLS_TIMEOUT)[0] for f in futures]
+    server.close()
+    main, startup, feed, fetch, place = train
+    writer = HeartbeatWriter(dirname, rank=0, interval=heartbeat_s).start()
+    exe = fluid.Executor(place)
+    exe.run(startup)
+    losses = [float(exe.run(main, feed=feed, fetch_list=fetch)[0][0])
+              for _ in range(steps)]
+    writer.beat()  # the newest step in the payload now
+    obs.get_journal().flush()
+    obs.get_tracer().flush()
+    obs.write_metrics_snapshot(os.path.join(
+        dirname, "metrics-r0-%d.json" % os.getpid()))
+    ran = {"requests": len(outs), "served_calls": pred._exe._step
+           - served_from, "train_calls": exe._step, "losses": losses,
+           "last_step": max(exe._step, pred._exe._step) - 1,
+           "outputs_finite": all(bool((o == o).all()) for o in outs)}
+    return ran, writer
+
+
+def check_tools(status, serving, ran):
+    """What the monitor's status and trace's serving view must say of a
+    :func:`telemetry_run` → the failures."""
+    failed = []
+    rank = (status.get("ranks") or {}).get("0") or {}
+    steps_journaled = (status.get("event_counts") or {}).get("step")
+    if status.get("steps") != ran["last_step"] \
+            or steps_journaled != ran["served_calls"] + ran["train_calls"]:
+        failed.append("monitor steps %s / %s step events, ran %s"
+                      % (status.get("steps"), steps_journaled, ran))
+    if not rank.get("alive") or rank.get("wedged"):
+        failed.append("rank 0 not alive or wedged: %s" % rank)
+    if not serving or serving.get("requests") != ran["requests"]:
+        failed.append("trace saw %s requests, sent %d"
+                      % ((serving or {}).get("requests"), ran["requests"]))
+    phases = (serving or {}).get("phases") or {}
+    for name in ("serving.request", "serving.queue_wait", "serving.device"):
+        if not all(isinstance(phases.get(name, {}).get(k), float)
+                   for k in ("p50_ms", "p99_ms")):
+            failed.append("trace has no p50/p99 of %s" % name)
+    return failed
+
+
+def phase_tools(env, pred, cfg):
+    """The operator's two CLIs on a served run and a training run of the
+    card: TOOLS_REQUESTS one-row BERT-base requests through a default
+    ``PredictorServer`` over the main path's predictor and TOOLS_STEPS
+    steps of a 2-layer BERT-base-width MLM program (T=128, batch 2, Adam)
+    under one temporary ``PADDLE_TPU_TELEMETRY_DIR`` (every step
+    journaled), a ``HeartbeatWriter`` beating; then ``tools.monitor
+    --once --json``, ``tools.trace --serving --json`` and one alert that
+    must trip and one that must not, as subprocesses; the directory is
+    deleted afterwards."""
+    import copy
+
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.models import bert
+
+    rng = np.random.RandomState(SEED + 11)
+    requests = [_bert_request(rng, 1, cfg) for _ in range(TOOLS_REQUESTS)]
+    tcfg = copy.copy(bert.BERT_BASE)
+    tcfg.layers = 2
+    with fluid.unique_name.guard():
+        main, startup, loss = _train_program(fluid, bert, tcfg, TOOLS_SEQ)
+    feed = bert.make_fake_batch(2, TOOLS_SEQ, tcfg, rng)
+    dirname = tempfile.mkdtemp(prefix="chip_smoke_telemetry_")
+    writer = None
+    try:
+        with _env_var("PADDLE_TPU_TELEMETRY_DIR", dirname), \
+                _env_var("PADDLE_TPU_TELEMETRY_STEP_EVERY", "1"):
+            obs.reset_telemetry()
+            ran, writer = telemetry_run(
+                fluid, pred, requests,
+                (main, startup, feed, [loss], fluid.CUDAPlace(0)),
+                TOOLS_STEPS)
+        py = [sys.executable, "-m"]
+        cmds = {"monitor": py + ["paddle_tpu_torch.tools.monitor", dirname,
+                                 "--once", "--json"],
+                "trace": py + ["paddle_tpu_torch.tools.trace", dirname,
+                               "--serving", "--json"],
+                "alert_trips": py + ["paddle_tpu_torch.tools.monitor",
+                                     dirname, "--once", "--json", "--alert",
+                                     "steps>0"],
+                "alert_holds": py + ["paddle_tpu_torch.tools.monitor",
+                                     dirname, "--once", "--json", "--alert",
+                                     "lost_ranks>0"]}
+        child_env = dict(os.environ, PYTHONPATH=HERE)
+        t0 = time.time()
+        procs = {k: subprocess.Popen(c, cwd=HERE, env=child_env,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+                 for k, c in cmds.items()}
+        done = {}
+        for k, p in procs.items():
+            try:
+                out, err = p.communicate(timeout=TOOLS_TIMEOUT)
+            finally:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            done[k] = (p.returncode, out, err)
+        cli_s = time.time() - t0
+    finally:
+        if writer is not None:
+            writer.stop()
+        obs.reset_telemetry()
+        shutil.rmtree(dirname, ignore_errors=True)
+    status = json.loads(done["monitor"][1])
+    serving = json.loads(done["trace"][1])
+    codes = {k: v[0] for k, v in done.items()}
+    failed = check_tools(status, serving, ran)
+    if codes != {"monitor": 0, "trace": 0, "alert_trips": 1,
+                 "alert_holds": 0}:
+        failed.append("exit codes %s" % codes)
+    emit({"phase": "tools", "card": card_label(env), "ran": ran,
+          "exit_codes": codes, "cli_seconds_parallel": cli_s,
+          "monitor": {k: status.get(k) for k in (
+              "steps", "step_rate", "p50_step_ms", "p99_step_ms",
+              "p50_serving_latency_ms", "p99_serving_latency_ms",
+              "serving_requests", "ranks", "alive_ranks", "lost_ranks",
+              "skip_rate", "checkpoint_age_s", "quant_error")},
+          "trace_serving": serving,
+          "stderr": {k: v[2][-400:] for k, v in done.items()}})
+    if failed:
+        raise AssertionError("tools: %s" % failed)
+
+
 def main():
     try:
         import torch
@@ -7843,6 +8743,7 @@ def _run_phases(torch):
     _timed(seconds, phase_profiler, env, pred, cfg)
     _timed(seconds, phase_graph_serve, env, pred, cfg)
     serve_bf16_counts = _timed(seconds, phase_serve_bf16, env, pred, cfg)
+    _timed(seconds, phase_tools, env, pred, cfg)
     del pred
     train_counts = _timed(seconds, phase_train, env)
     _timed(seconds, phase_train_parity)
@@ -7865,6 +8766,9 @@ def _run_phases(torch):
     recipe_counts = _timed(seconds, phase_train_recipe, env)
     _timed(seconds, phase_train_recipe_parity)
     _timed(seconds, phase_recompute, env)
+    _timed(seconds, phase_optimizers, env)
+    _timed(seconds, phase_optimizers_parity)
+    _timed(seconds, phase_averaging, env)
     from paddle_tpu_torch.ops.cuda import KERNELS
 
     # each path's launches by source: the wrappers' launches that ran at

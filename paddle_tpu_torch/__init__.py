@@ -18,6 +18,7 @@ ported so far, and what is queued, is in ROADMAP.md.
 
 from . import core
 from . import unique_name
+from . import average
 from .framework import (
     Program, Block, Operator, Variable, Parameter, program_guard,
     name_scope, default_main_program, default_startup_program,
@@ -50,6 +51,7 @@ from . import transpiler
 from . import contrib
 from . import profiler
 from . import autotune
+from . import resilience
 
 __all__ = [
     "Program", "Block", "Operator", "Variable", "Parameter",
@@ -64,5 +66,6 @@ __all__ = [
     "serving", "models", "convert", "backward", "clip", "regularizer",
     "optimizer", "append_backward", "gradients", "quant", "transpiler",
     "contrib", "profiler", "autotune", "verify_program", "analyze_program",
+    "average", "resilience",
     "GradientClipByGlobalNorm", "GradientClipByNorm", "GradientClipByValue",
 ]

@@ -518,8 +518,9 @@ class _CompiledBlock:
     kernel, as libcuda lists them; a replay runs the latter.
     ``copy_backs`` is the number of new read-write values the step copies
     into their resident tensors (0 when every state write is declared in
-    place).  ``generation`` is the scope's generation when the bound
-    tensors were last checked against it (:meth:`rebind`)."""
+    place) and ``copy_back_names`` names them.  ``generation`` is the
+    scope's generation when the bound tensors were last checked against
+    it (:meth:`rebind`)."""
 
     def __init__(self, program, feed_names, fetch_names):
         self.program = program  # holds id(program) for the key's life
@@ -545,8 +546,12 @@ class _CompiledBlock:
         self.fresh = None
         self.captured = {}
         self.kernel_nodes = {}
-        self.copy_backs = 0
+        self.copy_back_names = []
         self.generation = None
+
+    @property
+    def copy_backs(self):
+        return len(self.copy_back_names)
 
     def bind(self, scope, feed_vals, device):
         """Fix the step's inputs: the scope tensors it reads (a read-write
@@ -606,7 +611,7 @@ class _CompiledBlock:
                     news[n] = new.clone()
             for n, new in news.items():
                 self.reads[n].copy_(new)
-            self.copy_backs = len(news)
+            self.copy_back_names = sorted(news)
         missing = [n for n in self.fetch_names if n not in env]
         if missing:
             raise RuntimeError("fetch target %r was not produced by the "

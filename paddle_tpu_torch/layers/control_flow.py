@@ -3,7 +3,9 @@
 and the recompute regions, ``make_recompute_region_op_spec`` (:362),
 ``_RecomputeGuard`` (:390) and ``recompute()`` (:436).  ``While``,
 ``ConditionalBlock`` and the tensor arrays come with the decode loop
-(ROADMAP.md, Queue A item 5).
+(ROADMAP.md, Queue A item 5).  Also ``autoincreased_step_counter``
+(the reference's ``layers/nn_extra.py:496``), a step counter for
+``ExponentialMovingAverage(thres_steps=...)``.
 
 A recompute region is one ``recompute_block`` op over a sub-block: its
 forward runs the region without keeping anything but the outputs later
@@ -18,8 +20,9 @@ from .. import core
 from ..framework import default_main_program
 from ..layer_helper import LayerHelper
 
-__all__ = ["increment", "less_than", "less_equal", "greater_than",
-           "greater_equal", "equal", "not_equal", "recompute"]
+__all__ = ["increment", "autoincreased_step_counter", "less_than",
+           "less_equal", "greater_than", "greater_equal", "equal",
+           "not_equal", "recompute"]
 
 
 def increment(x, value=1.0, in_place=True):
@@ -29,6 +32,28 @@ def increment(x, value=1.0, in_place=True):
     helper.append_op(type="increment", inputs={"X": [x]},
                      outputs={"Out": [out]}, attrs={"step": float(value)})
     return out
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """A persistable int64 ``[1]`` counter (``@STEP_COUNTER@`` unless
+    named), ``begin`` at the first step, advanced in place by an
+    ``increment`` op appended where this is called."""
+    from .. import initializer
+
+    helper = LayerHelper("global_step_counter")
+    name = counter_name or "@STEP_COUNTER@"
+    block = helper.main_program.global_block()
+    if block.has_var(name):
+        counter = block.var(name)
+    else:
+        counter = block.create_var(name=name, dtype="int64", shape=[1],
+                                   persistable=True)
+        counter.stop_gradient = True
+        helper.set_variable_initializer(
+            counter, initializer.ConstantInitializer(float(begin - step)))
+    block.append_op(type="increment", inputs={"X": [counter]},
+                    outputs={"Out": [counter]}, attrs={"step": float(step)})
+    return counter
 
 
 def _compare(op_type, x, y, cond=None):

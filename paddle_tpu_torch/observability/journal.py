@@ -4,7 +4,7 @@
 A bounded in-memory ring buffer of event dicts, optionally flushed as
 JSONL into ``PADDLE_TPU_TELEMETRY_DIR`` (one ``journal-r<rank>-<pid>``
 file per process, so multi-worker runs never interleave writes).  The
-same directory is what the reference's monitor CLI tails.
+same directory is what ``python -m paddle_tpu_torch.tools.monitor`` tails.
 
 Write discipline mirrors the checkpoint layer's: appends are buffered
 and flushed every ``PADDLE_TPU_TELEMETRY_FLUSH`` events (default 32),

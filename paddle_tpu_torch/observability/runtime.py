@@ -1,6 +1,7 @@
 """Instrumentation hooks: the one-line calls the executor, the pipeline,
 the serving dispatcher, the decode engine and the concurrency gates make
-(mirrors ``paddle_tpu/observability/runtime.py`` :1-365, :560-685).
+(mirrors ``paddle_tpu/observability/runtime.py`` :1-365, :442-450,
+:560-685).
 
 Centralizing the metric names and journal kinds here keeps the
 instrumented files to single-line edits, and keeps the disabled path
@@ -8,9 +9,11 @@ uniform: every hook starts with the cached kill-switch check and
 returns immediately when telemetry is off.  No hook reads the device.
 
 A ``drift_key`` (the executor's, registered at a key's first call)
-feeds the drift monitor (:mod:`.drift`).  Not ported yet: the guard,
-checkpoint, elastic and speculative-decoding recorders, which wait for
-the modules that call them.
+feeds the drift monitor (:mod:`.drift`).  The watchdog's two recorders
+(``record_worker_lost``, ``record_missed_beat``) are ported with
+``resilience.watchdog``.  Not ported yet: the guard, checkpoint,
+elastic and speculative-decoding recorders, which wait for the modules
+that call them.
 """
 
 import os
@@ -34,7 +37,7 @@ __all__ = [
     "record_decode_tokens", "record_decode_request",
     "set_decode_throughput", "set_kv_pool", "record_kv_handoff",
     "record_decode_resize", "record_dispatcher_died",
-    "record_concurrency_check",
+    "record_concurrency_check", "record_worker_lost", "record_missed_beat",
     "set_collective_schedule", "collective_step_shape",
     "last_step_info", "reset_runtime",
 ]
@@ -399,6 +402,24 @@ def record_dispatcher_died(reason, failed_requests, trace=None):
                   failed_requests=int(failed_requests),
                   trace=_trace_id(trace))
     _tracing.flight_dump("dispatcher-died: %s" % str(reason)[:200])
+
+
+def record_worker_lost(ranks, reason="", trace=None):
+    """A worker-loss verdict of the watchdog: counted, journaled as an
+    urgent ``worker-lost`` event and a flight-recorder dump."""
+    if not telemetry_enabled():
+        return
+    _m.counter("workers_lost_total").inc(max(len(ranks), 1))
+    _journal.emit("worker-lost", ranks=list(ranks), reason=reason,
+                  trace=_trace_id(trace))
+    _tracing.flight_dump("worker-lost: ranks=%s %s" % (list(ranks),
+                                                       reason))
+
+
+def record_missed_beat(ranks):
+    if not telemetry_enabled():
+        return
+    _m.counter("watchdog_missed_beats_total").inc(max(len(ranks), 1))
 
 
 def record_concurrency_check(races_found, gate, tripped=False):

@@ -1,7 +1,10 @@
 """Optimizer update ops (mirrors ``paddle_tpu/ops/optimizer_ops.py``:
 ``sgd`` :22, ``momentum`` :28-43, ``adam`` :46-77, ``lars_momentum`` :202-225,
 ``lamb`` :228-260, the multi-tensor ``fused_sgd`` :347-363 and
-``fused_adam`` :366-435).
+``fused_adam`` :366-435; ``adamax`` :86, ``adagrad`` :104,
+``decayed_adagrad`` :117, ``adadelta`` :131, ``rmsprop`` :151, ``ftrl``
+:181, ``average_accumulates`` :274, ``proximal_gd`` :315 and
+``proximal_adagrad`` :331).
 
 The reference's ops return new values that the jitted step binds to the
 same names, and the step donates the old buffers.  Here every update is
@@ -15,14 +18,22 @@ reference's: duplicable slots, one LearningRate, and each member's bias
 correction from its own beta powers; the port updates the members where
 they lie instead of through a flat concatenation.
 
-``lamb`` and ``lars_momentum`` are the reference's XLA fusions written
-as PyTorch ops on the device (their trust ratios' norms included, never
-read on the host), their results copied into the resident tensors; a
-hand-written kernel for them waits for a benchmark (ROADMAP.md,
-Queue B)."""
+``lamb``, ``lars_momentum`` and the nine other updates (``adamax``,
+``adagrad``, ``decayed_adagrad``, ``adadelta``, ``rmsprop``, ``ftrl``,
+``average_accumulates``, ``proximal_gd``, ``proximal_adagrad``) are the
+reference's XLA fusions written as PyTorch ops on the device (LAMB's and
+LARS's norms included, never read on the host), their results copied
+into the resident tensors; a hand-written kernel for them waits for a
+benchmark (ROADMAP.md, Queue B).  ``average_accumulates`` keeps its
+counters on the device and its fold and window restart as
+``torch.where`` selects, as the reference's ``jnp.where``: no host read,
+so a step with it stays capturable.  ``proximal_gd`` and
+``proximal_adagrad`` return bare tensors, as the reference's do; the
+registry maps them to ``ParamOut`` and ``MomentOut`` in order."""
 
 import torch
 
+from .common import scalar_like
 from .cuda import optimizer as _opt
 from .registry import register_op
 
@@ -102,9 +113,11 @@ def _norm(x):
 
 
 def _write(dsts, srcs):
-    """Each result copied into its resident tensor, in its dtype."""
+    """Each result copied into its resident tensor, in its dtype (a
+    result that is its resident tensor is left as it is)."""
     for d, s in zip(dsts, srcs):
-        d.copy_(s.reshape(d.shape))
+        if s is not d:
+            d.copy_(s.reshape(d.shape))
     return dsts
 
 
@@ -162,3 +175,232 @@ def lamb(ctx, attrs, Param, Grad, LearningRate, Moment1, Moment2, Beta1Pow,
                    b2p * beta2))
     return dict(zip(("ParamOut", "Moment1Out", "Moment2Out", "Beta1PowOut",
                      "Beta2PowOut"), outs))
+
+
+def _lr_as(LearningRate, Param):
+    """The rate as a scalar of the parameter's dtype, as the reference's
+    ``_lr(LearningRate, Param.dtype)``."""
+    return LearningRate.reshape(()).to(Param.dtype)
+
+
+@register_op("adamax",
+             inputs=["Param", "Grad", "LearningRate", "Moment", "InfNorm",
+                     "Beta1Pow"],
+             outputs=["ParamOut", "MomentOut", "InfNormOut"], no_grad=True,
+             in_place={"ParamOut": "Param", "MomentOut": "Moment",
+                       "InfNormOut": "InfNorm"})
+def adamax(ctx, attrs, Param, Grad, LearningRate, Moment, InfNorm, Beta1Pow):
+    """``m = b1 m + (1 - b1) g``, ``u = max(b2 u, |g| + eps)``, ``p -= lr
+    / (1 - b1^t) * m / u``; ``Beta1Pow`` is read, and advanced by the
+    optimizer's ``scale`` op after it."""
+    beta1 = attrs.get("beta1", 0.9)
+    beta2 = attrs.get("beta2", 0.999)
+    eps = attrs.get("epsilon", 1e-8)
+    lr = _lr_as(LearningRate, Param)
+    m = beta1 * Moment + (1 - beta1) * Grad
+    inf = torch.maximum(beta2 * InfNorm, torch.abs(Grad) + eps)
+    b1p = Beta1Pow.reshape(()).to(Param.dtype)
+    p = Param - (lr / (1 - b1p)) * (m / inf)
+    return dict(zip(("ParamOut", "MomentOut", "InfNormOut"),
+                    _write((Param, Moment, InfNorm), (p, m, inf))))
+
+
+@register_op("adagrad", inputs=["Param", "Grad", "Moment", "LearningRate"],
+             outputs=["ParamOut", "MomentOut"], no_grad=True,
+             in_place={"ParamOut": "Param", "MomentOut": "Moment"})
+def adagrad(ctx, attrs, Param, Grad, Moment, LearningRate):
+    """``m += g^2``; ``p -= lr * g / (sqrt(m) + eps)``."""
+    eps = attrs.get("epsilon", 1e-6)
+    m = Moment + torch.square(Grad)
+    p = Param - _lr_as(LearningRate, Param) * Grad / (torch.sqrt(m) + eps)
+    return dict(zip(("ParamOut", "MomentOut"),
+                    _write((Param, Moment), (p, m))))
+
+
+@register_op("decayed_adagrad",
+             inputs=["Param", "Grad", "Moment", "LearningRate"],
+             outputs=["ParamOut", "MomentOut"], no_grad=True,
+             in_place={"ParamOut": "Param", "MomentOut": "Moment"})
+def decayed_adagrad(ctx, attrs, Param, Grad, Moment, LearningRate):
+    """``m = decay m + (1 - decay) g^2``; ``p -= lr * g / (sqrt(m) +
+    eps)``."""
+    decay = attrs.get("decay", 0.95)
+    eps = attrs.get("epsilon", 1e-6)
+    m = decay * Moment + (1 - decay) * torch.square(Grad)
+    p = Param - _lr_as(LearningRate, Param) * Grad / (torch.sqrt(m) + eps)
+    return dict(zip(("ParamOut", "MomentOut"),
+                    _write((Param, Moment), (p, m))))
+
+
+@register_op("adadelta",
+             inputs=["Param", "Grad", "AvgSquaredGrad", "AvgSquaredUpdate"],
+             outputs=["ParamOut", "AvgSquaredGradOut",
+                      "AvgSquaredUpdateOut"], no_grad=True,
+             in_place={"ParamOut": "Param",
+                       "AvgSquaredGradOut": "AvgSquaredGrad",
+                       "AvgSquaredUpdateOut": "AvgSquaredUpdate"})
+def adadelta(ctx, attrs, Param, Grad, AvgSquaredGrad, AvgSquaredUpdate):
+    """No learning rate: ``g2 = rho g2 + (1 - rho) g^2``, ``d = -sqrt((u2
+    + eps) / (g2 + eps)) g``, ``u2 = rho u2 + (1 - rho) d^2``, ``p +=
+    d``."""
+    rho = attrs.get("rho", 0.95)
+    eps = attrs.get("epsilon", 1e-6)
+    asg = rho * AvgSquaredGrad + (1 - rho) * torch.square(Grad)
+    update = -torch.sqrt((AvgSquaredUpdate + eps) / (asg + eps)) * Grad
+    asu = rho * AvgSquaredUpdate + (1 - rho) * torch.square(update)
+    outs = _write((Param, AvgSquaredGrad, AvgSquaredUpdate),
+                  (Param + update, asg, asu))
+    return dict(zip(("ParamOut", "AvgSquaredGradOut",
+                     "AvgSquaredUpdateOut"), outs))
+
+
+@register_op("rmsprop",
+             inputs=["Param", "Grad", "MeanSquare", "MeanGrad", "Moment",
+                     "LearningRate"],
+             outputs=["ParamOut", "MomentOut", "MeanSquareOut",
+                      "MeanGradOut"], no_grad=True,
+             in_place={"ParamOut": "Param", "MomentOut": "Moment",
+                       "MeanSquareOut": "MeanSquare",
+                       "MeanGradOut": "MeanGrad"})
+def rmsprop(ctx, attrs, Param, Grad, MeanSquare, MeanGrad, Moment,
+            LearningRate):
+    """``ms = decay ms + (1 - decay) g^2``; centered, ``mg = decay mg +
+    (1 - decay) g`` and the denominator ``ms - mg^2 + eps``, else ``ms +
+    eps`` (``mg`` unchanged); ``mom = momentum mom + lr g /
+    sqrt(denominator)``; ``p -= mom``."""
+    eps = attrs.get("epsilon", 1e-10)
+    decay = attrs.get("decay", 0.9)
+    mom_coef = attrs.get("momentum", 0.0)
+    lr = _lr_as(LearningRate, Param)
+    ms = decay * MeanSquare + (1 - decay) * torch.square(Grad)
+    if attrs.get("centered", False):
+        mg = decay * MeanGrad + (1 - decay) * Grad
+        denom = ms - torch.square(mg) + eps
+    else:
+        mg = MeanGrad
+        denom = ms + eps
+    mom = mom_coef * Moment + lr * Grad / torch.sqrt(denom)
+    outs = _write((Param, Moment, MeanSquare, MeanGrad),
+                  (Param - mom, mom, ms, mg))
+    return dict(zip(("ParamOut", "MomentOut", "MeanSquareOut",
+                     "MeanGradOut"), outs))
+
+
+@register_op("ftrl",
+             inputs=["Param", "SquaredAccumulator", "LinearAccumulator",
+                     "Grad", "LearningRate"],
+             outputs=["ParamOut", "SquaredAccumOut", "LinearAccumOut"],
+             no_grad=True,
+             in_place={"ParamOut": "Param",
+                       "SquaredAccumOut": "SquaredAccumulator",
+                       "LinearAccumOut": "LinearAccumulator"})
+def ftrl(ctx, attrs, Param, SquaredAccumulator, LinearAccumulator, Grad,
+         LearningRate):
+    """FTRL-proximal: ``n' = n + g^2``; ``sigma = (n'^-k - n^-k) / lr``
+    with ``k = lr_power`` (square roots at -0.5); ``z += g - sigma p``;
+    ``p = (l1 sign(z) - z) / (l2 + n'^-k / lr)`` where ``|z| > l1``, else
+    0 (``l1``, ``l2`` each plus 1e-10)."""
+    l1 = attrs.get("l1", 0.0) + 1e-10
+    l2 = attrs.get("l2", 0.0) + 1e-10
+    lr_power = attrs.get("lr_power", -0.5)
+    lr = _lr_as(LearningRate, Param)
+    sq = SquaredAccumulator
+    new_sq = sq + torch.square(Grad)
+    if lr_power == -0.5:
+        new_root = torch.sqrt(new_sq)
+        sigma = (new_root - torch.sqrt(sq)) / lr
+    else:
+        new_root = new_sq ** (-lr_power)
+        sigma = (new_root - sq ** (-lr_power)) / lr
+    linear = LinearAccumulator + Grad - sigma * Param
+    x = l2 + new_root / lr
+    pre_shrink = (l1 * torch.sign(linear) - linear) / x
+    p = torch.where(torch.abs(linear) > l1, pre_shrink,
+                    torch.zeros_like(Param))
+    outs = _write((Param, SquaredAccumulator, LinearAccumulator),
+                  (p, new_sq, linear))
+    return dict(zip(("ParamOut", "SquaredAccumOut", "LinearAccumOut"), outs))
+
+
+# the fold period of the three-tier sums (the reference's
+# ``kMaxNumAccumulates``, average_accumulates_op.h)
+K_MAX_NUM_ACCUMULATES = 16384
+
+
+@register_op("average_accumulates",
+             inputs=["param", "in_sum_1", "in_sum_2", "in_sum_3",
+                     "in_num_accumulates", "in_old_num_accumulates",
+                     "in_num_updates"],
+             outputs=["out_sum_1", "out_sum_2", "out_sum_3",
+                      "out_num_accumulates", "out_old_num_accumulates",
+                      "out_num_updates"], no_grad=True,
+             in_place={"out_sum_1": "in_sum_1", "out_sum_2": "in_sum_2",
+                       "out_sum_3": "in_sum_3",
+                       "out_num_accumulates": "in_num_accumulates",
+                       "out_old_num_accumulates": "in_old_num_accumulates",
+                       "out_num_updates": "in_num_updates"})
+def average_accumulates(ctx, attrs, param, in_sum_1, in_sum_2, in_sum_3,
+                        in_num_accumulates, in_old_num_accumulates,
+                        in_num_updates):
+    """ModelAverage's sliding-window sums: ``sum_1 += param``; every
+    16384th update folds ``sum_1`` into ``sum_2``; once ``num_accumulates``
+    reaches ``min_average_window`` and ``min(max_average_window,
+    num_updates * average_window)`` the window restarts (``sum_3 = sum_1
+    + sum_2``, the old count kept).  The counters stay on the device and
+    both branches are selects."""
+    avg_window = float(attrs.get("average_window", 0.0))
+    max_w = int(attrs.get("max_average_window", 10000))
+    min_w = int(attrs.get("min_average_window", 10000))
+    nu = in_num_updates + 1
+    na = in_num_accumulates + 1
+    s1 = in_sum_1 + param.to(in_sum_1.dtype)
+    fold = (nu % K_MAX_NUM_ACCUMULATES) == 0
+    s2 = torch.where(fold, in_sum_2 + s1, in_sum_2)
+    s1 = torch.where(fold, torch.zeros_like(s1), s1)
+    window = torch.clamp(nu.float() * avg_window, max=float(max_w))
+    restart = (na >= min_w) & (na.float() >= window)
+    s3 = torch.where(restart, s1 + s2, in_sum_3)
+    s1 = torch.where(restart, torch.zeros_like(s1), s1)
+    s2 = torch.where(restart, torch.zeros_like(s2), s2)
+    ona = torch.where(restart, na, in_old_num_accumulates)
+    na = torch.where(restart, torch.zeros_like(na), na)
+    outs = _write((in_sum_1, in_sum_2, in_sum_3, in_num_accumulates,
+                   in_old_num_accumulates, in_num_updates),
+                  (s1, s2, s3, na, ona, nu))
+    return dict(zip(("out_sum_1", "out_sum_2", "out_sum_3",
+                     "out_num_accumulates", "out_old_num_accumulates",
+                     "out_num_updates"), outs))
+
+
+def _shrink(prox, lr, l1, l2):
+    """The proximal step: soft threshold ``lr * l1``, decay ``1 / (1 +
+    lr * l2)``."""
+    shrink = torch.clamp(torch.abs(prox) - lr * l1, min=0.0)
+    return torch.sign(prox) * shrink / (1.0 + lr * l2)
+
+
+@register_op("proximal_gd", inputs=["Param", "Grad", "LearningRate"],
+             outputs=["ParamOut"], no_grad=True,
+             in_place={"ParamOut": "Param"})
+def proximal_gd(ctx, attrs, Param, Grad, LearningRate):
+    """``prox = p - lr g``, then the shrinkage with ``l1`` and ``l2``."""
+    lr = _lr_as(LearningRate, Param)
+    l1 = scalar_like(attrs.get("l1", 0.0), Param)
+    l2 = scalar_like(attrs.get("l2", 0.0), Param)
+    p = _shrink(Param - lr * Grad, lr, l1, l2)
+    return _write((Param,), (p,))[0]
+
+
+@register_op("proximal_adagrad",
+             inputs=["Param", "Moment", "Grad", "LearningRate"],
+             outputs=["ParamOut", "MomentOut"], no_grad=True,
+             in_place={"ParamOut": "Param", "MomentOut": "Moment"})
+def proximal_adagrad(ctx, attrs, Param, Moment, Grad, LearningRate):
+    """``m += g^2``; the gradient step with the adaptive rate ``lr /
+    sqrt(m)``, the shrinkage with the plain ``lr``."""
+    lr = _lr_as(LearningRate, Param)
+    l1 = scalar_like(attrs.get("l1", 0.0), Param)
+    l2 = scalar_like(attrs.get("l2", 0.0), Param)
+    m = Moment + Grad * Grad
+    p = _shrink(Param - (lr / torch.sqrt(m)) * Grad, lr, l1, l2)
+    return tuple(_write((Param, Moment), (p, m)))

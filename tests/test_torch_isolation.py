@@ -2,8 +2,10 @@
 ``paddle_tpu`` (the observability layer with the drift monitor, the
 profiler, the autotune cache, the concurrency proofs, the verifier's
 battery with the abstract interpreter, cost model, schedule prover,
-overlap and hierarchy passes and the planner's cluster spec, and the
-serving, lint and analyze CLIs included), its entry points run on the GPU
+overlap and hierarchy passes and the planner's cluster spec, the serving,
+lint, analyze, monitor and trace CLIs, the watchdog, the other
+optimizers with the moving averages, decoupled weight decay and
+``WeightedAverage`` included), its entry points run on the GPU
 unless the caller asks for the CPU, and what it has not ported yet
 raises rather than being skipped silently."""
 
@@ -49,6 +51,9 @@ from paddle_tpu_torch.tools import diag_cli, lint_program  # noqa: F401
 from paddle_tpu_torch.tools import analyze_program, serve  # noqa: F401
 from paddle_tpu_torch import autotune, profiler
 from paddle_tpu_torch.observability import drift
+from paddle_tpu_torch.tools import monitor, trace
+from paddle_tpu_torch import average, resilience
+from paddle_tpu_torch.contrib import extend_optimizer
 
 main, startup = fluid.Program(), fluid.Program()
 with fluid.program_guard(main, startup):
@@ -98,6 +103,37 @@ with fluid.scope_guard(fluid.Scope()):
 assert np.isfinite(rl).all() and ra.shape == (1,), (rl, ra)
 import os
 import tempfile
+
+hb_dir = tempfile.mkdtemp()
+main, startup = fluid.Program(), fluid.Program()
+with fluid.program_guard(main, startup):
+    x = fluid.layers.data("x", shape=[4], dtype="float32")
+    y = fluid.layers.fc(x, size=3, param_attr=fluid.ParamAttr(
+        name="w_avg", do_model_average=True))
+    loss = fluid.layers.reduce_sum(y)
+    extend_optimizer.extend_with_decoupled_weight_decay(
+        fluid.optimizer.Adamax)(weight_decay=0.01,
+                                learning_rate=0.01).minimize(loss)
+    ema = fluid.optimizer.ExponentialMovingAverage(0.9)
+    ema.update()
+    avg = fluid.optimizer.ModelAverage(1.0, min_average_window=2,
+                                       max_average_window=3)
+with fluid.scope_guard(fluid.Scope()):
+    exe = fluid.Executor(fluid.CPUPlace())
+    exe.run(startup)
+    with resilience.HeartbeatWriter(hb_dir, rank=0, interval=0.05):
+        for _ in range(3):
+            exe.run(main, feed={"x": np.ones((2, 4), "float32")},
+                    fetch_list=[loss])
+    with ema.apply(exe), avg.apply(exe):
+        pass
+status = monitor.collect_status(hb_dir)
+assert status["ranks"]["0"]["done"], status
+assert monitor.check_alert(status, "alive_ranks<1")[0] == 0
+assert trace.group_traces([]) == {}
+w = average.WeightedAverage()
+w.add(1.0, 1)
+assert w.eval() == 1.0
 
 import torch
 import torch.distributed as dist
@@ -265,12 +301,16 @@ def test_unported_gates_raise(tmp_path):
 
 
 def test_unported_training_options_raise():
-    """What training still lacks raises, citing its queue item: the
-    optimizers not ported yet (item 4), grads through ``while`` (item 5)."""
-    for name in ("Adagrad", "RMSPropOptimizer", "Ftrl", "ModelAverage"):
-        with pytest.raises(NotImplementedError, match="Queue A item 4"):
-            getattr(fluid.optimizer, name)
-        assert not hasattr(fluid.optimizer, name)
+    """What training still lacks raises, citing its queue item: grads
+    through ``while`` (item 5).  The reference's other optimizers, which
+    raised here until they were ported, are classes of the port now."""
+    for name, base in (("Adagrad", fluid.optimizer.Optimizer),
+                       ("RMSPropOptimizer", fluid.optimizer.Optimizer),
+                       ("Ftrl", fluid.optimizer.Optimizer),
+                       ("ModelAverage", fluid.optimizer.Optimizer)):
+        cls = getattr(fluid.optimizer, name)
+        assert isinstance(cls, type) and issubclass(cls, base), name
+        assert name in fluid.optimizer.__all__
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
         x = fluid.layers.data("x", shape=[4], dtype="float32")

@@ -286,7 +286,7 @@ and the CUDA toolkit.  Phases, each printing one JSON line:
    gradients differ in sign or by a large share); the card's parameters
    moved; the same check would fail the card's update dropped or
    reversed, with each parameter's share of elements that catch either.
-24. averaging (last): BERT-base T=512 b8 with Adam, an
+24. averaging: BERT-base T=512 b8 with Adam, an
    ``ExponentialMovingAverage`` whose decay is scheduled from
    ``autoincreased_step_counter`` (``thres_steps``) and a
    ``ModelAverage`` (windows 2 to 4, so it restarts), a warm-up and 6
@@ -296,6 +296,29 @@ and the CUDA toolkit.  Phases, each printing one JSON line:
    eval program's loss); after ``restore`` every
    parameter bit for bit its value before; the apply and restore
    programs' ms, eager then captured.
+25. dygraph: a ResNet-50 of dygraph layers (``dygraph_resnet``: Conv2D
+   without bias + BatchNorm per site, block for block
+   ``resnet_imagenet``'s, 65 sites, 197 trainable parameters), NCHW,
+   batch 64, 224x224, float32, Momentum (lr 0.1, 0.9, Nesterov) through
+   ``guard()``, ``backward``, ``minimize(parameter_list=)`` and
+   ``clear_gradients`` on the card: its first step against the static
+   ``resnet.build(..., data_format="NCHW")`` program from the same
+   weights (the loss within 1e-4, every parameter and running statistic
+   within 1e-4 of its scale), warm-up and 5 timed steps (step ms, the
+   host's ms to enqueue, 197 Momentum launches a step and no other
+   hand-written kernel, peak allocated and reserved), 2 profiled steps
+   (device ms by group, idle share), the eval forward on the running
+   statistics (left as they are) against the for-test clone, and a
+   ``save_dygraph`` → ``load_dygraph`` → ``set_dict`` round trip bit for
+   bit;
+26. dygraph_parity (last): every one of the 20 dygraph layers at small
+   widths (``DYGRAPH_LAYER_CASES``; Dropout at 0.5 and NCE with the same
+   op ids on both sides) on the card against the port on the CPU, the
+   output and every gradient of its parameters and inputs within 1e-4 of
+   its scale; SGD, Momentum and Adam each with each dygraph clip, L2
+   decay and a ``PiecewiseDecay``, 3 steps of a small MLP, the losses and
+   parameters within 1e-4 of their scale (Adam's elements also what the
+   two sides' consumed gradients explain), their update kernels counted.
 
 The whole run reads and writes a fresh autotune cache in a temp
 directory (``PADDLE_TPU_AUTOTUNE_CACHE``), so no decision of an earlier
@@ -331,7 +354,8 @@ subnormal, NaN, inf and tie blocks, timed at the bucket and at
 BERT-base's whole gradient.  Then one JSON line lists every ported
 kernel with its launches on the decode path (or, for the backward
 kernels, the BERT training run; for K4 the ResNet training run; for K7
-the data-parallel run's quant twin, rank 0) and its times, a line gives ``nvidia-smi``'s name and power limit, and the last
+the data-parallel run's quant twin, rank 0), its launches on every path
+(the dygraph ResNet's among them) and its times, a line gives ``nvidia-smi``'s name and power limit, and the last
 line is ``{"ok": true, "device": {...}}``.  Any failed
 phase exits non-zero before that line.  Without a CUDA device, or without
 the repository beside it, the script exits 2 and prints no result.
@@ -7997,31 +8021,43 @@ def rule_parity_tol(rule, lr, start, grads_a, grads_b, base):
       run adds ``steps`` such shifts, and the whole is capped at ``|p| +
       2 steps lr``, the farthest two of its values lie apart.
 
-    → the bound, an array shaped as ``start``."""
+    The arithmetic is float64 torch on the device of ``start`` when it is
+    a tensor (the card in :func:`phase_optimizers_parity`), and on the CPU
+    for numpy inputs, element for element the same operations either way.
+
+    → the bound, shaped as ``start``: a float64 tensor for a tensor
+    ``start``, else a numpy array."""
     import numpy as np
+    import torch
+
+    on_host = not isinstance(start, torch.Tensor)
+    dev = torch.device("cpu") if on_host else start.device
+
+    def f64(a):
+        return torch.as_tensor(a).to(device=dev, dtype=torch.float64)
 
     steps = len(grads_a)
-    ga = np.stack(grads_a).astype("float64")
-    gb = np.stack(grads_b).astype("float64")
-    low = np.minimum(np.abs(ga), np.abs(gb))
-    with np.errstate(divide="ignore", invalid="ignore"):
-        rel = np.where((np.sign(ga) == np.sign(gb)) & (low > 0),
-                       np.abs(ga - gb) / low, np.inf).max(axis=0)
+    ga = torch.stack([f64(g) for g in grads_a])
+    gb = torch.stack([f64(g) for g in grads_b])
+    low = torch.minimum(ga.abs(), gb.abs())
+    rel = torch.where((torch.sign(ga) == torch.sign(gb)) & (low > 0),
+                      (ga - gb).abs() / low,
+                      torch.full_like(low, float("inf"))).amax(dim=0)
     s = RULE_SETTINGS[rule][1]
     if rule == "dgc_momentum":
         slack = lr * steps * sum(s["momentum"] ** k for k in range(steps)) \
-            * np.abs(ga - gb).max(axis=0)
-        return base + slack
-    step = rule_step_bound(rule, lr)
-    slack = np.minimum(2.0, PARITY_GRAD_K * rel) * steps * step
-    if rule == "ftrl":
-        p = np.abs(start.astype("float64"))
-        l1, l2 = s["l1"] + FTRL_L_FLOOR, s["l2"] + FTRL_L_FLOOR
-        with np.errstate(divide="ignore"):
+            * (ga - gb).abs().amax(dim=0)
+    else:
+        step = rule_step_bound(rule, lr)
+        slack = torch.clamp(PARITY_GRAD_K * rel, max=2.0) * steps * step
+        if rule == "ftrl":
+            p = f64(start).abs()
+            l1, l2 = s["l1"] + FTRL_L_FLOOR, s["l2"] + FTRL_L_FLOOR
             shift = sum(steps * (l1 + l2 * (p + steps * lr)) * lr
-                        / np.abs(g[0]) for g in (ga, gb))
-        slack = np.minimum(slack + shift, p + 2 * steps * lr)
-    return base + slack
+                        / g[0].abs() for g in (ga, gb))
+            slack = torch.minimum(slack + shift, p + 2 * steps * lr)
+    bound = base + slack
+    return bound.numpy() if on_host else bound
 
 
 def rule_grads(main):
@@ -8236,6 +8272,7 @@ def time_new_updates(torch, gen):
     }
     rows = []
     for name, (call, nbytes, flops, replaces) in cases.items():
+        library, note = _library_update(torch, name, x)
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
@@ -8254,9 +8291,57 @@ def time_new_updates(torch, gen):
                      "shape": "[30522,768] f32 (BERT-base word embedding)",
                      "ms_graph": ms, "bound_ms": bound, "bound_by": by,
                      "bound_share": bound / ms,
-                     "cuda_kernels_per_op": kernels})
+                     "cuda_kernels_per_op": kernels,
+                     "library_ms": None if library is None
+                     else time_ms(library, 20), "library": note})
         del graph
     return rows
+
+
+# torch.optim's update of the same function as the op, where it has one
+# (its defaults' extra options off), else why none; the call steps a
+# clone of the op's parameter
+TORCH_OPTIM_TWINS = {
+    "adamax": ("Adamax", {"lr": 1e-3, "betas": (0.9, 0.999), "eps": 1e-8},
+               "u = max(b2 u, |g| + eps), lr / (1 - b1^t) as the op"),
+    "adagrad": ("Adagrad", {"lr": 1e-3, "eps": 1e-6},
+                "lr_decay 0: m += g^2, eps added to sqrt(m) as the op"),
+    "decayed_adagrad": ("RMSprop", {"lr": 1e-3, "alpha": 0.95, "eps": 1e-6},
+                        "plain RMSprop (alpha = decay, no momentum) is "
+                        "DecayedAdagrad's update"),
+    "adadelta": ("Adadelta", {"lr": 1.0, "rho": 0.95, "eps": 1e-6},
+                 "lr 1: the op takes no rate"),
+}
+TORCH_OPTIM_NONE = {
+    "rmsprop (centered)": "none: torch's centered RMSprop adds eps outside "
+                          "the square root and applies lr after the "
+                          "momentum",
+    "ftrl": "none: torch.optim has no FTRL",
+    "average_accumulates": "none: no torch.optim function keeps "
+                           "ModelAverage's windowed sums",
+    "proximal_gd": "none: torch.optim has no proximal (l1/l2 shrink) update",
+    "proximal_adagrad": "none: torch.optim has no proximal (l1/l2 shrink) "
+                        "update",
+}
+
+
+def _library_update(torch, name, x):
+    """(a call of the torch.optim update of op ``name``'s function, a
+    note), or (None, why there is none)."""
+    if name not in TORCH_OPTIM_TWINS:
+        return None, TORCH_OPTIM_NONE[name]
+    cls, kw, note = TORCH_OPTIM_TWINS[name]
+    p = x["p"].detach().clone()
+    p.grad = x["g"].detach().clone()
+    opt = getattr(torch.optim, cls)([p], foreach=False, **kw)
+    return opt.step, "torch.optim.%s(foreach=False).step(): %s" % (cls,
+                                                                    note)
+
+
+def _card64(torch, value):
+    """``value`` (a tensor on any device, or a host array) as a float64
+    tensor on the card."""
+    return torch.as_tensor(value).to(device="cuda", dtype=torch.float64)
 
 
 def phase_optimizers_parity():
@@ -8272,6 +8357,7 @@ def phase_optimizers_parity():
     import warnings
 
     import numpy as np
+    import torch
 
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import convert
@@ -8283,6 +8369,7 @@ def phase_optimizers_parity():
                                  np.random.RandomState(SEED + 5))
     failed = []
     for rule in RULES:
+        t_rule = time.time()
         with fluid.unique_name.guard():
             main, startup, loss = rule_program(fluid, bert, cfg,
                                                RULE_PARITY_SEQ, rule)
@@ -8294,22 +8381,22 @@ def phase_optimizers_parity():
             with fluid.scope_guard(scope), warnings.catch_warnings():
                 warnings.simplefilter("ignore")
                 exe = fluid.Executor(place)
-                exe.run(startup)
-                if start is None:
+                if start is None:  # the card's start; the CPU loads it
+                    exe.run(startup)
                     start = convert.scope_persistables(main, scope)
                     step = exe._step
-                convert.load_params_into_scope(start, scope, place,
-                                               program=main)
                 calls = 2 if place._kind == "cuda" else 1
                 for _ in range(calls):  # the card: warm-up, then capture
                     convert.load_params_into_scope(start, scope, place,
                                                    program=main)
                     exe._step = step
                     vals = exe.run(main, feed=batch, fetch_list=fetch)
+                # the comparison runs on the card in float64
                 out[place._kind] = (float(vals[0][0]), exe.last_run_mode, {
-                    n: np.asarray(scope.get(n).detach().cpu())
-                    for n in RULE_PARITY_PARAMS}, dict(zip(
-                        RULE_PARITY_PARAMS, vals[1:])))
+                    n: _card64(torch, scope.get(n))
+                    for n in RULE_PARITY_PARAMS}, {
+                        n: _card64(torch, v)
+                        for n, v in zip(RULE_PARITY_PARAMS, vals[1:])})
             del scope, exe
         (g_loss, g_mode, g, g_grad), (c_loss, _, c, c_grad) = \
             out["cuda"], out["cpu"]
@@ -8322,31 +8409,32 @@ def phase_optimizers_parity():
         ok = row["loss_rel_err"] <= PARITY_LOSS_RTOL and g_mode == "capture"
         caught = {"dropped": False, "reversed": False}
         for n in RULE_PARITY_PARAMS:
-            p0 = start[n].astype("float64")
-            card, cpu = g[n].astype("float64"), c[n].astype("float64")
-            diff = np.abs(card - cpu)
+            p0 = _card64(torch, start[n])
+            card, cpu = g[n], c[n]
+            diff = (card - cpu).abs()
             tol = rule_parity_tol(
-                rule, TRAIN_LR, start[n], [g_grad[n]], [c_grad[n]],
-                PARITY_PARAM_RTOL * float(np.abs(p0).max()))
+                rule, TRAIN_LR, p0, [g_grad[n]], [c_grad[n]],
+                PARITY_PARAM_RTOL * float(p0.abs().max()))
             # the check's power: the card's update dropped, or reversed
-            miss = {"dropped": np.abs(p0 - cpu) > tol,
-                    "reversed": np.abs(2 * p0 - card - cpu) > tol}
+            miss = {"dropped": (p0 - cpu).abs() > tol,
+                    "reversed": (2 * p0 - card - cpu).abs() > tol}
             row[n] = {"max_abs_err": float(diff.max()),
-                      "min_tol": float(np.min(tol)),
-                      "median_tol": float(np.median(tol)),
-                      "worst_err_over_tol": float(np.max(diff / tol)),
-                      "cpu_update": float(np.abs(cpu - p0).max()),
-                      "card_update": float(np.abs(card - p0).max()),
-                      "share_tol_over_own_update": float(np.mean(
-                          tol >= np.abs(cpu - p0))),
-                      "share_catching": {k: float(np.mean(m))
+                      "min_tol": float(tol.min()),
+                      "median_tol": float(tol.median()),
+                      "worst_err_over_tol": float((diff / tol).max()),
+                      "cpu_update": float((cpu - p0).abs().max()),
+                      "card_update": float((card - p0).abs().max()),
+                      "share_tol_over_own_update": float(
+                          (tol >= (cpu - p0).abs()).double().mean()),
+                      "share_catching": {k: float(m.double().mean())
                                          for k, m in miss.items()}}
             for k, m in miss.items():
                 caught[k] = caught[k] or bool(m.any())
-            ok = ok and np.isfinite(g[n]).all() and bool(np.all(
-                diff <= tol)) and row[n]["cpu_update"] > 0 \
+            ok = ok and bool(torch.isfinite(card).all()) and bool(
+                (diff <= tol).all()) and row[n]["cpu_update"] > 0 \
                 and row[n]["card_update"] > 0
         row["update_dropped_or_reversed_would_fail"] = caught
+        row["seconds"] = time.time() - t_rule
         ok = ok and all(caught.values())
         emit(row)
         if not ok:
@@ -8531,6 +8619,716 @@ def phase_averaging(env):
         raise AssertionError("averaging: %s" % failed)
     del scope, exe
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Dygraph: the eager tape, the 20 layers and the optimizers' eager paths
+# ---------------------------------------------------------------------------
+
+DYGRAPH_WARMUP = 2
+DYGRAPH_STEPS = 5
+# trainable parameters of the dygraph ResNet-50: 65 conv filters, 65 batch
+# norm scales and biases, the fc's weight and bias (a Momentum launch each)
+DYGRAPH_PARAMS = 197
+# dygraph against the static program on the card, the same ops in another
+# order of dispatch (cuDNN may pick other algorithms): the first step's
+# loss, relative; every parameter and running statistic after one step and
+# the eval loss, of the tensor's largest value
+DYGRAPH_LOSS_RTOL = 1e-4
+DYGRAPH_PARAM_RTOL = 1e-4
+# the card against the CPU (TF32 off), small layers: max |card - CPU| over
+# max |CPU| of each output and gradient, and of each parameter after the
+# optimizers' 3 steps (Adam's elements held to rule_parity_tol on top)
+DYGRAPH_PARITY_RTOL = 1e-4
+DYGRAPH_PARITY_STEPS = 3
+DYGRAPH_PARITY_LR = 0.05
+
+
+def _randn(r, *shape):
+    return r.randn(*shape).astype("float32")
+
+
+def np_int64(values):
+    import numpy as np
+
+    return np.array(values, "int64")
+
+
+# (name, make(dg) -> layer, inputs(rng) -> [arrays]) at small widths: the
+# CPU tests hold the port to the reference on these and the parity phase
+# holds the card to the CPU; float inputs take a gradient
+DYGRAPH_LAYER_CASES = [
+    ("Linear", lambda dg: dg.Linear(4, 3, act="relu"),
+     lambda r: [_randn(r, 5, 4)]),
+    ("FC", lambda dg: dg.FC(size=3, input_dim=4, act="tanh"),
+     lambda r: [_randn(r, 5, 4)]),
+    ("Conv2D", lambda dg: dg.Conv2D(2, 4, 3, padding=1, act="relu"),
+     lambda r: [_randn(r, 2, 2, 6, 6)]),
+    ("Conv2D_stride_groups",
+     lambda dg: dg.Conv2D(4, 6, 3, stride=2, padding=1, groups=2),
+     lambda r: [_randn(r, 2, 4, 7, 7)]),
+    ("Pool2D_max", lambda dg: dg.Pool2D(2, "max", 2),
+     lambda r: [_randn(r, 2, 3, 6, 6)]),
+    ("Pool2D_global_avg",
+     lambda dg: dg.Pool2D(pool_type="avg", global_pooling=True),
+     lambda r: [_randn(r, 2, 3, 5, 5)]),
+    ("BatchNorm", lambda dg: dg.BatchNorm(3, act="relu"),
+     lambda r: [_randn(r, 4, 3, 5, 5) * 2 + 1]),
+    ("Embedding", lambda dg: dg.Embedding([10, 4]),
+     lambda r: [r.randint(0, 10, (6, 1)).astype("int64")]),
+    ("LayerNorm", lambda dg: dg.LayerNorm(6),
+     lambda r: [_randn(r, 3, 4, 6)]),
+    ("Dropout_p0", lambda dg: dg.Dropout(0.0),
+     lambda r: [_randn(r, 4, 5)]),
+    ("Conv3D", lambda dg: dg.Conv3D(2, 3, 3, padding=1, act="relu"),
+     lambda r: [_randn(r, 1, 2, 4, 5, 5)]),
+    ("Conv2DTranspose",
+     lambda dg: dg.Conv2DTranspose(2, 4, 3, stride=2, padding=1),
+     lambda r: [_randn(r, 2, 2, 4, 4)]),
+    ("Conv2DTranspose_groups",
+     lambda dg: dg.Conv2DTranspose(4, 6, 2, stride=2, groups=2),
+     lambda r: [_randn(r, 1, 4, 3, 3)]),
+    ("Conv3DTranspose", lambda dg: dg.Conv3DTranspose(2, 3, 2, stride=2),
+     lambda r: [_randn(r, 1, 2, 2, 3, 3)]),
+    ("GRUUnit", lambda dg: dg.GRUUnit(9),
+     lambda r: [_randn(r, 4, 9), _randn(r, 4, 3)]),
+    ("GRUUnit_origin", lambda dg: dg.GRUUnit(9, origin_mode=True),
+     lambda r: [_randn(r, 4, 9), _randn(r, 4, 3)]),
+    ("PRelu_all", lambda dg: dg.PRelu("all"),
+     lambda r: [_randn(r, 3, 4)]),
+    ("PRelu_channel", lambda dg: dg.PRelu("channel", channel=3),
+     lambda r: [_randn(r, 2, 3, 4, 4)]),
+    ("PRelu_element", lambda dg: dg.PRelu("element", input_shape=[3, 4]),
+     lambda r: [_randn(r, 2, 3, 4)]),
+    ("BilinearTensorProduct",
+     lambda dg: dg.BilinearTensorProduct(3, 4, 5, act="sigmoid"),
+     lambda r: [_randn(r, 2, 3), _randn(r, 2, 4)]),
+    ("SequenceConv",
+     lambda dg: dg.SequenceConv(num_filters=4, filter_size=3, input_dim=3,
+                                act="tanh"),
+     lambda r: [_randn(r, 2, 6, 3), np_int64([6, 4])]),
+    ("RowConv", lambda dg: dg.RowConv(future_ctx_size=2, input_dim=3),
+     lambda r: [_randn(r, 2, 6, 3)]),
+    ("GroupNorm", lambda dg: dg.GroupNorm(channels=4, groups=2, act="relu"),
+     lambda r: [_randn(r, 2, 4, 5, 5)]),
+    ("SpectralNorm", lambda dg: dg.SpectralNorm(weight_shape=[6, 4],
+                                                power_iters=2),
+     lambda r: [_randn(r, 6, 4)]),
+    ("SpectralNorm_dim1", lambda dg: dg.SpectralNorm(
+        weight_shape=[3, 5, 2], dim=1, power_iters=3),
+     lambda r: [_randn(r, 3, 5, 2)]),
+    ("TreeConv", lambda dg: dg.TreeConv(feature_size=4, output_size=6),
+     lambda r: [_randn(r, 2, 5, 4),
+                np_int64([[[0, 1], [1, 2], [1, 3], [0, 0]],
+                          [[0, 4], [4, 1], [0, 0], [0, 0]]])]),
+]
+# the layers that draw on the op: the card against the CPU with the same
+# op ids (so the same masks and negatives on both)
+DYGRAPH_DRAWING_CASES = [
+    ("Dropout_p0.5", lambda dg: dg.Dropout(0.5),
+     lambda r: [_randn(r, 16, 32)]),
+    ("NCE", lambda dg: dg.NCE(12, dim=8, num_neg_samples=4),
+     lambda r: [_randn(r, 6, 8), r.randint(0, 12, (6, 1)).astype("int64")]),
+]
+
+
+def dygraph_layer_grads(dg, guard, layer, inputs, weight):
+    """Under ``guard``, ``layer`` (of dygraph module ``dg``, either
+    package's) on ``inputs`` (float ones take a gradient), then ``mean(out
+    * weight)`` differentiated → (out, {parameter key: gradient}, [float
+    inputs' gradients]) as numpy arrays; a parameter no gradient reached
+    is left out."""
+    import numpy as np
+
+    with guard:
+        vs = []
+        for a in inputs:
+            v = dg.to_variable(a)
+            if a.dtype == np.float32:
+                v.stop_gradient = False
+            vs.append(v)
+        out = layer(*vs)
+        out = out[0] if isinstance(out, tuple) else out
+        loss = dg.varbase.eager_op(
+            "mean", {"X": [out * dg.to_variable(weight)]})[0]
+        loss.backward()
+        grads = {k: p.gradient() for k, p in dygraph_named_params(layer)
+                 if p.gradient() is not None}
+        return (out.numpy(), grads,
+                [v.gradient() for v, a in zip(vs, inputs)
+                 if a.dtype == np.float32])
+
+
+def dygraph_named_params(layer, prefix=""):
+    """(state-dict key, VarBase) of every parameter of ``layer``."""
+    for name, p in layer._parameters.items():
+        yield prefix + name, p
+    for lname, sub in layer._sub_layers.items():
+        yield from dygraph_named_params(sub, prefix + lname + ".")
+
+
+def dygraph_resnet(depth=50, class_dim=1000, dg=None):
+    """``models/resnet.resnet_imagenet`` (conv7 stem, NCHW) block for
+    block as dygraph layers: each conv → batch_norm site a ``Conv2D``
+    without bias and a ``BatchNorm`` (relu, or none before a residual
+    add), the max and the global average ``Pool2D``, a ``Linear`` head.
+    ``_layer_warp`` passes ``ch_in = ch_out`` to a stage's later blocks,
+    so each later bottleneck block has a projection shortcut, as in the
+    static program (ResNet-50: 65 sites).  Parameters are made in the
+    static builder's order, so ``parameters()`` pairs one to one with the
+    program's ``all_parameters()`` (:func:`dygraph_to_scope`).  ``dg`` is
+    the dygraph module of the package to build it in, the port's by
+    default."""
+    if dg is None:
+        from paddle_tpu_torch import dygraph as dg
+    eager_op = dg.varbase.eager_op
+
+    class ConvBN(dg.Layer):
+        def __init__(self, ch_in, ch_out, size, stride, padding,
+                     act="relu"):
+            super().__init__()
+            self.conv = dg.Conv2D(ch_in, ch_out, size, stride=stride,
+                                  padding=padding, bias_attr=False)
+            self.bn = dg.BatchNorm(ch_out, act=act)
+
+        def forward(self, x):
+            return self.bn(self.conv(x))
+
+    class Block(dg.Layer):
+        def __init__(self, channels, ch_in, ch_out, stride, bottleneck):
+            super().__init__()
+            width = ch_out * 4 if bottleneck else ch_out
+            # the static builder's test, on the ch_in it passes
+            self.short = ConvBN(channels, width, 1, stride, 0, act=None) \
+                if stride != 1 or ch_in != width else None
+            if bottleneck:
+                specs = ((channels, ch_out, 1, stride, 0),
+                         (ch_out, ch_out, 3, 1, 1),
+                         (ch_out, width, 1, 1, 0, None))
+            else:
+                specs = ((channels, ch_out, 3, stride, 1),
+                         (ch_out, ch_out, 3, 1, 1, None))
+            self.convs = [self.add_sublayer("conv%d" % i, ConvBN(*s))
+                          for i, s in enumerate(specs)]
+
+        def forward(self, x):
+            y = x
+            for conv in self.convs:
+                y = conv(y)
+            short = x if self.short is None else self.short(x)
+            out = eager_op("elementwise_add", {"X": [short], "Y": [y]},
+                           {"axis": -1})[0]
+            return eager_op("relu", {"X": [out]})[0]
+
+    stages, bottleneck = {18: ((2, 2, 2, 2), False),
+                          34: ((3, 4, 6, 3), False),
+                          50: ((3, 4, 6, 3), True),
+                          101: ((3, 4, 23, 3), True),
+                          152: ((3, 8, 36, 3), True)}[depth]
+
+    class ResNet(dg.Layer):
+        def __init__(self):
+            super().__init__()
+            self.stem = ConvBN(3, 64, 7, 2, 3)
+            self.pool1 = dg.Pool2D(3, "max", 2, 1)
+            self.blocks = []
+            ch_in = channels = 64
+            for i, count in enumerate(stages):
+                ch_out = 64 * 2 ** i
+                for j in range(count):
+                    block = Block(channels, ch_in if j == 0 else ch_out,
+                                  ch_out, 1 if i == 0 or j else 2,
+                                  bottleneck)
+                    self.blocks.append(self.add_sublayer(
+                        "block%d_%d" % (i, j), block))
+                    channels = ch_out * (4 if bottleneck else 1)
+                ch_in = channels
+            self.pool2 = dg.Pool2D(7, "avg", global_pooling=True)
+            self.fc = dg.Linear(channels, class_dim)
+
+        def forward(self, x):
+            x = self.pool1(self.stem(x))
+            for block in self.blocks:
+                x = block(x)
+            return self.fc(self.pool2(x))
+
+    return ResNet()
+
+
+def dygraph_step(model, opt, params, img, label):
+    """One dygraph training step, the static program's loss
+    (``softmax_with_cross_entropy``, ``mean``): forward, ``backward``,
+    ``minimize``, ``clear_gradients`` → the loss VarBase (nothing waited
+    for)."""
+    from paddle_tpu_torch.dygraph.varbase import eager_op
+
+    logits = model(img)
+    loss = eager_op("softmax_with_cross_entropy",
+                    {"Logits": [logits], "Label": [label]})[1]
+    loss = eager_op("mean", {"X": [loss]})[0]
+    loss.backward()
+    opt.minimize(loss, parameter_list=params)
+    model.clear_gradients()
+    return loss
+
+
+def dygraph_to_scope(values, program, scope):
+    """Write ``values`` (a dygraph model's ``parameters()`` values in
+    order: arrays or tensors) into ``program``'s ``all_parameters()`` in
+    ``scope``, in place, pairing them in order with the shapes checked."""
+    import torch
+
+    static = program.all_parameters()
+    if len(values) != len(static):
+        raise AssertionError("%d dygraph parameters against %d static"
+                             % (len(values), len(static)))
+    for v, var in zip(values, static):
+        dst = scope.get(var.name)
+        src = torch.as_tensor(v)
+        if tuple(src.shape) != tuple(dst.shape):
+            raise AssertionError("%s: dygraph %s, static %s" % (
+                var.name, tuple(src.shape), tuple(dst.shape)))
+        with torch.no_grad():
+            dst.copy_(src)
+
+
+def _rel_errs(got, want):
+    """max |got - want| / max |want| per pair of arrays (0 / 0 is 0)."""
+    import numpy as np
+
+    out = []
+    for a, b in zip(got, want):
+        a, b = np.asarray(a, "float64"), np.asarray(b, "float64")
+        scale = float(np.abs(b).max()) if b.size else 0.0
+        err = float(np.abs(a - b).max()) if b.size else 0.0
+        out.append(err / scale if scale else err)
+    return out
+
+
+def phase_dygraph(env):
+    """ResNet-50 of dygraph layers (:func:`dygraph_resnet`, NCHW) trained
+    on the card at batch 64, 224x224, float32 with TF32 off, Momentum
+    (lr 0.1, 0.9, Nesterov) through the reference's entry points
+    (``guard()``, the layers, ``backward``, ``minimize(parameter_list=)``,
+    ``clear_gradients``).  The first step against the static
+    ``resnet.build(..., data_format="NCHW")`` program run by the executor
+    from the same weights on the same batch (the loss, and every
+    parameter and running statistic after the step); warm-up steps, then
+    timed steps with the launch counts read around them (197 Momentum
+    kernels a step, nothing else hand-written); the host's time to
+    enqueue a step, the device time by group and the idle share; peak
+    memory; the eval forward (running statistics, unchanged by it)
+    against the static for-test clone; a ``save_dygraph`` →
+    ``load_dygraph`` → ``set_dict`` round trip bit for bit."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import dygraph as dg
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.ops.cuda import (KERNELS, launch_counts,
+                                           launch_counts_by_source,
+                                           reset_launch_counts)
+
+    t0 = time.time()
+    rng = np.random.RandomState(SEED)
+    batch = {"img": _randn(rng, RESNET_BATCH, 3, RESNET_HW, RESNET_HW),
+             "label": rng.randint(0, 10, (RESNET_BATCH, 1)).astype("int64")}
+    failed = []
+    # the static program first: built outside any guard (minimize would
+    # take the dygraph branch inside one)
+    main, startup, _feeds, s_loss, _acc = resnet.build(
+        dataset="imagenet", depth=50, data_format="NCHW")
+    test = main.clone(for_test=True)
+    # cuDNN's deterministic algorithms for the two first steps: its
+    # default weight gradients sum with atomics, in an order that varies
+    # from run to run, which is no difference between the two paths
+    flags = fluid.get_flags(["FLAGS_cpu_deterministic"])
+    fluid.set_flags({"FLAGS_cpu_deterministic": True})
+    with dg.guard():
+        model = dygraph_resnet(50, 1000)
+        params = model.parameters()
+        trainable = [p for p in params if not p.stop_gradient]
+        sites = sum(isinstance(s, dg.BatchNorm) for s in model.sublayers())
+        opt = fluid.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                       use_nesterov=True)
+        # the batch lies on the card, as an input pipeline leaves it
+        img, label = dg.to_variable(batch["img"]), dg.to_variable(
+            batch["label"])
+        start = [p.numpy() for p in params]
+        emit({"phase": "dygraph", "step": "build", "seconds":
+              time.time() - t0, "conv_bn_sites": sites,
+              "trainable_parameters": len(trainable),
+              "parameters_and_running_statistics": len(params),
+              "elements": sum(p.value.numel() for p in trainable),
+              "device": str(img.value.device)})
+        if len(trainable) != DYGRAPH_PARAMS or sites != RESNET_SITES:
+            raise AssertionError("%d trainable parameters, %d sites"
+                                 % (len(trainable), sites))
+        first = float(dygraph_step(model, opt, params, img,
+                                   label).numpy()[0])
+        after = [p.numpy() for p in params]
+
+    # the static program from the same start, one step
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup)
+        dygraph_to_scope(start, main, scope)
+        feed = {k: torch.from_numpy(v).to(exe.device)
+                for k, v in batch.items()}
+        s_first = float(exe.run(main, feed=feed,
+                                fetch_list=[s_loss])[0][0])
+        s_after = [scope.get(v.name).detach().cpu().numpy()
+                   for v in main.all_parameters()]
+    fluid.set_flags(flags)
+    errs = _rel_errs(after, s_after)
+    row = {"phase": "dygraph", "step": "first step against the static "
+           "NCHW program", "loss": [first, s_first],
+           "loss_rel_err": abs(first - s_first) / abs(s_first),
+           "loss_tol": DYGRAPH_LOSS_RTOL,
+           "params_max_err_over_scale": max(errs),
+           "params_worst": main.all_parameters()[int(np.argmax(errs))].name,
+           "params_tol": DYGRAPH_PARAM_RTOL,
+           "params_moved": sum(not np.array_equal(a, b)
+                               for a, b in zip(after, start))}
+    emit(row)
+    if row["loss_rel_err"] > DYGRAPH_LOSS_RTOL \
+            or max(errs) > DYGRAPH_PARAM_RTOL or not np.isfinite(first) \
+            or row["params_moved"] < DYGRAPH_PARAMS:
+        failed.append(row)
+    del after, s_after, start
+
+    with dg.guard():
+        losses = []
+        for _ in range(DYGRAPH_WARMUP - 1):
+            losses.append(dygraph_step(model, opt, params, img,
+                                       label).value.detach())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        host_ms, step_ms = [], []
+        for _ in range(DYGRAPH_STEPS):
+            s0 = time.perf_counter()
+            losses.append(dygraph_step(model, opt, params, img,
+                                       label).value.detach())
+            host_ms.append((time.perf_counter() - s0) * 1e3)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - s0) * 1e3)
+        counts = launch_counts_by_source()
+        per_step = {k: c / DYGRAPH_STEPS for k, c in launch_counts().items()}
+        peak = torch.cuda.max_memory_allocated()
+        peak_reserved = torch.cuda.max_memory_reserved()
+        losses = [first] + [float(v.reshape(-1)[0]) for v in losses]
+        want = dict.fromkeys(KERNELS, 0.0)
+        want["momentum_update"] = float(DYGRAPH_PARAMS)
+        med = statistics.median(step_ms)
+        emit({"phase": "dygraph", "step": "steps", "card": card_label(env),
+              "batch": RESNET_BATCH, "image": RESNET_HW, "losses": losses,
+              "step_ms": step_ms, "median_step_ms": med,
+              "host_enqueue_ms": host_ms,
+              "median_host_enqueue_ms": statistics.median(host_ms),
+              "images_per_s": RESNET_BATCH / (med / 1e3),
+              "launches_per_step": per_step, "expected": want,
+              "peak_memory_allocated_bytes": peak,
+              "peak_memory_reserved_bytes": peak_reserved})
+        if per_step != want or not all(np.isfinite(losses)):
+            failed.append({"launches_per_step": per_step, "want": want,
+                           "losses": losses})
+
+        runs = 2
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            s0 = time.perf_counter()
+            for _ in range(runs):
+                dygraph_step(model, opt, params, img, label)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - s0) * 1e3 / runs
+        groups, top = _device_breakdown(prof, runs, _resnet_group)
+        busy = sum(groups.values())
+        host = sorted((ev for ev in prof.key_averages()
+                       if ev.self_cpu_time_total > 0),
+                      key=lambda ev: -ev.self_cpu_time_total)
+        emit({"phase": "dygraph", "step": "profile", "card": card_label(env),
+              "host_top_ops_under_profiler": [
+                  {"ms": ev.self_cpu_time_total / 1e3 / runs,
+                   "calls": ev.count // runs, "name": ev.key[:60]}
+                  for ev in host[:15]],
+              "device_ms_per_step": busy if busy else "not measured",
+              # the profiler slows the host: against the unprofiled step
+              "device_idle_share_of_median_step": (1.0 - busy / med)
+              if busy else "not measured",
+              "wall_ms_per_profiled_step": wall,
+              "device_ms_by_group": groups,
+              "launches_by_group": _group_launches(prof, runs,
+                                                   _resnet_group),
+              "top_kernels": [{"ms": t, "launches": n, "name": k}
+                              for t, n, k in top[:15]]})
+
+        # eval: the running statistics, which it leaves as they are
+        stats = [(p, p.value.clone()) for k, p in dygraph_named_params(model)
+                 if k.endswith(("_mean", "_variance"))]
+        model.eval()
+        with dg.no_grad():
+            logits = model(img)
+            ev_loss = dg.varbase.eager_op("mean", {"X": [dg.varbase.eager_op(
+                "softmax_with_cross_entropy",
+                {"Logits": [logits], "Label": [label]})[1]]})[0]
+        ev_loss = float(ev_loss.numpy()[0])
+        kept = all(torch.equal(p.value, v) for p, v in stats)
+        model.train()
+        now = [p.value for p in params]
+    with fluid.scope_guard(scope):
+        dygraph_to_scope(now, main, scope)
+        s_ev = float(exe.run(test, feed=feed, fetch_list=[s_loss])[0][0])
+    row = {"phase": "dygraph", "step": "eval", "loss": [ev_loss, s_ev],
+           "loss_rel_err": abs(ev_loss - s_ev) / abs(s_ev),
+           "tol": DYGRAPH_LOSS_RTOL, "running_statistics_kept": kept}
+    emit(row)
+    if not kept or row["loss_rel_err"] > DYGRAPH_LOSS_RTOL:
+        failed.append(row)
+    del scope, exe, now, stats
+
+    # the checkpoint: save_dygraph → load_dygraph → set_dict
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_dygraph_")
+    try:
+        with dg.guard():
+            state = model.state_dict()
+            dg.save_dygraph(state, os.path.join(ckpt, "resnet50"))
+            loaded, _ = dg.load_dygraph(os.path.join(ckpt, "resnet50"))
+            twin = dygraph_resnet(50, 1000)
+            twin.set_dict(loaded)
+            back = twin.state_dict()
+        same = sorted(loaded) == sorted(state) and all(
+            loaded[k].dtype == v.dtype and loaded[k].tobytes()
+            == v.tobytes() == back[k].tobytes() for k, v in state.items())
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    emit({"phase": "dygraph", "step": "checkpoint round trip",
+          "arrays": len(state), "bit_for_bit": same})
+    if not same:
+        failed.append("the checkpoint round trip is not bit for bit")
+    del model, twin, opt, params, img, label
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("dygraph: %s" % failed)
+    return counts, groups
+
+
+@contextlib.contextmanager
+def _fresh_op_ids():
+    """Eager op ids from 1 again inside the block (the ids salt dropout's
+    masks and key NCE's negatives), so two runs draw alike."""
+    import itertools
+
+    from paddle_tpu_torch.dygraph import varbase
+
+    saved = varbase._eager_op_ids
+    varbase._eager_op_ids = itertools.count(1)
+    try:
+        yield
+    finally:
+        varbase._eager_op_ids = saved
+
+
+def _dygraph_parity_layers(np, fluid, dg):
+    """Each case of DYGRAPH_LAYER_CASES and DYGRAPH_DRAWING_CASES on the
+    CPU and on the card from the same weights, inputs and op ids → the
+    failing rows."""
+    from paddle_tpu_torch import convert
+
+    failed = []
+    for name, make, inputs in DYGRAPH_LAYER_CASES + DYGRAPH_DRAWING_CASES:
+        rng = np.random.RandomState(SEED + 11)
+        xs = inputs(rng)
+        with dg.guard(fluid.CPUPlace()):
+            cpu_layer, probe = make(dg), make(dg)
+            with dg.no_grad():
+                out = probe(*[dg.to_variable(a) for a in xs])
+        out = out[0] if isinstance(out, tuple) else out
+        weight = _randn(rng, *out.shape)
+        with dg.guard(fluid.CUDAPlace(0)):
+            card_layer = make(dg)
+        convert.load_layer_state(card_layer, cpu_layer)
+        sides = []
+        for place, layer in ((fluid.CPUPlace(), cpu_layer),
+                             (fluid.CUDAPlace(0), card_layer)):
+            with _fresh_op_ids():
+                sides.append(dygraph_layer_grads(dg, dg.guard(place), layer,
+                                                 xs, weight))
+        c, g = sides
+        pairs = [("out", g[0], c[0])] + [
+            ("grad " + k, g[1][k], c[1][k]) for k in c[1] if k in g[1]] + [
+            ("input grad %d" % i, a, b) for i, (a, b) in enumerate(
+                zip(g[2], c[2]))]
+        errs = _rel_errs([p[1] for p in pairs], [p[2] for p in pairs])
+        row = {"phase": "dygraph_parity", "layer": name,
+               "compared": len(pairs), "max_err_over_scale": max(errs),
+               "worst": pairs[int(np.argmax(errs))][0],
+               "tol": DYGRAPH_PARITY_RTOL,
+               "same_gradients": sorted(g[1]) == sorted(c[1])
+               and len(g[2]) == len(c[2])}
+        emit(row)
+        if max(errs) > DYGRAPH_PARITY_RTOL or not row["same_gradients"]:
+            failed.append(row)
+    return failed
+
+
+def dygraph_mlp(dg):
+    """The optimizers' parity model: 12 → 16 (relu) → 4 Linear layers."""
+
+    class Net(dg.Layer):
+        def __init__(self):
+            super().__init__()
+            self.hidden = dg.Linear(12, 16, act="relu")
+            self.out = dg.Linear(16, 4)
+
+        def forward(self, x):
+            return self.out(self.hidden(x))
+
+    return Net()
+
+
+def dygraph_train(dg, guard, model, opt, clip, batches):
+    """Under ``guard``, a step of ``model`` (of dygraph module ``dg``,
+    either package's) per ``(x, y)`` of ``batches``: the squared error's
+    mean, ``backward``, ``minimize`` with ``clip``, ``clear_gradients``
+    → (losses, {parameter name: [the gradient each update consumed,
+    after the clip and the decay]})."""
+    import numpy as np
+
+    consumed = {}
+    apply = opt._eager_apply
+
+    def recorded(p):
+        g = p._grad
+        consumed.setdefault(p.name, []).append(np.array(
+            g.detach().cpu() if hasattr(g, "detach") else g))
+        apply(p)
+
+    opt._eager_apply = recorded
+    losses = []
+    try:
+        with guard:
+            params = model.parameters()
+            for x, y in batches:
+                d = model(dg.to_variable(x)) - dg.to_variable(y)
+                loss = dg.varbase.eager_op("mean", {"X": [d * d]})[0]
+                loss.backward()
+                opt.minimize(loss, parameter_list=params, grad_clip=clip)
+                model.clear_gradients()
+                losses.append(float(loss.numpy()[0]))
+    finally:
+        del opt._eager_apply
+    return losses, consumed
+
+
+DYGRAPH_PARITY_OPTIMIZERS = ("SGD", "Momentum", "Adam")
+DYGRAPH_PARITY_CLIPS = ("GradClipByValue", "GradClipByNorm",
+                        "GradClipByGlobalNorm")
+
+
+def dygraph_optimizer(fluid, dg, name):
+    """``name`` of DYGRAPH_PARITY_OPTIMIZERS with L2 decay 1e-3 and a
+    ``PiecewiseDecay`` at most DYGRAPH_PARITY_LR."""
+    lr = dg.PiecewiseDecay([1, 2], [DYGRAPH_PARITY_LR, 0.6 *
+                                    DYGRAPH_PARITY_LR,
+                                    0.2 * DYGRAPH_PARITY_LR], begin=0)
+    reg = fluid.regularizer.L2Decay(1e-3)
+    if name == "Momentum":
+        return fluid.optimizer.Momentum(lr, 0.9, regularization=reg)
+    return getattr(fluid.optimizer, name)(lr, regularization=reg)
+
+
+def dygraph_clip(fluid, name):
+    return {"GradClipByValue": lambda c: c.GradClipByValue(0.05),
+            "GradClipByNorm": lambda c: c.GradClipByNorm(0.2),
+            "GradClipByGlobalNorm": lambda c: c.GradClipByGlobalNorm(0.3)}[
+        name](fluid.dygraph_grad_clip)
+
+
+def _dygraph_parity_optimizers(np, fluid, dg):
+    """DYGRAPH_PARITY_STEPS steps of each optimizer with each clip (L2
+    decay, a PiecewiseDecay) on the card and on the CPU from one start →
+    the failing rows.  Parameters within DYGRAPH_PARITY_RTOL of their
+    scale; Adam's elements also get what the two sides' consumed
+    gradients explain (:func:`rule_parity_tol` with adamw's bound, ``lr``
+    a step)."""
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    rng = np.random.RandomState(SEED + 12)
+    batches = [(_randn(rng, 8, 12), _randn(rng, 8, 4))
+               for _ in range(DYGRAPH_PARITY_STEPS)]
+    failed = []
+    for name in DYGRAPH_PARITY_OPTIMIZERS:
+        for clip in DYGRAPH_PARITY_CLIPS:
+            models = {}
+            for place in (fluid.CPUPlace(), fluid.CUDAPlace(0)):
+                with dg.guard(place):
+                    models[place._kind] = (place, dygraph_mlp(dg))
+            convert.load_layer_state(models["cuda"][1], models["cpu"][1])
+            start = models["cpu"][1].state_dict()
+            sides = {}
+            for kind, (place, model) in models.items():
+                reset_launch_counts()
+                losses, consumed = dygraph_train(
+                    dg, dg.guard(place), model,
+                    dygraph_optimizer(fluid, dg, name), dygraph_clip(
+                        fluid, clip), batches)
+                launches = {k: v for k, v in launch_counts().items() if v}
+                sides[kind] = (model, losses, consumed, launches)
+            (cm, c_losses, c_used, _), (gm, g_losses, g_used, launches) = \
+                sides["cpu"], sides["cuda"]
+            worst, n_params = 0.0, 0
+            for (key, gp), (_, cp) in zip(dygraph_named_params(gm),
+                                          dygraph_named_params(cm)):
+                n_params += 1
+                a, b = gp.numpy().astype("float64"), \
+                    cp.numpy().astype("float64")
+                base = DYGRAPH_PARITY_RTOL * float(np.abs(b).max())
+                tol = base
+                if name == "Adam":
+                    tol = rule_parity_tol(
+                        "adamw", DYGRAPH_PARITY_LR, start[key],
+                        g_used[gp.name], c_used[cp.name], base)
+                worst = max(worst, float(np.max(np.abs(a - b) / tol)))
+            want = {"SGD": "sgd_update", "Momentum": "momentum_update",
+                    "Adam": "adam_update"}[name]
+            row = {"phase": "dygraph_parity", "optimizer": name,
+                   "clip": clip, "regularization": "L2Decay(1e-3)",
+                   "lr": "PiecewiseDecay", "losses": [g_losses, c_losses],
+                   "loss_max_rel_err": max(_rel_errs(g_losses, c_losses)),
+                   "params_worst_err_over_tol": worst,
+                   "param_rtol": DYGRAPH_PARITY_RTOL,
+                   "card_launches": launches}
+            emit(row)
+            if row["loss_max_rel_err"] > DYGRAPH_PARITY_RTOL or worst > 1.0 \
+                    or launches != {want: DYGRAPH_PARITY_STEPS * n_params}:
+                failed.append(row)
+    return failed
+
+
+def phase_dygraph_parity():
+    """The card against the port's CPU: every one of the 20 dygraph
+    layers at small widths (DYGRAPH_LAYER_CASES, the drawing ones with
+    the same op ids on both sides), forward and the gradients of its
+    parameters and inputs; then SGD, Momentum and Adam, each with each
+    of the three dygraph clips, L2 decay and a ``PiecewiseDecay``, 3
+    steps of a small MLP, their update kernels counted."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import dygraph as dg
+
+    failed = _dygraph_parity_layers(np, fluid, dg)
+    failed += _dygraph_parity_optimizers(np, fluid, dg)
+    if failed:
+        raise AssertionError("dygraph parity failed: %s" % failed)
 
 
 def telemetry_run(fluid, pred, requests, train, steps,
@@ -8769,6 +9567,8 @@ def _run_phases(torch):
     _timed(seconds, phase_optimizers, env)
     _timed(seconds, phase_optimizers_parity)
     _timed(seconds, phase_averaging, env)
+    dygraph_counts, _ = _timed(seconds, phase_dygraph, env)
+    _timed(seconds, phase_dygraph_parity)
     from paddle_tpu_torch.ops.cuda import KERNELS
 
     # each path's launches by source: the wrappers' launches that ran at
@@ -8781,16 +9581,21 @@ def _run_phases(torch):
              "dp": {"wrapper": dp_counts,
                     "graph_nodes": dict.fromkeys(KERNELS, 0)},
              "serve_bf16": serve_bf16_counts, "train_amp": train_amp_counts,
-             "resnet_amp": resnet_amp_counts, "train_recipe": recipe_counts}
+             "resnet_amp": resnet_amp_counts, "train_recipe": recipe_counts,
+             "dygraph": dygraph_counts}
     for r in rows:
         # the decode path's launches (ring + paged runs) where it runs the
         # kernel, else the BERT training path's (the backward kernels),
-        # else the ResNet training path's (K4), else the data-parallel
-        # path's (K7: rank 0's quant twin)
+        # else the ResNet training path's (K4), else the dygraph ResNet's
+        # (eager Momentum), else the data-parallel path's (K7: rank 0's
+        # quant twin); launches_by_path has every path's
         # (the multi-tensor and SGD kernels run on no main path: the
         # optimizer fusion's gate keeps BERT-base's Adam per parameter)
         name = r["name"]
-        for label in ("decode", "train", "resnet", "dp", "none"):
+        r["launches_by_path"] = {
+            p: c["wrapper"][name] + c["graph_nodes"][name]
+            for p, c in sorted(paths.items())}
+        for label in ("decode", "train", "resnet", "dygraph", "dp", "none"):
             if label == "none":
                 wrapper = nodes = 0
                 break
@@ -8810,7 +9615,8 @@ def _run_phases(torch):
     emit({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-        "launches_by_wrapper", "launches_by_graph_nodes", "launches_path")
+        "launches_by_wrapper", "launches_by_graph_nodes", "launches_path",
+        "launches_by_path")
         if k in r}
         for r in rows]})
     print(env["nvidia_smi"], flush=True)

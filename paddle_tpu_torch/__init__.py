@@ -1,9 +1,10 @@
 """paddle_tpu_torch — the PyTorch/CUDA port of ``paddle_tpu``.
 
-The same Fluid-style static-graph API (``Program`` built by the layers
+The same Fluid-style API: the static graph (``Program`` built by the layers
 DSL, ``Executor``, ``backward.append_backward``, ``optimizer.Adam`` /
 ``SGD``, ``io.save_inference_model``, ``inference.AnalysisPredictor``,
-``serving.PredictorServer``), run by PyTorch on an NVIDIA GPU.  The
+``serving.PredictorServer``) and the imperative mode (``dygraph``), run
+by PyTorch on an NVIDIA GPU.  The
 reference package's Pallas TPU kernels become kernels
 written by hand for Hopper under ``csrc/`` (built with ``nvcc`` at first
 use, bound with ``ctypes``: :mod:`paddle_tpu_torch.ops.cuda`).  Entry
@@ -23,7 +24,7 @@ from .framework import (
     Program, Block, Operator, Variable, Parameter, program_guard,
     name_scope, default_main_program, default_startup_program,
     switch_main_program, switch_startup_program, cpu_places, cuda_places,
-    tpu_places, device_places)
+    tpu_places, device_places, in_dygraph_mode)
 from .core import CPUPlace, CUDAPlace, TPUPlace, set_flags, get_flags
 from .param_attr import ParamAttr, WeightNormParamAttr
 from . import initializer
@@ -52,6 +53,9 @@ from . import contrib
 from . import profiler
 from . import autotune
 from . import resilience
+from . import dygraph
+from . import dygraph_grad_clip
+from .dygraph.base import enable_dygraph, disable_dygraph
 
 __all__ = [
     "Program", "Block", "Operator", "Variable", "Parameter",
@@ -66,6 +70,7 @@ __all__ = [
     "serving", "models", "convert", "backward", "clip", "regularizer",
     "optimizer", "append_backward", "gradients", "quant", "transpiler",
     "contrib", "profiler", "autotune", "verify_program", "analyze_program",
-    "average", "resilience",
+    "average", "resilience", "dygraph", "dygraph_grad_clip",
+    "in_dygraph_mode", "enable_dygraph", "disable_dygraph",
     "GradientClipByGlobalNorm", "GradientClipByNorm", "GradientClipByValue",
 ]

@@ -11,6 +11,9 @@ batch_norm's moving means and variances, optimizer accumulators, among
 them LAMB's moments and beta powers and LARS's velocity, and the
 learning-rate schedules' ``@LR_DECAY_COUNTER@``, so both packages can
 start from one state mid-schedule);
+:func:`load_layer_state` and :func:`load_optimizer_state` carry a
+dygraph ``Layer``'s ``state_dict()`` and an optimizer's eager state from
+either package into a port layer and optimizer;
 :func:`convert_params` turns such a dict into the port's CPU tensors and
 :func:`load_params_into_scope` places them in a port ``Scope`` on a
 device.  The port's random initialisation draws other numbers than the
@@ -28,7 +31,8 @@ from . import proto
 from .ops.registry import np_to_torch
 
 __all__ = ["read_exported_params", "scope_persistables", "convert_params",
-           "load_params_into_scope"]
+           "load_params_into_scope", "load_layer_state",
+           "load_optimizer_state"]
 
 
 def read_exported_params(dirname, model_filename="__model__"):
@@ -98,3 +102,39 @@ def load_params_into_scope(params, scope, device="cpu", program=None):
     for name, t in convert_params(params, program).items():
         scope.set(name, t.to(dev))
     return scope
+
+
+def load_layer_state(layer, source):
+    """Write the ``state_dict()`` of dygraph layer ``source`` (of either
+    package: keys are attribute paths in both) into the port's ``layer``
+    in place; every key of ``layer`` must be there, with its shape."""
+    state = {k: np.asarray(v) for k, v in source.state_dict().items()}
+    own = layer.state_dict()
+    missing = [k for k in own if k not in state]
+    if missing:
+        raise KeyError("the source layer lacks %s" % missing)
+    for k, v in own.items():
+        if v.shape != state[k].shape:
+            raise ValueError("%r has shape %s in the source, %s here"
+                             % (k, state[k].shape, v.shape))
+    layer.set_dict(state)
+    return layer
+
+
+def load_optimizer_state(optimizer, source, source_params, params):
+    """Load into the port's ``optimizer`` the eager accumulators of
+    optimizer ``source`` (of either package), whose parameters
+    ``source_params`` correspond one to one, in order, to the port's
+    ``params``: the state is keyed by parameter name, and each package
+    names its parameters from its own counters."""
+    if len(source_params) != len(params):
+        raise ValueError("%d source parameters against %d"
+                         % (len(source_params), len(params)))
+    state = getattr(source, "_eager_state", {})
+    out = {}
+    for sp, p in zip(source_params, params):
+        if sp.name in state:
+            out[p.name] = {k: np.array(v.detach().cpu() if isinstance(
+                v, torch.Tensor) else v) for k, v in state[sp.name].items()}
+    optimizer.load(out)
+    return optimizer

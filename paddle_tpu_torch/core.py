@@ -161,6 +161,18 @@ def as_torch_device(place):
     return dev
 
 
+def full_float32_products():
+    """Run float32 products in full float32 on CUDA, as on the CPU (TF32
+    off for cuBLAS and cuDNN), and accumulate a bf16 product's split-K
+    partials in float32 (the reduced-precision reduction, on by default,
+    off), as the reference's ``preferred_element_type=float32``: what a
+    CUDA place's executor and dygraph guard set."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+
+
 # ---------------------------------------------------------------------------
 # Flags (``paddle_tpu/core.py:149-197``): the same three flags with the same
 # defaults, ``FLAGS_*`` environment variables read at import, ``KeyError``

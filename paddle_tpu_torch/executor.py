@@ -709,10 +709,7 @@ class Executor:
         self.place = place if place is not None else core.CUDAPlace(0)
         self.device = core.as_torch_device(self.place)
         if self.device.type == "cuda":
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul \
-                .allow_bf16_reduced_precision_reduction = False
+            core.full_float32_products()
         self._step = 0
         self._cache = {}
         # (id(source program), fetch names) → id of the program its

@@ -36,6 +36,7 @@ __all__ = [
     "tpu_places",
     "device_places",
     "CLONE_VAR_MARKS",
+    "in_dygraph_mode",
 ]
 
 GRAD_VAR_SUFFIX = "@GRAD"
@@ -49,6 +50,19 @@ _SHAPE_SENTINELS = (100003, 100019, 100043, 100057, 100069, 100103, 100109)
 
 def grad_var_name(name):
     return name + GRAD_VAR_SUFFIX
+
+
+# the innermost dygraph tape while a ``dygraph.guard()`` is open (the
+# reference's :64-72): set and restored by ``dygraph/base.py`` only
+_dygraph_tracer_ = None
+
+
+def in_dygraph_mode():
+    return _dygraph_tracer_ is not None
+
+
+def _dygraph_tracer():
+    return _dygraph_tracer_
 
 
 _name_scope_stack = []

@@ -2,7 +2,8 @@
 :19, whose gradient at 0 is 0 as ``jax.nn.relu``'s; the unary math ops
 the learning-rate schedules and the regularizers build, ``exp`` :23,
 ``sqrt`` :25, ``ceil`` / ``floor`` :32-33, ``cos`` :35, ``sign`` :42,
-each one PyTorch call; ``gelu`` at :46 — exact erf form unless
+and ``sigmoid`` :20 / ``tanh`` :22, the dygraph layers' ``act`` and the
+GRU unit's gates, each one PyTorch call; ``gelu`` at :46 — exact erf form unless
 ``approximate`` is set)."""
 
 import math
@@ -33,6 +34,8 @@ ceil = _unary("ceil", torch.ceil)
 floor = _unary("floor", torch.floor)
 cos = _unary("cos", torch.cos)
 sign = _unary("sign", torch.sign)
+sigmoid = _unary("sigmoid", torch.sigmoid)
+tanh = _unary("tanh", torch.tanh)
 
 
 class _GeluErfLowp(torch.autograd.Function):

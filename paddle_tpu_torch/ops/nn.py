@@ -6,18 +6,22 @@ layer_norm :182, batch_norm :220, conv2d/depthwise_conv2d (``_conv_nd``
 :290, :323-330), pool2d (``_pool_nd`` :372, :435), accuracy :440,
 fused_multihead_attention :523, fused_dropout_add_ln :555,
 fused_bias_act :582, fused_conv_bn_act :598, fused_embedding_gather
-:674).
+:674; the dygraph layers' conv3d :333, conv2d_transpose :338, prelu :511,
+spectral_norm :805, row_conv :837, nce :872, conv3d_transpose :968,
+group_norm :1003).
 
 The four kernel-backed ``fused_*`` ops route to the hand-written CUDA
 kernels under :mod:`paddle_tpu_torch.ops.cuda`, whose autograd functions
 carry their backward kernels; the other ops are plain PyTorch.  The
-convolutions and pooling windows stay PyTorch calls (cuDNN on the GPU),
-as the reference leaves them to XLA.  An op that drops takes its seed
+convolutions (2-D, 3-D and transposed) and pooling windows stay PyTorch
+calls (cuDNN on the GPU), as the reference leaves them to XLA.  An op that drops takes its seed
 from the device, per step and per op (``ctx.step_seed``: the run's step
 tensor and the op's salt), as the reference folds its traced step key
 (:542-547, :569-574), and runs at rate 0 under ``is_test`` or in shape
 inference.
 """
+
+import math as _math
 
 import torch
 import torch.nn.functional as F
@@ -317,43 +321,49 @@ def _conv_padding(paddings, spatial, ksize, strides, dilations):
             for i in range(len(ksize))]
 
 
-def _conv2d(attrs, Input, Filter):
-    """``_conv_nd`` for 2-D convolutions.  The filter stays OIHW.  A
-    channels-last input goes to ``F.conv2d`` as its NCHW-shaped view
-    (``permute``, no copy) with the filter in channels_last memory, so
-    cuDNN runs an NHWC algorithm and the output permuted back is a
-    contiguous NHWC tensor."""
-    strides = [int(s) for s in attrs.get("strides", [1, 1])]
-    dilations = [int(d) for d in attrs.get("dilations", [1, 1])]
+_NCHW_LAYOUTS = {2: ("NCHW", "AnyLayout"), 3: ("NCDHW", "AnyLayout", "NCHW")}
+
+
+def _conv_nd(attrs, Input, Filter):
+    """``_conv_nd`` for 2-D and 3-D convolutions (the filter's rank says
+    which).  The filter stays OI(D)HW.  A channels-last input goes to
+    ``F.conv2d`` / ``F.conv3d`` as its NC*-shaped view (``permute``, no
+    copy) with the filter in channels_last memory, so cuDNN runs a
+    channels-last algorithm and the output permuted back is a contiguous
+    channels-last tensor."""
+    nd = Filter.dim() - 2
+    strides = [int(s) for s in attrs.get("strides", [1] * nd)]
+    dilations = [int(d) for d in attrs.get("dilations", [1] * nd)]
     groups = int(attrs.get("groups", 1) or 1)
-    channels_last = attrs.get("data_format", "NCHW") not in (
-        "NCHW", "AnyLayout")
+    channels_last = attrs.get("data_format", "NCHW") not in _NCHW_LAYOUTS[nd]
     x, w = Input, Filter
     if channels_last:
-        x = x.permute(0, 3, 1, 2)
-        w = w.contiguous(memory_format=torch.channels_last)
-    pads = _conv_padding(attrs.get("paddings", [0, 0]), tuple(x.shape[2:]),
+        x = x.permute(0, nd + 1, *range(1, nd + 1))
+        w = w.contiguous(memory_format=torch.channels_last if nd == 2
+                         else torch.channels_last_3d)
+    pads = _conv_padding(attrs.get("paddings", [0] * nd), tuple(x.shape[2:]),
                          tuple(w.shape[2:]), strides, dilations)
     if all(lo == hi for lo, hi in pads):
         padding = [lo for lo, _ in pads]
     else:
         x = F.pad(x, [p for pair in reversed(pads) for p in pair])
         padding = 0
-    out = F.conv2d(x, w, None, strides, padding, dilations, groups)
+    conv = F.conv2d if nd == 2 else F.conv3d
+    out = conv(x, w, None, strides, padding, dilations, groups)
     if channels_last:
-        out = out.permute(0, 2, 3, 1)
+        out = out.permute(0, *range(2, nd + 2), 1)
     return out.to(torch.promote_types(Input.dtype, Filter.dtype))
 
 
 @register_op("conv2d", inputs=["Input", "Filter"], outputs=["Output"])
 def conv2d(ctx, attrs, Input, Filter):
-    return _conv2d(attrs, Input, Filter)
+    return _conv_nd(attrs, Input, Filter)
 
 
 @register_op("depthwise_conv2d", inputs=["Input", "Filter"],
              outputs=["Output"])
 def depthwise_conv2d(ctx, attrs, Input, Filter):
-    return _conv2d(attrs, Input, Filter)
+    return _conv_nd(attrs, Input, Filter)
 
 
 @register_op("pool2d", inputs=["X"], outputs=["Out"])
@@ -448,7 +458,7 @@ def fused_conv_bn_act(ctx, attrs, Input, Filter, Scale, Bias, Mean,
     and through the statistics.  On the GPU the NHWC output must be
     contiguous as cuDNN wrote it: a copy would double the epilogue's
     traffic, so that raises."""
-    conv = _conv2d(attrs, Input, Filter)
+    conv = _conv_nd(attrs, Input, Filter)
     eps = attrs.get("epsilon", 1e-5)
     momentum = attrs.get("momentum", 0.9)
     is_test = attrs.get("is_test", False) \
@@ -487,3 +497,219 @@ def fused_conv_bn_act(ctx, attrs, Input, Filter, Scale, Bias, Mean,
         if act != "identity":
             y = get_op_def(act).fn(ctx, dict(attrs), y)
     return {"Out": y, "MeanOut": mean_out, "VarianceOut": var_out}
+
+
+@register_op("conv3d", inputs=["Input", "Filter"], outputs=["Output"])
+def conv3d(ctx, attrs, Input, Filter):
+    return _conv_nd(attrs, Input, Filter)
+
+
+def _transpose_pads(paddings, ksize, strides, dilations):
+    """(lo, hi) of each spatial dim to crop from (or, negative, to add to)
+    the full transposed convolution, whose length is ``(in - 1) * s + d
+    (k - 1) + 1``: the reference's padding attr, symmetric ints, pairs, or
+    jax's ``'SAME'`` / ``'VALID'`` (their input-side pads ``A``, ``B`` of
+    the fractionally strided conv give ``d (k - 1) - A`` and ``- B``)."""
+    dks = [d * (int(k) - 1) + 1 for k, d in zip(ksize, dilations)]
+    if isinstance(paddings, str):
+        pads = []
+        for dk, s in zip(dks, strides):
+            if paddings.upper() == "SAME":
+                total = dk + s - 2
+                lo = dk - 1 if s > dk - 1 else -(-total // 2)
+            else:  # VALID
+                total = dk + s - 2 + max(dk - s, 0)
+                lo = dk - 1
+            pads.append((dk - 1 - lo, dk - 1 - (total - lo)))
+        return pads
+    if len(paddings) == len(ksize):
+        return [(int(p), int(p)) for p in paddings]
+    return [(int(paddings[2 * i]), int(paddings[2 * i + 1]))
+            for i in range(len(ksize))]
+
+
+def _conv_transpose(attrs, Input, Filter):
+    """NC(D)HW transposed convolution (``conv_transpose_op.cc``); the
+    filter is [C_in, C_out / groups, *k], the layout of
+    ``F.conv_transpose2d`` / ``3d``, and the output has ``C_out`` =
+    filter dim 1 times ``groups`` channels.  Symmetric non-negative
+    padding goes to the library call; other padding crops or zero-pads
+    the unpadded result."""
+    nd = Filter.dim() - 2
+    strides = [int(s) for s in attrs.get("strides", [1] * nd)]
+    dilations = [int(d) for d in attrs.get("dilations", [1] * nd)]
+    groups = int(attrs.get("groups", 1) or 1)
+    pads = _transpose_pads(attrs.get("paddings", [0] * nd),
+                           tuple(Filter.shape[2:]), strides, dilations)
+    fn = F.conv_transpose2d if nd == 2 else F.conv_transpose3d
+    if all(lo == hi and lo >= 0 for lo, hi in pads):
+        return fn(Input, Filter, None, strides, [lo for lo, _ in pads], 0,
+                  groups, dilations)
+    out = fn(Input, Filter, None, strides, 0, 0, groups, dilations)
+    grow = [max(-p, 0) for pair in reversed(pads) for p in pair]
+    if any(grow):
+        out = F.pad(out, grow)
+    index = [slice(None), slice(None)]
+    for i, (lo, hi) in enumerate(pads):
+        n = out.shape[2 + i]
+        index.append(slice(max(lo, 0), n - max(hi, 0)))
+    return out[tuple(index)]
+
+
+@register_op("conv2d_transpose", inputs=["Input", "Filter"],
+             outputs=["Output"])
+def conv2d_transpose(ctx, attrs, Input, Filter):
+    return _conv_transpose(attrs, Input, Filter)
+
+
+@register_op("conv3d_transpose", inputs=["Input", "Filter"],
+             outputs=["Output"])
+def conv3d_transpose(ctx, attrs, Input, Filter):
+    return _conv_transpose(attrs, Input, Filter)
+
+
+@register_op("prelu", inputs=["X", "Alpha"], outputs=["Out"])
+def prelu(ctx, attrs, X, Alpha):
+    """``x`` where ``x >= 0``, else ``alpha * x``: one alpha (``all``),
+    one a channel, or one an element of a sample (``element``)."""
+    mode = attrs.get("mode", "all")
+    if mode == "all":
+        a = Alpha.reshape(())
+    elif mode == "channel":
+        a = Alpha.reshape((1, -1) + (1,) * (X.dim() - 2))
+    else:
+        a = Alpha.reshape((1,) + tuple(X.shape[1:]))
+    return torch.where(X >= 0, X, a * X)
+
+
+@register_op("spectral_norm", inputs=["Weight", "U", "V"], outputs=["Out"])
+def spectral_norm(ctx, attrs, Weight, U, V):
+    """Power-iteration spectral normalization (``spectral_norm_op.h``):
+    ``power_iters`` times ``v = W^T u / (|.| + eps)``, ``u = W v / (|.| +
+    eps)``; ``sigma = u^T W v``; ``W / sigma``, with ``dim`` the height
+    axis.  The iterated ``u`` and ``v`` take no gradient."""
+    dim = int(attrs.get("dim", 0))
+    power_iters = int(attrs.get("power_iters", 1))
+    eps = float(attrs.get("eps", 1e-12))
+    w = Weight
+    perm = None
+    if dim != 0:
+        perm = [dim] + [i for i in range(w.dim()) if i != dim]
+        w = w.permute(perm)
+    h = w.shape[0]
+    mat = w.reshape(h, -1)
+    u = U.reshape(h)
+    v = V.reshape(-1)
+    with torch.no_grad():
+        for _ in range(power_iters):
+            v = mat.T @ u
+            v = v / (torch.linalg.vector_norm(v) + eps)
+            u = mat @ v
+            u = u / (torch.linalg.vector_norm(u) + eps)
+    sigma = u @ (mat @ v)
+    out = w / sigma
+    if perm is not None:
+        out = out.permute([perm.index(i) for i in range(len(perm))])
+    return out
+
+
+@register_op("row_conv", inputs=["X", "Filter"], outputs=["Out"])
+def row_conv(ctx, attrs, X, Filter):
+    """Lookahead row convolution (``row_conv_op.cc``) of a padded
+    [B, T, D] input with a [K, D] filter: ``out[t] = sum_{i < K, t + i <
+    T} x[t + i] * w[i]``."""
+    out = X * Filter[0]
+    for i in range(1, Filter.shape[0]):
+        shifted = F.pad(X[:, i:, :], (0, 0, 0, i))
+        out = out + shifted * Filter[i]
+    return out
+
+
+def _sampler_logq(sampler, ids, n):
+    """log q(id) under the negative sampler (``nce_op.h``): 0 uniform, 1
+    log-uniform (Zipf, ``q(c) = log((c + 2) / (c + 1)) / log(n + 1)``)."""
+    if sampler == 1:
+        ids_f = ids.to(torch.float32)
+        q = torch.log((ids_f + 2.0) / (ids_f + 1.0)) / _math.log(n + 1.0)
+        return torch.log(torch.clamp(q, min=1e-20))
+    return torch.full(tuple(ids.shape), -_math.log(float(n)),
+                      device=ids.device)
+
+
+def _draw_negatives(ctx, sampler, k, n, seed=0):
+    """``k`` negative class ids, shared across the batch: drawn on the
+    host from the op's generator (with a ``seed`` attr mixed in), so every
+    device draws the same ones; log-uniform by the inverse CDF."""
+    g = ctx.rng()
+    if seed:
+        g.manual_seed((g.initial_seed() * 1000003 + int(seed))
+                      % (2 ** 63 - 1))
+    if sampler == 1:
+        u = torch.rand((k,), generator=g)
+        ids = torch.exp(u * _math.log(n + 1.0)) - 1.0
+        return torch.clamp(ids.to(torch.int64), 0, n - 1)
+    return torch.randint(0, n, (k,), generator=g, dtype=torch.int64)
+
+
+@register_op("nce", inputs=["Input", "Label", "Weight", "Bias",
+                            "SampleWeight"],
+             outputs=["Cost", "SampleLogits", "SampleLabels"],
+             stateful_outputs=("SampleLogits", "SampleLabels"),
+             capturable=False)
+def nce(ctx, attrs, Input, Label, Weight, Bias, SampleWeight):
+    """Noise-contrastive estimation (``nce_op.h``): the binary logistic
+    loss of the true class against ``k`` sampled noise classes, each
+    logit corrected by ``log(k q)``.  The negatives are a host draw a run
+    (not capturable)."""
+    k = int(attrs.get("num_neg_samples", 10))
+    n = int(attrs.get("num_total_classes"))
+    sampler = int(attrs.get("sampler", 0))
+    b = Input.shape[0]
+    lbl = Label.reshape(b, -1)[:, 0].long()
+    if ctx.device.type == "meta":
+        neg = torch.zeros((k,), dtype=torch.int64, device="meta")
+    else:
+        neg = _draw_negatives(ctx, sampler, k, n,
+                              attrs.get("seed", 0)).to(Input.device)
+    s_true = (Input * Weight[lbl]).sum(dim=1, keepdim=True)
+    if Bias is not None:
+        s_true = s_true + Bias.reshape(-1)[lbl][:, None]
+    s_neg = Input @ Weight[neg].T
+    if Bias is not None:
+        s_neg = s_neg + Bias.reshape(-1)[neg][None, :]
+    log_k = _math.log(float(k))
+    adj_true = s_true - (log_k + _sampler_logq(sampler, lbl, n))[:, None]
+    adj_neg = s_neg - (log_k + _sampler_logq(sampler, neg, n))[None, :]
+    # -log sigma(true) - sum log(1 - sigma(neg)), as softplus
+    cost = F.softplus(-adj_true)[:, 0] + F.softplus(adj_neg).sum(dim=1)
+    if SampleWeight is not None:
+        cost = cost * SampleWeight.reshape(-1)
+    labels = torch.cat([lbl[:, None], neg[None, :].expand(b, k)], dim=1)
+    return {"Cost": cost[:, None],
+            "SampleLogits": torch.cat([s_true, s_neg], dim=1).detach(),
+            "SampleLabels": labels}
+
+
+@register_op("group_norm", inputs=["X", "Scale", "Bias"],
+             outputs=["Y", "Mean", "Variance"],
+             stateful_outputs=("Mean", "Variance"))
+def group_norm(ctx, attrs, X, Scale, Bias):
+    """Group normalization (``group_norm_op.cc``) of an NC* input: the
+    statistics of each (sample, group) in float32, single pass
+    ``max(E[x^2] - E[x]^2, 0)`` as ``batch_norm``'s."""
+    g = int(attrs.get("groups", 1))
+    eps = float(attrs.get("epsilon", 1e-5))
+    n, c = X.shape[0], X.shape[1]
+    xg = X.reshape((n, g, c // g) + tuple(X.shape[2:])).float()
+    dims = tuple(range(2, xg.dim()))
+    mean = xg.mean(dim=dims, keepdim=True)
+    var = torch.clamp(torch.square(xg).mean(dim=dims, keepdim=True)
+                      - torch.square(mean), min=0.0)
+    y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(X.shape)
+    shape = (1, c) + (1,) * (X.dim() - 2)
+    if Scale is not None:
+        y = y * Scale.reshape(shape).float()
+    if Bias is not None:
+        y = y + Bias.reshape(shape).float()
+    return {"Y": y.to(X.dtype), "Mean": mean.reshape(n, g).detach(),
+            "Variance": var.reshape(n, g).detach()}

@@ -18,14 +18,23 @@ is a float or a Variable (a schedule of ``layers.learning_rate_scheduler``).
 ``ExponentialMovingAverage`` and ``ModelAverage`` keep their state in
 persistable vars updated by the training program; ``apply`` and
 ``restore`` run small programs of their own against the same scope.
-Not ported yet: the dygraph paths (``dygraph/``, ROADMAP.md Queue A
-item 4) and the reference's env-gated ``_fuse_adam_ops``; the real DGC
-exchange and the GPipe runner behind ``PipelineOptimizer`` wait for
-``parallel/`` (Queue A items 7 and 9)."""
+The dygraph paths (``load`` :83, ``minimize``'s dygraph branch :237,
+``_eager_state_for`` :256, ``_eager_lr`` :265, ``_eager_apply`` :281,
+``_dygraph_apply_regularization`` :287, ``_dygraph_clip_grads`` :306,
+``_dygraph_minimize`` :338, ``_eager_run_op`` :360 and the ``_eager_apply``
+of SGD :373, Momentum :409 and Adam :576) run the registered ``sgd`` /
+``momentum`` / ``adam`` ops on each parameter's tensor, so on the card
+the hand-written in-place kernels do the update; the learning rate may
+then be a ``dygraph.LearningRateDecay``, stepped once a ``minimize``.
+Not ported yet: the reference's env-gated ``_fuse_adam_ops``; the real
+DGC exchange and the GPipe runner behind ``PipelineOptimizer`` wait for
+``parallel/`` (ROADMAP.md Queue A items 7 and 9)."""
 
 import contextlib
 import warnings
 from collections import defaultdict
+
+import torch
 
 from . import unique_name
 from .backward import append_backward
@@ -49,8 +58,12 @@ __all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum",
 
 class Optimizer:
     def __init__(self, learning_rate, regularization=None, name=None):
-        if not isinstance(learning_rate, (float, int, Variable)):
-            raise TypeError("learning_rate must be a float or a Variable")
+        from .dygraph.learning_rate_scheduler import LearningRateDecay
+
+        if not isinstance(learning_rate,
+                          (float, int, Variable, LearningRateDecay)):
+            raise TypeError("learning_rate must be float, Variable, or a "
+                            "dygraph LearningRateDecay")
         self.regularization = regularization
         self._name = name
         self._learning_rate = learning_rate
@@ -64,6 +77,16 @@ class Optimizer:
         out += [lr.name for lr in self._learning_rate_map.values()]
         return out
 
+    def load(self, state_dict):
+        """Restore the eager accumulator state (the dict is keyed by
+        parameter name, which regenerates the same for the same
+        model-construction order: rebuild the model before loading).
+        Its values may be tensors or host arrays."""
+        if not isinstance(state_dict, dict):
+            raise TypeError("load expects the dict of per-param "
+                            "accumulator maps (optimizer._eager_state)")
+        self._eager_state = dict(state_dict)
+
     # ---- learning rate ----
     def _create_global_learning_rate(self):
         program = default_main_program()
@@ -72,6 +95,14 @@ class Optimizer:
         if isinstance(self._learning_rate, Variable):
             self._learning_rate_map[program] = self._learning_rate
             return
+        from .dygraph.learning_rate_scheduler import LearningRateDecay
+
+        if isinstance(self._learning_rate, LearningRateDecay):
+            raise TypeError(
+                "dygraph LearningRateDecay objects are dygraph-only; on "
+                "the graph path use layers.learning_rate_scheduler (e.g. "
+                "layers.polynomial_decay) which builds the schedule as "
+                "graph ops")
         lr_var = program.global_block().create_var(
             name=unique_name.generate("learning_rate"), shape=[1],
             dtype="float32", persistable=True)
@@ -159,6 +190,11 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None, grad_clip=None):
+        from .framework import in_dygraph_mode
+
+        if in_dygraph_mode():
+            return self._dygraph_minimize(loss, parameter_list,
+                                          grad_clip=grad_clip)
         params_grads = self.backward(loss, startup_program, parameter_list,
                                      no_grad_set)
         # the reference's mark naming THE loss (optimizer.py:246), which
@@ -169,11 +205,133 @@ class Optimizer:
                                                params_grads)
         return optimize_ops, params_grads
 
+    # ---- dygraph (eager) path: the same update ops on the parameters'
+    # tensors; per-parameter accumulators live on the optimizer ----
+    def _eager_state_for(self, param):
+        """The parameter's accumulators, keyed by its unique name (which
+        regenerates the same for the same model-construction order, so a
+        state saved in one process restores in another), each a tensor
+        on the parameter's device (a loaded host array is placed there at
+        its first use)."""
+        if not hasattr(self, "_eager_state"):
+            self._eager_state = {}
+        st = self._eager_state.setdefault(param.name, {})
+        dev = param.value.device
+        for k, v in st.items():
+            if not isinstance(v, torch.Tensor) or v.device != dev:
+                st[k] = torch.as_tensor(v).to(dev)
+        return st
+
+    def _eager_lr(self, param):
+        """This minimize's learning rate as a [1] float32 tensor on the
+        parameter's device, made once a device and minimize."""
+        dev = param.value.device
+        lr = self._eager_lr_tensors.get(dev)
+        if lr is None:
+            lr = self._eager_lr_tensors[dev] = torch.full(
+                (1,), self._eager_lr_value, dtype=torch.float32,
+                device=dev)
+        return lr
+
+    def _eager_apply(self, param):
+        raise NotImplementedError(
+            "%s has no dygraph update yet — use SGD/Momentum/Adam"
+            % type(self).__name__)
+
+    def _dygraph_apply_regularization(self, param):
+        """Weight decay on the eager gradient (the dygraph analogue of
+        ``append_regularization_ops``)."""
+        from .regularizer import L1DecayRegularizer, L2DecayRegularizer
+
+        reg = getattr(param, "regularizer", None) or self.regularization
+        if isinstance(reg, L2DecayRegularizer):
+            param._grad = param._grad + reg._regularization_coeff \
+                * param.value
+        elif isinstance(reg, L1DecayRegularizer):
+            param._grad = param._grad + reg._regularization_coeff \
+                * torch.sign(param.value)
+
+    def _dygraph_clip_grads(self, grad_clip, params):
+        """Eager analogue of ``append_gradient_clip_ops``: clip ``_grad``
+        of every trainable parameter (the graph-path clip classes' math,
+        so a model ported between modes trains the same)."""
+        from .clip import (GradientClipByGlobalNorm, GradientClipByNorm,
+                           GradientClipByValue)
+
+        live = [p for p in params
+                if getattr(p, "_grad", None) is not None and p.trainable]
+        if isinstance(grad_clip, GradientClipByValue):
+            for p in live:
+                p._grad = torch.clamp(p._grad, grad_clip.min, grad_clip.max)
+        elif isinstance(grad_clip, GradientClipByNorm):
+            for p in live:
+                n = torch.sqrt(torch.sum(torch.square(p._grad)))
+                p._grad = p._grad * (grad_clip.clip_norm / torch.clamp(
+                    n, min=grad_clip.clip_norm))
+        elif isinstance(grad_clip, GradientClipByGlobalNorm):
+            if not live:
+                return
+            gnorm = torch.sqrt(sum(torch.sum(torch.square(p._grad))
+                                   for p in live))
+            scale = grad_clip.clip_norm / torch.clamp(
+                gnorm, min=grad_clip.clip_norm)
+            for p in live:
+                p._grad = p._grad * scale
+        else:
+            raise TypeError(
+                "unsupported grad_clip %r on the dygraph path" % grad_clip)
+
+    def _dygraph_minimize(self, loss, parameter_list, grad_clip=None):
+        if parameter_list is None:
+            raise ValueError(
+                "dygraph minimize requires parameter_list (the Layer's "
+                ".parameters())")
+        if loss is not None and getattr(loss, "_grad", None) is None:
+            loss.backward()
+        from .dygraph.learning_rate_scheduler import LearningRateDecay
+
+        lr = self._learning_rate
+        if isinstance(lr, LearningRateDecay):
+            # once a minimize: a step a parameter would give each
+            # parameter another rate
+            lr = lr.step()
+        elif not isinstance(lr, (float, int)):
+            raise TypeError("dygraph mode needs a float learning rate or a "
+                            "dygraph.LearningRateDecay")
+        self._eager_lr_value = float(lr)
+        self._eager_lr_tensors = {}
+        # the updates write the parameters in place, outside autograd
+        with torch.no_grad():
+            if grad_clip is not None:
+                self._dygraph_clip_grads(grad_clip, parameter_list)
+            for p in parameter_list:
+                if getattr(p, "_grad", None) is None or not p.trainable:
+                    continue
+                self._dygraph_apply_regularization(p)
+                self._eager_apply(p)
+        return [], []
+
+
+def _eager_run_op(op_type, ins, attrs):
+    """One registered update op on eager tensors (``{slot: tensor}``),
+    on the parameter's device."""
+    from .ops.registry import LoweringContext, call_op, get_op_def
+
+    ctx = LoweringContext(mode="train", device=ins["Param"].device)
+    return call_op(get_op_def(op_type), ctx,
+                   {k: [v] for k, v in ins.items()}, attrs)
+
 
 class SGDOptimizer(Optimizer):
     def __init__(self, learning_rate, regularization=None, name=None):
         self.type = "sgd"
         super().__init__(learning_rate, regularization, name)
+
+    def _eager_apply(self, param):
+        outs = _eager_run_op(
+            "sgd", {"Param": param.value, "Grad": param._grad,
+                    "LearningRate": self._eager_lr(param)}, {})
+        param.set_value(outs["ParamOut"][0])
 
     def _append_optimize_op(self, block, param_and_grad):
         param, grad = param_and_grad
@@ -200,6 +358,18 @@ class MomentumOptimizer(Optimizer):
     def _create_accumulators(self, block, parameters):
         for p in parameters:
             self._add_accumulator(self._velocity_acc_str, p)
+
+    def _eager_apply(self, param):
+        st = self._eager_state_for(param)
+        if "velocity" not in st:
+            st["velocity"] = torch.zeros_like(param.value)
+        outs = _eager_run_op(
+            "momentum", {"Param": param.value, "Grad": param._grad,
+                         "Velocity": st["velocity"],
+                         "LearningRate": self._eager_lr(param)},
+            {"mu": self._momentum, "use_nesterov": self._use_nesterov})
+        param.set_value(outs["ParamOut"][0])
+        st["velocity"] = outs["VelocityOut"][0]
 
     def _append_optimize_op(self, block, param_and_grad):
         param, grad = param_and_grad
@@ -439,6 +609,28 @@ class AdamOptimizer(Optimizer):
                                   fill_value=self._beta1, shape=[1])
             self._add_accumulator(self._beta2_pow_acc_str, p,
                                   fill_value=self._beta2, shape=[1])
+
+    def _eager_apply(self, param):
+        st = self._eager_state_for(param)
+        if "m1" not in st:
+            dev = param.value.device
+            st["m1"] = torch.zeros_like(param.value)
+            st["m2"] = torch.zeros_like(param.value)
+            st["b1p"] = torch.full((1,), self._beta1, dtype=torch.float32,
+                                   device=dev)
+            st["b2p"] = torch.full((1,), self._beta2, dtype=torch.float32,
+                                   device=dev)
+        outs = _eager_run_op(
+            "adam", {"Param": param.value, "Grad": param._grad,
+                     "LearningRate": self._eager_lr(param),
+                     "Moment1": st["m1"], "Moment2": st["m2"],
+                     "Beta1Pow": st["b1p"], "Beta2Pow": st["b2p"]},
+            {"beta1": self._beta1, "beta2": self._beta2,
+             "epsilon": self._epsilon})
+        param.set_value(outs["ParamOut"][0])
+        for k, slot in (("m1", "Moment1Out"), ("m2", "Moment2Out"),
+                        ("b1p", "Beta1PowOut"), ("b2p", "Beta2PowOut")):
+            st[k] = outs[slot][0]
 
     def _append_optimize_op(self, block, param_and_grad):
         param, grad = param_and_grad

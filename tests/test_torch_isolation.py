@@ -5,7 +5,8 @@ battery with the abstract interpreter, cost model, schedule prover,
 overlap and hierarchy passes and the planner's cluster spec, the serving,
 lint, analyze, monitor and trace CLIs, the watchdog, the other
 optimizers with the moving averages, decoupled weight decay and
-``WeightedAverage`` included), its entry points run on the GPU
+``WeightedAverage`` included, and the dygraph mode with its layers'
+ops), its entry points run on the GPU
 unless the caller asks for the CPU, and what it has not ported yet
 raises rather than being skipped silently."""
 
@@ -54,6 +55,8 @@ from paddle_tpu_torch.observability import drift
 from paddle_tpu_torch.tools import monitor, trace
 from paddle_tpu_torch import average, resilience
 from paddle_tpu_torch.contrib import extend_optimizer
+from paddle_tpu_torch import dygraph as dg
+from paddle_tpu_torch.dygraph.varbase import eager_op
 
 main, startup = fluid.Program(), fluid.Program()
 with fluid.program_guard(main, startup):
@@ -165,6 +168,26 @@ try:
                 fetch_list=[loss])
 finally:
     dist.destroy_process_group()
+with dg.guard(fluid.CPUPlace()):
+    net = dg.Conv2D(2, 3, 3, padding=1)
+    bn = dg.BatchNorm(3, act="relu")
+    opt = fluid.optimizer.Momentum(dg.PiecewiseDecay([1], [0.1, 0.01], 0),
+                                   0.9, regularization=fluid.regularizer
+                                   .L2Decay(1e-3))
+    x = dg.to_variable(np.ones((2, 2, 4, 4), "float32"))
+    loss = eager_op("mean", {"X": [bn(net(x))]})[0]
+    loss.backward()
+    opt.minimize(loss, parameter_list=net.parameters() + bn.parameters(),
+                 grad_clip=fluid.dygraph_grad_clip.GradClipByGlobalNorm(1.0))
+    path = os.path.join(tempfile.mkdtemp(), "net")
+    dg.save_dygraph(net.state_dict(), path)
+    assert set(dg.load_dygraph(path)[0]) == {"weight", "bias"}
+from paddle_tpu_torch.ops import registry
+for op_type in ("conv3d", "conv2d_transpose", "conv3d_transpose", "gru_unit",
+                "prelu", "bilinear_tensor_product", "sequence_conv",
+                "row_conv", "group_norm", "spectral_norm", "tree_conv",
+                "nce"):
+    assert registry.has_op(op_type) and registry.has_op(op_type + "_grad")
 assert not any(m.split(".")[0] in ("jax", "paddle_tpu")
                for m in sys.modules), sorted(sys.modules)
 print("ISOLATED-OK")

@@ -610,3 +610,62 @@ def test_weighted_average_matches_the_reference():
         avg.reset()
         assert avg.numerator is None
     assert outs[0] == outs[1] == (2.0 + 9.0 + 12.5) / 6.5
+
+
+def _rule_parity_tol_numpy(rule, lr, start, grads_a, grads_b, base):
+    """``chip_smoke.rule_parity_tol`` as it was written in float64 numpy
+    on the host: the reference the torch version is held to."""
+    steps = len(grads_a)
+    ga = np.stack(grads_a).astype("float64")
+    gb = np.stack(grads_b).astype("float64")
+    low = np.minimum(np.abs(ga), np.abs(gb))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        rel = np.where((np.sign(ga) == np.sign(gb)) & (low > 0),
+                       np.abs(ga - gb) / low, np.inf).max(axis=0)
+    s = chip_smoke.RULE_SETTINGS[rule][1]
+    if rule == "dgc_momentum":
+        slack = lr * steps * sum(s["momentum"] ** k for k in range(steps)) \
+            * np.abs(ga - gb).max(axis=0)
+        return base + slack
+    step = chip_smoke.rule_step_bound(rule, lr)
+    slack = np.minimum(2.0, chip_smoke.PARITY_GRAD_K * rel) * steps * step
+    if rule == "ftrl":
+        p = np.abs(start.astype("float64"))
+        l1 = s["l1"] + chip_smoke.FTRL_L_FLOOR
+        l2 = s["l2"] + chip_smoke.FTRL_L_FLOOR
+        with np.errstate(divide="ignore"):
+            shift = sum(steps * (l1 + l2 * (p + steps * lr)) * lr
+                        / np.abs(g[0]) for g in (ga, gb))
+        slack = np.minimum(slack + shift, p + 2 * steps * lr)
+    return base + slack
+
+
+@pytest.mark.parametrize("rule", chip_smoke.RULES)
+@pytest.mark.parametrize("steps", [1, 3])
+def test_rule_parity_tol_in_torch_equals_the_numpy_version(rule, steps):
+    """The bound ``phase_optimizers_parity`` computes with torch on the
+    card is element for element the float64 numpy one, on seeded arrays
+    with zeros, sign flips and near ties in the gradients, for numpy
+    inputs (a numpy result) and for tensors (a tensor result)."""
+    rng = np.random.RandomState(11 + steps)
+    shape = (37, 19)
+    start = rng.randn(*shape).astype("float32")
+    grads_a = [rng.randn(*shape).astype("float32") for _ in range(steps)]
+    grads_b = [(g * (1 + 1e-3 * rng.randn(*shape))).astype("float32")
+               for g in grads_a]
+    for g in grads_a + grads_b:
+        g[rng.rand(*shape) < 0.05] = 0.0
+    grads_b[0][rng.rand(*shape) < 0.05] *= -1
+    base = 1e-6 * float(np.abs(start).max())
+    want = _rule_parity_tol_numpy(rule, LR, start, grads_a, grads_b, base)
+    got = chip_smoke.rule_parity_tol(rule, LR, start, grads_a, grads_b,
+                                     base)
+    assert isinstance(got, np.ndarray) and got.dtype == np.float64
+    np.testing.assert_array_equal(got, want)
+    got_t = chip_smoke.rule_parity_tol(
+        rule, LR, torch.from_numpy(start), [torch.from_numpy(g)
+                                            for g in grads_a],
+        [torch.from_numpy(g) for g in grads_b], base)
+    assert got_t.dtype == torch.float64
+    np.testing.assert_array_equal(got_t.numpy(), want)
+    assert np.isfinite(want).all() or rule == "ftrl"

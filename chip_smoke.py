@@ -318,7 +318,26 @@ and the CUDA toolkit.  Phases, each printing one JSON line:
    its scale; SGD, Momentum and Adam each with each dygraph clip, L2
    decay and a ``PiecewiseDecay``, 3 steps of a small MLP, the losses and
    parameters within 1e-4 of their scale (Adam's elements also what the
-   two sides' consumed gradients explain), their update kernels counted.
+   two sides' consumed gradients explain), their update kernels counted;
+27. decode_loop (after decode parity): ``models.gpt.build_program`` (the
+   prefill, then ``layers.decode_loop``: one ``While`` whose body is a
+   one-token step) at GPT-2-small widths, batch 8, prompt 32, 64 new
+   tokens, greedy, f32, through ``Executor.run``: the trips are driven
+   from the host (one condition read a trip) and the body replays a
+   CUDA graph from its second trip.  One cold and 3 warm generations
+   (wall time, trips, condition reads, syncs of one under
+   ``set_sync_debug_mode("warn")``, the body's run mode and its reason,
+   host ms before the loop, peak memory, launches: K1 12, K2 24 and K3
+   2 in the prefill, K5 12 a trip, anything else fails), TTFT as a warm
+   1-token generation, beside the ring ``DecodeEngine``'s rate (another
+   program); ``build_naive_program`` on the same weights must give the
+   same tokens, and the port on the CPU the card's tokens except at a
+   near-tie (``_greedy_mismatches`` at the first parting);
+28. control_flow_parity: ``While`` bounded and unbounded with their
+   gradients, ``cond``, ``Switch``, ``IfElse`` with gradients, the
+   tensor arrays and a gradient through one (``control_flow_cases``),
+   card against CPU within 1e-5 of the scale, every loop body replayed
+   from its graph on the card.
 
 The whole run reads and writes a fresh autotune cache in a temp
 directory (``PADDLE_TPU_AUTOTUNE_CACHE``), so no decision of an earlier
@@ -9331,6 +9350,445 @@ def phase_dygraph_parity():
         raise AssertionError("dygraph parity failed: %s" % failed)
 
 
+# ---------------------------------------------------------------------------
+# the While loop: single-program generation and control-flow parity
+# ---------------------------------------------------------------------------
+
+LOOP_BATCH = 8           # child_decode's batch (bench.py:1166-1168)
+LOOP_PROMPT = 32         # its prompt length
+LOOP_NEW_TOKENS = 64     # its new tokens
+LOOP_WARM_RUNS = 3       # warm generations timed, median
+LOOP_PARITY_RTOL = 1e-5  # control-flow programs, card vs CPU, of the scale
+
+
+def _loop_program(gpt, cfg, naive=False, new_tokens=LOOP_NEW_TOKENS):
+    from paddle_tpu_torch import unique_name
+
+    unique_name.switch()
+    build = gpt.build_naive_program if naive else gpt.build_program
+    main, startup, _feeds, tokens, gen_len = build(
+        cfg, LOOP_BATCH, LOOP_PROMPT, new_tokens)
+    return main, startup, [tokens, gen_len]
+
+
+def _loop_launches(cfg, trips):
+    """A warm generation's launches: in the prefill a causal K1 per
+    layer, K2 for each residual add + LN (two a layer) and K3 for wte and
+    wpe, which the fusion pass rewrites onto them; one K5 per layer a
+    trip.  The loop body is a sub-block, which the fusion pass (as the
+    reference's) leaves alone: its lookups, adds and layer norms stay
+    the plain ops."""
+    from paddle_tpu_torch.ops.cuda import KERNELS
+
+    want = dict.fromkeys(KERNELS, 0)
+    want["flash_attention_fwd"] = cfg.layers
+    want["fused_dropout_add_ln_fwd"] = 2 * cfg.layers
+    want["embedding_gather_fwd"] = 2
+    want["flash_decode_fwd"] = cfg.layers * trips
+    return want
+
+
+def _body_replay_ms(torch, exe, calls=20):
+    """Device ms of one replay of the loop body's graph, back to back
+    (CUDA events around ``calls`` replays): a trip's device time without
+    the host's condition read between trips; and the graph's kernel
+    nodes.  The replays move the bound counters; the next run binds its
+    own values again."""
+    from paddle_tpu_torch import executor
+    from paddle_tpu_torch.ops.cuda import _lib
+
+    body = next(e for e in exe._cache.values()
+                if isinstance(e, executor._LoopBody) and e.graph is not None)
+    body.graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        body.graph.replay()
+    end.record()
+    end.synchronize()
+    return (start.elapsed_time(end) / calls,
+            len(_lib.graph_kernel_functions(body.graph)))
+
+
+def _prefix_logits(fluid, gpt, cfg, ids, place, params):
+    """Logits [B, L, V] of every position of ``ids`` [B, L] through the
+    whole model at once (``build_naive_program``'s forward), on
+    ``place``: where the card's and the CPU's greedy tokens part, the
+    logits there say whether the CPU's top two were within
+    GREEDY_MARGIN."""
+    import numpy as np
+
+    from paddle_tpu_torch import convert, layers, unique_name
+
+    unique_name.switch()
+    main, startup = fluid.Program(), fluid.Program()
+    b, n = ids.shape
+    with fluid.program_guard(main, startup):
+        x_ids = layers.data("ids", shape=[b, n], dtype="int32",
+                            append_batch_size=False)
+        x = gpt._embed(x_ids, cfg, "gpt.wte", cfg.vocab)
+        pe = gpt._embed(layers.range(0, n, 1, "int32"), cfg, "gpt.wpe",
+                        cfg.max_len)
+        x = layers.elementwise_add(x, pe, axis=1)
+        for li in range(cfg.layers):
+            x = gpt._block_full(x, cfg, "gpt.l%d" % li)
+        logits = gpt._logits(gpt._ln(x, "gpt.lnf", 2), cfg, 2)
+    scope = fluid.Scope()
+    convert.load_params_into_scope(params, scope, device=place,
+                                   program=main)
+    exe = fluid.Executor(place)
+    return np.asarray(exe.run(main, feed={"ids": ids}, fetch_list=[logits],
+                              scope=scope, use_program_cache=False)[0])
+
+
+def _loop_vs_cpu(fluid, gpt, cfg, feed, card_toks, cpu_toks, params):
+    """Rows where the card's greedy tokens part from the CPU's: those
+    whose CPU top-2 margin at the first parting is above GREEDY_MARGIN
+    (failures) and those below it (near-ties; the row's later tokens
+    follow other contexts and are not compared)."""
+    import numpy as np
+
+    rows = [r for r in range(card_toks.shape[0])
+            if not np.array_equal(card_toks[r], cpu_toks[r])]
+    if not rows:
+        return 0, 0, []
+    ids = np.concatenate([feed["prompt_ids"], card_toks], axis=1)
+    got = _prefix_logits(fluid, gpt, cfg, ids, fluid.CUDAPlace(0), params)
+    ref = _prefix_logits(fluid, gpt, cfg, ids, fluid.CPUPlace(), params)
+    miss = near = 0
+    parts = []
+    for r in rows:
+        t = int(np.argmax(card_toks[r] != cpu_toks[r]))
+        pos = LOOP_PROMPT - 1 + t
+        m, n = _greedy_mismatches(got[r, pos][None], ref[r, pos][None])
+        miss, near = miss + m, near + n
+        parts.append({"row": r, "token": t, "below_margin": bool(n)})
+    return miss, near, parts
+
+
+def phase_decode_loop(env, ring_rates):
+    """``models.gpt.build_program`` at GPT-2-small widths (vocab 50257,
+    hidden 768, 12 layers, 12 heads, max_len 1024; f32, TF32 off, random
+    weights from SEED), batch 8, prompt 32, 64 new tokens, greedy,
+    through ``Executor.run`` on the card: one cold generation (the
+    body's warm-up trip and capture), then LOOP_WARM_RUNS warm ones
+    (every trip replays the body's graph), timed; the trips, condition
+    reads and the syncs of one (``set_sync_debug_mode("warn")``), the
+    body's run mode, the host ms that enqueue the ops before the loop,
+    peak allocated and reserved, and the kernels' launches a generation
+    (``_loop_launches``: K1 12, K2 24 and K3 2 in the prefill, K5 12 a
+    trip; any other count fails the run).  TTFT is a warm 1-token
+    generation of the same prompts.  ``build_naive_program`` on the same
+    weights and prompts must give the same tokens (the reference's
+    gate), and the port on the CPU the card's tokens wherever the CPU's
+    top-2 margin at the first parting is above GREEDY_MARGIN.  Returns the launches of one
+    warm generation by source."""
+    import statistics
+    import warnings
+
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops.cuda import (launch_counts,
+                                           launch_counts_by_source,
+                                           reset_launch_counts)
+
+    cfg = gpt.GPT2_SMALL_WIDTHS
+    place = fluid.CUDAPlace(0)
+    feed = gpt.make_fake_prompt(LOOP_BATCH, LOOP_PROMPT, cfg,
+                                np.random.RandomState(SEED + 21))
+    scope = fluid.Scope()
+    exe = fluid.Executor(place)
+    main, startup, fetch = _loop_program(gpt, cfg)
+    startup.random_seed = SEED
+    exe.run(startup, scope=scope)
+    params = {p.name: scope.get(p.name).cpu().numpy()
+              for p in main.all_parameters()}
+
+    def generate(program, outs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = exe.run(program, feed=feed, fetch_list=outs, scope=scope)
+        wall = time.perf_counter() - t0
+        rec = exe.last_loops[0]
+        return got, wall, rec, t0
+
+    t_build = time.time()
+    toks, cold_s, cold_rec, _ = generate(main, fetch)
+    walls, enqueue_ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for k in range(LOOP_WARM_RUNS):
+        if k == LOOP_WARM_RUNS - 1:
+            reset_launch_counts()
+        got, wall, rec, t0 = generate(main, fetch)
+        walls.append(wall)
+        enqueue_ms.append((rec["start_s"] - t0) * 1000.0)
+        if not np.array_equal(got[0], toks[0]):
+            raise AssertionError("decode_loop: warm generation %d gave "
+                                 "other tokens than the cold one" % k)
+    counts = launch_counts_by_source()
+    total = launch_counts()
+    peak = (torch.cuda.max_memory_allocated(),
+            torch.cuda.max_memory_reserved())
+    trips = rec["trips"]
+    want = _loop_launches(cfg, trips)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum(1 for w in caught if "synchroniz" in str(w.message))
+    replay_ms, body_kernels = _body_replay_ms(torch, exe)
+
+    one, _s, one_fetch = _loop_program(gpt, cfg, new_tokens=1)
+    generate(one, one_fetch)
+    ttft = statistics.median(generate(one, one_fetch)[1]
+                             for _ in range(LOOP_WARM_RUNS))
+    naive, _s, naive_fetch = _loop_program(gpt, cfg, naive=True)
+    naive_toks, naive_cold_s, _r, _t = generate(naive, naive_fetch)
+    naive_toks, naive_s, naive_rec, _t = generate(naive, naive_fetch)
+    del exe
+    torch.cuda.empty_cache()
+
+    cpu = fluid.CPUPlace()
+    cpu_scope = fluid.Scope()
+    cpu_main, _s, cpu_fetch = _loop_program(gpt, cfg)
+    convert.load_params_into_scope(params, cpu_scope, device=cpu,
+                                   program=cpu_main)
+    t0 = time.perf_counter()
+    cpu_toks = fluid.Executor(cpu).run(cpu_main, feed=feed,
+                                       fetch_list=cpu_fetch,
+                                       scope=cpu_scope)[0]
+    cpu_s = time.perf_counter() - t0
+    miss, near, parts = _loop_vs_cpu(fluid, gpt, cfg, feed, toks[0],
+                                     cpu_toks, params)
+    n_tok = LOOP_BATCH * LOOP_NEW_TOKENS
+    warm = statistics.median(walls)
+    result = {
+        "phase": "decode_loop", "card": card_label(env),
+        "config": "build_program, GPT-2-small widths, batch %d, prompt "
+                  "%d, %d new tokens, greedy, f32"
+                  % (LOOP_BATCH, LOOP_PROMPT, LOOP_NEW_TOKENS),
+        "tokens_equal_naive": bool(np.array_equal(toks[0], naive_toks[0])),
+        "cpu_token_mismatches": miss, "cpu_rows_below_margin": near,
+        "cpu_partings": parts, "margin": GREEDY_MARGIN,
+        "cold_generation_s": cold_s, "warm_generation_s": walls,
+        "ttft_ms_warm_1_token": ttft * 1000.0,
+        "tokens_per_s_warm": n_tok / warm,
+        "decode_tokens_per_s_warm": LOOP_BATCH * (LOOP_NEW_TOKENS - 1)
+        / max(warm - ttft, 1e-9),
+        "ring_engine_tokens_per_s": ring_rates.get("ring"),
+        "ring_engine_note": "DecodeEngine's ring tenant in the decode "
+                            "phase: another program (a step per call), "
+                            "16 requests of prompts 32-500 on 8 slots",
+        "trips": trips, "condition_reads": rec["cond_reads"],
+        "syncs_a_generation": syncs,
+        "body_mode": rec["mode"], "body_reason": rec["reason"],
+        "cold_trips": {k: cold_rec[k] for k in (
+            "eager_trips", "captured_trips", "replayed_trips")},
+        "warm_trips": {k: rec[k] for k in (
+            "eager_trips", "captured_trips", "replayed_trips")},
+        "body_copy_backs": rec["copy_backs"],
+        "enqueue_ms_before_loop": enqueue_ms,
+        "loop_wall_ms": rec["wall_ms"],
+        "trip_wall_ms": rec["wall_ms"] / max(trips, 1),
+        "body_replay_device_ms": replay_ms,
+        "body_graph_kernel_nodes": body_kernels,
+        "peak_allocated_bytes": peak[0], "peak_reserved_bytes": peak[1],
+        "launches": total, "expected_launches": want,
+        "launches_by_source": counts,
+        "naive_cold_s": naive_cold_s, "naive_warm_s": naive_s,
+        "naive_tokens_per_s": n_tok / naive_s,
+        "naive_trips": naive_rec["trips"], "naive_mode": naive_rec["mode"],
+        "cpu_generation_s": cpu_s, "build_and_cold_s": time.time() - t_build}
+    emit(result)
+    if not result["tokens_equal_naive"]:
+        raise AssertionError("decode_loop: KV-cache tokens differ from the "
+                             "naive program's")
+    if miss:
+        raise AssertionError("decode_loop: card tokens part from the CPU's "
+                             "above the margin: %s" % parts)
+    if total != want or rec["mode"] != "graph" \
+            or rec["replayed_trips"] != trips \
+            or trips != LOOP_NEW_TOKENS - 1:
+        raise AssertionError("decode_loop: launches %s != %s, or the body "
+                             "ran %s" % (total, want, rec))
+    return counts
+
+
+def control_flow_cases(fluid):
+    """The control-flow programs ``control_flow_parity`` runs (and the
+    CPU tests): ``(name, build, feeds)``, ``build() -> (main, startup,
+    fetch)``; ``While`` bounded and unbounded with gradients, ``cond``,
+    ``Switch``, ``IfElse`` with its gradient, the arrays and a gradient
+    through one."""
+    import numpy as np
+
+    L = fluid.layers
+
+    def param(name, value):
+        return fluid.ParamAttr(
+            name=name, initializer=fluid.initializer.Constant(value))
+
+    def pow_loop(max_trip):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            x = L.data("x", shape=[4, 8], dtype="float32",
+                       append_batch_size=False)
+            y = L.assign(x)
+            i = L.fill_constant([1], "float32", 0.0)
+            limit = L.data("limit", shape=[1], dtype="float32",
+                           append_batch_size=False)
+            cond = L.less_than(i, limit)
+            w = L.While(cond, max_trip_count=max_trip)
+            with w.block():
+                L.assign(L.fc(y, size=8, act="tanh",
+                              param_attr=param("cf.w", 0.3),
+                              bias_attr=param("cf.b", 0.1)), output=y)
+                L.increment(i, in_place=True)
+                L.less_than(i, limit, cond=cond)
+            loss = L.mean(L.elementwise_mul(y, y))
+            pg = fluid.backward.append_backward(loss)
+        return main, startup, [loss, y] + [g for _, g in pg]
+
+    def branches():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            x = L.data("x", shape=[4, 8], dtype="float32",
+                       append_batch_size=False, stop_gradient=False)
+            s = L.data("s", shape=[1], dtype="float32",
+                       append_batch_size=False)
+            lr = L.fill_constant([1], "float32", 0.0)
+            with L.Switch() as switch:
+                with switch.case(L.less_than(
+                        s, L.fill_constant([1], "float32", 10.0))):
+                    L.assign(L.fill_constant([1], "float32", 0.1),
+                             output=lr)
+                with switch.default():
+                    L.assign(L.fill_constant([1], "float32", 0.01),
+                             output=lr)
+            pred = L.reduce_any(L.greater_than(
+                s, L.fill_constant([1], "float32", 5.0)))
+            c = L.cond(pred, lambda: L.scale(
+                L.fc(x, size=8, param_attr=param("cf.c", 0.2),
+                     bias_attr=False), 2.0),
+                lambda: L.scale(x, -1.0))
+            h = L.fc(x, size=8, param_attr=param("cf.h", 0.15),
+                     bias_attr=param("cf.hb", -0.05))
+            row = L.greater_than(L.reduce_sum(x, dim=[1], keep_dim=True),
+                                 L.fill_constant([1], "float32", 0.0))
+            ie = L.IfElse(row)
+            with ie.true_block():
+                ie.output(L.scale(ie.input(h), 3.0))
+            with ie.false_block():
+                ie.output(L.scale(ie.input(h), -2.0))
+            (merged,) = ie()
+            loss = L.mean(L.elementwise_add(c, merged))
+            pg = fluid.backward.append_backward(loss)
+        return main, startup, [lr, c, merged, loss] + [g for _, g in pg]
+
+    def arrays():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            x = L.data("x", shape=[4, 8], dtype="float32",
+                       append_batch_size=False)
+            i = L.fill_constant([1], "int32", 0)
+            limit = L.fill_constant([1], "int32", 5)
+            acc = L.scale(x, 0.0)
+            arr = L.array_write(x, i, capacity=8)
+            cond = L.less_than(i, limit)
+            w = L.While(cond, max_trip_count=8)
+            with w.block():
+                prev = L.reshape(L.array_read(arr, i), [4, 8])
+                nxt = L.fc(prev, size=8, act="tanh",
+                           param_attr=param("cf.a", 0.25), bias_attr=False)
+                L.increment(i, value=1, in_place=True)
+                L.array_write(nxt, i, array=arr)
+                L.assign(L.elementwise_add(acc, nxt), output=acc)
+                L.less_than(i, limit, cond=cond)
+            whole, _ = L.tensor_array_to_tensor(arr, axis=0)
+            n = L.array_length(arr)
+            loss = L.mean(acc)
+            pg = fluid.backward.append_backward(loss)
+        return main, startup, [whole, n, loss] + [g for _, g in pg]
+
+    rng = np.random.RandomState(SEED + 23)
+    x = rng.randn(4, 8).astype("float32")
+    return [
+        ("while bounded", lambda: pow_loop(6),
+         [{"x": x, "limit": np.array([n], "float32")} for n in (3, 5)]),
+        ("while unbounded", lambda: pow_loop(None),
+         [{"x": x, "limit": np.array([n], "float32")} for n in (4, 0)]),
+        ("cond, Switch, IfElse", branches,
+         [{"x": x, "s": np.array([v], "float32")} for v in (7.0, 20.0,
+                                                          2.0)]),
+        ("arrays", arrays, [{"x": x}]),
+    ]
+
+
+def control_flow_run(fluid, place, case, runs=2):
+    """One case of :func:`control_flow_cases` on ``place``, each feed run
+    ``runs`` times (the loop's warm-up, bind and replays) → the fetches
+    as numpy, the body modes seen."""
+    import numpy as np
+
+    from paddle_tpu_torch import unique_name
+
+    _name, build, feeds = case
+    unique_name.switch()
+    main, startup, fetch = build()
+    startup.random_seed = SEED
+    scope = fluid.Scope()
+    exe = fluid.Executor(place)
+    exe.run(startup, scope=scope)
+    outs, modes = [], []
+    for feed in feeds:
+        for _ in range(runs):
+            outs.append([np.asarray(v) for v in exe.run(
+                main, feed=feed, fetch_list=fetch, scope=scope)])
+            modes += [r["mode"] for r in exe.last_loops]
+    return outs, modes
+
+
+def phase_control_flow_parity(env):
+    """Each program of :func:`control_flow_cases` on the card and on the
+    CPU: every fetch (values, array lengths, gradients) within
+    LOOP_PARITY_RTOL of its scale (integers exactly), and every loop
+    body on the card replayed from its graph."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+
+    failed = []
+    for case in control_flow_cases(fluid):
+        card, modes = control_flow_run(fluid, fluid.CUDAPlace(0), case)
+        cpu, _ = control_flow_run(fluid, fluid.CPUPlace(), case)
+        err = 0.0
+        for got, want in zip(card, cpu):
+            for g, w in zip(got, want):
+                if g.dtype.kind in "biu":
+                    err = max(err, float(not np.array_equal(g, w)))
+                    continue
+                scale = max(1.0, float(np.abs(w).max())) if w.size else 1.0
+                err = max(err, float(np.abs(g - w).max()) / scale
+                          if w.size else 0.0)
+        ok = err <= LOOP_PARITY_RTOL and all(m == "graph" for m in modes)
+        emit({"phase": "control_flow_parity", "card": card_label(env),
+              "case": case[0], "runs": len(card), "max_rel_err": err,
+              "tol": LOOP_PARITY_RTOL, "body_modes": sorted(set(modes)),
+              "ok": ok})
+        if not ok:
+            failed.append(case[0])
+    if failed:
+        raise AssertionError("control_flow_parity failed: %s" % failed)
+
+
 def telemetry_run(fluid, pred, requests, train, steps,
                   heartbeat_s=HEARTBEAT_S):
     """Under the telemetry directory the caller set: ``requests`` served
@@ -9345,7 +9803,11 @@ def telemetry_run(fluid, pred, requests, train, steps,
 
     dirname = obs.journal_dir()
     served_from = pred._exe._step
-    server = serving.PredictorServer({"bert": pred})
+    # every request queued before the dispatcher starts: the batches do
+    # not depend on how fast this thread submits (a started server may
+    # take each request alone, and then the predictor's steps, not the
+    # training's, are the newest the journal and the heartbeat hold)
+    server = serving.PredictorServer({"bert": pred}, auto_start=False)
     futures = [server.submit("bert", r, request_id="req%d" % i)
                for i, r in enumerate(requests)]
     server.start()
@@ -9549,6 +10011,8 @@ def _run_phases(torch):
     _timed(seconds, phase_train_amp_parity)
     decode_counts, decode_rates = _timed(seconds, phase_decode, env)
     _timed(seconds, phase_decode_parity)
+    loop_counts = _timed(seconds, phase_decode_loop, env, decode_rates)
+    _timed(seconds, phase_control_flow_parity, env)
     _timed(seconds, phase_sampled, env, decode_rates)
     _timed(seconds, phase_serve, env)
     resnet_counts, resnet_groups = _timed(seconds, phase_resnet, env)
@@ -9582,7 +10046,7 @@ def _run_phases(torch):
                     "graph_nodes": dict.fromkeys(KERNELS, 0)},
              "serve_bf16": serve_bf16_counts, "train_amp": train_amp_counts,
              "resnet_amp": resnet_amp_counts, "train_recipe": recipe_counts,
-             "dygraph": dygraph_counts}
+             "dygraph": dygraph_counts, "decode_loop": loop_counts}
     for r in rows:
         # the decode path's launches (ring + paged runs) where it runs the
         # kernel, else the BERT training path's (the backward kernels),

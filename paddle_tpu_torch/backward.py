@@ -8,15 +8,18 @@ gradient with a ``fill_constant`` of 1 (:341-350), and prunes branches
 with no gradient path.  The grad program is the reference's, op for op;
 each grad op is the registry's generic ``<type>_grad``, which
 differentiates the autograd graph its forward recorded in the same run
-(``ops/registry.py``).  A ``recompute_block`` region gets one
-``recompute_block_grad`` op (``_backprop_sub_block_op`` :218-316): it
-reads the region's ``Captured`` inputs, outputs and output gradients and
-writes ``Captured@GRAD``, the gradients of every captured var that can
-have one (the parameters the region uses among them).  The grads of
-``while``, ``conditional_block`` and ``recurrent`` are not ported yet and
-raise (ROADMAP.md, Queue A item 5).  ``checkpoints`` is accepted and
-unused, as in the reference (:319): regions come from
-``layers.recompute()`` or ``optimizer.rewrite_program_recompute``.
+(``ops/registry.py``).  A sub-block op (``while``, ``conditional_block``,
+a ``recompute_block`` region) gets one ``<type>_grad`` op
+(``_backprop_sub_block_op`` :218-316): it reads the op's inputs, its
+``Captured`` outer vars (the names its block reads before writing them
+that resolve outside it: the parameters it uses among them), its outputs
+and their gradients, and writes ``Captured@GRAD``; a ``while``'s also
+writes ``StateIn@GRAD``, the gradients of its loop-state vars' pre-loop
+values, which then flow on to the ops before the loop.  The grad of
+``recurrent`` is not ported (ROADMAP.md, Queue A item 5).
+``checkpoints`` is accepted and unused, as in the reference (:319):
+regions come from ``layers.recompute()`` or
+``optimizer.rewrite_program_recompute``.
 """
 
 from . import unique_name
@@ -105,13 +108,12 @@ class _GradEngine:
 
     def backprop_op(self, op):
         """Append the grad op of ``op``; True if one was appended."""
-        if op.type == "recompute_block":
-            return self._backprop_recompute(op)
-        if op.type in _SUB_BLOCK_OPS:
+        if op.type == "recurrent":
             raise NotImplementedError(
-                "the gradient of %r (a sub-block op) is not ported yet "
-                "(ROADMAP.md, Queue A item 5: while, conditional_block and "
-                "their grads)" % op.type)
+                "the gradient of 'recurrent' is not ported yet (ROADMAP.md, "
+                "Queue A item 5: StaticRNN and DynamicRNN)")
+        if op.type in _SUB_BLOCK_OPS:
+            return self._backprop_sub_block_op(op)
         try:
             opdef = op_registry.get_op_def(op.type)
         except op_registry.OpNotRegistered:
@@ -172,40 +174,60 @@ class _GradEngine:
                     self.pending.setdefault(x, []).append(g)
         return True
 
-    def _backprop_recompute(self, op):
-        """The ``recompute_block_grad`` op of a region (the reference's
-        ``_backprop_sub_block_op`` for ``recompute_block``)."""
+    def _grad_names(self, names, targets):
+        """A new grad name for each of ``names`` that can have one
+        (EMPTY otherwise), each added to ``targets`` with its var."""
+        out = []
+        for x in names:
+            if _var_can_have_grad(self.block, x, self.no_grad_set):
+                gn = self.new_grad_name(x)
+                out.append(gn)
+                targets.append((x, gn))
+            else:
+                out.append(op_registry.EMPTY_VAR_NAME)
+        return out
+
+    def _backprop_sub_block_op(self, op):
+        """The ``<type>_grad`` op of a ``while``, ``conditional_block`` or
+        ``recompute_block`` (the reference's :218-316)."""
         out_names = op.outputs.get("Out", [])
         gnames = [self.resolve(y) or op_registry.EMPTY_VAR_NAME
                   for y in out_names]
         if all(g == op_registry.EMPTY_VAR_NAME for g in gnames):
             return False
         sub_block = self.block.program.block(op.attrs["sub_block"])
-        captured = [n for n in cf_ops.sub_block_external_reads(sub_block)
+        # a while's loop-state vars take their grads through StateIn@GRAD
+        # (of their pre-loop values), not as captured vars
+        exclude = set(out_names) if op.type == "while" else set()
+        captured = [n for n in cf_ops.sub_block_external_reads(sub_block,
+                                                               exclude)
                     if self.block._find_var_recursive(n) is not None]
-        cap_gouts, targets = [], []
-        for x in captured:
-            if _var_can_have_grad(self.block, x, self.no_grad_set):
-                gn = self.new_grad_name(x)
-                cap_gouts.append(gn)
-                targets.append((x, gn))
-            else:
-                cap_gouts.append(op_registry.EMPTY_VAR_NAME)
-        if not targets:
-            return False
         inputs = {k: list(v) for k, v in op.inputs.items()}
         inputs["Captured"] = captured
         inputs["Out"] = list(out_names)
         inputs["Out@GRAD"] = gnames
+        outputs, targets = {}, []
+        if op.type == "while":
+            # the grads resolved above are of the post-loop values; the
+            # ones seeded below are of the pre-loop values, for the ops
+            # before the loop
+            for x in out_names:
+                self.resolved.pop(x, None)
+                self.pending[x] = []
+            gouts = self._grad_names(out_names, targets)
+            if any(g != op_registry.EMPTY_VAR_NAME for g in gouts):
+                outputs["StateIn@GRAD"] = gouts
+        outputs["Captured@GRAD"] = self._grad_names(captured, targets)
+        if not targets:
+            return False
         attrs = dict(op.attrs)
         attrs["__fwd_op_id__"] = op.attrs.get("__op_id__", 0)
         attrs["op_role"] = "backward"
         attrs.pop("__op_id__", None)
         for fwd_name, gn in targets:
             _create_grad_var(self.block, fwd_name, gn)
-        self.block.append_op(type="recompute_block_grad", inputs=inputs,
-                             outputs={"Captured@GRAD": cap_gouts},
-                             attrs=attrs)
+        self.block.append_op(type=op.type + "_grad", inputs=inputs,
+                             outputs=outputs, attrs=attrs)
         for fwd_name, gn in targets:
             self.pending.setdefault(fwd_name, []).append(gn)
         return True

@@ -40,6 +40,16 @@ call the entry's step runs directly on its static inputs, through the
 same bookkeeping.  ``use_program_cache=False`` runs eagerly, as the
 reference's uncached path.
 
+Loops.  A ``while`` or ``conditional_block`` reads its condition on the
+host, so a program that holds one runs its ops eagerly; a ``while`` body
+is a cache entry of its own (:class:`_LoopBody`, keyed by the program,
+the body's block, the scope and what the body reads): its first trip
+runs op by op, its second is captured in a CUDA graph on the bound
+inputs, and every later trip, in this run and later ones, replays it
+after one read of the condition (``ops/control_flow.py``).
+``last_loops`` holds a record of each loop run (trips, condition reads,
+how the body ran and why) and ``last_run_reason`` sums them up.
+
 State.  A captured step reads the scope tensors it was captured with,
 so parameters, optimizer moments and batch-norm statistics keep their
 addresses (the counterpart of the reference's ``donate_argnums=(1,)``).
@@ -357,6 +367,7 @@ def _run_ops_into_env(block, env, ctx, check_nan_inf=False, fetch_names=(),
     twins = _grad_twins(block)
     pending = {}  # taped forward op id -> the var names it read
     live = None
+    dead = _dead_snapshots(block, fetch_names)
 
     def run_block(sub_block, sub_env, again):
         return _run_ops_into_env(sub_block, sub_env, ctx, check_nan_inf,
@@ -365,11 +376,13 @@ def _run_ops_into_env(block, env, ctx, check_nan_inf=False, fetch_names=(),
     for op in block.ops:
         if op.type in ("feed", "fetch"):
             continue
+        if dead and op.type == "assign" and set(op.output_arg_names) <= dead:
+            continue  # a while's snapshot that no grad op reads
         if op.type in _cf.SUB_BLOCK_OPS:
             if live is None:
                 live = _region_live(block, fetch_names)
             op_id = op.attrs.get("__op_id__")
-            if op.type == "recompute_block_grad":
+            if op.type.endswith("_grad"):
                 pending.pop(op.attrs.get("__fwd_op_id__"), None)
             elif op_id in twins:
                 pending[op_id] = set(op.input_arg_names)
@@ -392,7 +405,7 @@ def _run_ops_into_env(block, env, ctx, check_nan_inf=False, fetch_names=(),
         for out_slot, in_slot in opdef.in_place.items():
             if replay or op.outputs.get(out_slot) != op.inputs.get(in_slot):
                 ins[in_slot] = [None if v is None else v.clone()
-                                for v in ins[in_slot]]
+                                for v in ins.get(in_slot, ())]
                 continue
             for n in op.inputs.get(in_slot, ()):
                 for fwd_id, read in pending.items():
@@ -421,6 +434,19 @@ def _run_ops_into_env(block, env, ctx, check_nan_inf=False, fetch_names=(),
                 if n and n != EMPTY_VAR_NAME and v is not None:
                     env[n] = v
     return env
+
+
+def _dead_snapshots(block, fetch_names=()):
+    """The pre-loop snapshots (``assign`` into a ``while``'s
+    ``snapshot_pres``) of ``block`` that no ``while_grad`` of it reads:
+    the executor skips them, as XLA drops them in the reference."""
+    made, read = set(), set()
+    for op in block.ops:
+        if op.type == "while":
+            made.update(op.attrs.get("snapshot_pres", ()))
+        elif op.type == "while_grad":
+            read.update(op.attrs.get("snapshot_pres", ()))
+    return made - read - set(fetch_names)
 
 
 # ops the reference runs host-side around its jitted step (:275)
@@ -456,22 +482,35 @@ def _analyze_block(block, feed_names, fetch_names):
     return ext_reads, written, persist_written
 
 
-def _ops_with_regions(block):
-    """The ops of ``block`` and of the sub-blocks its ops run, the
-    sub-block ops themselves left out."""
+# sub-block ops that read a condition on the host
+_HOST_BRANCH_OPS = ("while", "while_grad", "conditional_block",
+                    "conditional_block_grad")
+
+
+def _ops_with_regions(block, sub_block_ops=False):
+    """The ops of ``block`` and of the sub-blocks its ops run; the
+    sub-block ops themselves too with ``sub_block_ops``."""
     for op in block.ops:
         if op.type in _cf.SUB_BLOCK_OPS:
+            if sub_block_ops:
+                yield op
             yield from _ops_with_regions(
-                block.program.block(op.attrs["sub_block"]))
+                block.program.block(op.attrs["sub_block"]), sub_block_ops)
         else:
             yield op
 
 
 def _eager_reason(block):
     """Why ``block`` cannot be captured in a CUDA graph (its first op,
-    or first op of a region, that is not capturable), or None."""
-    for op in _ops_with_regions(block):
+    or first op of a region, that is not capturable, or its first loop
+    or branch, whose condition is read on the host), or None."""
+    for op in _ops_with_regions(block, sub_block_ops=True):
         if op.type in _HOST_SIDE_OPS:
+            continue
+        if op.type in _HOST_BRANCH_OPS:
+            return "op %r (%s) reads its condition on the host" % (
+                op.type, (op.input("Condition") or op.input("Cond"))[:1])
+        if op.type in _cf.SUB_BLOCK_OPS:
             continue
         if not op_registry.get_op_def(op.type).is_capturable(op.attrs,
                                                              op.inputs):
@@ -505,6 +544,53 @@ def _host_value(value):
     if isinstance(value, (torch.Tensor, np.ndarray)):
         return value
     return np.asarray(value)
+
+
+def _sig(v):
+    """What a cache key holds of a value: shape, dtype and device type
+    (of a tensor array's buffer)."""
+    if isinstance(v, _cf.TensorArray):
+        return ("array", tuple(v.buffer.shape), v.buffer.dtype,
+                v.buffer.device.type)
+    return (tuple(v.shape), v.dtype, v.device.type)
+
+
+def _same_memory(a, b):
+    if isinstance(a, _cf.TensorArray):
+        return _same_memory(a.buffer, b.buffer) \
+            and _same_memory(a.length, b.length)
+    return a.device == b.device and a.data_ptr() == b.data_ptr() \
+        and a.stride() == b.stride()
+
+
+def _copy_back(resident, env, names, error):
+    """Copy the new value in ``env`` of each of ``names`` into its
+    resident tensor (``resident[name]``) → the names copied, sorted.  A
+    name unwritten, or written in place, needs no copy; a new value of
+    another shape or dtype raises ``error % (name, old sig, new sig)``.
+    A value in another resident's memory is taken first, so the order of
+    the copies cannot matter."""
+    news = {}
+    for n in names:
+        new, old = env.get(n), resident.get(n)
+        if new is None or old is None or new is old:
+            continue
+        if _sig(new) != _sig(old):
+            raise RuntimeError(error % (n, _sig(old), _sig(new)))
+        news[n] = new
+    held = {_storage(t) for t in resident.values()}
+    for n, new in news.items():
+        if _storage(new) in held:
+            news[n] = new.clone()
+    for n, new in news.items():
+        resident[n].copy_(new)
+    return sorted(news)
+
+
+def _replay(entry):
+    """Replay ``entry``'s captured graph, counting its kernel nodes."""
+    entry.graph.replay()
+    _kernels.count_replay(entry.kernel_nodes)
 
 
 class _CompiledBlock:
@@ -590,28 +676,11 @@ class _CompiledBlock:
             _run_ops_into_env(self.block, env, ctx,
                               fetch_names=self.fetch_names)
             ctx.tape.clear()
-            news = {}
-            for n in self.rw_names:
-                new, old = env.get(n), self.reads.get(n)
-                if new is None or old is None or new is old:
-                    continue  # unwritten, or written in place
-                if new.shape != old.shape or new.dtype != old.dtype:
-                    raise RuntimeError(
-                        "%r changes from %s %s to %s %s in the step; a "
-                        "captured step keeps each state var's shape and "
-                        "dtype (run with use_program_cache=False)"
-                        % (n, tuple(old.shape), old.dtype, tuple(new.shape),
-                           new.dtype))
-                news[n] = new
-            held = {_storage(t) for t in self.reads.values()}
-            for n, new in news.items():
-                # a value in another resident's memory is taken first, so
-                # the order of the copies cannot matter
-                if _storage(new) in held:
-                    news[n] = new.clone()
-            for n, new in news.items():
-                self.reads[n].copy_(new)
-            self.copy_back_names = sorted(news)
+            self.copy_back_names = _copy_back(
+                self.reads, env, self.rw_names,
+                "%r changes from %s to %s in the step; a captured step "
+                "keeps each state var's shape and dtype (run with "
+                "use_program_cache=False)")
         missing = [n for n in self.fetch_names if n not in env]
         if missing:
             raise RuntimeError("fetch target %r was not produced by the "
@@ -669,6 +738,205 @@ class _CompiledBlock:
             self.feed_done.record()
 
 
+class _LoopBody:
+    """One cache entry of a ``while`` body: the body's block, its
+    loop-carried names (``carried``, the condition among them) and the
+    names it only reads (``reads``: parameters, limits, the values made
+    before the loop).  Its first trip runs op by op on the executor's
+    side stream (the warm-up; a carry that changes shape or dtype in it
+    keeps the body eager); its second binds the body's inputs
+    (``bound``: a copy of each carry, which the body owns from then on,
+    and the read values as they are) and captures the trip in a CUDA
+    graph (on the CPU: runs it on the bound values), with each new
+    carry value copied into its bound tensor at the end of the trip
+    (``copy_back_names``; the in-place writes, the KV caches, the
+    counters and the arrays, need none); every later trip replays it.
+    The body owns a copy of each carry and of each read that is not the
+    scope's own tensor (a feed, a value made before the loop), and reads
+    the scope's tensors (``borrowed``: the parameters) where they are.
+    A later run of the loop first copies into the body's copies the
+    values of this run that differ from them (the limits, a new feed),
+    never into a tensor of the caller's, and reads them from there; a
+    borrowed read that the scope no longer holds makes the body bind
+    anew and capture again.  ``step`` is the step
+    tensor the body's sampling and dropout read.  A body with an op
+    that is not capturable runs every trip op by op
+    (``eager_reason``)."""
+
+    def __init__(self, sub_block, carried, reads):
+        self.sub_block = sub_block
+        self.carried = list(carried)
+        self.reads = list(reads)
+        self.eager_reason = _eager_reason(sub_block)
+        self.warm = False
+        self.bound = None
+        self.borrowed = ()
+        self.step = None
+        self.graph = None
+        self.captured = {}
+        self.kernel_nodes = {}
+        self.copy_back_names = []
+        self.calls = 0
+
+    @property
+    def copy_backs(self):
+        return len(self.copy_back_names)
+
+    def rebind(self, env):
+        """Bind this run's values → False, binding nothing, when a
+        borrowed read is not this run's value.  Each value that is not
+        its bound tensor is copied into the body's own copy, and the
+        bound tensor goes into ``env``."""
+        if any(env[n] is not self.bound[n] for n in self.borrowed):
+            return False
+        for n in self.carried + self.reads:
+            v, t = env[n], self.bound[n]
+            if v is not t:
+                if not _same_memory(v, t):
+                    t.copy_(v)
+                env[n] = t
+        return True
+
+    def bind(self, env, scope):
+        """Fix the body's inputs: its own copy of each carry and of each
+        read that is not ``scope``'s tensor of that name, the scope's
+        tensor itself for the others."""
+        self.borrowed = tuple(n for n in self.reads
+                              if scope.has(n) and scope.get(n) is env[n])
+        self.bound = {n: env[n] if n in self.borrowed else env[n].clone()
+                      for n in self.carried + self.reads}
+        env.update(self.bound)
+
+    def trip(self, run_block):
+        """One trip on the bound values, the carries' new values copied
+        into their bound tensors."""
+        e = dict(self.bound)
+        run_block(self.sub_block, e, False)
+        self.copy_back_names = _copy_back(
+            self.bound, e, self.carried,
+            "while body: %r changes from %s to %s in a trip; a captured "
+            "body keeps each carry's shape and dtype")
+
+
+class _Loops:
+    """The runner of the ``while`` bodies of one eager run
+    (``ctx.loops``): their :class:`_LoopBody` entries live in the
+    executor's cache, under the key of the program, its version, the
+    body's block, the scope, the shapes and dtypes of what the body
+    reads, and the flags.  ``statics`` holds the ids of the bound
+    tensors the run's loops left in the environment (a fetch of one is
+    returned as a copy, since the next run writes it)."""
+
+    def __init__(self, exe, scope):
+        self.exe = exe
+        self.scope = scope
+        self.statics = set()
+
+    def run(self, op, block, sub_block, env, carried, cond_name, ctx,
+            run_block):
+        """Run the loop on ``env`` (the body's environment, ``carried``
+        bound in it when the loop ends) → the run's record."""
+        exe = self.exe
+        reads = [n for n in _cf.sub_block_external_reads(sub_block)
+                 if n not in carried and n in env]
+        program = block.program
+        key = (id(program), program._version, "while", sub_block.idx,
+               id(self.scope),
+               tuple((n, _sig(env[n])) for n in carried + reads),
+               core.flags_key())
+        entry = exe._cache.get(key)
+        if entry is None:
+            entry = exe._cache[key] = _LoopBody(sub_block, carried, reads)
+        entry.calls += 1
+        rec = {"trips": 0, "cond_reads": 0, "eager_trips": 0,
+               "captured_trips": 0, "replayed_trips": 0,
+               "start_s": time.perf_counter()}
+        outer_step = ctx.step
+        if entry.step is None:
+            entry.step = outer_step.clone()
+        else:
+            entry.step.copy_(outer_step)
+        ctx._step = entry.step
+        try:
+            if entry.bound is not None and not entry.rebind(env):
+                entry.bound = entry.graph = None  # binds anew below
+            while True:
+                rec["cond_reads"] += 1
+                if not _cf.host_true(env[cond_name]):
+                    break
+                if entry.eager_reason is not None or not entry.warm:
+                    self._eager_trip(entry, env, run_block)
+                    rec["eager_trips"] += 1
+                elif entry.bound is None:
+                    entry.bind(env, self.scope)
+                    try:
+                        self._capture(entry, run_block)
+                    except BaseException:
+                        entry.bound = None  # the next run binds anew
+                        raise
+                    rec["captured_trips"] += 1
+                else:
+                    self._replay(entry, run_block)
+                    rec["replayed_trips"] += 1
+                rec["trips"] += 1
+        finally:
+            ctx._step = outer_step
+        if entry.bound is not None:
+            self.statics.update(id(entry.bound[n]) for n in entry.carried)
+        rec["copy_backs"] = list(entry.copy_back_names)
+        rec["wall_ms"] = (time.perf_counter() - rec["start_s"]) * 1000.0
+        if entry.eager_reason is not None:
+            rec["mode"] = "eager"
+            rec["reason"] = "the body's " + entry.eager_reason
+        elif exe.device.type == "cuda":
+            rec["mode"] = "graph"
+            rec["reason"] = "trips replayed from the body's CUDA graph"
+        else:
+            rec["mode"] = "graph"
+            rec["reason"] = "no CUDA graph on %s: the body ran on its " \
+                "bound tensors" % exe.device
+        return rec
+
+    def _eager_trip(self, entry, env, run_block):
+        """A trip op by op: the warm-up on the side stream (a carry that
+        changes shape or dtype keeps the body eager), or every trip of
+        a body that cannot be captured."""
+        exe = self.exe
+        before = {n: _sig(env[n]) for n in entry.carried}
+        if entry.eager_reason is None and exe.device.type == "cuda":
+            cur = torch.cuda.current_stream(exe.device)
+            side = exe._side_stream()
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                run_block(entry.sub_block, env, False)
+            cur.wait_stream(side)
+        else:
+            run_block(entry.sub_block, env, False)
+        if entry.eager_reason is None:
+            entry.warm = True
+            for n in entry.carried:
+                if _sig(env[n]) != before[n]:
+                    entry.eager_reason = (
+                        "carry %r changes from %s to %s in a trip"
+                        % (n, before[n], _sig(env[n])))
+                    break
+
+    def _capture(self, entry, run_block):
+        """The body's trip captured, then replayed (on the CPU: the trip
+        run on the bound values, which every later trip does again)."""
+        if self.exe.device.type != "cuda":
+            entry.trip(run_block)
+            return
+        self.exe._capture_graph(entry, lambda: entry.trip(run_block))
+        _replay(entry)
+
+    def _replay(self, entry, run_block):
+        if self.exe.device.type != "cuda":  # no graph: run the trip itself
+            entry.trip(run_block)
+            return
+        _replay(entry)
+
+
 def _register_compile_telemetry(entry, program, feed, fetch_names):
     """At a key's first call (the reference's :239-270): the cost model's
     prediction of ``program`` registered with the drift monitor, and the
@@ -720,6 +988,7 @@ class Executor:
         self._pool = None
         self.last_run_mode = None
         self.last_run_reason = None
+        self.last_loops = []
 
     def close(self):
         with self._lock:
@@ -753,6 +1022,7 @@ class Executor:
                        "verification:")
         if scope is None:
             scope = global_scope()
+        self.last_loops = []
         fetch_names = [v.name if isinstance(v, Variable) else str(v)
                        for v in (fetch_list or [])]
         source = program
@@ -808,7 +1078,7 @@ class Executor:
         entry.calls += 1
         if entry.eager_reason is not None:
             return (lambda: self._run_eager(program, scope, feed, fetch_names,
-                                            entry.eager_reason),
+                                            entry.eager_reason, loops=True),
                     "warm-up" if entry.calls == 1 else None,
                     entry.drift_key)
         if entry.calls == 1:
@@ -885,6 +1155,29 @@ class Executor:
             self._stream = torch.cuda.Stream(self.device)
         return self._stream
 
+    def _capture_graph(self, entry, fn):
+        """Capture ``fn()`` on the side stream into a CUDA graph in the
+        executor's pool and instantiate it → what ``fn`` returned.  Sets
+        ``entry.graph``, ``entry.captured`` (the launches the wrappers
+        recorded into it, by kernel) and ``entry.kernel_nodes`` (its
+        kernel nodes by kernel, as libcuda lists them)."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        before = _kernels.launch_counts_by_source()["captured"]
+        # keep_graph: the graph's nodes stay readable after capture
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph, pool=self._pool,
+                              stream=self._side_stream(),
+                              capture_error_mode="thread_local"):
+            out = fn()
+        graph.instantiate()
+        after = _kernels.launch_counts_by_source()["captured"]
+        entry.captured = {k: after[k] - before[k] for k in after
+                          if after[k] != before[k]}
+        entry.kernel_nodes = _kernels.graph_kernel_nodes(graph)
+        entry.graph = graph
+        return out
+
     def _warm_up(self, program, scope, feed, fetch_names):
         """The first call for a key: eager, on the side stream that the
         capture will use, so everything made on first use is made for
@@ -914,23 +1207,9 @@ class Executor:
             self.last_run_reason = "no CUDA graph on %s: the step ran " \
                 "on its static inputs" % self.device
         else:
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
-            before = _kernels.launch_counts_by_source()["captured"]
-            # keep_graph: the graph's nodes stay readable after capture
-            graph = torch.cuda.CUDAGraph(keep_graph=True)
-            with torch.cuda.graph(graph, pool=self._pool,
-                                  stream=self._side_stream(),
-                                  capture_error_mode="thread_local"):
-                entry.fetches, entry.fresh = entry.trace(ctx)
-            graph.instantiate()
-            after = _kernels.launch_counts_by_source()["captured"]
-            entry.captured = {k: after[k] - before[k] for k in after
-                              if after[k] != before[k]}
-            entry.kernel_nodes = _kernels.graph_kernel_nodes(graph)
-            entry.graph = graph
-            graph.replay()
-            _kernels.count_replay(entry.kernel_nodes)
+            entry.fetches, entry.fresh = self._capture_graph(
+                entry, lambda: entry.trace(ctx))
+            _replay(entry)
             fetches, fresh = entry.fetches, entry.fresh
             self.last_run_mode = "capture"
             self.last_run_reason = "captured the step, then replayed it"
@@ -946,19 +1225,22 @@ class Executor:
             self.last_run_reason = "no CUDA graph on %s: the step ran " \
                 "on its static inputs" % self.device
             return fetches, fresh
-        entry.graph.replay()
-        _kernels.count_replay(entry.kernel_nodes)
+        _replay(entry)
         self.last_run_mode = "graph"
         self.last_run_reason = "replayed the captured step"
         return entry.fetches, entry.fresh
 
-    def _run_eager(self, program, scope, feed, fetch_names, reason):
+    def _run_eager(self, program, scope, feed, fetch_names, reason,
+                   loops=False):
         """The block op by op, its persistable outputs written back to the
         scope (the in-place updates leave the resident tensors there); the
         fetches.  A fetch that is a scope tensor is returned as a copy,
         since later steps update the scope's tensors in place, and a fed
         tensor that an op writes in place is copied first, so a caller's
-        (or a feed cache's) tensor is never written."""
+        (or a feed cache's) tensor is never written.  With ``loops`` a
+        ``while`` body runs through the cached :class:`_LoopBody` entries
+        (from its second trip as a CUDA graph); ``last_loops`` then holds
+        one record a loop run and ``last_run_reason`` sums them up."""
         self.last_run_mode, self.last_run_reason = "eager", reason
         block = program.global_block()
         written = _in_place_writes(block)
@@ -969,7 +1251,7 @@ class Executor:
                 t = t.clone()
             feed_vals[n] = t
         env = {}
-        for op in block.ops:
+        for op in _ops_with_regions(block, sub_block_ops=True):
             for n in op.input_arg_names:
                 if n in env or n in feed_vals or not scope.has(n):
                     continue
@@ -985,6 +1267,8 @@ class Executor:
         step = self._next_step()
         ctx = self._context(program, scope, step, torch.full(
             (1,), step, dtype=torch.int64, device=self.device))
+        if loops:
+            ctx.loops = _Loops(self, scope)
         check = core.get_flags("FLAGS_check_nan_inf")["FLAGS_check_nan_inf"]
         try:
             with torch.no_grad():
@@ -992,6 +1276,15 @@ class Executor:
                                   fetch_names=fetch_names)
         finally:
             ctx.tape.clear()  # graphs of forwards whose grads were not run
+        self.last_loops = ctx.loop_runs
+        for rec in ctx.loop_runs:
+            self.last_run_reason += (
+                "; while op %s: %d trips (%d eager, %d captured, %d "
+                "replayed), %d condition reads, body %s: %s"
+                % (rec["op"], rec["trips"], rec["eager_trips"],
+                   rec.get("captured_trips", 0),
+                   rec.get("replayed_trips", 0), rec["cond_reads"],
+                   rec["mode"], rec["reason"]))
         for v in block.vars.values():
             if v.persistable and not v.is_data and v.name in env:
                 scope.set(v.name, env[v.name])
@@ -1002,6 +1295,8 @@ class Executor:
                                    "program and is not in the scope" % n)
             fetches.append(env[n] if n in env else scope.get(n))
         state = {id(scope.get(n)) for n in fetch_names if scope.has(n)}
+        if ctx.loops is not None:
+            state |= ctx.loops.statics
         return [t.clone() if id(t) in state else t for t in fetches]
 
     @staticmethod

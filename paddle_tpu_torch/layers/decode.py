@@ -1,11 +1,14 @@
 """Autoregressive decoding layers: ring and paged KV caches, flash-decode
-attention and sampling (mirrors ``paddle_tpu/layers/decode.py`` :33-226).
+attention, sampling and the single-program generation loop (mirrors
+``paddle_tpu/layers/decode.py`` :33-305).
 
 Each layer appends the same op types, slots and attrs as the reference.
 The cache writes are ``in_place`` by default: the op's output is the
 cache var itself, and its lowering updates the resident tensor
-(``ops/decode.py``).  ``decode_loop`` (:229) needs the ``While`` op and
-the tensor arrays, which are not ported yet: it raises.
+(``ops/decode.py``).  ``decode_loop`` (:229) is one ``While`` whose body
+is one decode step; the executor drives its trips from the host and
+replays the body from a CUDA graph (``ops/control_flow.py``,
+``executor._LoopBody``).
 """
 
 from ..layer_helper import LayerHelper
@@ -185,11 +188,77 @@ def sampling(logits, strategy="greedy", k=8, p=0.9, temperature=1.0,
 def decode_loop(step_fn, first_ids, prompt_len, max_new_tokens,
                 eos_id=None, strategy="greedy", k=8, p=0.9,
                 temperature=1.0, seed=0, name=None):
-    """The reference's single-program generation loop needs ``While`` and
-    the tensor arrays: not ported yet.  Serve decode through
-    ``serving.DecodeEngine``, whose scheduler runs one step program per
-    token from the host."""
-    raise NotImplementedError(
-        "decode_loop needs the While op and tensor arrays, which are not "
-        "ported yet (ROADMAP.md, Queue A item 5: decode); serve decode "
-        "through serving.DecodeEngine")
+    """The generation loop in one program.
+
+    ``step_fn(cur_ids, cursor, step) -> logits`` builds ONE decode step:
+    embed ``cur_ids`` [B] at position ``cursor`` [1], write K/V through
+    :func:`kv_cache_write`, attend with :func:`flash_decode`, and return
+    next-token logits [B, V].  ``first_ids`` [B] is the first generated
+    token (sampled from the prefill's last-position logits);
+    ``prompt_len`` [1] int32 is the cursor start.
+
+    Returns ``(tokens, gen_len)``: tokens [B, max_new_tokens] int32,
+    gen_len [B] int32.  A row that hits eos keeps emitting eos until
+    every row is done; positions past the loop's early exit keep the
+    initial zero fill (slice each row with ``gen_len``).  The body
+    carries only static-shape state (the ring caches through in-place
+    writes, the [1] counters, the fixed-capacity token array), so one
+    cache entry serves every generation; with ``eos_id`` the loop stops
+    once every row has finished.
+    """
+    from . import control_flow as cf
+    from . import nn
+    from . import ops
+
+    max_new_tokens = int(max_new_tokens)
+    if max_new_tokens < 1:
+        raise ValueError("max_new_tokens must be >= 1")
+
+    i = tensor_layers.fill_constant([1], "int32", 1)
+    limit = tensor_layers.fill_constant([1], "int32", max_new_tokens)
+    cursor = tensor_layers.assign(prompt_len)  # don't mutate the feed var
+    cur = tensor_layers.assign(first_ids)
+    ones = tensor_layers.cast(cf.equal(cur, cur), "int32")  # [B] of 1
+    gen_len = tensor_layers.assign(ones)
+    arr = cf.array_write(nn.unsqueeze(cur, [1]),
+                         tensor_layers.fill_constant([1], "int32", 0),
+                         capacity=max_new_tokens)
+
+    if eos_id is not None:
+        eos_c = tensor_layers.fill_constant([1], "int32", int(eos_id))
+        finished = cf.equal(cur, eos_c)
+        running = ops.logical_not(nn.reduce_all(finished))
+        cond = ops.logical_and(cf.less_than(i, limit), running)
+    else:
+        finished = None
+        cond = cf.less_than(i, limit)
+
+    w = cf.While(cond, max_trip_count=max_new_tokens)
+    with w.block():
+        logits = step_fn(cur, cursor, i)
+        nxt = sampling(logits, strategy=strategy, k=k, p=p,
+                       temperature=temperature, seed=seed, step=i)
+        if eos_id is not None:
+            # rows already finished keep emitting eos; live rows count
+            # this token
+            nxt = nn.where(finished, nn.elementwise_mul(ones, eos_c), nxt)
+            live = tensor_layers.cast(ops.logical_not(finished), "int32")
+            tensor_layers.assign(nn.elementwise_add(gen_len, live),
+                                 output=gen_len)
+            tensor_layers.assign(
+                ops.logical_or(finished, cf.equal(nxt, eos_c)),
+                output=finished)
+        cf.array_write(nn.unsqueeze(nxt, [1]), i, array=arr)
+        tensor_layers.assign(nxt, output=cur)
+        cf.increment(i, value=1, in_place=True)
+        cf.increment(cursor, value=1, in_place=True)
+        if eos_id is not None:
+            running = ops.logical_not(nn.reduce_all(finished))
+            tensor_layers.assign(
+                ops.logical_and(cf.less_than(i, limit), running),
+                output=cond)
+        else:
+            cf.less_than(i, limit, cond=cond)
+
+    tokens, _ = tensor_layers.tensor_array_to_tensor(arr, axis=1)
+    return tokens, gen_len

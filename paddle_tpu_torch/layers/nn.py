@@ -22,6 +22,7 @@ from ..param_attr import ParamAttr
 
 __all__ = ["fc", "embedding", "layer_norm", "dropout", "softmax",
            "cross_entropy", "softmax_with_cross_entropy", "reduce_sum",
+           "reduce_all", "reduce_any",
            "matmul",
            "elementwise_add", "elementwise_sub", "elementwise_mul",
            "elementwise_div", "elementwise_max", "elementwise_min",
@@ -173,6 +174,26 @@ def reduce_sum(input, dim=None, keep_dim=False, name=None):
         attrs={"dim": dim if dim is not None else [0], "keep_dim": keep_dim,
                "reduce_all": dim is None})
     return out
+
+
+def _reduce_logical(op_type, input, dim, keep_dim):
+    helper = LayerHelper(op_type)
+    out = helper.create_variable_for_type_inference("bool", True)
+    helper.append_op(
+        type=op_type, inputs={"X": [input]}, outputs={"Out": [out]},
+        attrs={"dim": dim if dim is not None else [], "keep_dim": keep_dim,
+               "reduce_all": dim is None})
+    return out
+
+
+def reduce_all(input, dim=None, keep_dim=False, name=None):
+    """Logical AND over ``dim`` (every axis when None), a bool var (the
+    reference's ``layers/nn_extra.py:521``)."""
+    return _reduce_logical("reduce_all", input, dim, keep_dim)
+
+
+def reduce_any(input, dim=None, keep_dim=False, name=None):
+    return _reduce_logical("reduce_any", input, dim, keep_dim)
 
 
 def _elementwise(op_type, x, y, axis=-1, act=None, name=None):

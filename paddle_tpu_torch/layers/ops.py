@@ -1,12 +1,13 @@
 """Op-wrapping layers (mirrors ``paddle_tpu/layers/ops.py``: the unary
 generator :18 for ``exp`` :31, ``sqrt`` :33, ``ceil`` / ``floor``
 :36-37, ``cos`` :38, ``gelu`` :56, ``sign`` :60; ``pow`` :76, ``scale``
-:86, ``cumsum`` :137)."""
+:86, the logical ops :100-129, ``cumsum`` :137)."""
 
 from ..layer_helper import LayerHelper
 
 __all__ = ["exp", "sqrt", "ceil", "floor", "cos", "sign", "gelu", "pow",
-           "scale", "cumsum"]
+           "scale", "logical_and", "logical_or", "logical_xor",
+           "logical_not", "cumsum"]
 
 
 def _generate_unary(op_type):
@@ -47,6 +48,33 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
                      attrs={"scale": float(scale), "bias": float(bias),
                             "bias_after_scale": bias_after_scale})
     return helper.append_activation(out)
+
+
+def _generate_binary_logical(op_type):
+    def func(x, y, out=None, name=None):
+        helper = LayerHelper(op_type, **locals())
+        if out is None:
+            out = helper.create_variable_for_type_inference("bool")
+        helper.append_op(type=op_type, inputs={"X": [x], "Y": [y]},
+                         outputs={"Out": [out]})
+        return out
+
+    func.__name__ = op_type
+    return func
+
+
+logical_and = _generate_binary_logical("logical_and")
+logical_or = _generate_binary_logical("logical_or")
+logical_xor = _generate_binary_logical("logical_xor")
+
+
+def logical_not(x, out=None, name=None):
+    helper = LayerHelper("logical_not", **locals())
+    if out is None:
+        out = helper.create_variable_for_type_inference("bool")
+    helper.append_op(type="logical_not", inputs={"X": [x]},
+                     outputs={"Out": [out]})
+    return out
 
 
 def cumsum(x, axis=None, exclusive=None, reverse=None):

@@ -1,13 +1,17 @@
 """Tensor layers (mirrors ``paddle_tpu/layers/tensor.py``: ``cast`` :54,
-``assign`` :84, ``fill_constant`` :111, ``fill_constant_batch_size_like``
-:129, ``range`` :202)."""
+``concat`` :69, ``assign`` :84, ``fill_constant`` :111,
+``fill_constant_batch_size_like`` :129, ``range`` :202,
+``tensor_array_to_tensor`` :298)."""
+
+import numpy as np
 
 from .. import core
 from ..framework import Variable
 from ..layer_helper import LayerHelper
 
-__all__ = ["cast", "assign", "fill_constant",
-           "fill_constant_batch_size_like", "range"]
+__all__ = ["cast", "concat", "assign", "fill_constant",
+           "fill_constant_batch_size_like", "range",
+           "tensor_array_to_tensor"]
 
 
 def cast(x, dtype):
@@ -19,20 +23,34 @@ def cast(x, dtype):
     return out
 
 
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", **locals())
+    out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op(type="concat", inputs={"X": list(input)},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
 def assign(input, output=None):
-    """Copy a Variable into ``output`` (a new var by default).  The
-    reference's numpy-array form (``assign_value``) is not ported yet
-    (ROADMAP.md, Queue A item 5)."""
-    if not isinstance(input, Variable):
-        raise NotImplementedError(
-            "assign of a %s needs the assign_value op, which is not ported "
-            "yet (ROADMAP.md, Queue A item 5); pass a Variable"
-            % type(input).__name__)
+    """Copy a Variable (``assign``) or a numpy array (``assign_value``,
+    the array in the op's attrs) into ``output``, a new var by
+    default."""
     helper = LayerHelper("assign", **locals())
-    if output is None:
-        output = helper.create_variable_for_type_inference(input.dtype)
-    helper.append_op(type="assign", inputs={"X": [input]},
-                     outputs={"Out": [output]})
+    if isinstance(input, Variable):
+        if output is None:
+            output = helper.create_variable_for_type_inference(input.dtype)
+        helper.append_op(type="assign", inputs={"X": [input]},
+                         outputs={"Out": [output]})
+    elif isinstance(input, np.ndarray):
+        if output is None:
+            output = helper.create_variable_for_type_inference(
+                str(input.dtype))
+        helper.append_op(
+            type="assign_value", outputs={"Out": [output]},
+            attrs={"shape": list(input.shape), "dtype": str(input.dtype),
+                   "values": input})
+    else:
+        raise TypeError("assign expects Variable or ndarray")
     return output
 
 
@@ -81,3 +99,15 @@ def range(start, end, step, dtype):
     helper.append_op(type="range", inputs=inputs, outputs={"Out": [out]},
                      attrs=attrs)
     return out
+
+
+def tensor_array_to_tensor(input, axis=1, name=None):
+    """A tensor array's rows concatenated along ``axis``, and each row's
+    size along it."""
+    helper = LayerHelper("tensor_array_to_tensor")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    idx = helper.create_variable_for_type_inference("int32", True)
+    helper.append_op(type="tensor_array_to_tensor", inputs={"X": [input]},
+                     outputs={"Out": [out], "OutIndex": [idx]},
+                     attrs={"axis": int(axis)})
+    return out, idx

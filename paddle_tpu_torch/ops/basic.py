@@ -1,6 +1,6 @@
 """Creation ops, ``sum``, small tensor ops and feed/fetch markers (mirrors
 ``paddle_tpu/ops/basic.py`` lines 17-237: ``fill_constant_batch_size_like``
-:24, ``assign`` :95, ``cast`` :116, ``sum`` :130, ``increment`` :143,
+:24, ``assign`` :95, ``assign_value`` :100, ``cast`` :116, ``sum`` :130, ``increment`` :143,
 ``clip`` / ``clip_by_norm`` / ``squared_l2_norm`` :148-161, ``range``
 :202).
 
@@ -13,6 +13,7 @@ graph, so a program that holds one runs eagerly.
 
 import math
 
+import numpy as np
 import torch
 
 from .common import resolve_dtype
@@ -66,6 +67,20 @@ def sum_op(ctx, attrs, X):
 def assign(ctx, attrs, X):
     """A copy: a later in-place op on the result must not write X."""
     return X.clone()
+
+
+@register_op("assign_value", inputs=[], outputs=["Out"], no_grad=True,
+             capturable=False)
+def assign_value(ctx, attrs):
+    """A constant from the op's ``values`` attr (``fp32_values`` /
+    ``int32_values`` in the reference's spelling), copied from the host
+    on every run (so not capturable)."""
+    values = attrs.get("values")
+    if values is None:
+        values = attrs.get("fp32_values", attrs.get("int32_values"))
+    arr = np.asarray(values).reshape(_shape(attrs))
+    dtype = resolve_dtype(attrs.get("dtype", str(arr.dtype)))
+    return torch.as_tensor(arr).to(device=ctx.device, dtype=dtype)
 
 
 @register_op("cast", inputs=["X"], outputs=["Out"])

@@ -1,36 +1,78 @@
-"""Sub-block ops (mirrors ``paddle_tpu/ops/control_flow.py``:
-``SUB_BLOCK_OPS`` :22, ``sub_block_external_reads`` :65, the
-``recompute_block`` forward :155-181 and ``recompute_block_grad``
-:500-537).  Only the recompute region is ported; ``while``,
-``conditional_block`` and ``recurrent`` come with the decode loop
-(ROADMAP.md, Queue A item 5).
+"""Sub-block ops and tensor arrays (mirrors
+``paddle_tpu/ops/control_flow.py``: ``SUB_BLOCK_OPS`` :22, the array
+capacity :26-27, ``_carry_analysis`` :41, ``sub_block_external_reads``
+:65, ``while`` :112-153, ``recompute_block`` :155-181,
+``conditional_block`` :183-203, ``while_grad`` :232-346,
+``recompute_block_grad`` :500-537, ``conditional_block_grad`` :540-583,
+the array ops :588-621 and :713-728, ``split_lod_tensor`` /
+``merge_lod_tensor`` :623-648).  ``recurrent`` and the LoD rank-table ops
+are not ported (ROADMAP.md, Queue A item 5).
 
 A sub-block op is not a registered lowering: the executor hands it, with
 its block, to :func:`run_sub_block_op`, which runs the sub-block's ops
-through the executor's own op loop (``run_block(sub_block, env)``).
+through the executor's own op loop (``run_block(sub_block, env,
+replay)``; ``replay``: every in-place op writes a copy).
+
+``while``.  The reference lowers the loop to one ``lax.while_loop``.
+Here the trips are driven from the host, as the reference's C++
+``while_op.cc`` drives them: the 1-element condition is read once
+before each trip (a host read, so a sync on the card).  A trip runs the
+body into an environment of its own; after the last trip the loop-carried
+names (written in the body and read in it before the write, or alive
+before the loop, and the condition) go back to the caller's environment,
+the body's temporaries do not.  The executor may hand in a runner
+(``ctx.loops``) that replays the body from a captured CUDA graph
+(``executor._LoopBody``); without one, or inside another loop, or while
+a grad op runs the loop again, every trip runs op by op.  The forward
+records its trip count in ``ctx.trip_counts`` for the grad.
+
+``while_grad`` starts from the pre-loop snapshots the ``While`` layer
+took (``snapshot_vars`` / ``snapshot_pres``), runs the trips the forward
+took again (at most ``max_trip_count`` when it is set, as the
+reference's bounded scan) under ``torch.enable_grad()`` with every
+in-place op writing a copy, and calls ``torch.autograd.grad`` once: the
+gradients of the pre-loop values (``StateIn@GRAD``) and of the captured
+outer vars, the parameters the body reads (``Captured@GRAD``).  No probe
+pass is needed: the host loop knows its trip count.
 
 ``recompute_block`` runs its region on the ``Captured`` values in an
 environment of its own, with no autograd graph, and puts back into the
 caller's environment only the outputs in ``live`` (the names a later op
-outside the region, the fetch list or the scope needs): everything else
-the region made is freed when the op returns.  ``recompute_block_grad``
-runs the region again from the same ``Captured`` values, the
-differentiable ones made leaves, under ``torch.enable_grad()``, and
-calls ``torch.autograd.grad`` once on the outputs that have a gradient.
-Both runs go through the same ops with the same op ids in the same step,
-so each dropping op draws the same mask in both (``ctx.set_op`` resets
-the op's draw count); an op that writes an input in place works on a copy
-in the second run, so the region's state is written once a step."""
+outside the region, the fetch list or the scope needs).  Its grad runs
+the region again from the same values, as ``while_grad`` runs its trips:
+the same ops with the same op ids in the same step, so each dropping op
+draws the mask of its first run, and an in-place op writes a copy, so
+the region's state is written once a step.
+
+``conditional_block`` reads its predicate on the host and runs the block
+only when it is true; the branch not taken writes nothing.  Its grad
+runs the taken branch again under autograd; an untaken branch gives zero
+gradients, as the reference's ``lax.cond`` vjp.
+
+A tensor array (the reference's LoDTensorArray) is a :class:`TensorArray`:
+a fixed-capacity buffer ``[capacity, ...]`` (``ARRAY_CAPACITY_ATTR``,
+default 128) and a device length.  ``write_to_array`` writes its row in
+place, so a loop's array is written once a trip; rows past the last
+write keep their zero fill."""
 
 import torch
 
-from .registry import EMPTY_VAR_NAME
+from .registry import EMPTY_VAR_NAME, register_op
 
-__all__ = ["SUB_BLOCK_OPS", "sub_block_external_reads", "run_sub_block_op"]
+__all__ = ["SUB_BLOCK_OPS", "ARRAY_CAPACITY_ATTR", "DEFAULT_ARRAY_CAPACITY",
+           "TensorArray", "sub_block_external_reads", "while_carries",
+           "run_sub_block_op", "host_true"]
 
 SUB_BLOCK_OPS = ("while", "conditional_block", "recurrent",
                  "recurrent_grad", "conditional_block_grad", "while_grad",
                  "recompute_block", "recompute_block_grad")
+
+ARRAY_CAPACITY_ATTR = "tensor_array_capacity"
+DEFAULT_ARRAY_CAPACITY = 128
+
+
+def _named(n):
+    return bool(n) and n != EMPTY_VAR_NAME
 
 
 def sub_block_external_reads(sub_block, exclude=()):
@@ -39,31 +81,270 @@ def sub_block_external_reads(sub_block, exclude=()):
     reads = []
     for op in sub_block.ops:
         for n in op.input_arg_names:
-            if n and n != EMPTY_VAR_NAME and n not in written \
-                    and n not in reads:
+            if _named(n) and n not in written and n not in reads:
                 reads.append(n)
         written.update(op.output_arg_names)
     return reads
+
+
+def _block_carry_sets(sub_block):
+    """(names written, in order of first write; names read before their
+    first write)."""
+    written_order, written, read_first = [], set(), set()
+    for op in sub_block.ops:
+        for n in op.input_arg_names:
+            if _named(n) and n not in written:
+                read_first.add(n)
+        for n in op.output_arg_names:
+            if _named(n) and n not in written:
+                written.add(n)
+                written_order.append(n)
+    return written_order, read_first
+
+
+def while_carries(sub_block, env, cond_name):
+    """The loop-carried names of a ``while`` body run on ``env``: the
+    names it writes that it reads before the write or that hold a value
+    before the loop, then the condition (the reference's
+    ``_carry_analysis``)."""
+    written, read_first = _block_carry_sets(sub_block)
+    carried = [n for n in written if n in read_first or n in env]
+    if cond_name not in carried:
+        carried.append(cond_name)
+    return carried
+
+
+def host_true(t):
+    """The truth of a 1-element condition, read on the host."""
+    return bool(t.reshape(()).item())
+
+
+class TensorArray:
+    """A tensor array: ``buffer`` ``[capacity, ...]`` and ``length``, a
+    ``[]`` int32 tensor on the buffer's device.  ``clone`` and ``copy_``
+    act on both, so the executor handles an array as it does a tensor."""
+
+    __slots__ = ("buffer", "length")
+
+    def __init__(self, buffer, length):
+        self.buffer = buffer
+        self.length = length
+
+    @property
+    def shape(self):
+        return self.buffer.shape
+
+    @property
+    def dtype(self):
+        return self.buffer.dtype
+
+    @property
+    def device(self):
+        return self.buffer.device
+
+    def clone(self):
+        return TensorArray(self.buffer.clone(), self.length.clone())
+
+    def copy_(self, other):
+        self.buffer.copy_(other.buffer)
+        self.length.copy_(other.length)
+        return self
+
+    def untyped_storage(self):
+        return self.buffer.untyped_storage()
+
+    def is_floating_point(self):
+        return self.buffer.is_floating_point()
 
 
 def run_sub_block_op(op, block, env, ctx, run_block, live):
     """Run the sub-block op ``op`` of ``block`` on ``env``;
     ``run_block(sub_block, env, replay)`` runs a block's ops into an
     environment (``replay``: in-place ops write copies)."""
-    if op.type not in ("recompute_block", "recompute_block_grad"):
-        raise NotImplementedError(
-            "the %r op is not ported yet (ROADMAP.md, Queue A item 5: "
-            "while, conditional_block and their grads)" % op.type)
     sub_block = block.program.block(op.attrs["sub_block"])
     if op.type == "recompute_block":
-        region = {n: env[n] for n in op.input("Captured")
-                  if n and n != EMPTY_VAR_NAME}
+        region = {n: env[n] for n in op.input("Captured") if _named(n)}
         run_block(sub_block, region, False)
         for n in op.output("Out"):
             if n in live and n in region:
                 env[n] = region[n]
-        return
-    _run_recompute_grad(op, sub_block, env, run_block)
+    elif op.type == "recompute_block_grad":
+        _run_recompute_grad(op, sub_block, env, run_block)
+    elif op.type == "while":
+        _run_while(op, block, sub_block, env, ctx, run_block)
+    elif op.type == "while_grad":
+        _run_while_grad(op, sub_block, env, ctx, run_block)
+    elif op.type == "conditional_block":
+        _run_conditional(op, sub_block, env, run_block)
+    elif op.type == "conditional_block_grad":
+        _run_conditional_grad(op, sub_block, env, run_block)
+    else:
+        raise NotImplementedError(
+            "the %r op is not ported yet (ROADMAP.md, Queue A item 5: "
+            "recurrent, StaticRNN and DynamicRNN)" % op.type)
+
+
+def _run_while(op, block, sub_block, env, ctx, run_block):
+    cond_name = op.input("Condition")[0]
+    carried = while_carries(sub_block, env, cond_name)
+    missing = [n for n in carried if n not in env]
+    if missing:
+        raise RuntimeError("while op: loop-carried vars %s have no initial "
+                           "value before the loop" % missing)
+    body = dict(env)
+    runner = ctx.loops
+    nested = ctx.loop_depth > 0 or torch.is_grad_enabled()
+    ctx.loop_depth += 1
+    try:
+        if runner is not None and not nested:
+            record = runner.run(op, block, sub_block, body, carried,
+                                cond_name, ctx, run_block)
+        else:
+            trips = reads = 0
+            while True:
+                reads += 1
+                if not host_true(body[cond_name]):
+                    break
+                run_block(sub_block, body, False)
+                trips += 1
+            record = {"trips": trips, "cond_reads": reads,
+                      "eager_trips": trips, "mode": "eager",
+                      "reason": "inside another loop or a grad op"
+                      if nested else "no loop runner: op by op"}
+    finally:
+        ctx.loop_depth -= 1
+    for n in carried:
+        env[n] = body[n]
+    ctx.trip_counts[sub_block.idx] = record["trips"]
+    if not nested:
+        record["op"] = op.attrs.get("__op_id__")
+        ctx.loop_runs.append(record)
+
+
+def _leaf(v):
+    return v.detach().requires_grad_()
+
+
+def _zeros_like(v):
+    return torch.zeros(v.shape, device=v.device,
+                       dtype=v.dtype if v.is_floating_point()
+                       else torch.float32)
+
+
+def _grads(outs, cots, wrt):
+    """``torch.autograd.grad`` of ``outs`` (cotangents ``cots``) with
+    respect to the tensors of ``wrt`` (a dict), None where unused."""
+    keys = list(wrt)
+    grads = [None] * len(keys)
+    if outs and keys:
+        grads = torch.autograd.grad(outs, [wrt[k] for k in keys], cots,
+                                    allow_unused=True)
+    return dict(zip(keys, grads))
+
+
+def _cotangents(op, region, env):
+    """The op's outputs that ``region`` computed with a gradient path, and
+    their gradients from ``env``."""
+    outs, cots = [], []
+    for n, g in zip(op.input("Out"), op.input("Out@GRAD")):
+        y = region.get(n)
+        if _named(g) and g in env and isinstance(y, torch.Tensor) \
+                and y.requires_grad:
+            outs.append(y)
+            cots.append(env[g].to(y.dtype))
+    return outs, cots
+
+
+def _run_while_grad(op, sub_block, env, ctx, run_block):
+    cond_name = op.input("Condition")[0]
+    pre_of = dict(zip(op.attrs.get("snapshot_vars", []),
+                      op.attrs.get("snapshot_pres", [])))
+    written, read_first = _block_carry_sets(sub_block)
+    carried = [n for n in written if n in read_first or n in pre_of]
+    if cond_name not in carried:
+        carried.append(cond_name)
+    out_names = op.input("Out")
+    state_grads = dict(zip(out_names, op.output("StateIn@GRAD")))
+    cap, gcap = op.input("Captured"), op.output("Captured@GRAD")
+
+    region, leaves, init = dict(env), {}, {}
+    for n in carried:
+        pre = pre_of.get(n)
+        if pre is not None and pre in env:
+            v = env[pre]
+        elif n in env:
+            v = env[n]  # no value before the loop: the body made it
+        else:
+            raise RuntimeError("while_grad: no pre-loop value for carried "
+                               "var %r" % n)
+        init[n] = v
+        if _named(state_grads.get(n)) and isinstance(v, torch.Tensor) \
+                and v.is_floating_point():
+            v = leaves[("state", n)] = _leaf(v)
+        region[n] = v
+    for n, g in zip(cap, gcap):
+        v = env[n]
+        if _named(g) and isinstance(v, torch.Tensor) \
+                and v.is_floating_point():
+            region[n] = leaves[("cap", n)] = _leaf(v)
+
+    limit = ctx.trip_counts.get(sub_block.idx)
+    bound = int(op.attrs.get("max_trip_count") or 0)
+    if bound:
+        limit = bound if limit is None else min(limit, bound)
+    trips = 0
+    ctx.loop_depth += 1
+    try:
+        with torch.enable_grad():
+            while (limit is None or trips < limit) \
+                    and host_true(region[cond_name]):
+                run_block(sub_block, region, True)
+                trips += 1
+    finally:
+        ctx.loop_depth -= 1
+    outs, cots = _cotangents(op, region, env)
+    got = _grads(outs, cots, leaves)
+    for n, g in state_grads.items():
+        if _named(g) and n in init:
+            grad = got.get(("state", n))
+            env[g] = _zeros_like(init[n]) if grad is None else grad
+    for n, g in zip(cap, gcap):
+        if _named(g):
+            grad = got.get(("cap", n))
+            env[g] = _zeros_like(env[n]) if grad is None else grad
+
+
+def _run_conditional(op, sub_block, env, run_block):
+    if not host_true(env[op.input("Cond")[0]]):
+        return  # the branch not taken writes nothing
+    written, read_first = _block_carry_sets(sub_block)
+    outs = [n for n in written if n in env] \
+        or [n for n in written if n in read_first]
+    branch = dict(env)
+    run_block(sub_block, branch, False)
+    for n in outs:
+        env[n] = branch[n]
+
+
+def _run_conditional_grad(op, sub_block, env, run_block):
+    cap, gcap = op.input("Captured"), op.output("Captured@GRAD")
+    leaves = {}
+    if host_true(env[op.input("Cond")[0]]):
+        region = dict(env)
+        for n, g in zip(cap, gcap):
+            v = env[n]
+            if _named(g) and isinstance(v, torch.Tensor) \
+                    and v.is_floating_point():
+                region[n] = leaves[n] = _leaf(v)
+        with torch.enable_grad():
+            run_block(sub_block, region, True)
+        got = _grads(*_cotangents(op, region, env), leaves)
+    else:
+        got = {}  # the untaken branch: its outputs do not depend on X
+    for n, g in zip(cap, gcap):
+        if _named(g):
+            grad = got.get(n)
+            env[g] = _zeros_like(env[n]) if grad is None else grad
 
 
 def _run_recompute_grad(op, sub_block, env, run_block):
@@ -72,31 +353,101 @@ def _run_recompute_grad(op, sub_block, env, run_block):
     region, leaves = {}, {}
     for i, n in enumerate(cap):
         v = env[n]
-        if i < len(gcap) and gcap[i] and gcap[i] != EMPTY_VAR_NAME \
-                and v.is_floating_point():
-            v = leaves[i] = v.detach().requires_grad_()
+        if i < len(gcap) and _named(gcap[i]) and v.is_floating_point():
+            v = leaves[i] = _leaf(v)
         region[n] = v
     with torch.enable_grad():
         run_block(sub_block, region, True)
-    outs, cots = [], []
-    for n, g in zip(op.input("Out"), op.input("Out@GRAD")):
-        y = region.get(n)
-        if g and g != EMPTY_VAR_NAME and g in env and y is not None \
-                and y.requires_grad:
-            outs.append(y)
-            cots.append(env[g].to(y.dtype))
-    wrt = list(leaves.values())
-    grads = [None] * len(wrt)
-    if outs and wrt:
-        grads = torch.autograd.grad(outs, wrt, cots, allow_unused=True)
-    got = dict(zip(leaves, grads))
+    got = _grads(*_cotangents(op, region, env), leaves)
     for i, name in enumerate(gcap):
-        if not name or name == EMPTY_VAR_NAME:
+        if not _named(name):
             continue
         g = got.get(i)
-        if g is None:  # no gradient path, or an integer input
-            v = env[cap[i]]
-            g = torch.zeros(v.shape, device=v.device,
-                            dtype=v.dtype if v.is_floating_point()
-                            else torch.float32)
-        env[name] = g
+        env[name] = _zeros_like(env[cap[i]]) if g is None else g
+
+
+# ---------------------------------------------------------------------------
+# Tensor arrays (the reference's LoDTensorArray ops)
+# ---------------------------------------------------------------------------
+
+def _no_infer(op, block):
+    pass
+
+
+def _index(I, capacity):
+    """The row ``I`` names, clamped into the buffer as the reference's
+    ``dynamic_update_index_in_dim`` clamps it: a [1] int64 device
+    index."""
+    return I.reshape(1).long().clamp(0, capacity - 1)
+
+
+@register_op("write_to_array", inputs=["X", "I", "Array"], outputs=["Out"],
+             no_grad=True, infer_shape=_no_infer, in_place={"Out": "Array"})
+def write_to_array(ctx, attrs, X, I, Array):
+    """Row ``I`` of the array := ``X``, its length ``max(length, I + 1)``;
+    the first write (no ``Array``) makes a zero buffer of the op's
+    capacity.  Written in place: a loop writes its array once a trip."""
+    if Array is None:
+        cap = int(attrs.get(ARRAY_CAPACITY_ATTR, DEFAULT_ARRAY_CAPACITY))
+        Array = TensorArray(
+            torch.zeros((cap,) + tuple(X.shape), dtype=X.dtype,
+                        device=X.device),
+            torch.zeros((), dtype=torch.int32, device=X.device))
+    buf = Array.buffer
+    buf.index_copy_(0, _index(I, buf.shape[0]),
+                    X.to(buf.dtype).unsqueeze(0))
+    Array.length.copy_(torch.maximum(
+        Array.length, I.reshape(()).to(torch.int32) + 1))
+    return Array
+
+
+@register_op("read_from_array", inputs=["X", "I"], outputs=["Out"],
+             no_grad=True, infer_shape=_no_infer)
+def read_from_array(ctx, attrs, X, I):
+    buf = X.buffer
+    return buf.index_select(0, _index(I, buf.shape[0])).squeeze(0)
+
+
+@register_op("lod_array_length", inputs=["X"], outputs=["Out"], no_grad=True,
+             infer_shape=_no_infer)
+def lod_array_length(ctx, attrs, X):
+    return X.length.reshape(1).clone()
+
+
+@register_op("tensor_array_to_tensor", inputs=["X"],
+             outputs=["Out", "OutIndex"], infer_shape=_no_infer,
+             stateful_outputs=("OutIndex",))
+def tensor_array_to_tensor(ctx, attrs, X):
+    """The whole buffer, its rows concatenated along ``axis`` (0: the
+    rows stacked), and each row's size along it (``OutIndex``)."""
+    buf = X.buffer
+    k = buf.shape[0]
+    axis = int(attrs.get("axis", 1)) % max(buf.dim() - 1, 1)
+    if axis == 0:
+        out = buf.reshape((-1,) + tuple(buf.shape[2:]))
+    else:
+        out = torch.cat(buf.unbind(0), dim=axis)
+    size = buf.shape[axis + 1] if buf.dim() > 1 else 1
+    return {"Out": out,
+            "OutIndex": torch.full((k,), size, dtype=torch.int32,
+                                   device=buf.device)}
+
+
+@register_op("split_lod_tensor", inputs=["X", "Mask"],
+             outputs=["OutTrue", "OutFalse"])
+def split_lod_tensor(ctx, attrs, X, Mask):
+    """Both halves keep the whole batch, as the reference's static-shape
+    form: the rows are chosen at ``merge_lod_tensor``."""
+    return {"OutTrue": X, "OutFalse": X}
+
+
+@register_op("merge_lod_tensor", inputs=["InTrue", "InFalse", "Mask", "X"],
+             outputs=["Out"])
+def merge_lod_tensor(ctx, attrs, InTrue, InFalse, Mask, X):
+    """Row by row, ``InTrue`` where ``Mask`` holds, else ``InFalse``."""
+    m = Mask
+    if m.dim() < InTrue.dim():
+        m = m.reshape(tuple(m.shape) + (1,) * (InTrue.dim() - m.dim()))
+    elif m.dim() > InTrue.dim():
+        m = m.reshape(tuple(m.shape[:InTrue.dim()]))
+    return torch.where(m.bool(), InTrue, InFalse)

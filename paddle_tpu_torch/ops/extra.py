@@ -1,7 +1,10 @@
 """The standalone ``fc`` op (mirrors ``paddle_tpu/ops/extra.py:477``),
-emitted by the inference ``fc_fuse_pass``."""
+emitted by the inference ``fc_fuse_pass``, and the control-flow layers'
+``is_empty`` (:72) and ``print`` (:327)."""
 
 import math as _math
+
+import torch
 
 from .math import _matmul
 from .registry import register_op
@@ -16,3 +19,22 @@ def fc_op(ctx, attrs, Input, W, Bias):
     if Bias is not None:
         out = out + Bias.reshape(1, -1)
     return out.reshape(shape[:in_num_col_dims] + (W.shape[1],))
+
+
+@register_op("is_empty", inputs=["X"], outputs=["Out"], no_grad=True)
+def is_empty(ctx, attrs, X):
+    """``[X.numel() == 0]``: a shape fact, filled on the device."""
+    return torch.full((1,), X.numel() == 0, dtype=torch.bool,
+                      device=X.device)
+
+
+@register_op("print", inputs=["In"], outputs=["Out"], capturable=False)
+def print_op(ctx, attrs, In):
+    """Print ``message`` and the tensor's values on the host (the
+    reference's ``jax.debug.print``); the output is a copy of ``In``.
+    Reading the values waits for the device, so the op is not
+    capturable and shape inference prints nothing."""
+    if In.device.type != "meta":
+        print(attrs.get("message", "") + str(In.detach().cpu().numpy()),
+              flush=True)
+    return In.clone()

@@ -1,6 +1,7 @@
 """Matmul / elementwise / reduction ops (mirrors ``paddle_tpu/ops/math.py``:
 ``mul`` at :23, ``matmul``, ``elementwise_add/sub/mul/div`` :66-68,
-``elementwise_min/max/pow`` :69-71, ``reduce_sum`` :98, ``mean`` :107,
+``elementwise_min/max/pow`` :69-71, ``reduce_sum`` :98, ``reduce_all`` /
+``reduce_any`` :103-104, ``mean`` :107,
 ``pow`` :112, ``top_k`` :117, ``cumsum`` :145).  The products stay
 ``torch.matmul`` (cuBLAS), as the reference left them to XLA; with TF32
 off (set by the Executor on a CUDA place) f32 products run in full f32.
@@ -71,17 +72,42 @@ elementwise_max = _elementwise("elementwise_max", torch.maximum)
 elementwise_pow = _elementwise("elementwise_pow", torch.pow)
 
 
-@register_op("reduce_sum", inputs=["X"], outputs=["Out"])
-def reduce_sum(ctx, attrs, X):
+def _reduce(X, attrs, fn):
     if attrs.get("reduce_all", False):
-        out = X.sum()
+        out = fn(X)
     else:
         dim = attrs.get("dim", [0])
         dim = [dim] if isinstance(dim, int) else list(dim)
-        out = X.sum(dim=tuple(d % X.dim() for d in dim),
-                    keepdim=bool(attrs.get("keep_dim", False)))
+        out = fn(X, dim=tuple(d % X.dim() for d in dim),
+                 keepdim=bool(attrs.get("keep_dim", False)))
     # the reference reduces to shape [1], not []
     return out.reshape(1) if out.dim() == 0 else out
+
+
+@register_op("reduce_sum", inputs=["X"], outputs=["Out"])
+def reduce_sum(ctx, attrs, X):
+    return _reduce(X, attrs, torch.sum)
+
+
+def _all(x, dim=None, keepdim=False):
+    return torch.all(x) if dim is None else torch.amin(
+        x.bool().to(torch.uint8), dim=dim, keepdim=keepdim).bool()
+
+
+def _any(x, dim=None, keepdim=False):
+    return torch.any(x) if dim is None else torch.amax(
+        x.bool().to(torch.uint8), dim=dim, keepdim=keepdim).bool()
+
+
+@register_op("reduce_all", inputs=["X"], outputs=["Out"], no_grad=True)
+def reduce_all(ctx, attrs, X):
+    """Logical AND over ``dim`` (all axes with ``reduce_all``), bool out."""
+    return _reduce(X, attrs, _all)
+
+
+@register_op("reduce_any", inputs=["X"], outputs=["Out"], no_grad=True)
+def reduce_any(ctx, attrs, X):
+    return _reduce(X, attrs, _any)
 
 
 @register_op("mean", inputs=["X"], outputs=["Out"])

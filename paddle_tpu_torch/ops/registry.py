@@ -186,7 +186,14 @@ class LoweringContext:
     ``ring_id`` to its ``torch.distributed`` group (the reference's
     ``collective_axis``): the startup program's ``c_comm_init`` binds a
     ring there, and a collective op whose ring has no group exchanges
-    nothing (``ops/collective.py``)."""
+    nothing (``ops/collective.py``).
+
+    The sub-block ops (``ops/control_flow.py``) keep their run's loop
+    state here: ``loops`` is the executor's runner of ``while`` bodies
+    (None: each trip runs op by op), ``loop_depth`` how many loops the
+    current op runs inside, ``trip_counts`` the trips each ``while``
+    took (by sub-block index, read by its grad op) and ``loop_runs`` one
+    record a ``while`` run (trips, condition reads, how the body ran)."""
 
     def __init__(self, seed=0, mode="train", device=None, program_seed=0,
                  rings=None, step=None):
@@ -199,6 +206,10 @@ class LoweringContext:
         self.tape = {}
         self._op_id = 0
         self._rng_count = 0
+        self.loops = None
+        self.loop_depth = 0
+        self.trip_counts = {}
+        self.loop_runs = []
 
     def set_op(self, op_id):
         self._op_id = int(op_id)

@@ -1,6 +1,6 @@
 """Shape and indexing ops (mirrors ``paddle_tpu/ops/tensor_manip.py``:
 ``reshape2`` at :79, ``transpose2`` at :91, ``squeeze2`` :146,
-``slice`` :119, ``unsqueeze2`` :160, ``gather`` :203, ``pad`` :246).
+``concat`` :97, ``slice`` :119, ``unsqueeze2`` :160, ``gather`` :203, ``pad`` :246).
 ``XShape`` is a zero-size placeholder kept for program-structure parity
 with serialized reference models.  ``slice`` returns a view, as
 ``reshape2`` and ``transpose2`` may: a kernel wrapper that needs
@@ -89,6 +89,11 @@ def unsqueeze2(ctx, attrs, X):
     for a in sorted(attrs.get("axes", [])):
         out = torch.unsqueeze(out, a)
     return {"Out": out, "XShape": _xshape(X)}
+
+
+@register_op("concat", inputs=["X*"], outputs=["Out"])
+def concat(ctx, attrs, X):
+    return torch.cat(list(X), dim=int(attrs.get("axis", 0)))
 
 
 @register_op("slice", inputs=["Input"], outputs=["Out"])

@@ -1560,7 +1560,7 @@ def check_decode_shape_unbucketed(ctx):
                                  "layers.create_kv_cache(...) + "
                                  "kv_cache_write(cache, x, cursor) + "
                                  "flash_decode(q, k_cache, v_cache, "
-                                 "cursor), as serving.DecodeEngine does")
+                                 "cursor) — see layers.decode_loop")
                         continue
                     for n in outs:
                         grown[n] = (b_idx, b_op)
@@ -1590,7 +1590,7 @@ def check_decode_shape_unbucketed(ctx):
                                  "layers.create_kv_cache(...) + "
                                  "kv_cache_write(cache, x, cursor) + "
                                  "flash_decode(q, k_cache, v_cache, "
-                                 "cursor), as serving.DecodeEngine does")
+                                 "cursor) — see layers.decode_loop")
                         for n in hit:
                             grown.pop(n, None)
                     elif b_op.type in _VIEW_OPS:

@@ -535,7 +535,10 @@ def certify_zero_sync(program, targets=(), graph=None, label=None,
     * an unbounded ``while_grad`` — ``Executor.run`` re-probes trip
       counts with an eager host loop before EVERY dispatch;
     * the NaN step-guard scalar flag — *allowed* (explicitly opted in
-      via ``PADDLE_TPU_NAN_GUARD`` / ``program._nan_guard``).
+      via ``PADDLE_TPU_NAN_GUARD`` / ``program._nan_guard``);
+    * a ``while`` op's condition, which the port reads on the host once
+      a trip (the reference's ``lax.while_loop`` reads it on the
+      device) — *allowed*, so the verdict is the reference's, and named.
     """
     graph = graph or DefUseGraph(program)
     k = resolve_max_in_flight(program, explicit=max_in_flight)
@@ -550,6 +553,13 @@ def certify_zero_sync(program, targets=(), graph=None, label=None,
                 block_idx=block_idx, op_idx=op_idx, op_type=op.type,
                 var_names=tuple(op.output_arg_names
                                 or op.input_arg_names)))
+        elif op.type == "while":
+            allowed.append(SyncPoint(
+                "ops.control_flow host-driven while",
+                "the condition is read on the host before every trip (one "
+                "sync a trip; the body replays from a CUDA graph)",
+                block_idx=block_idx, op_idx=op_idx, op_type=op.type,
+                var_names=tuple(op.input("Condition")), allowed=True))
         elif op.type == "while_grad" \
                 and not op.attrs.get("max_trip_count"):
             violations.append(SyncPoint(

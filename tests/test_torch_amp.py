@@ -47,6 +47,7 @@ from paddle_tpu_torch.models import resnet as tres
 from paddle_tpu_torch.ops import registry as t_registry
 from paddle_tpu_torch.ops.cuda import fused_ln as t_fln
 from paddle_tpu_torch.static_analysis import fusion as tfusion
+from test_torch_executor import private_autotune  # noqa: F401 - a fixture
 
 BF16_ULP = 2.0 ** -7    # one bf16 unit in the last place, relative
 # one op on the same bf16 inputs, max |diff| over max |ref|: 0 for all
@@ -625,11 +626,13 @@ def test_resnet_amp_momentum_steps_match_reference(interpret):
     assert np.abs(gl - f32).max() / np.abs(f32).max() > AMP_VS_F32_MIN
 
 
-def test_amp_compiled_step_matches_eager_bit_for_bit():
+def test_amp_compiled_step_matches_eager_bit_for_bit(private_autotune):
     """bert-tiny's AMP training program through the executor's compiled
     step (eager, then capture, then replays: on the CPU the same
     bookkeeping runs the step directly) against the eager path: the
-    losses and every parameter after three steps, bit for bit."""
+    losses and every parameter after three steps, bit for bit.  The
+    check's own autotune cache keeps another test's write to the shared
+    one from resolving the program again mid-check."""
     main, startup, _, loss = _pretrain(tfluid, tbert, True)
     feed = tbert.make_fake_batch(BATCH, T, tbert.BERT_TINY,
                                  np.random.RandomState(2))

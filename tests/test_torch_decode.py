@@ -534,16 +534,23 @@ def test_server_routes_a_decode_tenant_beside_a_batch_tenant(reference,
     assert eng._closed  # the server closes its engines
 
 
-def test_decode_loop_and_whole_program_builders_raise():
-    main, startup = tfluid.Program(), tfluid.Program()
-    with tfluid.program_guard(main, startup):
-        ids = tfluid.layers.data("ids", shape=[2], dtype="int32",
-                                 append_batch_size=False)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tfluid.layers.decode_loop(lambda c, k, i: c, ids, ids, 4)
+def test_decode_loop_and_whole_program_builders_build_and_run():
+    """``decode_loop`` and the two whole-program builders (which raised
+    until the While op was ported) build and generate at this file's
+    widths on the CPU; the ring-cache and naive programs agree
+    (``tests/test_torch_decode_loop.py`` holds them to the
+    reference)."""
+    cfg = _cfg(tgpt)
+    out = {}
     for build in (tgpt.build_program, tgpt.build_naive_program):
-        with pytest.raises(NotImplementedError, match="While"):
-            build(tgpt.GPT_TINY)
+        toks, glen, _ttft, _rate = tgpt.run_generate(
+            lambda: build(cfg, 2, 8, 4), cfg, 2, 8, 4,
+            place=tfluid.CPUPlace())
+        assert toks.shape == (2, 4) and toks.dtype == np.int32
+        assert ((toks >= 0) & (toks < cfg.vocab)).all()
+        out[build.__name__] = toks
+    np.testing.assert_array_equal(out["build_program"],
+                                  out["build_naive_program"])
 
 
 # ---------------------------------------------------------------------------

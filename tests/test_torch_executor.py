@@ -31,6 +31,8 @@ from paddle_tpu.serving import DecodeEngine as JDecodeEngine
 from paddle_tpu.static_analysis import fusion as jfusion
 
 import paddle_tpu_torch as tfluid
+import paddle_tpu_torch.observability as tobs
+from paddle_tpu_torch import autotune as tautotune
 from paddle_tpu_torch import executor as t_executor
 from paddle_tpu_torch.models import bert as tbert
 from paddle_tpu_torch.models import gpt as tgpt
@@ -252,8 +254,28 @@ def _build_resnet():
     return main, startup, [loss.name, acc.name]
 
 
+@pytest.fixture
+def private_autotune(monkeypatch, tmp_path):
+    """An autotune cache of the test's own, read fresh, and fresh
+    telemetry state.  Both packages read one cache file in a test process
+    (``tests/conftest.py``), and every write to it, of any signature and
+    by either package, gives the port's programs a new fusion signature
+    once the port looks at the file again (at most once a second): a
+    write that lands while a check runs makes its program resolve again
+    mid-run, a new cache entry whose first call is a warm-up, so a
+    bit-for-bit check depended on what ran before it and how fast."""
+    monkeypatch.setenv("PADDLE_TPU_AUTOTUNE_CACHE",
+                       str(tmp_path / "autotune.json"))
+    tautotune.reset()
+    tobs.reset_telemetry()
+    yield
+    tautotune.reset()
+    tobs.reset_telemetry()
+
+
 @pytest.mark.parametrize("model", ["bert_dropout", "resnet_nhwc"])
-def test_compiled_training_matches_eager_bit_for_bit(model):
+def test_compiled_training_matches_eager_bit_for_bit(model,
+                                                     private_autotune):
     """Three steps through the cache entry (warm-up, capture, replay) give
     the fetches and every persistable (parameters, Adam moments and
     beta powers, batch-norm statistics, Momentum velocities) of three
@@ -277,6 +299,73 @@ def test_compiled_training_matches_eager_bit_for_bit(model):
                                       err_msg=n)
     if model == "bert_dropout":  # the masks moved: so did the gradient
         assert not np.array_equal(got[1][1], got[2][1])
+
+
+def _dropout_mlp():
+    main, startup = tfluid.Program(), tfluid.Program()
+    main.random_seed = startup.random_seed = 3
+    with tfluid.unique_name.guard(), tfluid.program_guard(main, startup):
+        x = tfluid.layers.data("x", shape=[8], dtype="float32")
+        h = tfluid.layers.dropout(
+            tfluid.layers.fc(x, size=16, act="relu"), 0.1,
+            dropout_implementation="upscale_in_train")
+        loss = tfluid.layers.mean(tfluid.layers.fc(h, size=4))
+        tfluid.optimizer.Adam(0.01).minimize(loss)
+    return main, startup, [loss.name]
+
+
+def _shared_file_written_after_each_call(monkeypatch, shared):
+    """After every port executor call, the reference records a
+    calibration into ``shared`` (as ``tests/test_planner.py`` does into
+    the process's file) and the port's next look at its cache file is
+    due at once (the second between the looks has passed)."""
+    from paddle_tpu import autotune as jautotune
+    from paddle_tpu_torch.autotune import cache as tcache
+
+    run = tfluid.Executor.run
+    calls = []
+
+    def run_then_write(self, *args, **kwargs):
+        out = run(self, *args, **kwargs)
+        calls.append(1)
+        with monkeypatch.context() as mp:
+            mp.setenv("PADDLE_TPU_AUTOTUNE_CACHE", shared)
+            jautotune.reset()
+            jautotune.record(jautotune.sweep_signature("planner", {}),
+                             {"calibration": 1.0 + len(calls)})
+        monkeypatch.setattr(tcache, "_RESTAT_S", 0.0)
+        return out
+
+    monkeypatch.setattr(tfluid.Executor, "run", run_then_write)
+
+
+def test_a_write_to_the_shared_autotune_file_cannot_reach_the_check(
+        monkeypatch, tmp_path):
+    """The leak the bit-for-bit checks are kept from: on the shared file,
+    a write by the other package between two calls resolves the program
+    again, so the cached run warms up anew instead of capturing; with the
+    check's own cache (``private_autotune``), the same writes to the
+    shared file leave it whole: warm-up, capture, replay, and every
+    fetch and persistable equal to the eager run's."""
+    shared = str(tmp_path / "shared.json")
+    _shared_file_written_after_each_call(monkeypatch, shared)
+    batch = {"x": np.random.RandomState(0).randn(4, 8).astype("float32")}
+    with monkeypatch.context() as mp:
+        mp.setenv("PADDLE_TPU_AUTOTUNE_CACHE", shared)
+        tautotune.reset()
+        _, _, leaked = _train_runs(_dropout_mlp, [batch] * STEPS, True)
+    assert leaked == ["eager"] * STEPS
+    monkeypatch.setenv("PADDLE_TPU_AUTOTUNE_CACHE",
+                       str(tmp_path / "private.json"))
+    tautotune.reset()
+    got, got_state, modes = _train_runs(_dropout_mlp, [batch] * STEPS, True)
+    want, want_state, _ = _train_runs(_dropout_mlp, [batch] * STEPS, False)
+    assert modes == ["eager", "capture", "graph"]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g[0], w[0])
+    for n in want_state:
+        np.testing.assert_array_equal(got_state[n], want_state[n], n)
+    tautotune.reset()
 
 
 def _engine(paged):

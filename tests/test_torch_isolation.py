@@ -5,8 +5,9 @@ battery with the abstract interpreter, cost model, schedule prover,
 overlap and hierarchy passes and the planner's cluster spec, the serving,
 lint, analyze, monitor and trace CLIs, the watchdog, the other
 optimizers with the moving averages, decoupled weight decay and
-``WeightedAverage`` included, and the dygraph mode with its layers'
-ops), its entry points run on the GPU
+``WeightedAverage`` included, the dygraph mode with its layers' ops, and
+the control flow: ``While`` with its gradient, ``cond``, the tensor
+arrays and the single-program GPT generation), its entry points run on the GPU
 unless the caller asks for the CPU, and what it has not ported yet
 raises rather than being skipped silently."""
 
@@ -188,6 +189,46 @@ for op_type in ("conv3d", "conv2d_transpose", "conv3d_transpose", "gru_unit",
                 "row_conv", "group_norm", "spectral_norm", "tree_conv",
                 "nce"):
     assert registry.has_op(op_type) and registry.has_op(op_type + "_grad")
+main, startup = fluid.Program(), fluid.Program()
+with fluid.program_guard(main, startup):
+    x = fluid.layers.data("x", shape=[1, 1], dtype="float32",
+                          append_batch_size=False)
+    y = fluid.layers.assign(x)
+    i = fluid.layers.fill_constant([1], "int32", 0)
+    limit = fluid.layers.fill_constant([1], "int32", 3)
+    arr = fluid.layers.array_write(y, i, capacity=4)
+    cond = fluid.layers.less_than(i, limit)
+    loop = fluid.layers.While(cond, max_trip_count=4)
+    with loop.block():
+        fluid.layers.assign(fluid.layers.fc(
+            y, size=1, bias_attr=False, param_attr=fluid.ParamAttr(
+                name="iso.w", initializer=fluid.initializer.Constant(2.0))),
+            output=y)
+        fluid.layers.increment(i, value=1, in_place=True)
+        fluid.layers.array_write(y, i, array=arr)
+        fluid.layers.less_than(i, limit, cond=cond)
+    z = fluid.layers.cond(fluid.layers.reduce_all(cond),
+                          lambda: fluid.layers.scale(y, 2.0),
+                          lambda: fluid.layers.scale(y, 3.0))
+    loss = fluid.layers.mean(z)
+    pg = fluid.backward.append_backward(loss)
+    n = fluid.layers.array_length(arr)
+with fluid.scope_guard(fluid.Scope()):
+    exe = fluid.Executor(fluid.CPUPlace())
+    exe.run(startup)
+    for _ in range(2):
+        lv, gv, nv = exe.run(main, feed={"x": np.ones((1, 1), "float32")},
+                             fetch_list=[loss, pg[0][1], n])
+    assert float(lv[0]) == 24.0 and float(gv[0, 0]) == 36.0, (lv, gv)
+    assert int(nv[0]) == 4 and exe.last_loops[0]["mode"] == "graph"
+cfg = gpt.GPTConfig(vocab=16, hidden=8, layers=1, heads=2, max_len=16)
+toks, glen, _, _ = gpt.run_generate(
+    lambda: gpt.build_program(cfg, 2, 4, 3), cfg, 2, 4, 3,
+    place=fluid.CPUPlace())
+ntoks, _, _, _ = gpt.run_generate(
+    lambda: gpt.build_naive_program(cfg, 2, 4, 3), cfg, 2, 4, 3,
+    place=fluid.CPUPlace())
+assert toks.shape == (2, 3) and (toks == ntoks).all(), (toks, ntoks)
 assert not any(m.split(".")[0] in ("jax", "paddle_tpu")
                for m in sys.modules), sorted(sys.modules)
 print("ISOLATED-OK")
@@ -325,8 +366,10 @@ def test_unported_gates_raise(tmp_path):
 
 def test_unported_training_options_raise():
     """What training still lacks raises, citing its queue item: grads
-    through ``while`` (item 5).  The reference's other optimizers, which
-    raised here until they were ported, are classes of the port now."""
+    through ``recurrent`` (item 5; those of ``while``, which raised here
+    until they were ported, are built now).  The reference's other
+    optimizers, which raised here until they were ported, are classes of
+    the port now."""
     for name, base in (("Adagrad", fluid.optimizer.Optimizer),
                        ("RMSPropOptimizer", fluid.optimizer.Optimizer),
                        ("Ftrl", fluid.optimizer.Optimizer),
@@ -342,7 +385,7 @@ def test_unported_training_options_raise():
         loss = fluid.layers.reduce_sum(h)
     region = main.global_block().ops[-2]
     assert region.type == "recompute_block"
-    region.type = "while"
+    region.type = "recurrent"
     with pytest.raises(NotImplementedError, match="Queue A item 5"):
         fluid.optimizer.SGD(0.01).minimize(loss)
 

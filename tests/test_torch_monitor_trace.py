@@ -93,18 +93,28 @@ def _train():
     return main, startup, feed, [loss], tfluid.CPUPlace()
 
 
-@pytest.fixture(scope="module")
-def telemetry(tmp_path_factory):
+def _telemetry_run(tmp_path_factory, submit_delay_s=0.0):
     """The port's served run and training run under one telemetry
     directory → (the directory, what ran, the ``now`` both packages read
-    it at)."""
+    it at); ``submit_delay_s`` slows each request's submission, as a
+    loaded machine does."""
+    from paddle_tpu_torch import serving
+
     dirname = str(tmp_path_factory.mktemp("telemetry"))
     pred = _predictor(str(tmp_path_factory.mktemp("bert_tiny")))
+    submit = serving.PredictorServer.submit
+
+    def slow_submit(self, *args, **kwargs):
+        time.sleep(submit_delay_s)
+        return submit(self, *args, **kwargs)
+
     with pytest.MonkeyPatch.context() as mp:
         for var in _TELEMETRY_ENV:
             mp.delenv(var, raising=False)
         mp.setenv("PADDLE_TPU_TELEMETRY_DIR", dirname)
         mp.setenv("PADDLE_TPU_TELEMETRY_STEP_EVERY", "1")
+        if submit_delay_s:
+            mp.setattr(serving.PredictorServer, "submit", slow_submit)
         tobs.reset_telemetry()
         try:
             ran, writer = chip_smoke.telemetry_run(
@@ -114,6 +124,11 @@ def telemetry(tmp_path_factory):
         finally:
             tobs.reset_telemetry()
     return dirname, ran, time.time() + 1.0
+
+
+@pytest.fixture(scope="module")
+def telemetry(tmp_path_factory):
+    return _telemetry_run(tmp_path_factory)
 
 
 def test_both_monitors_read_the_same_status(telemetry):
@@ -138,6 +153,27 @@ def test_both_monitors_read_the_same_status(telemetry):
     assert "ALERT" not in tmonitor.render_status(got)
     assert tmonitor.render_status(got).splitlines()[1:] \
         == jmonitor.render_status(want).splitlines()[1:]
+
+
+def test_the_status_does_not_depend_on_how_fast_requests_come(
+        tmp_path_factory):
+    """The test above under load: a server started before its requests
+    are submitted races the submitting thread, and a slow submitter (six
+    test workers on one CPU) has each request served alone, so the
+    predictor's steps outnumber the training's and the newest step the
+    journal and the heartbeat hold is not the one checked.  With every
+    request queued before the dispatcher starts
+    (``chip_smoke.telemetry_run``), a submitter that waits 0.2 s a
+    request gives the same status."""
+    dirname, ran, now = _telemetry_run(tmp_path_factory,
+                                       submit_delay_s=0.2)
+    assert ran["served_calls"] < STEPS + 1
+    got = tmonitor.collect_status(dirname, now=now)
+    assert got == jmonitor.collect_status(dirname, now=now)
+    serving = ttrace.serving_stats(ttrace.group_traces(
+        tobs.read_traces(dirname)))
+    assert chip_smoke.check_tools(got, serving, ran) == []
+    assert got["ranks"]["0"]["step"] == ran["last_step"]
 
 
 def _trace_json(module, argv, capsys):

@@ -51,6 +51,7 @@ import paddle_tpu_torch as tfluid
 from paddle_tpu_torch import convert
 from paddle_tpu_torch.models import bert as tbert
 from paddle_tpu_torch.ops import registry as t_registry
+from test_torch_executor import private_autotune  # noqa: F401 - a fixture
 
 SEED = 7
 F32_ULPS = 2
@@ -357,7 +358,8 @@ def test_rule_trains_like_the_reference(rule, interpret):
 
 
 @pytest.mark.parametrize("rule", chip_smoke.RULES)
-def test_rule_compiled_step_equals_eager_and_names_its_copy_backs(rule):
+def test_rule_compiled_step_equals_eager_and_names_its_copy_backs(
+        rule, private_autotune):
     """The port's cached steps (a capture on the CPU, then replays)
     equal its eager steps bit for bit.  No update op's state is copied
     back: only Adamax's ``scale`` of each ``Beta1Pow`` and decoupled

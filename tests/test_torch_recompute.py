@@ -261,9 +261,12 @@ class TestRecompute:
             assert consumer
 
     def test_grads_of_other_sub_block_ops_point_at_queue_a_5(self):
+        """``recurrent`` (StaticRNN, DynamicRNN) is the sub-block op whose
+        grad is still to come; ``while`` and ``conditional_block`` have
+        theirs (``tests/test_torch_control_flow.py``)."""
         main, _, loss = _build(tfluid, True)
         with pytest.raises(NotImplementedError, match="Queue A item 5"):
-            main.global_block().ops[0].type = "while"
+            main.global_block().ops[0].type = "recurrent"
             tfluid.backward._GradEngine(main.global_block(), ()) \
                 .backprop_op(main.global_block().ops[0])
 

@@ -145,8 +145,6 @@ PORT_TEXTS = [
      "autograd)"),
     (r"\(per-token recompile \+ host sync on TPU\)",
      "(an eager warm-up and a new graph capture per token)"),
-    (r"cursor\) — see layers\.decode_loop",
-     "cursor), as serving.DecodeEngine does"),
 ]
 # words of the reference's backend and tools that no port text may carry
 _REFERENCE_WORDS = re.compile(
@@ -733,7 +731,45 @@ def _decode(P, paged):
     return progs
 
 
+def _decode_loop(P):
+    """The one-program generation: the prefill, then a ``while`` whose
+    body is a decode step (``build_program``, with an eos)."""
+    cfg = P.gpt.GPTConfig(vocab=128, hidden=64, layers=2, heads=4,
+                          max_len=64)
+    with P.fluid.unique_name.guard():
+        main, _s, _f, tokens, gen_len = P.gpt.build_program(
+            cfg, 2, 8, 4, eos_id=5)
+    return [(main, [tokens.name, gen_len.name])]
+
+
+def _while_grad(P):
+    """A bounded ``while`` over an fc, then a ``cond``, trained with SGD:
+    the structural checks walk both sub-blocks and their grad ops."""
+    f = P.fluid
+    main, startup = f.Program(), f.Program()
+    with f.unique_name.guard(), f.program_guard(main, startup):
+        x = f.layers.data("x", shape=[2, 4], dtype="float32",
+                          append_batch_size=False)
+        y = f.layers.assign(x)
+        i = f.layers.fill_constant([1], "int32", 0)
+        limit = f.layers.fill_constant([1], "int32", 3)
+        cond = f.layers.less_than(i, limit)
+        loop = f.layers.While(cond, max_trip_count=4)
+        with loop.block():
+            f.layers.assign(f.layers.fc(y, size=4, act="tanh"), output=y)
+            f.layers.increment(i, value=1, in_place=True)
+            f.layers.less_than(i, limit, cond=cond)
+        z = f.layers.cond(f.layers.reduce_any(cond),
+                          lambda: f.layers.scale(y, 2.0),
+                          lambda: f.layers.scale(y, 0.5))
+        loss = f.layers.mean(z)
+        f.optimizer.SGD(0.1).minimize(loss)
+    return [(main, [loss.name])]
+
+
 PATHS = {
+    "decode_loop": _decode_loop,
+    "while_grad": _while_grad,
     "bert_train": lambda P: _bert_train(P, False),
     "bert_train_amp": lambda P: _bert_train(P, True),
     "bert_serving": _bert_serving,

@@ -337,7 +337,24 @@ and the CUDA toolkit.  Phases, each printing one JSON line:
    gradients, ``cond``, ``Switch``, ``IfElse`` with gradients, the
    tensor arrays and a gradient through one (``control_flow_cases``),
    card against CPU within 1e-5 of the scale, every loop body replayed
-   from its graph on the card.
+   from its graph on the card;
+29. nmt_train: ``models.machine_translation.build_train`` (StaticRNN
+   decoder) and ``build_train_dynamic`` (DynamicRNN, target lengths
+   8-32) at the upstream benchmark's widths (embedding, encoder and
+   decoder 512, dictionary 30000), length 32, batch 32, Adam: 5 steps
+   eager against 5 through the cache, bit for bit on the fetches and
+   every persistable; each graph step one replay with no host sync,
+   K3 forward and backward twice and one Adam update a parameter; step
+   ms, target tokens/s, device ms by group, idle share, peak memory;
+30. lstm: ``models.stacked_dynamic_lstm.build()`` at its defaults
+   (vocabulary 5149, length 80, width 512, 3 layers), batch 32, lengths
+   8-80: 3 steps eager against 3 graph steps, as nmt_train;
+31. nmt_translate: ``build_infer`` at those widths, batch 16, beam 3, at
+   most 250 steps: trips, condition reads and syncs a translation, the
+   body's run mode, a trip's wall ms against a body replay's device ms,
+   sentences and tokens a second, peak memory, K3 forward once;
+32. rnn_parity: the three programs at small widths, card against CPU:
+   losses within 1e-4 of the scale, beam ids equal.
 
 The whole run reads and writes a fresh autotune cache in a temp
 directory (``PADDLE_TPU_AUTOTUNE_CACHE``), so no decision of an earlier
@@ -9789,6 +9806,527 @@ def phase_control_flow_parity(env):
         raise AssertionError("control_flow_parity failed: %s" % failed)
 
 
+# the NMT workload at the upstream benchmark's widths
+# (benchmark/fluid/models/machine_translation.py: embedding, encoder and
+# decoder 512, a dictionary of 30000, beam 3, at most 250 decoding
+# steps), the reference harness's batch (benchmark/fluid_benchmark.py:37)
+NMT_VOCAB = 30000
+NMT_WIDTH = 512
+NMT_LEN = 32
+NMT_BATCH = 32
+NMT_LENGTHS = (8, 32)     # DynamicRNN's target lengths, inclusive
+NMT_STEPS = 5             # eager and graph steps compared a trainer
+NMT_BEAM = 3
+NMT_MAX_LEN = 250
+NMT_INFER_BATCH = 16
+NMT_WARM_RUNS = 3
+RNN_SYNC_STEPS = 3        # graph steps whose host syncs are counted
+# models/stacked_dynamic_lstm.build's defaults (vocabulary 5149, length
+# 80, embedding and hidden 512, 3 layers), batch 32
+LSTM_BATCH = 32
+LSTM_LENGTHS = (8, 80)
+LSTM_STEPS = 3
+# the three programs at small widths, the card against the port on the
+# CPU: float32 with TF32 off, 3 Adam steps through recurrences of 8
+# steps (max |diff| over max |CPU| of the losses)
+RNN_PARITY_RTOL = 1e-4
+RNN_PARITY = {"vocab": 1000, "emb": 32, "hidden": 64, "len": 8,
+              "batch": 8, "beam": 3, "max_len": 12, "lstm_len": 16}
+
+
+def _rnn_group(name):
+    """The RNN paths' device groups: the GEMMs, the recurrences' and the
+    heads' elementwise work, K3 forward and backward, and Adam."""
+    g = _kernel_group(name)
+    return {"gather": "K3 fwd", "optimizer": "Adam",
+            "copies": "elementwise", "other": "elementwise"}.get(g, g)
+
+
+def _nmt_train_program(fluid, mt, dynamic, vocab=NMT_VOCAB, width=NMT_WIDTH,
+                       length=NMT_LEN):
+    from paddle_tpu_torch import unique_name
+
+    unique_name.switch()
+    build = mt.build_train_dynamic if dynamic else mt.build_train
+    main, startup, _feeds, loss = build(vocab, emb_dim=width,
+                                        hidden_dim=width, src_len=length,
+                                        tgt_len=length)
+    main.random_seed = startup.random_seed = SEED
+    return main, startup, loss
+
+
+def nmt_batch(np, rng, vocab, batch, length, lengths=None):
+    """Seeded token ids of an NMT batch, with ``tgt_lens`` drawn from the
+    inclusive range ``lengths`` when given (DynamicRNN)."""
+    feed = {"src": rng.randint(3, vocab, (batch, length)).astype("int64"),
+            "tgt_in": rng.randint(3, vocab, (batch, length)).astype("int64"),
+            "tgt_out": rng.randint(3, vocab, (batch, length, 1)).astype(
+                "int64")}
+    if lengths is not None:
+        feed["tgt_lens"] = rng.randint(lengths[0], lengths[1] + 1,
+                                       (batch,)).astype("int64")
+    return feed
+
+
+def _lstm_program(fluid, sdl, **kw):
+    from paddle_tpu_torch import unique_name
+
+    unique_name.switch()
+    main, startup, _feeds, loss, acc = sdl.build(**kw)
+    main.random_seed = startup.random_seed = SEED
+    return main, startup, loss, acc
+
+
+def lstm_batch(np, rng, vocab, batch, length, lengths):
+    return {"words": rng.randint(0, vocab, (batch, length)).astype("int64"),
+            "lens": rng.randint(lengths[0], lengths[1] + 1,
+                                (batch,)).astype("int64"),
+            "label": rng.randint(0, 2, (batch, 1)).astype("int64")}
+
+
+def _rnn_launches(prog):
+    """The kernels' launches of one step of the fusion-resolved ``prog``:
+    K3 forward and backward once per rewritten lookup of the global
+    block, and the update kernels (``_update_launches``)."""
+    ops = prog.global_block().ops
+    want = {"embedding_gather_fwd": sum(
+        op.type == "fused_embedding_gather" for op in ops),
+        "embedding_gather_bwd": sum(
+        op.type == "fused_embedding_gather_grad" for op in ops)}
+    want.update(_update_launches(prog))
+    return {k: v for k, v in want.items() if v}
+
+
+def _syncs(torch, call, where=None):
+    """The host syncs of one ``call()`` (``set_sync_debug_mode``); with a
+    list ``where``, each sync's Python file and line are added to it."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    if where is not None:
+        where.extend("%s:%d" % (os.path.relpath(w.filename, HERE), w.lineno)
+                     for w in syncs)
+    return len(syncs)
+
+
+def _rnn_train_side(torch, fluid, main, startup, fetch, batch, cache, steps,
+                    timed):
+    """``steps`` steps of a training program from a fresh scope on the
+    card → (the fetches, the run modes, a digest of every persistable
+    after them, and with ``timed`` the host syncs of one more step that
+    fetches nothing to the host and the side's numbers,
+    ``_graph_side``)."""
+    import numpy as np
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    scope = fluid.Scope()
+    out = {}
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup)
+
+        def call(return_numpy=True):
+            return exe.run(main, feed=batch, fetch_list=fetch,
+                           return_numpy=return_numpy,
+                           use_program_cache=cache)
+
+        fetches, modes = [], []
+        for _ in range(steps):
+            fetches.append([np.asarray(v).copy() for v in call()])
+            modes.append(exe.last_run_mode)
+        digest = _digest(scope, _persistable_names(main))
+        if timed:
+            out = _graph_side(exe, call, lambda: call(False), _rnn_group)
+            # the count's own syncs: the first switch to "warn" in a
+            # process reports one, with no step in it
+            out["host_syncs_of_no_step"] = _syncs(torch, lambda: None)
+            where = []
+            out["host_syncs_a_step"] = [
+                _syncs(torch, lambda: call(False), where)
+                for _ in range(RNN_SYNC_STEPS)]
+            out["host_sync_sites"] = sorted(set(where))
+            out["loop_records"] = len(exe.last_loops)
+        del call
+    del scope, exe
+    torch.cuda.empty_cache()
+    return fetches, modes, digest, out
+
+
+def _rnn_train_path(env, phase, label, fluid, main, startup, fetch, batch,
+                    steps, tokens):
+    """A training program with a ``recurrent`` (or the LSTM ops) and its
+    grads, eager against graph from one start on one batch: the fetches
+    of ``steps`` steps and every persistable after them must be bit for
+    bit; the graph side replays one CUDA graph a step with no host sync
+    beyond the fetch, and its kernels' launches a step (graph nodes and
+    profiler names) are ``_rnn_launches`` → (the failures, the graph
+    side's launches by source)."""
+    import torch
+
+    from paddle_tpu_torch.static_analysis import fusion
+
+    prog, report = fusion.resolve_fused_program(
+        main, targets=[v.name for v in fetch])
+    want = _rnn_launches(prog)
+    e_fetch, e_modes, e_digest, _ = _rnn_train_side(
+        torch, fluid, main, startup, fetch, batch, False, steps, False)
+    g_fetch, g_modes, g_digest, g = _rnn_train_side(
+        torch, fluid, main, startup, fetch, batch, True, steps, True)
+    same = e_digest == g_digest and all(
+        _same_array(a, b) for fa, fb in zip(e_fetch, g_fetch)
+        for a, b in zip(fa, fb))
+    step_ms = g["step_ms"]
+    line = {"phase": phase, "program": label, "card": card_label(env),
+            "fused": report.counts(), "bit_identical": same,
+            "losses": [float(f[0].reshape(-1)[0]) for f in g_fetch],
+            "modes_eager": e_modes, "modes_graph": g_modes,
+            "step_ms": step_ms, "tokens_per_s": tokens / (step_ms / 1e3),
+            "host_syncs_a_step": g["host_syncs_a_step"],
+            "host_sync_sites": g["host_sync_sites"],
+            "host_syncs_of_no_step": g["host_syncs_of_no_step"],
+            "loop_records": g["loop_records"],
+            "expected_launches": want}
+    line.update({k: g[k] for k in (
+        "enqueue_ms", "step_ms_runs", "device_ms", "idle_share",
+        "device_ms_by_group", "top_kernels", "launches_by_wrapper",
+        "launches_by_graph_nodes", "profiles", "peak_allocated_bytes",
+        "reserved_bytes", "graphs", "last_run_mode")})
+    emit(line)
+    failed = []
+    if not same:
+        failed.append("%s: eager and graph differ" % label)
+    if g_modes[:2] != ["eager", "capture"] \
+            or set(g_modes[2:]) != {"graph"} or g["last_run_mode"] != "graph":
+        failed.append("%s: graph side ran %s" % (label, g_modes))
+    if any(g["host_syncs_a_step"]) or g["loop_records"]:
+        failed.append("%s: host syncs %s (at %s), %d loop records a step"
+                      % (label, g["host_syncs_a_step"],
+                         g["host_sync_sites"], g["loop_records"]))
+    full = {k: float(want.get(k, 0)) for k in g["launches_by_graph_nodes"]}
+    if {k: float(v) for k, v in g["launches_by_graph_nodes"].items()} \
+            != full or any(g["launches_by_wrapper"].values()):
+        failed.append("%s: launches a step %s, wrapper %s != %s"
+                      % (label, g["launches_by_graph_nodes"],
+                         g["launches_by_wrapper"], want))
+    done = [t for t in g["profiles"] if t["complete"]]
+    if not done or {k: float(v) for k, v in
+                    done[0]["launches_by_profiler"].items()} != full:
+        failed.append("%s: the profiler's launches %s != %s"
+                      % (label, done[0]["launches_by_profiler"]
+                         if done else None, want))
+    for f in g_fetch:
+        if not all(_finite(v) for v in f):
+            failed.append("%s: a fetch is not finite" % label)
+            break
+    return failed, {"wrapper": g["launches_by_wrapper"],
+                    "graph_nodes": g["launches_by_graph_nodes"]}
+
+
+def _same_array(a, b):
+    import numpy as np
+
+    return a.shape == b.shape and a.dtype == b.dtype \
+        and np.array_equal(a, b)
+
+
+def _finite(a):
+    import numpy as np
+
+    return a.dtype.kind not in "fc" or bool(np.isfinite(a).all())
+
+
+def phase_nmt_train(env):
+    """``models.machine_translation.build_train`` (StaticRNN decoder) and
+    ``build_train_dynamic`` (DynamicRNN decoder, target lengths
+    NMT_LENGTHS from SEED) at the upstream widths (embedding, encoder and
+    decoder 512, a dictionary of 30000), source and target length 32,
+    batch 32, random float32 weights from SEED, Adam: NMT_STEPS steps
+    eager and NMT_STEPS through the executor's cache (warm-up, capture,
+    replays) from one start, bit for bit on the fetches and every
+    persistable (``_rnn_train_path``).  Returns each program's launches
+    a step by source."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import machine_translation as mt
+
+    failed, counts = [], {}
+    for dynamic in (False, True):
+        label = "build_train_dynamic" if dynamic else "build_train"
+        main, startup, loss = _nmt_train_program(fluid, mt, dynamic)
+        batch = nmt_batch(np, np.random.RandomState(SEED + 31), NMT_VOCAB,
+                          NMT_BATCH, NMT_LEN,
+                          NMT_LENGTHS if dynamic else None)
+        tokens = int(batch["tgt_lens"].sum()) if dynamic \
+            else NMT_BATCH * NMT_LEN
+        f, counts[label] = _rnn_train_path(
+            env, "nmt_train", label, fluid, main, startup, [loss], batch,
+            NMT_STEPS, tokens)
+        failed += f
+    if failed:
+        raise AssertionError("nmt_train: %s" % failed)
+    return counts
+
+
+def phase_lstm(env):
+    """``models.stacked_dynamic_lstm.build()`` at its defaults (vocabulary
+    5149, length 80, embedding and hidden 512, 3 stacked layers, every
+    other one reversed), batch 32, lengths LSTM_LENGTHS from SEED, Adam:
+    LSTM_STEPS steps eager against LSTM_STEPS graph steps, as
+    ``nmt_train``.  Returns the launches a step by source."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import stacked_dynamic_lstm as sdl
+
+    main, startup, loss, acc = _lstm_program(fluid, sdl)
+    batch = lstm_batch(np, np.random.RandomState(SEED + 32), 5149,
+                       LSTM_BATCH, 80, LSTM_LENGTHS)
+    failed, counts = _rnn_train_path(
+        env, "lstm", "stacked_dynamic_lstm", fluid, main, startup,
+        [loss, acc], batch, LSTM_STEPS, int(batch["lens"].sum()))
+    if failed:
+        raise AssertionError("lstm: %s" % failed)
+    return counts
+
+
+def _nmt_infer_program(fluid, mt, vocab=NMT_VOCAB, width=NMT_WIDTH,
+                       length=NMT_LEN, batch=NMT_INFER_BATCH, beam=NMT_BEAM,
+                       max_len=NMT_MAX_LEN):
+    from paddle_tpu_torch import unique_name
+
+    unique_name.switch()
+    main, startup, _feeds, ids, scores = mt.build_infer(
+        vocab, emb_dim=width, hidden_dim=width, src_len=length,
+        batch_size=batch, beam_size=beam, max_len=max_len)
+    startup.random_seed = SEED
+    return main, startup, [ids, scores]
+
+
+def phase_nmt_translate(env):
+    """``models.machine_translation.build_infer`` at the upstream widths,
+    batch 16, beam 3, at most 250 decoding steps, random float32 weights
+    from SEED: one cold translation (the loop body's warm-up trip and
+    capture), then NMT_WARM_RUNS warm ones, timed; the trips, condition
+    reads and host syncs of one, the body's run mode, a trip's wall ms
+    against one replay of the body's graph, sentences and tokens a
+    second, peak memory, and the kernels' launches a translation (K3
+    forward once, for the encoder's lookup; the lookup inside the loop
+    body stays the plain op, as the fusion pass leaves sub-blocks
+    alone).  The warm translations give the cold one's ids; every
+    sentence is [beam, max_len] of ids in the vocabulary and its beams'
+    scores are finite and in descending order.  Returns the launches of
+    one warm translation by source."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import machine_translation as mt
+    from paddle_tpu_torch.ops.cuda import (launch_counts_by_source,
+                                           reset_launch_counts)
+    from paddle_tpu_torch.static_analysis import fusion
+
+    main, startup, fetch = _nmt_infer_program(fluid, mt)
+    prog, _report = fusion.resolve_fused_program(
+        main, targets=[v.name for v in fetch])
+    want = {"embedding_gather_fwd": sum(
+        op.type == "fused_embedding_gather"
+        for op in prog.global_block().ops)}
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    feed = {"src": np.random.RandomState(SEED + 33).randint(
+        3, NMT_VOCAB, (NMT_INFER_BATCH, NMT_LEN)).astype("int64")}
+
+    def translate():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        return got, time.perf_counter() - t0, exe.last_loops[0]
+
+    cold, cold_s, cold_rec = translate()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for k in range(NMT_WARM_RUNS):
+        if k == NMT_WARM_RUNS - 1:
+            reset_launch_counts()
+        got, wall, rec = translate()
+        walls.append(wall)
+        if not all(np.array_equal(a, b) for a, b in zip(got, cold)):
+            raise AssertionError("nmt_translate: a warm translation gave "
+                                 "other beams than the cold one")
+    counts = launch_counts_by_source()
+    peak = (torch.cuda.max_memory_allocated(),
+            torch.cuda.max_memory_reserved())
+    no_step = _syncs(torch, lambda: None)
+    where = []
+    syncs = _syncs(torch, lambda: exe.run(main, feed=feed,
+                                          fetch_list=fetch, scope=scope),
+                   where)
+    replay_ms, body_kernels = _body_replay_ms(torch, exe)
+    ids, scores = got
+    trips = rec["trips"]
+    warm = statistics.median(walls)
+    launched = {k: counts["wrapper"][k] + counts["graph_nodes"][k]
+                for k in counts["wrapper"]}
+    line = {"phase": "nmt_translate", "card": card_label(env),
+            "config": "build_infer, vocab %d, width %d, src_len %d, batch "
+                      "%d, beam %d, max_len %d, f32"
+                      % (NMT_VOCAB, NMT_WIDTH, NMT_LEN, NMT_INFER_BATCH,
+                         NMT_BEAM, NMT_MAX_LEN),
+            "trips": trips, "condition_reads": rec["cond_reads"],
+            "host_syncs_a_translation": syncs,
+            "host_sync_sites": sorted(set(where)),
+            "host_syncs_of_no_call": no_step,
+            "body_mode": rec["mode"], "body_reason": rec["reason"],
+            "cold_trips": {k: cold_rec[k] for k in (
+                "eager_trips", "captured_trips", "replayed_trips")},
+            "warm_trips": {k: rec[k] for k in (
+                "eager_trips", "captured_trips", "replayed_trips")},
+            "cold_s": cold_s, "warm_s": walls,
+            "loop_wall_ms": rec["wall_ms"],
+            "trip_wall_ms": rec["wall_ms"] / max(trips, 1),
+            "body_replay_device_ms": replay_ms,
+            "body_graph_kernel_nodes": body_kernels,
+            "sentences_per_s": NMT_INFER_BATCH / warm,
+            "tokens_per_s": NMT_INFER_BATCH * trips / warm,
+            "peak_allocated_bytes": peak[0], "peak_reserved_bytes": peak[1],
+            "launches": launched, "expected_launches": want,
+            "launches_by_source": counts,
+            "ids_shape": list(ids.shape),
+            "best_scores": scores[:4, 0].tolist()}
+    emit(line)
+    failed = []
+    if rec["mode"] != "graph" or rec["replayed_trips"] != trips:
+        failed.append("the body ran %s" % rec)
+    if launched != dict({k: 0 for k in launched}, **want):
+        failed.append("launches %s != %s" % (launched, want))
+    if list(ids.shape) != [NMT_INFER_BATCH, NMT_BEAM, NMT_MAX_LEN] \
+            or ids.min() < 0 or ids.max() >= NMT_VOCAB \
+            or not np.isfinite(scores).all() \
+            or (np.diff(scores, axis=1) > 0).any():
+        failed.append("beams out of shape, range or order: ids %s, scores "
+                      "%s" % (ids.shape, scores[:2]))
+    del exe, scope
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("nmt_translate: %s" % failed)
+    return counts
+
+
+def rnn_parity_cases(fluid, np):
+    """The three programs at RNN_PARITY's widths: ``(name, build, feed,
+    steps)``, ``build() -> (main, startup, fetch)``; the trainers take
+    ``steps`` Adam steps, the translation runs twice."""
+    from paddle_tpu_torch.models import machine_translation as mt
+    from paddle_tpu_torch.models import stacked_dynamic_lstm as sdl
+
+    p = RNN_PARITY
+    rng = np.random.RandomState(SEED + 34)
+    cases = []
+    for dynamic in (False, True):
+        def build(dynamic=dynamic):
+            main, startup, loss = _nmt_train_program(
+                fluid, mt, dynamic, p["vocab"], p["emb"], p["len"])
+            return main, startup, [loss]
+
+        cases.append(("build_train_dynamic" if dynamic else "build_train",
+                      build, nmt_batch(np, rng, p["vocab"], p["batch"],
+                                       p["len"], (2, p["len"])
+                                       if dynamic else None), 3))
+
+    def lstm():
+        main, startup, loss, acc = _lstm_program(
+            fluid, sdl, vocab_size=p["vocab"], seq_len=p["lstm_len"],
+            emb_dim=p["emb"], hidden_dim=p["hidden"])
+        return main, startup, [loss, acc]
+
+    cases.append(("stacked_dynamic_lstm", lstm,
+                  lstm_batch(np, rng, p["vocab"], p["batch"], p["lstm_len"],
+                             (2, p["lstm_len"])), 3))
+
+    def infer():
+        main, startup, fetch = _nmt_infer_program(
+            fluid, mt, p["vocab"], p["emb"], p["len"], p["batch"],
+            p["beam"], p["max_len"])
+        return main, startup, fetch
+
+    cases.append(("build_infer", infer, {"src": rng.randint(
+        3, p["vocab"], (p["batch"], p["len"])).astype("int64")}, 2))
+    return cases
+
+
+def rnn_parity_run(fluid, place, case, start=None):
+    """One case of :func:`rnn_parity_cases` on ``place``, from the
+    persistables ``start`` (the startup's own when None) → (the fetches
+    of each call, the start)."""
+    import numpy as np
+
+    from paddle_tpu_torch import convert
+
+    _name, build, feed, calls = case
+    main, startup, fetch = build()
+    scope = fluid.Scope()
+    exe = fluid.Executor(place)
+    exe.run(startup, scope=scope)
+    if start is None:
+        start = convert.scope_persistables(main, scope)
+    else:
+        convert.load_params_into_scope(start, scope, place, program=main)
+    outs = [[np.asarray(v) for v in exe.run(main, feed=feed,
+                                            fetch_list=fetch, scope=scope)]
+            for _ in range(calls)]
+    return outs, start
+
+
+def phase_rnn_parity(env):
+    """The NMT trainers, the stacked LSTM and the NMT translation at
+    RNN_PARITY's widths, on the card (through the executor's cache:
+    warm-up, capture, replay) and on the CPU from the card's start:
+    losses and accuracies within RNN_PARITY_RTOL of their scale, and the
+    translation's beam ids equal (the partings are counted, printed and
+    held to 0) and its scores within RNN_PARITY_RTOL."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+
+    failed = []
+    for case in rnn_parity_cases(fluid, np):
+        card, start = rnn_parity_run(fluid, fluid.CUDAPlace(0), case)
+        cpu, _ = rnn_parity_run(fluid, fluid.CPUPlace(), case, start)
+        err, partings = 0.0, 0
+        for got, want in zip(card, cpu):
+            for g, w in zip(got, want):
+                if g.dtype.kind in "biu":
+                    partings += int((g != w).sum())
+                    continue
+                scale = max(1.0, float(np.abs(w).max()))
+                err = max(err, float(np.abs(g - w).max()) / scale)
+        ok = err <= RNN_PARITY_RTOL and partings == 0
+        emit({"phase": "rnn_parity", "card": card_label(env),
+              "program": case[0], "widths": RNN_PARITY, "calls": case[3],
+              "card_first": [float(np.asarray(v).reshape(-1)[0])
+                             for v in card[0]],
+              "max_rel_err": err, "id_partings": partings,
+              "tol": RNN_PARITY_RTOL, "ok": ok})
+        if not ok:
+            failed.append(case[0])
+    if failed:
+        raise AssertionError("rnn_parity failed: %s" % failed)
+
+
 def telemetry_run(fluid, pred, requests, train, steps,
                   heartbeat_s=HEARTBEAT_S):
     """Under the telemetry directory the caller set: ``requests`` served
@@ -10013,6 +10551,10 @@ def _run_phases(torch):
     _timed(seconds, phase_decode_parity)
     loop_counts = _timed(seconds, phase_decode_loop, env, decode_rates)
     _timed(seconds, phase_control_flow_parity, env)
+    nmt_counts = _timed(seconds, phase_nmt_train, env)
+    lstm_counts = _timed(seconds, phase_lstm, env)
+    translate_counts = _timed(seconds, phase_nmt_translate, env)
+    _timed(seconds, phase_rnn_parity, env)
     _timed(seconds, phase_sampled, env, decode_rates)
     _timed(seconds, phase_serve, env)
     resnet_counts, resnet_groups = _timed(seconds, phase_resnet, env)
@@ -10046,7 +10588,10 @@ def _run_phases(torch):
                     "graph_nodes": dict.fromkeys(KERNELS, 0)},
              "serve_bf16": serve_bf16_counts, "train_amp": train_amp_counts,
              "resnet_amp": resnet_amp_counts, "train_recipe": recipe_counts,
-             "dygraph": dygraph_counts, "decode_loop": loop_counts}
+             "dygraph": dygraph_counts, "decode_loop": loop_counts,
+             "nmt_train": nmt_counts["build_train"],
+             "nmt_train_dynamic": nmt_counts["build_train_dynamic"],
+             "lstm": lstm_counts, "nmt_translate": translate_counts}
     for r in rows:
         # the decode path's launches (ring + paged runs) where it runs the
         # kernel, else the BERT training path's (the backward kernels),

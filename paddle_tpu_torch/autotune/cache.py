@@ -185,13 +185,12 @@ def record(sig, entry):
 
 
 def state_token():
-    """Hashable token of the cache state this process sees, part of the
-    fusion signature (hence of the executor's cache key): a write, here
-    or by another process, gives a new token, so clones resolved under
-    the old decisions are resolved again (another process's within
-    ``_RESTAT_S``).  Stable across a program's first lookup (an
-    ``os.stat`` at most every ``_RESTAT_S``, a parse only when the mtime
-    moved)."""
+    """Hashable token of the cache state this process sees: a write,
+    here or by another process, gives a new token (another process's
+    within ``_RESTAT_S``), and a cached fusion resolution then looks
+    again at the entries it read, resolving again only if one moved.
+    Stable across a program's first lookup (an ``os.stat`` at most every
+    ``_RESTAT_S``, a parse only when the mtime moved)."""
     if not autotune_enabled():
         return ("autotune-off",)
     path = cache_path()

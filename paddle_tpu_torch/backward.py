@@ -9,14 +9,16 @@ with no gradient path.  The grad program is the reference's, op for op;
 each grad op is the registry's generic ``<type>_grad``, which
 differentiates the autograd graph its forward recorded in the same run
 (``ops/registry.py``).  A sub-block op (``while``, ``conditional_block``,
-a ``recompute_block`` region) gets one ``<type>_grad`` op
+``recurrent``, a ``recompute_block`` region) gets one ``<type>_grad`` op
 (``_backprop_sub_block_op`` :218-316): it reads the op's inputs, its
 ``Captured`` outer vars (the names its block reads before writing them
 that resolve outside it: the parameters it uses among them), its outputs
 and their gradients, and writes ``Captured@GRAD``; a ``while``'s also
 writes ``StateIn@GRAD``, the gradients of its loop-state vars' pre-loop
-values, which then flow on to the ops before the loop.  The grad of
-``recurrent`` is not ported (ROADMAP.md, Queue A item 5).
+values, which then flow on to the ops before the loop, and a
+``recurrent``'s ``inputs@GRAD`` and ``initial_states@GRAD``, those of
+its sequence inputs and initial states (its step inputs and states are
+not captured vars).
 ``checkpoints`` is accepted and unused, as in the reference (:319):
 regions come from ``layers.recompute()`` or
 ``optimizer.rewrite_program_recompute``.
@@ -108,10 +110,6 @@ class _GradEngine:
 
     def backprop_op(self, op):
         """Append the grad op of ``op``; True if one was appended."""
-        if op.type == "recurrent":
-            raise NotImplementedError(
-                "the gradient of 'recurrent' is not ported yet (ROADMAP.md, "
-                "Queue A item 5: StaticRNN and DynamicRNN)")
         if op.type in _SUB_BLOCK_OPS:
             return self._backprop_sub_block_op(op)
         try:
@@ -188,24 +186,31 @@ class _GradEngine:
         return out
 
     def _backprop_sub_block_op(self, op):
-        """The ``<type>_grad`` op of a ``while``, ``conditional_block`` or
-        ``recompute_block`` (the reference's :218-316)."""
-        out_names = op.outputs.get("Out", [])
+        """The ``<type>_grad`` op of a ``while``, ``conditional_block``,
+        ``recurrent`` or ``recompute_block`` (the reference's
+        :218-316)."""
+        out_slot = "outputs" if op.type == "recurrent" else "Out"
+        out_names = op.outputs.get(out_slot, [])
         gnames = [self.resolve(y) or op_registry.EMPTY_VAR_NAME
                   for y in out_names]
         if all(g == op_registry.EMPTY_VAR_NAME for g in gnames):
             return False
         sub_block = self.block.program.block(op.attrs["sub_block"])
         # a while's loop-state vars take their grads through StateIn@GRAD
-        # (of their pre-loop values), not as captured vars
+        # (of their pre-loop values), a recurrent's step inputs and
+        # states through inputs@GRAD and initial_states@GRAD, not as
+        # captured vars
         exclude = set(out_names) if op.type == "while" else set()
+        if op.type == "recurrent":
+            exclude.update(op.attrs.get("step_input_names", []))
+            exclude.update(op.attrs.get("state_names", []))
         captured = [n for n in cf_ops.sub_block_external_reads(sub_block,
                                                                exclude)
                     if self.block._find_var_recursive(n) is not None]
         inputs = {k: list(v) for k, v in op.inputs.items()}
         inputs["Captured"] = captured
-        inputs["Out"] = list(out_names)
-        inputs["Out@GRAD"] = gnames
+        inputs[out_slot] = list(out_names)
+        inputs[out_slot + "@GRAD"] = gnames
         outputs, targets = {}, []
         if op.type == "while":
             # the grads resolved above are of the post-loop values; the
@@ -217,6 +222,11 @@ class _GradEngine:
             gouts = self._grad_names(out_names, targets)
             if any(g != op_registry.EMPTY_VAR_NAME for g in gouts):
                 outputs["StateIn@GRAD"] = gouts
+        for slot in (("inputs", "initial_states")
+                     if op.type == "recurrent" else ()):
+            gouts = self._grad_names(op.inputs.get(slot, []), targets)
+            if any(g != op_registry.EMPTY_VAR_NAME for g in gouts):
+                outputs[slot + "@GRAD"] = gouts
         outputs["Captured@GRAD"] = self._grad_names(captured, targets)
         if not targets:
             return False

@@ -5,8 +5,8 @@
 ``ConditionalBlock`` (:330), the recompute regions,
 ``make_recompute_region_op_spec`` (:362), ``_RecomputeGuard`` (:390) and
 ``recompute()`` (:436), ``Switch`` (:464), ``IfElse`` (:510-627),
-``Print`` (:981) and ``is_empty`` (:996).  ``StaticRNN`` and
-``DynamicRNN`` are not ported (ROADMAP.md, Queue A item 5).  Also
+``StaticRNN`` (:630-786), ``DynamicRNN`` (:788-978), ``Print`` (:981),
+``is_empty`` (:996) and ``reorder_lod_tensor_by_rank`` (:1005).  Also
 ``autoincreased_step_counter`` (the reference's ``layers/nn_extra.py:496``),
 a step counter for ``ExponentialMovingAverage(thres_steps=...)``.
 
@@ -35,7 +35,8 @@ __all__ = ["increment", "autoincreased_step_counter", "less_than",
            "less_equal", "greater_than", "greater_equal", "equal",
            "not_equal", "create_array", "array_write", "array_read",
            "array_length", "While", "cond", "ConditionalBlock", "Switch",
-           "IfElse", "recompute", "Print", "is_empty"]
+           "IfElse", "StaticRNN", "DynamicRNN", "recompute", "Print",
+           "is_empty", "reorder_lod_tensor_by_rank"]
 
 
 def increment(x, value=1.0, in_place=True):
@@ -523,6 +524,236 @@ class IfElse:
         return merged
 
 
+class _RNNGuard(BlockGuard):
+    """Opens the step block of a StaticRNN or DynamicRNN; on a clean exit
+    closes it and appends the ``recurrent`` op."""
+
+    def __init__(self, rnn):
+        super().__init__(rnn.helper.main_program)
+        self.rnn = rnn
+
+    def __enter__(self):
+        self.rnn._sub_block = self.program._create_block()
+        self.rnn.status = self.rnn.IN_RNN_BLOCK
+        return self
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        if exc_type is not None:
+            return False
+        self.program._rollback()
+        self.rnn.status = self.rnn.AFTER_RNN_BLOCK
+        self.rnn._complete()
+        return True
+
+
+class _RNN:
+    """What StaticRNN and DynamicRNN share: the step block, its memories
+    and outputs, and the ``recurrent`` op they append."""
+
+    BEFORE_RNN_BLOCK = 0
+    IN_RNN_BLOCK = 1
+    AFTER_RNN_BLOCK = 2
+
+    def __init__(self, layer_type, name=None):
+        self.helper = LayerHelper(layer_type, name=name)
+        self.status = self.BEFORE_RNN_BLOCK
+        self._sub_block = None
+        self.seq_inputs = []       # outer sequence vars
+        self.step_input_vars = []  # their per-step vars in the step block
+        self.memories = []         # (pre-state var, initial var)
+        self.mem_updates = {}      # pre-state name -> new state name
+        self.step_outputs = []
+        self.outputs = []          # outer stacked outputs
+
+    def _assert_in_rnn_block(self, method):
+        if self.status != self.IN_RNN_BLOCK:
+            raise RuntimeError("%s() can only be called inside the RNN's "
+                               "step block" % method)
+
+    def _step_var(self, x, shape):
+        self.seq_inputs.append(x)
+        sv = self._sub_block.create_var(
+            name=self.helper.name + ".step_in_%d"
+            % len(self.step_input_vars), shape=shape, dtype=x.dtype)
+        self.step_input_vars.append(sv)
+        return sv
+
+    def _filled_init(self, ref, shape, dtype, value, batch_dim):
+        """A [batch, *shape] initial state filled with ``value``, made in
+        the parent block before the op (batch from ``ref``'s
+        ``batch_dim``)."""
+        parent = self.helper.main_program.block(self._sub_block.parent_idx)
+        init = parent.create_var(
+            name=self.helper.name + ".mem_init_%d" % len(self.memories),
+            shape=(-1,) + tuple(shape), dtype=dtype)
+        parent.append_op(
+            type="fill_constant_batch_size_like", inputs={"Input": [ref]},
+            outputs={"Out": [init]},
+            attrs={"shape": [0] + [int(s) for s in shape], "dtype": dtype,
+                   "value": float(value), "input_dim_idx": batch_dim,
+                   "output_dim_idx": 0})
+        return init
+
+    def _memory_of(self, init):
+        pre = self._sub_block.create_var(
+            name=self.helper.name + ".mem_%d" % len(self.memories),
+            shape=init.shape, dtype=init.dtype)
+        self.memories.append((pre, init))
+        return pre
+
+    def update_memory(self, mem, var):
+        self._assert_in_rnn_block("update_memory")
+        self.mem_updates[mem.name] = var.name
+
+    def __call__(self, *args):
+        if self.status != self.AFTER_RNN_BLOCK:
+            raise RuntimeError("RNN output requested before its step "
+                               "block closed")
+        if len(self.outputs) == 1:
+            return self.outputs[0]
+        return self.outputs
+
+    def _append_recurrent(self, out_shapes, inputs, attrs):
+        parent = self.helper.main_program.current_block()
+        self.outputs = [
+            parent.create_var(name=self.helper.name + ".out_%d" % i,
+                              shape=shape, dtype=so.dtype)
+            for i, (so, shape) in enumerate(zip(self.step_outputs,
+                                                out_shapes))]
+        inputs = dict({
+            "inputs": [v.name for v in self.seq_inputs],
+            "initial_states": [init.name for _, init in self.memories]},
+            **inputs)
+        attrs = dict({"sub_block": self._sub_block.idx}, **attrs)
+        attrs.update({
+            "step_input_names": [v.name for v in self.step_input_vars],
+            "state_names": [pre.name for pre, _ in self.memories],
+            "state_out_names": [self.mem_updates.get(pre.name, pre.name)
+                                for pre, _ in self.memories],
+            "step_output_names": [v.name for v in self.step_outputs]})
+        parent.append_op(
+            type="recurrent", inputs=inputs,
+            outputs={"outputs": [v.name for v in self.outputs],
+                     "final_states": []},
+            attrs=attrs)
+
+
+class StaticRNN(_RNN):
+    """An RNN over time-major [T, B, ...] sequences: the step block runs
+    once per time step (one ``recurrent`` op)."""
+
+    def __init__(self, name=None):
+        super().__init__("static_rnn", name=name)
+
+    def step(self):
+        return _RNNGuard(self)
+
+    def step_input(self, x):
+        self._assert_in_rnn_block("step_input")
+        return self._step_var(x, x.shape[1:] if x.shape else None)
+
+    def memory(self, init=None, shape=None, batch_ref=None,
+               init_value=0.0, init_batch_dim_idx=0, ref_batch_dim_idx=1):
+        self._assert_in_rnn_block("memory")
+        if init is None:
+            if shape is None or batch_ref is None:
+                raise ValueError("memory needs init or (shape & batch_ref)")
+            for sv, seq in zip(self.step_input_vars, self.seq_inputs):
+                if batch_ref is sv or batch_ref.name == sv.name:
+                    break
+            else:
+                raise ValueError(
+                    "batch_ref must be one of this RNN's step_input vars")
+            # batch dim 1 of the time-major outer sequence
+            init = self._filled_init(seq, shape, "float32", init_value, 1)
+        return self._memory_of(init)
+
+    def step_output(self, o):
+        self._assert_in_rnn_block("step_output")
+        self.step_outputs.append(o)
+
+    def output(self, *outputs):
+        for o in outputs:
+            self.step_output(o)
+
+    def _complete(self):
+        steps = self.seq_inputs[0].shape[0] if self.seq_inputs else -1
+        self._append_recurrent(
+            [(steps,) + tuple(so.shape or ()) for so in self.step_outputs],
+            {}, {})
+
+
+class DynamicRNN(_RNN):
+    """An RNN over padded batch-major [B, T, ...] sequences of
+    ``lengths`` [B]: the step block runs T times, and a row at ``t >=
+    length`` keeps its state, its step outputs zero (the padded form of
+    the reference's rank-table reordering)::
+
+        drnn = DynamicRNN()
+        with drnn.block():
+            x_t = drnn.step_input(x, lengths=seq_len)   # x: [B, T, D]
+            h_prev = drnn.memory(shape=[H], value=0.0)
+            h = some_layers(x_t, h_prev)
+            drnn.update_memory(h_prev, h)
+            drnn.output(h)
+        out = drnn()                                    # [B, T, H]
+    """
+
+    def __init__(self, name=None):
+        super().__init__("dynamic_rnn", name=name)
+        self.lengths = None
+
+    def block(self):
+        return _RNNGuard(self)
+
+    def step_input(self, x, level=0, lengths=None):
+        """A [B, T, ...] padded sequence; the first one comes with its
+        ``lengths`` ([B] ints, the reference's LoD offsets)."""
+        self._assert_in_rnn_block("step_input")
+        if lengths is not None:
+            self.lengths = lengths
+        if self.lengths is None:
+            raise ValueError(
+                "DynamicRNN.step_input needs a `lengths` tensor with the "
+                "first sequence input (padded batches carry explicit "
+                "lengths instead of LoD)")
+        shape = None
+        if x.shape is not None:
+            shape = (x.shape[0],) + tuple(x.shape[2:])
+        return self._step_var(x, shape)
+
+    def static_input(self, x):
+        """A var every step reads as it is (the step block reads it from
+        outside; no reordering in the padded form)."""
+        self._assert_in_rnn_block("static_input")
+        return x
+
+    def memory(self, init=None, shape=None, value=0.0, need_reorder=False,
+               dtype="float32"):
+        self._assert_in_rnn_block("memory")
+        if init is None:
+            if shape is None or not self.seq_inputs:
+                raise ValueError(
+                    "memory needs init=, or shape= after a step_input")
+            # batch dim 0 of the batch-major outer sequence
+            init = self._filled_init(self.seq_inputs[0], shape, dtype,
+                                     value, 0)
+        return self._memory_of(init)
+
+    def output(self, *outputs):
+        self._assert_in_rnn_block("output")
+        self.step_outputs.extend(outputs)
+
+    def _complete(self):
+        shape = self.seq_inputs[0].shape
+        batch, steps = (shape[0], shape[1]) if shape else (-1, -1)
+        self._append_recurrent(
+            [(batch, steps) + tuple((so.shape or ())[1:])
+             for so in self.step_outputs],
+            {"sequence_length": [self.lengths.name]},
+            {"time_major": False})
+
+
 def Print(input, first_n=-1, message=None, summarize=-1,
           print_tensor_name=True, print_tensor_type=True,
           print_tensor_shape=True, print_tensor_lod=True,
@@ -541,5 +772,14 @@ def is_empty(x, cond=None):
     helper = LayerHelper("is_empty")
     out = cond or helper.create_variable_for_type_inference("bool", True)
     helper.append_op(type="is_empty", inputs={"X": [x]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def reorder_lod_tensor_by_rank(x, rank_table):
+    helper = LayerHelper("reorder_lod_tensor_by_rank")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="reorder_lod_tensor_by_rank",
+                     inputs={"X": [x], "RankTable": [rank_table]},
                      outputs={"Out": [out]})
     return out

@@ -2,8 +2,9 @@
 (mirrors ``paddle_tpu/layers/nn.py``: ``fc`` :87, ``embedding`` :124,
 ``layer_norm`` :342, ``dropout`` :408, ``softmax`` :427,
 ``cross_entropy`` :447, ``softmax_with_cross_entropy`` :459,
-``reduce_sum`` :574, ``matmul`` :594, ``elementwise_add/sub/mul/div``
-:637-650, ``elementwise_max/min/pow`` :653-661, ``reshape`` :665,
+``log_softmax`` :437, ``reduce_sum`` / ``reduce_mean`` / ``reduce_max``
+:574-582, ``matmul`` :594, ``split`` :703, ``expand`` :785,
+``elementwise_add/sub/mul/div`` :637-650, ``elementwise_max/min/pow`` :653-661, ``reshape`` :665,
 ``transpose`` :678, ``squeeze``/``unsqueeze`` :724-748, ``slice`` :795,
 ``gather`` :806, ``clip`` / ``clip_by_norm`` :901-918, ``where`` :1050,
 ``one_hot`` :838, ``fused_dropout_add_ln`` :1084,
@@ -21,9 +22,9 @@ from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
 __all__ = ["fc", "embedding", "layer_norm", "dropout", "softmax",
-           "cross_entropy", "softmax_with_cross_entropy", "reduce_sum",
-           "reduce_all", "reduce_any",
-           "matmul",
+           "log_softmax", "cross_entropy", "softmax_with_cross_entropy",
+           "reduce_sum", "reduce_mean", "reduce_max", "reduce_all",
+           "reduce_any", "matmul", "split", "expand",
            "elementwise_add", "elementwise_sub", "elementwise_mul",
            "elementwise_div", "elementwise_max", "elementwise_min",
            "elementwise_pow", "reshape", "transpose", "squeeze", "unsqueeze",
@@ -137,6 +138,14 @@ def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
     return out
 
 
+def log_softmax(input, axis=-1, name=None):
+    helper = LayerHelper("log_softmax", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="log_softmax", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
 def cross_entropy(input, label, soft_label=False, ignore_index=-100):
     helper = LayerHelper("cross_entropy", **locals())
     out = helper.create_variable_for_type_inference(input.dtype)
@@ -164,16 +173,28 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     return loss
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    helper = LayerHelper("reduce_sum", **locals())
+def _reduce(op_type, input, dim, keep_dim, name):
+    helper = LayerHelper(op_type, input=input, name=name)
     out = helper.create_variable_for_type_inference(input.dtype)
     if dim is not None and not isinstance(dim, (list, tuple)):
         dim = [dim]
     helper.append_op(
-        type="reduce_sum", inputs={"X": [input]}, outputs={"Out": [out]},
+        type=op_type, inputs={"X": [input]}, outputs={"Out": [out]},
         attrs={"dim": dim if dim is not None else [0], "keep_dim": keep_dim,
                "reduce_all": dim is None})
     return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_sum", input, dim, keep_dim, name)
+
+
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_mean", input, dim, keep_dim, name)
+
+
+def reduce_max(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_max", input, dim, keep_dim, name)
 
 
 def _reduce_logical(op_type, input, dim, keep_dim):
@@ -305,6 +326,32 @@ def squeeze(input, axes, name=None):
 
 def unsqueeze(input, axes, name=None):
     return _shape_op("unsqueeze2", input, axes)
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper("split", **locals())
+    dim = dim if dim >= 0 else dim + len(input.shape)
+    if isinstance(num_or_sections, int):
+        num = num_or_sections
+        attrs = {"num": num, "axis": dim, "sections": []}
+    else:
+        num = len(num_or_sections)
+        attrs = {"num": 0, "axis": dim,
+                 "sections": [int(s) for s in num_or_sections]}
+    outs = [helper.create_variable_for_type_inference(input.dtype)
+            for _ in range(num)]
+    helper.append_op(type="split", inputs={"X": [input]},
+                     outputs={"Out": outs}, attrs=attrs)
+    return outs
+
+
+def expand(x, expand_times, name=None):
+    helper = LayerHelper("expand", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="expand", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"expand_times": [int(t) for t in expand_times]})
+    return out
 
 
 def gather(input, index, overwrite=True):

@@ -13,11 +13,11 @@ things current while the job runs:
 * calibration factors recorded into the autotune cache while steps
   run, so steady-state training teaches the cost model too.
 
-Recording discipline: an autotune-cache write bumps the cache
-``state_token`` which is folded into fusion signatures (hence the
-executor's cache key), so an undisciplined per-step write would force a
-fusion resolve and a new CUDA graph capture every step.  Writes are
-therefore throttled: only after a warmup, at most every
+Recording discipline: an autotune-cache write is a file write, and it
+moves the cache's ``state_token``, after which every cached fusion
+resolution looks again at the calibration factors it read (no fusion
+gate reads the ``drift`` family, so none resolves again).  Writes are
+throttled: only after a warmup, at most every
 ``PADDLE_TPU_DRIFT_RECORD_EVERY`` steps, and only when the factor moved
 by more than
 ``PADDLE_TPU_DRIFT_RECORD_DELTA`` (default 10%) from what the cache
@@ -40,8 +40,8 @@ DRIFT_CALIBRATION_FAMILY = "drift"
 
 _EMA_ALPHA = 0.1
 _WARMUP_STEPS = 5
-#: a calibration write costs a fusion re-resolve and a new graph
-#: capture (the autotune state_token is part of the executor's keys), so
+#: a calibration write costs a file write and a look at every cached
+#: fusion resolution's reads, so
 #: the FIRST record waits until the EMA has actually converged —
 #: recording at step 5 guarantees a >10%-moved re-record (and another
 #: capture) a hundred steps later as the EMA settles
@@ -332,9 +332,7 @@ class DriftMonitor:
         """Whether the continuous calibration feedback writes to the
         autotune cache: ``PADDLE_TPU_DRIFT_RECORD=1/0`` wins; default
         is on exactly when a telemetry dir is configured (a deployed
-        run), so the write — which bumps the autotune ``state_token``
-        and costs one fusion re-resolve — never perturbs plain
-        programmatic use.  Cached per monitor (env reads are off the
+        run), so the write never perturbs plain programmatic use.  Cached per monitor (env reads are off the
         step budget); ``reset_drift()`` re-arms it."""
         if self._recording is None:
             v = os.environ.get(

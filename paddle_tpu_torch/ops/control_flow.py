@@ -2,11 +2,12 @@
 ``paddle_tpu/ops/control_flow.py``: ``SUB_BLOCK_OPS`` :22, the array
 capacity :26-27, ``_carry_analysis`` :41, ``sub_block_external_reads``
 :65, ``while`` :112-153, ``recompute_block`` :155-181,
-``conditional_block`` :183-203, ``while_grad`` :232-346,
-``recompute_block_grad`` :500-537, ``conditional_block_grad`` :540-583,
-the array ops :588-621 and :713-728, ``split_lod_tensor`` /
-``merge_lod_tensor`` :623-648).  ``recurrent`` and the LoD rank-table ops
-are not ported (ROADMAP.md, Queue A item 5).
+``conditional_block`` :183-203, ``while_grad`` :232-346, ``recurrent``
+(``_seq_lengths``, ``_make_step``, ``_run_recurrent``) :349-440,
+``recurrent_grad`` :442-498, ``recompute_block_grad`` :500-537,
+``conditional_block_grad`` :540-583, the array ops :588-621 and
+:713-728, ``split_lod_tensor`` / ``merge_lod_tensor`` :623-648, the LoD
+rank-table ops :650-711).
 
 A sub-block op is not a registered lowering: the executor hands it, with
 its block, to :func:`run_sub_block_op`, which runs the sub-block's ops
@@ -44,6 +45,20 @@ the same ops with the same op ids in the same step, so each dropping op
 draws the mask of its first run, and an in-place op writes a copy, so
 the region's state is written once a step.
 
+``recurrent`` (StaticRNN, and DynamicRNN with ``time_major=False`` and a
+``sequence_length`` input) runs its step block once per time step of its
+sequence inputs, a static count (the padded T: no host read), each step
+in an environment of its own that starts from the caller's, with the
+states and the step's slices bound.  DynamicRNN's mask ``t < length`` is
+built on the device: a row at ``t >= length`` keeps its previous state
+and its step outputs are zero.  The outputs are the step outputs stacked
+along time.  ``recurrent_grad`` runs the T steps again under
+``torch.enable_grad()`` and calls ``torch.autograd.grad`` once, with
+respect to the sequence inputs, the initial states and the captured
+outer vars (the parameters the step reads).  Nothing goes through the
+host between steps, so a step holding a ``recurrent`` and its grad
+captures whole in one CUDA graph.
+
 ``conditional_block`` reads its predicate on the host and runs the block
 only when it is true; the branch not taken writes nothing.  Its grad
 runs the taken branch again under autograd; an untaken branch gives zero
@@ -60,8 +75,8 @@ import torch
 from .registry import EMPTY_VAR_NAME, register_op
 
 __all__ = ["SUB_BLOCK_OPS", "ARRAY_CAPACITY_ATTR", "DEFAULT_ARRAY_CAPACITY",
-           "TensorArray", "sub_block_external_reads", "while_carries",
-           "run_sub_block_op", "host_true"]
+           "TensorArray", "RankTable", "sub_block_external_reads",
+           "while_carries", "run_sub_block_op", "host_true"]
 
 SUB_BLOCK_OPS = ("while", "conditional_block", "recurrent",
                  "recurrent_grad", "conditional_block_grad", "while_grad",
@@ -157,6 +172,17 @@ class TensorArray:
         return self.buffer.is_floating_point()
 
 
+class RankTable:
+    """A LoD rank table in its padded form: the [B] sequence ``lengths``
+    and ``order``, the rows by descending length (ties by row)."""
+
+    __slots__ = ("lengths", "order")
+
+    def __init__(self, lengths, order):
+        self.lengths = lengths
+        self.order = order
+
+
 def run_sub_block_op(op, block, env, ctx, run_block, live):
     """Run the sub-block op ``op`` of ``block`` on ``env``;
     ``run_block(sub_block, env, replay)`` runs a block's ops into an
@@ -178,10 +204,12 @@ def run_sub_block_op(op, block, env, ctx, run_block, live):
         _run_conditional(op, sub_block, env, run_block)
     elif op.type == "conditional_block_grad":
         _run_conditional_grad(op, sub_block, env, run_block)
+    elif op.type == "recurrent":
+        _run_recurrent(op, sub_block, env, run_block)
+    elif op.type == "recurrent_grad":
+        _run_recurrent_grad(op, sub_block, env, run_block)
     else:
-        raise NotImplementedError(
-            "the %r op is not ported yet (ROADMAP.md, Queue A item 5: "
-            "recurrent, StaticRNN and DynamicRNN)" % op.type)
+        raise NotImplementedError("sub-block op %r" % op.type)
 
 
 def _run_while(op, block, sub_block, env, ctx, run_block):
@@ -366,6 +394,114 @@ def _run_recompute_grad(op, sub_block, env, run_block):
         env[name] = _zeros_like(env[cap[i]]) if g is None else g
 
 
+def _seq_lengths(env, op):
+    """The [B] lengths of a DynamicRNN (its ``sequence_length`` input), or
+    None for a StaticRNN."""
+    names = op.inputs.get("sequence_length", [])
+    if not names or not _named(names[0]):
+        return None
+    return env[names[0]].reshape(-1)
+
+
+def _time_mask(op, env, steps, device):
+    """[T, B] bool, ``t < length``, on the device; None without lengths."""
+    lengths = _seq_lengths(env, op)
+    if lengths is None:
+        return None
+    return torch.arange(steps, device=device)[:, None] \
+        < lengths.to(device)[None, :]
+
+
+def _run_steps(op, sub_block, env, run_block, xs, carry, caps, again):
+    """The step block over the time-major sequences ``xs`` from the
+    states ``carry`` → (the final states, each step output stacked along
+    time), each step in an environment of its own (the caller's, with
+    ``caps`` over it)."""
+    step_inputs = op.attrs["step_input_names"]
+    state_names = op.attrs["state_names"]
+    state_out_names = op.attrs["state_out_names"]
+    step_output_names = op.attrs["step_output_names"]
+    steps = xs[0].shape[0] if xs else int(op.attrs.get("max_len", 0))
+    device = xs[0].device if xs else carry[0].device
+    mask = _time_mask(op, env, steps, device)
+    ys = [[] for _ in step_output_names]
+    for t in range(steps):
+        e = dict(env)
+        e.update(caps)
+        e.update(zip(state_names, carry))
+        e.update((n, x[t]) for n, x in zip(step_inputs, xs))
+        run_block(sub_block, e, again)
+        new = [e[n] for n in state_out_names]
+        outs = [e[n] for n in step_output_names]
+        if mask is not None:
+            # rows at t >= length keep their state; their outputs are 0
+            def keep(v, m=mask[t]):
+                return m.reshape((-1,) + (1,) * (v.dim() - 1))
+
+            new = [torch.where(keep(nv), nv, ov)
+                   for nv, ov in zip(new, carry)]
+            outs = [torch.where(keep(y), y, torch.zeros_like(y))
+                    for y in outs]
+        carry = new
+        for acc, y in zip(ys, outs):
+            acc.append(y)
+    return carry, [torch.stack(acc) for acc in ys]
+
+
+def _run_recurrent(op, sub_block, env, run_block):
+    time_major = op.attrs.get("time_major", True)
+    xs = [env[n] for n in op.input("inputs")]
+    if not time_major:
+        xs = [x.movedim(1, 0) for x in xs]  # [B, T, ...] -> [T, B, ...]
+    carry = [env[n] for n in op.input("initial_states")]
+    # in-place ops of the step write copies: each step reads the caller's
+    # values as they were, as the reference's scan does
+    final, stacked = _run_steps(op, sub_block, env, run_block, xs, carry,
+                                {}, True)
+    for n, v in zip(op.output("outputs"), stacked):
+        env[n] = v if time_major else v.movedim(0, 1)
+    for n, v in zip(op.outputs.get("final_states", []), final):
+        env[n] = v
+
+
+def _run_recurrent_grad(op, sub_block, env, run_block):
+    time_major = op.attrs.get("time_major", True)
+    leaves = {}
+
+    def values(slot):
+        """The slot's values, a leaf for each with a gradient to give."""
+        grads = dict(zip(op.input(slot), op.outputs.get(slot + "@GRAD", ())))
+        vals = []
+        for n in op.input(slot):
+            v = env[n]
+            if _named(grads.get(n)) and v.is_floating_point():
+                v = leaves[(slot, n)] = _leaf(v)
+            vals.append(v)
+        return vals
+
+    xs = values("inputs")
+    carry = values("initial_states")
+    caps = dict(zip(op.input("Captured"), values("Captured")))
+    with torch.enable_grad():
+        if not time_major:
+            xs = [x.movedim(1, 0) for x in xs]
+        _, stacked = _run_steps(op, sub_block, env, run_block, xs, carry,
+                                caps, True)
+        if not time_major:
+            stacked = [y.movedim(0, 1) for y in stacked]
+    outs, cots = [], []
+    for y, g in zip(stacked, op.input("outputs@GRAD")):
+        if _named(g) and g in env and y.requires_grad:
+            outs.append(y)
+            cots.append(env[g].to(y.dtype))
+    got = _grads(outs, cots, leaves)
+    for slot in ("inputs", "initial_states", "Captured"):
+        for n, g in zip(op.input(slot), op.outputs.get(slot + "@GRAD", ())):
+            if _named(g):
+                grad = got.get((slot, n))
+                env[g] = _zeros_like(env[n]) if grad is None else grad
+
+
 # ---------------------------------------------------------------------------
 # Tensor arrays (the reference's LoDTensorArray ops)
 # ---------------------------------------------------------------------------
@@ -451,3 +587,63 @@ def merge_lod_tensor(ctx, attrs, InTrue, InFalse, Mask, X):
     elif m.dim() > InTrue.dim():
         m = m.reshape(tuple(m.shape[:InTrue.dim()]))
     return torch.where(m.bool(), InTrue, InFalse)
+
+
+# ---------------------------------------------------------------------------
+# LoD rank tables, in their padded form (the reference's :650-711)
+# ---------------------------------------------------------------------------
+
+
+@register_op("lod_rank_table", inputs=["X"], outputs=["Out"], no_grad=True,
+             infer_shape=_no_infer)
+def lod_rank_table(ctx, attrs, X):
+    """The rank table of a padded batch: ``X`` is its [B] lengths (a [B,
+    T, ...] batch: every row T long), and the rows by descending length,
+    ties by row, as the reference's stable sort."""
+    if X.dim() <= 1:
+        lengths = X.reshape(-1)
+    else:
+        lengths = torch.full((X.shape[0],), X.shape[1], dtype=torch.int32,
+                             device=X.device)
+    order = torch.argsort(-lengths.to(torch.int32), stable=True)
+    return RankTable(lengths, order)
+
+
+@register_op("max_sequence_len2", inputs=["RankTable"], outputs=["Out"],
+             no_grad=True, infer_shape=_no_infer)
+def max_sequence_len2(ctx, attrs, RankTable):
+    """The longest length, [1] int64 (the reference's is int32: jax
+    without x64)."""
+    return RankTable.lengths.max().reshape(1).to(torch.int64)
+
+
+@register_op("lod_tensor_to_array", inputs=["X", "RankTable"],
+             outputs=["Out"], infer_shape=_no_infer)
+def lod_tensor_to_array(ctx, attrs, X, RankTable):
+    """A padded [B, T, ...] batch as an array of its T time steps: the
+    time-major copy is the buffer (written arrays must not alias X)."""
+    buf = X.movedim(1, 0).clone(memory_format=torch.contiguous_format)
+    return TensorArray(buf, torch.tensor(buf.shape[0], dtype=torch.int32,
+                                         device=X.device))
+
+
+@register_op("array_to_lod_tensor", inputs=["X", "RankTable"],
+             outputs=["Out"], infer_shape=_no_infer)
+def array_to_lod_tensor(ctx, attrs, X, RankTable):
+    """The array's rows stacked batch-major, [B, T, ...]."""
+    return X.buffer.movedim(0, 1)
+
+
+@register_op("shrink_rnn_memory", inputs=["X", "RankTable", "I"],
+             outputs=["Out"], infer_shape=_no_infer)
+def shrink_rnn_memory(ctx, attrs, X, RankTable, I):
+    """The identity: a padded batch keeps every row, and the recurrence's
+    mask, not the batch's size, ends a finished sequence."""
+    return X
+
+
+@register_op("reorder_lod_tensor_by_rank", inputs=["X", "RankTable"],
+             outputs=["Out"], infer_shape=_no_infer)
+def reorder_lod_tensor_by_rank(ctx, attrs, X, RankTable):
+    """The rows of ``X`` in the rank table's order."""
+    return X.index_select(0, RankTable.order)

@@ -1,6 +1,7 @@
 """The standalone ``fc`` op (mirrors ``paddle_tpu/ops/extra.py:477``),
-emitted by the inference ``fc_fuse_pass``, and the control-flow layers'
-``is_empty`` (:72) and ``print`` (:327)."""
+emitted by the inference ``fc_fuse_pass``, the control-flow layers'
+``is_empty`` (:72) and ``print`` (:327), and ``max_sequence_len``
+(:566)."""
 
 import math as _math
 
@@ -38,3 +39,12 @@ def print_op(ctx, attrs, In):
         print(attrs.get("message", "") + str(In.detach().cpu().numpy()),
               flush=True)
     return In.clone()
+
+
+@register_op("max_sequence_len", inputs=["RankTable"], outputs=["Out"],
+             no_grad=True)
+def max_sequence_len(ctx, attrs, RankTable):
+    """The longest length of a rank table, or of a lengths tensor (the
+    padded form's rank table), [1] int64."""
+    lengths = getattr(RankTable, "lengths", RankTable)
+    return lengths.max().reshape(1).to(torch.int64)

@@ -1,7 +1,8 @@
 """Matmul / elementwise / reduction ops (mirrors ``paddle_tpu/ops/math.py``:
 ``mul`` at :23, ``matmul``, ``elementwise_add/sub/mul/div`` :66-68,
-``elementwise_min/max/pow`` :69-71, ``reduce_sum`` :98, ``reduce_all`` /
-``reduce_any`` :103-104, ``mean`` :107,
+``elementwise_min/max/pow`` :69-71, ``reduce_sum`` :98, ``reduce_mean``
+:99, ``reduce_max`` :100, ``reduce_all`` / ``reduce_any`` :103-104,
+``mean`` :107,
 ``pow`` :112, ``top_k`` :117, ``cumsum`` :145).  The products stay
 ``torch.matmul`` (cuBLAS), as the reference left them to XLA; with TF32
 off (set by the Executor on a CUDA place) f32 products run in full f32.
@@ -87,6 +88,18 @@ def _reduce(X, attrs, fn):
 @register_op("reduce_sum", inputs=["X"], outputs=["Out"])
 def reduce_sum(ctx, attrs, X):
     return _reduce(X, attrs, torch.sum)
+
+
+@register_op("reduce_mean", inputs=["X"], outputs=["Out"])
+def reduce_mean(ctx, attrs, X):
+    return _reduce(X, attrs, torch.mean)
+
+
+@register_op("reduce_max", inputs=["X"], outputs=["Out"])
+def reduce_max(ctx, attrs, X):
+    """The largest over ``dim``; its gradient is shared evenly among tied
+    largest values, as ``jnp.max``'s."""
+    return _reduce(X, attrs, torch.amax)
 
 
 def _all(x, dim=None, keepdim=False):

@@ -96,6 +96,11 @@ def softmax(ctx, attrs, X):
     return torch.softmax(X.float(), dim=axis).to(X.dtype)
 
 
+@register_op("log_softmax", inputs=["X"], outputs=["Out"])
+def log_softmax(ctx, attrs, X):
+    return torch.log_softmax(X, dim=int(attrs.get("axis", -1)))
+
+
 @register_op("dropout", inputs=["X"], outputs=["Out", "Mask"],
              stateful_outputs=("Mask",))
 def dropout(ctx, attrs, X):

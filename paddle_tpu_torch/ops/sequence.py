@@ -1,5 +1,6 @@
 """Sequence ops on padded batches (mirrors ``paddle_tpu/ops/sequence.py``;
-so far ``sequence_conv`` :174, which the dygraph ``SequenceConv``
+so far ``sequence_mask`` :126, which the NMT and stacked-LSTM models
+use, and ``sequence_conv`` :174, which the dygraph ``SequenceConv``
 dispatches; the rest is ROADMAP.md Queue A item 9).  A sequence batch is
 a padded [B, T, D] tensor with an optional ``SeqLen`` [B], the
 reference's stand-in for LoD offsets."""
@@ -7,7 +8,22 @@ reference's stand-in for LoD offsets."""
 import torch
 import torch.nn.functional as F
 
+from .common import resolve_dtype
 from .registry import register_op
+
+
+@register_op("sequence_mask", inputs=["X"], outputs=["Y"], no_grad=True)
+def sequence_mask(ctx, attrs, X):
+    """``Y[b, t] = t < X[b]`` for ``t < maxlen``, in ``out_dtype``; the
+    static ``maxlen`` attr is required, as in the reference."""
+    maxlen = int(attrs.get("maxlen", -1))
+    if maxlen < 0:
+        raise ValueError("sequence_mask needs a static maxlen attr (an "
+                         "output shape read from the lengths would be a "
+                         "host read)")
+    lens = X.reshape(-1)
+    mask = torch.arange(maxlen, device=X.device)[None, :] < lens[:, None]
+    return mask.to(resolve_dtype(attrs.get("out_dtype", "int64")))
 
 
 @register_op("sequence_conv", inputs=["X", "Filter", "SeqLen"],

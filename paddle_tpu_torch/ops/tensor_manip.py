@@ -1,6 +1,7 @@
 """Shape and indexing ops (mirrors ``paddle_tpu/ops/tensor_manip.py``:
 ``reshape2`` at :79, ``transpose2`` at :91, ``squeeze2`` :146,
-``concat`` :97, ``slice`` :119, ``unsqueeze2`` :160, ``gather`` :203, ``pad`` :246).
+``concat`` :97, ``split`` :102, ``slice`` :119, ``unsqueeze2`` :160,
+``gather`` :203, ``expand`` :227, ``pad`` :246).
 ``XShape`` is a zero-size placeholder kept for program-structure parity
 with serialized reference models.  ``slice`` returns a view, as
 ``reshape2`` and ``transpose2`` may: a kernel wrapper that needs
@@ -96,6 +97,22 @@ def concat(ctx, attrs, X):
     return torch.cat(list(X), dim=int(attrs.get("axis", 0)))
 
 
+@register_op("split", inputs=["X"], outputs=["Out*"])
+def split(ctx, attrs, X):
+    """``X`` cut along ``axis`` into ``num`` equal parts, or at the
+    running sums of ``sections`` (the last section is what is left)."""
+    axis = int(attrs.get("axis", 0))
+    sections = [int(s) for s in attrs.get("sections", [])]
+    if sections:
+        cuts, acc = [], 0
+        for s in sections[:-1]:
+            acc += s
+            cuts.append(acc)
+        return {"Out": list(torch.tensor_split(X, cuts, dim=axis))}
+    num = int(attrs.get("num", 0))
+    return {"Out": list(torch.split(X, X.shape[axis] // num, dim=axis))}
+
+
 @register_op("slice", inputs=["Input"], outputs=["Out"])
 def slice_op(ctx, attrs, Input):
     """``Input[starts:ends]`` along ``axes`` (an end past the dim is
@@ -129,6 +146,15 @@ def gather(ctx, attrs, X, Index):
             tuple(idx.shape) + (1,) * (X.dim() - 1))
         out = torch.where(bad, torch.full_like(out, float("nan")), out)
     return out
+
+
+@register_op("expand", inputs=["X"], outputs=["Out"])
+def expand(ctx, attrs, X):
+    """``X`` tiled ``expand_times`` times along each axis (``jnp.tile``:
+    fewer times than axes tile the trailing axes)."""
+    times = [int(t) for t in attrs.get("expand_times", [])]
+    times = [1] * (X.dim() - len(times)) + times
+    return X.repeat(*times)
 
 
 @register_op("pad", inputs=["X"], outputs=["Out"])

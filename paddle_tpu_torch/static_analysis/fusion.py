@@ -51,11 +51,15 @@ family                    rewrite
 ========================  ==================================================
 
 The gates' calibration factors come from the autotune cache
-(:mod:`paddle_tpu_torch.autotune`, :func:`_calibration`, :182-195), and
-the cache's state is part of the config signature, so a sweep or a
-drift write resolves programs again.  Training programs are rewritten
-with their grad twins, as in the reference: every grad op carries
-``__fwd_op_id__``, so a matched forward pattern's grad ops are found
+(:mod:`paddle_tpu_torch.autotune`, :func:`_calibration`, :182-195).  A
+resolved clone keeps the values it read there (each site's factor under
+its signature; the flash threshold is part of the config signature), and
+a later call resolves the program again only when one of those values
+moved: a write of another signature, by either package or by the drift
+monitor, leaves every program that did not read it alone.  Training
+programs are rewritten with their grad twins, as in the reference: every
+grad op carries ``__fwd_op_id__``, so a matched forward pattern's grad
+ops are found
 exactly (``_GlobalView.twin``, :472-489, :526) and replaced by the
 fused op's one ``<type>_grad`` (:778, :972, :1062, :1166, :1495), whose
 lowering differentiates the fused op's recorded graph
@@ -82,6 +86,7 @@ not have before the pipeline raises ``VerifyError`` naming it.
 
 import functools
 import os
+import threading
 
 from ..ops.registry import EMPTY_VAR_NAME
 from .defuse import resolve_sub_block, sub_block_reads_recursive
@@ -144,25 +149,45 @@ def embed_fuse_min_bytes():
 
 
 def _autotune_state():
-    """The autotune cache's state token, part of the fusion signature,
-    so a sweep or a drift write resolves programs again (:170)."""
+    """The autotune cache's state token: a write, of any signature, gives
+    a new one.  Not part of any signature: it says only when the values
+    a resolution read must be looked at again (:func:`_reads_moved`)."""
     from ..autotune import state_token
 
     return state_token()
+
+
+# the calibration reads of the resolution running on this thread
+_reading = threading.local()
+
+
+def _calibration_value(sig):
+    """``(factor, calibrated)`` of ``sig`` in the autotune cache now."""
+    from ..autotune import autotune_enabled, calibration_factor, lookup
+
+    if not autotune_enabled():
+        return 1.0, False
+    return calibration_factor(sig), lookup(sig) is not None
 
 
 def _calibration(family, **key):
     """``(factor, sig, calibrated)`` of one fusion site (:182): the
     autotune calibration factor the gate multiplies its predicted delta
     by, the signature it looked under, and whether a measured entry
-    exists."""
-    from ..autotune import (autotune_enabled, calibration_factor, lookup,
-                            sweep_signature)
+    exists.  A resolution in progress keeps the value it read."""
+    from ..autotune import sweep_signature
 
     sig = sweep_signature(family, key)
-    if not autotune_enabled():
-        return 1.0, sig, False
-    return calibration_factor(sig), sig, lookup(sig) is not None
+    factor, calibrated = _calibration_value(sig)
+    reads = getattr(_reading, "reads", None)
+    if reads is not None:
+        reads[sig] = (factor, calibrated)
+    return factor, sig, calibrated
+
+
+def _reads_moved(reads):
+    """Whether a calibration a resolution read has another value now."""
+    return any(_calibration_value(sig) != val for sig, val in reads.items())
 
 
 def _uncalibrated(sig):
@@ -257,19 +282,20 @@ class FusionConfig:
     def signature(self, program=None):
         """Hashable identity of the rewrite of ``program``: the bucket cap
         and the quant threshold resolve mark → env → default, so the
-        program's marks are part of it; the flash threshold and the
-        autotune cache's state are too."""
+        program's marks are part of it; the flash threshold's value is
+        too (the autotune cache's decision or the env's override); the
+        calibration factors a resolution read are kept with its clone
+        (:func:`resolve_fused_program`)."""
         from ..quant.blockwise import quant_block
         from ..quant.collective import quant_min_bytes
 
-        state = _autotune_state()
         return (self.enabled, self.fuse_attention, self.fuse_elewise,
                 self.fuse_softmax_xent, self.fuse_conv_bn_act,
                 self.fuse_embedding_gather, self.fuse_optimizer,
                 self.fuse_allreduce, conv_bn_min_bytes(),
                 embed_fuse_min_bytes(), optimizer_fuse_overhead_bytes(),
                 allreduce_bucket_mb(program), quant_min_bytes(program),
-                quant_block(), _flash_min_t(state), state)
+                quant_block(), _flash_min_t())
 
     def __repr__(self):
         return "FusionConfig%r" % (self.signature(),)
@@ -1616,7 +1642,9 @@ def scan_fusible_patterns(program, config=None, targets=()):
 def resolve_fused_program(program, config=None, targets=()):
     """``(program_to_run, FusionReport)``: the fusion-rewritten clone of
     ``program``, cached on it by (config signature, program version,
-    fetch set), or ``program`` itself when nothing fused."""
+    fetch set), or ``program`` itself when nothing fused.  An entry
+    holds the calibration factors its resolution read; after a write to
+    the autotune cache it is resolved again only if one of them moved."""
     config = config or FusionConfig.default()
     if getattr(program, "_fusion_applied", False):
         return program, getattr(program, "_fusion_report", None) \
@@ -1626,14 +1654,20 @@ def resolve_fused_program(program, config=None, targets=()):
     from ..observability import runtime as _obs
 
     tkey = tuple(sorted({getattr(t, "name", t) for t in (targets or ())}))
-    key = (config.signature(program), program._version, tkey)
+    sig = config.signature(program)
+    key = (sig, program._version, tkey)
     cache = program.__dict__.setdefault("_fusion_cache", {})
     hit = cache.get(key)
-    if hit is not None:
+    state = _autotune_state()
+    if hit is not None and (hit[3] == state or not _reads_moved(hit[2])):
+        # an entry stands while the calibrations it read keep their
+        # values, whatever else was written to the cache
+        hit[3] = state
         _obs.record_fusion_resolve(True)
-        fused, report = hit
+        fused, report = hit[0], hit[1]
         return (fused if fused is not None else program), report
     _obs.record_fusion_resolve(False)
+    cache.pop(key, None)
     for k in [k for k in cache if k[1] != program._version]:
         del cache[k]
     while len(cache) >= _FUSION_CACHE_CAP:
@@ -1648,12 +1682,17 @@ def resolve_fused_program(program, config=None, targets=()):
     baseline = None
     if pass_verification_enabled():
         baseline = _error_signatures(clone, set(tkey))
-    report = apply_fusion_passes(clone, config, targets=tkey,
-                                 baseline=baseline)
+    outer, reads = getattr(_reading, "reads", None), {}
+    _reading.reads = reads
+    try:
+        report = apply_fusion_passes(clone, config, targets=tkey,
+                                     baseline=baseline)
+    finally:
+        _reading.reads = outer
     if not report.applied:
-        cache[key] = (None, report)
+        cache[key] = [None, report, reads, state]
         return program, report
-    clone._fusion_sig = config.signature(program)
+    clone._fusion_sig = sig + (tuple(sorted(reads.items())),)
     clone._fusion_report = report
-    cache[key] = (clone, report)
+    cache[key] = [clone, report, reads, state]
     return clone, report

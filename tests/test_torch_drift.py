@@ -207,10 +207,10 @@ def test_collective_schedule_feeds_the_drift_monitor():
 
 def test_autotune_writes_keep_the_held_entries_bounded(tmp_path,
                                                         monkeypatch):
-    """Each autotune write gives the program a new fusion clone (the
-    cache's state is part of the fusion signature) and so a new cache
-    key; the executor drops the superseded clone's entries, so the
-    entries it holds do not grow with the writes."""
+    """Each autotune write of the calibration the program's K3 gate
+    read gives the program a new fusion clone and so a new cache key;
+    the executor drops the superseded clone's entries, so the entries it
+    holds do not grow with the writes."""
     monkeypatch.setenv("PADDLE_TPU_AUTOTUNE_CACHE", str(tmp_path / "c.json"))
     tat.reset()
     tfluid.unique_name.switch()
@@ -231,8 +231,10 @@ def test_autotune_writes_keep_the_held_entries_bounded(tmp_path,
                                       fetch_list=[loss])[0])
             assert exe.last_run_mode == "graph"
             held.append(len(exe._cache))
-            tat.record("drift|backend=cpu|program=w%d" % write,
-                       {"calibration": 1.0 + write})
+            tat.record(tat.sweep_signature(
+                "embedding_gather",
+                {"rows": 100, "dim": 128, "dtype": "float32"}),
+                {"calibration": 1.0 + write})
         # a program run with another fetch list keeps its own entries
         exe.run(main, feed=feed, fetch_list=[loss, emb])
         exe.run(main, feed=feed, fetch_list=[loss])

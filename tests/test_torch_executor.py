@@ -341,22 +341,17 @@ def _shared_file_written_after_each_call(monkeypatch, shared):
 
 def test_a_write_to_the_shared_autotune_file_cannot_reach_the_check(
         monkeypatch, tmp_path):
-    """The leak the bit-for-bit checks are kept from: on the shared file,
-    a write by the other package between two calls resolves the program
-    again, so the cached run warms up anew instead of capturing; with the
-    check's own cache (``private_autotune``), the same writes to the
-    shared file leave it whole: warm-up, capture, replay, and every
-    fetch and persistable equal to the eager run's."""
+    """The leak the bit-for-bit checks were kept from: a write by the
+    other package to the cache file between two calls, of a signature the
+    program's fusion did not read, once resolved the program again, so
+    the cached run warmed up anew instead of capturing.  The resolution
+    now keeps the values it read: the same writes to the shared file
+    leave the run whole, warm-up, capture, replay, and every fetch and
+    persistable equal to the eager run's."""
     shared = str(tmp_path / "shared.json")
     _shared_file_written_after_each_call(monkeypatch, shared)
     batch = {"x": np.random.RandomState(0).randn(4, 8).astype("float32")}
-    with monkeypatch.context() as mp:
-        mp.setenv("PADDLE_TPU_AUTOTUNE_CACHE", shared)
-        tautotune.reset()
-        _, _, leaked = _train_runs(_dropout_mlp, [batch] * STEPS, True)
-    assert leaked == ["eager"] * STEPS
-    monkeypatch.setenv("PADDLE_TPU_AUTOTUNE_CACHE",
-                       str(tmp_path / "private.json"))
+    monkeypatch.setenv("PADDLE_TPU_AUTOTUNE_CACHE", shared)
     tautotune.reset()
     got, got_state, modes = _train_runs(_dropout_mlp, [batch] * STEPS, True)
     want, want_state, _ = _train_runs(_dropout_mlp, [batch] * STEPS, False)
@@ -365,6 +360,84 @@ def test_a_write_to_the_shared_autotune_file_cannot_reach_the_check(
         np.testing.assert_array_equal(g[0], w[0])
     for n in want_state:
         np.testing.assert_array_equal(got_state[n], want_state[n], n)
+    tautotune.reset()
+
+
+def _embedding_sgd():
+    main, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.unique_name.guard(), tfluid.program_guard(main, startup):
+        ids = tfluid.layers.data("ids", shape=[8, 1], dtype="int64")
+        emb = tfluid.layers.embedding(ids, size=[100, 128])
+        loss = tfluid.layers.mean(emb)
+        tfluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    return main, startup, [loss.name]
+
+
+def _modes_with_a_write_between_steps(write, steps=5):
+    """The run modes of ``steps`` calls of the K3 training program, with
+    ``write()`` called after the second call."""
+    main, startup, fetch = _embedding_sgd()
+    feed = {"ids": np.arange(16, dtype="int64").reshape(2, 8, 1)}
+    modes = []
+    with tfluid.scope_guard(tfluid.Scope()):
+        exe = tfluid.Executor(tfluid.CPUPlace())
+        exe.run(startup)
+        for i in range(steps):
+            exe.run(main, feed=feed, fetch_list=fetch)
+            modes.append(exe.last_run_mode)
+            if i == 1:
+                write()
+    return modes, main
+
+
+def test_a_write_of_another_signature_to_the_default_file_leaves_the_run(
+        monkeypatch):
+    """On the process's default autotune file (the one both packages
+    share in a test process), the reference's write of another
+    signature between two steps resolves nothing again: eager, capture,
+    then replays, the program's fusion entry the one it resolved."""
+    from paddle_tpu import autotune as jautotune
+    from paddle_tpu_torch.autotune import cache as tcache
+
+    monkeypatch.setattr(tcache, "_RESTAT_S", 0.0)
+    tautotune.reset()
+
+    def write():
+        jautotune.reset()
+        jautotune.record(jautotune.sweep_signature(
+            "planner", {"test": "another signature"}), {"calibration": 1.5})
+
+    modes, main = _modes_with_a_write_between_steps(write)
+    assert modes == ["eager", "capture", "graph", "graph", "graph"]
+    assert len(main._fusion_cache) == 1
+    tautotune.reset()
+
+
+@pytest.mark.parametrize("entry", ["flash_min_t", "calibration"])
+def test_a_write_of_an_entry_the_fusion_read_resolves_again(
+        entry, monkeypatch, tmp_path):
+    """A write of an entry the program's resolution read gives a new
+    resolution, and its first call is a warm-up again: the flash
+    threshold (part of every signature) and the K3 site's calibration
+    factor (which the embedding gate looked up)."""
+    monkeypatch.setenv("PADDLE_TPU_AUTOTUNE_CACHE",
+                       str(tmp_path / "autotune.json"))
+    tautotune.reset()
+
+    def write():
+        if entry == "flash_min_t":
+            tautotune.record_flash_min_t(128)
+        else:
+            tautotune.record(tautotune.sweep_signature(
+                "embedding_gather",
+                {"rows": 100, "dim": 128, "dtype": "float32"}),
+                {"calibration": 2.0})
+
+    modes, main = _modes_with_a_write_between_steps(write)
+    assert modes == ["eager", "capture", "eager", "capture", "graph"]
+    fused = [e for e in main._fusion_cache.values() if e[0] is not None]
+    assert fused and all(
+        e[1].applied[0].family == "embedding_gather" for e in fused)
     tautotune.reset()
 
 

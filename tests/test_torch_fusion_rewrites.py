@@ -511,10 +511,12 @@ def test_fusion_signature_carries_the_threshold_and_autotune_state(
     autotune.reset()
     config = tfusion.FusionConfig()
     a = config.signature()
-    monkeypatch.setenv("PADDLE_TPU_FLASH_MIN_T", "256")
+    autotune.record_flash_min_t(128)  # the autotune cache's decision
     b = config.signature()
-    autotune.record("x", {"params": {}})
+    monkeypatch.setenv("PADDLE_TPU_FLASH_MIN_T", "256")  # the override
     c = config.signature()
+    autotune.record("x", {"params": {}})  # an entry no fusion reads
+    assert config.signature() == c
     assert len({a, b, c}) == 3
     assert tfusion.FusionConfig(fuse_attention=False).signature() != c
     autotune.reset()

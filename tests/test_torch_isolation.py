@@ -7,7 +7,9 @@ lint, analyze, monitor and trace CLIs, the watchdog, the other
 optimizers with the moving averages, decoupled weight decay and
 ``WeightedAverage`` included, the dygraph mode with its layers' ops, and
 the control flow: ``While`` with its gradient, ``cond``, the tensor
-arrays and the single-program GPT generation), its entry points run on the GPU
+arrays and the single-program GPT generation, and the recurrent models:
+the NMT trainers and beam-search translation and the stacked dynamic
+LSTM, with the beam-search ops and layers), its entry points run on the GPU
 unless the caller asks for the CPU, and what it has not ported yet
 raises rather than being skipped silently."""
 
@@ -229,6 +231,40 @@ ntoks, _, _, _ = gpt.run_generate(
     lambda: gpt.build_naive_program(cfg, 2, 4, 3), cfg, 2, 4, 3,
     place=fluid.CPUPlace())
 assert toks.shape == (2, 3) and (toks == ntoks).all(), (toks, ntoks)
+from paddle_tpu_torch.layers import beam as beam_layers  # noqa: F401
+from paddle_tpu_torch.models import machine_translation as mt
+from paddle_tpu_torch.models import stacked_dynamic_lstm as sdl
+from paddle_tpu_torch.ops import beam_search as beam_ops  # noqa: F401
+feed = {"src": np.ones((2, 4), "int64"), "tgt_in": np.ones((2, 4), "int64"),
+        "tgt_out": np.ones((2, 4, 1), "int64"),
+        "tgt_lens": np.array([4, 2], "int64")}
+scope = fluid.Scope()
+for build in (mt.build_train, mt.build_train_dynamic):
+    main, startup, feeds, loss = build(16, emb_dim=4, hidden_dim=8,
+                                       src_len=4, tgt_len=4)
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(fluid.CPUPlace())
+        exe.run(startup)
+        lv = exe.run(main, feed={f.name: feed[f.name] for f in feeds},
+                     fetch_list=[loss])[0]
+    assert np.isfinite(lv).all(), lv
+main, startup, _, ids, scores = mt.build_infer(
+    16, emb_dim=4, hidden_dim=8, src_len=4, batch_size=2, beam_size=3,
+    max_len=5)
+with fluid.scope_guard(scope):
+    iv, sv = exe.run(main, feed={"src": feed["src"]},
+                     fetch_list=[ids, scores])
+assert iv.shape == (2, 3, 5) and np.isfinite(sv).all(), (iv, sv)
+main, startup, _, loss, acc = sdl.build(vocab_size=16, seq_len=4,
+                                        emb_dim=4, hidden_dim=4)
+with fluid.scope_guard(fluid.Scope()):
+    exe = fluid.Executor(fluid.CPUPlace())
+    exe.run(startup)
+    lv, av = exe.run(main, feed={"words": feed["src"],
+                                 "lens": feed["tgt_lens"],
+                                 "label": np.zeros((2, 1), "int64")},
+                     fetch_list=[loss, acc])
+assert np.isfinite(lv).all() and av.shape == (1,), (lv, av)
 assert not any(m.split(".")[0] in ("jax", "paddle_tpu")
                for m in sys.modules), sorted(sys.modules)
 print("ISOLATED-OK")
@@ -365,11 +401,11 @@ def test_unported_gates_raise(tmp_path):
 
 
 def test_unported_training_options_raise():
-    """What training still lacks raises, citing its queue item: grads
-    through ``recurrent`` (item 5; those of ``while``, which raised here
-    until they were ported, are built now).  The reference's other
-    optimizers, which raised here until they were ported, are classes of
-    the port now."""
+    """What training still lacks raises: an op of the reference the port
+    has not registered (``dynamic_lstmp``, ROADMAP.md Queue A item 9)
+    stops the run naming it.  The grads through ``recurrent`` (item 5)
+    and ``while``, and the reference's other optimizers, which raised
+    here until they were ported, are built now."""
     for name, base in (("Adagrad", fluid.optimizer.Optimizer),
                        ("RMSPropOptimizer", fluid.optimizer.Optimizer),
                        ("Ftrl", fluid.optimizer.Optimizer),
@@ -379,15 +415,33 @@ def test_unported_training_options_raise():
         assert name in fluid.optimizer.__all__
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
-        x = fluid.layers.data("x", shape=[4], dtype="float32")
-        with fluid.layers.recompute():
-            h = fluid.layers.fc(x, size=3)
-        loss = fluid.layers.reduce_sum(h)
-    region = main.global_block().ops[-2]
-    assert region.type == "recompute_block"
-    region.type = "recurrent"
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
+        x = fluid.layers.data("x", shape=[3, 4], dtype="float32")
+        rnn = fluid.layers.DynamicRNN()
+        with rnn.block():
+            x_t = rnn.step_input(x, lengths=fluid.layers.data(
+                "lens", shape=[], dtype="int64"))
+            h = rnn.memory(shape=[4], value=0.0)
+            hn = fluid.layers.fc(fluid.layers.concat([x_t, h], axis=1),
+                                 size=4)
+            rnn.update_memory(h, hn)
+            rnn.output(hn)
+        loss = fluid.layers.reduce_sum(rnn())
         fluid.optimizer.SGD(0.01).minimize(loss)
+    types = [op.type for op in main.global_block().ops]
+    assert "recurrent" in types and "recurrent_grad" in types
+    from paddle_tpu_torch.ops import registry
+    assert not registry.has_op("dynamic_lstmp")
+    prog = fluid.Program()
+    with fluid.program_guard(prog, fluid.Program()):
+        x = fluid.layers.data("x", shape=[4], dtype="float32")
+        out = prog.global_block().create_var(name="proj", dtype="float32")
+        prog.global_block().append_op(type="dynamic_lstmp",
+                                      inputs={"Input": [x]},
+                                      outputs={"Projection": [out]})
+    with pytest.raises(KeyError, match="dynamic_lstmp"):
+        fluid.Executor(fluid.CPUPlace()).run(
+            prog, feed={"x": __import__("numpy").ones((1, 4), "float32")},
+            fetch_list=[out])
 
 
 def test_resnet_unported_options_raise_and_cuda_is_the_default(no_cuda):

@@ -176,6 +176,35 @@ def test_the_status_does_not_depend_on_how_fast_requests_come(
     assert got["ranks"]["0"]["step"] == ran["last_step"]
 
 
+def test_the_trace_does_not_depend_on_how_fast_requests_complete(
+        tmp_path_factory, monkeypatch):
+    """The two tests above under load, at the completion end: a batch
+    span that ended after the request span it is the child of, by the
+    time the batch's requests took to complete (a loaded machine), was
+    left off that request's critical path, and with it the batch's
+    ``serving.device`` phase (the trace's ``--serving`` view then had no
+    ``device_p99_ms``).  With each request's completion slowed by 2 ms,
+    four times the trace reader's clock skew, the status and the serving
+    view still hold every phase."""
+    from paddle_tpu_torch.serving import server as tserver
+
+    done = tserver._obs.record_serving_done
+
+    def slow_done(*args, **kwargs):
+        time.sleep(0.002)
+        return done(*args, **kwargs)
+
+    monkeypatch.setattr(tserver._obs, "record_serving_done", slow_done)
+    dirname, ran, now = _telemetry_run(tmp_path_factory)
+    got = tmonitor.collect_status(dirname, now=now)
+    assert got == jmonitor.collect_status(dirname, now=now)
+    serving = ttrace.serving_stats(ttrace.group_traces(
+        tobs.read_traces(dirname)))
+    assert chip_smoke.check_tools(got, serving, ran) == []
+    assert {"queue_wait_p99_ms", "device_p99_ms", "request_p99_ms"} \
+        <= set(serving)
+
+
 def _trace_json(module, argv, capsys):
     code = module.main(argv + ["--json"])
     out = capsys.readouterr().out

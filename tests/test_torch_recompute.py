@@ -261,14 +261,28 @@ class TestRecompute:
             assert consumer
 
     def test_grads_of_other_sub_block_ops_point_at_queue_a_5(self):
-        """``recurrent`` (StaticRNN, DynamicRNN) is the sub-block op whose
-        grad is still to come; ``while`` and ``conditional_block`` have
-        theirs (``tests/test_torch_control_flow.py``)."""
-        main, _, loss = _build(tfluid, True)
-        with pytest.raises(NotImplementedError, match="Queue A item 5"):
-            main.global_block().ops[0].type = "recurrent"
-            tfluid.backward._GradEngine(main.global_block(), ()) \
-                .backprop_op(main.global_block().ops[0])
+        """``recurrent`` (StaticRNN, DynamicRNN; Queue A item 5, whose
+        grad raised here until it was ported) gets its one grad op as the
+        regions do; ``while`` and ``conditional_block`` have theirs
+        (``tests/test_torch_control_flow.py``,
+        ``tests/test_torch_recurrent.py``)."""
+        main, startup = tfluid.Program(), tfluid.Program()
+        with tfluid.unique_name.guard(), tfluid.program_guard(main,
+                                                              startup):
+            x = tfluid.layers.data("x", shape=[3, 2, 4], dtype="float32",
+                                   append_batch_size=False)
+            rnn = tfluid.layers.StaticRNN()
+            with rnn.step():
+                x_t = rnn.step_input(x)
+                h = rnn.memory(shape=[4], batch_ref=x_t)
+                hn = tfluid.layers.fc(tfluid.layers.concat([x_t, h], 1), 4)
+                rnn.update_memory(h, hn)
+                rnn.step_output(hn)
+            tfluid.append_backward(tfluid.layers.reduce_sum(rnn()))
+        grads = [op for op in main.global_block().ops
+                 if op.type == "recurrent_grad"]
+        assert len(grads) == 1
+        assert len(grads[0].output("Captured@GRAD")) == 2
 
     def test_append_backward_accepts_checkpoints(self):
         main, startup = tfluid.Program(), tfluid.Program()

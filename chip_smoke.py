@@ -354,7 +354,39 @@ and the CUDA toolkit.  Phases, each printing one JSON line:
    body's run mode, a trip's wall ms against a body replay's device ms,
    sentences and tokens a second, peak memory, K3 forward once;
 32. rnn_parity: the three programs at small widths, card against CPU:
-   losses within 1e-4 of the scale, beam ids equal.
+   losses within 1e-4 of the scale, beam ids equal;
+33. speculative: ``serving.SpeculativeDecoder`` over the paged tier at
+   GPT-2-small widths, bucket 128, 64 new tokens, k = 3, against the
+   plain ``DecodeEngine(slots=1, paged=True)`` on the same weights, with
+   prompt lookup, a draft-model tenant of the target's weights, an
+   oracle and a zeros draft: tokens equal to the plain arm's (the
+   gate), rounds, acceptance, tokens/s against the plain arm's, host
+   syncs and K6 launches a round, a verify round's wall and device ms;
+   the kernels phase holds K6 at the verify's shape (4 rows, one table
+   row repeated, lengths across a block edge) against its plain twin
+   and each row bit for bit against the row launched alone;
+34. contrib_decoder: the seq2seq decoder DSL at the NMT widths:
+   ``TrainingDecoder`` of a GRU-style ``StateCell``, batch 32, length
+   32, Adam, eager against graph bit for bit with no host sync a graph
+   step; ``BeamSearchDecoder``, batch 16, beam 3, at most 250 steps:
+   trips, condition reads, syncs, a body replay's device ms, ms a
+   translation, the device breakdown;
+35. resnet_infer: ResNet-50 NHWC for test, softmax, exported and served
+   by ``AnalysisPredictor`` (conv + batch_norm fold, fc fuse, DCE) at
+   224x224, batch 1 and 64, f32 and bf16 after the fold: images/s,
+   latency, op counts before and after the passes (no batch_norm
+   after), the device breakdown, the output against the unfolded
+   program;
+36. se_resnext: SE-ResNeXt-50's widths and depths through the builder,
+   224x224 NCHW, batch 16, Momentum: graph steps, images/s, the device
+   breakdown with the grouped convolutions timed apart, peak memory;
+37. vgg: VGG-16 at 224x224 NHWC, batch 32, Adam: graph steps, images/s,
+   the fused sites (0, as in the reference), the device breakdown, peak
+   memory;
+38. vision_parity: each vision op and layer of the slice (the 17 vision
+   op types, pool3d, the transposed and 3-D convolutions, group norm,
+   the resizes, sequence_pool), forward and backward at image sizes,
+   card against CPU within 1e-4 of the scale.
 
 The whole run reads and writes a fresh autotune cache in a temp
 directory (``PADDLE_TPU_AUTOTUNE_CACHE``), so no decision of an earlier
@@ -2851,6 +2883,7 @@ def phase_kernels():
     errs["embedding_gather_bwd"] = kernel_gather_bwd(checks, torch, gen)
     errs.update(kernel_updates(checks, torch, gen))
     errs.update(kernel_decode(checks, torch, gen))
+    kernel_decode_verify(checks, torch, gen)
     errs.update(kernel_bn_act(checks, torch, gen))
     errs.update(kernel_quant(checks, torch, gen))
     kernel_graph_masks(checks, torch, gen)
@@ -10479,6 +10512,1097 @@ def phase_tools(env, pred, cfg):
         raise AssertionError("tools: %s" % failed)
 
 
+# ---------------------------------------------------------------------------
+# speculative decoding, the seq2seq decoder DSL and the rest of vision
+# ---------------------------------------------------------------------------
+
+SPEC_K = 3                  # draft tokens a round (bench.py:1403)
+SPEC_BUCKET = 128           # the prompt bucket
+SPEC_NEW_TOKENS = 64
+SPEC_DRAFTS = ("ngram", "model", "oracle", "zeros")
+# prompt lookup pays on repetitive text; the others decode the random one
+SPEC_PROMPT_OF = {"ngram": "repetitive", "model": "random",
+                  "oracle": "random", "zeros": "random"}
+SPEC_PHRASE = 12            # the repetitive prompt: a 12-token phrase ...
+SPEC_REPEATS = 10           # ... said 10 times
+SPEC_RANDOM_PROMPT = 100
+SPEC_PROFILE_ROUNDS = 10
+# the verify rows' attention lengths (cursors c .. c+3, plus one): the
+# window crosses the block edge at 128 (blocks of 16)
+VERIFY_LENGTHS = (127, 128, 129, 130)
+DSL_BATCH = 32              # the decoder DSL's training batch ...
+DSL_LEN = 32                # ... and target length
+DSL_INFER_BATCH = 16
+DSL_STEPS = 5
+RESNET_INFER_BATCHES = (1, 64)
+RESNET_INFER_RUNS = 10
+RESNET_INFER_RTOL = 1e-4    # predictor vs unfolded program, f32 logits
+RESNET_INFER_BF16_RTOL = 0.05   # bf16 predictor vs f32, scale-relative
+SE_BATCH = 16
+VGG_BATCH = 32
+VISION_TRAIN_STEPS = 5
+VISION_PARITY_RTOL = 1e-4   # card vs CPU, f32 with TF32 off
+
+
+def kernel_decode_verify(checks, torch, gen):
+    """K6 at the speculative verify's shape: SPEC_K + 1 rows of one
+    stream, its table row repeated on every row, attention lengths
+    VERIFY_LENGTHS across a block edge, at GPT-2 small's heads and
+    head dim, blocks of 16 over a 1024-deep table in a shuffled pool;
+    against the plain version, and each row bit for bit the same row
+    launched alone (the kernel's chunks follow the head dim, not the
+    row count, and merge in chunk order)."""
+    from paddle_tpu_torch.ops.cuda import paged_flash_decode as pfd
+
+    rows, h, dh, bl = len(VERIFY_LENGTHS), 12, 64, 16
+    mb = DECODE_TMAX // bl
+    pool = mb + 37
+    err = None
+    for dtype in (torch.float32, torch.bfloat16):
+        table = _paged_tables(torch, gen, [DECODE_TMAX], bl, mb,
+                              pool).repeat(rows, 1).contiguous()
+        q = torch.randn((rows, h, dh), generator=gen, device="cuda").to(dtype)
+        kp, vp = (torch.randn((pool, h, bl, dh), generator=gen,
+                              device="cuda").to(dtype) for _ in range(2))
+        ln = torch.tensor(VERIFY_LENGTHS, dtype=torch.int32, device="cuda")
+        case = ("verify rows: S%d one table row repeated, H%d Dh%d BL%d "
+                "MB%d pool %d, lengths %s %s"
+                % (rows, h, dh, bl, mb, pool, list(VERIFY_LENGTHS),
+                   _dname(dtype)))
+        got = pfd.paged_flash_decode(q, kp, vp, ln, table)
+        alone = torch.cat([pfd.paged_flash_decode(
+            q[i:i + 1], kp, vp, ln[i:i + 1], table[i:i + 1])
+            for i in range(rows)])
+        ref = pfd.paged_flash_decode_plain(q, kp, vp, ln, table)
+        torch.cuda.synchronize()
+        e = checks.check("paged_flash_decode_fwd", case, max_err(got, ref),
+                         _decode_tol(ref))
+        if dtype == torch.float32:
+            err = e
+        _same_bits_check(checks, torch, "paged_flash_decode_fwd",
+                         "each verify row = the row alone, bit for bit, "
+                         + case, got, alone)
+    return err
+
+
+def _spec_prompts(np, vocab):
+    """A repetitive prompt (a phrase said SPEC_REPEATS times, where
+    prompt lookup pays) and a random one, from SEED."""
+    rng = np.random.RandomState(SEED + 41)
+    phrase = rng.randint(1, vocab - 1, SPEC_PHRASE)
+    return {"repetitive": np.tile(phrase, SPEC_REPEATS).astype("int32"),
+            "random": rng.randint(1, vocab - 1,
+                                  SPEC_RANDOM_PROMPT).astype("int32")}
+
+
+def _oracle_draft(plain):
+    """Proposes the plain greedy stream's own next tokens (zeros past
+    its end): acceptance 1 by construction."""
+    def draft(context, k):
+        for prompt, toks in plain.values():
+            full = list(prompt) + list(toks)
+            if full[:len(context)] == list(context):
+                nxt = full[len(context):len(context) + k]
+                return nxt + [0] * (k - len(nxt))
+        raise AssertionError("speculative: the context left the plain "
+                             "stream")
+    return draft
+
+
+def _first_divergence(eng, prompt, plain, spec):
+    """Where two token lists part, and the plain engine's top-2 logit
+    margin there (a direct drive of its programs fed the plain tokens)."""
+    import numpy as np
+
+    i = next((j for j, (a, b) in enumerate(zip(plain, spec)) if a != b),
+             min(len(plain), len(spec)))
+    stages, _ = _decode_drive(eng, [prompt], i, forced=[
+        np.asarray([t]) for t in plain])
+    row = np.sort(stages[min(i, len(stages) - 1)][0].reshape(-1))
+    return {"position": i, "plain": plain[i] if i < len(plain) else None,
+            "speculative": spec[i] if i < len(spec) else None,
+            "top2_margin": float(row[-1] - row[-2])}
+
+
+def _spec_round_profile(torch, dec, prompt, runs=SPEC_PROFILE_ROUNDS):
+    """One verify round of ``dec``'s target (SPEC_K + 1 rows at cursors
+    past ``prompt``, one table row repeated): its wall ms (synchronised,
+    median of ``runs``) and device ms by group over ``runs`` profiled
+    rounds."""
+    import statistics
+
+    import numpy as np
+
+    eng = dec.engine
+    blocks = eng._pool.allocate(-(-(prompt.size + SPEC_NEW_TOKENS + SPEC_K)
+                                  // eng.block_len))
+    try:
+        from paddle_tpu_torch.serving.paging import build_block_table
+
+        table = build_block_table(blocks, eng.max_blocks).reshape(1, -1)
+        feed = {"cur_ids": np.arange(1, SPEC_K + 2, dtype="int32"),
+                "cursors": (prompt.size + np.arange(SPEC_K + 1)
+                            ).astype("int32"),
+                "block_tables": np.repeat(table, SPEC_K + 1, axis=0),
+                "step": np.asarray([1], "int32")}
+
+        def call():
+            return eng._exe.run(eng._step_prog, feed=feed,
+                                fetch_list=[eng._step_fetch],
+                                scope=eng.scope)
+
+        call()
+        wall = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            call()
+            wall.append((time.perf_counter() - s0) * 1e3)
+        prof, pwall = _profiled_calls(call, runs)
+        groups, top = _device_breakdown(prof, runs)
+    finally:
+        eng._pool.free(blocks)
+    busy = sum(groups.values())
+    return {"verify_round_wall_ms": statistics.median(wall),
+            "verify_round_device_ms": busy if busy else "not measured",
+            "verify_round_idle_share": (1.0 - busy / pwall) if busy
+            else "not measured",
+            "verify_round_device_ms_by_group": groups,
+            "verify_round_top_kernels": [{"ms": t, "launches": n,
+                                          "name": k} for t, n, k in top[:6]]}
+
+
+def phase_speculative(env):
+    """``serving.SpeculativeDecoder`` over the paged tier at GPT-2-small
+    widths (random float32 weights from SEED), prompt bucket 128, 64 new
+    tokens, k = 3, greedy, against the plain arm (``DecodeEngine(slots=1,
+    paged=True)``, the same weights; bench.py:1403-1433), with four
+    drafts: prompt lookup, a draft-model tenant with the target's own
+    weights, an oracle proposing the plain stream's tokens (acceptance 1,
+    the ceiling) and zeros (the floor); prompt lookup decodes the
+    repetitive prompt, the others the random one (SPEC_PROMPT_OF), each
+    after two warm generations (a program's eager run, then its
+    capture).  The tokens must equal the plain arm's (the reference's
+    gate), and the launches of the timed generation are the prefills'
+    and the steps' (``_spec_launches``).  Per draft: rounds, acceptance,
+    tokens a second against the plain arm's, a round's wall ms, host
+    reads (executor fetches) and K6 launches a round; the verify
+    program's wall and device ms, profiled once.  Returns the launches
+    of the timed generations by source."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops.cuda import (KERNELS, launch_counts,
+                                           launch_counts_by_source,
+                                           reset_launch_counts)
+
+    cfg = gpt.GPT2_SMALL_WIDTHS
+    prompts = _spec_prompts(np, cfg.vocab)
+    gen_cfg = serving.GenerationConfig(max_new_tokens=SPEC_NEW_TOKENS)
+    t0 = time.time()
+    plain_eng = serving.DecodeEngine(
+        gpt.DecodeAdapter(cfg, seed=SEED), slots=1,
+        prompt_buckets=(SPEC_BUCKET,), config=gen_cfg,
+        place=fluid.CUDAPlace(0), name="spec_plain", paged=True)
+    params = {p.name: plain_eng.scope.get(p.name).detach().cpu().numpy()
+              for p in plain_eng._step_prog.all_parameters()}
+    plain, plain_rate = {}, {}
+    try:
+        for _ in range(2):  # each program's eager run, then its capture
+            for p in prompts.values():
+                plain_eng.submit(p).result(timeout=600)
+        for label, p in prompts.items():
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            toks = list(plain_eng.submit(p).result(timeout=600)[0])
+            torch.cuda.synchronize()
+            plain_rate[label] = len(toks) / (time.perf_counter() - s0)
+            plain[label] = (p.tolist(), toks)
+    finally:
+        plain_eng.close()
+    emit({"phase": "speculative", "step": "plain arm",
+          "card": card_label(env), "seconds": time.time() - t0,
+          "config": "GPT-2 small widths (vocab %d, hidden %d, %d layers, "
+                    "%d heads), paged, bucket %d, %d new tokens, greedy, "
+                    "f32" % (cfg.vocab, cfg.hidden, cfg.layers, cfg.heads,
+                             SPEC_BUCKET, SPEC_NEW_TOKENS),
+          "prompt_tokens": {k: len(v[0]) for k, v in plain.items()},
+          "tokens_per_s": plain_rate})
+    draft_of = {"ngram": serving.ngram_draft,
+                "oracle": _oracle_draft(plain),
+                "zeros": lambda ctx, k: [0] * k}
+    failed = []
+    counts = {"wrapper": dict.fromkeys(KERNELS, 0),
+              "graph_nodes": dict.fromkeys(KERNELS, 0)}
+    # the callable drafts share one decoder (its draft switched between
+    # generations); the model draft is a tenant of its own
+    current, decoders, profile = [], {}, None
+    try:
+        for name in SPEC_DRAFTS:
+            key = "model" if name == "model" else "callable"
+            if key not in decoders:
+                draft = (gpt.DecodeAdapter(cfg, seed=SEED, params=params)
+                         if key == "model"
+                         else (lambda ctx, k: current[0](ctx, k)))
+                dec = serving.SpeculativeDecoder(
+                    gpt.DecodeAdapter(cfg, seed=SEED, params=params),
+                    draft=draft, k=SPEC_K, prompt_buckets=(SPEC_BUCKET,),
+                    config=gen_cfg, place=fluid.CUDAPlace(0),
+                    name="spec_" + key)
+                decoders[key] = (dec, _count_runs(dec))
+            dec, reads = decoders[key]
+            current[:] = [draft_of.get(name)]
+            label = SPEC_PROMPT_OF[name]
+            p = prompts[label]
+            for _ in range(2):  # each program's eager run, then capture
+                dec.generate(p)
+            torch.cuda.synchronize()
+            d_steps0 = dec._draft._steps if dec._draft else 0
+            reads[0] = 0
+            reset_launch_counts()
+            s0 = time.perf_counter()
+            toks, info = dec.generate(p)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - s0
+            launched = launch_counts()
+            by_source = launch_counts_by_source()
+            d_steps = (dec._draft._steps - d_steps0) if dec._draft else 0
+            rounds = info["rounds"]
+            want = _spec_launches(cfg, dec, rounds, d_steps)
+            same = toks == plain[label][1]
+            line = {"phase": "speculative", "draft": name, "prompt": label,
+                    "card": card_label(env), "k": SPEC_K,
+                    "tokens_equal_plain": same, "generated": len(toks),
+                    "rounds": rounds, "proposed": info["proposed"],
+                    "accepted": info["accepted"],
+                    "acceptance_rate": info["acceptance_rate"],
+                    "tokens_per_s": len(toks) / wall,
+                    "plain_tokens_per_s": plain_rate[label],
+                    "speedup": len(toks) / wall / plain_rate[label],
+                    "wall_s": wall, "round_wall_ms": wall * 1e3 / rounds,
+                    "draft_steps": d_steps,
+                    "host_reads_a_round": reads[0] / rounds,
+                    "k6_launches_a_round": launched[
+                        "paged_flash_decode_fwd"] / rounds,
+                    "k6_launches_a_verify": cfg.layers,
+                    "launches": {k: v for k, v in launched.items() if v},
+                    "expected_launches": {k: v for k, v in want.items()
+                                          if v}}
+            if name == "model":
+                line["draft_tenant_acceptance"] = info["acceptance_rate"]
+            if not same:
+                line["first_divergence"] = _first_divergence(
+                    _spec_plain_engine(cfg, params, gen_cfg, fluid, serving,
+                                       gpt), p, plain[label][1], toks)
+                failed.append("%s: tokens differ from the plain arm's at %s"
+                              % (name, line["first_divergence"]))
+            if launched != want:
+                failed.append("%s: launches %s != %s"
+                              % (name, launched, want))
+            if name == "oracle" and info["accepted"] < SPEC_K * (rounds - 1):
+                failed.append("oracle: a proposal was rejected")
+            if name == "zeros" and rounds != SPEC_NEW_TOKENS - 1:
+                failed.append("zeros: not one token a round")
+            for src in counts:
+                for k in KERNELS:
+                    counts[src][k] += by_source[src][k]
+            if profile is None:
+                # the verify program is the target's step at k + 1 rows,
+                # the same whatever the draft: profiled once
+                profile = _spec_round_profile(torch, dec, prompts["random"])
+            line.update(profile)
+            emit(line)
+    finally:
+        for dec, _reads in decoders.values():
+            dec.close()
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("speculative: %s" % failed)
+    return counts
+
+
+def _count_runs(dec):
+    """Count the executor runs of ``dec``'s target and draft engines (each
+    fetches its sampled tokens to the host once: the round's host read)
+    in the returned one-element list."""
+    box = [0]
+    engines = [dec.engine] + ([dec._draft.eng] if dec._draft else [])
+    for eng in engines:
+        run = eng._exe.run
+
+        def counted(*a, _run=run, **k):
+            box[0] += 1
+            return _run(*a, **k)
+
+        eng._exe.run = counted
+    return box
+
+
+def _spec_launches(cfg, dec, rounds, draft_steps):
+    """The kernels' launches of one speculative generation: the target's
+    prefill and ``rounds`` verify steps (``_decode_launches``), and with a
+    model draft its prefill and ``draft_steps`` steps, whose K3 lookups
+    are those the fusion rewrote in the draft's 1-row step program (the
+    ``embedding_gather`` family's cost gate leaves a 1-row lookup
+    plain)."""
+    from paddle_tpu_torch.static_analysis import fusion
+
+    want = _decode_launches(cfg, True, rounds, 1)
+    if dec._draft is None:
+        return want
+    eng = dec._draft.eng
+    prog, _ = fusion.resolve_fused_program(eng._step_prog,
+                                           targets=[eng._step_fetch])
+    draft = _decode_launches(cfg, True, draft_steps, 1)
+    draft["embedding_gather_fwd"] = 2 + draft_steps * sum(
+        op.type == "fused_embedding_gather"
+        for op in prog.global_block().ops)
+    return {k: want[k] + draft[k] for k in want}
+
+
+def _spec_plain_engine(cfg, params, gen_cfg, fluid, serving, gpt):
+    """The plain arm again, not started, for a direct drive."""
+    return serving.DecodeEngine(
+        gpt.DecodeAdapter(cfg, seed=SEED, params=params), slots=1,
+        prompt_buckets=(SPEC_BUCKET,), config=gen_cfg,
+        place=fluid.CUDAPlace(0), name="spec_plain_drive", paged=True,
+        auto_start=False)
+
+
+def _dsl_cell(fluid, init_h, width):
+    """A GRU-style ``StateCell``: update and reset gates and a candidate,
+    each an fc of the concatenated input and state."""
+    L = fluid.layers
+    cell = fluid.contrib.StateCell(
+        inputs={"x": None},
+        states={"h": fluid.contrib.InitState(init=init_h)}, out_state="h")
+
+    def fc(x, name, act):
+        return L.fc(x, size=width, act=act,
+                    param_attr=fluid.ParamAttr(name="dsl_%s_w" % name),
+                    bias_attr=fluid.ParamAttr(name="dsl_%s_b" % name))
+
+    @cell.state_updater
+    def updater(c):
+        x, h = c.get_input("x"), c.get_state("h")
+        xh = L.concat([x, h], axis=1)
+        z = fc(xh, "z", "sigmoid")
+        r = fc(xh, "r", "sigmoid")
+        cand = fc(L.concat([x, L.elementwise_mul(r, h)], axis=1), "c",
+                  "tanh")
+        c.set_state("h", L.elementwise_add(
+            h, L.elementwise_mul(z, L.elementwise_sub(cand, h))))
+
+    return cell
+
+
+def _dsl_encoder(fluid, src, vocab, width):
+    L = fluid.layers
+    emb = L.embedding(src, size=[vocab, width],
+                      param_attr=fluid.ParamAttr(name="dsl_src_emb"))
+    return L.fc(L.reduce_mean(emb, dim=[1]), size=width, act="tanh",
+                param_attr=fluid.ParamAttr(name="dsl_enc_w"),
+                bias_attr=fluid.ParamAttr(name="dsl_enc_b"))
+
+
+def dsl_train_program(fluid, vocab=None, width=None, length=None, lr=1e-3):
+    """The decoder DSL's training program (NMT_VOCAB, NMT_WIDTH, DSL_LEN
+    by default): an encoder's state starts a ``TrainingDecoder`` (a
+    DynamicRNN over ``tgt_lens``) of the GRU-style cell, an fc over the
+    vocabulary, masked cross entropy, Adam."""
+    from paddle_tpu_torch import unique_name
+
+    vocab, width = vocab or NMT_VOCAB, width or NMT_WIDTH
+    length = length or DSL_LEN
+    L = fluid.layers
+    unique_name.switch()
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup):
+        src = L.data("src", shape=[length], dtype="int64")
+        tgt_in = L.data("tgt_in", shape=[length], dtype="int64")
+        tgt_out = L.data("tgt_out", shape=[length, 1], dtype="int64")
+        lens = L.data("tgt_lens", shape=[], dtype="int64")
+        cell = _dsl_cell(fluid, _dsl_encoder(fluid, src, vocab, width),
+                         width)
+        emb = L.embedding(tgt_in, size=[vocab, width],
+                          param_attr=fluid.ParamAttr(name="dsl_tgt_emb"))
+        decoder = fluid.contrib.TrainingDecoder(cell)
+        with decoder.block():
+            tok = decoder.step_input(emb, lengths=lens)
+            cell.compute_state(inputs={"x": tok})
+            out = cell.out_state()
+            cell.update_states()
+            decoder.output(out)
+        logits = L.fc(decoder(), size=vocab, num_flatten_dims=2,
+                      param_attr=fluid.ParamAttr(name="dsl_out_w"),
+                      bias_attr=fluid.ParamAttr(name="dsl_out_b"))
+        xent = L.reshape(L.softmax_with_cross_entropy(logits, tgt_out),
+                         [-1, length])
+        mask = L.sequence_mask(lens, maxlen=length, dtype="float32")
+        loss = L.elementwise_div(L.reduce_sum(L.elementwise_mul(xent, mask)),
+                                 L.reduce_sum(mask))
+        fluid.optimizer.Adam(lr).minimize(loss)
+    return main, startup, loss
+
+
+def dsl_infer_program(fluid, vocab=None, width=None, length=None,
+                      batch=None, beam=None, max_len=None):
+    """The same cell decoding through ``BeamSearchDecoder.decode``
+    (DSL_INFER_BATCH, NMT_BEAM, NMT_MAX_LEN by default): dense [batch,
+    beam] beams from id 0, a bounded While, the backtrace."""
+    from paddle_tpu_torch import unique_name
+
+    vocab, width = vocab or NMT_VOCAB, width or NMT_WIDTH
+    length, batch = length or DSL_LEN, batch or DSL_INFER_BATCH
+    beam, max_len = beam or NMT_BEAM, max_len or NMT_MAX_LEN
+    L = fluid.layers
+    unique_name.switch()
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SEED
+    with fluid.program_guard(main, startup):
+        src = L.data("src", shape=[batch, length], dtype="int64",
+                     append_batch_size=False)
+        cell = _dsl_cell(fluid, _dsl_encoder(fluid, src, vocab, width),
+                         width)
+        init_ids = L.fill_constant([batch, beam], "int32", 0.0)
+        init_scores = L.concat([
+            L.fill_constant([batch, 1], "float32", 0.0),
+            L.fill_constant([batch, beam - 1], "float32", -1e9)], axis=1)
+        decoder = fluid.contrib.BeamSearchDecoder(
+            cell, init_ids, init_scores, target_dict_dim=vocab,
+            word_dim=width, max_len=max_len, beam_size=beam, end_id=1,
+            name="dsl")
+        decoder.decode()
+        ids, scores = decoder()
+    return main, startup, [ids, scores]
+
+
+def phase_contrib_decoder(env):
+    """The contrib seq2seq decoder DSL at the NMT widths (embedding and
+    hidden 512, a dictionary of 30000; random float32 weights from SEED).
+    Training: ``TrainingDecoder`` of the GRU-style ``StateCell``, batch
+    32, target length 32 (lengths NMT_LENGTHS), Adam: DSL_STEPS steps
+    eager against DSL_STEPS through the executor's cache, bit for bit,
+    no host sync a graph step (``_rnn_train_path``).  Decoding:
+    ``BeamSearchDecoder.decode``, batch 16, beam 3, at most 250 steps:
+    one cold and NMT_WARM_RUNS warm translations, the loop's trips,
+    condition reads and syncs, a body replay's device ms, ms a
+    translation and the device breakdown of one, the beams in the
+    vocabulary with finite, descending scores.  Returns the launches by
+    source: the training step's and one warm translation's."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops.cuda import (launch_counts_by_source,
+                                           reset_launch_counts)
+    from paddle_tpu_torch.static_analysis import fusion
+
+    main, startup, loss = dsl_train_program(fluid)
+    batch = nmt_batch(np, np.random.RandomState(SEED + 43), NMT_VOCAB,
+                      DSL_BATCH, DSL_LEN, NMT_LENGTHS)
+    failed, train_counts = _rnn_train_path(
+        env, "contrib_decoder", "TrainingDecoder", fluid, main, startup,
+        [loss], batch, DSL_STEPS, int(batch["tgt_lens"].sum()))
+
+    main, startup, fetch = dsl_infer_program(fluid)
+    prog, _report = fusion.resolve_fused_program(
+        main, targets=[v.name for v in fetch])
+    want = {"embedding_gather_fwd": sum(
+        op.type == "fused_embedding_gather"
+        for op in prog.global_block().ops)}
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    feed = {"src": np.random.RandomState(SEED + 44).randint(
+        3, NMT_VOCAB, (DSL_INFER_BATCH, DSL_LEN)).astype("int64")}
+
+    def translate():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        return got, time.perf_counter() - t0, exe.last_loops[0]
+
+    cold, cold_s, _ = translate()
+    walls = []
+    for k in range(NMT_WARM_RUNS):
+        if k == NMT_WARM_RUNS - 1:
+            reset_launch_counts()
+        got, wall, rec = translate()
+        walls.append(wall)
+        if not all(np.array_equal(a, b) for a, b in zip(got, cold)):
+            failed.append("a warm translation gave other beams")
+    counts = launch_counts_by_source()
+    no_step = _syncs(torch, lambda: None)
+    where = []
+    syncs = _syncs(torch, lambda: exe.run(main, feed=feed, fetch_list=fetch,
+                                          scope=scope), where)
+    replay_ms, body_kernels = _body_replay_ms(torch, exe)
+    prof, pwall = _profiled_calls(
+        lambda: exe.run(main, feed=feed, fetch_list=fetch, scope=scope), 1)
+    groups, top = _device_breakdown(prof, 1, _rnn_group)
+    ids, scores = got
+    trips = rec["trips"]
+    launched = {k: counts["wrapper"][k] + counts["graph_nodes"][k]
+                for k in counts["wrapper"]}
+    emit({"phase": "contrib_decoder", "program": "BeamSearchDecoder",
+          "card": card_label(env),
+          "config": "vocab %d, width %d, src_len %d, batch %d, beam %d, "
+                    "max_len %d, f32" % (NMT_VOCAB, NMT_WIDTH, DSL_LEN,
+                                         DSL_INFER_BATCH, NMT_BEAM,
+                                         NMT_MAX_LEN),
+          "trips": trips, "condition_reads": rec["cond_reads"],
+          "host_syncs_a_translation": syncs,
+          "host_sync_sites": sorted(set(where)),
+          "host_syncs_of_no_call": no_step,
+          "body_mode": rec["mode"], "body_reason": rec["reason"],
+          "cold_s": cold_s, "warm_s": walls,
+          "ms_a_translation": statistics.median(walls) * 1e3,
+          "trip_wall_ms": rec["wall_ms"] / max(trips, 1),
+          "body_replay_device_ms": replay_ms,
+          "body_graph_kernel_nodes": body_kernels,
+          "profiled_wall_ms": pwall,
+          "device_ms": sum(groups.values()) or "not measured",
+          "device_ms_by_group": groups,
+          "top_kernels": [{"ms": t, "launches": n, "name": k}
+                          for t, n, k in top[:6]],
+          "launches": launched, "expected_launches": want,
+          "ids_shape": list(ids.shape),
+          "best_scores": scores[:4, 0].tolist()})
+    if rec["mode"] != "graph" or rec["replayed_trips"] != trips:
+        failed.append("the body ran %s" % rec)
+    if launched != dict({k: 0 for k in launched}, **want):
+        failed.append("launches %s != %s" % (launched, want))
+    if list(ids.shape) != [DSL_INFER_BATCH, NMT_BEAM, NMT_MAX_LEN] \
+            or ids.min() < 0 or ids.max() >= NMT_VOCAB \
+            or not np.isfinite(scores).all() \
+            or (np.diff(scores, axis=1) > 0).any():
+        failed.append("beams out of shape, range or order: ids %s, scores "
+                      "%s" % (ids.shape, scores[:2]))
+    del exe, scope
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("contrib_decoder: %s" % failed)
+    return {"train": train_counts, "decode": counts}
+
+
+def _resnet_infer_export(fluid, resnet, export_dir):
+    """The reference's ``child_infer`` graph (bench.py:339-401):
+    ResNet-50 NHWC for test, softmax, exported with random weights from
+    SEED (moving statistics perturbed from SEED, so the fold has work)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import unique_name
+
+    unique_name.switch()
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SEED
+    with fluid.program_guard(main, startup):
+        img = fluid.layers.data("img", shape=[RESNET_HW, RESNET_HW, 3],
+                                dtype="float32")
+        logits = resnet.resnet_imagenet(img, 1000, 50, is_test=True,
+                                        data_format="NHWC")
+        prob = fluid.layers.softmax(logits)
+    # the logits are fetched beside the probabilities: random weights
+    # saturate the softmax, whose outputs then hide the arithmetic
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CPUPlace())
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(SEED + 45)
+    for v in main.list_vars():
+        if v.persistable and v.name.endswith((".w_1", ".w_2")) \
+                and "batch_norm" in v.name:
+            arr = scope.get(v.name).numpy()
+            new = rng.uniform(0.5, 1.5, arr.shape) if v.name.endswith(
+                ".w_2") else rng.randn(*arr.shape) * 0.1
+            scope.set(v.name, torch.from_numpy(new.astype("float32")))
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(export_dir, ["img"], [prob, logits],
+                                      exe, main_program=main)
+    return _op_type_counts(main)
+
+
+def _vision_group(name):
+    g = _resnet_group(name)
+    return "softmax" if "softmax" in name.lower() else g
+
+
+def phase_resnet_infer(env):
+    """ResNet-50 served as the reference serves it (bench.py:339-401):
+    ``resnet_imagenet(..., 50, is_test=True, data_format="NHWC")`` →
+    softmax → ``save_inference_model`` → ``AnalysisPredictor``
+    (``conv_bn_fuse_pass``, ``fc_fuse_pass``, DCE) → ``run``, at 224x224,
+    batch 1 and 64, in float32 and with ``enable_bf16`` after the fold.
+    Per case: images a second and the latency (synchronised runs, median
+    of RESNET_INFER_RUNS after the warm-up and capture), op counts before
+    and after the passes (no batch_norm after), the device breakdown, the
+    port's kernels' launches a run (none: K4 needs a batch_norm), and the
+    predictor's output against the unfolded eval program on the card
+    (the logits, fetched beside the probabilities; f32: within
+    RESNET_INFER_RTOL of the largest; bf16: against the f32 predictor
+    within RESNET_INFER_BF16_RTOL of the largest, and not bit-equal).
+    Returns the launches of the timed runs by source."""
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.inference import (AnalysisConfig,
+                                            create_paddle_predictor)
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.ops.cuda import (KERNELS, launch_counts,
+                                           launch_counts_by_source,
+                                           reset_launch_counts)
+
+    export_dir = tempfile.mkdtemp(prefix="chip_smoke_resnet_infer_")
+    failed = []
+    counts = {"wrapper": dict.fromkeys(KERNELS, 0),
+              "graph_nodes": dict.fromkeys(KERNELS, 0)}
+    try:
+        before = _resnet_infer_export(fluid, resnet, export_dir)
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        scope = fluid.Scope()
+        with fluid.scope_guard(scope):
+            prog, feeds, fetches = fluid.io.load_inference_model(
+                export_dir, exe)
+        preds = {}
+        for bf16 in (False, True):
+            cfg = AnalysisConfig(export_dir)
+            if bf16:
+                cfg.enable_bf16()
+            preds[bf16] = create_paddle_predictor(cfg)
+        for b in RESNET_INFER_BATCHES:
+            x = np.random.RandomState(SEED + 46 + b).randn(
+                b, RESNET_HW, RESNET_HW, 3).astype("float32")
+            xd = torch.from_numpy(x).cuda()
+            _, direct = exe.run(prog, feed={feeds[0]: xd},
+                                fetch_list=fetches, scope=scope)
+            direct = np.asarray(direct, "float32")
+            outs = {}
+            for bf16, pred in preds.items():
+                label = "bf16" if bf16 else "f32"
+
+                def run():
+                    return pred.run([xd])
+
+                run()
+                run()  # warm-up, capture
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                lat = []
+                for _ in range(RESNET_INFER_RUNS):
+                    s0 = time.perf_counter()
+                    prob, out = run()
+                    lat.append((time.perf_counter() - s0) * 1e3)
+                launched = launch_counts()
+                by_source = launch_counts_by_source()
+                for src in counts:
+                    for k in KERNELS:
+                        counts[src][k] += by_source[src][k]
+                prof, pwall = _profiled_calls(run, 3)
+                groups, top = _device_breakdown(prof, 3, _vision_group)
+                outs[bf16] = np.asarray(out, "float32")
+                after = _op_type_counts(pred.program)
+                busy = sum(groups.values())
+                line = {"phase": "resnet_infer", "precision": label,
+                        "batch": b, "card": card_label(env),
+                        "config": "ResNet-50 NHWC %dx%d, softmax, "
+                                  "AnalysisPredictor" % (RESNET_HW,
+                                                         RESNET_HW),
+                        "latency_ms_median": statistics.median(lat),
+                        "latency_ms_runs": lat,
+                        "images_per_s": b / (statistics.median(lat) / 1e3),
+                        "ops_before_passes": sum(before.values()),
+                        "ops_after_passes": sum(after.values()),
+                        "batch_norm_before": before.get("batch_norm", 0),
+                        "batch_norm_after": after.get("batch_norm", 0),
+                        "op_types_after": after,
+                        "device_ms": busy if busy else "not measured",
+                        "idle_share": (1.0 - busy / pwall) if busy
+                        else "not measured",
+                        "device_ms_by_group": groups,
+                        "top_kernels": [{"ms": t, "launches": n, "name": k}
+                                        for t, n, k in top[:6]],
+                        "launches_a_run": {k: v / RESNET_INFER_RUNS
+                                           for k, v in launched.items()
+                                           if v}}
+                line["logits_max_abs"] = float(np.abs(outs[bf16]).max())
+                line["prob_rows_sum_to_1"] = bool(np.allclose(
+                    np.asarray(prob, "float32").sum(1), 1.0, atol=1e-2))
+                if bf16:
+                    ref = outs[False]
+                    err = float(np.abs(outs[True] - ref).max()
+                                / np.abs(ref).max())
+                    line["logits_rel_err_vs_f32_predictor"] = err
+                    line["tol"] = RESNET_INFER_BF16_RTOL
+                    if not 0 < err < RESNET_INFER_BF16_RTOL:
+                        failed.append("bf16 batch %d: %g vs f32" % (b, err))
+                else:
+                    err = float(np.abs(outs[False] - direct).max()
+                                / np.abs(direct).max())
+                    line["logits_rel_err_vs_unfolded_program"] = err
+                    line["tol"] = RESNET_INFER_RTOL
+                    if err > RESNET_INFER_RTOL:
+                        failed.append("f32 batch %d: %g vs the unfolded "
+                                      "program" % (b, err))
+                if not line["prob_rows_sum_to_1"]:
+                    failed.append("%s batch %d: probabilities" % (label, b))
+                if after.get("batch_norm", 0) or any(launched.values()):
+                    failed.append("%s batch %d: batch_norm left %d, "
+                                  "launches %s" % (label, b, after.get(
+                                      "batch_norm", 0), launched))
+                if not np.isfinite(outs[bf16]).all() or outs[bf16].shape \
+                        != (b, 1000):
+                    failed.append("%s batch %d: output %s not finite"
+                                  % (label, b, outs[bf16].shape))
+                emit(line)
+        del preds, exe, scope
+    finally:
+        shutil.rmtree(export_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("resnet_infer: %s" % failed)
+    return counts
+
+
+def _grouped_conv_ms(torch, program, batch):
+    """The grouped convolutions of ``program`` timed apart at ``batch``:
+    each conv2d site with groups > 1, forward and both backward
+    gradients, on its own (CUDA events, warm) → (ms a step, sites)."""
+    import torch.nn.functional as F
+
+    block = program.global_block()
+    sites = []
+    for op in block.ops:
+        if op.type == "conv2d" and int(op.attrs.get("groups", 1) or 1) > 1:
+            x = block._find_var_recursive(op.input("Input")[0])
+            w = block._find_var_recursive(op.input("Filter")[0])
+            sites.append(((batch,) + tuple(x.shape[1:]), tuple(w.shape),
+                          [int(s) for s in op.attrs["strides"]],
+                          [int(p) for p in op.attrs["paddings"]],
+                          int(op.attrs["groups"])))
+    total = 0.0
+    for xs, ws, st, pd, g in sites:
+        x = torch.randn(xs, device="cuda", requires_grad=True)
+        w = torch.randn(ws, device="cuda", requires_grad=True)
+        dy = torch.randn(F.conv2d(x, w, None, st, pd, 1, g).shape,
+                         device="cuda")
+
+        def fwd_bwd():
+            y = F.conv2d(x, w, None, st, pd, 1, g)
+            torch.autograd.grad(y, (x, w), dy)
+
+        total += time_ms(fwd_bwd, iters=5, warmup=2)
+    return total, len(sites)
+
+
+def _vision_train(env, phase, main, startup, loss, batch, images, want_fused,
+                  extra=None):
+    """Warm-up, capture and graph steps of a vision trainer on the card:
+    the step (``_graph_side``), images a second, the device breakdown,
+    peak memory, the fusion report and the kernels' launches a step."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.static_analysis import fusion
+
+    prog, report = fusion.resolve_fused_program(main, targets=[loss.name])
+    want = _update_launches(prog)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup)
+        feed = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+        def call(return_numpy=True):
+            return exe.run(main, feed=feed, fetch_list=[loss],
+                           return_numpy=return_numpy)
+
+        losses, modes = [], []
+        for _ in range(VISION_TRAIN_STEPS):
+            losses.append(float(np.asarray(call()[0]).reshape(-1)[0]))
+            modes.append(exe.last_run_mode)
+        g = _graph_side(exe, call, lambda: call(False), _vision_group)
+        del call
+    del scope, exe
+    torch.cuda.empty_cache()
+    line = {"phase": phase, "card": card_label(env),
+            "fused": report.counts(), "expected_launches": want,
+            "conv_bn_act_skipped": [s.reason for s in report.skipped
+                                    if s.family == "conv_bn_act"],
+            "batch_norm_left": _op_type_counts(prog).get("batch_norm", 0),
+            "losses": losses, "modes": modes,
+            "images_per_s": images / (g["step_ms"] / 1e3)}
+    line.update({k: g[k] for k in (
+        "step_ms", "step_ms_runs", "enqueue_ms", "device_ms", "idle_share",
+        "device_ms_by_group", "top_kernels", "launches_by_wrapper",
+        "launches_by_graph_nodes", "peak_allocated_bytes", "reserved_bytes",
+        "last_run_mode")})
+    line.update(extra or {})
+    emit(line)
+    failed = []
+    if report.counts().get("conv_bn_act", 0) != want_fused:
+        failed.append("fused %s, expected %d conv_bn_act sites"
+                      % (report.counts(), want_fused))
+    if not all(np.isfinite(losses)) or modes[:2] != ["eager", "capture"] \
+            or g["last_run_mode"] != "graph":
+        failed.append("losses %s, modes %s" % (losses, modes))
+    # the update kernels a step, no other port kernel (K4: NCHW or unfused)
+    got = {k: g["launches_by_wrapper"][k] + g["launches_by_graph_nodes"][k]
+           for k in g["launches_by_wrapper"]}
+    if got != {k: float(want.get(k, 0)) for k in got}:
+        failed.append("launches a step %s != %s" % (
+            {k: v for k, v in got.items() if v}, want))
+    return failed, {"wrapper": g["launches_by_wrapper"],
+                    "graph_nodes": g["launches_by_graph_nodes"]}
+
+
+def phase_se_resnext(env):
+    """SE-ResNeXt-50's widths and depths through the repository's
+    builder (``se_resnext.build(image_shape=(3, 224, 224), class_dim=1000,
+    cardinality=32, reduction_ratio=16, depth=(3, 4, 6, 3),
+    num_filters=(128, 256, 512, 1024))``; its stem is one 3x3 stride-1
+    conv with no max pool), NCHW, batch 16, Momentum, random weights from
+    SEED: graph steps, images a second, the device breakdown with the
+    grouped convolutions also timed apart, peak memory.  Every conv →
+    batch_norm site fuses and runs the op's float epilogue (NCHW: K4
+    takes channels-last only), so the only port kernel that runs is the
+    Momentum update.  Returns the launches a step by source."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import se_resnext
+
+    unique_name.switch()
+    main, startup, _f, loss, _acc = se_resnext.build(
+        image_shape=(3, RESNET_HW, RESNET_HW), class_dim=1000,
+        cardinality=32, reduction_ratio=16, depth=(3, 4, 6, 3),
+        num_filters=(128, 256, 512, 1024))
+    main.random_seed = startup.random_seed = SEED
+    rng = np.random.RandomState(SEED + 47)
+    batch = {"img": rng.randn(SE_BATCH, 3, RESNET_HW, RESNET_HW).astype(
+        "float32"), "label": rng.randint(0, 1000, (SE_BATCH, 1)).astype(
+        "int64")}
+    grouped_ms, grouped_sites = _grouped_conv_ms(torch, main, SE_BATCH)
+    sites = sum(op.type == "batch_norm" for op in main.global_block().ops)
+    failed, counts = _vision_train(
+        env, "se_resnext", main, startup, loss, batch, SE_BATCH, sites,
+        {"config": "SE-ResNeXt-50 widths (cardinality 32, reduction 16, "
+                   "depth 3-4-6-3, filters 128-1024), 224x224 NCHW, batch "
+                   "%d, Momentum, f32" % SE_BATCH,
+         "grouped_conv_sites": grouped_sites,
+         "grouped_conv_fwd_bwd_ms_apart": grouped_ms})
+    if failed:
+        raise AssertionError("se_resnext: %s" % failed)
+    return counts
+
+
+def phase_vgg(env):
+    """VGG-16 (``vgg.build(dataset="imagenet", data_format="NHWC")``:
+    224x224, 1000 classes, Adam), batch 32, random weights from SEED:
+    graph steps, images a second, the fused sites (0: ``img_conv_group``
+    gives each conv a bias, so batch_norm is not its only reader, as in
+    the reference), the device breakdown and peak memory.  Returns the
+    launches a step by source (of the port's kernels only the Adam
+    update runs)."""
+    import numpy as np
+
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models import vgg
+
+    unique_name.switch()
+    main, startup, _f, loss, _acc = vgg.build(dataset="imagenet",
+                                              data_format="NHWC")
+    main.random_seed = startup.random_seed = SEED
+    rng = np.random.RandomState(SEED + 48)
+    batch = {"img": rng.randn(VGG_BATCH, RESNET_HW, RESNET_HW, 3).astype(
+        "float32"), "label": rng.randint(0, 1000, (VGG_BATCH, 1)).astype(
+        "int64")}
+    failed, counts = _vision_train(
+        env, "vgg", main, startup, loss, batch, VGG_BATCH, 0,
+        {"config": "VGG-16, 224x224 NHWC, batch %d, Adam, f32"
+                   % VGG_BATCH})
+    if failed:
+        raise AssertionError("vgg: %s" % failed)
+    return counts
+
+
+def vision_parity_cases(np):
+    """(name, build(fluid, vars), feeds, differentiable feeds) of the
+    vision ops and layers at image sizes: the CPU tests' cases scaled
+    up."""
+    rng = np.random.RandomState(SEED + 49)
+
+    def x(*shape):
+        return rng.randn(*shape).astype("float32")
+
+    def rois(n_img, r, hw):
+        x1, y1 = rng.uniform(0, hw * 0.5, r), rng.uniform(0, hw * 0.5, r)
+        boxes = np.stack([rng.randint(0, n_img, r).astype("float64"), x1,
+                          y1, x1 + rng.uniform(4, hw * 0.5, r),
+                          y1 + rng.uniform(4, hw * 0.5, r)], 1)
+        return boxes.astype("float32")
+
+    return [
+        ("pixel_shuffle", lambda f, v: f.layers.pixel_shuffle(v["x"], 2),
+         {"x": x(2, 64, 56, 56)}, ["x"]),
+        ("shuffle_channel", lambda f, v: f.layers.shuffle_channel(
+            v["x"], group=4), {"x": x(2, 64, 56, 56)}, ["x"]),
+        ("temporal_shift", lambda f, v: f.layers.temporal_shift(
+            v["x"], seg_num=8), {"x": x(16, 64, 28, 28)}, ["x"]),
+        ("affine_channel", lambda f, v: f.layers.affine_channel(
+            v["x"], v["s"], v["b"], data_layout="NHWC"),
+         {"x": x(4, 56, 56, 64), "s": x(64), "b": x(64)}, ["x", "s", "b"]),
+        ("crop", lambda f, v: f.layers.crop(
+            v["x"], shape=[4, 3, 200, 200], offsets=[0, 0, 12, 12]),
+         {"x": x(4, 3, 224, 224)}, ["x"]),
+        ("pad_constant_like", lambda f, v: f.layers.pad_constant_like(
+            v["x"], v["y"], 0.5),
+         {"x": x(4, 3, 224, 224), "y": x(4, 3, 200, 210)}, ["y"]),
+        ("maxout", lambda f, v: f.layers.maxout(v["x"], groups=4),
+         {"x": x(4, 64, 56, 56)}, ["x"]),
+        ("lrn", lambda f, v: f.layers.lrn(v["x"], n=5, alpha=1e-4),
+         {"x": x(4, 96, 55, 55)}, ["x"]),
+        ("fsp_matrix", lambda f, v: f.layers.fsp_matrix(v["x"], v["y"]),
+         {"x": x(8, 64, 56, 56), "y": x(8, 128, 56, 56)}, ["x", "y"]),
+        ("grid_sampler", lambda f, v: f.layers.grid_sampler(v["x"], v["g"]),
+         {"x": x(4, 32, 64, 64), "g": rng.uniform(
+             -1.05, 1.05, (4, 48, 48, 2)).astype("float32")}, ["x", "g"]),
+        ("affine_grid", lambda f, v: f.layers.affine_grid(
+            v["t"], [8, 3, 224, 224]), {"t": x(8, 2, 3)}, ["t"]),
+        ("roi_pool", lambda f, v: f.layers.roi_pool(
+            v["x"], v["r"], 7, 7, 1.0 / 16),
+         {"x": x(2, 64, 38, 50), "r": rois(2, 32, 600)}, ["x"]),
+        ("psroi_pool", lambda f, v: f.layers.psroi_pool(
+            v["x"], v["r"], 8, 1.0 / 16, 3, 3),
+         {"x": x(2, 72, 38, 50), "r": rois(2, 32, 600)}, ["x"]),
+        ("unfold", lambda f, v: f.layers.unfold(v["x"], [3, 3], 1, 1),
+         {"x": x(4, 32, 56, 56)}, ["x"]),
+        ("deformable_conv", lambda f, v: f.layers.deformable_conv(
+            v["x"], v["o"], v["m"], 32, 3, padding=1),
+         {"x": x(2, 32, 28, 28), "o": x(2, 18, 28, 28),
+          "m": rng.uniform(0, 1, (2, 9, 28, 28)).astype("float32")},
+         ["x", "o", "m"]),
+        ("deformable_roi_pooling", lambda f, v: f.layers.
+         deformable_roi_pooling(v["x"], v["r"], v["t"], spatial_scale=1.0
+                                / 16, pooled_height=3, pooled_width=3,
+                                sample_per_part=2),
+         {"x": x(2, 90, 38, 50), "r": rois(2, 16, 600),
+          "t": x(16, 2, 3, 3)}, ["x", "t"]),
+        ("pool3d", lambda f, v: f.layers.pool3d(
+            v["x"], 3, "avg", 2, 1), {"x": x(2, 32, 16, 56, 56)}, ["x"]),
+        ("conv2d_transpose", lambda f, v: f.layers.conv2d_transpose(
+            v["x"], 64, filter_size=4, stride=2, padding=1),
+         {"x": x(4, 128, 28, 28)}, ["x"]),
+        ("conv3d", lambda f, v: f.layers.conv3d(v["x"], 32, 3, padding=1),
+         {"x": x(2, 16, 16, 56, 56)}, ["x"]),
+        ("conv3d_transpose", lambda f, v: f.layers.conv3d_transpose(
+            v["x"], 16, filter_size=2, stride=2),
+         {"x": x(2, 32, 8, 28, 28)}, ["x"]),
+        ("group_norm", lambda f, v: f.layers.group_norm(v["x"], 32),
+         {"x": x(4, 128, 56, 56)}, ["x"]),
+        ("resize_bilinear", lambda f, v: f.layers.resize_bilinear(
+            v["x"], out_shape=[448, 448], align_corners=False,
+            align_mode=0), {"x": x(4, 3, 224, 224)}, ["x"]),
+        ("resize_nearest", lambda f, v: f.layers.resize_nearest(
+            v["x"], out_shape=[112, 112]), {"x": x(4, 3, 224, 224)},
+         ["x"]),
+        ("image_resize_short", lambda f, v: f.layers.image_resize_short(
+            v["x"], 224), {"x": x(2, 3, 375, 500)}, ["x"]),
+        ("sequence_pool", lambda f, v: f.layers.sequence_pool(
+            v["x"], "max", seq_len=v["n"]),
+         {"x": x(64, 128, 256), "n": rng.randint(1, 129, 64).astype(
+             "int64")}, ["x"]),
+    ]
+
+
+def vision_parity_run(fluid, place, build, feeds, grads, params=None):
+    """One forward and backward of ``build`` on ``place``: the output, the
+    gradients of ``sum(out * cot)`` (a seeded cotangent) with respect to
+    ``grads`` and the trainable parameters, and the parameters."""
+    import numpy as np
+
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.convert import load_params_into_scope
+
+    unique_name.switch()
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SEED
+    with fluid.program_guard(main, startup):
+        ins = {n: fluid.layers.data(n, shape=list(v.shape),
+                                    dtype=str(v.dtype),
+                                    append_batch_size=False,
+                                    stop_gradient=n not in grads)
+               for n, v in feeds.items()}
+        out = build(fluid, ins)
+        wrt = [ins[n] for n in grads] + [p for p in main.all_parameters()
+                                         if p.trainable]
+        cot = fluid.layers.data("cot", shape=list(out.shape),
+                                dtype="float32", append_batch_size=False)
+        fluid.backward.append_backward(fluid.layers.reduce_sum(
+            fluid.layers.elementwise_mul(out, cot)))
+    scope = fluid.Scope()
+    exe = fluid.Executor(place)
+    exe.run(startup, scope=scope)
+    if params is not None:
+        load_params_into_scope(params, scope, device=place, program=main)
+    own = {p.name: np.asarray(scope.get(p.name).cpu())
+           for p in main.all_parameters()}
+    feed = dict(feeds, cot=np.random.RandomState(SEED + 50).randn(
+        *out.shape).astype("float32"))
+    res = exe.run(main, feed=feed, fetch_list=[out] + [
+        v.name + "@GRAD" for v in wrt], scope=scope)
+    return [np.asarray(r) for r in res], own
+
+
+def phase_vision_parity(env):
+    """Each vision op and layer of this slice (the 17 vision op types,
+    pool3d, the transposed and 3-D convolutions, group norm, the
+    resizes, sequence_pool), forward and backward at image sizes, on
+    the card against the same op on the CPU from the same parameters:
+    output and every gradient within VISION_PARITY_RTOL of the largest
+    magnitude (float32, TF32 off)."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+
+    rows, failed = [], []
+    for name, build, feeds, grads in vision_parity_cases(np):
+        t0 = time.time()
+        cpu, params = vision_parity_run(fluid, fluid.CPUPlace(), build,
+                                        feeds, grads)
+        card, _ = vision_parity_run(fluid, fluid.CUDAPlace(0), build, feeds,
+                                    grads, params)
+        errs = [float(np.abs(a - b).max() / max(1.0, np.abs(b).max()))
+                for a, b in zip(card, cpu)]
+        ok = max(errs) <= VISION_PARITY_RTOL
+        rows.append({"op": name, "shape": {k: list(v.shape)
+                                           for k, v in feeds.items()},
+                     "fwd_rel_err": errs[0],
+                     "grad_rel_err": max(errs[1:]) if errs[1:] else None,
+                     "seconds": time.time() - t0, "ok": ok})
+        if not ok:
+            failed.append("%s: %s" % (name, errs))
+    emit({"phase": "vision_parity", "card": card_label(env),
+          "tol": VISION_PARITY_RTOL, "ops": rows})
+    if failed:
+        raise AssertionError("vision_parity: %s" % failed)
+
+
 def main():
     try:
         import torch
@@ -10555,12 +11679,18 @@ def _run_phases(torch):
     lstm_counts = _timed(seconds, phase_lstm, env)
     translate_counts = _timed(seconds, phase_nmt_translate, env)
     _timed(seconds, phase_rnn_parity, env)
+    spec_counts = _timed(seconds, phase_speculative, env)
+    dsl_counts = _timed(seconds, phase_contrib_decoder, env)
     _timed(seconds, phase_sampled, env, decode_rates)
     _timed(seconds, phase_serve, env)
     resnet_counts, resnet_groups = _timed(seconds, phase_resnet, env)
     _timed(seconds, phase_resnet_parity)
     resnet_amp_counts = _timed(seconds, phase_resnet_amp, env, resnet_groups)
     _timed(seconds, phase_resnet_amp_parity)
+    infer_counts = _timed(seconds, phase_resnet_infer, env)
+    se_counts = _timed(seconds, phase_se_resnext, env)
+    vgg_counts = _timed(seconds, phase_vgg, env)
+    _timed(seconds, phase_vision_parity, env)
     _timed(seconds, phase_graph, env)
     _timed(seconds, phase_quant)
     dp_counts = _timed(seconds, phase_dp, env)
@@ -10591,7 +11721,12 @@ def _run_phases(torch):
              "dygraph": dygraph_counts, "decode_loop": loop_counts,
              "nmt_train": nmt_counts["build_train"],
              "nmt_train_dynamic": nmt_counts["build_train_dynamic"],
-             "lstm": lstm_counts, "nmt_translate": translate_counts}
+             "lstm": lstm_counts, "nmt_translate": translate_counts,
+             "speculative": spec_counts,
+             "contrib_decoder_train": dsl_counts["train"],
+             "contrib_decoder_decode": dsl_counts["decode"],
+             "resnet_infer": infer_counts, "se_resnext": se_counts,
+             "vgg": vgg_counts}
     for r in rows:
         # the decode path's launches (ring + paged runs) where it runs the
         # kernel, else the BERT training path's (the backward kernels),

@@ -45,6 +45,7 @@ from . import inference
 from . import static_analysis
 from .static_analysis import analyze_program, verify_program
 from . import serving
+from . import nets
 from . import models
 from . import convert
 from . import quant
@@ -67,7 +68,7 @@ __all__ = [
     "WeightNormParamAttr", "Executor", "Scope", "global_scope",
     "scope_guard", "core", "unique_name", "initializer", "ops", "layers",
     "pipeline", "io", "analysis", "inference", "static_analysis",
-    "serving", "models", "convert", "backward", "clip", "regularizer",
+    "serving", "nets", "models", "convert", "backward", "clip", "regularizer",
     "optimizer", "append_backward", "gradients", "quant", "transpiler",
     "contrib", "profiler", "autotune", "verify_program", "analyze_program",
     "average", "resilience", "dygraph", "dygraph_grad_clip",

@@ -18,7 +18,16 @@ either package into a port layer and optimizer;
 :func:`load_params_into_scope` places them in a port ``Scope`` on a
 device.  The port's random initialisation draws other numbers than the
 reference's from the same seed, so these are how the two packages are
-held to the same weights."""
+held to the same weights.
+
+Every parameter keeps the reference's layout, so arrays cross as they
+are: conv filters [C_out, C_in / groups, kh, kw] (grouped, depthwise and
+``deformable_conv``'s, whose offset and mask maps come from ordinary
+convs), 3-D filters [C_out, C_in / groups, kd, kh, kw], transposed
+filters [C_in, C_out / groups, k...] (the layout of
+``F.conv_transpose2d`` / ``3d``, so no op permutes them), fc weights
+[in, out], embeddings [vocab, width]; the checks above are the shapes a
+program declares."""
 
 import json
 import os

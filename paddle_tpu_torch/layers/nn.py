@@ -11,12 +11,15 @@
 ``fused_multihead_attention`` :1113; for ResNet ``conv2d`` :169,
 ``pool2d`` :260, ``batch_norm`` :284, ``mean`` :549, ``topk`` :848,
 ``relu`` :936, ``pad`` :973, and ``space_to_depth`` from
-``layers/nn_extra.py:260``).
+``layers/nn_extra.py:260``; for the vision models ``conv2d_transpose``
+:226, ``group_norm`` :374, ``image_resize`` :995, ``resize_bilinear``
+:1036 and ``resize_nearest`` :1043).
 Each layer appends the same op types, slots and attrs as the reference,
 so the two packages build the same program."""
 
 import numpy as np
 
+from ..framework import Variable
 from ..initializer import ConstantInitializer, NormalInitializer
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
@@ -30,7 +33,9 @@ __all__ = ["fc", "embedding", "layer_norm", "dropout", "softmax",
            "elementwise_pow", "reshape", "transpose", "squeeze", "unsqueeze",
            "slice", "gather", "clip", "clip_by_norm", "where", "one_hot", "fused_dropout_add_ln",
            "fused_multihead_attention", "conv2d", "pool2d", "batch_norm",
-           "mean", "topk", "relu", "pad", "space_to_depth"]
+           "mean", "topk", "relu", "pad", "space_to_depth",
+           "conv2d_transpose", "group_norm", "image_resize",
+           "resize_bilinear", "resize_nearest"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -551,3 +556,104 @@ def space_to_depth(x, blocksize, name=None):
                      outputs={"Out": [out]},
                      attrs={"blocksize": int(blocksize)})
     return out
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=None,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None):
+    """NCHW transposed convolution; the filter is [C_in, C_out / groups,
+    kh, kw], the bias per output channel."""
+    helper = LayerHelper("conv2d_transpose", **locals())
+    dtype = input.dtype
+    groups = groups or 1
+    if filter_size is None:
+        raise ValueError("filter_size required (output_size inference TBD)")
+    filter_shape = [input.shape[1], num_filters // groups] \
+        + _pair(filter_size)
+    w = helper.create_parameter(attr=helper.param_attr, shape=filter_shape,
+                                dtype=dtype)
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="conv2d_transpose", inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [pre_bias]},
+        attrs={"strides": _pair(stride), "paddings": _pair(padding),
+               "dilations": _pair(dilation), "groups": groups})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def group_norm(input, groups, epsilon=1e-5, param_attr=None, bias_attr=None,
+               act=None, data_layout="NCHW", name=None):
+    """Group normalization over the channels of an NCHW tensor; Scale
+    (ones) and Bias unless their attr is False."""
+    if data_layout != "NCHW":
+        raise ValueError("group_norm supports data_layout='NCHW' only, "
+                         "got %r" % (data_layout,))
+    helper = LayerHelper("group_norm", **locals())
+    c = int(input.shape[1])
+    inputs = {"X": [input]}
+    if param_attr is not False:
+        inputs["Scale"] = [helper.create_parameter(
+            attr=helper.param_attr, shape=[c], dtype="float32",
+            default_initializer=ConstantInitializer(1.0))]
+    if bias_attr is not False:
+        inputs["Bias"] = [helper.create_parameter(
+            attr=helper.bias_attr, shape=[c], dtype="float32",
+            is_bias=True)]
+    out = helper.create_variable_for_type_inference(input.dtype)
+    mean = helper.create_variable_for_type_inference("float32", True)
+    var = helper.create_variable_for_type_inference("float32", True)
+    helper.append_op(
+        type="group_norm", inputs=inputs,
+        outputs={"Y": [out], "Mean": [mean], "Variance": [var]},
+        attrs={"groups": int(groups), "epsilon": float(epsilon)})
+    return helper.append_activation(out)
+
+
+def image_resize(input, out_shape=None, scale=None, name=None,
+                 resample="BILINEAR", actual_shape=None, align_corners=True,
+                 align_mode=1):
+    """Resize NCHW images to a static ``out_shape`` (or ``scale`` times
+    the input's), as the reference's: a tensor-valued size is refused."""
+    resample = str(resample).upper()
+    if resample not in ("BILINEAR", "NEAREST"):
+        raise ValueError(
+            "image_resize resample must be 'BILINEAR' or 'NEAREST', got %r"
+            % (resample,))
+    if actual_shape is not None or isinstance(out_shape, Variable):
+        raise ValueError(
+            "image_resize needs a static out_shape (list/tuple of ints); "
+            "a tensor-valued out_shape/actual_shape would make the "
+            "output shape dynamic")
+    h, w = int(input.shape[2]), int(input.shape[3])
+    if out_shape is not None:
+        if len(out_shape) != 2:
+            raise ValueError("out_shape must be [out_h, out_w]")
+        oh, ow = int(out_shape[0]), int(out_shape[1])
+    elif scale is not None:
+        oh, ow = int(h * float(scale)), int(w * float(scale))
+    else:
+        raise ValueError("one of out_shape and scale must be set")
+    helper = LayerHelper("image_resize", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="bilinear_interp" if resample == "BILINEAR"
+        else "nearest_interp",
+        inputs={"X": [input]}, outputs={"Out": [out]},
+        attrs={"out_h": oh, "out_w": ow,
+               "align_corners": bool(align_corners),
+               "align_mode": int(align_mode)})
+    return out
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None,
+                    actual_shape=None, align_corners=True, align_mode=1):
+    return image_resize(input, out_shape, scale, name, "BILINEAR",
+                        actual_shape, align_corners, align_mode)
+
+
+def resize_nearest(input, out_shape=None, scale=None, name=None,
+                   actual_shape=None, align_corners=True):
+    return image_resize(input, out_shape, scale, name, "NEAREST",
+                        actual_shape, align_corners)

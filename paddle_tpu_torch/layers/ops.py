@@ -1,13 +1,14 @@
 """Op-wrapping layers (mirrors ``paddle_tpu/layers/ops.py``: the unary
-generator :18 for ``exp`` :31, ``sqrt`` :33, ``ceil`` / ``floor``
-:36-37, ``cos`` :38, ``gelu`` :56, ``sign`` :60; ``pow`` :76, ``scale``
-:86, the logical ops :100-129, ``cumsum`` :137)."""
+generator :18 for ``exp`` :31, ``tanh`` :33, ``sqrt`` :34, ``ceil`` /
+``floor`` :36-37, ``cos`` :38, ``sigmoid`` :47, ``gelu`` :56, ``sign``
+:60; ``pow`` :76, ``scale`` :86, the logical ops :100-129, ``cumsum``
+:137)."""
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["exp", "sqrt", "ceil", "floor", "cos", "sign", "gelu", "pow",
-           "scale", "logical_and", "logical_or", "logical_xor",
-           "logical_not", "cumsum"]
+__all__ = ["exp", "tanh", "sigmoid", "sqrt", "ceil", "floor", "cos",
+           "sign", "gelu", "pow", "scale", "logical_and", "logical_or",
+           "logical_xor", "logical_not", "cumsum"]
 
 
 def _generate_unary(op_type):
@@ -24,6 +25,8 @@ def _generate_unary(op_type):
 
 
 exp = _generate_unary("exp")
+tanh = _generate_unary("tanh")
+sigmoid = _generate_unary("sigmoid")
 sqrt = _generate_unary("sqrt")
 ceil = _generate_unary("ceil")
 floor = _generate_unary("floor")

@@ -1,5 +1,6 @@
 """Sequence layers over padded batches (mirrors
-``paddle_tpu/layers/sequence.py``: ``sequence_mask`` :128,
+``paddle_tpu/layers/sequence.py``: ``sequence_pool`` :55,
+``sequence_mask`` :128,
 ``dynamic_lstm`` :160 and ``dynamic_gru`` :210; the other sequence
 layers are ROADMAP.md Queue A item 9).  A sequence batch is a padded
 [B, T, ...] tensor with an optional ``seq_len`` [B], the reference's
@@ -7,7 +8,23 @@ stand-in for LoD offsets; without it every row is full length."""
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["sequence_mask", "dynamic_lstm", "dynamic_gru"]
+__all__ = ["sequence_pool", "sequence_mask", "dynamic_lstm",
+           "dynamic_gru"]
+
+
+def sequence_pool(input, pool_type, is_test=False, seq_len=None):
+    """Pool each sequence of a padded [B, T, ...] batch over time
+    (``pool_type`` sum, average, sqrt, max, last or first)."""
+    helper = LayerHelper("sequence_pool")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    inputs = {"X": [input]}
+    if seq_len is not None:
+        inputs["SeqLen"] = [seq_len]
+    max_index = helper.create_variable_for_type_inference("int32", True)
+    helper.append_op(type="sequence_pool", inputs=inputs,
+                     outputs={"Out": [out], "MaxIndex": [max_index]},
+                     attrs={"pooltype": pool_type.upper()})
+    return out
 
 
 def sequence_mask(x, maxlen=None, dtype="int64", name=None):

@@ -1,6 +1,6 @@
 """Instrumentation hooks: the one-line calls the executor, the pipeline,
 the serving dispatcher, the decode engine and the concurrency gates make
-(mirrors ``paddle_tpu/observability/runtime.py`` :1-365, :442-450,
+(mirrors ``paddle_tpu/observability/runtime.py`` :1-390, :442-450,
 :560-685).
 
 Centralizing the metric names and journal kinds here keeps the
@@ -11,8 +11,9 @@ returns immediately when telemetry is off.  No hook reads the device.
 A ``drift_key`` (the executor's, registered at a key's first call)
 feeds the drift monitor (:mod:`.drift`).  The watchdog's two recorders
 (``record_worker_lost``, ``record_missed_beat``) are ported with
-``resilience.watchdog``.  Not ported yet: the guard, checkpoint,
-elastic and speculative-decoding recorders, which wait for the modules
+``resilience.watchdog``, and the speculative decoder's
+(``record_spec_round``) with ``serving.speculative``.  Not ported yet:
+the guard, checkpoint and elastic recorders, which wait for the modules
 that call them.
 """
 
@@ -36,7 +37,7 @@ __all__ = [
     "set_serving_throughput",
     "record_decode_tokens", "record_decode_request",
     "set_decode_throughput", "set_kv_pool", "record_kv_handoff",
-    "record_decode_resize", "record_dispatcher_died",
+    "record_spec_round", "record_decode_resize", "record_dispatcher_died",
     "record_concurrency_check", "record_worker_lost", "record_missed_beat",
     "set_collective_schedule", "collective_step_shape",
     "last_step_info", "reset_runtime",
@@ -369,6 +370,22 @@ def record_kv_handoff(tenant, wait_ms, blocks):
     _m.counter("serving_kv_handoff_blocks_total",
                tenant=tenant).inc(blocks)
     _named(_m.histogram, "serving_kv_handoff_wait_ms").observe(wait_ms)
+
+
+def record_spec_round(tenant, proposed, accepted):
+    """One speculative-decoding verify round: ``proposed`` draft
+    tokens checked, ``accepted`` of them kept (the bonus token is not
+    counted on either side).  The cumulative ratio feeds the
+    ``spec_acceptance_rate`` gauge."""
+    if not telemetry_enabled():
+        return
+    p = _m.counter("spec_tokens_proposed_total", tenant=tenant)
+    a = _m.counter("spec_tokens_accepted_total", tenant=tenant)
+    p.inc(proposed)
+    a.inc(accepted)
+    if p.value:
+        _m.gauge("spec_acceptance_rate",
+                 tenant=tenant).set(a.value / float(p.value))
 
 
 # ---------------------------------------------------------------------------

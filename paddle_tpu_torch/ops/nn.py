@@ -8,7 +8,7 @@ fused_multihead_attention :523, fused_dropout_add_ln :555,
 fused_bias_act :582, fused_conv_bn_act :598, fused_embedding_gather
 :674; the dygraph layers' conv3d :333, conv2d_transpose :338, prelu :511,
 spectral_norm :805, row_conv :837, nce :872, conv3d_transpose :968,
-group_norm :1003).
+pool3d :997, group_norm :1003).
 
 The four kernel-backed ``fused_*`` ops route to the hand-written CUDA
 kernels under :mod:`paddle_tpu_torch.ops.cuda`, whose autograd functions
@@ -429,6 +429,48 @@ def _pool2d_wide_pad(x, ptype, ksize, strides, paddings, exclusive):
     else:
         out = s / float(ksize[0] * ksize[1])
     return out.to(x.dtype)
+
+
+@register_op("pool3d", inputs=["X"], outputs=["Out"])
+def pool3d(ctx, attrs, X):
+    """NCDHW (or channels-last) 3-D pooling, the reference's ``_pool_nd``
+    for 3-D (:372, :997): global and adaptive windows as ``pool2d``'s;
+    the padding is explicit (-inf for max, zeros for average), average
+    sums in float32 and divides by the window, or, when ``exclusive`` and
+    padded, by the count of real cells under it."""
+    ptype = attrs.get("pooling_type", "max")
+    ksize = [int(k) for k in attrs.get("ksize", [2, 2, 2])]
+    strides = [int(s) for s in attrs.get("strides", [2, 2, 2])]
+    paddings = [int(p) for p in attrs.get("paddings", [0, 0, 0])]
+    exclusive = attrs.get("exclusive", True)
+    adaptive = attrs.get("adaptive", False)
+    channels_last = attrs.get("data_format", "NCHW") not in (
+        "NCHW", "NCDHW", "AnyLayout")
+    x = X.permute(0, 4, 1, 2, 3) if channels_last else X
+    spatial = list(x.shape[2:])
+    if attrs.get("global_pooling", False) or (adaptive
+                                              and ksize == [1, 1, 1]):
+        ksize, strides, paddings = spatial, [1, 1, 1], [0, 0, 0]
+    elif adaptive:
+        ksize = [s // k for s, k in zip(spatial, ksize)]
+        strides, paddings = list(ksize), [0, 0, 0]
+    pad = [p for p in reversed(paddings) for _ in range(2)]
+    if ptype == "max":
+        low = (float("-inf") if x.is_floating_point()
+               else torch.iinfo(x.dtype).min)
+        out = F.max_pool3d(F.pad(x, pad, value=low), ksize, strides)
+    else:
+        s = F.avg_pool3d(F.pad(x.float(), pad), ksize, strides,
+                         divisor_override=1)
+        if exclusive and any(paddings):
+            ones = torch.ones((1, 1) + tuple(spatial), dtype=torch.float32,
+                              device=x.device)
+            out = s / F.avg_pool3d(F.pad(ones, pad), ksize, strides,
+                                   divisor_override=1)
+        else:
+            out = s / float(_math.prod(ksize))
+        out = out.to(X.dtype)
+    return out.permute(0, 2, 3, 4, 1) if channels_last else out
 
 
 @register_op("accuracy", inputs=["Out", "Indices", "Label"],

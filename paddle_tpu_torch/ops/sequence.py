@@ -1,7 +1,8 @@
 """Sequence ops on padded batches (mirrors ``paddle_tpu/ops/sequence.py``;
-so far ``sequence_mask`` :126, which the NMT and stacked-LSTM models
-use, and ``sequence_conv`` :174, which the dygraph ``SequenceConv``
-dispatches; the rest is ROADMAP.md Queue A item 9).  A sequence batch is
+so far ``sequence_pool`` :25, which ``nets.sequence_conv_pool`` uses,
+``sequence_mask`` :126, which the NMT and stacked-LSTM models use, and
+``sequence_conv`` :174, which the dygraph ``SequenceConv`` dispatches;
+the rest is ROADMAP.md Queue A item 9).  A sequence batch is
 a padded [B, T, D] tensor with an optional ``SeqLen`` [B], the
 reference's stand-in for LoD offsets."""
 
@@ -10,6 +11,50 @@ import torch.nn.functional as F
 
 from .common import resolve_dtype
 from .registry import register_op
+
+
+def _mask(SeqLen, b, t, like):
+    if SeqLen is None:
+        return torch.ones((b, t), dtype=like.dtype, device=like.device)
+    return (torch.arange(t, device=like.device)[None, :]
+            < SeqLen.reshape(b)[:, None]).to(like.dtype)
+
+
+@register_op("sequence_pool", inputs=["X", "SeqLen"],
+             outputs=["Out", "MaxIndex"], stateful_outputs=("MaxIndex",))
+def sequence_pool(ctx, attrs, X, SeqLen):
+    """Pool each sequence over time (``pooltype`` SUM, AVERAGE, SQRT,
+    MAX, LAST, FIRST; sequence_pool_op.h): steps past ``SeqLen`` are
+    masked out, an empty sequence averages to 0."""
+    ptype = attrs.get("pooltype", "AVERAGE").upper()
+    b, t = X.shape[0], X.shape[1]
+    feat = (1,) * (X.dim() - 2)
+    m = _mask(SeqLen, b, t, X).reshape((b, t) + feat)
+    lengths = (SeqLen.reshape(b).to(X.dtype) if SeqLen is not None
+               else torch.full((b,), t, dtype=X.dtype, device=X.device)
+               ).reshape((b,) + feat)
+    if ptype == "SUM":
+        out = (X * m).sum(dim=1)
+    elif ptype == "AVERAGE":
+        out = (X * m).sum(dim=1) / torch.clamp(lengths, min=1)
+    elif ptype == "SQRT":
+        out = (X * m).sum(dim=1) / torch.sqrt(torch.clamp(lengths, min=1))
+    elif ptype == "MAX":
+        neg = torch.full((), -1e30, dtype=X.dtype, device=X.device)
+        out = torch.where(m > 0, X, neg).amax(dim=1)
+    elif ptype == "LAST":
+        idx = (SeqLen.reshape(b).long() - 1 if SeqLen is not None
+               else torch.full((b,), t - 1, dtype=torch.long,
+                               device=X.device))
+        out = torch.take_along_dim(
+            X, idx.reshape((b, 1) + feat), dim=1)[:, 0]
+    elif ptype == "FIRST":
+        out = X[:, 0]
+    else:
+        raise NotImplementedError("sequence_pool type %s" % ptype)
+    return {"Out": out,
+            "MaxIndex": torch.zeros((b,), dtype=torch.int32,
+                                    device=X.device)}
 
 
 @register_op("sequence_mask", inputs=["X"], outputs=["Y"], no_grad=True)

@@ -1,9 +1,9 @@
 """Serving tier (mirrors ``paddle_tpu/serving/``): the continuous-batching
 :class:`PredictorServer` for batch and decode tenants behind its
 construction gates, its shape buckets, the :class:`DecodeEngine` decode
-tenant with its paged KV pool, and the load generator
-(:func:`run_load`).  CLI: ``python -m paddle_tpu_torch.tools.serve``.
-Speculative decoding comes with a later slice (ROADMAP.md)."""
+tenant with its paged KV pool, the load generator (:func:`run_load`) and
+speculative decoding over the paged tier (:class:`SpeculativeDecoder`,
+:func:`ngram_draft`).  CLI: ``python -m paddle_tpu_torch.tools.serve``."""
 
 from .buckets import (  # noqa: F401
     BUCKETS_ENV, DEFAULT_BUCKETS, ShapeBuckets, derive_buckets,
@@ -17,3 +17,4 @@ from .paging import (  # noqa: F401
 from .server import (  # noqa: F401
     DeadlineExceededError, DispatcherCrashedError, PredictorServer,
     QueueFullError, Request, ServerClosedError, ServingError)
+from .speculative import SpeculativeDecoder, ngram_draft  # noqa: F401

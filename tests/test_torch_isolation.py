@@ -9,7 +9,9 @@ optimizers with the moving averages, decoupled weight decay and
 the control flow: ``While`` with its gradient, ``cond``, the tensor
 arrays and the single-program GPT generation, and the recurrent models:
 the NMT trainers and beam-search translation and the stacked dynamic
-LSTM, with the beam-search ops and layers), its entry points run on the GPU
+LSTM, with the beam-search ops and layers; the speculative decoder, the
+seq2seq decoder DSL, SE-ResNeXt, VGG, ``nets`` and the vision ops), its
+entry points run on the GPU
 unless the caller asks for the CPU, and what it has not ported yet
 raises rather than being skipped silently."""
 
@@ -265,6 +267,78 @@ with fluid.scope_guard(fluid.Scope()):
                                  "label": np.zeros((2, 1), "int64")},
                      fetch_list=[loss, acc])
 assert np.isfinite(lv).all() and av.shape == (1,), (lv, av)
+from paddle_tpu_torch import nets
+from paddle_tpu_torch.contrib import decoder as dsl  # noqa: F401
+from paddle_tpu_torch.layers import nn_extra, nn_extra2  # noqa: F401
+from paddle_tpu_torch.models import se_resnext, vgg
+from paddle_tpu_torch.ops import metrics as metric_ops  # noqa: F401
+from paddle_tpu_torch.serving import SpeculativeDecoder, ngram_draft
+assert ngram_draft([5, 1, 2, 5, 9, 5], 3) == [9, 5, 5]
+with SpeculativeDecoder(gpt.DecodeAdapter(cfg), draft="ngram", k=2,
+                        prompt_buckets=(4,), place=fluid.CPUPlace(),
+                        name="iso_spec") as dec:
+    stoks, sinfo = dec.generate(np.asarray([1, 2, 1], "int32"),
+                                max_new_tokens=4)
+assert len(stoks) == 4 and sinfo["rounds"] >= 1, (stoks, sinfo)
+for build, shape in ((lambda: se_resnext.build(
+        depth=(1,), num_filters=(8,), cardinality=2, reduction_ratio=2),
+        (2, 3, 32, 32)), (lambda: vgg.build(data_format="NHWC"),
+                          (2, 32, 32, 3))):
+    main, startup, _, loss, _acc = build()
+    with fluid.scope_guard(fluid.Scope()):
+        exe = fluid.Executor(fluid.CPUPlace())
+        exe.run(startup)
+        lv = exe.run(main, feed={"img": np.ones(shape, "float32"),
+                                 "label": np.zeros((2, 1), "int64")},
+                     fetch_list=[loss])[0]
+    assert np.isfinite(lv).all(), lv
+main, startup = fluid.Program(), fluid.Program()
+with fluid.program_guard(main, startup):
+    img = fluid.layers.data("img", shape=[4, 8, 8], dtype="float32")
+    y = nets.img_conv_group(img, [4], pool_size=2, pool_stride=2)
+    y = fluid.layers.deformable_conv(
+        y, fluid.layers.conv2d(y, 18, 3, padding=1), None, 4, 3, padding=1,
+        modulated=False)
+    y = fluid.layers.resize_bilinear(fluid.layers.roi_pool(
+        y, fluid.layers.data("rois", shape=[1, 5], dtype="float32",
+                             append_batch_size=False), 2, 2), [3, 3])
+    seq = nets.sequence_conv_pool(fluid.layers.reshape(y, [-1, 9, 4]), 3, 2)
+    loss = fluid.layers.mean(seq)
+    fluid.backward.append_backward(loss)
+with fluid.scope_guard(fluid.Scope()):
+    exe = fluid.Executor(fluid.CPUPlace())
+    exe.run(startup)
+    lv = exe.run(main, feed={"img": np.ones((2, 4, 8, 8), "float32"),
+                             "rois": np.asarray([[0, 0, 0, 3, 3]],
+                                                "float32")},
+                 fetch_list=[loss])[0]
+assert np.isfinite(lv).all(), lv
+main, startup = fluid.Program(), fluid.Program()
+with fluid.program_guard(main, startup):
+    src = fluid.layers.data("src", shape=[2], dtype="int64")
+    h0 = fluid.layers.fc(fluid.layers.cast(src, "float32"), size=4)
+    cell = fluid.contrib.StateCell(
+        inputs={"x": None}, states={"h": fluid.contrib.InitState(init=h0)},
+        out_state="h")
+
+    @cell.state_updater
+    def _update(c):
+        c.set_state("h", fluid.layers.fc(fluid.layers.concat(
+            [c.get_input("x"), c.get_state("h")], axis=1), size=4,
+            act="tanh"))
+    emb = fluid.layers.embedding(src, size=[8, 4])
+    decoder = fluid.contrib.TrainingDecoder(cell)
+    with decoder.block():
+        cell.compute_state(inputs={"x": decoder.step_input(emb)})
+        cell.update_states()
+        decoder.output(cell.out_state())
+    dloss = fluid.layers.mean(decoder())
+with fluid.scope_guard(fluid.Scope()):
+    exe = fluid.Executor(fluid.CPUPlace())
+    exe.run(startup)
+    lv = exe.run(main, feed={"src": np.ones((2, 2), "int64")},
+                 fetch_list=[dloss])[0]
+assert np.isfinite(lv).all(), lv
 assert not any(m.split(".")[0] in ("jax", "paddle_tpu")
                for m in sys.modules), sorted(sys.modules)
 print("ISOLATED-OK")

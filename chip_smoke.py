@@ -552,7 +552,7 @@ K7_WHOLE = (429688, K7_BLOCK)
 # training path's batch of 8
 DP_RANKS = 2
 DP_STEPS = 3
-DP_TIMEOUT = 600            # seconds for both ranks
+DP_TIMEOUT = 900            # seconds for both ranks
 DP_LOSS_GATE = 1e-3         # the reference's gate (bench.py:1950-1954)
 DP_ERR_MODEL_GATE = 3.0     # measured over modelled RMS (chaos.py:1007)
 # eager against the captured CUDA graph: compared calls a side (warm-up,
@@ -3855,7 +3855,7 @@ def phase_decode(env):
     return counts, rates
 
 
-SERVE_REQUESTS = 400          # the serve phase's BERT load, open loop
+SERVE_REQUESTS = 200          # the serve phase's BERT load, open loop
 SERVE_QPS = 100.0             # ~a quarter of bucket 8's ~387 rows/s
 SERVE_BATCHES = 32            # run_batches: bucket-8 batches per depth
 SERVE_SYNC_CALLS = 5          # replays checked under sync debug "error"
@@ -4546,10 +4546,11 @@ def _aten_calls_per_op(exe, program, feed, fetch):
             for t, (n, a) in sorted(per.items(), key=lambda kv: -kv[1][1])}
 
 
-def _resnet_program(fluid, resnet, hw):
+def _resnet_program(fluid, resnet, hw, lr=0.1):
     """``resnet.build(dataset="imagenet", depth=50, data_format="NHWC")``
     at an hw x hw input (``build`` declares 224 x 224): the training
-    program with Momentum as ``build`` sets it, and the eval clone."""
+    program with Momentum as ``build`` sets it (``lr`` 0.1), and the eval
+    clone."""
     main, startup = fluid.Program(), fluid.Program()
     main.random_seed = startup.random_seed = SEED
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
@@ -4559,7 +4560,7 @@ def _resnet_program(fluid, resnet, hw):
         loss = fluid.layers.mean(
             fluid.layers.softmax_with_cross_entropy(logits, label))
         acc = fluid.layers.accuracy(fluid.layers.softmax(logits), label)
-        fluid.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+        fluid.optimizer.Momentum(learning_rate=lr, momentum=0.9,
                                  use_nesterov=True).minimize(loss)
     return main, startup, main.clone(for_test=True), loss, acc
 
@@ -5535,9 +5536,9 @@ def _dp_rank(rank, store, out_path):
                 buckets = [sum(int(np.prod(prog.global_block().var(n).shape))
                                for n in op.inputs["X"])
                            for op in prog.global_block().ops
-                           if op.type in ("c_allreduce_quant",
-                                          "c_fused_allreduce_sum",
-                                          "c_allreduce_sum")]
+                           if op.type in DP_BUCKET_OPS]
+                pairs = sum(op.type == "c_allreduce_start"
+                            for op in prog.global_block().ops)
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 dist.barrier()
@@ -5553,7 +5554,7 @@ def _dp_rank(rank, store, out_path):
                 res = {"losses": losses, "step_ms": step_ms,
                        "median_step_ms": statistics.median(step_ms[1:]),
                        "digests": digests, "buckets": buckets,
-                       "launches": counts,
+                       "start_wait_pairs": pairs, "launches": counts,
                        "peak_memory_bytes": torch.cuda.max_memory_allocated()}
                 if twin == "quant":
                     records = []
@@ -5597,10 +5598,936 @@ def _dp_rank(rank, store, out_path):
             vals = exe.run(main, feed=feed, fetch_list=[loss.name] + [
                 grads[n] for n in DP_PARITY_PARAMS])
         out["dropout0"] = {"loss": float(vals[0][0]), "grads": vals[1:]}
+        del scope, exe
+        torch.cuda.empty_cache()
+        out.update(_dp_rank_arms(rank, feed, out_path))
         with open(out_path, "wb") as f:
             pickle.dump(out, f)
     finally:
         dist.destroy_process_group()
+
+
+# the ops that exchange a bucket (the overlap pass's start carries it)
+DP_BUCKET_OPS = ("c_allreduce_quant", "c_fused_allreduce_sum",
+                 "c_allreduce_sum", "c_allreduce_start")
+DP_ARM_STEPS = 2            # the runner, ZeRO-1, overlap and fleet arms
+# the arms beyond the twins run BERT-base widths cut to 2 layers (the
+# phase's time); their overlap pair caps its buckets at 8 MB so the
+# 2-layer model still has many
+DP_ARM_LAYERS = 2
+DP_ARM_BUCKET_MB = 8.0
+DP_MODE_STEPS = 3           # LocalSGD, GeoSGD, AsyncSGD
+DP_GEO_PUSH = 2             # GeoSGD's need_push_nums
+DP_MODE_PARAMS = ("bert.layer0.ln1.scale", "bert.layer0.attn.q.b")
+# GeoSGD's sync: the ranks hold the synced value up to the rounding of
+# p + (synced - p), one float32 unit of the parameter's scale
+DP_GEO_SYNC_RTOL = 1e-6
+# AsyncSGD: the applied gradient against the mean of the ranks' buffers
+# of the step before (the allreduce adds the two halves in its order)
+DP_ASYNC_RTOL = 1e-6
+# sync_bn: two ranks of 8 images against one process on the 16 (float32,
+# the statistics and the gradients summed in another order)
+SYNC_BN_ROWS = 8
+SYNC_BN_STEPS = 2
+SYNC_BN_LR = 1e-3
+SYNC_BN_LOSS_RTOL = 1e-4
+# each persistable's max |dp - one| over the largest move of any
+# persistable in the one process's steps (a bias starts at 0).  The
+# random-init ResNet's single-pass batch variance cancels, and the model
+# amplifies the statistics' rounding: the one process against itself
+# with float64 statistics is the floor (SYNC_BN_FLOOR_X times it), and a
+# statistic left local or a backward sum left out moves a parameter by
+# the updates' own size
+SYNC_BN_MOVE_RTOL = 1e-2
+SYNC_BN_FLOOR_X = 3.0
+
+
+def _dp_rank_arms(rank, feed, out_path):
+    """The extended dp phase's arms on this rank (dropout 0 where bits
+    are compared): the runner against the ``GradAllReduce``-transpiled
+    program, overlap off against on (dense and quant), ZeRO-1 against
+    unsharded, LocalSGD / GeoSGD / AsyncSGD, the fleet route, and
+    ResNet-50 under the runner (synchronized batch norm)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.incubate.fleet.base import role_maker
+    from paddle_tpu_torch.incubate.fleet.collective import (
+        DistributedStrategy, fleet)
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.static_analysis import fusion
+    from paddle_tpu_torch.transpiler import AsyncSGD, GeoSGD, LocalSGD
+
+    cfg0 = copy.copy(bert.BERT_BASE)
+    cfg0.layers = DP_ARM_LAYERS
+    cfg0.dropout = cfg0.attn_dropout = 0.0
+    cfg1 = copy.copy(bert.BERT_BASE)
+    cfg1.layers = DP_ARM_LAYERS
+    out = {}
+
+    def train(main, startup, loss, steps, compiled=None, fetch=(),
+              state=None):
+        t_arm = time.perf_counter()
+        scope = fluid.Scope()
+        rec = {"losses": [], "digests": [], "fetch": [], "state": []}
+        with fluid.scope_guard(scope):
+            exe = fluid.Executor(fluid.CUDAPlace(0))
+            exe.run(startup)
+            prog = compiled(main, loss) if compiled else main
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                vals = exe.run(prog, feed=feed,
+                               fetch_list=[loss.name] + list(fetch))
+                rec["losses"].append(float(np.asarray(vals[0]).reshape(-1)[0]))
+                rec["fetch"].append(vals[1:])
+                rec["digests"].append(_params_digest(main, scope))
+                if state:
+                    rec["state"].append({n: scope.get(n).cpu().numpy()
+                                         .copy() for n in state})
+            torch.cuda.synchronize()
+            rec["ms_per_step"] = (time.perf_counter() - t0) * 1e3 / steps
+            rec["launches"] = launch_counts()
+            rec["acc_bytes"] = sum(
+                t.numel() * t.element_size()
+                for t in (scope.get(v.name) for v in main.list_vars()
+                          if getattr(v, "_is_optimizer_state", False))
+                if isinstance(t, torch.Tensor))
+            if compiled:
+                runner = prog._parallel_runner
+                rec["shards"] = len(scope.shards)
+                if runner._last_fusion_report is not None:
+                    rp = runner._dp_program(DP_RANKS, rank)[0]
+                    rp, _ = fusion.resolve_fused_program(
+                        rp, config=runner._config(), targets=[loss.name])
+                    rec["ops"] = _op_type_counts(rp)
+        del scope, exe
+        torch.cuda.empty_cache()
+        rec["arm_seconds"] = time.perf_counter() - t_arm
+        return rec
+
+    def runner(shard=False):
+        def make(main, loss):
+            bs = fluid.BuildStrategy()
+            bs.shard_optimizer_state = shard
+            return fluid.CompiledProgram(main).with_data_parallel(
+                loss_name=loss.name, build_strategy=bs)
+        return make
+
+    # the runner against the GradAllReduce-transpiled program, dropout 0
+    t0 = time.perf_counter()
+    main, startup, loss = _dp_program(fluid, bert, cfg0, rank, False)
+    out["transpiled"] = train(main, startup, loss, DP_ARM_STEPS)
+    main, startup, loss = _dp_program(fluid, bert, cfg0, None, False)
+    out["runner"] = train(main, startup, loss, DP_ARM_STEPS, runner())
+    main, startup, loss = _dp_program(fluid, bert, cfg0, None, False)
+    out["zero1"] = train(main, startup, loss, DP_ARM_STEPS, runner(True))
+    # overlap on (start/wait pairs) against off (the program's mark),
+    # dropout 0.1, dense and quant
+    for twin in ("dense", "quant"):
+        for overlap in (True, False):
+            main, startup, loss = _dp_program(fluid, bert, cfg1, rank,
+                                              twin == "quant")
+            main._allreduce_bucket_mb = DP_ARM_BUCKET_MB
+            main._overlap = overlap
+            rec = train(main, startup, loss, DP_ARM_STEPS)
+            prog, _ = fusion.resolve_fused_program(main,
+                                                   targets=[loss.name])
+            rec["start_wait_pairs"] = sum(
+                op.type == "c_allreduce_start"
+                for op in prog.global_block().ops)
+            rec["buckets"] = sum(op.type in DP_BUCKET_OPS
+                                 for op in prog.global_block().ops)
+            out["overlap_%s_%s" % ("on" if overlap else "off", twin)] = rec
+    # the collective modes on BERT-base's Adam, dropout 0
+    for mode, t in (("local_sgd", LocalSGD()),
+                    ("geo_sgd", GeoSGD(need_push_nums=DP_GEO_PUSH)),
+                    ("async_sgd", AsyncSGD())):
+        main, startup, loss = _train_program(fluid, bert, cfg0, SEQ)
+        grads = _grad_names(main)
+        t.transpile(program=main, startup_program=startup, rank=rank,
+                    nranks=DP_RANKS)
+        fetch = ()
+        if mode == "async_sgd":
+            g = grads[DP_MODE_PARAMS[0]]
+            fetch = (g, g + "@ASYNC_BUF")
+        out[mode] = train(main, startup, loss, DP_MODE_STEPS, fetch=fetch,
+                          state=DP_MODE_PARAMS)
+    # the fleet route: fleet.init → distributed_optimizer.minimize → runner
+    fleet.init(role_maker.UserDefinedCollectiveRoleMaker(
+        rank, ["127.0.0.1:%d" % (6170 + r) for r in range(DP_RANKS)]))
+    main, startup, _f, loss = bert.build_pretrain(cfg0, seq_len=SEQ,
+                                                  lr=TRAIN_LR, train=False)
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup):
+        fleet.distributed_optimizer(fluid.optimizer.Adam(
+            learning_rate=TRAIN_LR), DistributedStrategy()).minimize(loss)
+    out["fleet"] = train(main, startup, loss, DP_ARM_STEPS, runner())
+    out["fleet"]["marks"] = (main._num_trainers, main._trainer_id)
+    out["arms_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["sync_bn"] = _sync_bn_rank(rank, os.path.dirname(out_path))
+    out["sync_bn"]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _sync_bn_rank(rank, work):
+    """ResNet-50 NHWC under the runner at world 2: this rank's
+    SYNC_BN_ROWS of the one process's batch, from its initial state;
+    each persistable after each step against the one process's
+    (``sync_bn_ref.npz``), K4's launches a step."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    ref = dict(np.load(os.path.join(work, "sync_bn_ref.npz")))
+    main, startup, _test, loss, _acc = _resnet_program(fluid, resnet,
+                                                       RESNET_HW,
+                                                       SYNC_BN_LR)
+    scope = fluid.Scope()
+    rec = {"losses": [], "rel_err": [], "move_err": [], "worst": []}
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup)
+        convert.load_params_into_scope(
+            {k[len("init/"):]: v for k, v in ref.items()
+             if k.startswith("init/")}, scope, fluid.CUDAPlace(0),
+            program=main)
+        cp = fluid.CompiledProgram(main).with_data_parallel(
+            loss_name=loss.name)
+        lo = rank * SYNC_BN_ROWS
+        feed = {k[len("feed/"):]: v[lo:lo + SYNC_BN_ROWS]
+                for k, v in ref.items() if k.startswith("feed/")}
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        for s in range(SYNC_BN_STEPS):
+            rec["losses"].append(float(exe.run(cp, feed=feed,
+                                               fetch_list=[loss])[0][0]))
+            got = convert.scope_persistables(main, scope)
+            names = [n for n in got if "step%d/%s" % (s, n) in ref]
+            move = max(float(np.abs(ref["step%d/%s" % (s, n)]
+                                    - ref["init/" + n]).max())
+                       for n in names)
+            worst, worst_move, worst_name = 0.0, 0.0, None
+            for n in names:
+                want = ref["step%d/%s" % (s, n)]
+                diff = float(np.abs(got[n] - want).max())
+                worst = max(worst, diff / max(float(np.abs(want).max()),
+                                              1e-30))
+                if diff / move > worst_move:
+                    worst_move, worst_name = diff / move, n
+            rec["rel_err"].append(worst)
+            rec["move_err"].append(worst_move)
+            rec["worst"].append(worst_name)
+        torch.cuda.synchronize()
+        rec["ms_per_step"] = (time.perf_counter() - t0) * 1e3 / SYNC_BN_STEPS
+        rec["launches"] = launch_counts()
+        runner = cp._parallel_runner
+        rp = runner._dp_program(DP_RANKS, rank)[0]
+        from paddle_tpu_torch.static_analysis import fusion
+
+        rp, _ = fusion.resolve_fused_program(rp, config=runner._config(),
+                                             targets=[loss.name])
+        rec["ops"] = _op_type_counts(rp)
+    del scope, exe
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _sync_bn_reference(work):
+    """One process on the 2 x SYNC_BN_ROWS images: its initial state,
+    the batch and every non-optimizer persistable after each step, in
+    ``work/sync_bn_ref.npz`` for the dp ranks; the same steps again with
+    the batch statistics computed in float64 (``ops/nn.py``
+    ``_batch_stats`` swapped for this run only) give the model's own
+    sensitivity to the statistics' rounding, the floor a DP run is held
+    against → its losses, step ms, K4 launches a step and that floor."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.ops import nn as nn_ops
+    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    main, startup, _test, loss, _acc = _resnet_program(fluid, resnet,
+                                                       RESNET_HW,
+                                                       SYNC_BN_LR)
+    keep = [v.name for v in main.list_vars()
+            if v.persistable and not v.is_data
+            and not getattr(v, "_is_optimizer_state", False)]
+    batch = _resnet_batch(np, np.random.RandomState(SEED + 11),
+                          DP_RANKS * SYNC_BN_ROWS, RESNET_HW)
+
+    def f64_stats(x32, reduce_dims, group=None):
+        x = x32.double()
+        bm = x.mean(dim=reduce_dims)
+        bv = torch.clamp((x * x).mean(dim=reduce_dims) - bm * bm, min=0.0)
+        return bm.float(), bv.float()
+
+    def steps(init=None):
+        scope = fluid.Scope()
+        rec = {"losses": [], "states": []}
+        with fluid.scope_guard(scope):
+            exe = fluid.Executor(fluid.CUDAPlace(0))
+            exe.run(startup)
+            if init is not None:
+                convert.load_params_into_scope(init, scope,
+                                               fluid.CUDAPlace(0),
+                                               program=main)
+            rec["init"] = convert.scope_persistables(main, scope)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            for _ in range(SYNC_BN_STEPS):
+                # eager: two steps of a reference are not worth a capture
+                rec["losses"].append(float(exe.run(
+                    main, feed=batch, fetch_list=[loss],
+                    use_program_cache=False)[0][0]))
+                state = convert.scope_persistables(main, scope)
+                rec["states"].append({k: state[k] for k in keep
+                                      if k in state})
+            torch.cuda.synchronize()
+            rec["ms_per_step"] = (time.perf_counter() - t0) * 1e3 \
+                / SYNC_BN_STEPS
+            rec["launches"] = launch_counts()
+        del scope, exe
+        torch.cuda.empty_cache()
+        return rec
+
+    one = steps()
+    orig = nn_ops._batch_stats
+    nn_ops._batch_stats = f64_stats
+    try:
+        f64 = steps(one["init"])
+    finally:
+        nn_ops._batch_stats = orig
+    arrays = {"feed/" + k: v for k, v in batch.items()}
+    arrays.update({"init/" + k: v for k, v in one["init"].items()})
+    floor_move, floor_loss = [], []
+    for st, (a, b) in enumerate(zip(one["states"], f64["states"])):
+        arrays.update({"step%d/%s" % (st, k): v for k, v in a.items()})
+        move = max(float(np.abs(v - one["init"][k]).max())
+                   for k, v in a.items())
+        floor_move.append(max(float(np.abs(b[k] - v).max()) / move
+                              for k, v in a.items()))
+        floor_loss.append(abs(f64["losses"][st] - one["losses"][st])
+                          / abs(one["losses"][st]))
+    np.savez(os.path.join(work, "sync_bn_ref.npz"), **arrays)
+    return {"losses": one["losses"], "ms_per_step": one["ms_per_step"],
+            "launches": one["launches"], "f64_losses": f64["losses"],
+            "floor_move": floor_move, "floor_loss": floor_loss}
+
+
+def _dp_arms_report(env, ranks):
+    """The extended dp phase's lines and checks → the failures."""
+    import numpy as np
+
+    failed = []
+    r0, r1 = ranks
+    steps = range(DP_ARM_STEPS)
+    tr = [r["transpiled"] for r in ranks]
+    ru = [r["runner"] for r in ranks]
+    z1 = [r["zero1"] for r in ranks]
+    mean_tr = [float(np.float32(tr[0]["losses"][s]) * np.float32(0.5)
+                     + np.float32(tr[1]["losses"][s]) * np.float32(0.5))
+               for s in steps]
+    runner_ok = all(ru[r]["digests"] == tr[r]["digests"] for r in (0, 1))
+    loss_ok = all(abs(ru[0]["losses"][s] - mean_tr[s])
+                  <= 1e-7 * abs(mean_tr[s]) for s in steps) \
+        and ru[0]["losses"] == ru[1]["losses"]
+    emit({"phase": "dp", "step": "the runner (CompiledProgram."
+          "with_data_parallel, world 2) against the GradAllReduce-"
+          "transpiled program, BERT-base widths at %d layers, dropout 0, "
+          "%d steps; gloo on one card: checks the path, not a "
+          "collective's speed" % (DP_ARM_LAYERS, DP_ARM_STEPS),
+          "card": card_label(env), "params_bit_for_bit": runner_ok,
+          "runner_loss": ru[0]["losses"], "mean_of_ranks": mean_tr,
+          "loss_ok": loss_ok,
+          "ms_per_step": {"runner": ru[0]["ms_per_step"],
+                          "transpiled": tr[0]["ms_per_step"]},
+          "runner_ops": {k: v for k, v in ru[0].get("ops", {}).items()
+                         if k in DP_BUCKET_OPS + ("c_allreduce_wait",)}})
+    if not (runner_ok and loss_ok):
+        failed.append("runner vs transpiled: digests %s, losses %s vs %s"
+                      % (runner_ok, ru[0]["losses"], mean_tr))
+    z_ok = all(z1[r]["digests"] == ru[r]["digests"] for r in (0, 1))
+    ratio = [z1[r]["acc_bytes"] / ru[r]["acc_bytes"] for r in (0, 1)]
+    emit({"phase": "dp", "step": "ZeRO-1 (shard_optimizer_state) against "
+          "unsharded under the runner, %d steps" % DP_ARM_STEPS,
+          "params_bit_for_bit": z_ok, "sharded_accumulators":
+          z1[0]["shards"], "accumulator_bytes": {
+              "zero1": [z["acc_bytes"] for z in z1],
+              "unsharded": [u["acc_bytes"] for u in ru]},
+          "ratio": ratio, "ms_per_step": z1[0]["ms_per_step"],
+          "allgathers": z1[0].get("ops", {}).get("c_allgather", 0),
+          "adam_launches_per_step_over_row_views":
+              z1[0]["launches"]["adam_update"] / DP_ARM_STEPS})
+    if not z_ok or not all(0.45 <= x <= 0.55 for x in ratio):
+        failed.append("ZeRO-1: bits %s, accumulator bytes ratio %s"
+                      % (z_ok, ratio))
+    for twin in ("dense", "quant"):
+        off = [r["overlap_off_" + twin] for r in ranks]
+        on = [r["overlap_on_" + twin] for r in ranks]
+        same = all(off[r]["digests"] == on[r]["digests"]
+                   and off[r]["losses"] == on[r]["losses"]
+                   for r in (0, 1))
+        k7 = {k: on[0]["launches"][k] / DP_ARM_STEPS
+              for k in ("block_quantize", "block_dequantize")}
+        emit({"phase": "dp", "step": "overlap on (start/wait pairs) "
+              "against off, %s twin, BERT-base widths at %d layers, %g MB "
+              "buckets, dropout 0.1, %d steps" % (
+                  twin, DP_ARM_LAYERS, DP_ARM_BUCKET_MB, DP_ARM_STEPS),
+              "bit_for_bit": same, "buckets": on[0]["buckets"],
+              "start_wait_pairs": {"on": on[0]["start_wait_pairs"],
+                                   "off": off[0]["start_wait_pairs"],
+                                   "full_depth_twin":
+                                       r0[twin]["start_wait_pairs"]},
+              "k7_launches_per_step_on": k7,
+              "ms_per_step": {"on": on[0]["ms_per_step"],
+                              "off": off[0]["ms_per_step"]}})
+        quant_ok = twin == "dense" or all(
+            v == 2 * on[0]["buckets"] for v in k7.values())
+        if not same or not on[0]["start_wait_pairs"] \
+                or off[0]["start_wait_pairs"] or not quant_ok:
+            failed.append("overlap on vs off (%s): bits %s, pairs %s / %s, "
+                          "K7 %s" % (twin, same, on[0]["start_wait_pairs"],
+                                     off[0]["start_wait_pairs"], k7))
+    # LocalSGD: the same parameters on both ranks after every step
+    ls = [r["local_sgd"] for r in ranks]
+    ls_ok = ls[0]["digests"] == ls[1]["digests"]
+    # GeoSGD: apart off the sync, within one rounding on it
+    geo = [r["geo_sgd"] for r in ranks]
+    apart = [max(float(np.abs(geo[0]["state"][s][n] - geo[1]["state"][s][n])
+                       .max()) / max(float(np.abs(geo[0]["state"][s][n])
+                                           .max()), 1e-30)
+                 for n in DP_MODE_PARAMS) for s in range(DP_MODE_STEPS)]
+    sync = [(s + 1) % DP_GEO_PUSH == 0 for s in range(DP_MODE_STEPS)]
+    geo_ok = all((a <= DP_GEO_SYNC_RTOL) if on else (a > DP_GEO_SYNC_RTOL)
+                 for a, on in zip(apart, sync))
+    # AsyncSGD: the gradient applied at step t is the ranks' mean buffer
+    # of step t - 1 (zeros at the first)
+    asy = [r["async_sgd"] for r in ranks]
+    async_err = []
+    for s in range(DP_MODE_STEPS):
+        applied = asy[0]["fetch"][s][0]
+        if s == 0:
+            want = np.zeros_like(applied)
+        else:
+            want = (asy[0]["fetch"][s - 1][1] + asy[1]["fetch"][s - 1][1]) / 2
+        async_err.append(float(np.abs(applied - want).max()) / max(
+            float(np.abs(want).max()), 1e-30) if s else
+            float(np.abs(applied).max()))
+    async_ok = all(e <= DP_ASYNC_RTOL for e in async_err)
+    emit({"phase": "dp", "step": "collective modes on BERT-base widths "
+          "at %d layers, Adam, dropout 0, %d steps each" % (DP_ARM_LAYERS,
+                                                           DP_MODE_STEPS),
+          "local_sgd": {"params_equal_across_ranks": ls_ok,
+                        "losses": [l_["losses"] for l_ in ls],
+                        "ms_per_step": ls[0]["ms_per_step"]},
+          "geo_sgd": {"need_push_nums": DP_GEO_PUSH, "sync_steps": sync,
+                      "rel_apart": apart, "ok": geo_ok,
+                      "ms_per_step": geo[0]["ms_per_step"]},
+          "async_sgd": {"applied_vs_previous_mean": async_err,
+                        "ok": async_ok, "tol": DP_ASYNC_RTOL,
+                        "ms_per_step": asy[0]["ms_per_step"]}})
+    if not (ls_ok and geo_ok and async_ok):
+        failed.append("collective modes: LocalSGD %s, GeoSGD %s %s, "
+                      "AsyncSGD %s" % (ls_ok, geo_ok, apart, async_err))
+    emit({"phase": "dp", "step": "seconds of the arms beyond the twins, "
+          "rank 0", "arms_seconds": r0["arms_seconds"],
+          "by_arm": {k: v["arm_seconds"] for k, v in r0.items()
+                     if isinstance(v, dict) and "arm_seconds" in v},
+          "sync_bn_seconds": r0["sync_bn"]["seconds"]})
+    fl = [r["fleet"] for r in ranks]
+    fleet_ok = all(fl[r]["losses"] == ru[r]["losses"]
+                   and fl[r]["digests"] == ru[r]["digests"]
+                   and fl[r]["marks"] == (DP_RANKS, r) for r in (0, 1))
+    emit({"phase": "dp", "step": "fleet.init → distributed_optimizer("
+          "Adam).minimize → the runner, against the runner",
+          "bit_for_bit": fleet_ok, "losses": fl[0]["losses"],
+          "marks": [f["marks"] for f in fl]})
+    if not fleet_ok:
+        failed.append("fleet route: %s vs %s" % (fl[0]["losses"],
+                                                 ru[0]["losses"]))
+    return failed
+
+
+def phase_sync_bn(env, ranks, one):
+    """Synchronized batch norm: ResNet-50 NHWC (224, Momentum) under the
+    runner at world 2, 8 images a rank, against one process on the 16
+    (run by the dp phase's ranks and before them): losses and every
+    parameter and batch-norm statistic after each step, K4's launches."""
+    import numpy as np
+
+    recs = [r["sync_bn"] for r in ranks]
+    k4 = {k: recs[0]["launches"][k] / SYNC_BN_STEPS
+          for k in ("bn_act_epilogue_fwd", "bn_act_epilogue_bwd")}
+    loss_err = [abs(recs[0]["losses"][s] - one["losses"][s])
+                / abs(one["losses"][s]) for s in range(SYNC_BN_STEPS)]
+    loss_tol = [max(SYNC_BN_LOSS_RTOL, SYNC_BN_FLOOR_X * f)
+                for f in one["floor_loss"]]
+    move_tol = [max(SYNC_BN_MOVE_RTOL, SYNC_BN_FLOOR_X * f)
+                for f in one["floor_move"]]
+    same_loss = recs[0]["losses"] == recs[1]["losses"]
+    emit({"phase": "sync_bn", "step": "ResNet-50 NHWC %dx%d, Momentum lr "
+          "%g: 2 ranks x %d images (gloo on one card) against one process "
+          "on %d" % (RESNET_HW, RESNET_HW, SYNC_BN_LR, SYNC_BN_ROWS,
+                     DP_RANKS * SYNC_BN_ROWS),
+          "card": card_label(env), "losses": recs[0]["losses"],
+          "one_process_losses": one["losses"],
+          "one_process_f64_stats_losses": one["f64_losses"],
+          "loss_rel_err": loss_err, "loss_tol": loss_tol,
+          "floor_loss": one["floor_loss"], "floor_move": one["floor_move"],
+          "rel_err_of_value": [r["rel_err"] for r in recs],
+          "err_over_largest_move": [r["move_err"] for r in recs],
+          "worst": recs[0]["worst"], "move_tol": move_tol,
+          "same_loss_on_ranks": same_loss,
+          "k4_launches_per_step": k4,
+          "one_process_k4_per_step": {
+              k: one["launches"][k] / SYNC_BN_STEPS for k in k4},
+          "fused_conv_bn_act": recs[0]["ops"].get("fused_conv_bn_act", 0),
+          "ms_per_step": {"dp_rank": recs[0]["ms_per_step"],
+                          "one_process": one["ms_per_step"]}})
+    bad = []
+    if any(e > t for e, t in zip(loss_err, loss_tol)) or not same_loss:
+        bad.append("losses %s vs %s" % (recs[0]["losses"], one["losses"]))
+    if any(e > t for r in recs for e, t in zip(r["move_err"], move_tol)):
+        bad.append("persistables %s (tol %s)" % (
+            [r["move_err"] for r in recs], move_tol))
+    if k4["bn_act_epilogue_fwd"] != RESNET_SITES \
+            or k4["bn_act_epilogue_bwd"] != RESNET_SITES:
+        bad.append("K4 launches %s a step, want %d each" % (k4,
+                                                            RESNET_SITES))
+    if not all(np.isfinite(recs[0]["losses"])):
+        bad.append("non-finite loss")
+    if bad:
+        raise AssertionError("sync_bn failed: %s" % "; ".join(bad))
+    return {"wrapper": dict(recs[0]["launches"]),
+            "graph_nodes": dict.fromkeys(recs[0]["launches"], 0)}
+
+
+# ---------------------------------------------------------------------------
+# compiled programs (world 1), the hierarchy (4 ranks), the quant drill
+# ---------------------------------------------------------------------------
+
+COMPILED_LAYERS = 2         # BERT-base widths, depth cut for the time
+COMPILED_STEPS = 3          # fast path: warm-up, capture, replay
+COMPILED_ITERS = 4          # num_iteration_per_run
+COMPILED_ACCUM = 4          # batch_merge_repeat: 4 microbatches of 2 rows
+# accumulation against one step on the 8 rows, dropout 0: the loss (the
+# microbatches' mean, each of as many masked tokens) and the averaged
+# gradients, float32 with TF32 off summed in another order
+COMPILED_ACCUM_LOSS_RTOL = 1e-5
+COMPILED_ACCUM_GRAD_RTOL = PARITY_GRAD_RTOL
+COMPILED_GRADS = ("bert.layer0.attn.q.w", "bert.layer0.ln1.scale")
+HIER_RANKS = 4
+HIER_CHIPS = 2              # 2 slices of 2 ranks
+HIER_LAYERS = 2             # BERT-base widths at 2 layers (cut to fit)
+HIER_STEPS = 2
+HIER_ROWS = 2               # rows a rank
+HIER_LR = 1e-3              # SGD: a parameter moves by lr x its gradient
+# the reference's 1e-6 (tests/test_hierarchy.py:588-590): parameters
+# absolute, losses relative to the loss past 1 (a ~10 MLM loss's float32
+# unit is ~1e-6)
+HIER_ATOL = 1e-6
+HIER_TIMEOUT = 600
+CHAOS_TIMEOUT = 300
+
+
+def phase_compiled(env):
+    """BERT-base widths at COMPILED_LAYERS layers (the phase's time) for
+    MLM (T=512, batch 8, Adam, f32, TF32 off) through
+    ``CompiledProgram(main).with_data_parallel`` at world 1 (a world-1
+    NCCL group: the runner is the executor plus the knobs) against
+    ``Executor.run`` bit for bit;
+    ``num_iteration_per_run`` against as many plain steps bit for bit,
+    its ms a step and host syncs a call; ``batch_merge_repeat`` (4
+    microbatches of 2 rows) against one step on the 8 rows, its ms and
+    peak allocated; ZeRO-1 at world 1 against the plain step bit for
+    bit."""
+    import copy
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import pipeline
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops.cuda import (KERNELS, launch_counts_by_source,
+                                           reset_launch_counts)
+
+    torch.cuda.set_device(0)
+    store = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_nccl_"),
+                         "store")
+    dist.init_process_group("nccl", init_method="file://" + store, rank=0,
+                            world_size=1)
+    failed = []
+    counts = None
+    try:
+        batch = bert.make_fake_batch(TRAIN_BATCH, SEQ, bert.BERT_BASE,
+                                     np.random.RandomState(SEED))
+        cfgd = copy.copy(bert.BERT_BASE)
+        cfgd.layers = COMPILED_LAYERS
+        cfg0 = copy.copy(cfgd)
+        cfg0.dropout = cfg0.attn_dropout = 0.0
+
+        def run(cfg, steps, wrap=None, fetch=(), count=False, calls=None):
+            main, startup, loss = _train_program(fluid, bert, cfg, SEQ)
+            grads = _grad_names(main)
+            scope = fluid.Scope()
+            rec = {"losses": [], "digests": [], "modes": [], "fetch": [],
+                   "call_ms": [], "syncs": [], "peaks": []}
+            with fluid.scope_guard(scope):
+                exe = fluid.Executor(fluid.CUDAPlace(0))
+                exe.run(startup)
+                prog = wrap(main, loss) if wrap else main
+                torch.cuda.synchronize()
+                if count:
+                    reset_launch_counts()
+                for _ in range(calls or steps):
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    s0 = pipeline.sync_stats()["syncs"]
+                    t0 = time.perf_counter()
+                    vals = exe.run(prog, feed=batch, fetch_list=[loss.name]
+                                   + [grads[n] for n in fetch])
+                    torch.cuda.synchronize()
+                    rec["call_ms"].append((time.perf_counter() - t0) * 1e3)
+                    rec["syncs"].append(pipeline.sync_stats()["syncs"] - s0)
+                    rec["peaks"].append(torch.cuda.max_memory_allocated())
+                    rec["losses"].append(float(np.asarray(vals[0])
+                                               .reshape(-1)[0]))
+                    rec["fetch"].append(vals[1:])
+                    rec["digests"].append(_params_digest(main, scope))
+                    rec["modes"].append(exe.last_run_mode)
+                if count:
+                    rec["counts"] = launch_counts_by_source()
+            del scope, exe
+            torch.cuda.empty_cache()
+            return rec
+
+        def compiled(dp, bs=None, es=None):
+            def wrap(main, loss):
+                cp = fluid.CompiledProgram(main, bs)
+                if dp:
+                    cp = cp.with_data_parallel(loss_name=loss.name,
+                                               build_strategy=bs,
+                                               exec_strategy=es)
+                return cp
+            return wrap
+
+        # the fast path and with_data_parallel against Executor.run, at
+        # dropout 0.1 (the device step draws the same masks on each side)
+        # (CompiledProgram without data parallelism is the same call;
+        # tests/test_torch_compiler.py holds both bit for bit on the CPU)
+        plain = run(cfgd, COMPILED_STEPS)
+        dp1 = run(cfgd, COMPILED_STEPS, compiled(True), count=True)
+        counts = dp1["counts"]
+        same = {"with_data_parallel": dp1["losses"] == plain["losses"]
+                and dp1["digests"] == plain["digests"]
+                and dp1["modes"] == plain["modes"]}
+        emit({"phase": "compiled", "step": "with_data_parallel at world 1 "
+              "against Executor.run, BERT-base widths at %d layers, T=512 "
+              "b8 dropout 0.1, %d calls (warm-up, capture, replay); "
+              "world-1 NCCL group" % (COMPILED_LAYERS, COMPILED_STEPS),
+              "card": card_label(env),
+              "bit_for_bit": same, "modes": plain["modes"],
+              "losses": plain["losses"],
+              "call_ms": {"plain": plain["call_ms"],
+                          "with_data_parallel": dp1["call_ms"]},
+              "launches_by_source": counts})
+        if not all(same.values()):
+            failed.append("fast path: %s" % same)
+
+        # num_iteration_per_run against as many plain steps, dropout 0
+        es = fluid.ExecutionStrategy()
+        es.num_iteration_per_run = COMPILED_ITERS
+        iters = run(cfg0, 2, compiled(True, es=es))
+        # (the plain steps also serve the accumulation and ZeRO-1 arms)
+        plain0 = run(cfg0, 2 * COMPILED_ITERS, fetch=COMPILED_GRADS)
+        last = [plain0["losses"][COMPILED_ITERS * (c + 1) - 1]
+                for c in range(2)]
+        digs = [plain0["digests"][COMPILED_ITERS * (c + 1) - 1]
+                for c in range(2)]
+        iters_ok = iters["losses"] == last and iters["digests"] == digs
+        step_ms = iters["call_ms"][-1] / COMPILED_ITERS
+        emit({"phase": "compiled", "step": "num_iteration_per_run=%d "
+              "against %d plain steps, dropout 0" % (COMPILED_ITERS,
+                                                     COMPILED_ITERS),
+              "bit_for_bit": iters_ok, "losses": iters["losses"],
+              "plain_losses": last, "ms_per_step": step_ms,
+              "plain_step_ms": plain0["call_ms"][-1],
+              "host_syncs_per_call": iters["syncs"],
+              "plain_host_syncs_per_step": plain0["syncs"][-1],
+              "modes": iters["modes"]})
+        if not iters_ok or iters["syncs"][-1] != 1:
+            failed.append("iterations: %s vs %s, syncs %s"
+                          % (iters["losses"], last, iters["syncs"]))
+
+        # batch_merge_repeat against one step on the 8 rows, dropout 0:
+        # three calls (warm-up, capture, replay) in one scope; its first
+        # and the plain arm's first start from the same state, so their
+        # loss and gradients are compared; the last calls time replays
+        bs = fluid.BuildStrategy()
+        bs.batch_merge_repeat = COMPILED_ACCUM
+        accum = run(cfg0, 3, compiled(False, bs), fetch=COMPILED_GRADS)
+        one = plain0
+        l_err = abs(accum["losses"][0] - one["losses"][0]) \
+            / abs(one["losses"][0])
+        g_err = [float(np.abs(a - b).max()) / max(float(np.abs(b).max()),
+                                                  1e-30)
+                 for a, b in zip(accum["fetch"][0], one["fetch"][0])]
+        emit({"phase": "compiled", "step": "batch_merge_repeat=%d (%d "
+              "rows each) against one step on %d rows, dropout 0"
+              % (COMPILED_ACCUM, TRAIN_BATCH // COMPILED_ACCUM,
+                 TRAIN_BATCH),
+              "loss_rel_err": l_err, "loss_tol": COMPILED_ACCUM_LOSS_RTOL,
+              "grad_rel_err": dict(zip(COMPILED_GRADS, g_err)),
+              "grad_tol": COMPILED_ACCUM_GRAD_RTOL,
+              "ms_per_step": accum["call_ms"][-1],
+              "plain_step_ms": one["call_ms"][-1],
+              # the capture call allocates the step's activations in the
+              # graph's pool; a replay allocates nothing new
+              "peak_allocated_bytes_capture": accum["peaks"][1],
+              "plain_peak_allocated_bytes_capture": one["peaks"][1],
+              "peak_allocated_bytes_replay": accum["peaks"][-1],
+              "plain_peak_allocated_bytes_replay": one["peaks"][-1],
+              "modes": accum["modes"]})
+        if l_err > COMPILED_ACCUM_LOSS_RTOL \
+                or max(g_err) > COMPILED_ACCUM_GRAD_RTOL \
+                or accum["modes"][-1] != "graph":
+            failed.append("accumulation: loss %g, grads %s, modes %s"
+                          % (l_err, g_err, accum["modes"]))
+
+        # ZeRO-1 at world 1 is the plain step
+        bs = fluid.BuildStrategy()
+        bs.shard_optimizer_state = True
+        zero1 = run(cfg0, 2, compiled(True, bs))
+        z_ok = zero1["digests"] == one["digests"][:2] \
+            and zero1["losses"] == one["losses"][:2]
+        emit({"phase": "compiled", "step": "ZeRO-1 at world 1 against the "
+              "plain step, dropout 0, 2 steps", "bit_for_bit": z_ok})
+        if not z_ok:
+            failed.append("ZeRO-1 at world 1 differs")
+    finally:
+        dist.destroy_process_group()
+    if failed:
+        raise AssertionError("compiled failed: %s" % "; ".join(failed))
+    for part in ("wrapper", "graph_nodes"):
+        counts[part] = {k: counts[part].get(k, 0) for k in KERNELS}
+    return counts
+
+
+def _hier_rank(rank, store, out_path):
+    """One rank of the hierarchy phase: BERT-base widths at HIER_LAYERS
+    layers, SGD, dropout 0, ``GradAllReduce`` at HIER_RANKS; flat
+    (``_hierarchy=False``) then hierarchical (a ``ClusterSpec`` of 2
+    slices), HIER_STEPS steps each from the same start → the losses,
+    the largest parameter difference, the resolved ops and launches."""
+    import copy
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.static_analysis import fusion
+    from paddle_tpu_torch.transpiler import GradAllReduce
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method="file://" + store,
+                            rank=rank, world_size=HIER_RANKS)
+    try:
+        cfg = copy.copy(bert.BERT_BASE)
+        cfg.layers = HIER_LAYERS
+        cfg.dropout = cfg.attn_dropout = 0.0
+        batch = bert.make_fake_batch(HIER_RANKS * HIER_ROWS, SEQ, cfg,
+                                     np.random.RandomState(SEED))
+        lo = rank * HIER_ROWS
+        feed = {k: v[lo:lo + HIER_ROWS] for k, v in batch.items()}
+        spec = json.dumps({"chips": HIER_RANKS, "slices":
+                           HIER_RANKS // HIER_CHIPS})
+        out = {}
+        for arm in ("flat", "hier"):
+            main, startup, _f, loss = bert.build_pretrain(
+                cfg, seq_len=SEQ, lr=HIER_LR, train=False)
+            main.random_seed = startup.random_seed = SEED
+            with fluid.program_guard(main, startup):
+                fluid.optimizer.SGD(learning_rate=HIER_LR).minimize(loss)
+            GradAllReduce().transpile(program=main, startup_program=startup,
+                                      rank=rank, nranks=HIER_RANKS)
+            main._num_trainers = HIER_RANKS
+            main._cluster_spec = spec
+            if arm == "flat":
+                main._hierarchy = False
+            scope = fluid.Scope()
+            rec = {"losses": []}
+            with fluid.scope_guard(scope):
+                exe = fluid.Executor(fluid.CUDAPlace(0))
+                exe.run(startup)
+                prog, _ = fusion.resolve_fused_program(main,
+                                                       targets=[loss.name])
+                rec["ops"] = {k: v for k, v in
+                              _op_type_counts(prog).items()
+                              if k.startswith("c_")}
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                for _ in range(HIER_STEPS):
+                    rec["losses"].append(float(exe.run(
+                        main, feed=feed, fetch_list=[loss])[0][0]))
+                torch.cuda.synchronize()
+                rec["ms_per_step"] = (time.perf_counter() - t0) * 1e3 \
+                    / HIER_STEPS
+                rec["launches"] = launch_counts()
+                rec["params"] = {p.name: scope.get(p.name).detach().cpu()
+                                 .clone() for p in main.all_parameters()}
+            del scope, exe
+            torch.cuda.empty_cache()
+            out[arm] = rec
+        flat, hier = out["flat"]["params"], out["hier"]["params"]
+        out["max_param_diff"] = max(float((flat[n] - hier[n]).abs().max())
+                                    for n in flat)
+        for arm in ("flat", "hier"):
+            del out[arm]["params"]
+        with open(out_path, "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_ranks(target, nranks, timeout, prefix):
+    """``target(rank, store, out_path)`` in ``nranks`` spawned processes
+    → their results; a rank that dies or overruns fails the phase."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    work = tempfile.mkdtemp(prefix=prefix)
+    store = os.path.join(work, "store")
+    ctx = mp.get_context("spawn")
+    paths = [os.path.join(work, "rank%d.pkl" % r) for r in range(nranks)]
+    procs = [ctx.Process(target=target, args=(r, store, paths[r]))
+             for r in range(nranks)]
+    t0 = time.time()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(max(1.0, t0 + timeout - time.time()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * nranks:
+        raise AssertionError("%s ranks exited with %s" % (prefix, codes))
+    out = []
+    for path in paths:
+        with open(path, "rb") as f:
+            out.append(pickle.load(f))
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def phase_hier(env):
+    """The hierarchical exchange: 4 gloo ranks on the card as 2 slices of
+    2 (a ``ClusterSpec`` topology engages the hierarchy pass), BERT-base
+    widths at 2 layers, SGD, against the flat exchange within the
+    reference's tolerance."""
+    import numpy as np
+
+    ranks = _spawn_ranks(_hier_rank, HIER_RANKS, HIER_TIMEOUT,
+                         "chip_smoke_hier_")
+    loss_diff = max(abs(a - b) / max(1.0, abs(a)) for r in ranks
+                    for a, b in zip(r["flat"]["losses"], r["hier"]["losses"]))
+    param_diff = max(r["max_param_diff"] for r in ranks)
+    hops = ranks[0]["hier"]["ops"]
+    emit({"phase": "hier", "step": "BERT-base widths, %d layers, T=%d, %d "
+          "ranks x %d rows as %d slices of %d (gloo on one card: checks "
+          "the path, not a collective's speed), SGD, %d steps: "
+          "hierarchical against flat" % (HIER_LAYERS, SEQ, HIER_RANKS,
+                                         HIER_ROWS, HIER_RANKS // HIER_CHIPS,
+                                         HIER_CHIPS, HIER_STEPS),
+          "card": card_label(env), "ops": {"flat": ranks[0]["flat"]["ops"],
+                                            "hier": hops},
+          "losses": {"flat": ranks[0]["flat"]["losses"],
+                     "hier": ranks[0]["hier"]["losses"]},
+          "max_loss_diff_rel_past_1": loss_diff,
+          "max_param_diff": param_diff,
+          "atol": HIER_ATOL,
+          "ms_per_step": {"flat": ranks[0]["flat"]["ms_per_step"],
+                          "hier": ranks[0]["hier"]["ms_per_step"]}})
+    bad = []
+    if not hops.get("c_hier_reducescatter") \
+            or ranks[0]["flat"]["ops"].get("c_hier_reducescatter"):
+        bad.append("the hierarchy pass did not engage as asked: %s" % hops)
+    if loss_diff > HIER_ATOL or param_diff > HIER_ATOL:
+        bad.append("hier vs flat: loss %g, params %g" % (loss_diff,
+                                                         param_diff))
+    if not all(np.isfinite(ranks[0]["hier"]["losses"])):
+        bad.append("non-finite loss")
+    if bad:
+        raise AssertionError("hier failed: %s" % "; ".join(bad))
+    counts = ranks[0]["hier"]["launches"]
+    return {"wrapper": dict(counts), "graph_nodes": dict.fromkeys(counts, 0)}
+
+
+def phase_chaos_quant(env):
+    """``python -m paddle_tpu_torch.tools.chaos --quant`` on the card: exit
+    0, its K7 launches, and ``tools.monitor`` (``collect_status``, what
+    ``--once --json`` prints) reading ``quant_error`` from the snapshot
+    it wrote."""
+    tel = tempfile.mkdtemp(prefix="chip_smoke_chaos_")
+    res = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.tools.chaos", "--quant",
+         "--telemetry-dir", tel], cwd=HERE,
+        env=dict(os.environ, PYTHONPATH=HERE), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, timeout=CHAOS_TIMEOUT)
+    from paddle_tpu_torch.tools import monitor
+
+    status = monitor.collect_status(tel)
+    shutil.rmtree(tel, ignore_errors=True)
+    lines = res.stdout.splitlines()
+    k7 = [ln for ln in lines if ln.startswith("chaos: K7 launches")]
+    launches = {"block_quantize": 0, "block_dequantize": 0}
+    if k7:
+        for kv in k7[-1].split()[3:]:
+            k, v = kv.split("=")
+            launches["block_" + k] = int(v)
+    emit({"phase": "chaos_quant", "step": "python -m paddle_tpu_torch."
+          "tools.chaos --quant on the card", "card": card_label(env),
+          "exit_code": res.returncode, "k7_launches": launches,
+
+          "quant_error": status.get("quant_error"),
+          "quant_error_ratio": status.get("quant_error_ratio"),
+          "tail": lines[-3:]})
+    if res.returncode != 0 or not launches["block_quantize"] \
+            or not launches["block_dequantize"] \
+            or status.get("quant_error") is None:
+        raise AssertionError("chaos --quant: exit %s, launches %s, monitor "
+                             "%s: %s" % (res.returncode, launches,
+                                         status, res.stdout[-2000:]))
+    return {"wrapper": dict(launches), "graph_nodes": {}}
 
 
 DP_PARITY_PARAMS = ("bert.word_emb", "bert.layer0.attn.q.w",
@@ -5643,6 +6570,7 @@ def phase_dp(env):
     torch.cuda.empty_cache()
 
     work = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    sync_bn_one = _sync_bn_reference(work)
     store = os.path.join(work, "store")
     ctx = mp.get_context("spawn")
     paths = [os.path.join(work, "rank%d.pkl" % r) for r in range(DP_RANKS)]
@@ -5743,9 +6671,11 @@ def phase_dp(env):
         failed.append("dropout-0 DP step vs one process: %s" % parity)
     if not all(np.isfinite(twins["dense"] + twins["quant"])):
         failed.append("non-finite loss %s" % twins)
+    failed += _dp_arms_report(env, ranks)
     if failed:
         raise AssertionError("dp failed: %s" % "; ".join(failed))
-    return r0["quant"]["launches"]
+    shutil.rmtree(work, ignore_errors=True)
+    return r0["quant"]["launches"], ranks, sync_bn_one
 
 
 # ---------------------------------------------------------------------------
@@ -11693,7 +12623,13 @@ def _run_phases(torch):
     _timed(seconds, phase_vision_parity, env)
     _timed(seconds, phase_graph, env)
     _timed(seconds, phase_quant)
-    dp_counts = _timed(seconds, phase_dp, env)
+    compiled_counts = _timed(seconds, phase_compiled, env)
+    dp_counts, dp_ranks, sync_bn_one = _timed(seconds, phase_dp, env)
+    sync_bn_counts = _timed(seconds, phase_sync_bn, env, dp_ranks,
+                            sync_bn_one)
+    del dp_ranks
+    hier_counts = _timed(seconds, phase_hier, env)
+    chaos_counts = _timed(seconds, phase_chaos_quant, env)
     _timed(seconds, phase_verify, env)
     _timed(seconds, phase_fusion, env)
     _timed(seconds, phase_autotune, env)
@@ -11726,27 +12662,31 @@ def _run_phases(torch):
              "contrib_decoder_train": dsl_counts["train"],
              "contrib_decoder_decode": dsl_counts["decode"],
              "resnet_infer": infer_counts, "se_resnext": se_counts,
-             "vgg": vgg_counts}
+             "vgg": vgg_counts, "compiled": compiled_counts,
+             "sync_bn": sync_bn_counts, "hier": hier_counts,
+             "chaos_quant": chaos_counts}
     for r in rows:
         # the decode path's launches (ring + paged runs) where it runs the
         # kernel, else the BERT training path's (the backward kernels),
         # else the ResNet training path's (K4), else the dygraph ResNet's
         # (eager Momentum), else the data-parallel path's (K7: rank 0's
-        # quant twin); launches_by_path has every path's
+        # quant twin), else the new paths' (the hierarchy's SGD);
+        # launches_by_path has every path's
         # (the multi-tensor and SGD kernels run on no main path: the
         # optimizer fusion's gate keeps BERT-base's Adam per parameter)
         name = r["name"]
         r["launches_by_path"] = {
-            p: c["wrapper"][name] + c["graph_nodes"][name]
+            p: c["wrapper"].get(name, 0) + c["graph_nodes"].get(name, 0)
             for p, c in sorted(paths.items())}
-        for label in ("decode", "train", "resnet", "dygraph", "dp", "none"):
+        for label in ("decode", "train", "resnet", "dygraph", "dp",
+                      "compiled", "sync_bn", "hier", "chaos_quant", "none"):
             if label == "none":
                 wrapper = nodes = 0
                 break
             run = [paths[p] for p in (("decode_ring", "decode_paged")
                                       if label == "decode" else (label,))]
-            wrapper = sum(c["wrapper"][name] for c in run)
-            nodes = sum(c["graph_nodes"][name] for c in run)
+            wrapper = sum(c["wrapper"].get(name, 0) for c in run)
+            nodes = sum(c["graph_nodes"].get(name, 0) for c in run)
             if wrapper + nodes:
                 break
         r["launches"] = wrapper + nodes

@@ -38,6 +38,7 @@ from .backward import append_backward, gradients
 from .clip import (GradientClipByGlobalNorm, GradientClipByNorm,
                    GradientClipByValue)
 from .executor import Executor, Scope, global_scope, scope_guard
+from .compiler import BuildStrategy, CompiledProgram, ExecutionStrategy
 from . import pipeline
 from . import io
 from . import analysis
@@ -50,6 +51,10 @@ from . import models
 from . import convert
 from . import quant
 from . import transpiler
+from .transpiler import DistributeTranspiler, DistributeTranspilerConfig
+from . import parallel
+from .parallel import ParallelExecutor
+from . import incubate
 from . import contrib
 from . import profiler
 from . import autotune
@@ -66,7 +71,10 @@ __all__ = [
     "device_places", "CPUPlace", "CUDAPlace", "TPUPlace", "set_flags",
     "get_flags", "ParamAttr",
     "WeightNormParamAttr", "Executor", "Scope", "global_scope",
-    "scope_guard", "core", "unique_name", "initializer", "ops", "layers",
+    "scope_guard", "CompiledProgram", "BuildStrategy", "ExecutionStrategy",
+    "ParallelExecutor", "DistributeTranspiler",
+    "DistributeTranspilerConfig", "parallel", "incubate", "core",
+    "unique_name", "initializer", "ops", "layers",
     "pipeline", "io", "analysis", "inference", "static_analysis",
     "serving", "nets", "models", "convert", "backward", "clip", "regularizer",
     "optimizer", "append_backward", "gradients", "quant", "transpiler",

@@ -139,6 +139,7 @@ from . import profiler as _prof
 from .framework import Variable, default_main_program
 from .observability import runtime as _obs
 from .observability import tracing as _tr
+from .ops import collective as _collective
 from .ops import control_flow as _cf
 from .ops import registry as op_registry
 from .ops.cuda import _lib as _kernels
@@ -184,16 +185,20 @@ class _Vars(dict):
 class Scope:
     """name → tensor map with the reference's parent-chain lookup.
     ``rings`` holds the collective rings a startup program's
-    ``c_comm_init`` bound in this scope (ring id → process group,
-    ``ops/collective.py``).  :attr:`generation` changes whenever a value
-    that :meth:`get` can return does: a write to this scope's or a
-    parent's ``vars``."""
+    ``c_comm_init`` (or the data-parallel runner) bound in this scope
+    (ring id → process group, ``ops/collective.py``); ``shards`` the
+    ZeRO-1 accumulators whose rows this rank holds (name → (full dim 0,
+    first row, process group), ``parallel/__init__.py``), which
+    ``io.save_vars`` gathers whole.  :attr:`generation` changes whenever
+    a value that :meth:`get` can return does: a write to this scope's or
+    a parent's ``vars``."""
 
     def __init__(self, parent=None):
         self._gen = 0
         self.vars = _Vars(self)
         self.parent = parent
         self.rings = {}
+        self.shards = {}
         self._kids = []
 
     @property
@@ -346,7 +351,7 @@ def _region_live(block, fetch_names):
 
 
 def _run_ops_into_env(block, env, ctx, check_nan_inf=False, fetch_names=(),
-                      replay=False):
+                      replay=False, ops=None):
     """Run every op of ``block`` on the tensors in ``env`` (name →
     tensor), adding each op's outputs.  Call it under ``torch.no_grad()``:
     a forward op that a grad op of the block differentiates records its
@@ -363,7 +368,8 @@ def _run_ops_into_env(block, env, ctx, check_nan_inf=False, fetch_names=(),
     for that grad op.  Such an op raises, naming itself and the var,
     before it writes.  With ``replay`` (a region's second run) every
     in-place op writes a copy.  With ``check_nan_inf`` every op's
-    floating outputs are checked (``_check_finite``)."""
+    floating outputs are checked (``_check_finite``).  ``ops`` runs a
+    part of the block's ops (the accumulated step's head or tail)."""
     twins = _grad_twins(block)
     pending = {}  # taped forward op id -> the var names it read
     live = None
@@ -373,7 +379,7 @@ def _run_ops_into_env(block, env, ctx, check_nan_inf=False, fetch_names=(),
         return _run_ops_into_env(sub_block, sub_env, ctx, check_nan_inf,
                                  live, replay or again)
 
-    for op in block.ops:
+    for op in (block.ops if ops is None else ops):
         if op.type in ("feed", "fetch"):
             continue
         if dead and op.type == "assign" and set(op.output_arg_names) <= dead:
@@ -480,6 +486,110 @@ def _analyze_block(block, feed_names, fetch_names):
         if v is not None and v.persistable and n not in persist_written:
             persist_written.append(n)
     return ext_reads, written, persist_written
+
+
+def _accum_partition(block):
+    """The block split at its first optimize-role op for microbatch
+    gradient accumulation (the reference's :765, its
+    ``ir/multi_batch_merge_pass.cc``): ``(head, tail, head_written,
+    grad_reads, other_reads)``, the last two the head-written names the
+    tail reads, gradients and others."""
+    ops = [op for op in block.ops if op.type not in _HOST_SIDE_OPS]
+    split = next((i for i, op in enumerate(ops)
+                  if op.attrs.get("op_role") == "optimize"), len(ops))
+    head, tail = ops[:split], ops[split:]
+    head_written = set()
+    for op in head:
+        head_written.update(op.output_arg_names)
+    tail_reads = []
+    for op in tail:
+        for n in op.input_arg_names:
+            if (n and n != EMPTY_VAR_NAME and n in head_written
+                    and n not in tail_reads):
+                tail_reads.append(n)
+    grad_reads = [n for n in tail_reads if "@GRAD" in n]
+    other_reads = [n for n in tail_reads if "@GRAD" not in n]
+    return head, tail, head_written, grad_reads, other_reads
+
+
+def _accumulated_step(block, env, ctx, k, feed_names, fetch_names,
+                      state_names, check_nan_inf=False):
+    """``BuildStrategy.batch_merge_repeat`` (the reference's
+    ``_AccumRunner``, :800-900): the head (forward and backward) runs
+    once per microbatch of the fed rows, each a view of ``k`` equal row
+    blocks of the feeds, with its own dropout stream (the device step
+    ``step * k + i``); the gradients the tail reads are summed and
+    divided by ``k``; the tail (the optimizer) runs once.  A fetch of a
+    per-sample value gets the whole batch, of an inexact scalar the
+    microbatches' mean, of anything else the last value; state keeps
+    the last microbatch's value.  Only the summed gradients and the
+    values the tail or the caller reads outlive a microbatch, so the
+    activations of one microbatch are freed before the next runs.  The
+    in-place state of the head (batch norm's running statistics) moves
+    once per microbatch, as the reference documents for its counters."""
+    head, tail, head_written, grad_reads, other_reads = \
+        _accum_partition(block)
+    carry_out = list(other_reads)
+    for n in list(fetch_names) + list(state_names):
+        if n in head_written and n not in carry_out \
+                and n not in grad_reads:
+            carry_out.append(n)
+    micro = {}
+    for n in feed_names:
+        v = env[n]
+        b = v.shape[0]
+        if b % k:
+            raise ValueError(
+                "batch dim %d of feed %r is not divisible by "
+                "accumulate_steps=%d" % (b, n, k))
+        micro[n] = v.reshape((k, b // k) + tuple(v.shape[1:]))
+    base = {n: v for n, v in env.items() if n not in micro}
+    step = ctx.step
+    acc, outs = {}, {n: [] for n in carry_out}
+    try:
+        for i in range(k):
+            e = dict(base)
+            e.update({n: v[i] for n, v in micro.items()})
+            ctx._step = step * k + i
+            _run_ops_into_env(block, e, ctx, check_nan_inf=check_nan_inf,
+                              fetch_names=fetch_names, ops=head)
+            ctx.tape.clear()
+            for n in grad_reads:
+                acc[n] = e[n] if i == 0 else acc[n] + e[n].to(acc[n].dtype)
+            for n in carry_out:
+                if n in e:
+                    outs[n].append(e[n])
+            del e
+    finally:
+        ctx._step = step
+    micro_bs = next(iter(micro.values())).shape[1] if micro else None
+    for n, vals in outs.items():
+        if not vals:
+            continue
+        if n in fetch_names and n not in state_names:
+            v0 = vals[-1]
+            if micro_bs is not None and v0.dim() >= 1 \
+                    and v0.shape[0] == micro_bs:
+                env[n] = torch.cat(vals)
+            elif v0.is_floating_point():
+                env[n] = torch.stack(vals).mean(dim=0)
+            else:
+                env[n] = v0
+        else:
+            env[n] = vals[-1]
+    for n in grad_reads:
+        # a true division (a Python scalar divides through its
+        # reciprocal on the card), filled on the device: capturable
+        env[n] = acc[n] / torch.full((), k, dtype=acc[n].dtype,
+                                     device=acc[n].device)
+    _run_ops_into_env(block, env, ctx, check_nan_inf=check_nan_inf,
+                      fetch_names=fetch_names, ops=tail)
+    return env
+
+
+def _state_names(block):
+    return [n for n, v in block.vars.items()
+            if v.persistable and not v.is_data]
 
 
 # sub-block ops that read a condition on the host
@@ -608,8 +718,9 @@ class _CompiledBlock:
     scope's generation when the bound tensors were last checked against
     it (:meth:`rebind`)."""
 
-    def __init__(self, program, feed_names, fetch_names):
+    def __init__(self, program, feed_names, fetch_names, accumulate=1):
         self.program = program  # holds id(program) for the key's life
+        self.accumulate = int(accumulate or 1)
         self.block = program.global_block()
         self.feed_names = list(feed_names)
         self.fetch_names = list(fetch_names)
@@ -673,8 +784,13 @@ class _CompiledBlock:
         env = dict(self.reads)
         env.update(self.feeds)
         with torch.no_grad():
-            _run_ops_into_env(self.block, env, ctx,
-                              fetch_names=self.fetch_names)
+            if self.accumulate > 1:
+                _accumulated_step(self.block, env, ctx, self.accumulate,
+                                  self.feed_names, self.fetch_names,
+                                  _state_names(self.block))
+            else:
+                _run_ops_into_env(self.block, env, ctx,
+                                  fetch_names=self.fetch_names)
             ctx.tape.clear()
             self.copy_back_names = _copy_back(
                 self.reads, env, self.rw_names,
@@ -1003,7 +1119,18 @@ class Executor:
     def run(self, program=None, feed=None, fetch_list=None,
             feed_var_name="feed", fetch_var_name="fetch", scope=None,
             return_numpy=True, use_program_cache=True, use_prune=False,
-            verify=False):
+            verify=False, _fusion_config=None, _accumulate=1, _iters=1):
+        """One step of ``program`` (a ``Program`` or a
+        ``CompiledProgram``, which runs through its own ``_run``).
+        ``_fusion_config`` is a ``CompiledProgram``'s strategy's fusion
+        config; ``_accumulate`` runs the step as ``k`` microbatches
+        (``BuildStrategy.batch_merge_repeat``); ``_iters`` runs ``K``
+        whole steps in one call (``ExecutionStrategy.
+        num_iteration_per_run``, the reference's :645-690): K calls of
+        the step's cache entry with no host read between them, each with
+        its own device step (so its own dropout masks), the fetches the
+        last step's."""
+        from .compiler import CompiledProgram
         from .static_analysis import fusion as _fusion
 
         if program is None:
@@ -1014,12 +1141,29 @@ class Executor:
             # neither what the step computes nor how it runs
             from .static_analysis import assert_valid
 
+            to_verify = (program._program
+                         if isinstance(program, CompiledProgram)
+                         else program)
             assert_valid(
-                program,
+                to_verify,
                 targets=[v.name if isinstance(v, Variable) else str(v)
                          for v in (fetch_list or [])],
                 header="Executor.run(verify=True): program failed "
                        "verification:")
+        if isinstance(program, CompiledProgram):
+            # the feed check covers the data-parallel, ZeRO-1 and
+            # accumulation paths too (the reference's :1130-1137)
+            if isinstance(feed, dict) and feed:
+                _check_feed_shapes(program._program,
+                                   {n: _host_value(v)
+                                    for n, v in feed.items()})
+            return program._run(self, feed, fetch_list, scope,
+                                return_numpy)
+        accumulate, iters = int(_accumulate or 1), int(_iters or 1)
+        if accumulate > 1 and iters > 1:
+            raise ValueError(
+                "num_iteration_per_run cannot combine with "
+                "batch_merge_repeat: both wrap the step in a scan")
         if scope is None:
             scope = global_scope()
         self.last_loops = []
@@ -1027,22 +1171,35 @@ class Executor:
                        for v in (fetch_list or [])]
         source = program
         program, _report = _fusion.resolve_fused_program(
-            program, targets=fetch_names)
+            program, config=_fusion_config, targets=fetch_names)
         feed = {n: _host_value(v) for n, v in (feed or {}).items()}
         _check_feed_shapes(program, feed)
+        if iters > 1:
+            # no host read between the iterations: the first K - 1 keep
+            # their fetches on the device, unread
+            for _ in range(iters - 1):
+                self._run_step(source, program, scope, feed, fetch_names,
+                               False, use_program_cache, 1)
+        return self._run_step(source, program, scope, feed, fetch_names,
+                              return_numpy, use_program_cache, accumulate)
+
+    def _run_step(self, source, program, scope, feed, fetch_names,
+                  return_numpy, use_program_cache, accumulate):
         if not use_program_cache:
             _obs.record_jit_cache(False)
             return self._step_call(
                 lambda: (lambda: self._run_eager(
                     program, scope, feed, fetch_names,
-                    "use_program_cache=False"), "uncached", None),
+                    "use_program_cache=False", accumulate=accumulate),
+                    "uncached", None),
                 return_numpy, lock=False)
         if core.get_flags("FLAGS_check_nan_inf")["FLAGS_check_nan_inf"]:
             return self._step_call(
                 lambda: (lambda: self._run_eager(
                     program, scope, feed, fetch_names,
                     "FLAGS_check_nan_inf: every op's outputs are checked, "
-                    "which a captured graph cannot stop at"), None, None),
+                    "which a captured graph cannot stop at",
+                    accumulate=accumulate), None, None),
                 return_numpy, lock=False)
         key = (id(program), program._version, id(scope),
                # a staged tensor and a host array of one dtype share a key
@@ -1050,12 +1207,15 @@ class Executor:
                      for n, v in sorted(feed.items())),
                tuple(fetch_names), getattr(program, "_fusion_sig", None),
                core.flags_key())
+        if accumulate > 1:
+            key += (("batch_merge_repeat", accumulate),)
         return self._step_call(
             lambda: self._choose(key, source, program, scope, feed,
-                                 fetch_names),
+                                 fetch_names, accumulate),
             return_numpy)
 
-    def _choose(self, key, source, program, scope, feed, fetch_names):
+    def _choose(self, key, source, program, scope, feed, fetch_names,
+                accumulate=1):
         """Under the lock: the cache entry of ``key`` and what this call
         of it runs, as ``(dispatch, compile_phase, drift_key)``."""
         slot = (id(source), tuple(sorted(fetch_names)))
@@ -1073,16 +1233,18 @@ class Executor:
         _obs.record_jit_cache(entry is not None)
         if entry is None:
             entry = self._cache[key] = _CompiledBlock(
-                program, list(feed), fetch_names)
+                program, list(feed), fetch_names, accumulate=accumulate)
             _register_compile_telemetry(entry, program, feed, fetch_names)
         entry.calls += 1
         if entry.eager_reason is not None:
             return (lambda: self._run_eager(program, scope, feed, fetch_names,
-                                            entry.eager_reason, loops=True),
+                                            entry.eager_reason, loops=True,
+                                            accumulate=accumulate),
                     "warm-up" if entry.calls == 1 else None,
                     entry.drift_key)
         if entry.calls == 1:
-            return (lambda: self._warm_up(program, scope, feed, fetch_names),
+            return (lambda: self._warm_up(program, scope, feed, fetch_names,
+                                          accumulate),
                     "warm-up", entry.drift_key)
         return (lambda: self._run_compiled(entry, program, scope, feed),
                 "capture" if entry.reads is None else None, entry.drift_key)
@@ -1144,11 +1306,16 @@ class Executor:
         return step
 
     def _context(self, program, scope, step, step_tensor):
-        return op_registry.LoweringContext(
+        ctx = op_registry.LoweringContext(
             seed=(program.random_seed or 0) * 1000003 + step,
             mode="train", device=self.device,
             program_seed=program.random_seed or 0, rings=scope.rings,
             step=step_tensor)
+        if getattr(program, "_sync_batch_stats", False):
+            # a world-N data-parallel runner's program: batch norm's
+            # statistics are summed over the data-parallel ring
+            ctx.sync_stats = scope.rings.get(0)
+        return ctx
 
     def _side_stream(self):
         if self._stream is None:
@@ -1178,18 +1345,20 @@ class Executor:
         entry.graph = graph
         return out
 
-    def _warm_up(self, program, scope, feed, fetch_names):
+    def _warm_up(self, program, scope, feed, fetch_names, accumulate=1):
         """The first call for a key: eager, on the side stream that the
         capture will use, so everything made on first use is made for
         it."""
         reason = "warm-up: the first call for this key"
         if self.device.type != "cuda":
-            return self._run_eager(program, scope, feed, fetch_names, reason)
+            return self._run_eager(program, scope, feed, fetch_names, reason,
+                                   accumulate=accumulate)
         cur = torch.cuda.current_stream(self.device)
         side = self._side_stream()
         side.wait_stream(cur)
         with torch.cuda.stream(side):
-            out = self._run_eager(program, scope, feed, fetch_names, reason)
+            out = self._run_eager(program, scope, feed, fetch_names, reason,
+                                  accumulate=accumulate)
         cur.wait_stream(side)
         return out
 
@@ -1231,7 +1400,7 @@ class Executor:
         return entry.fetches, entry.fresh
 
     def _run_eager(self, program, scope, feed, fetch_names, reason,
-                   loops=False):
+                   loops=False, accumulate=1):
         """The block op by op, its persistable outputs written back to the
         scope (the in-place updates leave the resident tensors there); the
         fetches.  A fetch that is a scope tensor is returned as a copy,
@@ -1272,10 +1441,19 @@ class Executor:
         check = core.get_flags("FLAGS_check_nan_inf")["FLAGS_check_nan_inf"]
         try:
             with torch.no_grad():
-                _run_ops_into_env(block, env, ctx, check_nan_inf=bool(check),
-                                  fetch_names=fetch_names)
+                if accumulate > 1:
+                    _accumulated_step(block, env, ctx, accumulate,
+                                      list(feed_vals), fetch_names,
+                                      _state_names(block), bool(check))
+                else:
+                    _run_ops_into_env(block, env, ctx,
+                                      check_nan_inf=bool(check),
+                                      fetch_names=fetch_names)
         finally:
             ctx.tape.clear()  # graphs of forwards whose grads were not run
+            # a step that failed between a collective's start and its
+            # wait leaves no exchange in flight
+            _collective.drain_pending(ctx)
         self.last_loops = ctx.loop_runs
         for rec in ctx.loop_runs:
             self.last_run_reason += (

@@ -22,6 +22,7 @@ __all__ = [
     "XavierInitializer",
     "MSRA",
     "MSRAInitializer",
+    "NumpyArrayInitializer",
     "set_global_initializer",
 ]
 
@@ -171,3 +172,21 @@ TruncatedNormal = TruncatedNormalInitializer
 Xavier = XavierInitializer
 MSRA = MSRAInitializer
 
+
+class NumpyArrayInitializer(Initializer):
+    """The var set to a given array: one ``assign_value`` op (the
+    reference's :186)."""
+
+    def __init__(self, value):
+        self._value = np.asarray(value)
+
+    def __call__(self, var, block):
+        return block.append_op(
+            type="assign_value",
+            outputs={"Out": [var.name]},
+            attrs={
+                "shape": list(self._value.shape),
+                "dtype": var.dtype,
+                "values": self._value,
+            },
+        )

@@ -80,6 +80,20 @@ def _select(main_program, vars, predicate):
     return vars
 
 
+def _whole(scope, name):
+    """``name``'s value, gathered whole when it is a ZeRO-1 accumulator
+    whose rows this rank holds (``Scope.shards``): a collective, so
+    every rank of the group saves."""
+    val = scope.get(name)
+    shard = scope._owner_of(name).shards.get(name)
+    if shard is None or val.shape[0] == shard[0]:
+        return val
+    from .ops import comm
+
+    return comm.all_gather(val, shard[2]).reshape(
+        (shard[0],) + tuple(val.shape[1:]))
+
+
 def save_vars(executor, dirname, main_program=None, vars=None,
               predicate=None, filename=None):
     vars = _select(main_program, vars, predicate)
@@ -87,7 +101,8 @@ def save_vars(executor, dirname, main_program=None, vars=None,
     os.makedirs(dirname, exist_ok=True)
     present = [v for v in vars if scope.get(v.name) is not None]
     arrays = dict(zip([v.name for v in present],
-                      host_values([scope.get(v.name) for v in present])))
+                      host_values([_whole(scope, v.name)
+                                   for v in present])))
     if filename is None:
         for name, arr in arrays.items():
             _atomic_write(os.path.join(dirname, name.replace("/", "_")

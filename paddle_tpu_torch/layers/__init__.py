@@ -2,13 +2,15 @@
 encoder, its eval head, its pretraining head, the GPT decode programs,
 ResNet training, SE-ResNeXt, VGG and ``nets``, and the NMT and
 stacked-LSTM models use (the recurrent layers, the sequence layers and
-beam search among them), the vision layers (``nn_extra``,
+beam search among them), the collective layers (``collective``), the
+vision layers (``nn_extra``,
 ``nn_extra2``), the
 learning-rate schedules, the recompute regions and the Variable operator
 overloads (``math_op_patch``).  The rest of the reference's layers are
 queued in ROADMAP.md."""
 
 from . import beam  # noqa: F401
+from . import collective  # noqa: F401
 from . import control_flow  # noqa: F401
 from . import decode  # noqa: F401
 from . import io  # noqa: F401

@@ -25,6 +25,7 @@ from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
 __all__ = ["fc", "embedding", "layer_norm", "dropout", "softmax",
+           "square_error_cost",
            "log_softmax", "cross_entropy", "softmax_with_cross_entropy",
            "reduce_sum", "reduce_mean", "reduce_max", "reduce_all",
            "reduce_any", "matmul", "split", "expand",
@@ -657,3 +658,15 @@ def resize_nearest(input, out_shape=None, scale=None, name=None,
                    actual_shape=None, align_corners=True):
     return image_resize(input, out_shape, scale, name, "NEAREST",
                         actual_shape, align_corners)
+
+
+def square_error_cost(input, label):
+    """reference nn.py square_error_cost → square_error_cost op."""
+    helper = LayerHelper("square_error_cost", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="square_error_cost",
+        inputs={"X": [input], "Y": [label]},
+        outputs={"Out": [out]},
+    )
+    return out

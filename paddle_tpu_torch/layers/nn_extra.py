@@ -15,7 +15,8 @@ __all__ = [
     "maxout", "crop", "pad_constant_like", "random_crop", "lrn",
     "pixel_shuffle", "shuffle_channel", "temporal_shift", "affine_channel",
     "fsp_matrix", "grid_sampler", "affine_grid", "roi_pool", "psroi_pool",
-    "unfold", "image_resize_short",
+    "unfold", "image_resize_short", "elementwise_mod",
+    "elementwise_floordiv",
 ]
 
 
@@ -171,3 +172,13 @@ def image_resize_short(input, out_short_len, resample="BILINEAR"):
     scale = float(out_short_len) / float(min(h, w))
     out_shape = [int(round(h * scale)), int(round(w * scale))]
     return image_resize(input, out_shape=out_shape, resample=resample)
+
+
+def elementwise_mod(x, y, axis=-1, act=None, name=None):
+    """reference nn.py elementwise_mod op"""
+    return _simple("elementwise_mod", {"X": x, "Y": y}, {"axis": axis})
+
+
+def elementwise_floordiv(x, y, axis=-1, act=None, name=None):
+    """reference nn.py elementwise_floordiv op"""
+    return _simple("elementwise_floordiv", {"X": x, "Y": y}, {"axis": axis})

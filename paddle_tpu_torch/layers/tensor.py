@@ -11,7 +11,7 @@ from ..layer_helper import LayerHelper
 
 __all__ = ["cast", "concat", "assign", "fill_constant",
            "fill_constant_batch_size_like", "range",
-           "tensor_array_to_tensor"]
+           "tensor_array_to_tensor", "create_parameter"]
 
 
 def cast(x, dtype):
@@ -111,3 +111,17 @@ def tensor_array_to_tensor(input, axis=1, name=None):
                      outputs={"Out": [out], "OutIndex": [idx]},
                      attrs={"axis": int(axis)})
     return out, idx
+
+
+def create_parameter(shape, dtype, name=None, attr=None,
+                     is_bias=False, default_initializer=None):
+    """reference tensor.py create_parameter: a raw trainable parameter."""
+    from ..param_attr import ParamAttr
+
+    helper = LayerHelper("create_parameter")
+    a = ParamAttr._to_attr(attr)
+    if name is not None and a.name is None:
+        a.name = name
+    if default_initializer is not None:
+        a._set_default_initializer(default_initializer)
+    return helper.create_parameter(a, list(shape), dtype, is_bias=is_bias)

@@ -1,5 +1,6 @@
 """The exchanges of the collective ops over a ``torch.distributed``
-group: sum, all-to-all and all-gather of one contiguous tensor.
+group: sum (at once or started and waited on), max / min / product,
+broadcast, all-to-all and all-gather of one contiguous tensor.
 
 NCCL takes CUDA tensors where they lie.  Gloo takes CPU tensors only
 (its all-to-all and all-gather refuse CUDA tensors), so for a gloo
@@ -11,7 +12,8 @@ such a group: NCCL refuses two ranks on one device.
 import torch
 import torch.distributed as dist
 
-__all__ = ["host_staged", "all_reduce_sum", "all_to_all", "all_gather"]
+__all__ = ["host_staged", "all_reduce_sum", "all_reduce",
+           "all_reduce_start", "broadcast", "all_to_all", "all_gather"]
 
 
 def host_staged(t, group):
@@ -36,12 +38,59 @@ def _back(host, like):
 
 def all_reduce_sum(t, group):
     """The group's sum of ``t`` (a new tensor)."""
+    return all_reduce(t, group, dist.ReduceOp.SUM)
+
+
+def all_reduce(t, group, op):
+    """The group's reduction of ``t`` by ``op`` (a ``dist.ReduceOp``), a
+    new tensor."""
     if host_staged(t, group):
         host = _to_host(t)
-        dist.all_reduce(host, op=dist.ReduceOp.SUM, group=group)
+        dist.all_reduce(host, op=op, group=group)
         return _back(host, t)
     out = t.clone()
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    dist.all_reduce(out, op=op, group=group)
+    return out
+
+
+class Pending:
+    """A started sum: :meth:`wait` blocks until the exchange is done and
+    returns the sum on ``t``'s device."""
+
+    def __init__(self, work, buf, like):
+        self._work, self._buf, self._like = work, buf, like
+
+    def wait(self):
+        if self._work is not None:
+            self._work.wait()
+            self._work = None
+        if self._buf.device != self._like.device:
+            return _back(self._buf, self._like)
+        return self._buf
+
+
+def all_reduce_start(t, group):
+    """Start the group's sum of ``t`` (``async_op=True``) → a
+    :class:`Pending`.  A gloo payload on a card is staged to host memory
+    first (that copy waits for the card); the exchange itself runs while
+    the caller goes on."""
+    buf = _to_host(t) if host_staged(t, group) else t.clone()
+    work = dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group,
+                           async_op=True)
+    return Pending(work, buf, t)
+
+
+def broadcast(t, group, root):
+    """Rank ``root``'s ``t`` on every rank of ``group`` (a new tensor);
+    ``root`` is the rank in ``group``."""
+    src = dist.get_global_rank(group, root) \
+        if group is not None and group is not dist.group.WORLD else root
+    if host_staged(t, group):
+        host = _to_host(t)
+        dist.broadcast(host, src=src, group=group)
+        return _back(host, t)
+    out = t.clone()
+    dist.broadcast(out, src=src, group=group)
     return out
 
 

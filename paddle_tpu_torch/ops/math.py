@@ -71,6 +71,10 @@ elementwise_div = _elementwise("elementwise_div", torch.div)
 elementwise_min = _elementwise("elementwise_min", torch.minimum)
 elementwise_max = _elementwise("elementwise_max", torch.maximum)
 elementwise_pow = _elementwise("elementwise_pow", torch.pow)
+# the sign of the divisor, as jnp.mod (GeoSGD's gate)
+elementwise_mod = _elementwise("elementwise_mod", torch.remainder)
+elementwise_floordiv = _elementwise("elementwise_floordiv",
+                                    torch.floor_divide)
 
 
 def _reduce(X, attrs, fn):

@@ -8,7 +8,22 @@ fused_multihead_attention :523, fused_dropout_add_ln :555,
 fused_bias_act :582, fused_conv_bn_act :598, fused_embedding_gather
 :674; the dygraph layers' conv3d :333, conv2d_transpose :338, prelu :511,
 spectral_norm :805, row_conv :837, nce :872, conv3d_transpose :968,
-pool3d :997, group_norm :1003).
+pool3d :997, group_norm :1003, sync_batch_norm :1029).
+
+Synchronized batch norm.  In the reference's data parallel the batch
+statistics are always global (GSPMD reduces them over the sharded
+batch), and ``sync_batch_norm`` is ``batch_norm`` under another name.
+The port's ranks each hold their own rows, so where the statistics must
+be global (``sync_batch_norm`` with ring 0 bound; ``batch_norm`` and
+``fused_conv_bn_act`` under a world-N data-parallel runner, which sets
+``ctx.sync_stats``) each rank sums its rows per channel (Σx, Σx², count)
+and one allreduce of that [3, C] block gives every rank the global mean
+and ``max(E[x²] - E[x]², 0)`` variance.  The allreduce's gradient is the
+allreduce of the gradient (:class:`_GroupSum`), so the backward sums the
+two per-channel gradient sums over the ranks before the elementwise
+pass; for ``fused_conv_bn_act`` that sum lies between the K4 backward
+kernel, which gives the gradients at the mean and rstd, and the conv
+output's gradient.
 
 The four kernel-backed ``fused_*`` ops route to the hand-written CUDA
 kernels under :mod:`paddle_tpu_torch.ops.cuda`, whose autograd functions
@@ -227,6 +242,12 @@ def fused_dropout_add_ln(ctx, attrs, X, Residual, Scale, Bias):
     return out.reshape(shape)
 
 
+@register_op("square_error_cost", inputs=["X", "Y"], outputs=["Out"])
+def square_error_cost(ctx, attrs, X, Y):
+    """``(X - Y)²`` elementwise (the reference's :468)."""
+    return torch.square(X - Y)
+
+
 @register_op("fused_bias_act", inputs=["X", "Bias"], outputs=["Out"])
 def fused_bias_act(ctx, attrs, X, Bias):
     """``act(x + bias)`` as one op, the fusion pipeline's rewrite of the
@@ -247,13 +268,48 @@ def fused_embedding_gather(ctx, attrs, W, Ids):
     return out.reshape(tuple(ids.shape) + (W.shape[1],))
 
 
-def _batch_stats(x32, reduce_dims):
+class _GroupSum(torch.autograd.Function):
+    """The sum over a process group, whose gradient is the sum over the
+    group of the gradients (every rank's loss reads the sum)."""
+
+    @staticmethod
+    def forward(fctx, x, group):
+        from . import comm
+
+        fctx.group = group
+        return comm.all_reduce_sum(x.contiguous(), group)
+
+    @staticmethod
+    def backward(fctx, g):
+        from . import comm
+
+        return comm.all_reduce_sum(g.contiguous(), fctx.group), None
+
+
+def _batch_stats(x32, reduce_dims, group=None):
     """The reference's single-pass batch statistics (:236-244): the mean
-    and the clamped ``max(E[x^2] - E[x]^2, 0)`` variance, float32."""
-    bm = x32.mean(dim=reduce_dims)
-    bv = torch.clamp(torch.square(x32).mean(dim=reduce_dims)
-                     - torch.square(bm), min=0.0)
+    and the clamped ``max(E[x^2] - E[x]^2, 0)`` variance, float32; over
+    every rank of ``group`` when one is given."""
+    if group is None:
+        bm = x32.mean(dim=reduce_dims)
+        bv = torch.clamp(torch.square(x32).mean(dim=reduce_dims)
+                         - torch.square(bm), min=0.0)
+        return bm, bv
+    s1 = x32.sum(dim=reduce_dims)
+    count = torch.full_like(s1, float(x32.numel() // s1.numel()))
+    total = _GroupSum.apply(
+        torch.stack([s1, torch.square(x32).sum(dim=reduce_dims), count]),
+        group)
+    bm = total[0] / total[2]
+    bv = torch.clamp(total[1] / total[2] - torch.square(bm), min=0.0)
     return bm, bv
+
+
+def _stats_group(ctx, op_type):
+    """The group a batch norm's statistics are summed over, or None."""
+    if op_type == "sync_batch_norm":
+        return ctx.rings.get(0)
+    return getattr(ctx, "sync_stats", None)
 
 
 def _running(stat, batch, momentum):
@@ -272,10 +328,12 @@ def _running(stat, batch, momentum):
     stateful_outputs=("MeanOut", "VarianceOut", "SavedMean",
                       "SavedVariance"),
     in_place={"MeanOut": "Mean", "VarianceOut": "Variance"})
-def batch_norm(ctx, attrs, X, Scale, Bias, Mean, Variance):
+def batch_norm(ctx, attrs, X, Scale, Bias, Mean, Variance,
+               _op_type="batch_norm"):
     """Training uses the batch's statistics and moves the running ones
     (MeanOut/VarianceOut, the same vars as Mean/Variance) by
-    ``momentum``; SavedVariance holds rstd, as the reference's (:248)."""
+    ``momentum``; SavedVariance holds rstd, as the reference's (:248).
+    The statistics are global where the module docstring says."""
     eps = attrs.get("epsilon", 1e-5)
     momentum = attrs.get("momentum", 0.9)
     is_test = attrs.get("is_test", False) \
@@ -290,7 +348,7 @@ def batch_norm(ctx, attrs, X, Scale, Bias, Mean, Variance):
         mean_out, var_out = Mean, Variance
         saved_mean, saved_var = Mean, Variance
     else:
-        bm, bv = _batch_stats(x32, reduce_dims)
+        bm, bv = _batch_stats(x32, reduce_dims, _stats_group(ctx, _op_type))
         use_mean, use_var = bm, bv
         mean_out = _running(Mean, bm, momentum)
         var_out = _running(Variance, bv, momentum)
@@ -302,6 +360,23 @@ def batch_norm(ctx, attrs, X, Scale, Bias, Mean, Variance):
     return {"Y": y.to(X.dtype), "MeanOut": mean_out,
             "VarianceOut": var_out, "SavedMean": saved_mean,
             "SavedVariance": saved_var}
+
+
+@register_op(
+    "sync_batch_norm",
+    inputs=["X", "Scale", "Bias", "Mean", "Variance"],
+    outputs=["Y", "MeanOut", "VarianceOut", "SavedMean", "SavedVariance"],
+    stateful_outputs=("MeanOut", "VarianceOut", "SavedMean",
+                      "SavedVariance"),
+    in_place={"MeanOut": "Mean", "VarianceOut": "Variance"},
+    capturable=False)
+def sync_batch_norm(ctx, attrs, X, Scale, Bias, Mean, Variance):
+    """Cross-rank batch norm (``sync_batch_norm_op.cu``): ``batch_norm``
+    with its statistics summed over ring 0's group when one is bound
+    (the reference's :1029 is the plain lowering: its statistics are
+    already global)."""
+    return batch_norm(ctx, attrs, X, Scale, Bias, Mean, Variance,
+                      _op_type="sync_batch_norm")
 
 
 def _same_pads(spatial, ksize, strides, dilations):
@@ -520,7 +595,8 @@ def fused_conv_bn_act(ctx, attrs, Input, Filter, Scale, Bias, Mean,
         use_mean, use_var = Mean, Variance
         mean_out, var_out = Mean, Variance
     else:
-        use_mean, use_var = _batch_stats(x32, reduce_dims)
+        use_mean, use_var = _batch_stats(
+            x32, reduce_dims, _stats_group(ctx, "fused_conv_bn_act"))
         mean_out = _running(Mean, use_mean, momentum)
         var_out = _running(Variance, use_var, momentum)
     act = attrs.get("act_type", "") or "identity"

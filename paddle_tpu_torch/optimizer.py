@@ -28,7 +28,7 @@ the hand-written in-place kernels do the update; the learning rate may
 then be a ``dygraph.LearningRateDecay``, stepped once a ``minimize``.
 Not ported yet: the reference's env-gated ``_fuse_adam_ops``; the real
 DGC exchange and the GPipe runner behind ``PipelineOptimizer`` wait for
-``parallel/`` (ROADMAP.md Queue A items 7 and 9)."""
+``parallel/`` (ROADMAP.md Queue A item 9)."""
 
 import contextlib
 import warnings
@@ -721,7 +721,7 @@ class DGCMomentumOptimizer(MomentumOptimizer):
     no slow link for a sparse exchange to save time on; the real top-k
     exchange with momentum correction and error feedback (the
     reference's ``parallel/dgc.py``) waits for the port's data-parallel
-    and ``parallel/`` modules (ROADMAP.md, Queue A items 7 and 9)."""
+    and ``parallel/`` modules (ROADMAP.md, Queue A item 9)."""
 
     def __init__(self, learning_rate, momentum, rampup_begin_step=0,
                  rampup_step=1, sparsity=(0.999,), use_nesterov=False,
@@ -733,7 +733,7 @@ class DGCMomentumOptimizer(MomentumOptimizer):
             "and local_grad_clip_norm are ignored.  One card exchanges no "
             "gradients over a slow link, and the top-k exchange with "
             "error feedback (parallel/dgc.py) is not ported yet "
-            "(ROADMAP.md, Queue A items 7 and 9)")
+            "(ROADMAP.md, Queue A item 9)")
         super().__init__(learning_rate, momentum, use_nesterov,
                          regularization, name)
 

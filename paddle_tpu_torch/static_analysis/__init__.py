@@ -7,9 +7,9 @@ def-use graph (:mod:`.defuse`), structured diagnostics
 the cost model (:mod:`.cost`), the cross-worker collective schedule and
 its deadlock-freedom proof (:mod:`.distributed`), ``Program.analyze()``
 (:mod:`.analyze`), the concurrency proofs (:mod:`.concurrency`), the
-overlap and hierarchy passes (:mod:`.overlap`, :mod:`.hierarchy`; not
-yet run by the executor's fusion resolve, ROADMAP.md Queue A item 7) and
-the fusion families (:mod:`.fusion`, bracketed by the verifier when
+overlap and hierarchy passes (:mod:`.overlap`, :mod:`.hierarchy`, run
+by the fusion resolve after the families) and the fusion families
+(:mod:`.fusion`, bracketed by the verifier when
 ``PADDLE_TPU_VERIFY_PASSES`` is on).  ``python -m
 paddle_tpu_torch.tools.lint_program <model_dir>`` lints an export.
 """

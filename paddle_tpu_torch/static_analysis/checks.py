@@ -10,10 +10,7 @@ Where the port differs: ``shape-dtype-drift`` re-infers each op on
 reference runs ``jax.eval_shape``; ``manual-plan-suboptimal`` raises
 ``NotImplementedError`` where the reference would run its planner's
 search, which is not ported (ROADMAP.md, Queue A item 9) — it stays
-silent without a cluster spec, as in the reference; and
-``overlap-opportunity-unexploited`` reports a fused bucket with a
-window that the reference's resolve would split next, since the
-port's resolve does not run the overlap pass yet (Queue A item 7).
+silent without a cluster spec, as in the reference.
 
 Each check is a generator ``fn(ctx) -> Iterable[Diagnostic]`` registered
 under a stable id, mirroring ``analysis.register_pass``; custom checks
@@ -1197,9 +1194,8 @@ def check_collective_crosses_slow_tier(ctx):
                     "ROADMAP.md, Queue A item 9)")
         else:
             reason = "disabled by PADDLE_TPU_HIERARCHY=0"
-            hint = ("static_analysis.hierarchy.apply_hierarchy_pass "
-                    "decomposes the exchange; the port's fusion resolve "
-                    "does not run it yet (ROADMAP.md, Queue A item 7)")
+            hint = ("unset PADDLE_TPU_HIERARCHY to let "
+                    "resolve_fused_program decompose the exchange")
         delta = True
     else:
         return  # rewrite engaged: resolve_fused_program handles these
@@ -1395,27 +1391,17 @@ def check_overlap_opportunity_unexploited(ctx):
             continue
         if not enabled:
             reason = "disabled by PADDLE_TPU_OVERLAP=0"
-            hint = ("static_analysis.overlap.apply_overlap_pass hides "
-                    "the wire under %d ops of compute; the port's fusion "
-                    "resolve does not run it yet (ROADMAP.md, Queue A "
-                    "item 7), so unsetting PADDLE_TPU_OVERLAP alone "
-                    "changes nothing" % dec.window_ops)
+            hint = ("unset PADDLE_TPU_OVERLAP to let the pass hide "
+                    "the wire under %d ops of compute"
+                    % dec.window_ops)
         else:
             prior = by_vars.get(frozenset(dec.vars))
-            if prior is None:
-                # the reference's resolve would split it next; the
-                # port's does not run the overlap pass yet
-                reason = ("the port's fusion resolve does not run the "
-                          "overlap pass yet (ROADMAP.md, Queue A item 7)")
-                hint = ("static_analysis.overlap.apply_overlap_pass "
-                        "plans the split; the executor cannot run "
-                        "c_allreduce_start / c_allreduce_wait yet")
-            elif prior.status.startswith("reverted"):
-                reason = "%s — %s" % (prior.status, prior.note)
-                hint = ("fix the in-window hazard (or the ring asymmetry) "
-                        "and re-resolve")
-            else:
-                continue
+            if prior is None or not prior.status.startswith(
+                    "reverted"):
+                continue  # pass will split it at the next resolve
+            reason = "%s — %s" % (prior.status, prior.note)
+            hint = ("fix the in-window hazard (or the ring asymmetry) "
+                    "and re-resolve")
         yield ctx.diag(
             "overlap-opportunity-unexploited", Severity.INFO,
             "bucket of %d gradient(s) (ring %r, anchored at %r) has a "

@@ -71,10 +71,21 @@ rewritten CLONE, cached on the original program by (config signature,
 program version, fetch set); the user's program is never mutated.  Kill
 switch: ``PADDLE_TPU_FUSION=0``.
 
+After the families the resolve runs the hierarchical decomposition and
+then the overlap scheduler on the clone (``_run_hierarchy_pass``,
+``_run_overlap_pass``, the reference's :1956-2007, :2069-2072): a
+bucket whose ring spans slices becomes ``c_hier_reducescatter`` → the
+cross-slice ``c_allreduce_sum`` → ``c_hier_allgather``, and a bucket
+with a window of compute after its last member becomes a
+``c_allreduce_start`` / ``c_allreduce_wait`` pair; the clone is kept
+when only they fired.  ``PADDLE_TPU_HIERARCHY=0`` and
+``PADDLE_TPU_OVERLAP=0`` keep the flat fused buckets, bit for bit.
+
 The executor's resolved clone carries the program marks the families
 and the collectives read (``_num_trainers``, ``_trainer_id``,
-``_allreduce_bucket_mb``, ``_quant_buckets``), as the reference's
-``_PROGRAM_MARKS`` (:119).
+``_allreduce_bucket_mb``, ``_quant_buckets``, ``_overlap``, ...), as
+the reference's ``_PROGRAM_MARKS`` (:119), and ``_sync_batch_stats``,
+which the data-parallel runner stamps (``parallel/__init__.py``).
 
 Each family is bracketed by the verifier when pass verification is on
 (``PADDLE_TPU_VERIFY_PASSES``, on in the tests), as in the reference
@@ -119,8 +130,9 @@ _MAX_REWRITES = 10000
 # reads them)
 _PROGRAM_MARKS = ("_num_trainers", "_trainer_id", "_hbm_budget",
                   "_nan_guard", "_guard_loss_name", "_pipeline_stage",
-                  "_allreduce_bucket_mb", "_quant_buckets", "_overlap",
-                  "_hierarchy", "_cluster_spec")
+                  "_allreduce_bucket_mb", "_shard_optimizer_state",
+                  "_quant_buckets", "_overlap", "_hierarchy",
+                  "_cluster_spec", "_sync_batch_stats")
 
 
 def fusion_enabled():
@@ -279,6 +291,26 @@ class FusionConfig:
     def default(cls):
         return cls()
 
+    @classmethod
+    def from_build_strategy(cls, bs):
+        """The families a ``BuildStrategy``'s ``fuse_*`` knobs leave on
+        (the reference's :277); ZeRO-1 turns the optimizer family off,
+        since a multi-tensor update would read whole moments."""
+        c = cls()
+        if bs is None:
+            return c
+        c.fuse_elewise = bool(getattr(bs, "fuse_elewise_add_act_ops", True))
+        c.fuse_optimizer = (
+            bool(getattr(bs, "fuse_all_optimizer_ops", True))
+            and not getattr(bs, "shard_optimizer_state", False))
+        c.fuse_allreduce = bool(getattr(bs, "fuse_all_reduce_ops", True))
+        c.fuse_attention = bool(getattr(bs, "fuse_attention", True))
+        c.fuse_softmax_xent = bool(getattr(bs, "fuse_softmax_xent", True))
+        c.fuse_conv_bn_act = bool(getattr(bs, "fuse_bn_act_ops", True))
+        c.fuse_embedding_gather = bool(
+            getattr(bs, "fuse_embedding_gather", True))
+        return c
+
     def signature(self, program=None):
         """Hashable identity of the rewrite of ``program``: the bucket cap
         and the quant threshold resolve mark → env → default, so the
@@ -288,6 +320,8 @@ class FusionConfig:
         (:func:`resolve_fused_program`)."""
         from ..quant.blockwise import quant_block
         from ..quant.collective import quant_min_bytes
+        from .hierarchy import hierarchy_signature
+        from .overlap import overlap_enabled
 
         return (self.enabled, self.fuse_attention, self.fuse_elewise,
                 self.fuse_softmax_xent, self.fuse_conv_bn_act,
@@ -295,7 +329,8 @@ class FusionConfig:
                 self.fuse_allreduce, conv_bn_min_bytes(),
                 embed_fuse_min_bytes(), optimizer_fuse_overhead_bytes(),
                 allreduce_bucket_mb(program), quant_min_bytes(program),
-                quant_block(), _flash_min_t())
+                quant_block(), _flash_min_t(), overlap_enabled(program),
+                hierarchy_signature(program))
 
     def __repr__(self):
         return "FusionConfig%r" % (self.signature(),)
@@ -1639,6 +1674,51 @@ def scan_fusible_patterns(program, config=None, targets=()):
     return report
 
 
+def _run_hierarchy_pass(clone, targets, baseline=None):
+    """The hierarchical decomposition on the resolved clone, after the
+    fusion families (it decomposes the buckets they emitted) and before
+    the overlap scheduler (the remaining flat buckets can still split;
+    the hierarchical hops opt out of overlap), bracketed by the verifier
+    like a family (the reference's :1956).  True when a bucket
+    decomposed: the resolve then keeps the clone."""
+    from .hierarchy import apply_hierarchy_pass, hierarchy_enabled
+
+    if not hierarchy_enabled(clone):
+        clone._hierarchy_report = None
+        return False
+    from .verifier import pass_verification_enabled
+
+    verify = pass_verification_enabled()
+    if verify and baseline is None:
+        baseline = _error_signatures(clone, set(targets))
+    applied = apply_hierarchy_pass(clone, targets=targets)
+    if applied and verify:
+        _assert_no_new_errors(clone, set(targets), baseline,
+                              "after hierarchy_pass")
+    return applied
+
+
+def _run_overlap_pass(clone, targets, baseline=None):
+    """The overlap scheduler on the resolved clone, after the fusion
+    families and the hierarchy pass (it splits the buckets they left),
+    bracketed by the verifier against the same pre-fusion baseline (the
+    reference's :1985).  True when a bucket was split."""
+    from .overlap import apply_overlap_pass, overlap_enabled
+
+    if not overlap_enabled(clone):
+        return False
+    from .verifier import pass_verification_enabled
+
+    verify = pass_verification_enabled()
+    if verify and baseline is None:
+        baseline = _error_signatures(clone, set(targets))
+    ov = apply_overlap_pass(clone, targets=targets)
+    if ov.applied and verify:
+        _assert_no_new_errors(clone, set(targets), baseline,
+                              "after overlap_schedule_pass")
+    return bool(ov.applied)
+
+
 def resolve_fused_program(program, config=None, targets=()):
     """``(program_to_run, FusionReport)``: the fusion-rewritten clone of
     ``program``, cached on it by (config signature, program version,
@@ -1689,7 +1769,9 @@ def resolve_fused_program(program, config=None, targets=()):
                                      baseline=baseline)
     finally:
         _reading.reads = outer
-    if not report.applied:
+    hier_applied = _run_hierarchy_pass(clone, tkey, baseline=baseline)
+    overlap_applied = _run_overlap_pass(clone, tkey, baseline=baseline)
+    if not report.applied and not overlap_applied and not hier_applied:
         cache[key] = [None, report, reads, state]
         return program, report
     clone._fusion_sig = sig + (tuple(sorted(reads.items())),)

@@ -2,9 +2,10 @@
 flat data-parallel allreduce; arXiv 2110.10548's slice/pod hierarchy)
 (mirrors ``paddle_tpu/static_analysis/hierarchy.py``, all of it).
 
-In the port the pass rewrites programs and the checks read it, but
-``resolve_fused_program`` does not run it yet and the ``c_hier_*`` ops
-are not registered as runnable ops (ROADMAP.md, Queue A item 7).
+``resolve_fused_program`` runs it after the fusion families and
+before the overlap scheduler; the ``c_hier_*`` ops exchange over
+subgroups of the ring's ``torch.distributed`` group
+(``ops/collective.py``).
 
 A flat ``c_allreduce_sum`` / ``c_fused_allreduce_sum`` /
 ``c_allreduce_quant`` whose ring spans slices moves the FULL bucket over

@@ -1,12 +1,10 @@
 """Overlap scheduler: liveness-driven collective hoisting (mirrors
 ``paddle_tpu/static_analysis/overlap.py``, all of it).
 
-In the port the pass rewrites programs and the checks read its plan,
-but ``resolve_fused_program`` does not run it yet and
-``c_allreduce_start`` / ``c_allreduce_wait`` are not registered as
-runnable ops (ROADMAP.md, Queue A item 7): a port program keeps its
-fused synchronous buckets, which the ``overlap-opportunity-unexploited``
-advisory reports.
+``resolve_fused_program`` runs it after the fusion families and the
+hierarchy pass; ``c_allreduce_start`` issues the bucket's exchange
+asynchronously over its ``torch.distributed`` group and
+``c_allreduce_wait`` waits on it (``ops/collective.py``).
 
 Fluid's ParallelExecutor overlaps gradient allreduce with backward
 compute as a graph-level scheduling decision; after the fusion pipeline

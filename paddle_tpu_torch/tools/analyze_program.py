@@ -27,11 +27,10 @@ with the calibration factors of the autotune cache
 ``--concurrency`` adds the concurrency battery at ``--max-in-flight K``;
 ``--certify-zero-sync`` prints the zero-sync certificate; ``--coresident
 P.json ...`` proves scope isolation against programs sharing the
-Executor.  ``--overlap`` runs the overlap-scheduler pass over a copy of
-the fusion-resolved program, as the reference's resolve does (the
-port's executor does not run it yet: ROADMAP.md, Queue A item 7), and
-prints its windows.  ``--plan`` needs the planner's search, which is not
-ported (ROADMAP.md, Queue A item 9), and raises.
+Executor.  ``--overlap`` prints the windows of the fusion-resolved
+program, whose resolve ran the overlap scheduler.  ``--plan`` needs the
+planner's search, which is not ported (ROADMAP.md, Queue A item 9), and
+raises.
 """
 
 import argparse
@@ -40,27 +39,6 @@ import sys
 from .diag_cli import (add_emitter_args, add_program_args,
                        emit_diagnostics, load_program_arg,
                        severity_gate)
-
-
-def _overlap_scheduled(program, targets):
-    """``(program, OverlapReport or None)``: the fusion-resolved program
-    with the overlap pass run over a copy of it, what the reference's
-    ``resolve_fused_program`` returns.  As there, a program that neither
-    fused nor overlapped keeps no report."""
-    from ..static_analysis import fusion
-    from ..static_analysis.overlap import apply_overlap_pass, overlap_enabled
-
-    resolved, _ = fusion.resolve_fused_program(program, targets=targets)
-    if not overlap_enabled(resolved):
-        return resolved, None
-    scheduled = resolved.clone()
-    for mark in fusion._PROGRAM_MARKS:
-        if hasattr(resolved, mark):
-            setattr(scheduled, mark, getattr(resolved, mark))
-    report = apply_overlap_pass(scheduled, targets=targets)
-    if not report.applied and resolved is program:
-        return program, None
-    return scheduled, report
 
 
 def main(argv=None):
@@ -154,7 +132,10 @@ def main(argv=None):
         from ..static_analysis.cost import (estimate_cost,
                                             overlap_window_table)
 
-        resolved, ovr = _overlap_scheduled(program, targets)
+        from ..static_analysis.fusion import resolve_fused_program
+
+        resolved, _ = resolve_fused_program(program, targets=targets)
+        ovr = getattr(resolved, "_overlap_report", None)
         cost_r = estimate_cost(resolved, nranks=args.nranks,
                                targets=targets, batch_size=args.batch,
                                budget=budget)

@@ -144,7 +144,9 @@ def _train_twins(rank, build, params, feeds, steps):
                 exe, main, scope, loss, [f[rank] for f in feeds[:steps]])
         fused, _ = tfusion.resolve_fused_program(main, targets=[loss.name])
         out[twin] = {"losses": losses, "grads": grads, "states": states,
-                     "ops": [op.type for op in fused.global_block().ops
+                     "ops": [op.type + (":quant" if op.attrs.get("quant")
+                                        else "")
+                             for op in fused.global_block().ops
                              if "allreduce" in op.type]}
     return out
 
@@ -357,6 +359,7 @@ def test_grad_allreduce_transpiles_like_the_reference():
                                      for op in one.global_block().ops]
 
 
+@pytest.mark.parametrize("overlap", ["1", "0"])
 @pytest.mark.parametrize("env, bucket_mb, mark", [
     ({}, None, None),
     ({"PADDLE_TPU_QUANT_MIN_BYTES": "1"}, None, None),
@@ -367,11 +370,13 @@ def test_grad_allreduce_transpiles_like_the_reference():
     ({"PADDLE_TPU_QUANT_BLOCK": "128"}, 0.001, {"min_bytes": 1}),
 ])
 def test_allreduce_family_buckets_like_the_reference(monkeypatch, env,
-                                                     bucket_mb, mark):
+                                                     bucket_mb, mark,
+                                                     overlap):
     """Dense, quant by env or by the program's mark, the kill switch, a
     bucket cap that splits the grads and a threshold that quantizes only
-    the big bucket: the same fused ops, members and attrs (the
-    reference with its overlap pass off)."""
+    the big bucket: the same fused ops, members and attrs, with the
+    overlap pass on (a multi-bucket program's buckets become
+    ``c_allreduce_start`` / ``_wait`` pairs in both packages) and off."""
     import paddle_tpu as jfluid
     from paddle_tpu.static_analysis import fusion as jfusion
     from paddle_tpu.transpiler.collective import GradAllReduce
@@ -381,9 +386,7 @@ def test_allreduce_family_buckets_like_the_reference(monkeypatch, env,
         monkeypatch.delenv(k, raising=False)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    # the reference's overlap pass splits a bucket of a multi-bucket
-    # program into c_allreduce_start / _wait (not ported: ROADMAP.md)
-    monkeypatch.setenv("PADDLE_TPU_OVERLAP", "0")
+    monkeypatch.setenv("PADDLE_TPU_OVERLAP", overlap)
     fused = {}
     for fluid, g, fu in ((jfluid, GradAllReduce, jfusion),
                          (tfluid, TGradAllReduce, tfusion)):
@@ -399,11 +402,16 @@ def test_allreduce_family_buckets_like_the_reference(monkeypatch, env,
             if bucket_mb:
                 assert prog._allreduce_bucket_mb == bucket_mb
     assert fused[tfluid] == fused[jfluid]
-    types = collections.Counter(o[0] for o in fused[tfluid])
+    types = collections.Counter(
+        o[0] + (":quant" if o[1].get("quant") else "") for o in fused[tfluid])
     quant_on = env.get("PADDLE_TPU_QUANT") != "0" and (
         "PADDLE_TPU_QUANT_MIN_BYTES" in env or mark)
-    assert bool(types["c_allreduce_quant"]) == bool(quant_on)
+    assert bool(types["c_allreduce_quant"] + types["c_allreduce_start:quant"]
+                ) == bool(quant_on)
     assert "c_allreduce_sum" not in types or bucket_mb
+    if overlap == "0":
+        assert not types["c_allreduce_start"] + types[
+            "c_allreduce_start:quant"]
 
 
 # ---------------------------------------------------------------------------
@@ -597,11 +605,19 @@ def test_bert_tiny_data_parallel_matches_one_process(tmp_path):
 
     dense_ops = collections.Counter(got[0]["dense"]["ops"])
     quant_ops = collections.Counter(got[0]["quant"]["ops"])
-    # a grad above the cap is a bucket of one: left unfused when dense
-    assert dense_ops["c_fused_allreduce_sum"] >= 3 and \
-        set(dense_ops) <= {"c_fused_allreduce_sum", "c_allreduce_sum"}
-    assert set(quant_ops) == {"c_allreduce_quant"} and \
-        quant_ops["c_allreduce_quant"] >= 3
+    # a grad above the cap is a bucket of one: left unfused when dense;
+    # the overlap pass splits a bucket with a window into start / wait
+    assert dense_ops["c_fused_allreduce_sum"] \
+        + dense_ops["c_allreduce_start"] >= 3 and \
+        set(dense_ops) <= {"c_fused_allreduce_sum", "c_allreduce_sum",
+                           "c_allreduce_start", "c_allreduce_wait"}
+    assert dense_ops["c_allreduce_start"] >= 1 \
+        and dense_ops["c_allreduce_start"] == dense_ops["c_allreduce_wait"]
+    assert set(quant_ops) <= {"c_allreduce_quant", "c_allreduce_start:quant",
+                              "c_allreduce_wait"} and \
+        quant_ops["c_allreduce_quant"] \
+        + quant_ops["c_allreduce_start:quant"] >= 3
+    assert quant_ops["c_allreduce_start:quant"] >= 1
     for step in range(BERT_STEPS):
         mean = np.mean([got[r]["dense"]["losses"][step]
                         for r in range(nranks)])

@@ -10,7 +10,10 @@ the control flow: ``While`` with its gradient, ``cond``, the tensor
 arrays and the single-program GPT generation, and the recurrent models:
 the NMT trainers and beam-search translation and the stacked dynamic
 LSTM, with the beam-search ops and layers; the speculative decoder, the
-seq2seq decoder DSL, SE-ResNeXt, VGG, ``nets`` and the vision ops), its
+seq2seq decoder DSL, SE-ResNeXt, VGG, ``nets`` and the vision ops; the
+data-parallel runner behind ``CompiledProgram`` with ZeRO-1 and
+iterations per run, the collective transpilers and layers, the
+collective fleet and the quantized-collective chaos drill), its
 entry points run on the GPU
 unless the caller asks for the CPU, and what it has not ported yet
 raises rather than being skipped silently."""
@@ -339,6 +342,46 @@ with fluid.scope_guard(fluid.Scope()):
     lv = exe.run(main, feed={"src": np.ones((2, 2), "int64")},
                  fetch_list=[dloss])[0]
 assert np.isfinite(lv).all(), lv
+from paddle_tpu_torch import compiler, parallel
+from paddle_tpu_torch.incubate.fleet.base import role_maker
+from paddle_tpu_torch.incubate.fleet.collective import (
+    DistributedStrategy, fleet)
+from paddle_tpu_torch.layers import collective as coll_layers
+from paddle_tpu_torch.tools import chaos
+from paddle_tpu_torch.transpiler import (AsyncSGD, DistributeTranspiler,
+                                         DistributeTranspilerConfig, GeoSGD,
+                                         LocalSGD)
+main, startup = fluid.Program(), fluid.Program()
+with fluid.program_guard(main, startup):
+    x = fluid.layers.data("x", shape=[4], dtype="float32")
+    loss = fluid.layers.mean(fluid.layers.fc(x, size=3))
+    coll_layers._allreduce(loss)
+    fleet.init(role_maker.UserDefinedCollectiveRoleMaker(0, ["a:1"]))
+    fleet.distributed_optimizer(fluid.optimizer.Adam(0.01),
+                                DistributedStrategy()).minimize(loss)
+bs = fluid.BuildStrategy()
+bs.shard_optimizer_state = True
+es = fluid.ExecutionStrategy()
+es.num_iteration_per_run = 2
+cp = fluid.CompiledProgram(main, bs).with_data_parallel(
+    loss_name=loss.name, exec_strategy=es)
+with fluid.scope_guard(fluid.Scope()):
+    exe = fluid.Executor(fluid.CPUPlace())
+    exe.run(startup)
+    lv = exe.run(cp, feed={"x": np.ones((2, 4), "float32")},
+                 fetch_list=[loss])[0]
+assert np.isfinite(lv).all() and main._num_trainers == 1, lv
+for t in (LocalSGD(), GeoSGD(2), AsyncSGD(dc_asgd=True)):
+    m, s = main.clone(), fluid.Program()
+    t.transpile(program=m, startup_program=s, rank=0, nranks=2)
+    assert any(op.type == "c_allreduce_sum" for op in m.global_block().ops)
+cfg = DistributeTranspilerConfig()
+cfg.mode = "nccl2"
+DistributeTranspiler(cfg).transpile(0, program=main.clone(), trainers=2,
+                                    startup_program=fluid.Program())
+code, rec = chaos.run_quant_drill(steps=6, device="cpu",
+                                  echo=lambda s: None)
+assert code == 0 and len(rec["losses_quant"]) == 6, rec
 assert not any(m.split(".")[0] in ("jax", "paddle_tpu")
                for m in sys.modules), sorted(sys.modules)
 print("ISOLATED-OK")
@@ -386,6 +429,16 @@ def test_executor_defaults_to_cuda_and_raises_without_it(no_cuda):
     with pytest.raises(RuntimeError, match="CUDAPlace"):
         fluid.Executor(fluid.TPUPlace())
     assert fluid.Executor(fluid.CPUPlace()).device.type == "cpu"
+
+
+def test_chaos_quant_defaults_to_cuda_and_refuses_without_it(no_cuda,
+                                                             capsys):
+    from paddle_tpu_torch.tools import chaos
+
+    assert chaos.main(["--quant"]) == 2
+    assert "--cpu" in capsys.readouterr().err
+    with pytest.raises(NotImplementedError, match="Queue A item 9"):
+        chaos.main(["--elastic"])
 
 
 def test_decode_engine_defaults_to_cuda_and_raises_without_it(no_cuda):

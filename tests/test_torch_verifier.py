@@ -130,17 +130,6 @@ PORT_TEXTS = [
      r"since the plan was stamped",
      "re-plan if the topology or model changed since the plan was "
      "stamped (the planner is not ported: ROADMAP.md, Queue A item 9)"),
-    (r"unset PADDLE_TPU_HIERARCHY to let resolve_fused_program decompose "
-     r"the exchange",
-     "static_analysis.hierarchy.apply_hierarchy_pass decomposes the "
-     "exchange; the port's fusion resolve does not run it yet "
-     "(ROADMAP.md, Queue A item 7)"),
-    (r"unset PADDLE_TPU_OVERLAP to let the pass hide the wire under "
-     r"(\d+) ops of compute",
-     "static_analysis.overlap.apply_overlap_pass hides the wire under "
-     "\\1 ops of compute; the port's fusion resolve does not run it yet "
-     "(ROADMAP.md, Queue A item 7), so unsetting PADDLE_TPU_OVERLAP "
-     "alone changes nothing"),
     (r"derives <type>_grad via jax\.vjp\)", "derives <type>_grad via "
      "autograd)"),
     (r"\(per-token recompile \+ host sync on TPU\)",
@@ -942,24 +931,24 @@ def test_overlap_and_hierarchy_passes_rewrite_like_the_reference(paths):
                              for t, *_ in out[3][0])
 
 
-def test_port_dp_program_reports_its_unsplit_buckets(paths):
-    """The reference's resolve splits the DP program's buckets into
-    start/wait pairs; the port's does not run the overlap pass yet
-    (ROADMAP.md, Queue A item 7), so its resolved program keeps them
-    fused and the advisory says so."""
-    found = []
+def test_dp_program_resolves_and_reports_as_the_reference(paths):
+    """Both packages' resolves split the DP program's buckets into the
+    same start/wait pairs, and the verifier gives the resolved programs
+    the same findings (the overlap advisory included: none)."""
+    found, types = [], []
     for P, progs in ((J, paths["dp_workers"][0]),
                      (T, paths["dp_workers"][1])):
         main, targets = progs[0]
         fused, _report = P.fusion.resolve_fused_program(main,
                                                         targets=targets)
-        found.append([d.message for d in P.verifier.verify_program(
-            fused, targets=targets,
-            checks=["overlap-opportunity-unexploited"])])
-        types_ = {op.type for op in fused.global_block().ops}
-        assert ("c_allreduce_start" in types_) == (P is J)
-    assert found[0] == []
-    assert found[1] and all("runs synchronous" in m for m in found[1])
+        dicts = _dicts(P.verifier.verify_program(fused, targets=targets))
+        found.append(_as_port(dicts) if P is J else dicts)
+        types.append([op.type for op in fused.global_block().ops])
+    assert types[1] == types[0]
+    assert "c_allreduce_start" in types[1]
+    assert found[1] == found[0]
+    assert not [d for d in found[1]
+                if d["check"] == "overlap-opportunity-unexploited"]
 
 
 # ---------------------------------------------------------------------------

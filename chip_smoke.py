@@ -387,6 +387,42 @@ and the CUDA toolkit.  Phases, each printing one JSON line:
    op types, pool3d, the transposed and 3-D convolutions, group norm,
    the resizes, sequence_pool), forward and backward at image sizes,
    card against CPU within 1e-4 of the scale.
+39. ctr (last but four): DeepFM on device tables at bench.py:903-941's
+   widths (8 slots x 4 ids, dim 128, vocabulary 200000, hidden 400-400,
+   batch 4096, Adam 1e-3), float32, data written as MultiSlot text from
+   seed 0 to ``.smoke_tmp/ctr`` and read by the native parser (which
+   must have built) into an ``InMemoryDataset``: the fusion report's 8
+   ``embedding_gather`` sites and 8 skips (the dim-1 tables),
+   ``train_from_dataset`` over 8 batches, a cold epoch (its first step
+   warms up, its second captures) and a warm one on the same executor
+   (examples/s, ms a step, syncs, K3 forward and backward 8 + 8 graph
+   nodes a replayed step), then a
+   fixed feed eager against graph bit for bit over 3 steps, 5 timed
+   replays (launches a step by kernel, host syncs a step, peak allocated
+   and reserved, no copy-back) and a profiled window (device ms by
+   group: K3 fwd / bwd, Adam, GEMM, the plain gathers and scatters,
+   elementwise; idle share);
+40. ctr_host: DeepFM on host-resident tables at bench.py:2649-2680's
+   widths (vocabulary 1000000, dim 16, host SGD 0.01) through
+   ``train_from_dataset``, cold then warm: examples/s, host ms a step of
+   prefetch, the gradient push, the update threads and the join waits
+   (warm epoch), and the largest device block the phase allocated and
+   scope tensor, which must be smaller than one table;
+41. wide_deep: Wide&Deep at ``ctr.build``'s defaults (vocabulary 100000,
+   dim 16, hidden 400x3, 13 dense features), batch 4096, through a
+   ``QueueDataset``, cold then warm: ms a step, and no K3 launch (its
+   tables are plain lookups);
+42. mnist: examples/mnist_train.py's MLP (784-200-200-10, Adam 1e-3,
+   batch 64) over one epoch of the synthetic train set through
+   ``fluid.batch`` → ``DataLoader.from_generator`` double-buffered onto
+   the card (images/s, syncs an epoch), the test set through
+   ``DataFeeder`` (accuracy at least 0.9), then 200 steps of
+   ``models.mnist`` conv_net;
+43. ctr_parity (last): DeepFM at 4 slots x 3 ids, vocabulary 20000, dim
+   128, batch 256, 5 Adam steps on the card and on the CPU from one
+   start, device tables and host tables, losses within 1e-4; and
+   tests/test_host_table.py's oracle on the card: a host-table SGD run
+   equals a device-table run from the same table within 1e-5.
 
 The whole run reads and writes a fresh autotune cache in a temp
 directory (``PADDLE_TPU_AUTOTUNE_CACHE``), so no decision of an earlier
@@ -419,7 +455,12 @@ forward and K4 forward and backward timed in bf16; and K7
 quantize and dequantize (to float32 and bfloat16), bit for bit, at the
 32 MB bucket, odd B, an unaligned pointer, an odd tail and zero,
 subnormal, NaN, inf and tie blocks, timed at the bucket and at
-BERT-base's whole gradient.  Then one JSON line lists every ported
+BERT-base's whole gradient; and K3 forward and backward at the CTR
+shape (ids [16384] int64 with padding id 0 over a [200000, 128] float32
+table; the backward also against its sorted twin and twice bit for bit)
+and the Adam update at [200000, 128] bit for bit, each timed beside its
+bound, its plain version and ``F.embedding`` / ``index_add_`` into
+zeros.  Then one JSON line lists every ported
 kernel with its launches on the decode path (or, for the backward
 kernels, the BERT training run; for K4 the ResNet training run; for K7
 the data-parallel run's quant twin, rank 0), its launches on every path
@@ -430,6 +471,7 @@ the repository beside it, the script exits 2 and prints no result.
 """
 
 import contextlib
+import gc
 import json
 import os
 import shutil
@@ -2886,6 +2928,7 @@ def phase_kernels():
     kernel_decode_verify(checks, torch, gen)
     errs.update(kernel_bn_act(checks, torch, gen))
     errs.update(kernel_quant(checks, torch, gen))
+    ctr_errs = kernel_ctr(checks, torch, gen)
     kernel_graph_masks(checks, torch, gen)
     if checks.failed:
         raise AssertionError("kernel checks failed: %s"
@@ -2898,9 +2941,10 @@ def phase_kernels():
     emit(profile_decode_kernels(torch, gen))
     bn_rows, bn_extra = time_bn_act(torch, gen, errs)
     quant_rows, quant_extra = time_quant(torch, gen, errs)
+    ctr_extra = time_ctr_kernels(torch, gen, ctr_errs)
     rows += update_rows + decode_rows + bn_rows + quant_rows
     for r in rows + extra + update_extra + decode_extra + bn_extra \
-            + quant_extra:
+            + quant_extra + ctr_extra:
         emit(dict({"phase": "kernels", "timing": True}, **r))
     torch.cuda.empty_cache()
     return rows
@@ -12533,6 +12577,898 @@ def phase_vision_parity(env):
         raise AssertionError("vision_parity: %s" % failed)
 
 
+# ---------------------------------------------------------------------------
+# CTR training from MultiSlot datasets, and MNIST through the reader path
+# ---------------------------------------------------------------------------
+
+# DeepFM on device tables at bench.py:903-941's widths
+CTR_SLOTS = 8
+CTR_LEN = 4
+CTR_DIM = 128
+CTR_VOCAB = 200000
+CTR_BATCH = 4096
+CTR_LR = 1e-3
+CTR_FILES = 2               # MultiSlot files of the dataset ...
+CTR_FILE_BATCHES = 4        # ... of this many batches each
+CTR_PRINT = 4               # train_from_dataset's print_period
+CTR_EAGER_STEPS = 3         # fixed-feed steps, eager and graph, bit for bit
+CTR_GRAPH_STEPS = 5         # graph replays timed after them
+# DeepFM on host tables at bench.py:2649-2680's widths
+CTR_HOST_VOCAB = 1000000
+CTR_HOST_DIM = 16
+CTR_HOST_LR = 0.01
+CTR_HOST_BATCHES = 5
+# Wide&Deep at ctr.build's defaults (vocabulary 100000, dim 16, 400x3,
+# 13 dense features)
+WD_BATCHES = 6
+# MNIST: examples/mnist_train.py's MLP, one epoch of the synthetic set
+MNIST_BATCH = 64
+MNIST_TEST_BATCH = 256
+MNIST_PRINT = 100
+MNIST_CONV_STEPS = 200
+MNIST_MIN_TEST_ACC = 0.9
+# ctr_parity: card against CPU
+CTR_PARITY = {"num_slots": 4, "slot_len": 3, "vocab": 20000,
+              "embed_dim": 128, "batch": 256, "steps": 5}
+CTR_PARITY_RTOL = 1e-4      # losses, card vs CPU, f32 with TF32 off
+HOST_ORACLE = {"vocab": 50000, "dim": 16, "batch": 8, "ids": 3, "steps": 6}
+HOST_ORACLE_RTOL = 1e-5     # host-table run vs device-table run, same card
+K3_CTR_IDS = CTR_BATCH * CTR_LEN   # one slot's ids of a CTR batch
+
+
+def write_multislot(path, rng, n, num_slots, slot_len, vocab, dense_dim=0):
+    """``n`` MultiSlot lines as ``examples/deepfm_ctr.py`` writes them:
+    ``num_slots`` slots of ``slot_len`` ids from [0, vocab) (0, the
+    padding id, drawn as often as any), the click (the parity of the ids'
+    sum) and, with ``dense_dim``, that many floats."""
+    import numpy as np
+
+    ids = rng.randint(0, vocab, (n, num_slots, slot_len))
+    click = ids.sum(axis=(1, 2)) & 1
+    cols = [np.concatenate([np.full((n, num_slots, 1), slot_len), ids],
+                           axis=2).reshape(n, -1),
+            np.ones((n, 1), np.int64), click[:, None]]
+    fmt = ["%d"] * (num_slots * (slot_len + 1) + 2)
+    if dense_dim:
+        cols += [np.full((n, 1), dense_dim),
+                 rng.randn(n, dense_dim).round(4)]
+        fmt += ["%d"] + ["%.4f"] * dense_dim
+    np.savetxt(path, np.concatenate(cols, axis=1).astype(np.float64),
+               fmt=fmt)
+    return path
+
+
+def _ctr_files(name, files, batches, seed, **kw):
+    import numpy as np
+
+    d = os.path.join(HERE, ".smoke_tmp", name)
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    t0 = time.time()
+    paths = [write_multislot(os.path.join(d, "part-%d" % i), rng,
+                             batches * CTR_BATCH, **kw)
+             for i in range(files)]
+    return paths, time.time() - t0
+
+
+def _dataset(fluid, kind, feeds, paths, batch):
+    ds = fluid.DatasetFactory().create_dataset(kind)
+    ds.set_batch_size(batch)
+    ds.set_use_var(feeds)
+    ds.set_filelist(paths)
+    ds.set_thread(8)
+    t0 = time.time()
+    if kind == "InMemoryDataset":
+        ds.load_into_memory()
+        ds.local_shuffle()
+    return ds, time.time() - t0
+
+
+def _ctr_group(name):
+    """CTR profile groups: the K3 kernels, Adam, the GEMMs, the plain
+    gathers and scatters of the dim-1 and dim-16 tables, elementwise."""
+    g = _kernel_group(name)
+    if g == "gather":
+        return "K3 fwd"
+    if g == "optimizer":
+        return "Adam"
+    low = name.lower()
+    if g in ("scatter", "other", "elementwise") and any(
+            n in low for n in ("index", "gather", "scatter")):
+        return "plain gathers/scatters"
+    return g
+
+
+def _from_dataset(fluid, exe, main, ds, fetch, print_period):
+    """``train_from_dataset`` timed, with its host syncs and its launches
+    by source → (numpy fetches, record)."""
+    import io as _io
+
+    import torch
+
+    from paddle_tpu_torch import pipeline
+    from paddle_tpu_torch.ops.cuda import (launch_counts_by_source,
+                                           reset_launch_counts)
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    pipeline.reset_sync_stats()
+    buf = _io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = exe.train_from_dataset(program=main, dataset=ds,
+                                     fetch_list=fetch,
+                                     print_period=print_period)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, {"steps": len(out), "wall_s": wall,
+                 "syncs": pipeline.sync_stats()["syncs"],
+                 "printed": buf.getvalue().splitlines(),
+                 "launches_by_source": launch_counts_by_source(),
+                 "last_run_mode": exe.last_run_mode}
+
+
+def _fixed_feed_sides(fluid, main, startup, loss, feed, steps, timed):
+    """From one seeded start: ``steps`` eager steps
+    (``use_program_cache=False``) and ``steps`` cached steps (warm-up,
+    capture, replays) on the fixed ``feed``, then ``timed`` more replays
+    with the launches, syncs, memory and run mode read around them →
+    (eager losses, graph losses, record, executor, scope)."""
+    import statistics
+
+    import torch
+
+    from paddle_tpu_torch import pipeline
+    from paddle_tpu_torch.ops.cuda import (launch_counts,
+                                           launch_counts_by_source,
+                                           reset_launch_counts)
+
+    losses, rec = {}, {}
+    for side, cache in (("eager", False), ("graph", True)):
+        scope = fluid.Scope()
+        with fluid.scope_guard(scope):
+            exe = fluid.Executor(fluid.CUDAPlace(0))
+            exe.run(startup)
+            torch.cuda.synchronize()
+            ms, got = [], []
+            for _ in range(steps):
+                s0 = time.perf_counter()
+                got.append(float(exe.run(main, feed=feed, fetch_list=[loss],
+                                         use_program_cache=cache)[0][0]))
+                ms.append((time.perf_counter() - s0) * 1e3)
+            losses[side] = got
+            rec[side + "_step_ms"] = ms
+        if side == "eager":
+            del scope, exe
+            torch.cuda.empty_cache()
+    with fluid.scope_guard(scope):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        pipeline.reset_sync_stats()
+        ms, handles = [], []
+        for _ in range(timed):
+            s0 = time.perf_counter()
+            handles.append(exe.run(main, feed=feed, fetch_list=[loss],
+                                   return_numpy=False)[0])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - s0) * 1e3)
+        syncs = pipeline.sync_stats()["syncs"]
+        rec.update({
+            "graph_timed_step_ms": ms,
+            "median_step_ms": statistics.median(ms),
+            "host_syncs_per_step": syncs / timed,
+            "launches_per_step": {k: c / timed
+                                  for k, c in launch_counts().items()},
+            "launches_by_source": launch_counts_by_source(),
+            "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+            "last_run_mode": exe.last_run_mode,
+            "copy_backs_per_step": _copy_backs(exe),
+            "graphs_nodes_not_captured_launches": _graphs_off(exe)})
+        losses["graph_timed"] = [float(h.numpy()[0]) for h in handles]
+    return losses, rec, exe, scope
+
+
+def _ctr_want(prog, k3):
+    """The kernels a DeepFM step launches: K3 forward and backward once a
+    fused table, the update kernels of ``prog``."""
+    from paddle_tpu_torch.ops.cuda import KERNELS
+
+    want = dict.fromkeys(KERNELS, 0.0)
+    want["embedding_gather_fwd"] = want["embedding_gather_bwd"] = float(k3)
+    want.update({k: float(v) for k, v in _update_launches(prog).items()})
+    return want
+
+
+def phase_ctr(env):
+    """DeepFM on device tables at bench.py:903-941's widths (8 slots x 4
+    ids, dim 128, vocabulary 200000, hidden 400-400, batch 4096, Adam
+    1e-3), float32: MultiSlot files → InMemoryDataset →
+    ``train_from_dataset`` (K3 forward and backward 8 + 8 a replayed
+    step), then a fixed feed eager against graph bit for bit, timed
+    replays, and a profiled window."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import native
+    from paddle_tpu_torch.models import ctr
+    from paddle_tpu_torch.static_analysis import fusion
+
+    t0 = time.time()
+    paths, write_s = _ctr_files("ctr", CTR_FILES, CTR_FILE_BATCHES, SEED,
+                                num_slots=CTR_SLOTS, slot_len=CTR_LEN,
+                                vocab=CTR_VOCAB)
+    fluid.unique_name.switch()
+    main, startup, feeds, loss, prob = ctr.build(
+        model="deepfm", num_slots=CTR_SLOTS, slot_len=CTR_LEN,
+        vocab=CTR_VOCAB, embed_dim=CTR_DIM, lr=CTR_LR)
+    main.random_seed = startup.random_seed = SEED
+    prog, report = fusion.resolve_fused_program(main, targets=[loss.name])
+    sites = [r.op_idxs for r in report.applied
+             if r.family == "embedding_gather"]
+    skips = [(s.op_idx, s.op_type, s.reason) for s in report.skipped
+             if s.family == "embedding_gather"]
+    ds, load_s = _dataset(fluid, "InMemoryDataset", feeds, paths, CTR_BATCH)
+    emit({"phase": "ctr", "step": "build+data", "card": card_label(env),
+          "native_parser": native.is_native(),
+          "parser": "native (C++, %s)" % native.library_path()
+          if native.is_native() else "python",
+          "write_s": write_s, "load_into_memory_s": load_s,
+          "examples": ds.get_memory_data_size(),
+          "embedding_gather_sites": len(sites),
+          "embedding_gather_skips": [s[:2] for s in skips],
+          "skip_reasons": sorted({s[2] for s in skips}),
+          "fused": report.counts(), "seconds": time.time() - t0})
+    if not native.is_native():
+        raise AssertionError("the native MultiSlot parser did not build")
+    if len(sites) != CTR_SLOTS or len(skips) != CTR_SLOTS:
+        raise AssertionError("embedding_gather: %d sites, %d skips, want %d"
+                             " and %d" % (len(sites), len(skips), CTR_SLOTS,
+                                          CTR_SLOTS))
+    want = _ctr_want(prog, CTR_SLOTS)
+
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup)
+        # a cold epoch (its first step warms up, its second captures),
+        # then a warm one on the same executor: every step a replay
+        runs = [_from_dataset(fluid, exe, main, ds, [loss], CTR_PRINT)
+                for _ in ("cold", "warm")]
+    del scope, exe
+    gc.collect()
+    torch.cuda.empty_cache()
+    for (out, rec), epoch in zip(runs, ("cold", "warm")):
+        steps = rec["steps"]
+        nodes = rec["launches_by_source"]["graph_nodes"]
+        replays = steps - 1 if epoch == "cold" else steps
+        rec.update({"phase": "ctr", "step": "train_from_dataset",
+                    "epoch": epoch, "card": card_label(env),
+                    "batch": CTR_BATCH,
+                    "losses": [float(o[0][0]) for o in out],
+                    "examples_per_s": steps * CTR_BATCH / rec["wall_s"],
+                    "ms_per_step": rec["wall_s"] * 1e3 / steps,
+                    "syncs_per_step": rec["syncs"] / steps,
+                    "k3_graph_nodes_per_replayed_step": {
+                        k: nodes.get(k, 0) / replays for k in (
+                            "embedding_gather_fwd",
+                            "embedding_gather_bwd")}})
+        emit(rec)
+        if steps != CTR_FILES * CTR_FILE_BATCHES \
+                or rec["last_run_mode"] != "graph":
+            raise AssertionError("train_from_dataset ran %d steps, last %r"
+                                 % (steps, rec["last_run_mode"]))
+        if any(v != CTR_SLOTS
+               for v in rec["k3_graph_nodes_per_replayed_step"].values()):
+            raise AssertionError(
+                "K3 graph nodes a replayed step: %s, want %d"
+                % (rec["k3_graph_nodes_per_replayed_step"], CTR_SLOTS))
+        if not np.isfinite(rec["losses"]).all():
+            raise AssertionError("ctr losses not finite: %s"
+                                 % rec["losses"])
+
+    feed = next(iter(ds.batch_iterator()))
+    losses, side, exe, scope = _fixed_feed_sides(
+        fluid, main, startup, loss, feed, CTR_EAGER_STEPS, CTR_GRAPH_STEPS)
+    side.update({"phase": "ctr", "step": "fixed feed, eager vs graph",
+                 "card": card_label(env), "losses": losses,
+                 "examples_per_s": CTR_BATCH / (side["median_step_ms"] / 1e3),
+                 "expected": want})
+    emit(side)
+    if losses["eager"] != losses["graph"]:
+        raise AssertionError("eager and graph differ: %s" % losses)
+    if side["launches_per_step"] != want or side["last_run_mode"] != "graph" \
+            or side["graphs_nodes_not_captured_launches"] \
+            or side["copy_backs_per_step"] != [0]:
+        raise AssertionError("ctr graph steps: launches %s, want %s; %s"
+                             % (side["launches_per_step"], want, side))
+    if not losses["graph_timed"][-1] < losses["eager"][0]:
+        raise AssertionError("ctr loss did not fall: %s" % losses)
+    with fluid.scope_guard(scope):
+        prof = _step_profile(exe, main, feed, [loss], _ctr_group)
+    emit(dict({"phase": "ctr", "step": "profile", "card": card_label(env)},
+              **prof))
+    k3 = prof["launches_by_group"].get("K3 bwd", 0)
+    if k3 != CTR_SLOTS * K3_BWD_LAUNCHES:
+        raise AssertionError("K3 backward's kernels launched %s times a "
+                             "step, want %d" % (k3, CTR_SLOTS
+                                                * K3_BWD_LAUNCHES))
+    del scope, exe, ds
+    gc.collect()
+    torch.cuda.empty_cache()
+    return side["launches_by_source"]
+
+
+class _HostClock:
+    """Host ms of the host tables' step work, by wrapping their methods
+    for one phase: ``prefetch`` (``lookup`` less its ``join``), ``join``
+    (the wait for the previous update), ``update`` (the update thread's
+    work) and ``push`` (the executor's read of the slab gradients and the
+    hand-off to the threads)."""
+
+    def __init__(self):
+        from paddle_tpu_torch import executor, host_table
+
+        self.reset()
+        self._saved = []
+        clock = self
+
+        def timed(owner, name, key, sub=None):
+            fn = getattr(owner, name)
+
+            def wrapper(*a, **kw):
+                t0 = time.perf_counter()
+                before = clock.ms[sub] if sub else 0.0
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    spent = (time.perf_counter() - t0) * 1e3
+                    if sub:
+                        spent -= clock.ms[sub] - before
+                    clock.ms[key] += spent
+
+            self._saved.append((owner, name, fn))
+            setattr(owner, name, wrapper)
+
+        timed(host_table.HostTable, "join", "join")
+        timed(host_table.HostTable, "lookup", "prefetch", sub="join")
+        timed(host_table.HostTable, "_apply", "update")
+        timed(executor, "_host_table_push", "push")
+
+    def reset(self):
+        self.ms = {"prefetch": 0.0, "join": 0.0, "update": 0.0,
+                   "push": 0.0}
+
+    def restore(self):
+        for owner, name, fn in reversed(self._saved):
+            setattr(owner, name, fn)
+
+
+def _device_blocks():
+    """{address: size} of the caching allocator's allocated blocks."""
+    import torch
+
+    out = {}
+    for seg in torch.cuda.memory_snapshot():
+        addr = seg["address"]
+        for b in seg["blocks"]:
+            if b["state"] == "active_allocated":
+                out[addr] = b["size"]
+            addr += b["size"]
+    return out
+
+
+def phase_ctr_host(env):
+    """DeepFM on host-resident tables at bench.py:2649-2680's widths
+    (vocabulary 1000000, dim 16, 8 slots x 4 ids, batch 4096, host SGD
+    lr 0.01): ``train_from_dataset`` with the host ms of prefetch,
+    gradient push, update threads and join waits, and the largest device
+    allocation (no [V, D] table reaches the card)."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import host_table
+    from paddle_tpu_torch.models import ctr
+
+    paths, write_s = _ctr_files("ctr_host", 1, CTR_HOST_BATCHES, SEED + 1,
+                                num_slots=CTR_SLOTS, slot_len=CTR_LEN,
+                                vocab=CTR_HOST_VOCAB)
+    host_table.reset_tables()
+    fluid.unique_name.switch()
+    t0 = time.time()
+    main, startup, feeds, loss, prob = ctr.build(
+        model="deepfm", num_slots=CTR_SLOTS, slot_len=CTR_LEN,
+        vocab=CTR_HOST_VOCAB, embed_dim=CTR_HOST_DIM, lr=CTR_LR,
+        use_host_table=True, host_lr=CTR_HOST_LR)
+    main.random_seed = startup.random_seed = SEED
+    build_s = time.time() - t0
+    ds, load_s = _dataset(fluid, "InMemoryDataset", feeds, paths, CTR_BATCH)
+    table_bytes = sum(t.value.nbytes for t in host_table._TABLES.values())
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = _device_blocks()  # what earlier phases still hold
+    scope = fluid.Scope()
+    clock = _HostClock()
+    try:
+        with fluid.scope_guard(scope):
+            exe = fluid.Executor(fluid.CUDAPlace(0))
+            exe.run(startup)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cold = _from_dataset(fluid, exe, main, ds, [loss], 0)[1]
+            clock.reset()
+            out, rec = _from_dataset(fluid, exe, main, ds, [loss], 0)
+            for t in host_table._TABLES.values():
+                t.join()
+            largest = max((n for a, n in _device_blocks().items()
+                           if before.get(a) != n), default=0)
+            scope_max = max((v.numel() * v.element_size()
+                             for v in scope.vars.values()
+                             if isinstance(v, torch.Tensor)), default=0)
+    finally:
+        clock.restore()
+    steps = rec["steps"]
+    table_row_bytes = CTR_HOST_VOCAB * CTR_HOST_DIM * 4
+    rec.update({"phase": "ctr_host", "step": "train_from_dataset",
+                "epoch": "warm (a second pass; the cold one: %.1f ms a "
+                "step)" % (cold["wall_s"] * 1e3 / cold["steps"]),
+                "card": card_label(env), "batch": CTR_BATCH,
+                "write_s": write_s, "build_s": build_s,
+                "load_into_memory_s": load_s,
+                "host_tables": len(host_table._TABLES),
+                "host_table_bytes": table_bytes,
+                "losses": [float(o[0][0]) for o in out],
+                "examples_per_s": steps * CTR_BATCH / rec["wall_s"],
+                "ms_per_step": rec["wall_s"] * 1e3 / steps,
+                "host_ms_per_step": {k: v / steps
+                                     for k, v in clock.ms.items()},
+                "syncs_per_step": rec["syncs"] / steps,
+                "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+                "largest_device_block_bytes": largest,
+                "largest_scope_tensor_bytes": scope_max,
+                "one_table_bytes": table_row_bytes})
+    del rec["launches_by_source"]
+    emit(rec)
+    if largest >= table_row_bytes or scope_max >= table_row_bytes:
+        raise AssertionError("a table-sized tensor reached the card: %s"
+                             % rec)
+    if steps != CTR_HOST_BATCHES or not np.isfinite(rec["losses"]).all():
+        raise AssertionError("ctr_host: %s" % rec)
+    # every step pushes its gradient: one read of the slab gradients
+    if rec["syncs"] < steps:
+        raise AssertionError("ctr_host: %d syncs for %d steps"
+                             % (rec["syncs"], steps))
+    del scope, exe, ds
+    host_table.reset_tables()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_wide_deep(env):
+    """Wide&Deep at ``ctr.build``'s defaults (vocabulary 100000, dim 16,
+    hidden 400x3, 13 dense features), batch 4096, Adam, through a
+    QueueDataset and ``train_from_dataset``: ms a step; its dim-16 and
+    dim-1 tables are plain lookups, so no K3 runs."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import ctr
+    from paddle_tpu_torch.ops.cuda import launch_counts
+
+    paths, write_s = _ctr_files("wide_deep", 1, WD_BATCHES, SEED + 2,
+                                num_slots=CTR_SLOTS, slot_len=CTR_LEN,
+                                vocab=100000, dense_dim=13)
+    fluid.unique_name.switch()
+    main, startup, feeds, loss, prob = ctr.build(
+        model="wide_deep", num_slots=CTR_SLOTS, slot_len=CTR_LEN)
+    main.random_seed = startup.random_seed = SEED
+    ds, _ = _dataset(fluid, "QueueDataset", feeds, paths, CTR_BATCH)
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup)
+        cold = _from_dataset(fluid, exe, main, ds, [loss], 0)[1]
+        out, rec = _from_dataset(fluid, exe, main, ds, [loss], 0)
+        k3 = {k: v for k, v in launch_counts().items()
+              if k.startswith("embedding_gather") and v}
+    steps = rec["steps"]
+    rec.update({"phase": "wide_deep", "step": "train_from_dataset",
+                "epoch": "warm (a second pass; the cold one: %.1f ms a "
+                "step)" % (cold["wall_s"] * 1e3 / cold["steps"]),
+                "card": card_label(env), "batch": CTR_BATCH,
+                "write_s": write_s,
+                "losses": [float(o[0][0]) for o in out],
+                "examples_per_s": steps * CTR_BATCH / rec["wall_s"],
+                "ms_per_step": rec["wall_s"] * 1e3 / steps,
+                "k3_launches": k3,
+                "note": "tables of dim 16 and 1: plain lookups, no K3"})
+    del rec["launches_by_source"]
+    emit(rec)
+    if k3 or steps != WD_BATCHES or rec["last_run_mode"] != "graph" \
+            or not np.isfinite(rec["losses"]).all():
+        raise AssertionError("wide_deep: %s" % rec)
+    del scope, exe, ds
+    torch.cuda.empty_cache()
+
+
+def _mnist_mlp(fluid):
+    """examples/mnist_train.py's program: 784-200-200-10 softmax, Adam
+    1e-3 → (main, startup, test, [img, label], loss, acc)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        img = fluid.layers.data(name="img", shape=[784], dtype="float32")
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        h = fluid.layers.fc(input=img, size=200, act="relu")
+        h = fluid.layers.fc(input=h, size=200, act="relu")
+        pred = fluid.layers.fc(input=h, size=10, act="softmax")
+        loss = fluid.layers.reduce_mean(
+            fluid.layers.cross_entropy(input=pred, label=label))
+        acc = fluid.layers.accuracy(input=pred, label=label)
+        test = main.clone(for_test=True)
+        fluid.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    return main, startup, test, [img, label], loss, acc
+
+
+def _mnist_epoch(fluid, exe, main, feeds, reader, fetch, limit=None):
+    """One pass of ``reader`` (a batch reader) through
+    ``DataLoader.from_generator`` with double buffering on the card,
+    every step's fetches left lazy and read once a MNIST_PRINT window →
+    (steps, wall s, syncs, last fetches)."""
+    import torch
+
+    from paddle_tpu_torch import pipeline
+
+    loader = fluid.DataLoader.from_generator(feed_list=feeds, capacity=16)
+    loader.decorate_sample_list_generator(reader,
+                                          places=fluid.CUDAPlace(0))
+    torch.cuda.synchronize()
+    pipeline.reset_sync_stats()
+    t0 = time.perf_counter()
+    steps, last, window = 0, None, []
+    for feed in loader:
+        out = exe.run(main, feed=feed, fetch_list=fetch, return_numpy=False)
+        window.append(out)
+        steps += 1
+        if steps % MNIST_PRINT == 0:
+            last = pipeline.materialize(window)[-1]
+            window = []
+        if limit and steps == limit:
+            break
+    if window:
+        last = pipeline.materialize(window)[-1]
+    torch.cuda.synchronize()
+    return steps, time.perf_counter() - t0, \
+        pipeline.sync_stats()["syncs"], last
+
+
+def phase_mnist(env):
+    """MNIST through the reader path: examples/mnist_train.py's MLP (Adam
+    1e-3, batch 64) over one epoch of the synthetic train set,
+    ``fluid.batch(datasets.mnist.train(), 64)`` → ``DataLoader`` with
+    double buffering; the test set through ``DataFeeder``; then
+    MNIST_CONV_STEPS steps of ``models.mnist`` conv_net."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import datasets, pipeline
+    from paddle_tpu_torch.models import mnist
+
+    fluid.unique_name.switch()
+    main, startup, test, feeds, loss, acc = _mnist_mlp(fluid)
+    main.random_seed = startup.random_seed = SEED
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup)
+        steps, wall, syncs, last = _mnist_epoch(
+            fluid, exe, main, feeds,
+            fluid.batch(datasets.mnist.train(), MNIST_BATCH), [loss, acc])
+        feeder = fluid.DataFeeder(feed_list=feeds, place=fluid.CUDAPlace(0),
+                                  program=main)
+        t0 = time.perf_counter()
+        accs, rows = [], []
+        for batch in fluid.batch(datasets.mnist.test(), MNIST_TEST_BATCH)():
+            accs.append(exe.run(test, feed=feeder.feed(batch),
+                                fetch_list=[acc], return_numpy=False)[0])
+            rows.append(len(batch))
+        accs = [float(a.reshape(-1)[0]) for a in pipeline.materialize(accs)]
+        test_acc = float(np.average(accs, weights=rows))
+        test_s = time.perf_counter() - t0
+        mode = exe.last_run_mode
+    rec = {"phase": "mnist", "step": "mlp epoch", "card": card_label(env),
+           "batch": MNIST_BATCH, "steps": steps, "epoch_s": wall,
+           "images_per_s": datasets.mnist.TRAIN_SIZE / wall,
+           "syncs_per_epoch": syncs,
+           "last_loss": float(last[0].reshape(-1)[0]),
+           "last_acc": float(last[1].reshape(-1)[0]),
+           "test_acc": test_acc, "test_s": test_s,
+           "test_images_per_s": datasets.mnist.TEST_SIZE / test_s,
+           "last_run_mode": mode}
+    emit(rec)
+    if steps != -(-datasets.mnist.TRAIN_SIZE // MNIST_BATCH) \
+            or test_acc < MNIST_MIN_TEST_ACC \
+            or syncs > -(-steps // MNIST_PRINT):
+        raise AssertionError("mnist: %s" % rec)
+    del scope, exe
+
+    fluid.unique_name.switch()
+    main, startup, feeds, loss, acc = mnist.build(use_conv=True)
+    main.random_seed = startup.random_seed = SEED
+
+    def images():
+        for x, y in datasets.mnist.train()():
+            yield x.reshape(1, 28, 28), y
+
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup)
+        steps, wall, syncs, last = _mnist_epoch(
+            fluid, exe, main, feeds, fluid.batch(images, MNIST_BATCH),
+            [loss, acc], limit=MNIST_CONV_STEPS)
+        mode = exe.last_run_mode
+    rec = {"phase": "mnist", "step": "conv_net", "card": card_label(env),
+           "batch": MNIST_BATCH, "steps": steps, "wall_s": wall,
+           "ms_per_step": wall * 1e3 / steps,
+           "images_per_s": steps * MNIST_BATCH / wall, "syncs": syncs,
+           "last_loss": float(last[0].reshape(-1)[0]),
+           "last_acc": float(last[1].reshape(-1)[0]),
+           "last_run_mode": mode}
+    emit(rec)
+    if steps != MNIST_CONV_STEPS or mode != "graph" \
+            or not np.isfinite(rec["last_loss"]):
+        raise AssertionError("mnist conv_net: %s" % rec)
+    del scope, exe
+    torch.cuda.empty_cache()
+
+
+def _ctr_parity_side(fluid, ctr, place, host, start=None):
+    """``CTR_PARITY`` DeepFM, device or host tables, its steps on one
+    seeded batch on ``place`` from ``start`` (the card's start when None)
+    → (losses, start, run modes)."""
+    import numpy as np
+
+    from paddle_tpu_torch import convert, host_table
+
+    p = CTR_PARITY
+    host_table.reset_tables()
+    fluid.unique_name.switch()
+    main, startup, feeds, loss, _ = ctr.build(
+        model="deepfm", num_slots=p["num_slots"], slot_len=p["slot_len"],
+        vocab=p["vocab"], embed_dim=p["embed_dim"], lr=CTR_LR,
+        use_host_table=host, host_lr=0.05)
+    main.random_seed = startup.random_seed = SEED
+    rng = np.random.RandomState(SEED + 5)
+    feed = {"slot_%d" % i: rng.randint(0, p["vocab"], (p["batch"],
+                                                       p["slot_len"]))
+            .astype("int64") for i in range(p["num_slots"])}
+    feed["label"] = rng.randint(0, 2, (p["batch"], 1)).astype("int64")
+    scope = fluid.Scope()
+    losses, modes = [], []
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(place)
+        exe.run(startup)
+        if start is None:
+            start = convert.scope_persistables(main, scope)
+        else:
+            convert.load_params_into_scope(start, scope, place, program=main)
+        for _ in range(p["steps"]):
+            losses.append(float(exe.run(main, feed=feed,
+                                        fetch_list=[loss])[0][0]))
+            modes.append(exe.last_run_mode)
+    for t in host_table._TABLES.values():
+        t.join()
+    return losses, start, modes
+
+
+def _host_oracle_side(fluid, host, table0=None):
+    """tests/test_host_table.py's oracle model (SGD 0.1 on one repeated
+    batch with duplicate ids) on the card, on a host table or a device
+    table started from ``table0`` → (losses, the host table's start)."""
+    import numpy as np
+
+    from paddle_tpu_torch import host_table
+
+    o = HOST_ORACLE
+    host_table.reset_tables()
+    fluid.unique_name.switch()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        ids = fluid.layers.data("ids", shape=[o["batch"], o["ids"]],
+                                dtype="int64", append_batch_size=False)
+        y = fluid.layers.data("y", shape=[o["batch"], 1], dtype="float32",
+                              append_batch_size=False)
+        if host:
+            emb = fluid.layers.host_embedding(
+                ids, size=[o["vocab"], o["dim"]], name="ctr.tbl", lr=0.1)
+            table0 = host_table.get_table("ctr.tbl").value.copy()
+        else:
+            emb = fluid.layers.embedding(
+                ids, size=[o["vocab"], o["dim"]], param_attr=fluid.ParamAttr(
+                    name="dev.tbl",
+                    initializer=fluid.initializer.NumpyArrayInitializer(
+                        table0)))
+        flat = fluid.layers.flatten(emb, axis=1)
+        w = np.random.RandomState(5).uniform(
+            -0.1, 0.1, (o["ids"] * o["dim"], 8)).astype("float32")
+        h = fluid.layers.fc(flat, size=8, act="relu", param_attr=(
+            fluid.ParamAttr(name="deep.w", initializer=(
+                fluid.initializer.NumpyArrayInitializer(w)))))
+        head = np.random.RandomState(6).uniform(-0.1, 0.1, (8, 1)).astype(
+            "float32")
+        logit = fluid.layers.fc(h, size=1, param_attr=fluid.ParamAttr(
+            name="head.w",
+            initializer=fluid.initializer.NumpyArrayInitializer(head)))
+        loss = fluid.layers.mean(
+            fluid.layers.sigmoid_cross_entropy_with_logits(logit, y))
+        fluid.optimizer.SGD(0.1).minimize(loss)
+    rng = np.random.RandomState(3)
+    ids_v = rng.randint(0, o["vocab"], (o["batch"], o["ids"])).astype("int64")
+    ids_v[:, 1] = ids_v[:, 0]
+    y_v = rng.randint(0, 2, (o["batch"], 1)).astype("float32")
+    losses = []
+    with fluid.scope_guard(fluid.Scope()):
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup)
+        for _ in range(o["steps"]):
+            losses.append(float(exe.run(main, feed={"ids": ids_v, "y": y_v},
+                                        fetch_list=[loss])[0][0]))
+    for t in host_table._TABLES.values():
+        t.join()
+    return losses, table0
+
+
+def phase_ctr_parity(env):
+    """The card against the CPU: DeepFM at 4 slots x 3 ids, vocabulary
+    20000, dim 128, batch 256, 5 Adam steps from one start, on device
+    tables and on host tables, losses within CTR_PARITY_RTOL; and
+    tests/test_host_table.py's oracle on the card: a host-table SGD run
+    equals a device-table run started from the same table within
+    HOST_ORACLE_RTOL."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import host_table
+    from paddle_tpu_torch.models import ctr
+
+    rows, failed = {}, []
+    for label, host in (("device tables", False), ("host tables", True)):
+        card, start, modes = _ctr_parity_side(fluid, ctr,
+                                              fluid.CUDAPlace(0), host)
+        cpu, _, _ = _ctr_parity_side(fluid, ctr, fluid.CPUPlace(), host,
+                                     start)
+        err = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+        rows[label] = {"card": card, "cpu": cpu, "max_rel_diff": err,
+                       "card_modes": modes}
+        if not err <= CTR_PARITY_RTOL or modes[-1] != "graph":
+            failed.append(label)
+    host_l, table0 = _host_oracle_side(fluid, True)
+    dev_l, _ = _host_oracle_side(fluid, False, table0)
+    err = max(abs(a - b) / abs(b) for a, b in zip(host_l, dev_l))
+    rows["host vs device table (card)"] = {
+        "host": host_l, "device": dev_l, "max_rel_diff": err}
+    if not err <= HOST_ORACLE_RTOL or not host_l[-1] < host_l[0]:
+        failed.append("host oracle")
+    host_table.reset_tables()
+    emit({"phase": "ctr_parity", "card": card_label(env),
+          "shape": CTR_PARITY, "tol": CTR_PARITY_RTOL,
+          "oracle_tol": HOST_ORACLE_RTOL, "runs": rows,
+          "max_loss_rel_diff": max(r["max_rel_diff"]
+                                   for r in rows.values())})
+    if failed or not all(np.isfinite(r.get("card", r.get("host"))).all()
+                         for r in rows.values()):
+        raise AssertionError("ctr_parity failed: %s" % failed)
+
+
+def kernel_ctr(checks, torch, gen):
+    """K3 forward and backward at the CTR shape (ids [16384] int64 over a
+    [200000, 128] float32 table, padding_idx 0: ids from [0, V) with
+    every 1024th set to 0) against their plain versions, the backward
+    also against its sorted plain twin and twice bit for bit; the Adam
+    update at [200000, 128] against its plain twin bit for bit, in
+    place."""
+    from paddle_tpu_torch.ops.cuda import embedding as emb
+    from paddle_tpu_torch.ops.cuda import optimizer as opt
+
+    errs = {}
+    table = torch.randn((CTR_VOCAB, CTR_DIM), generator=gen, device="cuda")
+    ids = torch.randint(0, CTR_VOCAB, (K3_CTR_IDS,), generator=gen,
+                        device="cuda")
+    ids[::1024] = 0
+    case = "CTR V%d D%d n%d int64 padding_idx 0" % (CTR_VOCAB, CTR_DIM,
+                                                    K3_CTR_IDS)
+    errs["fwd"] = checks.check(
+        "embedding_gather_fwd", case,
+        max_err(emb.embedding_gather_fwd(table, ids, 0),
+                emb.embedding_gather_fwd_plain(table, ids, 0)), 0.0)
+    dout = torch.randn((K3_CTR_IDS, CTR_DIM), generator=gen, device="cuda")
+    got = emb.embedding_gather_bwd(dout, ids, CTR_VOCAB, 0)
+    again = emb.embedding_gather_bwd(dout, ids, CTR_VOCAB, 0)
+    ref = emb.embedding_gather_bwd_plain(dout, ids, CTR_VOCAB, 0)
+    twin = emb.embedding_gather_bwd_sorted_plain(
+        dout, emb.scatter_plan(ids, CTR_VOCAB, 0), CTR_VOCAB)
+    torch.cuda.synchronize()
+    errs["bwd"] = checks.check("embedding_gather_bwd", case + " vs "
+                               "index_add_", max_err(got, ref), _tol(ref))
+    checks.check("embedding_gather_bwd", case + " vs its sorted plain twin, "
+                 "bits differing", _bit_mismatches(got, twin), 0)
+    checks.check("embedding_gather_bwd", case + " twice, bits differing",
+                 _bit_mismatches(got, again), 0)
+    checks.check("embedding_gather_bwd", case + ": padding row 0 not zero",
+                 int(bool(got[0].abs().max() > 0)), 0)
+    del got, again, ref, twin, table
+    x = _update_inputs(torch, gen, (CTR_VOCAB, CTR_DIM), torch.float32)
+    args = ("p", "g", "lr", "m1", "m2", "b1p", "b2p")
+    want = opt.adam_plain(*[x[k] for k in args])
+    ptrs = [x[k].data_ptr() for k in args]
+    got = opt.adam_(*[x[k] for k in args])
+    torch.cuda.synchronize()
+    case = "adam [%d,%d] f32 (a CTR table)" % (CTR_VOCAB, CTR_DIM)
+    checks.check("adam_update", case + ", bits differing",
+                 sum(_bit_mismatches(a, b) for a, b in zip(got, want)), 0)
+    checks.check("adam_update", case + ", outputs not in the inputs",
+                 sum(t.data_ptr() not in ptrs for t in got), 0)
+    errs["adam"] = max(max_err(a, b) for a, b in zip(got, want))
+    torch.cuda.empty_cache()
+    return errs
+
+
+def time_ctr_kernels(torch, gen, errs):
+    """Extra rows at the CTR shape (cold L2): K3 forward beside
+    ``F.embedding``, K3 backward beside ``index_add_`` into zeros, Adam
+    at [200000, 128]; each against its byte bound for this run's ids
+    (padding ids read and send nothing)."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.cuda import embedding as emb
+    from paddle_tpu_torch.ops.cuda import optimizer as opt
+
+    table = torch.randn((CTR_VOCAB, CTR_DIM), generator=gen, device="cuda")
+    ids = torch.randint(0, CTR_VOCAB, (K3_CTR_IDS,), generator=gen,
+                        device="cuda")
+    kept = int((ids != 0).sum())
+    n, v, d = K3_CTR_IDS, CTR_VOCAB, CTR_DIM
+    shape = "table [%d,%d] f32, ids [%d] int64, padding_idx 0" % (v, d, n)
+    rows = [_row(
+        "embedding_gather_fwd", "paddle_tpu_torch/csrc/embedding.cu",
+        "paddle_tpu/ops/pallas/embedding.py:74", errs["fwd"],
+        time_ms(lambda: emb.embedding_gather_fwd(table, ids, 0), 50),
+        time_ms(lambda: emb.embedding_gather_fwd_plain(table, ids, 0), 50),
+        bound_ms(4 * d * (kept + n) + 8 * n, 0, "float32"),
+        time_ms(lambda: F.embedding(ids, table, padding_idx=0), 50),
+        "CTR: " + shape)]
+    dout = torch.randn((n, d), generator=gen, device="cuda")
+    rows.append(_row(
+        "embedding_gather_bwd", "paddle_tpu_torch/csrc/embedding.cu",
+        "paddle_tpu/ops/pallas/embedding.py:96 (XLA scatter-add of "
+        "_gather_core_bwd)", errs["bwd"],
+        time_ms(lambda: emb.embedding_gather_bwd(dout, ids, v, 0), 20),
+        time_ms(lambda: emb.embedding_gather_bwd_plain(dout, ids, v, 0), 20),
+        bound_ms(4 * (v * d + kept * d) + 8 * n, kept * d, "float32"),
+        time_ms(lambda: torch.zeros((v, d), device="cuda")
+                .index_add_(0, ids, dout), 20),
+        "CTR: dout [%d,%d] f32, ids [%d] → table grad [%d,%d]"
+        % (n, d, n, v, d)))
+    del table, dout
+    x = _update_inputs(torch, gen, (v, d), torch.float32)
+    adam_args = [x[k] for k in ("p", "g", "lr", "m1", "m2", "b1p", "b2p")]
+    rows.append(_row(
+        "adam_update", "paddle_tpu_torch/csrc/optimizer.cu",
+        "paddle_tpu/ops/optimizer_ops.py:46 (adam; XLA in the reference)",
+        errs["adam"], time_ms(lambda: opt.adam_(*adam_args), 20),
+        time_ms(lambda: opt.adam_plain(*adam_args), 20),
+        bound_ms(28 * v * d, 14 * v * d, "float32"), None,
+        "CTR: [%d,%d] f32 (a DeepFM table)" % (v, d)))
+    del x, adam_args
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main():
     try:
         import torch
@@ -12641,6 +13577,11 @@ def _run_phases(torch):
     _timed(seconds, phase_averaging, env)
     dygraph_counts, _ = _timed(seconds, phase_dygraph, env)
     _timed(seconds, phase_dygraph_parity)
+    ctr_counts = _timed(seconds, phase_ctr, env)
+    _timed(seconds, phase_ctr_host, env)
+    _timed(seconds, phase_wide_deep, env)
+    _timed(seconds, phase_mnist, env)
+    _timed(seconds, phase_ctr_parity, env)
     from paddle_tpu_torch.ops.cuda import KERNELS
 
     # each path's launches by source: the wrappers' launches that ran at
@@ -12664,7 +13605,7 @@ def _run_phases(torch):
              "resnet_infer": infer_counts, "se_resnext": se_counts,
              "vgg": vgg_counts, "compiled": compiled_counts,
              "sync_bn": sync_bn_counts, "hier": hier_counts,
-             "chaos_quant": chaos_counts}
+             "chaos_quant": chaos_counts, "ctr": ctr_counts}
     for r in rows:
         # the decode path's launches (ring + paged runs) where it runs the
         # kernel, else the BERT training path's (the backward kernels),

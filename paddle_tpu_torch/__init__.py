@@ -3,9 +3,11 @@
 The same Fluid-style API: the static graph (``Program`` built by the layers
 DSL, ``Executor``, ``backward.append_backward``, ``optimizer.Adam`` /
 ``SGD``, ``io.save_inference_model``, ``inference.AnalysisPredictor``,
-``serving.PredictorServer``) and the imperative mode (``dygraph``), run
-by PyTorch on an NVIDIA GPU.  The
-reference package's Pallas TPU kernels become kernels
+``serving.PredictorServer``), the imperative mode (``dygraph``) and the
+data path (``DatasetFactory`` datasets with ``Executor.train_from_dataset``,
+host-resident tables, ``PyReader`` / ``DataLoader``, ``DataFeeder``,
+``fluid.batch`` and the reader decorators, ``datasets.mnist``), run by
+PyTorch on an NVIDIA GPU.  The reference package's Pallas TPU kernels become kernels
 written by hand for Hopper under ``csrc/`` (built with ``nvcc`` at first
 use, bound with ``ctypes``: :mod:`paddle_tpu_torch.ops.cuda`).  Entry
 points run on the GPU (``CUDAPlace(0)``) unless the caller asks for the
@@ -62,6 +64,21 @@ from . import resilience
 from . import dygraph
 from . import dygraph_grad_clip
 from .dygraph.base import enable_dygraph, disable_dygraph
+from . import trainer_desc
+from . import device_worker
+from . import native
+from . import recordio_writer
+from . import reader_decorators
+from . import reader
+from . import host_table
+from . import datasets
+from .data_feeder import DataFeeder
+from .data_feed_desc import DataFeedDesc
+from .dataset import DatasetFactory
+from .lod_tensor import (LoDTensor, LoDTensorArray, create_lod_tensor,
+                         create_random_int_lodtensor)
+from .reader import DataLoader, PyReader
+from .reader_decorators import batch
 
 __all__ = [
     "Program", "Block", "Operator", "Variable", "Parameter",
@@ -82,4 +99,9 @@ __all__ = [
     "average", "resilience", "dygraph", "dygraph_grad_clip",
     "in_dygraph_mode", "enable_dygraph", "disable_dygraph",
     "GradientClipByGlobalNorm", "GradientClipByNorm", "GradientClipByValue",
+    "trainer_desc", "device_worker", "native", "recordio_writer",
+    "reader_decorators", "reader", "host_table", "datasets", "DataFeeder",
+    "DataFeedDesc", "DatasetFactory", "LoDTensor", "LoDTensorArray",
+    "create_lod_tensor", "create_random_int_lodtensor", "DataLoader",
+    "PyReader", "batch",
 ]

@@ -120,6 +120,19 @@ are ``executor.lower_and_jit`` events and every call an ``executor.run``
 event (:1279, :1298).  All of it is host time: nothing waits on the
 device.
 
+Host-resident tables (``layers.host_embedding``, :mod:`.host_table`;
+the reference's :912-995).  Before each step ``_host_table_prefetch``
+gathers the rows of every table's fed ids into its slab feed (a host
+array, staged like any feed, so a captured step copies it into its
+static input), and the slab's gradient joins the fetches; after the
+step ``_host_table_push`` copies those gradients to the host (one
+synchronisation a step, which the push cannot avoid) and hands them to
+the tables' update threads.  The next step's prefetch joins the update
+first.  A program with host tables refuses ``batch_merge_repeat`` and
+``num_iteration_per_run`` above 1 (the slab is gathered once a call)
+and a process group of more than one rank (each rank's table would
+drift), as the reference.
+
 A fusion clone that a newer clone of the same program and fetch set
 replaces (a new flash threshold, an autotune or drift write, a
 mutation) has its cache entries dropped with their graphs, so the graphs
@@ -304,6 +317,58 @@ def _check_feed_shapes(program, feed_vals):
                     "(dim %d != %d)%s"
                     % (name, got, tuple(declared), d_got, d_decl,
                        ("\n" + hint) if hint else ""))
+
+
+def _host_table_prefetch(program, feed):
+    """Gather each host table's rows for its fed ids into the slab feed
+    (``feed`` is updated) → ``(active, gradient fetch names)``, where
+    ``active`` holds ``(table, ids, slab gradient name or None)``."""
+    specs = getattr(program, "_host_tables", None) or []
+    if not specs:
+        return [], []
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        raise RuntimeError(
+            "host_embedding under a process group of %d ranks would let "
+            "each rank's table drift (each sees only its own gradients); "
+            "use device tables (embedding) for data parallelism, or one "
+            "process" % dist.get_world_size())
+    from . import host_table as _host_table
+
+    active = []
+    for spec in specs:
+        tab = _host_table.get_table(spec["table"])
+        if spec["ids"] not in feed:
+            raise RuntimeError(
+                "host_embedding ids var %r must be fed directly — the "
+                "host-side prefetch reads its value before the device "
+                "step" % spec["ids"])
+        ids = feed[spec["ids"]]
+        if isinstance(ids, torch.Tensor):
+            ids = ids.cpu()  # a staged feed: read back (a sync)
+        ids = np.asarray(ids)
+        feed[spec["slab"]] = tab.lookup(ids)
+        gname = spec["slab"] + "@GRAD"
+        has_grad = program.global_block()._find_var_recursive(gname) \
+            is not None
+        active.append((tab, ids, gname if has_grad else None))
+    return active, [g for _, _, g in active if g]
+
+
+def _host_table_push(active, fetches, n_user):
+    """Send the fetched slab gradients (after ``n_user`` user fetches) to
+    their tables' update threads, reading them to the host in one
+    synchronisation → the user fetches."""
+    grads = fetches[n_user:]
+    if grads and not isinstance(grads[0], np.ndarray):
+        grads = _pipeline.host_values(grads)
+    grads = iter(grads)
+    for tab, ids, gname in active:
+        if gname is not None:
+            tab.update_async(ids, next(grads))
+    return fetches[:n_user]
 
 
 def _grad_twins(block):
@@ -1174,14 +1239,29 @@ class Executor:
             program, config=_fusion_config, targets=fetch_names)
         feed = {n: _host_value(v) for n, v in (feed or {}).items()}
         _check_feed_shapes(program, feed)
+        if getattr(program, "_host_tables", None) \
+                and (accumulate > 1 or iters > 1):
+            raise RuntimeError(
+                "host_embedding with %s: the slab is gathered once a "
+                "call, so the later microbatches or iterations would read "
+                "stale rows and push the wrong gradient — run host-table "
+                "programs with batch_merge_repeat=1 and "
+                "num_iteration_per_run=1"
+                % ("batch_merge_repeat=%d" % accumulate if accumulate > 1
+                   else "num_iteration_per_run=%d" % iters))
+        host_active, host_grads = _host_table_prefetch(program, feed)
         if iters > 1:
             # no host read between the iterations: the first K - 1 keep
             # their fetches on the device, unread
             for _ in range(iters - 1):
                 self._run_step(source, program, scope, feed, fetch_names,
                                False, use_program_cache, 1)
-        return self._run_step(source, program, scope, feed, fetch_names,
-                              return_numpy, use_program_cache, accumulate)
+        out = self._run_step(source, program, scope, feed,
+                             fetch_names + host_grads, return_numpy,
+                             use_program_cache, accumulate)
+        if host_grads:
+            out = _host_table_push(host_active, out, len(fetch_names))
+        return out
 
     def _run_step(self, source, program, scope, feed, fetch_names,
                   return_numpy, use_program_cache, accumulate):
@@ -1476,6 +1556,28 @@ class Executor:
         if ctx.loops is not None:
             state |= ctx.loops.statics
         return [t.clone() if id(t) in state else t for t in fetches]
+
+    # ------ dataset entry points (the reference's :1346-1360) ------
+    def train_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100):
+        """Train ``program`` over every batch of ``dataset`` (a
+        ``DatasetFactory`` dataset) → numpy fetches, one list a step
+        (:mod:`.dataset_runtime`)."""
+        from .dataset_runtime import run_from_dataset
+
+        return run_from_dataset(self, program or default_main_program(),
+                                dataset, scope, fetch_list, fetch_info,
+                                print_period, train=True)
+
+    def infer_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100):
+        from .dataset_runtime import run_from_dataset
+
+        return run_from_dataset(self, program or default_main_program(),
+                                dataset, scope, fetch_list, fetch_info,
+                                print_period, train=False)
 
     @staticmethod
     def _finish(fetches, return_numpy):

@@ -1,7 +1,8 @@
 """Incubating APIs (mirrors ``paddle_tpu/incubate/``): the collective
-fleet.  The parameter-server fleet and the data generators wait for the
-distributed lookup tables (ROADMAP.md, Queue A item 9)."""
+fleet and the MultiSlot data generators.  The parameter-server fleet
+waits for the distributed lookup tables (ROADMAP.md, Queue A item 9)."""
 
+from . import data_generator
 from . import fleet
 
-__all__ = ["fleet"]
+__all__ = ["data_generator", "fleet"]

@@ -6,8 +6,12 @@ The on-disk format is the reference package's: one ``<var>.npy`` per var
 (or a combined ``.npz`` under ``filename``), the program as JSON in
 ``__model__`` (:mod:`.proto`), and ``__meta__.json`` with the feed and
 fetch names.  A directory the reference exports loads here unchanged.
-Loaded values are placed on the executor's device.  Sharded checkpoints
-(``<var>.shards/``) are not ported yet (ROADMAP.md) and raise."""
+Loaded values are placed on the executor's device.  ``save_persistables``
+/ ``load_persistables`` also save and load the program's host-resident
+tables (:mod:`.host_table`, the reference's :275-290, :374) in the
+per-shard layout under ``<table>.shards/``.  Sharded device checkpoints
+(``<var>.shards/`` of a device var) are not ported yet (ROADMAP.md) and
+raise."""
 
 import json
 import os
@@ -120,9 +124,21 @@ def save_params(executor, dirname, main_program=None, filename=None):
                      predicate=_is_parameter, filename=filename)
 
 
+def _host_tables_of(main_program):
+    from . import host_table as _ht
+
+    prog = main_program or default_main_program()
+    names = {spec["table"]
+             for spec in getattr(prog, "_host_tables", None) or []}
+    return [_ht.get_table(n) for n in sorted(names)]
+
+
 def save_persistables(executor, dirname, main_program=None, filename=None):
-    return save_vars(executor, dirname, main_program,
-                     predicate=_is_persistable, filename=filename)
+    r = save_vars(executor, dirname, main_program,
+                  predicate=_is_persistable, filename=filename)
+    for tab in _host_tables_of(main_program):
+        tab.save(dirname)
+    return r
 
 
 def load_vars(executor, dirname, main_program=None, vars=None,
@@ -167,8 +183,12 @@ def load_params(executor, dirname, main_program=None, filename=None):
 
 
 def load_persistables(executor, dirname, main_program=None, filename=None):
-    return load_vars(executor, dirname, main_program,
-                     predicate=_is_persistable, filename=filename)
+    r = load_vars(executor, dirname, main_program,
+                  predicate=_is_persistable, filename=filename)
+    for tab in _host_tables_of(main_program):
+        if tab.has_checkpoint(dirname):
+            tab.load(dirname)
+    return r
 
 
 def save_inference_model(dirname, feeded_var_names, target_vars, executor,

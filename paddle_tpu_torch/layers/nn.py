@@ -13,7 +13,11 @@
 ``relu`` :936, ``pad`` :973, and ``space_to_depth`` from
 ``layers/nn_extra.py:260``; for the vision models ``conv2d_transpose``
 :226, ``group_norm`` :374, ``image_resize`` :995, ``resize_bilinear``
-:1036 and ``resize_nearest`` :1043).
+:1036 and ``resize_nearest`` :1043; the everyday tensor layers
+``sigmoid_cross_entropy_with_logits`` :480, ``reduce_min`` /
+``reduce_prod`` :586-590, ``mul`` :610, ``flatten`` :750, ``stack``
+:763, ``unstack`` :773, ``argmax`` / ``argmin`` / ``argsort``
+:860-887).
 Each layer appends the same op types, slots and attrs as the reference,
 so the two packages build the same program."""
 
@@ -36,7 +40,10 @@ __all__ = ["fc", "embedding", "layer_norm", "dropout", "softmax",
            "fused_multihead_attention", "conv2d", "pool2d", "batch_norm",
            "mean", "topk", "relu", "pad", "space_to_depth",
            "conv2d_transpose", "group_norm", "image_resize",
-           "resize_bilinear", "resize_nearest"]
+           "resize_bilinear", "resize_nearest",
+           "sigmoid_cross_entropy_with_logits", "reduce_min", "reduce_prod",
+           "mul", "flatten", "stack", "unstack", "argmax", "argmin",
+           "argsort"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -201,6 +208,14 @@ def reduce_mean(input, dim=None, keep_dim=False, name=None):
 
 def reduce_max(input, dim=None, keep_dim=False, name=None):
     return _reduce("reduce_max", input, dim, keep_dim, name)
+
+
+def reduce_min(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_min", input, dim, keep_dim, name)
+
+
+def reduce_prod(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_prod", input, dim, keep_dim, name)
 
 
 def _reduce_logical(op_type, input, dim, keep_dim):
@@ -670,3 +685,79 @@ def square_error_cost(input, label):
         outputs={"Out": [out]},
     )
     return out
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100, name=None,
+                                      normalize=False):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="sigmoid_cross_entropy_with_logits",
+        inputs={"X": [x], "Label": [label]}, outputs={"Out": [out]},
+        attrs={"ignore_index": ignore_index, "normalize": normalize})
+    return out
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    helper = LayerHelper("mul", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="mul", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]},
+                     attrs={"x_num_col_dims": x_num_col_dims,
+                            "y_num_col_dims": y_num_col_dims})
+    return out
+
+
+def flatten(x, axis=1, name=None):
+    helper = LayerHelper("flatten2", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype, True)
+    helper.append_op(type="flatten2", inputs={"X": [x]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs={"axis": axis})
+    return out
+
+
+def stack(x, axis=0):
+    helper = LayerHelper("stack", **locals())
+    out = helper.create_variable_for_type_inference(x[0].dtype)
+    helper.append_op(type="stack", inputs={"X": list(x)},
+                     outputs={"Y": [out]}, attrs={"axis": axis})
+    return out
+
+
+def unstack(x, axis=0, num=None):
+    helper = LayerHelper("unstack", **locals())
+    if num is None:
+        num = x.shape[axis]
+    outs = [helper.create_variable_for_type_inference(x.dtype)
+            for _ in range(num)]
+    helper.append_op(type="unstack", inputs={"X": [x]}, outputs={"Y": outs},
+                     attrs={"axis": axis, "num": num})
+    return outs
+
+
+def _arg(op_type, x, axis):
+    helper = LayerHelper(op_type)
+    out = helper.create_variable_for_type_inference("int64")
+    helper.append_op(type=op_type, inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def argmax(x, axis=0):
+    return _arg("arg_max", x, axis)
+
+
+def argmin(x, axis=0):
+    return _arg("arg_min", x, axis)
+
+
+def argsort(input, axis=-1, name=None):
+    helper = LayerHelper("argsort", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    ids = helper.create_variable_for_type_inference("int64")
+    helper.append_op(type="argsort", inputs={"X": [input]},
+                     outputs={"Out": [out], "Indices": [ids]},
+                     attrs={"axis": axis})
+    return out, ids

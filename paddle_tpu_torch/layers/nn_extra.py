@@ -4,7 +4,7 @@
 ``pixel_shuffle`` :249, ``shuffle_channel`` :255, ``temporal_shift``
 :265, ``affine_channel`` :272, ``fsp_matrix`` :279, ``grid_sampler``
 :284, ``affine_grid`` :296, ``roi_pool`` :311, ``psroi_pool`` :324,
-``unfold`` :335, ``image_resize_short`` :484).  Each appends the
+``unfold`` :335, ``sum`` :478, ``image_resize_short`` :484).  Each appends the
 reference's op type, slots and attrs; the ops are ``ops/vision.py``'s."""
 
 from ..framework import Variable
@@ -16,7 +16,7 @@ __all__ = [
     "pixel_shuffle", "shuffle_channel", "temporal_shift", "affine_channel",
     "fsp_matrix", "grid_sampler", "affine_grid", "roi_pool", "psroi_pool",
     "unfold", "image_resize_short", "elementwise_mod",
-    "elementwise_floordiv",
+    "elementwise_floordiv", "sum",
 ]
 
 
@@ -163,6 +163,12 @@ def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
         {"kernel_sizes": _pair(kernel_sizes), "strides": _pair(strides),
          "paddings": pads, "dilations": _pair(dilations)},
         outs=("Y",))
+
+
+def sum(x):
+    """The ``sum`` op over a list of Variables (or one)."""
+    return _simple("sum", {"X": list(x) if isinstance(x, (list, tuple))
+                           else [x]})
 
 
 def image_resize_short(input, out_short_len, resample="BILINEAR"):

@@ -2,15 +2,17 @@
 deformable layers of the third wave of ``layers.nn`` (mirrors
 ``paddle_tpu/layers/nn_extra2.py``: ``conv3d`` :433, ``conv3d_transpose``
 :464, ``pool3d`` :500, ``sequence_conv`` :588, ``deformable_conv`` :705,
-``deformable_roi_pooling`` :739).  Each appends the reference's op type,
-slots and attrs."""
+``deformable_roi_pooling`` :739) and ``host_embedding`` :77-116, the
+lookup into a host-resident table (:mod:`..host_table`).  Each appends
+the reference's op type, slots and attrs."""
 
+from ..framework import default_main_program
 from ..layer_helper import LayerHelper
 from .nn import _pair
 from .nn_extra import _simple
 
 __all__ = ["conv3d", "conv3d_transpose", "pool3d", "sequence_conv",
-           "deformable_conv", "deformable_roi_pooling"]
+           "deformable_conv", "deformable_roi_pooling", "host_embedding"]
 
 
 def _triple(v):
@@ -146,3 +148,35 @@ def deformable_roi_pooling(input, rois, trans, no_trans=False,
          "no_trans": bool(no_trans)},
         outs=("Output", "TopCount"))
     return out
+
+
+def host_embedding(input, size, name, lr=0.1, optimizer="sgd",
+                   dtype="float32", initializer=None, seed=0):
+    """A lookup into a host-resident table ``name`` of ``size=[rows,
+    dim]`` (:mod:`paddle_tpu_torch.host_table`), which the card never
+    holds.  Returns the slab var ``<name>@SLAB@<ids>`` ([ids..., dim]),
+    an ``is_data`` var the executor fills with the batch's rows before
+    each step; it fetches the slab's gradient and the table applies it
+    with its own rule (``sgd`` or ``adagrad``) and ``lr`` on a host
+    thread.  ``input`` must be a data var fed directly (the rows are
+    gathered from its value before the step), in the top-level block."""
+    from .. import host_table
+
+    rows, dim = int(size[0]), int(size[1])
+    host_table.get_or_create(name, rows, dim, dtype=dtype, lr=lr,
+                             optimizer=optimizer, initializer=initializer,
+                             seed=seed)
+    block = default_main_program().current_block()
+    if block.idx != 0:
+        raise ValueError("host_embedding must sit in the top-level block "
+                         "(the prefetch runs around the whole step)")
+    slab_name = "%s@SLAB@%s" % (name, input.name)
+    slab = block.create_var(name=slab_name,
+                            shape=list(input.shape) + [dim], dtype=dtype,
+                            stop_gradient=False, is_data=True)
+    prog = block.program
+    if not hasattr(prog, "_host_tables"):
+        prog._host_tables = []
+    prog._host_tables.append(
+        {"table": name, "ids": input.name, "slab": slab_name})
+    return slab

@@ -1,13 +1,13 @@
 """Op-wrapping layers (mirrors ``paddle_tpu/layers/ops.py``: the unary
 generator :18 for ``exp`` :31, ``tanh`` :33, ``sqrt`` :34, ``ceil`` /
-``floor`` :36-37, ``cos`` :38, ``sigmoid`` :47, ``gelu`` :56, ``sign``
+``floor`` :36-37, ``cos`` :38, ``square`` :43, ``log`` :60, ``sigmoid`` :47, ``gelu`` :56, ``sign``
 :60; ``pow`` :76, ``scale`` :86, the logical ops :100-129, ``cumsum``
 :137)."""
 
 from ..layer_helper import LayerHelper
 
 __all__ = ["exp", "tanh", "sigmoid", "sqrt", "ceil", "floor", "cos",
-           "sign", "gelu", "pow", "scale", "logical_and", "logical_or",
+           "sign", "gelu", "log", "square", "pow", "scale", "logical_and", "logical_or",
            "logical_xor", "logical_not", "cumsum"]
 
 
@@ -33,6 +33,8 @@ floor = _generate_unary("floor")
 cos = _generate_unary("cos")
 gelu = _generate_unary("gelu")
 sign = _generate_unary("sign")
+log = _generate_unary("log")
+square = _generate_unary("square")
 
 
 def pow(x, factor=1.0, name=None):

@@ -1,7 +1,8 @@
 """Tensor layers (mirrors ``paddle_tpu/layers/tensor.py``: ``cast`` :54,
 ``concat`` :69, ``assign`` :84, ``fill_constant`` :111,
 ``fill_constant_batch_size_like`` :129, ``range`` :202,
-``tensor_array_to_tensor`` :298)."""
+``tensor_array_to_tensor`` :298, ``sums`` :75, ``ones`` / ``zeros`` /
+``ones_like`` / ``zeros_like`` :150-176)."""
 
 import numpy as np
 
@@ -11,7 +12,8 @@ from ..layer_helper import LayerHelper
 
 __all__ = ["cast", "concat", "assign", "fill_constant",
            "fill_constant_batch_size_like", "range",
-           "tensor_array_to_tensor", "create_parameter"]
+           "tensor_array_to_tensor", "create_parameter", "sums", "ones",
+           "zeros", "ones_like", "zeros_like"]
 
 
 def cast(x, dtype):
@@ -28,6 +30,15 @@ def concat(input, axis=0, name=None):
     out = helper.create_variable_for_type_inference(input[0].dtype)
     helper.append_op(type="concat", inputs={"X": list(input)},
                      outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def sums(input, out=None):
+    helper = LayerHelper("sum", **locals())
+    if out is None:
+        out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op(type="sum", inputs={"X": list(input)},
+                     outputs={"Out": [out]})
     return out
 
 
@@ -82,6 +93,32 @@ def fill_constant_batch_size_like(input, shape, dtype, value,
         stop_gradient=True)
     out.stop_gradient = True
     return out
+
+
+def ones(shape, dtype, force_cpu=False):
+    return fill_constant(shape, dtype, 1.0)
+
+
+def zeros(shape, dtype, force_cpu=False):
+    return fill_constant(shape, dtype, 0.0)
+
+
+def _fill_like(x, value, out):
+    helper = LayerHelper("fill_any_like")
+    if out is None:
+        out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="fill_any_like", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"value": value, "dtype": -1})
+    return out
+
+
+def ones_like(x, out=None):
+    return _fill_like(x, 1.0, out)
+
+
+def zeros_like(x, out=None):
+    return _fill_like(x, 0.0, out)
 
 
 def range(start, end, step, dtype):

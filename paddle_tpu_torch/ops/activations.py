@@ -1,7 +1,7 @@
 """Activation ops (mirrors ``paddle_tpu/ops/activations.py``: ``relu`` at
 :19, whose gradient at 0 is 0 as ``jax.nn.relu``'s; the unary math ops
 the learning-rate schedules and the regularizers build, ``exp`` :23,
-``sqrt`` :25, ``ceil`` / ``floor`` :32-33, ``cos`` :35, ``sign`` :42,
+``log`` :24, ``sqrt`` :25, ``square`` :28, ``ceil`` / ``floor`` :32-33, ``cos`` :35, ``sign`` :42,
 and ``sigmoid`` :20 / ``tanh`` :22, the dygraph layers' ``act`` and the
 GRU unit's gates, each one PyTorch call; ``gelu`` at :46 — exact erf form unless
 ``approximate`` is set)."""
@@ -29,7 +29,9 @@ def _unary(name, fn):
 
 
 exp = _unary("exp", torch.exp)
+log = _unary("log", torch.log)
 sqrt = _unary("sqrt", torch.sqrt)
+square = _unary("square", torch.square)
 ceil = _unary("ceil", torch.ceil)
 floor = _unary("floor", torch.floor)
 cos = _unary("cos", torch.cos)

@@ -1,6 +1,6 @@
 """Creation ops, ``sum``, small tensor ops and feed/fetch markers (mirrors
 ``paddle_tpu/ops/basic.py`` lines 17-237: ``fill_constant_batch_size_like``
-:24, ``assign`` :95, ``assign_value`` :100, ``cast`` :116, ``sum`` :130, ``increment`` :143,
+:24, ``fill_any_like`` / ``fill_zeros_like`` :35-44, ``assign`` :95, ``assign_value`` :100, ``cast`` :116, ``sum`` :130, ``increment`` :143,
 ``clip`` / ``clip_by_norm`` / ``squared_l2_norm`` :148-161, ``range``
 :202).
 
@@ -53,6 +53,21 @@ def fill_constant_batch_size_like(ctx, attrs, Input):
         Input.shape[int(attrs.get("input_dim_idx", 0))]
     return torch.full(tuple(shape), attrs.get("value", 0.0), dtype=dtype,
                       device=Input.device)
+
+
+@register_op("fill_any_like", inputs=["X"], outputs=["Out"], no_grad=True)
+def fill_any_like(ctx, attrs, X):
+    """``value`` in X's shape, in X's dtype unless ``dtype`` names one
+    (-1: X's)."""
+    dtype = attrs.get("dtype", -1)
+    dt = X.dtype if dtype in (-1, None) else resolve_dtype(dtype)
+    return torch.full(tuple(X.shape), attrs.get("value", 0.0), dtype=dt,
+                      device=X.device)
+
+
+@register_op("fill_zeros_like", inputs=["X"], outputs=["Out"], no_grad=True)
+def fill_zeros_like(ctx, attrs, X):
+    return torch.zeros_like(X)
 
 
 @register_op("sum", inputs=["X*"], outputs=["Out"])

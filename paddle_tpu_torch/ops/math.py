@@ -1,9 +1,13 @@
 """Matmul / elementwise / reduction ops (mirrors ``paddle_tpu/ops/math.py``:
 ``mul`` at :23, ``matmul``, ``elementwise_add/sub/mul/div`` :66-68,
 ``elementwise_min/max/pow`` :69-71, ``reduce_sum`` :98, ``reduce_mean``
-:99, ``reduce_max`` :100, ``reduce_all`` / ``reduce_any`` :103-104,
-``mean`` :107,
-``pow`` :112, ``top_k`` :117, ``cumsum`` :145).  The products stay
+:99, ``reduce_max`` :100, ``reduce_min`` / ``reduce_prod`` :101-102,
+``reduce_all`` / ``reduce_any`` :103-104, ``mean`` :107,
+``pow`` :112, ``top_k`` :117, ``arg_max`` / ``arg_min`` / ``argsort``
+:126-138, ``cumsum`` :145).  Indices come back int64, the dtype the
+layers declare (the reference's are int32, jax without x64); ties go to
+the first index in ``arg_max`` / ``arg_min`` and keep their order in
+``argsort``, as jax's.  The products stay
 ``torch.matmul`` (cuBLAS), as the reference left them to XLA; with TF32
 off (set by the Executor on a CUDA place) f32 products run in full f32.
 """
@@ -106,6 +110,25 @@ def reduce_max(ctx, attrs, X):
     return _reduce(X, attrs, torch.amax)
 
 
+@register_op("reduce_min", inputs=["X"], outputs=["Out"])
+def reduce_min(ctx, attrs, X):
+    """The smallest over ``dim``; its gradient is shared evenly among
+    tied smallest values, as ``jnp.min``'s."""
+    return _reduce(X, attrs, torch.amin)
+
+
+@register_op("reduce_prod", inputs=["X"], outputs=["Out"])
+def reduce_prod(ctx, attrs, X):
+    def prod(x, dim=None, keepdim=False):
+        if dim is None:
+            return torch.prod(x)
+        for d in sorted(dim, reverse=True):
+            x = torch.prod(x, d, keepdim=keepdim)
+        return x
+
+    return _reduce(X, attrs, prod)
+
+
 def _all(x, dim=None, keepdim=False):
     return torch.all(x) if dim is None else torch.amin(
         x.bool().to(torch.uint8), dim=dim, keepdim=keepdim).bool()
@@ -144,6 +167,24 @@ def top_k(ctx, attrs, X):
     indices (the reference's are int32, jax without x64)."""
     vals, idx = torch.topk(X, int(attrs.get("k", 1)), dim=-1)
     return {"Out": vals, "Indices": idx}
+
+
+@register_op("arg_max", inputs=["X"], outputs=["Out"], no_grad=True)
+def arg_max(ctx, attrs, X):
+    return torch.argmax(X, dim=int(attrs.get("axis", -1)))
+
+
+@register_op("arg_min", inputs=["X"], outputs=["Out"], no_grad=True)
+def arg_min(ctx, attrs, X):
+    return torch.argmin(X, dim=int(attrs.get("axis", -1)))
+
+
+@register_op("argsort", inputs=["X"], outputs=["Out", "Indices"],
+             no_grad=True)
+def argsort(ctx, attrs, X):
+    """Ascending along ``axis``, stable (``jnp.argsort``'s order)."""
+    out, idx = torch.sort(X, dim=int(attrs.get("axis", -1)), stable=True)
+    return {"Out": out, "Indices": idx}
 
 
 @register_op("cumsum", inputs=["X"], outputs=["Out"])

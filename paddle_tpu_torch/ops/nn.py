@@ -5,6 +5,7 @@ lookup_table/embedding :138-152, one_hot :167,
 layer_norm :182, batch_norm :220, conv2d/depthwise_conv2d (``_conv_nd``
 :290, :323-330), pool2d (``_pool_nd`` :372, :435), accuracy :440,
 fused_multihead_attention :523, fused_dropout_add_ln :555,
+sigmoid_cross_entropy_with_logits :473,
 fused_bias_act :582, fused_conv_bn_act :598, fused_embedding_gather
 :674; the dygraph layers' conv3d :333, conv2d_transpose :338, prelu :511,
 spectral_norm :805, row_conv :837, nce :872, conv3d_transpose :968,
@@ -246,6 +247,22 @@ def fused_dropout_add_ln(ctx, attrs, X, Residual, Scale, Bias):
 def square_error_cost(ctx, attrs, X, Y):
     """``(X - Y)²`` elementwise (the reference's :468)."""
     return torch.square(X - Y)
+
+
+@register_op("sigmoid_cross_entropy_with_logits", inputs=["X", "Label"],
+             outputs=["Out"])
+def sigmoid_cross_entropy_with_logits(ctx, attrs, X, Label):
+    """The reference's stable form, ``max(x, 0) - x * z + log1p(exp(-|x|))``,
+    zero where the label is ``ignore_index``; ``normalize`` divides by the
+    count of the other labels (at least 1)."""
+    ignore = attrs.get("ignore_index", -100)
+    loss = torch.clamp(X, min=0) - X * Label \
+        + torch.log1p(torch.exp(-torch.abs(X)))
+    ignored = Label == ignore
+    loss = torch.where(ignored, torch.zeros_like(loss), loss)
+    if attrs.get("normalize", False):
+        loss = loss / torch.clamp((~ignored).to(loss.dtype).sum(), min=1.0)
+    return loss
 
 
 @register_op("fused_bias_act", inputs=["X", "Bias"], outputs=["Out"])

@@ -1,7 +1,8 @@
 """Shape and indexing ops (mirrors ``paddle_tpu/ops/tensor_manip.py``:
 ``reshape2`` at :79, ``transpose2`` at :91, ``squeeze2`` :146,
 ``concat`` :97, ``split`` :102, ``slice`` :119, ``unsqueeze2`` :160,
-``gather`` :203, ``expand`` :227, ``pad`` :246).
+``gather`` :203, ``expand`` :227, ``pad`` :246; ``flatten`` /
+``flatten2`` :169-186, ``stack`` / ``unstack`` :190-199).
 ``XShape`` is a zero-size placeholder kept for program-structure parity
 with serialized reference models.  ``slice`` returns a view, as
 ``reshape2`` and ``transpose2`` may: a kernel wrapper that needs
@@ -90,6 +91,41 @@ def unsqueeze2(ctx, attrs, X):
     for a in sorted(attrs.get("axes", [])):
         out = torch.unsqueeze(out, a)
     return {"Out": out, "XShape": _xshape(X)}
+
+
+def _flatten(X, attrs):
+    axis = int(attrs.get("axis", 1))
+    lead = 1
+    for d in X.shape[:axis]:
+        lead *= d
+    return torch.reshape(X, (lead, -1))
+
+
+@register_op("flatten", inputs=["X"], outputs=["Out"])
+def flatten(ctx, attrs, X):
+    """``[d0..d(axis-1), ...]`` → ``[prod(d0..d(axis-1)), rest]``."""
+    return _flatten(X, attrs)
+
+
+@register_op("flatten2", inputs=["X"], outputs=["Out", "XShape"],
+             stateful_outputs=("XShape",))
+def flatten2(ctx, attrs, X):
+    return {"Out": _flatten(X, attrs), "XShape": _xshape(X)}
+
+
+@register_op("stack", inputs=["X*"], outputs=["Y"])
+def stack(ctx, attrs, X):
+    return torch.stack(list(X), dim=int(attrs.get("axis", 0)))
+
+
+@register_op("unstack", inputs=["X"], outputs=["Y*"])
+def unstack(ctx, attrs, X):
+    """``num`` parts along ``axis`` (all of it by default), each with
+    that axis dropped."""
+    axis = int(attrs.get("axis", 0))
+    num = int(attrs.get("num") or X.shape[axis])
+    return {"Y": [torch.squeeze(p, axis)
+                  for p in torch.chunk(X, num, dim=axis)]}
 
 
 @register_op("concat", inputs=["X*"], outputs=["Out"])

@@ -341,9 +341,10 @@ def _stage(value, device, name=None, cache=None):
     return dev
 
 
-def device_put_feed(feed, cache=None, place=None):
+def device_put_feed(feed, cache=None, place=None, keep_on_host=()):
     """Stage one feed item on the device of ``place`` (default
-    ``CUDAPlace(0)``): dict (name→array) feeds cache by name; tuple/list
+    ``CUDAPlace(0)``): dict (name→array) feeds cache by name, except the
+    names in ``keep_on_host``, which pass through as they are; tuple/list
     items stage each ndarray leaf.  Anything else passes through.  On a
     CUDA device the copies are enqueued on the current stream."""
     from .core import as_torch_device
@@ -351,7 +352,8 @@ def device_put_feed(feed, cache=None, place=None):
     device = place if isinstance(place, torch.device) \
         else as_torch_device(place)
     if isinstance(feed, dict):
-        return {n: _stage(v, device, name=n, cache=cache)
+        return {n: v if n in keep_on_host
+                else _stage(v, device, name=n, cache=cache)
                 for n, v in feed.items()}
     if isinstance(feed, (list, tuple)):
         return type(feed)(_stage(v, device) for v in feed)
@@ -375,7 +377,9 @@ class DeviceFeedPipeline:
 
     ``source``: an iterable of feed items (dicts/tuples of arrays) or a
     zero-arg callable returning one (a reader creator); ``place``: where
-    the feeds go (default ``CUDAPlace(0)``; ``CPUPlace()`` for the CPU).
+    the feeds go (default ``CUDAPlace(0)``; ``CPUPlace()`` for the CPU);
+    ``keep_on_host``: dict names left as host arrays (the ids a
+    host-resident table's prefetch reads on the host).
     A worker thread pulls items and stages each on a CUDA stream of its
     own into a depth-bounded queue with the event recorded after it, so
     while step k computes, batch k+1 (and up to ``depth-1`` more) is
@@ -384,9 +388,11 @@ class DeviceFeedPipeline:
     tensor as used on that stream.  Worker exceptions re-raise in the
     consumer; ``stop()`` tears the current epoch down."""
 
-    def __init__(self, source, depth=None, cache=None, place=None):
+    def __init__(self, source, depth=None, cache=None, place=None,
+                 keep_on_host=()):
         from .core import as_torch_device
 
+        self._keep = frozenset(keep_on_host)
         self._source = source
         self._depth = depth if depth is not None else pipeline_depth()
         self._cache = FeedCache() if cache is None else cache
@@ -418,10 +424,12 @@ class DeviceFeedPipeline:
         def stage(item):
             if device.type != "cuda":
                 return _Staged(device_put_feed(
-                    item, cache=self._cache, place=device), None, device)
+                    item, cache=self._cache, place=device,
+                    keep_on_host=self._keep), None, device)
             with torch.cuda.stream(stream):
                 staged = device_put_feed(item, cache=self._cache,
-                                         place=device)
+                                         place=device,
+                                         keep_on_host=self._keep)
                 ready = torch.cuda.Event()
                 ready.record(stream)
             return _Staged(staged, ready, device)

@@ -128,7 +128,8 @@ _MAX_REWRITES = 10000
 # program marks Program.clone() does not carry that the resolved clone
 # must keep (the reference's _PROGRAM_MARKS, :119, as far as the port
 # reads them)
-_PROGRAM_MARKS = ("_num_trainers", "_trainer_id", "_hbm_budget",
+_PROGRAM_MARKS = ("_num_trainers", "_trainer_id", "_host_tables",
+                  "_hbm_budget",
                   "_nan_guard", "_guard_loss_name", "_pipeline_stage",
                   "_allreduce_bucket_mb", "_shard_optimizer_state",
                   "_quant_buckets", "_overlap", "_hierarchy",

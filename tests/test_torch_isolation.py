@@ -13,8 +13,10 @@ LSTM, with the beam-search ops and layers; the speculative decoder, the
 seq2seq decoder DSL, SE-ResNeXt, VGG, ``nets`` and the vision ops; the
 data-parallel runner behind ``CompiledProgram`` with ZeRO-1 and
 iterations per run, the collective transpilers and layers, the
-collective fleet and the quantized-collective chaos drill), its
-entry points run on the GPU
+collective fleet and the quantized-collective chaos drill; the CTR
+data path: datasets, ``train_from_dataset``, host-resident tables, the
+native parsers, the readers and ``DataFeeder``, the data generators,
+``datasets`` and the CTR and MNIST models), its entry points run on the GPU
 unless the caller asks for the CPU, and what it has not ported yet
 raises rather than being skipped silently."""
 
@@ -382,6 +384,43 @@ DistributeTranspiler(cfg).transpile(0, program=main.clone(), trainers=2,
 code, rec = chaos.run_quant_drill(steps=6, device="cpu",
                                   echo=lambda s: None)
 assert code == 0 and len(rec["losses_quant"]) == 6, rec
+from paddle_tpu_torch import (data_feeder, dataset, host_table, native,
+                              reader, reader_decorators)
+from paddle_tpu_torch.incubate import data_generator
+from paddle_tpu_torch import datasets
+from paddle_tpu_torch.models import ctr, mnist
+ctr_dir = tempfile.mkdtemp()
+with open(os.path.join(ctr_dir, "part-0"), "w") as f:
+    for i in range(8):
+        f.write("2 %d %d 2 %d 0 1 %d\n" % (i + 1, i + 2, i + 3, i % 2))
+main, startup, feeds, loss, _ = ctr.build(
+    model="deepfm", num_slots=2, slot_len=2, vocab=50, embed_dim=8)
+ds = fluid.DatasetFactory().create_dataset("QueueDataset")
+ds.set_batch_size(4)
+ds.set_use_var(feeds)
+ds.set_filelist([os.path.join(ctr_dir, "part-0")])
+with fluid.scope_guard(fluid.Scope()):
+    exe = fluid.Executor(fluid.CPUPlace())
+    exe.run(startup)
+    out = exe.train_from_dataset(program=main, dataset=ds,
+                                 fetch_list=[loss], print_period=0)
+assert len(out) == 2 and np.isfinite(out[-1][0]).all(), out
+assert native.is_native()
+hl = ctr.run_deepfm_host_table_steps(steps=2, vocab=500, batch=4,
+                                     place=fluid.CPUPlace())
+assert len(hl) == 2 and np.isfinite(hl).all(), hl
+mmain, mstart, mfeeds, mloss, _ = mnist.build()
+loader = fluid.DataLoader.from_generator(feed_list=mfeeds, capacity=2)
+loader.decorate_sample_list_generator(
+    fluid.batch(reader_decorators.firstn(datasets.mnist.train(), 16), 8),
+    places=fluid.CPUPlace())
+with fluid.scope_guard(fluid.Scope()):
+    exe = fluid.Executor(fluid.CPUPlace())
+    exe.run(mstart)
+    ml = [exe.run(mmain, feed=b, fetch_list=[mloss])[0] for b in loader]
+assert len(ml) == 2 and np.isfinite(ml).all(), ml
+assert data_feeder.DataFeeder(mfeeds, program=mmain).feed(
+    [(np.zeros(784, "float32"), 1)])["label"].shape == (1, 1)
 assert not any(m.split(".")[0] in ("jax", "paddle_tpu")
                for m in sys.modules), sorted(sys.modules)
 print("ISOLATED-OK")
@@ -452,6 +491,45 @@ def test_decode_engine_defaults_to_cuda_and_raises_without_it(no_cuda):
                                      prompt_buckets=(4,),
                                      place=fluid.CPUPlace(), auto_start=False)
     assert eng.place == fluid.CPUPlace() and eng.paged
+
+
+def test_data_path_defaults_to_cuda_and_raises_without_it(no_cuda,
+                                                         tmp_path):
+    import numpy as np
+
+    from paddle_tpu_torch.models import mnist
+
+    fluid.unique_name.switch()
+    main, startup, feeds, loss, _ = mnist.build()
+    path = str(tmp_path / "part")
+    with open(path, "w") as f:
+        f.write("784 %s 1 3\n" % " ".join(["0.5"] * 784))
+    ds = fluid.DatasetFactory().create_dataset("QueueDataset")
+    ds.set_use_var(feeds)
+    ds.set_filelist([path])
+    # train_from_dataset runs on its executor's place: CUDA by default
+    with pytest.raises(RuntimeError, match="CUDAPlace"):
+        fluid.Executor(fluid.CUDAPlace(0)).train_from_dataset(
+            program=main, dataset=ds, fetch_list=[loss])
+    rows = [(np.zeros(784, "float32"), 1)]
+    loader = fluid.DataLoader.from_generator(feed_list=feeds, capacity=2)
+    loader.decorate_sample_list_generator(lambda: iter([rows]))
+    with pytest.raises(RuntimeError, match="CUDAPlace"):
+        list(loader)
+    plain = fluid.PyReader(feed_list=feeds, use_double_buffer=False)
+    plain.decorate_sample_list_generator(lambda: iter([rows]))
+    assert [b["img"].shape for b in plain] == [(1, 784)]  # host batches
+
+
+def test_native_build_writes_nothing_under_the_sources():
+    from paddle_tpu_torch import native
+
+    src = os.path.dirname(native.__file__)
+    before = sorted(os.walk(src))
+    assert native.is_native()
+    assert sorted(os.walk(src)) == before
+    assert not os.path.commonpath([native.library_path(), src]) == src
+    assert "_build" in native.library_path().split(os.sep)
 
 
 def test_feed_pipeline_defaults_to_cuda_and_raises_without_it(no_cuda):

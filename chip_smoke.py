@@ -418,11 +418,39 @@ and the CUDA toolkit.  Phases, each printing one JSON line:
    the card (images/s, syncs an epoch), the test set through
    ``DataFeeder`` (accuracy at least 0.9), then 200 steps of
    ``models.mnist`` conv_net;
-43. ctr_parity (last): DeepFM at 4 slots x 3 ids, vocabulary 20000, dim
+43. ctr_parity: DeepFM at 4 slots x 3 ids, vocabulary 20000, dim
    128, batch 256, 5 Adam steps on the card and on the CPU from one
    start, device tables and host tables, losses within 1e-4; and
    tests/test_host_table.py's oracle on the card: a host-table SGD run
-   equals a device-table run from the same table within 1e-5.
+   equals a device-table run from the same table within 1e-5;
+44. everyday_ops: the 72 op types of the everyday slice (the
+   activations, ``maximum`` / ``minimum``, the basic and v1 shape ops,
+   ``gather_nd`` / ``scatter`` / ``pad2d`` and the rest, the nn ops, the
+   losses, the metrics, ``diag``) on the card against the CPU on the
+   same inputs, forward and gradient, at the shapes of the models each
+   sits in (the activations on BERT-base's FFN tensor [4096, 3072], f32
+   and for the AMP white list's bf16; ``pad2d`` on ResNet-50's input,
+   NHWC and NCHW; the CTR rows of a [200000, 128] table; BERT's 30522
+   vocabulary; ``hash`` on [16384, 4] ids; ``data_norm`` on 13 dense
+   features at batch 4096): floats within 1e-5 of max(1, |CPU|) (bf16
+   within one bf16 unit), integers and bools exact, the random ops in
+   range with their moments; a line a group with its worst error and
+   its forwards' times (a CUDA graph's replay for the card's time, and
+   the eager call); and a program holding
+   ``uniform_random_batch_size_like`` replayed from a CUDA graph,
+   drawing anew each call;
+45. resnet_label_smooth: ResNet-50 NHWC at batch 64 with PaddleCV's
+   label-smoothing head (``one_hot`` → ``label_smooth(0.1)`` → soft-label
+   ``softmax_with_cross_entropy``), Momentum: eager against graph bit
+   for bit over 3 steps (deterministic cuDNN), graph step ms, device ms
+   and idle share, K4 65 + 65 launches a replayed step, 0 host syncs a
+   step; ResNet-18 at 64x64, batch 4, one step card against CPU within
+   1e-4;
+46. lookup_v2 (last): DeepFM at the ``ctr`` widths with its lookups
+   emitted as ``lookup_table_v2``: K3 forward and backward 8 + 8 graph
+   nodes a replayed step, eager against graph, the graph step ms, and
+   the loss and every table after 3 steps bit for bit against the same
+   program built with ``lookup_table``.
 
 The whole run reads and writes a fresh autotune cache in a temp
 directory (``PADDLE_TPU_AUTOTUNE_CACHE``), so no decision of an earlier
@@ -460,7 +488,10 @@ shape (ids [16384] int64 with padding id 0 over a [200000, 128] float32
 table; the backward also against its sorted twin and twice bit for bit)
 and the Adam update at [200000, 128] bit for bit, each timed beside its
 bound, its plain version and ``F.embedding`` / ``index_add_`` into
-zeros.  Then one JSON line lists every ported
+zeros; then the method's floor (an empty kernel, L2 evicted, CUDA
+events) beside K3 forward at the CTR shape and K4 forward at [3136,
+512], with each one's share of its bound above it.  Then one JSON line
+lists every ported
 kernel with its launches on the decode path (or, for the backward
 kernels, the BERT training run; for K4 the ResNet training run; for K7
 the data-parallel run's quant twin, rank 0), its launches on every path
@@ -2946,6 +2977,7 @@ def phase_kernels():
     for r in rows + extra + update_extra + decode_extra + bn_extra \
             + quant_extra + ctr_extra:
         emit(dict({"phase": "kernels", "timing": True}, **r))
+    emit(launch_floor_line(torch, bn_extra + ctr_extra))
     torch.cuda.empty_cache()
     return rows
 
@@ -7526,11 +7558,11 @@ def _sampled_kept_set(env, torch, vocab):
     """The sampling noise on the card (module docstring, 17): finite at
     the generator's extreme codes, and no top-p draw outside the kept
     set over ``KEPT_SET_ROWS`` x ``KEPT_SET_STEPS`` row-steps."""
-    from paddle_tpu_torch.ops import decode as ops_decode
+    from paddle_tpu_torch.ops import common as ops_common
     from paddle_tpu_torch.ops import registry
 
     codes = torch.cat([torch.arange(1024), 0xFFFFFFFF - torch.arange(1024)])
-    u = ops_decode._uniform(codes.to("cuda"))
+    u = ops_common.uniform_of_bits(codes.to("cuda"))
     finite = bool(((u > 0) & (u < 1)).all()) and bool(
         torch.isfinite(-torch.log(-torch.log(u))).all())
     gen = torch.Generator(device="cpu").manual_seed(SEED + 17)
@@ -13469,6 +13501,732 @@ def time_ctr_kernels(torch, gen, errs):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the everyday op types (this slice): each on the card against its CPU run,
+# at the shape of the supported model it sits in
+# ---------------------------------------------------------------------------
+
+EVERYDAY_TOL = 1e-5        # floats, of max(1, |CPU|), f32 with TF32 off
+EVERYDAY_BF16_TOL = 2.0 ** -7   # bf16 results: one bf16 unit of the scale
+EVERYDAY_BERT = (8, 512, 768, 12)   # BERT-base: batch, T, hidden, heads
+EVERYDAY_FFN = 3072        # its FFN activations are [8 x 512, 3072]
+EVERYDAY_MLM_ROWS = 8 * 80  # BERT's masked positions a batch (8 x 80)
+EVERYDAY_VOCAB = 30522     # BERT's vocabulary
+EVERYDAY_REPLAYS = 4       # uniform_random_batch_size_like's program calls
+# ResNet-50 ImageNet training as PaddleCV's image_classification recipe
+# runs it with --use_label_smoothing (epsilon 0.1)
+LS_EPS = 0.1
+LS_STEPS = 3               # eager and graph, bit for bit
+LS_TIMED = 5               # graph replays timed after them
+LS_PARITY = {"depth": 18, "hw": 64, "batch": 4}  # test_torch_resnet's slice
+LS_PARITY_RTOL = 1e-4      # loss and updated fc weight, card vs CPU
+V2_STEPS = 3               # lookup_table_v2 against lookup_table, bit for bit
+V2_TIMED = 5
+
+
+def resnet_label_smooth_program(fluid, resnet, hw, depth=50, lr=0.1,
+                                eps=LS_EPS, class_dim=1000):
+    """ResNet ImageNet NHWC at an hw x hw input with the label-smoothing
+    head of PaddleCV's image_classification train.py
+    (``--use_label_smoothing``): ``one_hot(label, class_dim)`` →
+    ``label_smooth(epsilon)`` → ``softmax_with_cross_entropy(soft_label=
+    True)``, the mean loss; Momentum (0.9, Nesterov) as ``resnet.build``
+    sets it.  → (main, startup, loss)."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        img = fluid.layers.data("img", shape=[hw, hw, 3], dtype="float32")
+        label = fluid.layers.data("label", shape=[1], dtype="int64")
+        logits = resnet.resnet_imagenet(img, class_dim, depth, False, "NHWC")
+        soft = fluid.layers.label_smooth(
+            fluid.layers.one_hot(label, class_dim), epsilon=eps,
+            dtype="float32")
+        loss = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(
+            logits, soft, soft_label=True))
+        fluid.optimizer.Momentum(learning_rate=lr, momentum=0.9,
+                                 use_nesterov=True).minimize(loss)
+    return main, startup, loss
+
+
+def as_lookup_v2(program):
+    """``program`` with its ``lookup_table`` ops (and their grads)
+    emitted as ``lookup_table_v2``, as a Fluid program exported with v2
+    embeddings has them; ids without a trailing 1 mean the same in
+    both."""
+    for block in program.blocks:
+        for op in block.ops:
+            if op.type in ("lookup_table", "lookup_table_grad"):
+                op.type = op.type.replace("lookup_table", "lookup_table_v2")
+    program._version = getattr(program, "_version", 0) + 1
+    return program
+
+
+def _everyday_cases(torch, gen):
+    """``[(group, op type, inputs, attrs, wrt, check)]`` at the shapes of
+    the models each op sits in; inputs are CPU tensors from ``gen``,
+    ``check`` is "exact" (integer and bool results), "float", "bf16"
+    or, for a random op, a function of the card's outputs that returns
+    a failure or None."""
+    f32 = torch.float32
+    randn = lambda *s: torch.randn(s, generator=gen)  # noqa: E731
+    uni = lambda lo, hi, *s: lo + (hi - lo) * torch.rand(  # noqa: E731
+        s, generator=gen)
+    ids = lambda hi, *s: torch.randint(0, hi, s, generator=gen)  # noqa: E731
+    b, t, h, heads = EVERYDAY_BERT
+    rows, ffn = b * t, EVERYDAY_FFN
+    act_x = 3 * randn(rows, ffn)
+    cases = []
+    for op in ("abs", "atan", "erf", "sin", "round", "logsigmoid",
+               "softsign", "tanh_shrink", "relu6", "softplus", "elu",
+               "stanh", "hard_sigmoid", "hard_swish", "swish", "brelu",
+               "soft_relu", "thresholded_relu", "hard_shrink",
+               "softshrink", "leaky_relu", "selu"):
+        cases.append(("activations f32 [4096, 3072]", op, {"X": act_x}, {},
+                      ["X"], "float"))
+    for op in ("acos", "asin"):
+        cases.append(("activations f32 [4096, 3072]", op,
+                      {"X": uni(-0.9, 0.9, rows, ffn)}, {}, ["X"], "float"))
+    for op in ("rsqrt", "reciprocal"):
+        cases.append(("activations f32 [4096, 3072]", op,
+                      {"X": act_x.abs() + 0.5}, {}, ["X"], "float"))
+    for op, attrs in (("swish", {"beta": 1.0}), ("leaky_relu",
+                                                 {"alpha": 0.02})):
+        cases.append(("activations bf16 (AMP white list) [4096, 3072]", op,
+                      {"X": act_x.to(torch.bfloat16)}, attrs, ["X"],
+                      "bf16"))
+    hid = randn(rows, h)
+    with_inf = randn(rows, ffn)
+    with_inf[7, 11] = float("inf")
+    with_inf[-3, 5] = float("nan")
+    g = "math and basic (BERT-base hidden [4096, 768])"
+    cases += [
+        (g, "maximum", {"X": hid, "Y": randn(rows, h)}, {}, ["X", "Y"],
+         "float"),
+        (g, "minimum", {"X": hid, "Y": randn(rows, h)}, {}, ["X", "Y"],
+         "float"),
+        (g, "isfinite", {"X": [hid, with_inf]}, {}, [], "exact"),
+        (g, "isinf", {"X": [hid, with_inf]}, {}, [], "exact"),
+        (g, "isnan", {"X": [hid]}, {}, [], "exact"),
+        (g, "linspace", {"Start": torch.tensor([-1.0]),
+                         "Stop": torch.tensor([1.0])},
+         {"num": EVERYDAY_VOCAB}, [], "float"),
+        (g, "shape", {"Input": hid.reshape(b, t, h)}, {}, [], "exact"),
+        (g, "share_data", {"X": hid}, {}, ["X"], "float"),
+        (g, "diag", {"Diagonal": randn(ffn)}, {}, [], "float"),
+        (g, "randint", {}, {"shape": [K3_CTR_IDS, 4], "low": 0,
+                            "high": CTR_VOCAB},
+         [], lambda o: _check_uniform_ints(o["Out"][0], 0, CTR_VOCAB)),
+    ]
+    seq = randn(b, t, h)
+    img = randn(RESNET_BATCH, RESNET_HW, RESNET_HW, 3)
+    g = "shape ops (BERT [8, 512, 768]; ResNet input [64, 224, 224, 3])"
+    cases += [
+        (g, "reshape", {"X": seq}, {"shape": [0, 0, heads, h // heads]},
+         ["X"], "float"),
+        (g, "transpose", {"X": seq.reshape(b, t, heads, h // heads)},
+         {"axis": [0, 2, 1, 3]}, ["X"], "float"),
+        (g, "squeeze", {"X": seq.reshape(b, t, 1, h)}, {"axes": [2]},
+         ["X"], "float"),
+        (g, "unsqueeze", {"X": seq}, {"axes": [1]}, ["X"], "float"),
+        (g, "expand_as", {"X": randn(b, 1, h), "target_tensor": seq}, {},
+         ["X"], "float"),
+        (g, "tile", {"X": randn(1, h)}, {"repeat_times": [rows, 1]},
+         ["X"], "float"),
+        (g, "reverse", {"X": seq}, {"axis": [1]}, ["X"], "float"),
+        (g, "lod_reset", {"X": hid, "Y": torch.arange(b + 1) * t}, {},
+         ["X"], "float"),
+        (g, "im2sequence", {"X": randn(64, 3, 32, 100)},
+         {"kernels": [3, 3], "strides": [1, 1], "paddings": [1, 1, 1, 1]},
+         [], "float"),
+    ]
+    for mode in ("constant", "reflect", "edge"):
+        for fmt, x in (("NHWC", img), ("NCHW", img.permute(0, 3, 1, 2)
+                                       .contiguous())):
+            cases.append((g, "pad2d", {"X": x},
+                          {"paddings": [3, 3, 3, 3], "mode": mode,
+                           "data_format": fmt}, ["X"], "float"))
+    table = randn(CTR_VOCAB, CTR_DIM) * 0.01
+    rows_ids = ids(CTR_VOCAB, K3_CTR_IDS, 1)
+    g = "CTR rows (ids [16384] of a [200000, 128] table)"
+    cases += [
+        (g, "gather_nd", {"X": table, "Index": rows_ids}, {}, ["X"],
+         "float"),
+        (g, "scatter", {"X": table, "Ids": rows_ids,
+                        "Updates": randn(K3_CTR_IDS, CTR_DIM)},
+         {"overwrite": True}, ["X", "Updates"], "float"),
+        (g, "scatter", {"X": table, "Ids": rows_ids,
+                        "Updates": randn(K3_CTR_IDS, CTR_DIM)},
+         {"overwrite": False}, ["X", "Updates"], "float"),
+        (g, "multiplex", {"X": [randn(K3_CTR_IDS, CTR_DIM)
+                                for _ in range(3)],
+                          "Ids": ids(3, K3_CTR_IDS, 1)}, {}, ["X"], "float"),
+        (g, "lookup_table_v2", {"W": table,
+                                "Ids": ids(CTR_VOCAB, CTR_BATCH, CTR_LEN)},
+         {"padding_idx": 0}, ["W"], "float"),
+        (g, "lookup_sparse_table", {"W": table, "Ids": rows_ids}, {}, ["W"],
+         "float"),
+        (g, "hash", {"X": ids(CTR_VOCAB, K3_CTR_IDS, 4)},
+         {"num_hash": 2, "mod_by": CTR_VOCAB}, [], "exact"),
+        (g, "data_norm", {"X": randn(CTR_BATCH, 13),
+                          "BatchSize": 1e4 + uni(0, 10, 13),
+                          "BatchSum": randn(13),
+                          "BatchSquareSum": 1e4 + uni(0, 10, 13)}, {},
+         ["X", "BatchSize", "BatchSum", "BatchSquareSum"], "float"),
+        (g, "huber_loss", {"X": randn(CTR_BATCH, 1), "Y": randn(CTR_BATCH, 1)},
+         {"delta": 1.0}, ["X", "Y"], "float"),
+        (g, "log_loss", {"Predicted": uni(0.05, 0.95, CTR_BATCH, 1),
+                         "Labels": ids(2, CTR_BATCH, 1).float()}, {},
+         ["Predicted"], "float"),
+        (g, "rank_loss", {"Label": ids(2, CTR_BATCH, 1).float(),
+                          "Left": randn(CTR_BATCH, 1),
+                          "Right": randn(CTR_BATCH, 1)}, {},
+         ["Left", "Right"], "float"),
+        (g, "margin_rank_loss", {"Label": ids(2, CTR_BATCH, 1).float() * 2 - 1,
+                                 "X1": randn(CTR_BATCH, 1),
+                                 "X2": randn(CTR_BATCH, 1)},
+         {"margin": 0.1}, ["X1", "X2"], "float"),
+        (g, "teacher_student_sigmoid_loss", {
+            "X": 2 * randn(CTR_BATCH, 1), "Label": uni(-2.5, 2.5, CTR_BATCH,
+                                                       1)}, {}, ["X"],
+         "float"),
+        (g, "bpr_loss", {"X": randn(CTR_BATCH, 100),
+                         "Label": ids(100, CTR_BATCH, 1)}, {}, ["X"],
+         "float"),
+        (g, "precision_recall", {
+            "MaxProbs": uni(0, 1, CTR_BATCH, 1),
+            "Indices": ids(10, CTR_BATCH, 1), "Labels": ids(10, CTR_BATCH, 1),
+            "Weights": uni(0.1, 1, CTR_BATCH, 1),
+            "StatesInfo": ids(50, 10, 4).float()}, {"class_number": 10}, [],
+         "float"),
+        (g, "positive_negative_pair", {
+            "Score": randn(2048, 1).round(decimals=1),
+            "Label": ids(3, 2048, 1).float(), "QueryID": ids(64, 2048, 1),
+            "Weight": uni(0.1, 1, 2048, 1)}, {}, [], "float"),
+        (g, "uniform_random_batch_size_like", {"Input": randn(CTR_BATCH, 13)},
+         {"shape": [-1, CTR_DIM], "min": -1.0, "max": 1.0}, [],
+         lambda o: _check_uniform(o["Out"][0], -1.0, 1.0)),
+        (g, "gaussian_random_batch_size_like",
+         {"Input": randn(CTR_BATCH, 13)},
+         {"shape": [-1, CTR_DIM], "mean": 0.0, "std": 1.0}, [],
+         lambda o: _check_normal(o["Out"][0], 0.0, 1.0)),
+    ]
+    mlm, vocab = EVERYDAY_MLM_ROWS, EVERYDAY_VOCAB
+    lab = ids(vocab, mlm, 1)
+    onehot = torch.zeros(mlm, vocab).scatter_(1, lab, 1.0)
+    logits = 2 * randn(mlm, vocab)
+    probs = torch.softmax(logits, dim=1)
+    neg = ids(vocab, 64)
+    samples = torch.cat([lab, neg[None, :].expand(mlm, 64)], dim=1)
+    sf = samples.float()
+    q = torch.log((sf + 2) / (sf + 1)) / torch.log(torch.tensor(vocab + 1.0))
+    g = "BERT vocabulary (640 masked rows x 30522) and positions"
+    cases += [
+        (g, "one_hot_v2", {"X": lab[:, 0]}, {"depth": vocab}, [], "float"),
+        (g, "label_smooth", {"X": onehot}, {"epsilon": 0.1}, ["X"], "float"),
+        (g, "label_smooth", {"X": onehot, "PriorDist": torch.softmax(
+            randn(1, vocab), dim=1)}, {"epsilon": 0.1},
+         ["X", "PriorDist"], "float"),
+        (g, "kldiv_loss", {"X": torch.log_softmax(logits, dim=1),
+                           "Target": probs}, {"reduction": "batchmean"},
+         ["X"], "float"),
+        (g, "kldiv_loss", {"X": torch.log_softmax(logits, dim=1),
+                           "Target": probs}, {"reduction": "none"}, ["X"],
+         "float"),
+        (g, "sampled_softmax_with_cross_entropy", {
+            "Logits": logits, "Label": lab, "CustomizedSamples": samples,
+            "CustomizedProbabilities": q},
+         {"num_samples": 64, "use_customized_samples": True}, ["Logits"],
+         "float"),
+        (g, "sampled_softmax_with_cross_entropy",
+         {"Logits": logits, "Label": lab}, {"num_samples": 64}, [],
+         lambda o: _check_finite(o["Loss"][0], (mlm, 1))),
+        (g, "sampling_id", {"X": probs}, {},
+         [], lambda o: _check_ints(o["Out"][0], (mlm,), 0, vocab)),
+        (g, "hierarchical_sigmoid", {
+            "X": randn(CTR_BATCH, 128), "W": 0.1 * randn(9999, 128),
+            "Label": ids(10000, CTR_BATCH, 1), "Bias": randn(9999, 1)},
+         {"num_classes": 10000}, ["X", "W", "Bias"], "float"),
+        (g, "add_position_encoding", {"X": seq}, {"alpha": 1.0,
+                                                  "beta": 1.0},
+         ["X"], "float"),
+        (g, "smooth_l1_loss", {"X": randn(CTR_BATCH, 4),
+                               "Y": randn(CTR_BATCH, 4),
+                               "InsideWeight": uni(0, 1, CTR_BATCH, 4),
+                               "OutsideWeight": uni(0, 1, CTR_BATCH, 4)},
+         {"sigma": 3.0}, ["X", "Y"], "float"),
+        (g, "mean_iou", {"Predictions": ids(19, 8, 512, 512).int(),
+                         "Labels": ids(19, 8, 512, 512).int()},
+         {"num_classes": 19}, [], "float"),
+    ]
+    return cases
+
+
+def _check_finite(t, shape):
+    import torch
+
+    if tuple(t.shape) != shape or not bool(torch.isfinite(t).all()):
+        return "shape %s or not finite" % (tuple(t.shape),)
+    return None
+
+
+def _check_ints(t, shape, lo, hi):
+    import torch
+
+    if tuple(t.shape) != shape or t.dtype != torch.int64:
+        return "shape %s dtype %s" % (tuple(t.shape), t.dtype)
+    if int(t.min()) < lo or int(t.max()) >= hi:
+        return "values outside [%d, %d)" % (lo, hi)
+    return None
+
+
+def _check_uniform_ints(t, lo, hi):
+    bad = _check_ints(t, tuple(t.shape), lo, hi)
+    if bad:
+        return bad
+    n, mean = t.numel(), (lo + hi - 1) / 2.0
+    sd = ((hi - lo) ** 2 / 12.0) ** 0.5
+    if abs(float(t.double().mean()) - mean) > 5 * sd / n ** 0.5:
+        return "mean %.1f, want %.1f" % (float(t.double().mean()), mean)
+    return None
+
+
+def _check_uniform(t, lo, hi):
+    n = t.numel()
+    if float(t.min()) < lo or float(t.max()) >= hi:
+        return "values outside [%g, %g)" % (lo, hi)
+    sd = (hi - lo) / 12 ** 0.5
+    if abs(float(t.double().mean()) - (lo + hi) / 2) > 5 * sd / n ** 0.5:
+        return "mean %g" % float(t.double().mean())
+    return None
+
+
+def _check_normal(t, mean, std):
+    n = t.numel()
+    m, s = float(t.double().mean()), float(t.double().std())
+    if abs(m - mean) > 5 * std / n ** 0.5 \
+            or abs(s - std) > 5 * std / (2 * n) ** 0.5:
+        return "mean %g std %g" % (m, s)
+    return None
+
+
+def _everyday_run(torch, op, ins, attrs, wrt, device, cot_seed):
+    """One op's forward on ``device`` (a fresh context, step 0) and, for
+    ``wrt``, the gradients of ``sum(out * cot)`` over its floating,
+    non-stateful outputs (seeded cotangents) → {name: tensor}."""
+    from paddle_tpu_torch.ops import registry
+
+    opdef = registry.get_op_def(op)
+    ctx = registry.LoweringContext(device=torch.device(device))
+    slots, leaves = {}, []
+    for slot, v in ins.items():
+        vals = [t.to(device) for t in (v if isinstance(v, list) else [v])]
+        if slot in wrt:
+            vals = [t.detach().requires_grad_() for t in vals]
+            leaves += vals
+        slots[slot] = vals
+    with torch.enable_grad():
+        outs = registry.call_op(opdef, ctx, slots, dict(attrs))
+    res = {"%s[%d]" % (s, i): t.detach() for s, vs in outs.items()
+           for i, t in enumerate(vs)}
+    if leaves:
+        ys, cots = [], []
+        gen = torch.Generator().manual_seed(cot_seed)
+        for s, vs in outs.items():
+            if s in opdef.stateful_outputs:
+                continue
+            for t in vs:
+                if t.requires_grad:
+                    ys.append(t)
+                    cots.append(torch.randn(tuple(t.shape), generator=gen)
+                                .to(device=device, dtype=t.dtype))
+        grads = torch.autograd.grad(ys, leaves, cots, allow_unused=True)
+        for i, gr in enumerate(grads):
+            res["grad%d" % i] = gr
+    return res, outs
+
+
+def _everyday_err(got, want):
+    """Worst error over the results, against the scale max(1, |CPU|);
+    an integer or bool result must be equal."""
+    import torch
+
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k]
+        if g is None or w is None:
+            if (g is None) != (w is None):
+                return float("inf")
+            continue
+        g = g.cpu()
+        if tuple(g.shape) != tuple(w.shape) or g.dtype != w.dtype:
+            return float("inf")
+        if not w.is_floating_point():
+            if not torch.equal(g, w):
+                return float("inf")
+            continue
+        scale = max(1.0, float(w.float().abs().max())) if w.numel() else 1.0
+        worst = max(worst, max_err(g, w) / scale)
+    return worst
+
+
+def _everyday_graph_replays(fluid, np, torch):
+    """A program holding ``uniform_random_batch_size_like`` through the
+    executor on the card: its calls run eager, capture, then replay the
+    graph, and every call draws new values."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data("x", shape=[13], dtype="float32")
+        r = fluid.layers.uniform_random_batch_size_like(x, [-1, CTR_DIM])
+    feed = {"x": np.random.RandomState(SEED).randn(CTR_BATCH, 13).astype(
+        "float32")}
+    scope = fluid.Scope()
+    outs, modes = [], []
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup)
+        for _ in range(EVERYDAY_REPLAYS):
+            outs.append(np.asarray(exe.run(main, feed=feed,
+                                           fetch_list=[r])[0]))
+            modes.append(exe.last_run_mode)
+    fresh = all(bool((a != b).mean() > 0.99)
+                for a, b in zip(outs, outs[1:]))
+    return {"run_modes": modes, "every_call_draws_anew": fresh,
+            "graph_count": exe.graph_count}
+
+
+def phase_everyday_ops(env, device="cuda"):
+    """Every op type of the everyday slice (72: the activations, the math
+    and basic ops, the shape ops, the nn ops, the losses, the metrics,
+    ``diag``) on the card against its CPU run on the same inputs,
+    forward and, where it has one, the gradient, at the shape of the
+    supported model it sits in; the random ops held to their range and
+    moments.  One line a group with its worst error and its forwards'
+    times, each forward timed alone with L2 evicted and summed over the
+    group: ``graph_ms`` replays the forward captured in a CUDA graph
+    (the card's time, no host launch work inside the window; capturable
+    ops only), ``eager_ms`` brackets the eager call with CUDA events (the
+    card's time or the host's queuing of its launches, whichever is
+    longer).  Then a program holding ``uniform_random_batch_size_like``
+    replayed from a CUDA graph, drawing anew each call."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import registry
+
+    gen = torch.Generator().manual_seed(SEED + 26)
+    cases = _everyday_cases(torch, gen)
+    groups, failed, types = {}, [], set()
+    for i, (group, op, ins, attrs, wrt, check) in enumerate(cases):
+        types.add(op)
+        got, outs = _everyday_run(torch, op, ins, attrs, wrt, device, i)
+        if callable(check):
+            bad = check(outs)
+            err = 0.0 if bad is None else float("inf")
+            if bad:
+                failed.append("%s: %s" % (op, bad))
+        else:
+            want, _ = _everyday_run(torch, op, ins, attrs, wrt, "cpu", i)
+            err = _everyday_err(got, want)
+            tol = EVERYDAY_BF16_TOL if check == "bf16" else (
+                0.0 if check == "exact" else EVERYDAY_TOL)
+            if not err <= tol:
+                failed.append("%s %s: error %g > %g" % (op, attrs, err, tol))
+        dev_ins = {s: [t.to(device) for t in (v if isinstance(v, list)
+                                              else [v])]
+                   for s, v in ins.items()}
+        opdef = registry.get_op_def(op)
+
+        def fwd():
+            with torch.no_grad():
+                registry.call_op(opdef, registry.LoweringContext(
+                    device=torch.device(device)), dev_ins, dict(attrs))
+
+        eager_ms = time_ms(fwd, iters=5, warmup=2)
+        graph_ms = None
+        if opdef.is_capturable(attrs, {s: [s] for s in ins}):
+            try:
+                graph_ms = time_ms(fwd, iters=5, warmup=1, graph=True)
+            except RuntimeError as e:
+                failed.append("%s registered capturable, capture failed: %s"
+                              % (op, str(e)[:200]))
+        rec = groups.setdefault(group, {
+            "phase": "everyday_ops", "group": group,
+            "card": card_label(env), "ops": 0, "worst_err": 0.0,
+            "tolerance": EVERYDAY_BF16_TOL if check == "bf16"
+            else EVERYDAY_TOL, "graph_ms": 0.0, "eager_ms": 0.0,
+            "not_captured": [], "by_op": {}})
+        rec["ops"] += 1
+        rec["worst_err"] = max(rec["worst_err"], err)
+        rec["eager_ms"] += eager_ms
+        key = op if op not in rec["by_op"] else "%s %d" % (op, i)
+        times = {"eager_ms": eager_ms, "graph_ms": graph_ms}
+        if graph_ms is None:
+            rec["not_captured"].append(key)
+        else:
+            rec["graph_ms"] += graph_ms
+        rec["by_op"][key] = times
+        del got, outs, dev_ins
+    for rec in groups.values():
+        emit(rec)
+    replays = _everyday_graph_replays(fluid, np, torch)
+    emit(dict({"phase": "everyday_ops", "step": "random op replays",
+               "card": card_label(env)}, **replays))
+    emit({"phase": "everyday_ops", "step": "summary",
+          "op_types": len(types), "failed": failed})
+    torch.cuda.empty_cache()
+    if len(types) != 72:
+        raise AssertionError("everyday_ops ran %d op types, want 72: %s"
+                             % (len(types), sorted(types)))
+    if replays["run_modes"][-1] != "graph" \
+            or not replays["every_call_draws_anew"]:
+        raise AssertionError("uniform_random_batch_size_like replays: %s"
+                             % replays)
+    if failed:
+        raise AssertionError("everyday ops: %s" % "; ".join(failed))
+
+
+def phase_resnet_label_smooth(env):
+    """ResNet-50 NHWC at batch 64, 224x224, f32 with TF32 off, Momentum,
+    with the label-smoothing head (``one_hot`` → ``label_smooth(0.1)`` →
+    soft-label ``softmax_with_cross_entropy``): eager against graph bit
+    for bit over LS_STEPS steps under ``FLAGS_cpu_deterministic``, then
+    with the default flags LS_STEPS eager and graph steps and LS_TIMED
+    graph replays (step ms, K4 launches a step, host syncs a step) and a
+    profiled window (device ms, idle share); then ResNet-18 at 64x64,
+    batch 4, one step card against CPU from one start."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.static_analysis import fusion
+
+    t0 = time.time()
+    main, startup, loss = resnet_label_smooth_program(fluid, resnet,
+                                                      RESNET_HW)
+    prog, report = fusion.resolve_fused_program(main, targets=[loss.name])
+    batch = {k: torch.from_numpy(v).cuda() for k, v in _resnet_batch(
+        np, np.random.RandomState(SEED), RESNET_BATCH, RESNET_HW).items()}
+    # eager against graph under deterministic cuDNN (its default wgrad
+    # algorithms sum in a varying order, as the graph phase found for
+    # ResNet), then the steps as the main path runs them
+    fluid.set_flags({"FLAGS_cpu_deterministic": True})
+    try:
+        compared, _, exe, scope = _fixed_feed_sides(
+            fluid, main, startup, loss, batch, LS_STEPS, 1)
+    finally:
+        fluid.set_flags({"FLAGS_cpu_deterministic": False})
+    del exe, scope
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses, side, exe, scope = _fixed_feed_sides(
+        fluid, main, startup, loss, batch, LS_STEPS, LS_TIMED)
+    with fluid.scope_guard(scope):
+        prof = _step_profile(exe, main, batch, [loss], _resnet_group)
+    busy = prof["device_ms_per_step"]
+    per = side["launches_per_step"]
+    k4 = {k: per.get(k, 0) for k in ("bn_act_epilogue_fwd",
+                                     "bn_act_epilogue_bwd")}
+    ops = _op_type_counts(prog)
+    emit({"phase": "resnet_label_smooth", "card": card_label(env),
+          "batch": RESNET_BATCH, "image": RESNET_HW, "epsilon": LS_EPS,
+          "fused": report.counts(),
+          "head_ops": {t: ops.get(t, 0) for t in (
+              "one_hot", "label_smooth", "softmax_with_cross_entropy")},
+          "losses_deterministic": {k: compared[k] for k in ("eager",
+                                                             "graph")},
+          "losses": losses, "graph_step_ms": side["graph_timed_step_ms"],
+          "median_step_ms": side["median_step_ms"],
+          "images_per_s": RESNET_BATCH / (side["median_step_ms"] / 1e3),
+          "device_ms_per_step": busy,
+          "device_idle_share": (1.0 - busy / side["median_step_ms"])
+          if busy != "not measured" else busy,
+          "device_ms_by_group": prof["device_ms_by_group"],
+          "k4_launches_per_replayed_step": k4,
+          "launches_per_step": per,
+          "host_syncs_per_step": side["host_syncs_per_step"],
+          "peak_allocated_bytes": side["peak_allocated_bytes"],
+          "last_run_mode": side["last_run_mode"],
+          "copy_backs_per_step": side["copy_backs_per_step"],
+          "seconds": time.time() - t0})
+    counts = side["launches_by_source"]
+    del scope, exe, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    if compared["eager"] != compared["graph"]:
+        raise AssertionError("label smoothing: eager and graph differ: %s"
+                             % compared)
+    if k4 != {"bn_act_epilogue_fwd": RESNET_SITES,
+              "bn_act_epilogue_bwd": RESNET_SITES}:
+        raise AssertionError("K4 launches a replayed step %s, want %d + %d"
+                             % (k4, RESNET_SITES, RESNET_SITES))
+    if side["host_syncs_per_step"] != 0 or side["last_run_mode"] != "graph" \
+            or side["graphs_nodes_not_captured_launches"]:
+        raise AssertionError("label smoothing steps: %s" % side)
+    if not all(np.isfinite(losses["graph_timed"])):
+        raise AssertionError("label smoothing loss not finite: %s" % losses)
+
+    # card against CPU at the slice test's size, one step from one start
+    p = LS_PARITY
+    main, startup, loss = resnet_label_smooth_program(
+        fluid, resnet, p["hw"], depth=p["depth"], lr=1e-4)
+    rng = np.random.RandomState(SEED + 1)
+    feed = _resnet_batch(np, rng, p["batch"], p["hw"])
+    fc_w = [v.name for v in main.all_parameters() if v.name.startswith("fc")
+            and len(v.shape) == 2][0]
+    got, start = {}, None
+    for kind, place in (("cpu", fluid.CPUPlace()),
+                        ("cuda", fluid.CUDAPlace(0))):
+        scope = fluid.Scope()
+        with fluid.scope_guard(scope):
+            exe = fluid.Executor(place)
+            exe.run(startup)
+            if start is None:
+                start = convert.scope_persistables(main, scope)
+            else:
+                convert.load_params_into_scope(start, scope, place,
+                                               program=main)
+            lv = float(np.asarray(exe.run(main, feed=feed,
+                                           fetch_list=[loss])[0])[0])
+            w = scope.get(fc_w).detach().cpu().numpy()
+        got[kind] = (lv, w)
+    dw0 = np.abs(got["cpu"][1] - start[fc_w]).max()
+    rel = {"loss": abs(got["cuda"][0] - got["cpu"][0])
+           / max(abs(got["cpu"][0]), 1e-30),
+           "fc_update": float(np.abs(got["cuda"][1] - got["cpu"][1]).max()
+                              / max(dw0, 1e-30))}
+    emit({"phase": "resnet_label_smooth", "step": "card vs CPU",
+          "config": dict(p, lr=1e-4), "loss": {k: v[0]
+                                               for k, v in got.items()},
+          "rel_err": rel, "tolerance": LS_PARITY_RTOL})
+    if not all(v <= LS_PARITY_RTOL for v in rel.values()):
+        raise AssertionError("label smoothing card vs CPU: %s" % rel)
+    return counts
+
+
+def _v2_run(fluid, main, startup, loss, feed, names, steps):
+    """``steps`` cached steps from the startup's values → (losses,
+    {table: array})."""
+    import numpy as np
+
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup)
+        losses = [float(np.asarray(exe.run(main, feed=feed,
+                                           fetch_list=[loss])[0])[0])
+                  for _ in range(steps)]
+        tables = {n: scope.get(n).detach().cpu().numpy() for n in names}
+    return losses, tables
+
+
+def phase_lookup_v2(env):
+    """DeepFM at bench.py:903-941's widths (8 slots x 4 ids, dim 128,
+    vocabulary 200000, batch 4096, Adam 1e-3) with its lookups emitted as
+    ``lookup_table_v2``: the fusion takes the 8 dim-128 ones onto K3;
+    eager against graph over 3 steps and 5 timed replays (K3 forward and
+    backward graph nodes a step, step ms); the loss and every table
+    after V2_STEPS steps bit for bit against the same program built with
+    ``lookup_table``."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import ctr
+    from paddle_tpu_torch.static_analysis import fusion
+
+    progs = {}
+    for kind in ("lookup_table", "lookup_table_v2"):
+        fluid.unique_name.switch()
+        main, startup, _feeds, loss, _prob = ctr.build(
+            model="deepfm", num_slots=CTR_SLOTS, slot_len=CTR_LEN,
+            vocab=CTR_VOCAB, embed_dim=CTR_DIM, lr=CTR_LR)
+        main.random_seed = startup.random_seed = SEED
+        if kind == "lookup_table_v2":
+            as_lookup_v2(main)
+        progs[kind] = (main, startup, loss)
+    main, startup, loss = progs["lookup_table_v2"]
+    prog, report = fusion.resolve_fused_program(main, targets=[loss.name])
+    sites = [r for r in report.applied if r.family == "embedding_gather"]
+    ops = _op_type_counts(prog)
+    kinds = {t: ops.get(t, 0) for t in (
+        "fused_embedding_gather", "fused_embedding_gather_grad",
+        "lookup_table_v2", "lookup_table_v2_grad", "lookup_table")}
+    feed = ctr._fixed_feed(SEED, CTR_SLOTS, CTR_LEN, CTR_VOCAB, CTR_BATCH)
+    losses, side, exe, scope = _fixed_feed_sides(
+        fluid, main, startup, loss, feed, V2_STEPS, V2_TIMED)
+    per = side["launches_per_step"]
+    k3 = {k: per.get(k, 0) for k in ("embedding_gather_fwd",
+                                     "embedding_gather_bwd")}
+    counts = side["launches_by_source"]
+    del scope, exe
+    gc.collect()
+    torch.cuda.empty_cache()
+    tables = [v.name for v in main.all_parameters()
+              if v.name.startswith(("fm_emb_", "fm_first_"))]
+    runs = {kind: _v2_run(fluid, m, s, lv, feed, tables, V2_STEPS)
+            for kind, (m, s, lv) in progs.items()}
+    same_loss = runs["lookup_table"][0] == runs["lookup_table_v2"][0]
+    same_tables = all(np.array_equal(runs["lookup_table"][1][n],
+                                     runs["lookup_table_v2"][1][n])
+                      for n in tables)
+    emit({"phase": "lookup_v2", "card": card_label(env),
+          "batch": CTR_BATCH, "embedding_gather_sites": len(sites),
+          "ops": kinds, "losses": losses,
+          "graph_step_ms": side["graph_timed_step_ms"],
+          "median_step_ms": side["median_step_ms"],
+          "k3_graph_nodes_per_replayed_step": k3,
+          "host_syncs_per_step": side["host_syncs_per_step"],
+          "last_run_mode": side["last_run_mode"],
+          "v1_vs_v2": {"losses": {k: r[0] for k, r in runs.items()},
+                       "tables": len(tables),
+                       "loss_bit_for_bit": same_loss,
+                       "tables_bit_for_bit": same_tables}})
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the dim-128 tables fused, the dim-1 ones left plain v2 lookups
+    if len(sites) != CTR_SLOTS or kinds != dict.fromkeys(kinds, CTR_SLOTS) \
+            | {"lookup_table": 0}:
+        raise AssertionError("lookup_table_v2: %d sites, ops %s"
+                             % (len(sites), kinds))
+    if k3 != {"embedding_gather_fwd": CTR_SLOTS,
+              "embedding_gather_bwd": CTR_SLOTS}:
+        raise AssertionError("K3 graph nodes a replayed step %s, want %d + %d"
+                             % (k3, CTR_SLOTS, CTR_SLOTS))
+    if losses["eager"] != losses["graph"] or side["last_run_mode"] != "graph":
+        raise AssertionError("lookup_v2: eager and graph differ: %s" % losses)
+    if not (same_loss and same_tables):
+        raise AssertionError("lookup_table_v2 differs from lookup_table: "
+                             "losses %s" % {k: r[0] for k, r in runs.items()})
+    return counts
+
+
+def launch_floor_line(torch, rows):
+    """The timing method's floor (one launch of an empty kernel, L2
+    evicted, CUDA events) beside K3 forward at the CTR shape and K4
+    forward at [3136, 512], with each row's share of its bound, whole
+    and above that floor."""
+    floor = time_ms(lambda: torch.cuda._sleep(0), 50)
+    picks = []
+    for r in rows:
+        if (r["name"] == "embedding_gather_fwd"
+                and r["shape"].startswith("CTR")) or (
+                r["name"] == "bn_act_epilogue_fwd"
+                and r["shape"].startswith("y [3136, 512]")):
+            above = r["ms"] - floor
+            picks.append({"name": r["name"], "shape": r["shape"],
+                          "ms": r["ms"], "bound_ms": r["bound_ms"],
+                          "share_of_bound": r["bound_ms"] / r["ms"],
+                          "share_of_bound_above_floor":
+                          r["bound_ms"] / above if above > 0 else None})
+    return {"phase": "kernels", "step": "launch floor",
+            "floor_ms": floor, "rows": picks}
+
+
+
 def main():
     try:
         import torch
@@ -13582,6 +14340,9 @@ def _run_phases(torch):
     _timed(seconds, phase_wide_deep, env)
     _timed(seconds, phase_mnist, env)
     _timed(seconds, phase_ctr_parity, env)
+    _timed(seconds, phase_everyday_ops, env)
+    ls_counts = _timed(seconds, phase_resnet_label_smooth, env)
+    v2_counts = _timed(seconds, phase_lookup_v2, env)
     from paddle_tpu_torch.ops.cuda import KERNELS
 
     # each path's launches by source: the wrappers' launches that ran at
@@ -13605,7 +14366,8 @@ def _run_phases(torch):
              "resnet_infer": infer_counts, "se_resnext": se_counts,
              "vgg": vgg_counts, "compiled": compiled_counts,
              "sync_bn": sync_bn_counts, "hier": hier_counts,
-             "chaos_quant": chaos_counts, "ctr": ctr_counts}
+             "chaos_quant": chaos_counts, "ctr": ctr_counts,
+             "resnet_label_smooth": ls_counts, "lookup_v2": v2_counts}
     for r in rows:
         # the decode path's launches (ring + paged runs) where it runs the
         # kernel, else the BERT training path's (the backward kernels),

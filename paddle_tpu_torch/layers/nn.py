@@ -17,7 +17,11 @@
 ``sigmoid_cross_entropy_with_logits`` :480, ``reduce_min`` /
 ``reduce_prod`` :586-590, ``mul`` :610, ``flatten`` :750, ``stack``
 :763, ``unstack`` :773, ``argmax`` / ``argmin`` / ``argsort``
-:860-887).
+:860-887); the everyday layers of this slice ``depthwise_conv2d``
+:218, ``smooth_l1`` :504, ``huber_loss`` :522, ``label_smooth`` :535,
+``gather_nd`` :816, ``scatter`` :826, ``shape`` :892, ``l2_normalize``
+:921, ``prelu`` :943, ``pad2d`` :983, ``lod_reset`` :1065 (``leaky_relu``
+:963 is ``layers/ops.py``'s).
 Each layer appends the same op types, slots and attrs as the reference,
 so the two packages build the same program."""
 
@@ -43,7 +47,9 @@ __all__ = ["fc", "embedding", "layer_norm", "dropout", "softmax",
            "resize_bilinear", "resize_nearest",
            "sigmoid_cross_entropy_with_logits", "reduce_min", "reduce_prod",
            "mul", "flatten", "stack", "unstack", "argmax", "argmin",
-           "argsort"]
+           "argsort", "depthwise_conv2d", "smooth_l1", "huber_loss",
+           "label_smooth", "gather_nd", "scatter", "shape", "l2_normalize",
+           "prelu", "pad2d", "lod_reset"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -761,3 +767,125 @@ def argsort(input, axis=-1, name=None):
                      outputs={"Out": [out], "Indices": [ids]},
                      attrs={"axis": axis})
     return out, ids
+
+
+def depthwise_conv2d(input, num_filters, filter_size, **kwargs):
+    groups = (input.shape[1] if kwargs.get("data_format", "NCHW") == "NCHW"
+              else input.shape[-1])
+    return conv2d(input, num_filters, filter_size, groups=groups, **kwargs)
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
+    helper = LayerHelper("smooth_l1_loss", **locals())
+    diff = helper.create_variable_for_type_inference(x.dtype, True)
+    loss = helper.create_variable_for_type_inference(x.dtype)
+    inputs = {"X": [x], "Y": [y]}
+    if inside_weight is not None:
+        inputs["InsideWeight"] = [inside_weight]
+    if outside_weight is not None:
+        inputs["OutsideWeight"] = [outside_weight]
+    helper.append_op(type="smooth_l1_loss", inputs=inputs,
+                     outputs={"Diff": [diff], "Out": [loss]},
+                     attrs={"sigma": sigma if sigma is not None else 1.0})
+    return loss
+
+
+def huber_loss(input, label, delta):
+    helper = LayerHelper("huber_loss", **locals())
+    residual = helper.create_variable_for_type_inference(input.dtype, True)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="huber_loss", inputs={"X": [input], "Y": [label]},
+                     outputs={"Out": [out], "Residual": [residual]},
+                     attrs={"delta": delta})
+    return out
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    helper = LayerHelper("label_smooth", **locals())
+    out = helper.create_variable_for_type_inference(dtype)
+    inputs = {"X": [label]}
+    if prior_dist is not None:
+        inputs["PriorDist"] = [prior_dist]
+    helper.append_op(type="label_smooth", inputs=inputs,
+                     outputs={"Out": [out]},
+                     attrs={"epsilon": float(epsilon)})
+    return out
+
+
+def gather_nd(input, index, name=None):
+    helper = LayerHelper("gather_nd", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="gather_nd",
+                     inputs={"X": [input], "Index": [index]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def scatter(input, index, updates, name=None, overwrite=True):
+    helper = LayerHelper("scatter", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="scatter",
+        inputs={"X": [input], "Ids": [index], "Updates": [updates]},
+        outputs={"Out": [out]}, attrs={"overwrite": overwrite})
+    return out
+
+
+def shape(input):
+    helper = LayerHelper("shape", **locals())
+    out = helper.create_variable_for_type_inference("int32", True)
+    helper.append_op(type="shape", inputs={"Input": [input]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    """``x / sqrt(sum(x^2, axis) + epsilon)``, composed of the
+    reference's ops in its order."""
+    from . import ops as _ops
+    from .tensor import fill_constant
+
+    s = reduce_sum(elementwise_mul(x, x), dim=axis, keep_dim=True)
+    norm = _ops.sqrt(elementwise_add(s, fill_constant([1], s.dtype,
+                                                      epsilon)))
+    return elementwise_div(x, norm)
+
+
+def prelu(x, mode, param_attr=None, name=None):
+    helper = LayerHelper("prelu", **locals())
+    if mode == "all":
+        alpha_shape = [1]
+    elif mode == "channel":
+        alpha_shape = [x.shape[1]]
+    else:
+        alpha_shape = list(x.shape[1:])
+    alpha = helper.create_parameter(
+        attr=helper.param_attr, shape=alpha_shape, dtype="float32",
+        is_bias=False, default_initializer=ConstantInitializer(0.25))
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="prelu", inputs={"X": [x], "Alpha": [alpha]},
+                     outputs={"Out": [out]}, attrs={"mode": mode})
+    return out
+
+
+def pad2d(input, paddings=[0, 0, 0, 0], mode="constant", pad_value=0.0,
+          data_format="NCHW", name=None):
+    helper = LayerHelper("pad2d", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="pad2d", inputs={"X": [input]}, outputs={"Out": [out]},
+        attrs={"paddings": list(paddings), "mode": mode,
+               "pad_value": float(pad_value), "data_format": data_format})
+    return out
+
+
+def lod_reset(x, y=None, target_lod=None):
+    helper = LayerHelper("lod_reset", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    inputs = {"X": [x]}
+    if y is not None:
+        inputs["Y"] = [y]
+    helper.append_op(type="lod_reset", inputs=inputs, outputs={"Out": [out]},
+                     attrs={"target_lod": target_lod or []})
+    return out

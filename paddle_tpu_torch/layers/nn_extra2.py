@@ -2,9 +2,14 @@
 deformable layers of the third wave of ``layers.nn`` (mirrors
 ``paddle_tpu/layers/nn_extra2.py``: ``conv3d`` :433, ``conv3d_transpose``
 :464, ``pool3d`` :500, ``sequence_conv`` :588, ``deformable_conv`` :705,
-``deformable_roi_pooling`` :739) and ``host_embedding`` :77-116, the
-lookup into a host-resident table (:mod:`..host_table`).  Each appends
-the reference's op type, slots and attrs."""
+``deformable_roi_pooling`` :739), ``host_embedding`` :77-116, the
+lookup into a host-resident table (:mod:`..host_table`), and the
+everyday layers ``gru_unit`` :50, ``nce`` :352, ``hsigmoid`` :384,
+``sampled_softmax_with_cross_entropy`` :415 and ``tree_conv`` :677.
+Each appends the reference's op type, slots and attrs.  Two go past
+the reference, which raises or ignores there: ``hsigmoid`` takes a
+custom tree (``path_table`` / ``path_code``), and
+``sampled_softmax_with_cross_entropy`` takes customized samples."""
 
 from ..framework import default_main_program
 from ..layer_helper import LayerHelper
@@ -12,7 +17,9 @@ from .nn import _pair
 from .nn_extra import _simple
 
 __all__ = ["conv3d", "conv3d_transpose", "pool3d", "sequence_conv",
-           "deformable_conv", "deformable_roi_pooling", "host_embedding"]
+           "deformable_conv", "deformable_roi_pooling", "host_embedding",
+           "gru_unit", "nce", "hsigmoid",
+           "sampled_softmax_with_cross_entropy", "tree_conv"]
 
 
 def _triple(v):
@@ -180,3 +187,128 @@ def host_embedding(input, size, name, lr=0.1, optimizer="sgd",
     prog._host_tables.append(
         {"table": name, "ids": input.name, "slab": slab_name})
     return slab
+
+
+def gru_unit(input, hidden, size, param_attr=None, bias_attr=None,
+             activation="tanh", gate_activation="sigmoid",
+             origin_mode=False):
+    """One GRU step; ``size`` is 3 D."""
+    helper = LayerHelper("gru_unit", **locals())
+    d = size // 3
+    w = helper.create_parameter(attr=helper.param_attr, shape=[d, 3 * d],
+                                dtype=input.dtype, is_bias=False)
+    inputs = {"Input": [input], "HiddenPrev": [hidden], "Weight": [w]}
+    if bias_attr is not False:
+        inputs["Bias"] = [helper.create_parameter(
+            attr=helper.bias_attr, shape=[1, 3 * d], dtype=input.dtype,
+            is_bias=True)]
+    gate = helper.create_variable_for_type_inference(input.dtype, True)
+    rhp = helper.create_variable_for_type_inference(input.dtype, True)
+    hid = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="gru_unit", inputs=inputs,
+        outputs={"Gate": [gate], "ResetHiddenPrev": [rhp], "Hidden": [hid]},
+        attrs={"activation": activation, "gate_activation": gate_activation,
+               "origin_mode": origin_mode})
+    return hid, rhp, gate
+
+
+def nce(input, label, num_total_classes, sample_weight=None,
+        param_attr=None, bias_attr=None, num_neg_samples=10, name=None,
+        sampler="uniform", custom_dist=None, seed=0, is_sparse=False):
+    helper = LayerHelper("nce", **locals())
+    dim = input.shape[-1]
+    w = helper.create_parameter(attr=helper.param_attr,
+                                shape=[num_total_classes, dim],
+                                dtype=input.dtype, is_bias=False)
+    inputs = {"Input": [input], "Label": [label], "Weight": [w]}
+    if bias_attr is not False:
+        inputs["Bias"] = [helper.create_parameter(
+            attr=helper.bias_attr, shape=[num_total_classes, 1],
+            dtype=input.dtype, is_bias=True)]
+    if sample_weight is not None:
+        inputs["SampleWeight"] = [sample_weight]
+    cost = helper.create_variable_for_type_inference(input.dtype)
+    sl = helper.create_variable_for_type_inference(input.dtype, True)
+    slab = helper.create_variable_for_type_inference("int64", True)
+    helper.append_op(
+        type="nce", inputs=inputs,
+        outputs={"Cost": [cost], "SampleLogits": [sl],
+                 "SampleLabels": [slab]},
+        attrs={"num_total_classes": int(num_total_classes),
+               "num_neg_samples": int(num_neg_samples),
+               "sampler": {"uniform": 0, "log_uniform": 1}.get(sampler, 0),
+               "seed": seed})
+    return cost
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None, path_table=None, path_code=None, is_custom=False,
+             is_sparse=False):
+    """The default tree's W is [num_classes - 1, D]; a custom tree
+    (``is_custom``, with ``path_table`` / ``path_code`` [N, L]) has
+    ``num_classes`` nodes, as the reference framework's."""
+    custom = is_custom or path_table is not None
+    if custom and (path_table is None or path_code is None):
+        raise ValueError("hsigmoid with a custom tree needs path_table "
+                         "and path_code")
+    helper = LayerHelper("hierarchical_sigmoid", **locals())
+    rows = num_classes if custom else num_classes - 1
+    w = helper.create_parameter(attr=helper.param_attr,
+                                shape=[rows, input.shape[-1]],
+                                dtype=input.dtype, is_bias=False)
+    inputs = {"X": [input], "W": [w], "Label": [label]}
+    if bias_attr is not False:
+        inputs["Bias"] = [helper.create_parameter(
+            attr=helper.bias_attr, shape=[rows, 1], dtype=input.dtype,
+            is_bias=True)]
+    if custom:
+        inputs["PathTable"] = [path_table]
+        inputs["PathCode"] = [path_code]
+    out = helper.create_variable_for_type_inference(input.dtype)
+    pre = helper.create_variable_for_type_inference(input.dtype, True)
+    helper.append_op(type="hierarchical_sigmoid", inputs=inputs,
+                     outputs={"Out": [out], "PreOut": [pre]},
+                     attrs={"num_classes": int(num_classes)})
+    return out
+
+
+def sampled_softmax_with_cross_entropy(logits, label, num_samples,
+                                       num_true=1,
+                                       remove_accidental_hits=True,
+                                       use_customized_samples=False,
+                                       customized_samples=None,
+                                       customized_probabilities=None,
+                                       seed=0):
+    """The loss [N, 1]; with ``use_customized_samples`` each row's
+    samples (its label first) and their probabilities replace the
+    log-uniform draw."""
+    inputs = {"Logits": logits, "Label": label}
+    attrs = {"num_samples": int(num_samples), "seed": seed}
+    if not remove_accidental_hits:
+        attrs["remove_accidental_hits"] = False
+    if use_customized_samples:
+        inputs["CustomizedSamples"] = customized_samples
+        inputs["CustomizedProbabilities"] = customized_probabilities
+        attrs["use_customized_samples"] = True
+    _, loss = _simple("sampled_softmax_with_cross_entropy", inputs, attrs,
+                      outs=("Softmax", "Loss"))
+    return loss
+
+
+def tree_conv(nodes_vector, edge_set, output_size, num_filters=1,
+              max_depth=2, act="tanh", param_attr=None, bias_attr=None,
+              name=None):
+    helper = LayerHelper("tree_conv", **locals())
+    dtype = helper.input_dtype("nodes_vector")
+    w = helper.create_parameter(
+        attr=helper.param_attr,
+        shape=[nodes_vector.shape[-1], output_size, 3], dtype=dtype,
+        is_bias=False)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="tree_conv",
+        inputs={"NodesVector": [nodes_vector], "EdgeSet": [edge_set],
+                "Filter": [w]},
+        outputs={"Out": [out]}, attrs={"max_depth": int(max_depth)})
+    return out

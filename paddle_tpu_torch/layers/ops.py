@@ -1,14 +1,21 @@
-"""Op-wrapping layers (mirrors ``paddle_tpu/layers/ops.py``: the unary
-generator :18 for ``exp`` :31, ``tanh`` :33, ``sqrt`` :34, ``ceil`` /
-``floor`` :36-37, ``cos`` :38, ``square`` :43, ``log`` :60, ``sigmoid`` :47, ``gelu`` :56, ``sign``
-:60; ``pow`` :76, ``scale`` :86, the logical ops :100-129, ``cumsum``
-:137)."""
+"""Op-wrapping layers (mirrors ``paddle_tpu/layers/ops.py``, all of it:
+the unary generator :18 and its 35 activations :31-63 and :146-148
+(``acos`` / ``asin`` / ``atan``), each passing its keyword attrs to its
+op; ``leaky_relu`` :66 (alpha 0.02), ``pow`` :76, ``scale`` :86, the
+logical ops :100-129, ``cumsum`` :137, ``uniform_random`` :153)."""
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["exp", "tanh", "sigmoid", "sqrt", "ceil", "floor", "cos",
-           "sign", "gelu", "log", "square", "pow", "scale", "logical_and", "logical_or",
-           "logical_xor", "logical_not", "cumsum"]
+__all__ = [
+    "exp", "tanh", "sqrt", "rsqrt", "abs", "ceil", "floor", "cos", "sin",
+    "acos", "asin", "atan",
+    "round", "reciprocal", "square", "softplus", "softsign", "logsigmoid",
+    "sigmoid", "relu6", "pow", "stanh", "hard_sigmoid", "swish",
+    "thresholded_relu", "hard_shrink", "softshrink", "elu", "gelu", "erf",
+    "brelu", "soft_relu", "leaky_relu", "log", "scale", "hard_swish",
+    "sign", "tanh_shrink", "cumsum", "uniform_random",
+    "logical_and", "logical_or", "logical_xor", "logical_not",
+]
 
 
 def _generate_unary(op_type):
@@ -26,15 +33,47 @@ def _generate_unary(op_type):
 
 exp = _generate_unary("exp")
 tanh = _generate_unary("tanh")
-sigmoid = _generate_unary("sigmoid")
 sqrt = _generate_unary("sqrt")
+rsqrt = _generate_unary("rsqrt")
+abs = _generate_unary("abs")
 ceil = _generate_unary("ceil")
 floor = _generate_unary("floor")
 cos = _generate_unary("cos")
-gelu = _generate_unary("gelu")
-sign = _generate_unary("sign")
-log = _generate_unary("log")
+sin = _generate_unary("sin")
+round = _generate_unary("round")
+reciprocal = _generate_unary("reciprocal")
 square = _generate_unary("square")
+softplus = _generate_unary("softplus")
+softsign = _generate_unary("softsign")
+logsigmoid = _generate_unary("logsigmoid")
+sigmoid = _generate_unary("sigmoid")
+relu6 = _generate_unary("relu6")
+stanh = _generate_unary("stanh")
+hard_sigmoid = _generate_unary("hard_sigmoid")
+swish = _generate_unary("swish")
+thresholded_relu = _generate_unary("thresholded_relu")
+hard_shrink = _generate_unary("hard_shrink")
+softshrink = _generate_unary("softshrink")
+elu = _generate_unary("elu")
+gelu = _generate_unary("gelu")
+erf = _generate_unary("erf")
+brelu = _generate_unary("brelu")
+soft_relu = _generate_unary("soft_relu")
+log = _generate_unary("log")
+sign = _generate_unary("sign")
+tanh_shrink = _generate_unary("tanh_shrink")
+hard_swish = _generate_unary("hard_swish")
+acos = _generate_unary("acos")
+asin = _generate_unary("asin")
+atan = _generate_unary("atan")
+
+
+def leaky_relu(x, alpha=0.02, name=None):
+    helper = LayerHelper("leaky_relu", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="leaky_relu", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"alpha": alpha})
+    return out
 
 
 def pow(x, factor=1.0, name=None):
@@ -94,4 +133,14 @@ def cumsum(x, axis=None, exclusive=None, reverse=None):
         attrs["reverse"] = bool(reverse)
     helper.append_op(type="cumsum", inputs={"X": [x]}, outputs={"Out": [out]},
                      attrs=attrs)
+    return out
+
+
+def uniform_random(shape, dtype="float32", min=-1.0, max=1.0, seed=0):
+    helper = LayerHelper("uniform_random", **locals())
+    out = helper.create_variable_for_type_inference(dtype, True)
+    helper.append_op(
+        type="uniform_random", inputs={}, outputs={"Out": [out]},
+        attrs={"shape": list(shape), "dtype": dtype, "min": float(min),
+               "max": float(max), "seed": int(seed)})
     return out

@@ -2,18 +2,23 @@
 ``concat`` :69, ``assign`` :84, ``fill_constant`` :111,
 ``fill_constant_batch_size_like`` :129, ``range`` :202,
 ``tensor_array_to_tensor`` :298, ``sums`` :75, ``ones`` / ``zeros`` /
-``ones_like`` / ``zeros_like`` :150-176)."""
+``ones_like`` / ``zeros_like`` :150-176; ``create_tensor`` :37,
+``create_global_var`` :44, ``has_inf`` / ``has_nan`` / ``isfinite``
+:180-199, ``linspace`` :220, ``diag`` :244, ``reverse`` :285)."""
 
 import numpy as np
 
 from .. import core
 from ..framework import Variable
+from ..initializer import ConstantInitializer
 from ..layer_helper import LayerHelper
 
 __all__ = ["cast", "concat", "assign", "fill_constant",
            "fill_constant_batch_size_like", "range",
            "tensor_array_to_tensor", "create_parameter", "sums", "ones",
-           "zeros", "ones_like", "zeros_like"]
+           "zeros", "ones_like", "zeros_like", "create_tensor",
+           "create_global_var", "has_inf", "has_nan", "isfinite",
+           "linspace", "diag", "reverse"]
 
 
 def cast(x, dtype):
@@ -162,3 +167,81 @@ def create_parameter(shape, dtype, name=None, attr=None,
     if default_initializer is not None:
         a._set_default_initializer(default_initializer)
     return helper.create_parameter(a, list(shape), dtype, is_bias=is_bias)
+
+
+def create_tensor(dtype, name=None, persistable=False):
+    helper = LayerHelper("create_tensor", **locals())
+    return helper.create_variable(name=helper.name, dtype=dtype,
+                                  persistable=persistable)
+
+
+def create_global_var(shape, value, dtype, persistable=False,
+                      force_cpu=False, name=None):
+    """A global var filled with ``value`` by the startup program."""
+    helper = LayerHelper("global_var", **locals())
+    var = helper.create_global_variable(dtype=dtype, shape=shape,
+                                        persistable=persistable)
+    helper.set_variable_initializer(var, ConstantInitializer(value))
+    return var
+
+
+def _bool_test(op_type, x):
+    helper = LayerHelper(op_type, x=x)
+    out = helper.create_variable_for_type_inference("bool", True)
+    helper.append_op(type=op_type, inputs={"X": [x]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def has_inf(x):
+    return _bool_test("isinf", x)
+
+
+def has_nan(x):
+    return _bool_test("isnan", x)
+
+
+def isfinite(x):
+    return _bool_test("isfinite", x)
+
+
+def linspace(start, stop, num, dtype):
+    """Start and Stop as 1-element tensors (made from python numbers);
+    a python ``num`` is the ``num`` attr, a Variable the ``Num`` input
+    (read on the host at run time)."""
+    helper = LayerHelper("linspace", **locals())
+    start_t = start if isinstance(start, Variable) else fill_constant(
+        [1], dtype, float(start))
+    stop_t = stop if isinstance(stop, Variable) else fill_constant(
+        [1], dtype, float(stop))
+    inputs = {"Start": [start_t], "Stop": [stop_t]}
+    attrs = {}
+    if isinstance(num, Variable):
+        inputs["Num"] = [num]
+    else:
+        attrs["num"] = int(num)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="linspace", inputs=inputs,
+                     outputs={"Out": [out]}, attrs=attrs)
+    return out
+
+
+def diag(diagonal):
+    """A square matrix from a 1-D diagonal; a numpy diagonal becomes a
+    constant (``assign``)."""
+    if isinstance(diagonal, np.ndarray):
+        return assign(np.diag(diagonal))
+    helper = LayerHelper("diag", **locals())
+    out = helper.create_variable_for_type_inference(diagonal.dtype)
+    helper.append_op(type="diag", inputs={"Diagonal": [diagonal]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def reverse(x, axis):
+    helper = LayerHelper("reverse")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="reverse", inputs={"X": [x]}, outputs={"Out": [out]},
+        attrs={"axis": [axis] if isinstance(axis, int) else list(axis)})
+    return out

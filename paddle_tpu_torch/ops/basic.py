@@ -2,13 +2,18 @@
 ``paddle_tpu/ops/basic.py`` lines 17-237: ``fill_constant_batch_size_like``
 :24, ``fill_any_like`` / ``fill_zeros_like`` :35-44, ``assign`` :95, ``assign_value`` :100, ``cast`` :116, ``sum`` :130, ``increment`` :143,
 ``clip`` / ``clip_by_norm`` / ``squared_l2_norm`` :148-161, ``range``
-:202).
+:202; ``randint`` :84, ``share_data`` :111, ``shape`` :138, ``isfinite``
+/ ``isinf`` / ``isnan`` :166-182, ``linspace`` :251).
 
 Random draws come from the per-draw ``torch.Generator`` of
 :meth:`LoweringContext.rng`, drawn on the CPU and moved to the run's
 device, so a seeded startup program initializes identical parameters on
 the CPU and on the GPU; a host draw per run is not capturable in a CUDA
-graph, so a program that holds one runs eagerly.
+graph, so a program that holds one runs eagerly.  ``randint`` draws on
+the device instead (``common.device_bits`` from the run's step seed),
+so it stays capturable and a replayed step draws anew; a nonzero
+``seed`` attr fixes its draw, as the reference's ``jax.random.key(seed)``
+does.  The two packages draw different numbers from the same seed.
 """
 
 import math
@@ -16,7 +21,8 @@ import math
 import numpy as np
 import torch
 
-from .common import resolve_dtype
+from .common import device_bits, resolve_dtype
+from .cuda import dropout as _drop
 from .registry import EMPTY_VAR_NAME, register_op
 
 
@@ -211,6 +217,105 @@ def truncated_gaussian_random(ctx, attrs):
     z = z.clamp(-2.0, 2.0)
     return _place(ctx, attrs.get("mean", 0.0) + attrs.get("std", 1.0) * z,
                   dtype)
+
+
+@register_op("randint", inputs=[], outputs=["Out"], no_grad=True)
+def randint(ctx, attrs):
+    """Integers uniform in [low, high), drawn on the device."""
+    shape = _shape(attrs)
+    low, high = int(attrs.get("low", 0)), int(attrs.get("high", 100))
+    dtype = resolve_dtype(attrs.get("dtype", "int64"))
+    seed = int(attrs.get("seed", 0) or 0)
+    bits = device_bits(_drop.op_salt(seed, 0, 0) if seed else ctx.step_seed(),
+                       shape, ctx.device)
+    return (low + bits % max(high - low, 1)).to(dtype)
+
+
+@register_op("share_data", inputs=["X"], outputs=["Out"])
+def share_data(ctx, attrs, X):
+    """Out is X's data itself."""
+    return X
+
+
+@register_op("shape", inputs=["Input"], outputs=["Out"], no_grad=True)
+def shape_op(ctx, attrs, Input):
+    """Input's static shape as int32, from its metadata: it never reads
+    the device, and it is made by fills, not a host-to-device copy, so a
+    CUDA graph can capture it."""
+    out = torch.empty((Input.dim(),), dtype=torch.int32, device=Input.device)
+    for i, d in enumerate(Input.shape):
+        out[i].fill_(int(d))
+    return out
+
+
+def _all_of(X, test, reduce, combine, start):
+    ok = torch.full((1,), start, dtype=torch.bool, device=X[0].device)
+    for x in X:
+        ok = combine(ok, reduce(test(x)).reshape(1))
+    return ok
+
+
+@register_op("isfinite", inputs=["X*"], outputs=["Out"], no_grad=True)
+def isfinite(ctx, attrs, X):
+    """One bool: every element of every input is finite."""
+    return _all_of(X, torch.isfinite, torch.all, torch.logical_and, True)
+
+
+@register_op("isinf", inputs=["X*"], outputs=["Out"], no_grad=True)
+def isinf(ctx, attrs, X):
+    """One bool: some element of some input is infinite."""
+    return _all_of(X, torch.isinf, torch.any, torch.logical_or, False)
+
+
+@register_op("isnan", inputs=["X*"], outputs=["Out"], no_grad=True)
+def isnan(ctx, attrs, X):
+    """One bool: some element of some input is NaN."""
+    return _all_of(X, torch.isnan, torch.any, torch.logical_or, False)
+
+
+def _linspace_infer_shape(op, block):
+    """``[num]`` when ``num`` is an attr; a ``Num`` input leaves the
+    declared shape (its length is known only at run time)."""
+    num = op.attr("num")
+    if num is not None:
+        v = block._find_var_recursive(op.output("Out")[0])
+        if v is not None:
+            v.shape = (int(num),)
+
+
+def _linspace_num_static(attrs, inputs):
+    """A ``num`` attr is static; a ``Num`` tensor is read on the host."""
+    return attrs.get("num") is not None
+
+
+@register_op("linspace", inputs=["Start", "Stop", "Num"], outputs=["Out"],
+             no_grad=True, infer_shape=_linspace_infer_shape,
+             capturable=_linspace_num_static)
+def linspace(ctx, attrs, Start, Stop, Num=None):
+    """``num`` evenly spaced values from Start to Stop (1-element
+    tensors), as ``jnp.linspace`` computes them: ``start * (1 - i / d) +
+    stop * (i / d)`` for i < d = num - 1, then stop itself, in the
+    float type (float32 for an integer dtype, then floored), cast to
+    Start's dtype."""
+    num = attrs.get("num")
+    if num is None:
+        if Num is None:
+            raise ValueError("linspace needs the num attr or a Num input")
+        num = int(Num.reshape(()).item())
+    num = int(num)
+    dtype = Start.dtype
+    calc = dtype if dtype.is_floating_point else torch.float32
+    start = Start.reshape(()).to(calc)
+    stop = Stop.reshape(()).to(calc)
+    if num <= 1:
+        out = start.reshape(1)[:num]
+    else:
+        div = num - 1
+        step = torch.arange(div, dtype=calc, device=Start.device) / div
+        out = torch.cat([start * (1 - step) + stop * step, stop.reshape(1)])
+    if not dtype.is_floating_point:
+        out = torch.floor(out)  # jnp.linspace floors for an integer dtype
+    return out.to(dtype)
 
 
 @register_op("feed", inputs=["X"], outputs=["Out"], no_grad=True)

@@ -1,8 +1,11 @@
 """Shared helpers for op lowerings (mirrors ``paddle_tpu/ops/common.py``)."""
 
+import math
+
 import torch
 
 from .. import core
+from .cuda import dropout as _drop
 
 
 def resolve_dtype(attr_dtype):
@@ -57,3 +60,43 @@ def split_like(flat, refs, cast=True):
         outs.append(seg.to(r.dtype) if cast else seg)
         off += n
     return outs
+
+
+def device_bits(seed, shape, device, lane=0):
+    """uint32 bits (as int64) in ``shape``, drawn on ``device`` with no
+    host read: the card generator (``card_bits``) at each flat position,
+    ``lane`` naming an independent stream of the same seed.  ``seed`` is
+    a host int or a :class:`~.cuda.dropout.StepSeed`
+    (:meth:`LoweringContext.step_seed`: the run's step on the device, so a
+    step replayed from a CUDA graph draws anew)."""
+    n = math.prod(int(d) for d in shape)
+    rows = torch.arange(n, dtype=torch.int64, device=device)
+    return _drop.card_bits(_drop.seed_u32(seed), lane, rows, 0).reshape(
+        tuple(shape))
+
+
+def uniform_of_bits(bits):
+    """float32 uniforms in (0, 1) from uint32 bits: the top 23 bits as
+    ``(b + 0.5) / 2**23``, so every value is exact in float32 and lies in
+    [2**-24, 1 - 2**-24] (24 bits would round the top code's ``b + 0.5``
+    up to 1.0), and noise built on it stays finite."""
+    return ((bits >> 9).to(torch.float32) + 0.5) * (1.0 / 8388608.0)
+
+
+def gumbel_of_bits(bits):
+    """Standard Gumbel noise ``-log(-log(u))`` from uint32 bits: the
+    sampling ops' Gumbel-max draw."""
+    return -torch.log(-torch.log(uniform_of_bits(bits)))
+
+
+def device_uniform(seed, shape, device, lane=0):
+    """float32 uniforms in (0, 1) in ``shape``: :func:`uniform_of_bits`
+    of :func:`device_bits`."""
+    return uniform_of_bits(device_bits(seed, shape, device, lane))
+
+
+def device_normal(seed, shape, device):
+    """float32 standard normals by Box-Muller over two uniform lanes."""
+    u1 = device_uniform(seed, shape, device, 0)
+    u2 = device_uniform(seed, shape, device, 1)
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)

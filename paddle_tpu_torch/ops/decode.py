@@ -39,6 +39,7 @@ import math
 
 import torch
 
+from .common import gumbel_of_bits
 from .cuda import dropout as _drop
 from .cuda.flash_decode import flash_decode
 from .cuda.paged_flash_decode import paged_flash_decode
@@ -211,7 +212,7 @@ def _gumbel(ctx, attrs, Step, shape, device):
     attr, executor step, ``Step``), drawn on ``device`` with no host
     read: the card generator's bits at (row, col), keyed by the step
     seed with ``Step`` mixed in (int64 arithmetic masked to 32 bits),
-    mapped to (0, 1) by ``_uniform``."""
+    mapped by ``common.gumbel_of_bits``."""
     seed = _drop.seed_u32(ctx.step_seed(
         fold=int(attrs.get("seed", 0)) & 0x7FFFFFFF)).to(device)
     if Step is not None:
@@ -223,14 +224,7 @@ def _gumbel(ctx, attrs, Step, shape, device):
     bits = _drop.card_bits(
         seed, 0, torch.arange(rows, dtype=torch.int64, device=device)[:, None],
         torch.arange(cols, dtype=torch.int64, device=device)[None, :])
-    return -torch.log(-torch.log(_uniform(bits)))
-
-
-def _uniform(bits):
-    """The top 23 bits as ``(b + 0.5) / 2**23``: every value is exact in
-    float32 and lies in [2**-24, 1 - 2**-24], so the noise is finite (24
-    bits would round the top code's ``b + 0.5`` up to 1.0)."""
-    return ((bits >> 9).to(torch.float32) + 0.5) * (1.0 / 8388608.0)
+    return gumbel_of_bits(bits)
 
 
 def _greedy(X):

@@ -1,6 +1,6 @@
 """The standalone ``fc`` op (mirrors ``paddle_tpu/ops/extra.py:477``),
-emitted by the inference ``fc_fuse_pass``, the control-flow layers'
-``is_empty`` (:72) and ``print`` (:327), ``max_sequence_len`` (:566),
+emitted by the inference ``fc_fuse_pass``, ``diag`` (:67), the
+control-flow layers' ``is_empty`` (:72) and ``print`` (:327), ``max_sequence_len`` (:566),
 and the image resizes ``bilinear_interp`` / ``nearest_interp``
 (``_interp`` :260, :313-325)."""
 
@@ -21,6 +21,12 @@ def fc_op(ctx, attrs, Input, W, Bias):
     if Bias is not None:
         out = out + Bias.reshape(1, -1)
     return out.reshape(shape[:in_num_col_dims] + (W.shape[1],))
+
+
+@register_op("diag", inputs=["Diagonal"], outputs=["Out"], no_grad=True)
+def diag(ctx, attrs, Diagonal):
+    """The square matrix with Diagonal (flattened) on its diagonal."""
+    return torch.diag(Diagonal.reshape(-1))
 
 
 @register_op("is_empty", inputs=["X"], outputs=["Out"], no_grad=True)

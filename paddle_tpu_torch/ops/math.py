@@ -4,11 +4,12 @@
 :99, ``reduce_max`` :100, ``reduce_min`` / ``reduce_prod`` :101-102,
 ``reduce_all`` / ``reduce_any`` :103-104, ``mean`` :107,
 ``pow`` :112, ``top_k`` :117, ``arg_max`` / ``arg_min`` / ``argsort``
-:126-138, ``cumsum`` :145).  Indices come back int64, the dtype the
-layers declare (the reference's are int32, jax without x64); ties go to
-the first index in ``arg_max`` / ``arg_min`` and keep their order in
-``argsort``, as jax's.  The products stay
-``torch.matmul`` (cuBLAS), as the reference left them to XLA; with TF32
+:126-138, ``cumsum`` :145, ``maximum`` / ``minimum`` :163-170).
+Indices come back int64, the dtype the layers declare (the
+reference's are int32, jax without x64); ties go to the first index in
+``arg_max`` / ``arg_min`` and keep their order in ``argsort``, as
+jax's.  The products stay ``torch.matmul`` (cuBLAS), as the reference
+left them to XLA; with TF32
 off (set by the Executor on a CUDA place) f32 products run in full f32.
 """
 
@@ -210,3 +211,15 @@ def scale(ctx, attrs, X):
     if attrs.get("bias_after_scale", True):
         return X * s + b
     return (X + b) * s
+
+
+@register_op("maximum", inputs=["X", "Y"], outputs=["Out"])
+def maximum(ctx, attrs, X, Y):
+    """Elementwise max; a tie sends half the gradient each way, as
+    ``jnp.maximum``'s."""
+    return torch.maximum(X, Y)
+
+
+@register_op("minimum", inputs=["X", "Y"], outputs=["Out"])
+def minimum(ctx, attrs, X, Y):
+    return torch.minimum(X, Y)

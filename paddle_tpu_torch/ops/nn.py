@@ -9,7 +9,21 @@ sigmoid_cross_entropy_with_logits :473,
 fused_bias_act :582, fused_conv_bn_act :598, fused_embedding_gather
 :674; the dygraph layers' conv3d :333, conv2d_transpose :338, prelu :511,
 spectral_norm :805, row_conv :837, nce :872, conv3d_transpose :968,
-pool3d :997, group_norm :1003, sync_batch_norm :1029).
+pool3d :997, group_norm :1003, sync_batch_norm :1029; the everyday
+ops: lookup_table_v2 :145 and lookup_sparse_table :155, the dense
+table's plain lookup, one_hot_v2 :176, huber_loss :456, smooth_l1_loss
+:487, label_smooth :503, selu :687, multiplex :695, sampling_id :705,
+uniform_random_batch_size_like / gaussian_random_batch_size_like
+:715-742, add_position_encoding :745, hash :766, data_norm :791,
+hierarchical_sigmoid :910, sampled_softmax_with_cross_entropy :942).
+
+Random ops.  ``sampling_id``, the two ``*_batch_size_like`` draws and
+the negatives of ``nce`` and of the sampled softmax are drawn on the
+device from the run's step seed (``ctx.step_seed``), so a program
+holding them is captured whole and every step, eager or replayed, draws
+anew.  As in the reference, the negatives' ``seed`` attr is folded into
+that per-step draw and the other three ignore theirs.  The packages draw
+different numbers; only their distributions agree.
 
 Synchronized batch norm.  In the reference's data parallel the batch
 statistics are always global (GSPMD reduces them over the sharded
@@ -42,7 +56,9 @@ import math as _math
 import torch
 import torch.nn.functional as F
 
-from .common import fluid_broadcast, scalar_like
+from .common import (device_bits, device_normal, device_uniform,
+                     fluid_broadcast, gumbel_of_bits, resolve_dtype,
+                     scalar_like)
 from .cuda import dropout as _drop
 from .cuda.conv_bn_act import ACTS as _EPILOGUE_ACTS
 from .cuda.conv_bn_act import bn_act_epilogue
@@ -169,8 +185,23 @@ def lookup_table(ctx, attrs, W, Ids):
     return _lookup(W, Ids, attrs.get("padding_idx", -1))
 
 
+@register_op("lookup_table_v2", inputs=["W", "Ids"], outputs=["Out"])
+def lookup_table_v2(ctx, attrs, W, Ids):
+    """v2's ids carry no trailing 1; the lookup is ``lookup_table``'s (a
+    trailing 1 is still squeezed, as the reference's ``_lookup`` does)."""
+    return _lookup(W, Ids, attrs.get("padding_idx", -1))
+
+
 @register_op("embedding", inputs=["W", "Ids"], outputs=["Out"])
 def embedding(ctx, attrs, W, Ids):
+    return _lookup(W, Ids, attrs.get("padding_idx", -1))
+
+
+@register_op("lookup_sparse_table", inputs=["W", "Ids"], outputs=["Out"])
+def lookup_sparse_table(ctx, attrs, W, Ids):
+    """The parameter server's auto-grown table: on a dense table every
+    row already exists, so it is the plain lookup (the reference's
+    reading, ``auto_grown_table`` / ``is_test`` unread)."""
     return _lookup(W, Ids, attrs.get("padding_idx", -1))
 
 
@@ -183,6 +214,14 @@ def one_hot(ctx, attrs, X):
     ids = _flat_ids(X).long()
     cols = torch.arange(depth, device=ids.device)
     return (ids[..., None] == cols).to(torch.float32)
+
+
+@register_op("one_hot_v2", inputs=["X"], outputs=["Out"], no_grad=True)
+def one_hot_v2(ctx, attrs, X):
+    """float32 one-hot over ``depth`` of every id (no trailing-1 squeeze);
+    an id outside [0, depth) gives a row of zeros."""
+    cols = torch.arange(int(attrs["depth"]), device=X.device)
+    return (X.long()[..., None] == cols).to(torch.float32)
 
 
 @register_op("layer_norm", inputs=["X", "Scale", "Bias"],
@@ -776,41 +815,38 @@ def _sampler_logq(sampler, ids, n):
                       device=ids.device)
 
 
-def _draw_negatives(ctx, sampler, k, n, seed=0):
-    """``k`` negative class ids, shared across the batch: drawn on the
-    host from the op's generator (with a ``seed`` attr mixed in), so every
-    device draws the same ones; log-uniform by the inverse CDF."""
-    g = ctx.rng()
-    if seed:
-        g.manual_seed((g.initial_seed() * 1000003 + int(seed))
-                      % (2 ** 63 - 1))
+def _draw_negatives(ctx, sampler, k, n, seed=0, device=None):
+    """``k`` negative class ids in [0, n), shared across the batch (the
+    negatives of ``nce`` and of the sampled softmax): drawn on ``device``
+    (the run's by default) from the op's step seed with a ``seed`` attr
+    folded in, as the reference folds it into its per-step key, so every
+    rank draws the same ones and every step new ones; uniform (sampler
+    0) or log-uniform by the inverse CDF ``exp(u log(n + 1)) - 1``."""
+    seed = ctx.step_seed(fold=int(seed or 0))
+    device = ctx.device if device is None else device
     if sampler == 1:
-        u = torch.rand((k,), generator=g)
+        u = device_uniform(seed, (k,), device)
         ids = torch.exp(u * _math.log(n + 1.0)) - 1.0
         return torch.clamp(ids.to(torch.int64), 0, n - 1)
-    return torch.randint(0, n, (k,), generator=g, dtype=torch.int64)
+    return device_bits(seed, (k,), device) % n
 
 
 @register_op("nce", inputs=["Input", "Label", "Weight", "Bias",
                             "SampleWeight"],
              outputs=["Cost", "SampleLogits", "SampleLabels"],
-             stateful_outputs=("SampleLogits", "SampleLabels"),
-             capturable=False)
+             stateful_outputs=("SampleLogits", "SampleLabels"))
 def nce(ctx, attrs, Input, Label, Weight, Bias, SampleWeight):
     """Noise-contrastive estimation (``nce_op.h``): the binary logistic
     loss of the true class against ``k`` sampled noise classes, each
-    logit corrected by ``log(k q)``.  The negatives are a host draw a run
-    (not capturable)."""
+    logit corrected by ``log(k q)``; the negatives are drawn on the
+    device a step (:func:`_draw_negatives`)."""
     k = int(attrs.get("num_neg_samples", 10))
     n = int(attrs.get("num_total_classes"))
     sampler = int(attrs.get("sampler", 0))
     b = Input.shape[0]
     lbl = Label.reshape(b, -1)[:, 0].long()
-    if ctx.device.type == "meta":
-        neg = torch.zeros((k,), dtype=torch.int64, device="meta")
-    else:
-        neg = _draw_negatives(ctx, sampler, k, n,
-                              attrs.get("seed", 0)).to(Input.device)
+    neg = _draw_negatives(ctx, sampler, k, n, attrs.get("seed", 0),
+                          Input.device)
     s_true = (Input * Weight[lbl]).sum(dim=1, keepdim=True)
     if Bias is not None:
         s_true = s_true + Bias.reshape(-1)[lbl][:, None]
@@ -853,3 +889,237 @@ def group_norm(ctx, attrs, X, Scale, Bias):
         y = y + Bias.reshape(shape).float()
     return {"Y": y.to(X.dtype), "Mean": mean.reshape(n, g).detach(),
             "Variance": var.reshape(n, g).detach()}
+
+
+@register_op("huber_loss", inputs=["X", "Y"], outputs=["Out", "Residual"],
+             stateful_outputs=("Residual",))
+def huber_loss(ctx, attrs, X, Y):
+    """``0.5 r^2`` where ``|r| <= delta``, else ``delta (|r| - delta /
+    2)``, with ``r = Y - X``."""
+    delta = attrs.get("delta", 1.0)
+    r = Y - X
+    ar = torch.abs(r)
+    loss = torch.where(ar <= delta, 0.5 * torch.square(r),
+                       delta * (ar - 0.5 * delta))
+    return {"Out": loss, "Residual": r.detach()}
+
+
+@register_op("smooth_l1_loss",
+             inputs=["X", "Y", "InsideWeight", "OutsideWeight"],
+             outputs=["Diff", "Out"], stateful_outputs=("Diff",))
+def smooth_l1_loss(ctx, attrs, X, Y, InsideWeight, OutsideWeight):
+    """Per row, the sum of ``0.5 sigma^2 d^2`` where ``|d| < 1 /
+    sigma^2``, else ``|d| - 0.5 / sigma^2``, with ``d = (X - Y) *
+    InsideWeight`` and each term times OutsideWeight."""
+    sigma = attrs.get("sigma", 1.0)
+    s2 = sigma * sigma
+    d = X - Y
+    if InsideWeight is not None:
+        d = d * InsideWeight
+    ad = torch.abs(d)
+    loss = torch.where(ad < 1.0 / s2, 0.5 * s2 * torch.square(d),
+                       ad - 0.5 / s2)
+    if OutsideWeight is not None:
+        loss = loss * OutsideWeight
+    loss = loss.reshape(loss.shape[0], -1).sum(dim=1, keepdim=True)
+    return {"Diff": d.detach(), "Out": loss}
+
+
+@register_op("label_smooth", inputs=["X", "PriorDist"], outputs=["Out"])
+def label_smooth(ctx, attrs, X, PriorDist):
+    """``(1 - eps) X + eps PriorDist``, or ``+ eps / C`` without a prior."""
+    eps = attrs.get("epsilon", 0.0)
+    if PriorDist is not None:
+        return (1 - eps) * X + eps * PriorDist
+    return (1 - eps) * X + eps / X.shape[-1]
+
+
+@register_op("selu", inputs=["X"], outputs=["Out"])
+def selu(ctx, attrs, X):
+    """``scale * (x if x > 0 else alpha (e^x - 1))`` (``selu_op.cc``)."""
+    scale = float(attrs.get("scale", 1.0507009873554805))
+    alpha = float(attrs.get("alpha", 1.6732632423543772))
+    return scale * torch.where(X > 0, X, alpha * (torch.exp(X) - 1.0))
+
+
+@register_op("multiplex", inputs=["X*", "Ids"], outputs=["Out"])
+def multiplex(ctx, attrs, X, Ids):
+    """Row i of candidate ``Ids[i]`` (``multiplex_op.cc``)."""
+    stacked = torch.stack(list(X), dim=0)
+    ids = Ids.reshape(-1).long()
+    return stacked[ids, torch.arange(stacked.shape[1], device=ids.device)]
+
+
+@register_op("sampling_id", inputs=["X"], outputs=["Out"], no_grad=True)
+def sampling_id(ctx, attrs, X):
+    """One column a row, drawn with the row's probabilities: the argmax
+    of ``log(max(p, 1e-38))`` plus Gumbel noise drawn on the device
+    (the reference's ``jax.random.categorical``, which ignores the
+    ``seed`` attr: so does this)."""
+    g = gumbel_of_bits(device_bits(ctx.step_seed(), tuple(X.shape),
+                                   X.device))
+    logits = torch.log(torch.clamp(X.float(), min=1e-38))
+    return torch.argmax(logits + g, dim=-1)
+
+
+def _batch_size_like_shape(attrs, Input):
+    shape = [int(s) for s in attrs["shape"]]
+    shape[int(attrs.get("output_dim_idx", 0))] = \
+        Input.shape[int(attrs.get("input_dim_idx", 0))]
+    return tuple(shape)
+
+
+@register_op("uniform_random_batch_size_like", inputs=["Input"],
+             outputs=["Out"], no_grad=True)
+def uniform_random_batch_size_like(ctx, attrs, Input):
+    """U(min, max) in ``shape`` with one dim taken from Input, drawn on
+    the device a step; the ``seed`` attr is ignored, as in the
+    reference."""
+    shape = _batch_size_like_shape(attrs, Input)
+    lo = float(attrs.get("min", -1.0))
+    hi = float(attrs.get("max", 1.0))
+    u = device_uniform(ctx.step_seed(), shape, Input.device)
+    return (lo + (hi - lo) * u).to(resolve_dtype(attrs.get("dtype", 5)))
+
+
+@register_op("gaussian_random_batch_size_like", inputs=["Input"],
+             outputs=["Out"], no_grad=True)
+def gaussian_random_batch_size_like(ctx, attrs, Input):
+    """N(mean, std) in ``shape`` with one dim taken from Input, drawn on
+    the device a step; the ``seed`` attr is ignored, as in the
+    reference."""
+    shape = _batch_size_like_shape(attrs, Input)
+    z = device_normal(ctx.step_seed(), shape, Input.device)
+    out = float(attrs.get("mean", 0.0)) + float(attrs.get("std", 1.0)) * z
+    return out.to(resolve_dtype(attrs.get("dtype", 5)))
+
+
+@register_op("add_position_encoding", inputs=["X"], outputs=["Out"])
+def add_position_encoding(ctx, attrs, X):
+    """``alpha x + beta PE`` with ``PE[j, k] = sin(j / 10000^(k / (half -
+    1)))`` for k < half and the cosine after it; an odd last column
+    adds nothing, as the reference defines it."""
+    alpha = float(attrs.get("alpha", 1.0))
+    beta = float(attrs.get("beta", 1.0))
+    _, t, d = X.shape
+    half = d // 2
+    j = torch.arange(t, dtype=torch.float32, device=X.device)[:, None]
+    k = torch.arange(half, dtype=torch.float32, device=X.device)[None, :]
+    val = j / torch.pow(10000.0, k / max(half - 1, 1))
+    parts = [torch.sin(val), torch.cos(val)]
+    if d % 2:
+        parts.append(torch.zeros((t, 1), dtype=torch.float32,
+                                 device=X.device))
+    pe = torch.cat(parts, dim=1)
+    return alpha * X + beta * pe[None, :, :].to(X.dtype)
+
+
+@register_op("hash", inputs=["X"], outputs=["Out"], no_grad=True)
+def hash_op(ctx, attrs, X):
+    """``num_hash`` hashes of each id row mod ``mod_by``: the reference's
+    mix in uint32 arithmetic, bit for bit (int64 here, each product
+    masked to 32 bits by ``_mul32``); a 2-D X gives [N, num_hash, 1]."""
+    mask = _drop.MASK32
+    num_hash = int(attrs.get("num_hash", 1))
+    mod_by = int(attrs.get("mod_by", 1))
+    x = X.long() & mask
+    outs = []
+    for seed in range(num_hash):
+        h = torch.full(tuple(x.shape[:-1]), (0x9E3779B9 * (seed + 1)) & mask,
+                       dtype=torch.int64, device=X.device)
+        for i in range(x.shape[-1]):
+            v = _drop._mul32(x[..., i], 0x85EBCA6B)
+            v = v ^ (v >> 13)
+            v = _drop._mul32(v, 0xC2B2AE35)
+            h = _drop._mul32(h ^ v, 0x01000193)
+        outs.append(h % mod_by)
+    out = torch.stack(outs, dim=-1)
+    return out[..., None] if X.dim() == 2 else out
+
+
+@register_op("data_norm", inputs=["X", "BatchSize", "BatchSum",
+                                  "BatchSquareSum"],
+             outputs=["Y", "Means", "Scales"],
+             stateful_outputs=("Means", "Scales"))
+def data_norm(ctx, attrs, X, BatchSize, BatchSum, BatchSquareSum):
+    """CTR feature normalization (``data_norm_op.cc``): ``means = sum /
+    size``, ``scales = sqrt(size / square_sum)``, ``y = (x - means) *
+    scales``; the statistics are persistable parameters."""
+    means = BatchSum / BatchSize
+    scales = torch.sqrt(BatchSize / BatchSquareSum)
+    y = (X - means[None, :]) * scales[None, :]
+    return {"Y": y, "Means": means.detach(), "Scales": scales.detach()}
+
+
+@register_op("hierarchical_sigmoid",
+             inputs=["X", "W", "Label", "Bias", "PathTable", "PathCode"],
+             outputs=["Out", "PreOut"], stateful_outputs=("PreOut",))
+def hierarchical_sigmoid(ctx, attrs, X, W, Label, Bias, PathTable=None,
+                         PathCode=None):
+    """Hierarchical sigmoid (``hierarchical_sigmoid_op.h``): the sum over
+    a class's path of the logistic loss of ``x . w_node + b_node``
+    against the path's bit.  The default tree is the complete binary
+    SimpleCode (class c's code is ``c + num_classes``; node j is
+    ``(code >> (j + 1)) - 1``, bit ``(code >> j) & 1``, for j below the
+    code's bit length less one); a custom tree gives each row its nodes
+    (``PathTable``, -1 past the end) and bits (``PathCode``)."""
+    b = X.shape[0]
+    if PathTable is not None:
+        idx = PathTable.reshape(b, -1).long()
+        bits = PathCode.reshape(b, -1).to(X.dtype)
+        valid = idx >= 0
+        idx = idx.clamp(min=0)
+    else:
+        n = int(attrs.get("num_classes"))
+        code = Label.reshape(b).long() + n
+        max_len = int(_math.ceil(_math.log2(2 * n)))
+        js = torch.arange(max_len, device=X.device)
+        length = ((code[:, None] >> (js + 1)[None, :]) > 0).sum(dim=1)
+        idx = ((code[:, None] >> (js + 1)[None, :]) - 1).clamp(
+            0, W.shape[0] - 1)
+        bits = ((code[:, None] >> js[None, :]) & 1).to(X.dtype)
+        valid = js[None, :] < length[:, None]
+    pre = (X[:, None, :] * W[idx]).sum(dim=-1)
+    if Bias is not None:
+        pre = pre + Bias.reshape(-1)[idx]
+    term = torch.logaddexp(torch.zeros_like(pre), pre) - bits * pre
+    loss = torch.where(valid, term, torch.zeros_like(term)).sum(dim=1)
+    return {"Out": loss[:, None],
+            "PreOut": torch.zeros(tuple(idx.shape), dtype=torch.float32,
+                                  device=X.device)}
+
+
+@register_op("sampled_softmax_with_cross_entropy",
+             inputs=["Logits", "Label", "CustomizedSamples",
+                     "CustomizedProbabilities"],
+             outputs=["Softmax", "Loss"], stateful_outputs=("Softmax",))
+def sampled_softmax_with_cross_entropy(ctx, attrs, Logits, Label,
+                                       CustomizedSamples=None,
+                                       CustomizedProbabilities=None):
+    """Softmax cross entropy over the true class and ``num_samples``
+    sampled ones, each logit less ``log q`` of its class (the reference's
+    fused form of ``sample_logits`` + softmax).  The negatives are drawn
+    log-uniform on the device a step (:func:`_draw_negatives`), or, with ``use_customized_samples``, are
+    each row's ``CustomizedSamples`` (true label first) with their
+    probabilities.  A sampled class equal to the label is masked out
+    (``remove_accidental_hits``)."""
+    b, c = Logits.shape
+    lbl = Label.reshape(b).long()
+    if attrs.get("use_customized_samples", False):
+        samples = CustomizedSamples.reshape(b, -1).long()
+        z = torch.gather(Logits, 1, samples) \
+            - torch.log(CustomizedProbabilities.reshape(b, -1).to(
+                Logits.dtype))
+        adj_true, adj_neg = z[:, :1], z[:, 1:]
+        hit = samples[:, 1:] == lbl[:, None]
+    else:
+        neg = _draw_negatives(ctx, 1, int(attrs.get("num_samples", 10)), c,
+                              attrs.get("seed", 0), Logits.device)
+        s_true = torch.gather(Logits, 1, lbl[:, None])
+        adj_true = s_true - _sampler_logq(1, lbl, c)[:, None]
+        adj_neg = Logits[:, neg] - _sampler_logq(1, neg, c)[None, :]
+        hit = neg[None, :] == lbl[:, None]
+    if attrs.get("remove_accidental_hits", True):
+        adj_neg = torch.where(hit, torch.full_like(adj_neg, -1e30), adj_neg)
+    logp = torch.log_softmax(torch.cat([adj_true, adj_neg], dim=1), dim=1)
+    return {"Loss": -logp[:, :1], "Softmax": torch.exp(logp).detach()}

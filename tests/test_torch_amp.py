@@ -157,10 +157,12 @@ def _custom_lists_program(fluid, mp):
         h = fluid.layers.fc(emb, size=16, num_flatten_dims=2, act="gelu")
         c = fluid.layers.cumsum(h, axis=1)
         fluid.layers.reduce_sum(c)
-    lists = mp.AutoMixedPrecisionLists(
-        custom_white_list={"lookup_table", "reduce_sum"},
-        custom_black_list={"cumsum"})
-    mp.rewrite_program_bf16(main, lists)
+        # the casts' names come from the guard's fresh generator, so they
+        # do not depend on what earlier tests in the process generated
+        lists = mp.AutoMixedPrecisionLists(
+            custom_white_list={"lookup_table", "reduce_sum"},
+            custom_black_list={"cumsum"})
+        mp.rewrite_program_bf16(main, lists)
     return main
 
 

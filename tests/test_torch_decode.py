@@ -651,10 +651,10 @@ def test_draws_move_with_step_and_executor_step(op_type, attrs):
 def test_uniform_map_keeps_the_noise_finite_at_the_extreme_codes():
     """The generator's highest and lowest 32-bit codes map strictly
     inside (0, 1), so the Gumbel noise is finite for every code."""
-    from paddle_tpu_torch.ops import decode as t_decode
+    from paddle_tpu_torch.ops import common as t_common
 
     codes = np.concatenate([np.arange(1024), 0xFFFFFFFF - np.arange(1024)])
-    u = t_decode._uniform(torch.from_numpy(codes.astype(np.int64)))
+    u = t_common.uniform_of_bits(torch.from_numpy(codes.astype(np.int64)))
     assert ((u > 0) & (u < 1)).all()
     assert float(u.max()) == 1.0 - 2.0 ** -24
     assert float(u.min()) == 2.0 ** -24
